@@ -1,0 +1,76 @@
+"""Synthetic DLRM click logs (the reference package's generator, in numpy).
+
+Per-table multi-hot index lists whose LENGTHS follow the paper's power-law
+(Fig. 7) and whose INDEX values follow a Zipf over the hash space (Fig. 6);
+labels come from a planted logistic model. The numpy calls, their order and
+their seeds are the reference's, so a batch is bit-identical to
+`repro.data.synthetic.make_dlrm_batch`'s for the same arguments.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.configs.base import DLRMConfig
+
+
+def _zipf_indices(rng: np.random.RandomState, hash_size: int, n: int,
+                  a: float = 1.3) -> np.ndarray:
+    """Zipf-ish draws clipped into [0, hash_size)."""
+    raw = rng.zipf(a, size=n) - 1
+    return (raw % max(hash_size, 1)).astype(np.int32)
+
+
+_ZIPF_CDF_CACHE: dict = {}
+
+
+def _bounded_zipf_cdf(hash_size: int, alpha: float) -> np.ndarray:
+    """CDF of the rank-probability Zipf p(r) ∝ (r+1)^-alpha over
+    [0, hash_size); cached per (size, alpha)."""
+    key = (hash_size, round(alpha, 6))
+    cdf = _ZIPF_CDF_CACHE.get(key)
+    if cdf is None:
+        p = (np.arange(1, hash_size + 1, dtype=np.float64)) ** (-alpha)
+        cdf = np.cumsum(p / p.sum())
+        _ZIPF_CDF_CACHE[key] = cdf
+    return cdf
+
+
+def bounded_zipf_rows(rng: np.random.RandomState, hash_size: int, n: int,
+                      alpha: float) -> np.ndarray:
+    """n draws from the bounded Zipf(alpha) over [0, hash_size): row 0 is
+    the hottest. Inverse-CDF sampling."""
+    cdf = _bounded_zipf_cdf(hash_size, alpha)
+    return np.searchsorted(cdf, rng.rand(n)).astype(np.int32)
+
+
+def make_dlrm_batch(cfg: DLRMConfig, batch: int, step: int = 0,
+                    seed: int = 0,
+                    zipf_alpha: float | None = None
+                    ) -> dict[str, np.ndarray]:
+    """Returns {dense (B, n_dense) f32, idx (B, F, L) i32 (-1 pads, in-table
+    — NOT offset), label (B,) f32}. `zipf_alpha=None` keeps the per-example
+    rng.zipf(1.3) draw; a value switches to the bounded Zipf."""
+    rng = np.random.RandomState(seed * 1_000_003 + step)
+    f, trunc = cfg.n_sparse_features, cfg.truncation
+    dense = rng.randn(batch, cfg.n_dense_features).astype(np.float32)
+
+    idx = np.full((batch, f, trunc), -1, np.int32)
+    planted = 0.0
+    for t in range(f):
+        mean_len = min(cfg.mean_lookups[t], trunc)
+        lens = np.clip(rng.poisson(mean_len, size=batch), 1, trunc)
+        if zipf_alpha is not None:
+            vals = bounded_zipf_rows(rng, cfg.hash_sizes[t], batch * trunc,
+                                     zipf_alpha).reshape(batch, trunc)
+            mask = np.arange(trunc)[None, :] < lens[:, None]
+            idx[:, t, :] = np.where(mask, vals, -1)
+        else:
+            for b in range(batch):
+                vals = _zipf_indices(rng, cfg.hash_sizes[t], lens[b])
+                idx[b, t, :lens[b]] = vals
+        planted = planted + (idx[:, t, 0] % 7 - 3)
+
+    score = dense[:, :8].mean(axis=1) * 2.0 + planted * 0.3
+    prob = 1.0 / (1.0 + np.exp(-score))
+    label = (rng.rand(batch) < prob).astype(np.float32)
+    return {"dense": dense, "idx": idx, "label": label}
