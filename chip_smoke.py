@@ -6,24 +6,36 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels of the serving path with nvcc (sm_90a),
-   one process per source, all at once;
-3. hold each kernel against its plain PyTorch version on the card at the
-   serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
+2. build the five CUDA kernels of the serving and training paths with
+   nvcc (sm_90a), one process per source, all at once;
+3. hold each serving kernel against its plain PyTorch version on the card
+   at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
    writeback entries, rows above 2**24 and byte offsets above 2**32), and
    time it beside the plain version and, where one PyTorch call computes
    the same function, that call;
 4. serve dlrm-m1 at full width through `repro_torch.launch.serve` (random
    weights from a seeded torch.Generator, 64 Zipf-1.05 requests), count
    each kernel's launches in that run, and recompute one batch with the
-   plain versions on the card;
-5. print one JSON line of per-kernel numbers, then the result line.
+   plain versions on the card; then free the serving state;
+5. hold the two training kernels (the plan-driven dedup embedding bag and
+   the fused sparse backward with row-wise AdaGrad) against their plain
+   versions on a full-width dlrm-m1 mega table at a batch of 512 (rows
+   above 2**24, a row repeated inside a bag, an all-pad bag), the fused
+   update in place with its untouched rows checked, and time them;
+6. train full-width dlrm-m1 at a batch of 512: 8 steps through
+   `repro_torch.launch.train` (no plans), then 8 steps from the same seed
+   through `ShardedLoader.pipeline(transform=sparse_plan_hook(...))` and
+   `build_dlrm_train_step` (planned lookups); count each kernel's launches
+   in each run, recompute the planned run's first step with the plain
+   versions on the card, and profile its last steps;
+7. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -42,6 +54,12 @@ REQUESTS, BATCH, MAX_BATCH = 64, 4, 16
 TOL_BAG = 1e-5        # abs; the kernel walks L in the plain version's order
 TOL_DOT = 1e-5        # abs + rel*|plain|: fp32 FMA chain vs cuBLAS fp32
 TOL_PROBS = 1e-5      # abs, served vs plain-recomputed probabilities
+#: the training path's shapes: batch 512 -> 15,360 bags, 491,520 slots
+TRAIN_BATCH, TRAIN_STEPS, PROFILED_STEPS = 512, 8, 4
+SPARSE_LR, SPARSE_EPS = 0.05, 1e-8  # build_dlrm_train_step's defaults
+TOL_FUSED = 1e-6      # abs + rel: bag sums in plain order, mean(g^2) by
+#                       warp shuffles and rsqrtf
+TOL_STEP = 1e-5       # abs + rel: one train step, kernels vs plain on card
 
 
 def log(msg: str) -> None:
@@ -72,23 +90,84 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_kernel_ms(torch, fn, iters: int, name: str) -> float | None:
-    """Mean device time per launch of the CUDA kernels whose name holds
-    `name`, from torch.profiler; None when the trace has no device time."""
+    """Mean device time per call of fn of the CUDA kernels whose name holds
+    `name` (all of a call's launches of them), from torch.profiler; None
+    when the trace has no device time. A trace now and then comes back
+    without device events, so an empty one is taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            total += getattr(evt, "device_time_total",
-                             getattr(evt, "cuda_time_total", 0))
-            count += evt.count
-    return total / count / 1e3 if count and total else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(evt, "device_time_total",
+                            getattr(evt, "cuda_time_total", 0))
+                    for evt in prof.key_averages() if name in evt.key)
+        if total:
+            return total / iters / 1e3
+    return None
+
+
+def device_events(prof) -> list[tuple[str, float]]:
+    """(name, self device us) of a trace's device-side events, kernels and
+    copies. A CPU op's self device time repeats the time of the kernels it
+    launched, so a sum over every event would count that time twice."""
+    from torch.autograd import DeviceType
+    return [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)))
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+
+
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(kernels, path: str, needed: tuple[str, ...]) -> dict:
+    """The launch counts of one path's run; raises if a kernel of the
+    path never launched."""
+    counts = {k.name: k.launches for k in kernels}
+    log(f"launches in the {path} run: {counts}")
+    missing = [n for n in needed if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return counts
+
+
+def log_peak(torch, phase: str) -> None:
+    log(f"max_memory_allocated [{phase}]: "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+def free_device(torch) -> None:
+    """Drop cached blocks after a phase; fail if a phase left tensors."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"memory_allocated after free: {held} bytes")
+    if held > 1 << 30:
+        raise AssertionError(f"{held} bytes still allocated between phases")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def bit_checksum(torch, t) -> int:
+    """Exact fingerprint of t's bits: the sum of its 64-bit words mod 2**64
+    (plus a last odd 32-bit word). Integer sums do not depend on the order,
+    any change of one word changes it, and it needs no upcast copy of a
+    44 GB table."""
+    w = t.reshape(-1).view(torch.int32)
+    n = w.numel() & ~1
+    return int(w[:n].view(torch.int64).sum()) + int(w[n:].sum())
+
+
+def close(a, b, tol: float) -> tuple[bool, float]:
+    """|a - b| <= tol + tol * |b| everywhere, and the max abs difference."""
+    diff = (a - b).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    return bool((diff <= tol + tol * b.abs()).all()), err
 
 
 def check_embedding_bag(torch, dev, c_rows: int, d: int, n_bags: int,
@@ -220,8 +299,7 @@ def check_cache_exchange(torch, dev, r_rows: int, c_rows: int, d: int,
             t[i] = v
 
     def checksum():
-        # fp32 sums: deterministic for equal inputs, and no 87 GB upcast
-        return [float(t.sum()) for t in tiers]
+        return [bit_checksum(torch, t) for t in tiers]
 
     before, sums = touched(), checksum()
     kc.cache_exchange(*tiers, slots, evict, fetch, counts)
@@ -260,28 +338,366 @@ def check_cache_exchange(torch, dev, r_rows: int, c_rows: int, d: int,
     return out
 
 
+def train_batch(cfg, ebc, step: int):
+    """The training batch of `step` (numpy), idx offset to mega rows, with
+    corner cases planted: an all-pad bag, a row above 2**24 repeated inside
+    one bag and shared with another bag."""
+    from repro_torch.data.synthetic import make_dlrm_batch
+    raw = make_dlrm_batch(cfg, TRAIN_BATCH, step)
+    idx = ebc.offset_indices(raw["idx"])
+    top = ebc.plan.total_rows - 1
+    idx[0, 0, :] = -1                        # an all-pad bag
+    idx[1, 2, :6] = top                      # repeated inside one bag
+    idx[3, 4, 0] = top                       # ... and shared with another
+    idx[5, -1, ::3] = top - 1
+    return idx
+
+
+def check_training_kernels(torch, dev, cfg, ebc) -> dict:
+    """Phase 5: the dedup embedding bag and the fused sparse backward on a
+    full-width mega table, each against its plain version."""
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_update as ku
+    from repro_torch.kernels.sparse_plan import (build_sparse_plan,
+                                                 build_sparse_plan_host)
+    r_rows, d = ebc.plan.total_rows, cfg.embed_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    table = torch.empty((r_rows, d), device=dev).normal_(generator=g)
+    accum = torch.rand((r_rows,), generator=g, device=dev)
+    idx_np = train_batch(cfg, ebc, 0)
+    b, f, lk = idx_np.shape
+    idx = torch.as_tensor(idx_np, device=dev)
+    flat = idx.reshape(b * f, lk)
+    plan = build_sparse_plan(idx)
+    for name, got, want in zip(("rows", "offsets", "bags"), plan,
+                               build_sparse_plan_host(idx_np)):
+        if not (got.cpu().numpy() == want).all():
+            raise AssertionError(f"device plan {name} != host plan")
+    live = plan.unique_rows >= 0
+    rows = plan.unique_rows[live].long()
+    n_live, n_valid = rows.numel(), int((idx >= 0).sum())
+    u = plan.unique_rows.numel()
+    runs = (plan.bag_offsets[1:] - plan.bag_offsets[:-1])[live]
+    log(f"  plan: {b * f} bags x L={lk}, {n_valid} valid slots, {n_live} "
+        f"unique rows of U={u} plan entries (max row {int(rows.max())}); "
+        f"bags per unique row: mean {n_valid / n_live:.2f}, longest run "
+        f"{int(runs.max())}; device plan == host plan")
+
+    # -- dedup embedding bag: bit-equal to its plain version and to the
+    #    plan-less kernel, sum and mean
+    err = 0.0
+    for mode in ("sum", "mean"):
+        got = kb.dedup_embedding_bag(table, flat, plan.unique_rows, mode)
+        want = ref.dedup_embedding_bag_ref(table, flat, plan.unique_rows,
+                                           mode)
+        plain_bag = kb.embedding_bag(table, flat, mode)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(got, plain_bag)):
+            raise AssertionError(f"dedup_embedding_bag[{mode}] is not "
+                                 f"bit-equal: {err}")
+        log(f"  dedup_embedding_bag[{mode}] bit-equal to plain and to "
+            f"embedding_bag (tol 0)")
+    if float(got[0].abs().max()) != 0.0:
+        raise AssertionError("all-pad bag did not pool to zero")
+    valid = flat >= 0
+    lib_idx = flat[valid].long()
+    offsets = torch.cumsum(valid.sum(1), 0) - valid.sum(1)
+    lib = torch.nn.functional.embedding_bag
+    ur = plan.unique_rows
+
+    def dedup():
+        return kb.dedup_embedding_bag(table, flat, ur)
+
+    bag = {
+        "ms": time_ms(torch, dedup, 100),
+        "device_ms": device_kernel_ms(torch, dedup, 20, "dedup_"),
+        "plain_ms": time_ms(
+            torch, lambda: ref.dedup_embedding_bag_ref(table, flat, ur), 5),
+        "library_ms": time_ms(
+            torch, lambda: lib(lib_idx, table, offsets, mode="sum"), 100),
+        "max_abs_err": err,
+        # informative only: the plan-less kernel on the same batch, and
+        # the dedup kernel's two phases
+        "embedding_bag_ms": time_ms(
+            torch, lambda: kb.embedding_bag(table, flat), 100),
+        "embedding_bag_device_ms": device_kernel_ms(
+            torch, lambda: kb.embedding_bag(table, flat), 20,
+            "embedding_bag_kernel"),
+        "gather_device_ms": device_kernel_ms(torch, dedup, 20,
+                                             "dedup_gather_kernel"),
+        "pool_device_ms": device_kernel_ms(torch, dedup, 20,
+                                           "dedup_embedding_bag_kernel"),
+    }
+    bag["bound_ms"], bag["bound_by"] = bound_ms(
+        n_live * d * 4 + b * f * lk * 4 + n_live * 4 + b * f * d * 4,
+        n_valid * d)
+    log(f"  dedup_embedding_bag: {bag}")
+
+    # -- fused sparse backward: in place, so save the touched rows, run the
+    #    kernel, restore, show nothing else moved, run the plain version
+    pooled = torch.randn((b * f, d), generator=g, device=dev) * 0.01
+    near = torch.cat([rows - 1, rows + 1]).clamp(0, r_rows - 1)
+    near = near[~torch.isin(near, rows)][:4096]
+    before = (table[rows].clone(), accum[rows].clone())
+    near_before = (table[near].clone(), accum[near].clone())
+
+    def checksum():
+        return bit_checksum(torch, table), bit_checksum(torch, accum)
+
+    sums = checksum()
+    ku.fused_bag_backward_adagrad(table, accum, *plan, pooled, SPARSE_LR,
+                                  SPARSE_EPS)
+    torch.cuda.synchronize()
+    got = (table[rows].clone(), accum[rows].clone())
+    if not (torch.equal(table[near], near_before[0])
+            and torch.equal(accum[near], near_before[1])):
+        raise AssertionError("fused update moved an untouched neighbour row")
+    table[rows], accum[rows] = before
+    if checksum() != sums:
+        raise AssertionError("fused update wrote outside the plan's rows")
+    ref.fused_bag_backward_adagrad_ref(table, accum, *plan, pooled,
+                                       SPARSE_LR, SPARSE_EPS)
+    want = (table[rows].clone(), accum[rows].clone())
+    ok_t, err_t = close(got[0], want[0], TOL_FUSED)
+    ok_a, err_a = close(got[1], want[1], TOL_FUSED)
+    moved = float((got[0] - before[0]).abs().max())
+    log(f"  fused_bag_backward_adagrad: table max_abs_err={err_t:.3e} "
+        f"accum max_abs_err={err_a:.3e} (tol {TOL_FUSED} abs + rel), "
+        f"largest row change {moved:.3e}; {near.numel()} untouched "
+        f"neighbour rows bit-equal, bit checksums of table and accum "
+        f"equal after restore")
+    if not (ok_t and ok_a) or moved == 0.0:
+        raise AssertionError("fused_bag_backward_adagrad disagrees with "
+                             f"plain: {err_t}, {err_a}")
+
+    def fused():
+        ku.fused_bag_backward_adagrad(table, accum, *plan, pooled,
+                                      SPARSE_LR, SPARSE_EPS)
+
+    upd = {
+        "ms": time_ms(torch, fused, 100),
+        "device_ms": device_kernel_ms(torch, fused, 20,
+                                      "fused_bag_backward_adagrad"),
+        "plain_ms": time_ms(
+            torch, lambda: ref.fused_bag_backward_adagrad_ref(
+                table, accum, *plan, pooled, SPARSE_LR, SPARSE_EPS), 2, 1),
+        # no single PyTorch call sums pooled bag gradients per unique row
+        # and applies row-wise AdaGrad (torch.optim.Adagrad is dense and
+        # per element)
+        "library_ms": None,
+        "max_abs_err": max(err_t, err_a),
+    }
+    upd["bound_ms"], upd["bound_by"] = bound_ms(
+        n_live * 4 + (n_live + 1) * 4 + n_valid * 4 + b * f * d * 4
+        + 2 * n_live * (d * 4 + 4),
+        n_valid * d + n_live * 5 * d)
+    log(f"  fused_bag_backward_adagrad: {upd}")
+    del table, accum
+    return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd}
+
+
+def plain_logits(torch, dense, dense_x, pooled):
+    """Logits from the plain versions: MLPs, plain dot interaction."""
+    from repro_torch.kernels import ref
+    from repro_torch.nn.layers import linear
+    x = dense_x
+    for i, p in enumerate(dense["bottom"]):
+        x = linear(p, x)
+        if i < len(dense["bottom"]) - 1:
+            x = torch.relu(x)
+    z = torch.cat([x[:, None, :], pooled], dim=1)
+    y = torch.cat([x, ref.dot_interaction_ref(z)], dim=-1)
+    for i, p in enumerate(dense["top"]):
+        y = linear(p, y)
+        if i < len(dense["top"]) - 1:
+            y = torch.relu(y)
+    return y[:, 0]
+
+
 def plain_probs(torch, engine, cfg, req_dense, req_idx):
     """One request's probabilities from the plain versions on the card,
     against the capacity tier (the full mega table, never written)."""
     from repro_torch.kernels import ref
-    from repro_torch.nn.layers import linear
     dev = engine.state.capacity.device
     b, f, lk = req_idx.shape
     idx = torch.as_tensor(req_idx, dtype=torch.int32, device=dev)
     pooled = ref.embedding_bag_ref(engine.state.capacity,
                                    idx.reshape(b * f, lk)).reshape(b, f, -1)
     x = torch.as_tensor(req_dense, device=dev)
-    for i, p in enumerate(engine.dense["bottom"]):
-        x = linear(p, x)
-        if i < len(engine.dense["bottom"]) - 1:
-            x = torch.relu(x)
-    z = torch.cat([x[:, None, :], pooled], dim=1)
-    y = torch.cat([x, ref.dot_interaction_ref(z)], dim=-1)
-    for i, p in enumerate(engine.dense["top"]):
-        y = linear(p, y)
-        if i < len(engine.dense["top"]) - 1:
-            y = torch.relu(y)
-    return torch.sigmoid(y[:, 0]).cpu().numpy()
+    return torch.sigmoid(plain_logits(torch, engine.dense, x,
+                                      pooled)).cpu().numpy()
+
+
+def plain_train_step(torch, params, state, batch, opt):
+    """One train step from the plain versions on the card: planned lookup,
+    dense tower, autograd, dense AdaGrad, fused sparse update (in place on
+    the mega table and accumulator). Returns (loss, dense, dense_state)."""
+    from repro_torch.core.dlrm import _bce
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_plan import plan_from_batch
+    from repro_torch.nn.params import tree_leaves, tree_map
+    mega = params["emb"]["mega"]
+    idx = batch["idx"]
+    b, f, lk = idx.shape
+    plan = plan_from_batch(batch)
+    pooled = ref.dedup_embedding_bag_ref(
+        mega, idx.reshape(b * f, lk), plan.unique_rows).reshape(b, f, -1)
+    pooled.requires_grad_()
+    dense = {"bottom": params["bottom"], "top": params["top"]}
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), dense)
+    loss = _bce(plain_logits(torch, leaves, batch["dense"], pooled),
+                batch["label"])
+    grads = torch.autograd.grad(loss, tree_leaves(leaves) + [pooled])
+    it = iter(grads[:-1])
+    new_dense, new_state = opt.apply(dense, tree_map(lambda _: next(it),
+                                                     leaves),
+                                     state["dense"], 0)
+    with torch.no_grad():
+        ref.fused_bag_backward_adagrad_ref(
+            mega, state["accum"], *plan, grads[-1].reshape(b * f, -1),
+            SPARSE_LR, SPARSE_EPS)
+    return float(loss.detach()), new_dense, new_state
+
+
+def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
+    """Phase 6b: TRAIN_STEPS full-width steps fed by the port's pipeline
+    with the sparse-plan hook, from the launcher's seed. Step 0 is
+    recomputed with the plain versions; the last PROFILED_STEPS steps run
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.data.pipeline import ShardedLoader, sparse_plan_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels.sparse_plan import plan_from_batch
+    from repro_torch.launch.train import PARAM_SEED, batch_to_device
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+
+    params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step_fn = build_dlrm_train_step(cfg, ebc, opt, SPARSE_LR, SPARSE_EPS,
+                                    sparse_apply="sparse")
+    loader = ShardedLoader(
+        lambda step, seed: make_dlrm_batch(cfg, TRAIN_BATCH, step, seed),
+        TRAIN_BATCH)
+    pipe = loader.pipeline(prefetch=2, transform=sparse_plan_hook(
+        ebc.plan.table_offsets))
+    losses, host_s, wait_s, h2d_s, out = [], [], [], [], {}
+    prof = None
+    try:
+        for step in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, raw = next(pipe)                  # blocked on the reader
+            t1 = time.perf_counter()
+            batch = batch_to_device(raw, dev)    # pageable copies: blocking
+            wait_s.append(t1 - t0)
+            h2d_s.append(time.perf_counter() - t1)
+            if step == 0:
+                mega, accum = params["emb"]["mega"], state["accum"]
+                plan = plan_from_batch(batch)
+                rows = plan.unique_rows[plan.unique_rows >= 0].long()
+                saved = (mega[rows].clone(), accum[rows].clone())
+                dense0 = tree_map(torch.clone, {"bottom": params["bottom"],
+                                                "top": params["top"]})
+                state0 = {"dense": tree_map(torch.clone, state["dense"]),
+                          "accum": accum}
+                sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+            if step == TRAIN_STEPS - PROFILED_STEPS:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch, step)
+            losses.append(float(metrics["loss"]))        # syncs the step
+            host_s.append(time.perf_counter() - t0)
+            if step == 0:
+                kern = (mega[rows].clone(), accum[rows].clone())
+                mega[rows], accum[rows] = saved
+                if (bit_checksum(torch, mega),
+                        bit_checksum(torch, accum)) != sums:
+                    raise AssertionError("train step wrote outside the "
+                                         "batch's rows")
+                p_loss, p_dense, p_state = plain_train_step(
+                    torch, {**dense0, "emb": {"mega": mega}}, state0, batch,
+                    opt)
+
+                def flat(tree):
+                    return torch.cat([t.reshape(-1)
+                                      for t in tree_leaves(tree)])
+
+                errs = {"loss": abs(p_loss - losses[0])}
+                ok = errs["loss"] <= TOL_STEP + TOL_STEP * abs(p_loss)
+                for name, a, b in (
+                        ("mega rows", kern[0], mega[rows]),
+                        ("accum rows", kern[1], accum[rows]),
+                        ("dense", flat({"bottom": params["bottom"],
+                                        "top": params["top"]}),
+                         flat(p_dense)),
+                        ("dense state", flat(state["dense"]),
+                         flat(p_state))):
+                    good, errs[name] = close(a, b, TOL_STEP)
+                    ok = ok and good
+                shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                log(f"step 0 vs plain recompute on the card: max_abs_err "
+                    f"{shown} (tol {TOL_STEP} abs + rel); bit checksums "
+                    f"of mega and accum equal after restore")
+                if not ok:
+                    raise AssertionError(f"train step disagrees with the "
+                                         f"plain recompute: {errs}")
+                mega[rows], accum[rows] = kern
+                del saved, kern, dense0, state0, p_dense, p_state
+            log(f"step {step:5d} loss {losses[-1]:.6f} "
+                f"host {host_s[-1] * 1e3:.3f} ms")
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    finally:
+        pipe.close()
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    diff = max(abs(a - b) for a, b in zip(losses, want_losses))
+    log(f"planned run losses vs the launcher's (same seed, same batches): "
+        f"max_abs_diff={diff:.3e} bit-equal={losses == want_losses}")
+    if diff > TOL_STEP:
+        raise AssertionError(f"planned and plan-less runs diverge: {diff}")
+    def mean_ms(xs):
+        return sum(xs) / len(xs) * 1e3
+
+    dev = device_events(prof)
+    dev_us = sum(t for _, t in dev)
+    plain = slice(1, TRAIN_STEPS - PROFILED_STEPS)   # after the check step
+    out["host_ms_per_step"] = mean_ms(host_s[plain])
+    out["pipeline_wait_ms_per_step"] = mean_ms(wait_s[plain])
+    out["h2d_ms_per_step"] = mean_ms(h2d_s[plain])
+    wall = out["host_ms_per_step"] + out["pipeline_wait_ms_per_step"] \
+        + out["h2d_ms_per_step"]
+    out["examples_per_s"] = TRAIN_BATCH / wall * 1e3
+    out["profiled_host_ms_per_step"] = mean_ms(host_s[-PROFILED_STEPS:])
+    out["device_busy_ms_per_step"] = (dev_us / 1e3 / PROFILED_STEPS
+                                      if dev_us else None)
+    log(f"planned training, steps {plain.start}-{plain.stop - 1} (profiler "
+        f"off): step {out['host_ms_per_step']:.3f} ms, waiting on the "
+        f"reader {out['pipeline_wait_ms_per_step']:.3f} ms, batch to the "
+        f"card {out['h2d_ms_per_step']:.3f} ms per step -> "
+        f"{out['examples_per_s']:.1f} examples/s; profiled steps: step "
+        f"{out['profiled_host_ms_per_step']:.3f} ms, device busy "
+        + (f"{out['device_busy_ms_per_step']:.3f} ms per step" if dev_us
+           else "not measured (trace holds no device time)"))
+    top = sorted(dev, key=lambda e: e[1], reverse=True)[:10]
+    out["top_device_ms_per_step"] = {
+        name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
+    log("device ms per step by kernel (profiled steps): "
+        + json.dumps(out["top_device_ms_per_step"]))
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=15))
+    del params, state
+    return out
 
 
 def main() -> int:
@@ -295,10 +711,9 @@ def main() -> int:
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core.cache import CachedEmbeddingBagCollection
-    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.core.embedding import EmbeddingBagCollection
     from repro_torch.kernels import KERNELS, build_all
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.serve import ServeRequest, ServeResponse
+    from repro_torch.launch import train as train_cli
 
     dev = resolve_device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -336,32 +751,114 @@ def main() -> int:
         "cache_exchange": check_cache_exchange(
             torch, dev, r_rows, c_rows, d, MAX_BATCH * f * cfg.truncation),
     }
-    torch.cuda.empty_cache()
+    log_peak(torch, "phase 3")
+    free_device(torch)
 
     # 4. serve dlrm-m1 at full width through the launcher
-    argv = ["--arch", ARCH, "--cache-rows", str(c_rows), "--batch",
+    serve_launches = serve_phase(torch, cfg, cc)
+    free_device(torch)
+
+    # 5. the training kernels against their plain versions at full width
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
+                                       strategy="replicated")
+    log(f"phase 5: training kernels vs plain at {ARCH} shapes "
+        f"(R={ebc.plan.total_rows}, D={d}, batch {TRAIN_BATCH})")
+    numbers.update(check_training_kernels(torch, dev, cfg, ebc))
+    log_peak(torch, "phase 5")
+    free_device(torch)
+
+    # 6a. train through the launcher (plan-less lookups, on-device plans)
+    argv = ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--log-every", "1"]
+    log(f"phase 6a: python -m repro_torch.launch.train {' '.join(argv)}")
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launcher_launches = read_launches(
+        KERNELS, "launcher training",
+        ("embedding_bag", "dot_interaction", "fused_bag_backward_adagrad"))
+    losses = run.losses
+    del run
+    log(f"launcher run: {TRAIN_STEPS} steps in "
+        f"{time.perf_counter() - t0:.2f}s incl. init; losses {losses}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"launcher losses not finite: {losses}")
+    log_peak(torch, "phase 6a")
+    free_device(torch)
+
+    # 6b. train through the plan hook (dedup lookups, reader-thread plans)
+    log("phase 6b: ShardedLoader.pipeline(transform=sparse_plan_hook(...)) "
+        f"-> build_dlrm_train_step, {TRAIN_STEPS} steps from the same seed")
+    reset_launches(KERNELS)
+    train_numbers = train_planned(torch, dev, cfg, ebc, losses)
+    planned_launches = read_launches(
+        KERNELS, "planned training",
+        ("dedup_embedding_bag", "dot_interaction",
+         "fused_bag_backward_adagrad"))
+    log_peak(torch, "phase 6b")
+    log(f"training numbers: {json.dumps(train_numbers)}")
+
+    # 7. the numbers, then the result
+    replaces = {
+        "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
+        "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
+        "dot_interaction": "src/repro/kernels/dot_interaction.py:37",
+        "cache_exchange": "src/repro/kernels/cache_ops.py:114",
+        "fused_bag_backward_adagrad": "src/repro/kernels/sparse_update.py:174"}
+    paths = {"serve": serve_launches, "train_launcher": launcher_launches,
+             "train_planned": planned_launches}
+    rows = []
+    for k in KERNELS:
+        nums = numbers[k.name]
+        rows.append({
+            "name": k.name, "route": "cuda",
+            "source": os.path.relpath(k.source, ROOT),
+            "replaces": replaces[k.name],
+            "launches": sum(p[k.name] for p in paths.values()),
+            "launches_by_path": {n: p[k.name] for n, p in paths.items()},
+            **{key: nums[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms")}})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def serve_phase(torch, cfg, cc) -> dict:
+    """Phase 4: serve through the launcher, check the responses and one
+    plain recompute, profile a few more steps. Returns the launch counts;
+    the engine (50 GB of tiers) is dropped on return."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import ServeRequest, ServeResponse
+
+    argv = ["--arch", ARCH, "--cache-rows", str(cc.cache_rows), "--batch",
             str(BATCH), "--max-batch", str(MAX_BATCH), "--requests",
             str(REQUESTS), "--zipf-alpha", "1.05"]
     log(f"phase 4: python -m repro_torch.launch.serve {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k.launches = 0
+    reset_launches(KERNELS)
     t0 = time.perf_counter()
     engine = serve_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
-    log(f"launches in the serving run: {launches} "
-        f"over {engine.metrics.batches} batches")
-    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
+    launches = read_launches(
+        KERNELS, f"serving ({engine.metrics.batches} batches)",
+        ("embedding_bag", "dot_interaction", "cache_exchange"))
+    log_peak(torch, "phase 4")
     served = [engine.results.get(u) for u in range(REQUESTS)]
     if not all(isinstance(s, ServeResponse) and not s.degraded
                and s.probs.shape == (BATCH,) and np.isfinite(s.probs).all()
                for s in served):
         raise AssertionError("not every request was served healthy with "
                              f"{BATCH} finite probabilities")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
     nb = engine.metrics.batches
     phases = {k: v / nb * 1e3 for k, v in engine.metrics.phase_s.items()}
     log(f"host ms per batch by phase: "
@@ -382,7 +879,6 @@ def main() -> int:
         raise AssertionError(f"served probabilities disagree: {err}")
 
     # device vs host time per serve step, on a few more requests
-    from torch.profiler import ProfilerActivity, profile
     extra = range(REQUESTS, REQUESTS + 4 * (MAX_BATCH // BATCH))
     for uid in extra:
         raw = make_dlrm_batch(cfg, BATCH, step=uid, zipf_alpha=1.05)
@@ -396,9 +892,7 @@ def main() -> int:
         engine.run()
         torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / (engine.metrics.batches - b0)
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages())
+    dev_us = sum(t for _, t in device_events(prof))
     per_step = dev_us / 1e3 / (engine.metrics.batches - b0)
     log(f"profiled serve steps: host {host * 1e3:.3f} ms/step, device busy "
         f"{per_step:.3f} ms/step (profiler on)" if dev_us else
@@ -406,26 +900,7 @@ def main() -> int:
         "not measured (trace holds no device time)")
     log(prof.key_averages().table(sort_by="self_cpu_time_total",
                                   row_limit=12))
-
-    # 5. the numbers, then the result
-    replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:88",
-                "dot_interaction": "src/repro/kernels/dot_interaction.py:37",
-                "cache_exchange": "src/repro/kernels/cache_ops.py:114"}
-    rows = []
-    for k in KERNELS:
-        nums = numbers[k.name]
-        rows.append({
-            "name": k.name, "route": "cuda",
-            "source": os.path.relpath(k.source, ROOT),
-            "replaces": replaces[k.name], "launches": launches[k.name],
-            **{key: nums[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "device_ms")}})
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return launches
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 The JAX package `repro` is the reference; this package mirrors its module
 names so each counterpart is easy to find, and never imports it (nor jax).
 Entry points run on the card unless the caller asks for the CPU with
-`device="cpu"`; every kernel on the serving path is a hand-written CUDA C++
-kernel under `repro_torch/kernels/csrc/`.
+`device="cpu"`; every kernel on the serving and training paths is a
+hand-written CUDA C++ kernel under `repro_torch/kernels/csrc/`.
 """
 from __future__ import annotations
 

@@ -1,30 +1,46 @@
-"""Copy the reference package's DLRM parameters into the port.
+"""Copy the reference package's DLRM parameters and optimizer state into
+the port.
 
 `jax.random` cannot be replayed by torch, so a test that runs both packages
-initialises the reference, converts its parameter tree to numpy, and hands
-that tree to `params_from_jax`. Nothing here imports jax: the caller does
-the `np.asarray` conversion.
+initialises the reference, converts its trees to numpy, and hands them to
+`params_from_jax` / `state_from_jax`. Nothing here imports jax: the caller
+does the `np.asarray` conversion. Like every entry point of the port, both
+put the tensors on the card unless `device="cpu"` is given.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.nn.params import tree_map
+
 
 def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32, copy=True)).to(device)
 
 
-def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
+def params_from_jax(tree: dict,
+                    device: str | torch.device | None = None) -> dict:
     """Map the reference's `{"bottom": [{w, b}, ...], "top": [...],
     "emb": {"mega": ...}}` tree (numpy leaves, or anything `np.array`
     accepts) to the port's tree of the same layout with fp32 tensors on
-    `device`. Weights stay (in, out), as the port's `linear` expects."""
-    def mlp(layers):
-        return [{k: _tensor(v, device) for k, v in layer.items()}
-                for layer in layers]
-
-    out = {"bottom": mlp(tree["bottom"]), "top": mlp(tree["top"])}
+    `device` (default cuda; raises without it). Weights stay (in, out), as
+    the port's `linear` expects."""
+    dev = resolve_device(device)
+    out = {"bottom": tree_map(lambda x: _tensor(x, dev), tree["bottom"]),
+           "top": tree_map(lambda x: _tensor(x, dev), tree["top"])}
     if tree.get("emb") is not None:
-        out["emb"] = {"mega": _tensor(tree["emb"]["mega"], device)}
+        out["emb"] = {"mega": _tensor(tree["emb"]["mega"], dev)}
     return out
+
+
+def state_from_jax(tree: dict,
+                   device: str | torch.device | None = None) -> dict:
+    """Map the reference DLRM step's optimizer state `{"dense": <dense
+    optimizer state tree>, "accum": (rows,)}` to the port's
+    (`train.steps.dlrm_init_state` layout) on `device` (default cuda), so a
+    reference run can be continued in the port part-way through."""
+    dev = resolve_device(device)
+    return {"dense": tree_map(lambda x: _tensor(x, dev), tree["dense"]),
+            "accum": _tensor(tree["accum"], dev)}

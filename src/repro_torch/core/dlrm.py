@@ -1,7 +1,8 @@
 """The DLRM model (paper Fig. 3): bottom MLP over dense features ->
 EmbeddingBagCollection over sparse features -> feature interaction -> top
-MLP -> logit. This slice ports the forward (serving); the split dense /
-sparse training step comes with the training slice.
+MLP -> logit, and the split dense / sparse gradients of the paper's
+training step (Fig. 4): autograd over the dense tower, with the pooled
+embeddings as a leaf whose gradient feeds the fused sparse backward.
 """
 from __future__ import annotations
 
@@ -10,8 +11,9 @@ import torch
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.interaction import interact, interaction_dim
+from repro_torch.kernels.sparse_plan import plan_from_batch
 from repro_torch.nn.layers import linear, linear_specs
-from repro_torch.nn.params import init_params
+from repro_torch.nn.params import init_params, tree_leaves, tree_map
 
 
 def _mlp_specs(dims, in_dim: int):
@@ -67,12 +69,51 @@ def dlrm_forward_dense(params: dict, dense_x: torch.Tensor,
     return logit[..., 0].float()
 
 
+def _lookup(params: dict, batch: dict,
+            ebc: EmbeddingBagCollection) -> torch.Tensor:
+    # a batch-attached plan (data.pipeline.sparse_plan_hook) dedups the
+    # forward gather; the fused sparse backward reuses the same plan
+    return ebc.lookup(params["emb"], batch["idx"],
+                      plan=plan_from_batch(batch))
+
+
 def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig,
                  ebc: EmbeddingBagCollection) -> torch.Tensor:
     """Full forward: embedding lookup + dense tower -> (B,) logits.
-    batch: {"dense" (B, n_dense), "idx" (B, F, L) int32 offset rows}."""
-    pooled = ebc.lookup(params["emb"], batch["idx"])
+    batch: {"dense" (B, n_dense), "idx" (B, F, L) int32 offset rows}, and
+    optionally a plan's "plan_rows"/"plan_offsets"/"plan_bags"."""
+    pooled = _lookup(params, batch, ebc)
     return dlrm_forward_dense(params, batch["dense"], pooled, cfg)
+
+
+def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig,
+              ebc: EmbeddingBagCollection) -> torch.Tensor:
+    """Binary cross-entropy (CTR); the paper's NE is normalized BCE."""
+    return _bce(dlrm_forward(params, batch, cfg, ebc), batch["label"])
+
+
+def dlrm_grads(params: dict, batch: dict, cfg: DLRMConfig,
+               ebc: EmbeddingBagCollection):
+    """Returns (loss, dense_grads, (idx (B,F,L), pooled_grads (B,F,d) fp32)).
+
+    The mega table only ever sees sparse gradients: the lookup runs without
+    autograd and its pooled output becomes a leaf, so the backward stops
+    there and every valid lookup slot inherits its bag's gradient
+    (`kernels.ops.fused_sparse_backward`). The dense parameters are taken
+    as detached leaves, so the caller's tensors never require grad."""
+    with torch.no_grad():
+        pooled = _lookup(params, batch, ebc)
+    pooled.requires_grad_()
+    dense = tree_map(lambda t: t.detach().requires_grad_(),
+                     {"bottom": params["bottom"], "top": params["top"]})
+    with torch.enable_grad():
+        logits = dlrm_forward_dense(dense, batch["dense"], pooled, cfg)
+        loss = _bce(logits, batch["label"])
+        leaves = tree_leaves(dense)
+        grads = torch.autograd.grad(loss, leaves + [pooled])
+    it = iter(grads[:-1])
+    g_dense = tree_map(lambda _: next(it), dense)
+    return loss.detach(), g_dense, (batch["idx"], grads[-1].float())
 
 
 def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

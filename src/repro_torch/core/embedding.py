@@ -5,9 +5,9 @@ Lookup semantics (paper section III-A.2): each sparse feature is a multi-hot
 index list of up to `truncation` entries; each entry fetches one d-vector;
 vectors are sum-pooled per (example, feature). The collection consumes
 offset global indices with -1 padding and pools every (example, feature)
-bag through the hand-written embedding-bag kernel (`ops.embedding_bag`) —
-where the reference's main path used a jnp gather, the port's uses the
-kernel.
+bag through a hand-written kernel — `ops.embedding_bag`, or, when the batch
+carries a `SparsePlan`, `ops.dedup_embedding_bag` — where the reference's
+main path used a jnp gather.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.placement import PlacementPlan, plan_placement
 from repro_torch.kernels import ops
+from repro_torch.kernels.sparse_plan import SparsePlan
 from repro_torch.nn.params import ParamSpec
 
 
@@ -62,13 +63,28 @@ class EmbeddingBagCollection:
         return np.where(raw >= 0, raw + off[None, :, None], -1).astype(
             raw.dtype)
 
-    def lookup(self, params: dict, idx: torch.Tensor) -> torch.Tensor:
+    def optimizer_specs(self) -> dict:
+        """Row-wise AdaGrad second-moment accumulator, one fp32 per row."""
+        return {"accum": ParamSpec((self.plan.total_rows,),
+                                   dtype=torch.float32, init="zeros")}
+
+    def lookup(self, params: dict, idx: torch.Tensor,
+               plan: SparsePlan | None = None) -> torch.Tensor:
         """idx: (B, F, L) int32 rows of params["mega"], -1 pads. Returns
-        (B, F, d) sum-pooled embeddings: one embedding-bag launch over the
-        (B*F, L) view of the batch."""
+        (B, F, d) sum-pooled embeddings: one kernel launch over the
+        (B*F, L) view of the batch.
+
+        With `plan` (a SparsePlan over idx's flat stream, e.g. the one
+        `data.pipeline.sparse_plan_hook` attaches) the lookup reads each
+        unique row once (`ops.dedup_embedding_bag`); the result is bit-equal
+        to the plan-less `ops.embedding_bag`."""
         mega = params["mega"]
         b, f, lk = idx.shape
-        pooled = ops.embedding_bag(mega, idx.reshape(b * f, lk), "sum")
+        flat = idx.reshape(b * f, lk)
+        if plan is None:
+            pooled = ops.embedding_bag(mega, flat, "sum")
+        else:
+            pooled = ops.dedup_embedding_bag(mega, flat, plan, "sum")
         return pooled.reshape(b, f, -1).to(mega.dtype)
 
     def table_bytes(self) -> int:

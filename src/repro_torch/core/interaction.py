@@ -2,8 +2,10 @@
 
 `dot`: stack the bottom-MLP output with the pooled sparse embeddings into
 Z (B, F+1, d), take all strictly-lower-triangle pairwise dot products
-(through the hand-written dot-interaction kernel on the card), and
-concatenate them with the bottom output — exactly DLRM's interaction.
+(through the hand-written dot-interaction kernel on the card, wrapped in
+`ops.dot_interaction`'s autograd Function so that training gets the
+gradient into Z), and concatenate them with the bottom output — exactly
+DLRM's interaction.
 """
 from __future__ import annotations
 

@@ -4,12 +4,15 @@ Importing this package builds and loads nothing: each kernel is compiled
 with nvcc at its first launch (or by `build_all`) on the machine with the
 card.
 """
-from repro_torch.kernels import cache_ops, dot_interaction, embedding_bag
+from repro_torch.kernels import (cache_ops, dot_interaction, embedding_bag,
+                                 sparse_plan, sparse_update)
 from repro_torch.kernels._build import Kernel, build_all
 
-#: every kernel of the serving path, in path order
-KERNELS: tuple[Kernel, ...] = (embedding_bag.KERNEL, dot_interaction.KERNEL,
-                               cache_ops.KERNEL)
+#: every kernel of the serving and training paths, in path order
+KERNELS: tuple[Kernel, ...] = (embedding_bag.KERNEL,
+                               embedding_bag.DEDUP_KERNEL,
+                               dot_interaction.KERNEL, cache_ops.KERNEL,
+                               sparse_update.KERNEL)
 
 __all__ = ["KERNELS", "Kernel", "build_all", "cache_ops", "dot_interaction",
-           "embedding_bag"]
+           "embedding_bag", "sparse_plan", "sparse_update"]

@@ -1,9 +1,12 @@
-"""Embedding-bag kernel wrapper (CUDA C++, `csrc/embedding_bag.cu`).
+"""Embedding-bag kernel wrappers (CUDA C++, `csrc/embedding_bag.cu` and
+`csrc/dedup_embedding_bag.cu`).
 
-Port of the TPU kernel `repro/kernels/embedding_bag.py::embedding_bag_kernel`:
-pooled multi-hot gather of an (H, D) fp32 table by (B, L) int32 indices
-(-1 pads), sum or mean, into (B, D) fp32. The TPU's 128-lane padding of D
-is gone: the kernel takes any D.
+Ports of the TPU kernels `repro/kernels/embedding_bag.py::
+embedding_bag_kernel` and `dedup_embedding_bag_kernel`: pooled multi-hot
+gather of an (H, D) fp32 table by (B, L) int32 indices (-1 pads), sum or
+mean, into (B, D) fp32 — the second reading each unique row of a
+`SparsePlan` from the table once. The TPU's 128-lane padding of D is gone:
+both kernels take any D.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 KERNEL = Kernel("embedding_bag", "embedding_bag_launch",
                 [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P])
+DEDUP_KERNEL = Kernel("dedup_embedding_bag", "dedup_embedding_bag_launch",
+                      [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P])
 MODES = ("sum", "mean")
 
 
@@ -42,6 +47,49 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     KERNEL.launch(table.data_ptr(), indices.data_ptr(), out.data_ptr(),
                   b, length, d, int(mode == "mean"),
                   stream_handle(table.device))
+    return out
+
+
+def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                        unique_rows: torch.Tensor,
+                        mode: str = "sum") -> torch.Tensor:
+    """Pooled lookup that reads each unique row of the table once.
+    table: (H, D) fp32; indices: (B, L) int32, -1 pads; unique_rows: (U,)
+    int32, a `SparsePlan`'s unique rows over indices' flat stream (live
+    prefix ascending, -1 tail), covering every valid index. Returns
+    (B, D) fp32, bit-equal to `embedding_bag`.
+
+    A CPU tensor takes the plain version (`ref.dedup_embedding_bag_ref`); a
+    CUDA tensor launches the kernel (gather, then pool), or raises."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pooling mode {mode!r}; expected {MODES}")
+    if table.dim() != 2 or indices.dim() != 2 or unique_rows.dim() != 1:
+        raise ValueError(f"need table (H, D), indices (B, L) and unique_rows "
+                         f"(U,), got {tuple(table.shape)}, "
+                         f"{tuple(indices.shape)} and "
+                         f"{tuple(unique_rows.shape)}")
+    tensors = (table, indices, unique_rows)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.dedup_embedding_bag_ref(table, indices, unique_rows, mode)
+    _check_cuda(table, indices)
+    if unique_rows.device != table.device or unique_rows.dtype != torch.int32 \
+            or not unique_rows.is_contiguous():
+        raise ValueError("dedup_embedding_bag kernel needs contiguous int32 "
+                         "unique_rows on the table's device")
+    if unique_rows.numel() == 0:
+        raise ValueError("dedup_embedding_bag needs a plan with at least one "
+                         "entry")
+    b, length = indices.shape
+    u, d = unique_rows.numel(), table.shape[1]
+    compact = torch.empty((u, d), dtype=torch.float32, device=table.device)
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    DEDUP_KERNEL.launch(table.data_ptr(), unique_rows.data_ptr(),
+                        indices.data_ptr(), compact.data_ptr(),
+                        out.data_ptr(), u, b, length, d,
+                        stream_handle(table.device))
+    if mode == "mean":
+        out = out / (indices >= 0).sum(dim=1, keepdim=True).clamp(
+            min=1).float()
     return out
 
 

@@ -3,9 +3,16 @@
 Dispatch is by the tensor's device, not by a flag: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor the hand-written kernel (or an error).
 The TPU-only layout work of the reference wrappers — padding D to the
-128-lane width and F to the 8-row sublane — has no counterpart. Only the
-forward is ported: serving needs no gradient, and the backward kernels
-(the bag scatter-add and the symmetric `s_bar @ z`) come with training.
+128-lane width and F to the 8-row sublane, and `_pad_scale_lr`'s
+`sqrt(Dp/d)` learning-rate rescale that compensates for it — has no
+counterpart.
+
+Gradients: `dot_interaction` is a `torch.autograd.Function` whose backward
+is the reference's `_dot_bwd` in torch ops (the reference computes it
+outside any Pallas kernel too). The lookups are never differentiated on the
+training path: `core.dlrm.dlrm_grads` makes the pooled embeddings an
+autograd leaf and hands their gradient to `fused_sparse_backward`, so
+`embedding_bag`'s scatter-add backward has no caller and is not ported.
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import torch
 
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import sparse_update as _upd
+from repro_torch.kernels.sparse_plan import SparsePlan, build_sparse_plan
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -22,6 +31,65 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     return _bag.embedding_bag(table, indices, mode)
 
 
+def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                        plan: SparsePlan | None = None,
+                        mode: str = "sum") -> torch.Tensor:
+    """Deduplicated pooled lookup: each unique row of `plan` is read from
+    the table once. indices: (B, L) int32, -1 pads; plan: a `SparsePlan`
+    over indices' flat stream (bag = slot // L), e.g. the one
+    `data.pipeline.sparse_plan_hook` attaches; built on the device when
+    None. Returns (B, D), bit-equal to `embedding_bag`."""
+    if plan is None:
+        plan = build_sparse_plan(indices.reshape(-1),
+                                 lookups_per_bag=indices.shape[1])
+    return _bag.dedup_embedding_bag(table, indices, plan.unique_rows, mode)
+
+
+class _DotInteraction(torch.autograd.Function):
+    """Forward: the dot-interaction kernel (plain version on the CPU).
+    Backward: the reference's `_dot_bwd` — scatter the packed gradient into
+    s_bar, add its transpose (d(zi.zj) reaches both rows), then s_bar @ z."""
+
+    @staticmethod
+    def forward(ctx, z):
+        ctx.save_for_backward(z)
+        return _dot.dot_interaction(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        b, f, _ = z.shape
+        dt = torch.promote_types(z.dtype, torch.float32)
+        rows, cols = torch.tril_indices(f, f, offset=-1, device=z.device)
+        s_bar = torch.zeros((b, f, f), dtype=dt, device=z.device)
+        s_bar[:, rows, cols] = g.to(dt)
+        s_bar = s_bar + s_bar.transpose(1, 2)
+        return torch.bmm(s_bar, z.to(dt)).to(z.dtype)
+
+
 def dot_interaction(z: torch.Tensor) -> torch.Tensor:
-    """z: (B, F, D) -> (B, F*(F-1)//2) strict-lower-triangle pairwise dots."""
-    return _dot.dot_interaction(z)
+    """z: (B, F, D) -> (B, F*(F-1)//2) strict-lower-triangle pairwise dots;
+    differentiable with respect to z."""
+    return _DotInteraction.apply(z)
+
+
+def fused_sparse_backward(table: torch.Tensor, accum: torch.Tensor,
+                          idx: torch.Tensor | None,
+                          pooled_grad: torch.Tensor, lr: float,
+                          eps: float = 1e-8, plan: SparsePlan | None = None):
+    """One-pass sparse backward + row-wise AdaGrad from POOLED gradients,
+    IN PLACE on table (H, D) and accum (H,) (the reference returns new
+    arrays; at full width a second 43.6 GB table would not fit the card).
+
+    idx: (B, F, L) int32 rows, -1 pads (may be None when `plan` is given);
+    pooled_grad: (B, F, D) or (B*F, D) bag gradients; plan: built on the
+    device from idx when None. Returns (table, accum)."""
+    d = table.shape[1]
+    if plan is None:
+        if idx is None:
+            raise ValueError("fused_sparse_backward needs idx or a plan")
+        plan = build_sparse_plan(idx)
+    pooled2 = pooled_grad.reshape(-1, d).to(torch.float32).contiguous()
+    return _upd.fused_bag_backward_adagrad(
+        table, accum, plan.unique_rows, plan.bag_offsets, plan.bag_ids,
+        pooled2, lr, eps)

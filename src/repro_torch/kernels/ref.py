@@ -2,8 +2,9 @@
 
 Each function computes what its CUDA kernel computes, in the same
 accumulation order where the kernel has one, on any device. The kernel
-wrappers (`kernels/ops.py`, `kernels/cache_ops.py`) call these only for
-tensors on the CPU; `chip_smoke.py` holds each kernel against its plain
+wrappers (`kernels/embedding_bag.py`, `dot_interaction.py`,
+`cache_ops.py`, `sparse_update.py`) call these only for tensors on the
+CPU; `chip_smoke.py` holds each kernel against its plain
 version on the card, and the tests hold the plain versions against the
 reference package's `repro.kernels.ref` oracles.
 """
@@ -37,12 +38,80 @@ def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
     return out.to(table.dtype)
 
 
+def dedup_embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                            unique_rows: torch.Tensor,
+                            mode: str = "sum") -> torch.Tensor:
+    """Plan-shared pooled lookup: the table is gathered once per plan entry
+    into a compact (U, D) slab, and every lookup slot reads its row from
+    that slab through a searchsorted remap into the plan's ascending live
+    prefix — the CUDA kernel's two phases. The pooling is
+    `embedding_bag_ref` itself, so the result is bit-equal to it whenever
+    `unique_rows` covers every valid index (the planner's contract).
+
+    table: (H, D); indices: (B, L) int32, -1 pads; unique_rows: (U,) int32,
+    live prefix strictly ascending, -1 past the unique count."""
+    sent = unique_rows.masked_fill(unique_rows < 0, np.iinfo(np.int32).max)
+    compact = table[unique_rows.clamp(min=0).long()]
+    pos = torch.searchsorted(sent, indices.clamp(min=0).contiguous())
+    pos = pos.clamp(max=max(unique_rows.numel() - 1, 0))
+    return embedding_bag_ref(compact, torch.where(indices >= 0, pos, -1),
+                             mode)
+
+
+def bag_grad_sums(unique_rows: torch.Tensor, bag_offsets: torch.Tensor,
+                  bag_ids: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+    """Per plan entry i, the fp32 sum of pooled[bag_ids[j]] for j in
+    [bag_offsets[i], bag_offsets[i+1]), added one after another from zero —
+    the fused kernel's order, and (the planner's stable sort) the reference
+    scatter-add's. Returns (U, D), zeros past the unique count.
+
+    Vectorised across entries: step k adds every entry's k-th bag, over the
+    entries whose slice is longer than k (a prefix once sorted by length)."""
+    u, d = unique_rows.numel(), pooled.shape[-1]
+    lo = bag_offsets[:-1].long()
+    lens = bag_offsets[1:].long() - lo
+    by_len = torch.argsort(lens, descending=True)
+    lens_h = lens[by_len].cpu().numpy()
+    lo_sorted = lo[by_len]
+    gsum = torch.zeros((u, d), dtype=torch.float32, device=pooled.device)
+    for k in range(int(lens_h[0]) if u else 0):
+        m = int(np.searchsorted(-lens_h, -k, side="left"))  # lens > k
+        gsum[:m] += pooled[bag_ids[lo_sorted[:m] + k].long()].float()
+    out = torch.empty_like(gsum)
+    out[by_len] = gsum
+    return out
+
+
+def fused_bag_backward_adagrad_ref(table: torch.Tensor, accum: torch.Tensor,
+                                   unique_rows: torch.Tensor,
+                                   bag_offsets: torch.Tensor,
+                                   bag_ids: torch.Tensor,
+                                   pooled: torch.Tensor, lr: float,
+                                   eps: float = 1e-8):
+    """Fused sparse backward + row-wise AdaGrad, IN PLACE on `table` (H, D)
+    and `accum` (H,) (the reference returns new arrays; the TPU kernel
+    aliases them). For each live plan entry: g = its bag-gradient sum
+    (`bag_grad_sums`), acc = accum[row] + mean(g^2), then
+    w = w - lr * g * rsqrt(acc + eps). pooled: (B*F, D). Returns
+    (table, accum)."""
+    gsum = bag_grad_sums(unique_rows, bag_offsets, bag_ids, pooled)
+    live = unique_rows >= 0
+    rows = unique_rows[live].long()
+    g = gsum[live]
+    acc = accum[rows] + torch.mean(torch.square(g), dim=-1)
+    upd = lr * g * torch.rsqrt(acc[:, None] + eps)
+    accum[rows] = acc
+    table[rows] = table[rows] - upd.to(table.dtype)
+    return table, accum
+
+
 def dot_interaction_ref(z: torch.Tensor) -> torch.Tensor:
     """Pairwise dot-product interaction. z: (B, F, D). Returns
     (B, F*(F-1)//2): the strict lower triangle of z @ z^T per example, in
-    np.tril_indices(F, -1) order, accumulated in fp32."""
+    np.tril_indices(F, -1) order, accumulated in fp32 (fp64 for fp64
+    input, which the float64 gradient check uses)."""
     f = z.shape[1]
-    zf = z.float()
+    zf = z.to(torch.promote_types(z.dtype, torch.float32))
     s = torch.einsum("bfd,bgd->bfg", zf, zf)
     rows, cols = np.tril_indices(f, -1)
     return s[:, torch.as_tensor(rows, device=z.device),

@@ -1,0 +1,141 @@
+"""Bucketing planner for the fused sparse backward and the dedup forward.
+
+A `SparsePlan` is a CSR layout of one batch's lookup stream, grouped by
+unique mega-table row (the reference's `repro.kernels.sparse_plan`):
+
+  unique_rows (U,)    i-th unique row, strictly ascending, -1 past the
+                      unique count
+  bag_offsets (U+1,)  [bag_offsets[i], bag_offsets[i+1]) slices bag_ids for
+                      unique row i (empty for i past the unique count)
+  bag_ids     (N,)    for each lookup slot in sorted-row order, the flat
+                      (example*F + feature) bag it belongs to; N = B*F*L
+
+Slots of equal row keep their flat-batch order (stable sort), which fixes
+the order in which the fused backward adds a row's bag gradients.
+
+Two builders with identical integers (held equal to the reference's in
+tests/test_torch_train.py):
+  * `build_sparse_plan` — torch ops on the index tensor's device; the
+    unique count stays on the device, so planning inside a train step adds
+    no host sync;
+  * `build_sparse_plan_host` — numpy, for the data pipeline's reader thread
+    (`data.pipeline.sparse_plan_hook`), so batch k+1 is planned while batch
+    k computes.
+
+The reference's per-host and per-owner splits (`split_*`), `coalesce_rows`
+and `host_plans_from_batch` serve the cached and multi-device tiers and
+come with those slices.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+# rows are mega-table offsets (< total_rows << 2**31), so int32 max is a safe
+# sort-last sentinel for -1 padding slots
+SENTINEL = np.iinfo(np.int32).max
+
+
+class SparsePlan(NamedTuple):
+    """CSR layout of a batch's lookups, grouped by unique row (tensors, or
+    numpy arrays from the host builder). `unique_rows`/`bag_offsets` may be
+    capacity-trimmed to (U,)/(U+1,) with U < N; every consumer sizes
+    itself from the arrays."""
+    unique_rows: torch.Tensor     # (U,) int32, -1 past the unique count
+    bag_offsets: torch.Tensor     # (U+1,) int32, nondecreasing
+    bag_ids: torch.Tensor         # (N,) int32 flat (example*F + feature) bags
+
+    def to_batch(self) -> dict:
+        """The three arrays under the batch-dict keys the train step reads."""
+        return {"plan_rows": self.unique_rows,
+                "plan_offsets": self.bag_offsets,
+                "plan_bags": self.bag_ids}
+
+
+def plan_from_batch(batch: dict) -> SparsePlan | None:
+    """The plan a `sparse_plan_hook` attached to `batch` (or None), as int32
+    tensors on the device the batch's arrays are on."""
+    if "plan_rows" not in batch:
+        return None
+    return SparsePlan(*(torch.as_tensor(batch[k], dtype=torch.int32)
+                        for k in ("plan_rows", "plan_offsets", "plan_bags")))
+
+
+def _lookups_per_bag(shape, lookups_per_bag: int | None) -> int:
+    if len(shape) == 3:
+        return shape[2]
+    if lookups_per_bag is None:
+        raise ValueError("a flat index stream needs lookups_per_bag")
+    return lookups_per_bag
+
+
+def build_sparse_plan(idx: torch.Tensor, lookups_per_bag: int | None = None,
+                      capacity: int | None = None) -> SparsePlan:
+    """idx: (B, F, L) offset global rows with -1 pads (or a flat (N,)
+    stream with `lookups_per_bag=L`), on any device. Integer ops only.
+
+    `capacity` trims unique_rows/bag_offsets to (capacity,)/(capacity+1,).
+    As in the reference's on-device builder the trim is a plain slice: the
+    caller owns the contract that the batch's unique count fits (checking
+    it would need a host sync; the host builder does raise)."""
+    lk = _lookups_per_bag(idx.shape, lookups_per_bag)
+    flat = idx.reshape(-1).to(torch.int32)
+    n, dev = flat.numel(), flat.device
+    valid = flat >= 0
+    safe = flat.masked_fill(~valid, SENTINEL)            # pads sort last
+    # stable: slots of one row stay in flat-batch order (torch's default
+    # sort is not stable)
+    s, order = torch.sort(safe, stable=True)
+    bag_ids = torch.div(order, lk, rounding_mode="floor").to(torch.int32)
+    head = torch.ones((n,), dtype=torch.bool, device=dev)
+    head[1:] = s[1:] != s[:-1]
+    head &= s != SENTINEL
+    rank = torch.cumsum(head, 0) - 1                     # unique id at heads
+    n_valid = valid.sum(dtype=torch.int32)               # stays on device
+    # the reference's mode="drop" scatters: non-heads write one slot past
+    # the end, which is sliced off
+    unique_rows = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    unique_rows.scatter_(0, torch.where(head, rank, n), s)
+    # run i starts at its head's sorted position; valid slots sort first,
+    # so offsets[i+1] doubles as run i's end and the n_valid fill closes
+    # the last run and empties the tail
+    bag_offsets = n_valid.expand(n + 2).clone()
+    bag_offsets.scatter_(0, torch.where(head, rank, n + 1),
+                         torch.arange(n, dtype=torch.int32, device=dev))
+    unique_rows, bag_offsets = unique_rows[:n], bag_offsets[:n + 1]
+    if capacity is not None and capacity < n:
+        unique_rows = unique_rows[:capacity]
+        bag_offsets = bag_offsets[:capacity + 1]
+    return SparsePlan(unique_rows, bag_offsets, bag_ids)
+
+
+def build_sparse_plan_host(idx: np.ndarray,
+                           lookups_per_bag: int | None = None,
+                           capacity: int | None = None) -> SparsePlan:
+    """numpy twin of `build_sparse_plan` with identical outputs. Unlike the
+    device builder, a `capacity` overflow raises here."""
+    idx = np.asarray(idx)
+    lk = _lookups_per_bag(idx.shape, lookups_per_bag)
+    flat = idx.reshape(-1).astype(np.int64)
+    n = flat.shape[0]
+    valid = flat >= 0
+    safe = np.where(valid, flat, SENTINEL)
+    order = np.argsort(safe, kind="stable")
+    s = safe[order]
+    bag_ids = (order // lk).astype(np.int32)
+    head = np.concatenate([np.ones((1,), bool), s[1:] != s[:-1]]) \
+        & (s != SENTINEL)
+    n_valid = int(valid.sum())
+    heads = np.flatnonzero(head)
+    if capacity is not None and len(heads) > capacity:
+        raise ValueError(
+            f"plan capacity overflow: batch has {len(heads)} unique rows "
+            f"> capacity={capacity}; raise the capacity or shrink the batch")
+    u = n if capacity is None else min(capacity, n)
+    unique_rows = np.full((u,), -1, np.int32)
+    unique_rows[:len(heads)] = s[heads]
+    bag_offsets = np.full((u + 1,), n_valid, np.int32)
+    bag_offsets[:len(heads)] = heads
+    return SparsePlan(unique_rows, bag_offsets, bag_ids)

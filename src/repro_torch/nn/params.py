@@ -41,6 +41,24 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
     return out if spec.dtype == torch.float32 else out.to(spec.dtype)
 
 
+def tree_map(fn, tree, *rest):
+    """Apply `fn` leaf by leaf over trees of one layout (dicts, lists,
+    tuples), the counterpart of `jax.tree.map` for parameter trees."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in `tree_map` order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def init_params(specs, seed: int, device: torch.device):
     """Initialise a tree (dicts / lists) of ParamSpec into tensors on
     `device`, drawing in tree order from one generator seeded `seed`."""

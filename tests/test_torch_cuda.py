@@ -7,16 +7,21 @@ run them with
 
 (`--noconftest` because the suite's conftest imports jax, which the GPU
 machine does not have; this file imports only torch, numpy and the port).
-Tolerances: embedding_bag walks each bag in the plain version's order and
-cache_exchange only copies, so both must be bit-equal; dot_interaction's
-fp32 FMA chain differs from cuBLAS's order, so it gets rtol/atol 1e-5.
+Tolerances: embedding_bag and dedup_embedding_bag walk each bag in the
+plain version's order and cache_exchange only copies, so all three must be
+bit-equal; dot_interaction's fp32 FMA chain differs from cuBLAS's order, so
+it (and its gradient) gets rtol/atol 1e-5; fused_bag_backward_adagrad sums
+bags in the plain order but reduces mean(g^2) by warp shuffles, so touched
+rows get rtol/atol 1e-6 and untouched rows must not move.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import (KERNELS, cache_ops, dot_interaction,
-                                 embedding_bag, ref)
+                                 embedding_bag, ops, ref, sparse_plan,
+                                 sparse_update)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +101,166 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         dot_interaction.dot_interaction(torch.zeros((2, 3, 4), device=dev,
                                                     dtype=torch.float64))
+
+
+def _plan_inputs(dev, h, d, b, f, lk, seed):
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(-1, h, size=(b, f, lk)).astype(np.int32)
+    idx[0, 0] = -1                                  # an all-pad bag
+    idx[1, 0, :] = h - 1                            # a row repeated in a bag
+    idx[-1, -1, ::2] = 0                            # a row across bags
+    table = rng.randn(h, d).astype(np.float32)
+    accum = np.abs(rng.randn(h)).astype(np.float32)
+    pooled = rng.randn(b * f, d).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (idx, table, accum, pooled)]
+
+
+@pytest.mark.parametrize("h,d,b,f,lk", [(60, 12, 5, 3, 6), (300, 64, 16, 4, 32),
+                                        (97, 128, 6, 3, 7),
+                                        (50, 200, 3, 2, 40)])
+def test_fused_bag_backward_adagrad_kernel_matches_plain(dev, h, d, b, f, lk):
+    """Bag sums are added in the plain version's order, so the only
+    difference is mean(g^2)'s reduction order (and rsqrtf): rtol/atol 1e-6
+    on touched rows; untouched rows and accumulators must not move."""
+    idx, table, accum, pooled = _plan_inputs(dev, h, d, b, f, lk, h + d)
+    plan = sparse_plan.build_sparse_plan(idx)
+    t_k, a_k = table.clone(), accum.clone()
+    before = sparse_update.KERNEL.launches
+    sparse_update.fused_bag_backward_adagrad(t_k, a_k, *plan, pooled, 0.05)
+    assert sparse_update.KERNEL.launches == before + 1
+    t_p, a_p = table.clone(), accum.clone()
+    ref.fused_bag_backward_adagrad_ref(t_p, a_p, *plan, pooled, 0.05)
+    torch.cuda.synchronize()
+    touched = torch.zeros(h, dtype=torch.bool, device=dev)
+    touched[idx[idx >= 0].long()] = True
+    assert torch.equal(t_k[~touched], table[~touched])
+    assert torch.equal(a_k[~touched], accum[~touched])
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=1e-6)
+    assert not torch.equal(t_k[touched], table[touched])
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("h,d,b,f,lk", [(60, 12, 5, 3, 6), (300, 64, 16, 4, 32),
+                                        (97, 128, 6, 3, 7),
+                                        (50, 200, 3, 2, 40)])
+def test_dedup_embedding_bag_kernel_bit_equal_to_plain(dev, h, d, b, f, lk,
+                                                       mode):
+    idx, table, _, _ = _plan_inputs(dev, h, d, b, f, lk, h + lk)
+    flat = idx.reshape(b * f, lk)
+    plan = sparse_plan.build_sparse_plan(flat.reshape(-1), lookups_per_bag=lk)
+    before = embedding_bag.DEDUP_KERNEL.launches
+    got = embedding_bag.dedup_embedding_bag(table, flat, plan.unique_rows,
+                                            mode)
+    assert embedding_bag.DEDUP_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.dedup_embedding_bag_ref(
+        table, flat, plan.unique_rows, mode))
+    assert torch.equal(got, embedding_bag.embedding_bag(table, flat, mode))
+
+
+def test_sparse_plan_on_the_card_equals_the_host_plan(dev):
+    rng = np.random.RandomState(3)
+    idx = rng.randint(-1, 9, size=(64, 5, 16)).astype(np.int32)
+    got = sparse_plan.build_sparse_plan(torch.from_numpy(idx).to(dev))
+    for a, b in zip(got, sparse_plan.build_sparse_plan_host(idx)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def test_dot_interaction_gradient_on_the_card_matches_plain(dev):
+    """The kernel's output has no autograd graph of its own; the op's
+    backward must still carry the gradient into z."""
+    rng = np.random.RandomState(4)
+    z = rng.randn(8, 31, 64).astype(np.float32)
+    g = rng.randn(8, 465).astype(np.float32)
+    zk = torch.from_numpy(z).to(dev).requires_grad_()
+    ops.dot_interaction(zk).backward(torch.from_numpy(g).to(dev))
+    zp = torch.from_numpy(z).to(dev).requires_grad_()
+    ref.dot_interaction_ref(zp).backward(torch.from_numpy(g).to(dev))
+    assert zk.grad.abs().sum() > 0
+    torch.testing.assert_close(zk.grad, zp.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("plan", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(dev, plan):
+    """Two steps of the smoke dlrm-m1 on the card and on the CPU from the
+    same parameters and batches: rtol/atol 1e-5 (kernels and cuBLAS sum
+    in other orders than the CPU)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.pipeline import sparse_plan_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    ebc = EmbeddingBagCollection.build(cfg, strategy="replicated")
+    hook = sparse_plan_hook(ebc.plan.table_offsets)
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        params = tree_map(lambda x: x.to(d), init_dlrm_params(
+            cfg, ebc, 0, torch.device("cpu")))
+        state = dlrm_init_state(ebc, adagrad(0.01), params)
+        step = build_dlrm_train_step(cfg, ebc, adagrad(0.01))
+        losses = []
+        for t in range(2):
+            raw = hook(make_dlrm_batch(cfg, 16, step=t))
+            if not plan:
+                raw = {k: v for k, v in raw.items()
+                       if not k.startswith("plan_")}
+            batch = {k: torch.as_tensor(v).to(d) for k, v in raw.items()}
+            params, state, m = step(params, state, batch, t)
+            losses.append(float(m["loss"]))
+        runs[d.type] = (losses, params["emb"]["mega"].cpu(),
+                        state["accum"].cpu(), params["top"][0]["w"].cpu())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(runs["cuda"][1:], runs["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    t = torch.zeros((4, 8), device=dev)
+    rows = torch.zeros((1,), dtype=torch.int32, device=dev)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        embedding_bag.dedup_embedding_bag(t, idx, rows.long())
+    with pytest.raises(ValueError):
+        embedding_bag.dedup_embedding_bag(t, idx, rows[:0])
+    offs = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        sparse_update.fused_bag_backward_adagrad(
+            t, torch.zeros(4, device=dev), rows, offs, rows,
+            torch.zeros((1, 8), device=dev, dtype=torch.float64), 0.1)
+    # 4 warps x D fp32 sums: D=16384 needs 256 KB of shared memory, past
+    # the card's 227 KB; the launch refuses it
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        sparse_update.fused_bag_backward_adagrad(
+            torch.zeros((4, 16384), device=dev), torch.zeros(4, device=dev),
+            rows, offs, rows, torch.zeros((1, 16384), device=dev), 0.1)
+
+
+def test_fused_backward_opts_in_to_shared_memory_past_48kb(dev):
+    """D=4096 keeps 64 KB of sums per block: the launch opts in and the
+    update matches the plain version (tol 1e-6 abs + rel)."""
+    g = torch.Generator().manual_seed(7)
+    d = 4096
+    table = torch.randn((16, d), generator=g)
+    accum = torch.rand((16,), generator=g)
+    pooled = torch.randn((6, d), generator=g) * 0.01
+    rows = torch.tensor([2, 9, 15, -1], dtype=torch.int32)
+    offs = torch.tensor([0, 3, 4, 6, 6], dtype=torch.int32)
+    bags = torch.tensor([0, 2, 5, 1, 3, 4], dtype=torch.int32)
+    want_t, want_a = table.clone(), accum.clone()
+    ref.fused_bag_backward_adagrad_ref(want_t, want_a, rows, offs, bags,
+                                       pooled, 0.05, 1e-8)
+    got_t, got_a = table.to(dev), accum.to(dev)
+    sparse_update.fused_bag_backward_adagrad(
+        got_t, got_a, rows.to(dev), offs.to(dev), bags.to(dev),
+        pooled.to(dev), 0.05, 1e-8)
+    torch.testing.assert_close(got_t.cpu(), want_t, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_a.cpu(), want_a, rtol=1e-6, atol=1e-6)
 
 
 def test_every_kernel_builds_for_hopper(dev):

@@ -42,7 +42,7 @@ def _setup(wide):
     jebc = JEBC.build(jcfg, n_shards=1, strategy="replicated")
     jparams = jinit(jdlrm.dlrm_param_specs(jcfg, jebc),
                     jax.random.PRNGKey(3))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     ebc = EmbeddingBagCollection.build(cfg, strategy="replicated")
     raw = make_dlrm_batch(cfg, 12, step=1, zipf_alpha=1.05)
     idx = ebc.offset_indices(raw["idx"])

@@ -41,7 +41,8 @@ def _env():
 
 
 def test_importing_the_entry_point_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.kernels; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.kernels, "
+            "repro_torch.launch.train, repro_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,

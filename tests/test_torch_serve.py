@@ -99,7 +99,7 @@ def _assert_same_tier(st, jst):
 @pytest.mark.parametrize("cache_rows", [160, 2048])
 def test_dlrm_engine_replay_matches_reference(setup, cache_rows):
     cfg, jcfg, ebc, jparams, host = setup
-    eng = DLRMEngine(params_from_jax(host), cfg,
+    eng = DLRMEngine(params_from_jax(host, device="cpu"), cfg,
                      CachedEmbeddingBagCollection.build(
                          cfg, cache_rows=cache_rows))
     jeng = JEngine(jparams, jcfg, JCC.build(jcfg, cache_rows=cache_rows))
@@ -143,7 +143,7 @@ def test_serve_engine_replay_matches_reference(setup, schedule):
     kw = {"max_queue": 12, "max_batch": 16, "shed_slack": 0.5}
     clock, jclock = VClock(), VClock()
     eng = DLRMServeEngine(
-        params_from_jax(host), cfg,
+        params_from_jax(host, device="cpu"), cfg,
         CachedEmbeddingBagCollection.build(cfg, cache_rows=192),
         clock=clock, injector=DuckInjector(schedule), **kw)
     jeng = JServe(jparams, jcfg, JCC.build(jcfg, cache_rows=192),
@@ -171,7 +171,7 @@ def test_serve_engine_replay_matches_reference(setup, schedule):
         assert eng.metrics.stale_batches > 0     # the degraded path ran
 
     # the serving invariant inside the port: healthy == big-cache engine
-    oracle = DLRMEngine(params_from_jax(host), cfg,
+    oracle = DLRMEngine(params_from_jax(host, device="cpu"), cfg,
                         CachedEmbeddingBagCollection.build(cfg,
                                                            cache_rows=2048))
     healthy = 0
@@ -188,7 +188,7 @@ def test_serve_engine_replay_matches_reference(setup, schedule):
 
 def test_serve_engine_rejects_never_servable_requests(setup):
     cfg, jcfg, ebc, jparams, host = setup
-    eng = DLRMServeEngine(params_from_jax(host), cfg,
+    eng = DLRMServeEngine(params_from_jax(host, device="cpu"), cfg,
                           CachedEmbeddingBagCollection.build(cfg,
                                                              cache_rows=8),
                           max_batch=4)
