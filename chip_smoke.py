@@ -6,8 +6,8 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the five CUDA kernels of the serving and training paths with
-   nvcc (sm_90a), one process per source, all at once;
+2. build the eight CUDA kernels of the serving and training paths (seven
+   sources) with nvcc (sm_90a), one process per source, all at once;
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
    writeback entries, rows above 2**24 and byte offsets above 2**32), and
@@ -22,16 +22,35 @@ Phases, each of which makes the script exit non-zero when it fails:
    versions on a full-width dlrm-m1 mega table at a batch of 512 (rows
    above 2**24, a row repeated inside a bag, an all-pad bag), the fused
    update in place with its untouched rows checked, and time them;
+5b. hold the cached tier's fetch, chunked fetch and commit against their
+   plain versions on a full-width capacity tier and the plan's cache, at
+   the worklist of one batch's misses (pads, writebacks, pure writebacks,
+   a chunk at the table's end, installs remapped out of a chunk slab), and
+   time them;
 6. train full-width dlrm-m1 at a batch of 512: 8 steps through
-   `repro_torch.launch.train` (no plans), then 8 steps from the same seed
-   through `ShardedLoader.pipeline(transform=sparse_plan_hook(...))` and
-   `build_dlrm_train_step` (planned lookups); count each kernel's launches
-   in each run, recompute the planned run's first step with the plain
-   versions on the card, and profile its last steps;
-7. print one JSON line of per-kernel numbers, then the result line.
+   `repro_torch.launch.train` (no plans), keeping the bit checksums of the
+   initial and final table and accumulator, then 8 steps from the same
+   seed through `ShardedLoader.pipeline(transform=sparse_plan_hook(...))`
+   and `build_dlrm_train_step` (planned lookups); count each kernel's
+   launches in each run, recompute the planned run's first step with the
+   plain versions on the card, and profile its last steps;
+7. train the same 8 batches from the same table through
+   `build_cached_train_step`: (7a) `AsyncCachedTier` over the plan's cache
+   with plans and the pipeline's lookahead, (7b) `AsyncCachedTier` and
+   (7c) the sync collection over a small cache with chunked transfers;
+   each must evict where asked, give the launcher's losses and, once
+   materialized, its table and accumulator checksums;
+8. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
+
+    python3 chip_smoke.py --evict-search
+
+builds the kernels and bisects for the smallest cache (in steps of
+EVICT_SEARCH_GRAIN rows) at which run 7b's TRAIN_STEPS async steps keep the
+thrash guard, checks the sync schedule (7c) at that size, and prints the
+trials as one JSON line.
 """
 from __future__ import annotations
 
@@ -60,6 +79,13 @@ SPARSE_LR, SPARSE_EPS = 0.05, 1e-8  # build_dlrm_train_step's defaults
 TOL_FUSED = 1e-6      # abs + rel: bag sums in plain order, mean(g^2) by
 #                       warp shuffles and rsqrtf
 TOL_STEP = 1e-5       # abs + rel: one train step, kernels vs plain on card
+#: the cached eviction runs: 8-row chunked transfers over the smallest
+#: cache at which the async run's thrash guard holds (it protects the
+#: 87,271 rows two consecutive batches touch); `--evict-search` checks it
+#: by bisection between EVICT_SEARCH_LO and EVICT_CACHE_ROWS in steps of
+#: EVICT_SEARCH_GRAIN rows (87,040 fails at step 2)
+EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
+EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
 
 
 def log(msg: str) -> None:
@@ -499,6 +525,177 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd}
 
 
+def check_cache_movers(torch, dev, cfg, cc) -> dict:
+    """Phase 5b: the cached tier's fetch, chunked fetch and commit against
+    their plain versions on a full-width capacity tier and the plan's
+    deployment cache, at the worklist of one training batch's misses."""
+    from repro_torch.core.cache import _chunk_min_fill
+    from repro_torch.kernels import cache_ops as kc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_plan import coalesce_rows
+    import numpy as np
+    r_rows, c_rows, d = cc.ebc.plan.total_rows, cc.cache_rows, cfg.embed_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    capacity = torch.empty((r_rows, d), device=dev).normal_(generator=g)
+    cap_accum = torch.rand((r_rows,), generator=g, device=dev)
+    cache = torch.empty((c_rows, d), device=dev).normal_(generator=g)
+    cache_accum = torch.rand((c_rows,), generator=g, device=dev)
+    idx = train_batch(cfg, cc.ebc, 0)
+    rows_np = np.unique(idx[idx >= 0]).astype(np.int64)   # the cold misses
+    n = len(rows_np)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def compare(name, got, want):
+        """Bit-equality and the largest difference, from the same tensors."""
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"  {name} bit-equal={equal} max_abs_err={err:.3e} "
+            f"(tol 0: values are copied)")
+        if not equal:
+            raise AssertionError(f"{name} is not bit-equal to plain")
+        return err
+
+    # -- row fetch: every 97th entry a pad, the table's last row included
+    fetch = torch.as_tensor(rows_np, **i32)
+    fetch[::97] = -1
+    got = kc.cache_fetch(capacity, cap_accum, fetch)
+    want = ref.cache_fetch_ref(capacity, cap_accum, fetch)
+    torch.cuda.synchronize()
+    fetch_err = compare("cache_fetch", got, want)
+    n_ft = int((fetch >= 0).sum())
+    lib_rows = fetch[fetch >= 0].long()
+    fetch_out = {
+        "ms": time_ms(torch, lambda: kc.cache_fetch(capacity, cap_accum,
+                                                    fetch), 100),
+        "device_ms": device_kernel_ms(
+            torch, lambda: kc.cache_fetch(capacity, cap_accum, fetch), 20,
+            "cache_fetch_kernel"),
+        "plain_ms": time_ms(torch, lambda: ref.cache_fetch_ref(
+            capacity, cap_accum, fetch), 20),
+        # the one call that gathers the same rows (no pads, no accumulator)
+        "library_ms": time_ms(
+            torch, lambda: capacity.index_select(0, lib_rows), 100),
+        "max_abs_err": fetch_err,
+    }
+    fetch_out["bound_ms"], fetch_out["bound_by"] = bound_ms(
+        n * 4 + n_ft * (d * 4 + 4) + n * (d * 4 + 4), 0)
+    log(f"  cache_fetch entries={n} "
+        f"pads={n - n_ft} (max row {int(fetch.max())}): {fetch_out}")
+
+    # -- chunked fetch: the coalescer's blocks of these rows, a block
+    #    clamped at the table's end and a pad block
+    chunk = 8
+    starts_np, pos = coalesce_rows(rows_np, chunk, r_rows,
+                                   min_fill=_chunk_min_fill(chunk))
+    starts = torch.as_tensor(np.concatenate(
+        [starts_np, [r_rows - chunk, -1]]).astype(np.int32), device=dev)
+    kc.check_chunk_starts(starts, chunk, r_rows)
+    got = kc.cache_fetch_chunked(capacity, cap_accum, starts, chunk)
+    want = ref.cache_fetch_chunked_ref(capacity, cap_accum, starts, chunk)
+    torch.cuda.synchronize()
+    chunked_err = compare("cache_fetch_chunked", got, want)
+    if not torch.equal(got[0][-2 * chunk:-chunk], capacity[r_rows - chunk:]):
+        raise AssertionError("cache_fetch_chunked: the block at R-chunk is "
+                             "not the table's last rows")
+    k = starts.numel()
+    k_live = int((starts >= 0).sum())
+    live_starts = starts[starts >= 0].long()
+    block_rows = (live_starts[:, None] + torch.arange(chunk, device=dev)
+                  ).reshape(-1)
+    chunked_out = {
+        "ms": time_ms(torch, lambda: kc.cache_fetch_chunked(
+            capacity, cap_accum, starts, chunk), 100),
+        "device_ms": device_kernel_ms(
+            torch, lambda: kc.cache_fetch_chunked(capacity, cap_accum,
+                                                  starts, chunk), 20,
+            "cache_fetch_chunked_kernel"),
+        "plain_ms": time_ms(torch, lambda: ref.cache_fetch_chunked_ref(
+            capacity, cap_accum, starts, chunk), 20),
+        "library_ms": time_ms(
+            torch, lambda: capacity.index_select(0, block_rows), 100),
+        "max_abs_err": chunked_err,
+    }
+    chunked_out["bound_ms"], chunked_out["bound_by"] = bound_ms(
+        k * 4 + k_live * chunk * (d * 4 + 4) + k * chunk * (d * 4 + 4), 0)
+    covered = int((pos >= 0).sum())
+    log(f"  cache_fetch_chunked chunk={chunk}: {k} "
+        f"blocks ({k_live} live, one at R-{chunk}, one pad) cover "
+        f"{covered} of the {n} rows, {n - covered} left to the row fetch: "
+        f"{chunked_out}")
+
+    # -- commit: the chunked slab installed through src_pos, half the
+    #    entries write a dirty victim back, a tenth are pure writebacks,
+    #    a twentieth are pad slots
+    single = np.flatnonzero(pos < 0)
+    src_np = pos.copy()
+    src_np[single] = len(starts_np) * chunk + np.arange(len(single))
+    blocks = kc.cache_fetch_chunked(capacity, cap_accum,
+                                    torch.as_tensor(starts_np, **i32), chunk)
+    rest = kc.cache_fetch(capacity, cap_accum,
+                          torch.as_tensor(rows_np[single], **i32))
+    shadow = torch.cat([blocks[0], rest[0]])
+    shadow_accum = torch.cat([blocks[1], rest[1]])
+    del blocks, rest
+    slots = torch.randperm(c_rows, generator=g, device=dev)[:n].int()
+    evict = torch.randperm(r_rows, generator=g, device=dev)[:n].int()
+    ins = torch.as_tensor(rows_np, **i32)
+    src_pos = torch.as_tensor(src_np.astype(np.int32), device=dev)
+    u = torch.rand((n,), generator=g, device=dev)
+    evict[u < 0.5] = -1
+    ins[u > 0.9] = -1                                 # pure writebacks
+    slots[(u > 0.45) & (u < 0.5)] = -1                # pads
+    evict[0], slots[0] = r_rows - 1, c_rows - 1       # the last rows
+    kc.check_commit_worklist(slots, ins, src_pos, shadow.shape[0])
+    live = slots >= 0
+    n_wb = int((live & (evict >= 0)).sum())
+    n_in = int((live & (ins >= 0)).sum())
+    cap_rows = evict[live & (evict >= 0)].long()
+    s_rows = slots[live].long()
+    tiers = (capacity, cache, cap_accum, cache_accum)
+    views = ((capacity, cap_rows), (cache, s_rows), (cap_accum, cap_rows),
+             (cache_accum, s_rows))
+    work = (shadow, shadow_accum, slots, evict, ins, src_pos)
+
+    def touched():
+        return [t[i].clone() for t, i in views]
+
+    def checksum():
+        return [bit_checksum(torch, t) for t in tiers]
+
+    before, sums = touched(), checksum()
+    kc.cache_commit(*tiers, *work)
+    torch.cuda.synchronize()
+    got = touched()
+    for (t, i), v in zip(views, before):
+        t[i] = v
+    if checksum() != sums:
+        raise AssertionError("cache_commit wrote outside its worklist")
+    ref.cache_commit_ref(*tiers, *work)
+    commit_err = compare("cache_commit", got, touched())
+    commit_out = {
+        "ms": time_ms(torch, lambda: kc.cache_commit(*tiers, *work), 100),
+        "device_ms": device_kernel_ms(
+            torch, lambda: kc.cache_commit(*tiers, *work), 20,
+            "cache_commit_kernel"),
+        "plain_ms": time_ms(torch, lambda: ref.cache_commit_ref(
+            *tiers, *work), 20),
+        # no single PyTorch call writes the victims back and then installs
+        # the shadow rows in the same pass
+        "library_ms": None,
+        "max_abs_err": commit_err,
+    }
+    commit_out["bound_ms"], commit_out["bound_by"] = bound_ms(
+        n * 16 + n_wb * 2 * (d * 4 + 4) + n_in * 2 * (d * 4 + 4), 0)
+    log(f"  cache_commit entries={n} writebacks={n_wb} "
+        f"installs={n_in} from a {shadow.shape[0]}-row slab; bit checksums "
+        f"of the four tiers equal after restore: {commit_out}")
+    del capacity, cap_accum, cache, cache_accum, shadow, shadow_accum
+    return {"cache_fetch": fetch_out, "cache_fetch_chunked": chunked_out,
+            "cache_commit": commit_out}
+
+
 def plain_logits(torch, dense, dense_x, pooled):
     """Logits from the plain versions: MLPs, plain dot interaction."""
     from repro_torch.kernels import ref
@@ -700,6 +897,262 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
     return out
 
 
+def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
+    """Phase 7: TRAIN_STEPS full-width steps through
+    `build_cached_train_step` from the launcher's seed and batches. `run`
+    names the tier ("async" or "sync"), `cache_rows` (None: the plan's),
+    `fetch_chunk`, the reader hook ("plan" or "dedup") and whether the
+    k-step lookahead feeds `prefetch_rows`. `want` holds the launcher's
+    losses and the initial and final bit checksums. The last PROFILED_STEPS
+    steps run under torch.profiler. Returns the run's numbers; the launch
+    counts are reset just before the first step and hold the run's
+    launches, materialize included, when it returns."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.tiers import AsyncCachedTier
+    from repro_torch.data.pipeline import (ShardedLoader, dedup_indices_hook,
+                                           lookahead_rows, sparse_plan_hook)
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+
+    cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=run["cache_rows"],
+                                            fetch_chunk=run["fetch_chunk"])
+    tier = AsyncCachedTier(cc) if run["tier"] == "async" else cc
+    params = init_dlrm_params(cfg, cc.ebc, PARAM_SEED, dev)
+    if bit_checksum(torch, params["emb"]["mega"]) != want["init_sum"]:
+        raise AssertionError("the cached run's initial table differs from "
+                             "the launcher's")
+    opt = adagrad(0.01)
+    state = cached_dlrm_init_state(cc, opt, params)
+    dense = {"bottom": params["bottom"], "top": params["top"]}
+    cs = tier.init_state(params.pop("emb")["mega"])   # owned, no copy
+    step_fn = build_cached_train_step(cfg, tier, opt, SPARSE_LR, SPARSE_EPS)
+    hook = (sparse_plan_hook if run["hook"] == "plan"
+            else dedup_indices_hook)(cc.ebc.plan.table_offsets)
+    pipe = ShardedLoader(
+        lambda step, seed: make_dlrm_batch(cfg, TRAIN_BATCH, step, seed),
+        TRAIN_BATCH).pipeline(prefetch=2, transform=hook)
+    log(f"  tier {type(tier).__name__} cache_rows={cc.cache_rows} "
+        f"fetch_chunk={cc.fetch_chunk} hook={run['hook']} "
+        f"lookahead={run['lookahead']}")
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_s, widest = [], [], 0
+    prof, prev = None, None
+    reset_launches(KERNELS)
+    try:
+        for step in range(TRAIN_STEPS):
+            _, batch = next(pipe)
+            rows = batch["uniq_rows"]
+            if prev is not None:
+                widest = max(widest, len(np.union1d(prev, rows)))
+            prev = rows
+            last = step == TRAIN_STEPS - 1
+            kw = {"next_batch": None if last else pipe.peek(0)}
+            if run["tier"] == "async" and run["lookahead"] and not last:
+                kw["prefetch_rows"] = lookahead_rows(pipe, 2)
+            if step == TRAIN_STEPS - PROFILED_STEPS:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            dense, state, m = step_fn(dense, state, cs, batch, step, **kw)
+            losses.append(float(m["loss"]))              # syncs the step
+            host_s.append(time.perf_counter() - t0)
+            log(f"  step {step} loss {losses[-1]:.6f} host "
+                f"{host_s[-1] * 1e3:.3f} ms hit_rate "
+                f"{m['cache_hit_rate']:.4f}")
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    finally:
+        pipe.close()
+    t0 = time.perf_counter()
+    mega, accum = tier.materialize(cs)
+    sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+    materialize_ms = (time.perf_counter() - t0) * 1e3
+    st = tier.stats(cs)
+    log(f"  cache: hits={st.hits} misses={st.misses} fetches={st.fetches} "
+        f"evictions={st.evictions} writebacks={st.writebacks} "
+        f"prefetched={st.prefetched} fetch_chunks={st.fetch_chunks} "
+        f"overfetch_rows={st.overfetch_rows} hit_rate={st.hit_rate:.4f}; "
+        f"largest two-batch working set {widest} rows vs cache_rows "
+        f"{cc.cache_rows}")
+    log_peak(torch, run["name"])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{run['name']}: losses not finite: {losses}")
+    diff = max(abs(a - b) for a, b in zip(losses, want["losses"]))
+    equal = losses == want["losses"]
+    log(f"  losses vs the launcher's: bit-equal={equal} max_abs_diff="
+        f"{diff:.3e}; materialized checksums (mega, accum) {sums} vs the "
+        f"launcher's {want['final_sums']}: equal={sums == want['final_sums']}"
+        f" (materialize {materialize_ms:.3f} ms)")
+    if not equal:
+        first = next(i for i, (a, b) in enumerate(zip(losses,
+                                                      want["losses"]))
+                     if a != b)
+        log(f"  first differing step: {first}")
+        if diff > TOL_STEP:
+            raise AssertionError(f"{run['name']}: losses diverge from the "
+                                 f"launcher's: {diff}")
+    if sums != want["final_sums"] and equal:
+        raise AssertionError(f"{run['name']}: losses bit-equal but the "
+                             "materialized tables differ")
+    if run["evicts"] and not (st.evictions > 0 and st.writebacks > 0):
+        raise AssertionError(f"{run['name']}: no eviction or writeback")
+
+    events = device_events(prof)
+    dev_us = sum(t for _, t in events)
+    plain = slice(1, TRAIN_STEPS - PROFILED_STEPS)
+    out = {"losses_bit_equal": equal, "checksums_equal":
+           sums == want["final_sums"],
+           "host_ms_per_step": sum(host_s[plain]) / len(host_s[plain]) * 1e3,
+           "profiled_host_ms_per_step":
+               sum(host_s[-PROFILED_STEPS:]) / PROFILED_STEPS * 1e3,
+           "device_busy_ms_per_step": (dev_us / 1e3 / PROFILED_STEPS
+                                       if dev_us else None),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "stats": {k: getattr(st, k) for k in (
+               "hits", "misses", "fetches", "evictions", "writebacks",
+               "prefetched", "fetch_chunks", "overfetch_rows")},
+           "widest_two_batch_working_set": widest}
+    # the worklist uploads are pageable host-to-device copies, each of
+    # which waits for the work queued before it
+    h2d = [(e.count, getattr(e, "self_device_time_total", 0))
+           for e in prof.key_averages() if "Memcpy HtoD" in e.key]
+    copy_cpu = [e.self_cpu_time_total for e in prof.key_averages()
+                if e.key == "aten::copy_"]
+    out["h2d_copies_per_step"] = sum(c for c, _ in h2d) / PROFILED_STEPS
+    out["h2d_device_ms_per_step"] = (sum(t for _, t in h2d) / 1e3
+                                     / PROFILED_STEPS)
+    out["copy_host_ms_per_step"] = (sum(copy_cpu) / 1e3 / PROFILED_STEPS)
+    top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
+    out["top_device_ms_per_step"] = {
+        name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
+    log(f"  {run['name']}: steps {plain.start}-{plain.stop - 1} host "
+        f"{out['host_ms_per_step']:.3f} ms per step (profiler off); "
+        f"profiled: host {out['profiled_host_ms_per_step']:.3f} ms, device "
+        "busy " + (f"{out['device_busy_ms_per_step']:.3f} ms per step"
+                   if dev_us else "not measured (trace holds no device time)")
+        + f"; {out['h2d_copies_per_step']:.1f} host-to-device copies per "
+        f"step ({out['h2d_device_ms_per_step']:.3f} device ms, "
+        f"{out['copy_host_ms_per_step']:.3f} host ms in aten::copy_)")
+    log("  device ms per step by kernel (profiled steps): "
+        + json.dumps(out["top_device_ms_per_step"]))
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=12))
+    del cs, mega, accum, dense, state
+    return out
+
+
+def evict_search(torch, dev, cfg) -> dict:
+    """The smallest cache at which run 7b (AsyncCachedTier, fetch_chunk
+    EVICT_CHUNK, the dedup reader, the launcher's TRAIN_STEPS batches)
+    keeps its thrash guard: bisection over [EVICT_SEARCH_LO,
+    EVICT_CACHE_ROWS], assuming the guard holds at every size above one at
+    which it holds. Every trial trains on the same table, since the guard
+    reads only the batches' rows and the tier's host state."""
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.tiers import AsyncCachedTier
+    from repro_torch.data.pipeline import ShardedLoader, dedup_indices_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+
+    probe = CachedEmbeddingBagCollection.build(cfg, cache_rows=EVICT_SEARCH_LO)
+    params = init_dlrm_params(cfg, probe.ebc, PARAM_SEED, dev)
+    mega = params.pop("emb")["mega"]
+    trials = []
+
+    def holds(rows: int, schedule: str) -> bool:
+        cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=rows,
+                                                fetch_chunk=EVICT_CHUNK)
+        tier = AsyncCachedTier(cc) if schedule == "async" else cc
+        opt = adagrad(0.01)
+        state = cached_dlrm_init_state(cc, opt, params)
+        dense = {"bottom": params["bottom"], "top": params["top"]}
+        cs = tier.init_state(mega)                   # owned, no copy
+        step_fn = build_cached_train_step(cfg, tier, opt, SPARSE_LR,
+                                          SPARSE_EPS)
+        pipe = ShardedLoader(
+            lambda step, seed: make_dlrm_batch(cfg, TRAIN_BATCH, step, seed),
+            TRAIN_BATCH).pipeline(
+                prefetch=2,
+                transform=dedup_indices_hook(cc.ebc.plan.table_offsets))
+        t0 = time.perf_counter()
+        trial = {"cache_rows": rows, "schedule": schedule}
+        try:
+            for step in range(TRAIN_STEPS):
+                _, batch = next(pipe)
+                last = step == TRAIN_STEPS - 1
+                dense, state, _ = step_fn(
+                    dense, state, cs, batch, step,
+                    next_batch=None if last else pipe.peek(0))
+            torch.cuda.synchronize()
+            st = tier.stats(cs)
+            trial.update(holds=True, evictions=st.evictions,
+                         writebacks=st.writebacks)
+        except ValueError as e:       # the thrash or working-set guard
+            if "cache thrash" not in str(e) and "> cache_rows" not in str(e):
+                raise
+            trial.update(holds=False, at_step=step, error=str(e))
+        finally:
+            pipe.close()
+        trial["seconds"] = time.perf_counter() - t0
+        trials.append(trial)
+        log(f"  {json.dumps(trial)}")
+        del cs, state, dense
+        return trial["holds"]
+
+    lo, hi = EVICT_SEARCH_LO, EVICT_CACHE_ROWS
+    if not holds(hi, "async"):
+        raise AssertionError(f"the thrash guard fails at {hi} rows")
+    if holds(lo, "async"):
+        hi = lo
+    while hi - lo > EVICT_SEARCH_GRAIN:
+        mid = (lo + hi) // 2 // EVICT_SEARCH_GRAIN * EVICT_SEARCH_GRAIN
+        if holds(mid, "async"):
+            hi = mid
+        else:
+            lo = mid
+    out = {"smallest_async": hi, "sync_holds_there": holds(hi, "sync"),
+           "trials": trials}
+    del mega, params
+    return out
+
+
+def search_main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this search "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, build_all
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    log(f"gpu (nvidia-smi name, power.limit): {smi}")
+    build_all(list(KERNELS))
+    log(f"evict search: {ARCH} batch {TRAIN_BATCH}, {TRAIN_STEPS} steps, "
+        f"fetch_chunk {EVICT_CHUNK}, cache rows in [{EVICT_SEARCH_LO}, "
+        f"{EVICT_CACHE_ROWS}] by {EVICT_SEARCH_GRAIN}")
+    out = evict_search(torch, resolve_device("cuda"), get_config(ARCH))
+    print(json.dumps({"evict_search": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -731,10 +1184,12 @@ def main() -> int:
     built = build_all(list(KERNELS))
     log(f"build: {len(built)} kernels compiled in "
         f"{time.perf_counter() - t0:.1f}s ({', '.join(built) or 'cached'})")
-    for k in KERNELS:
+    for src in dict.fromkeys(k.source.stem for k in KERNELS):
+        k = next(k for k in KERNELS if k.source.stem == src)
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
+            if ("Function properties" in line or "registers" in line
+                    or "spill" in line):
+                log(f"  {src}: {line.strip()}")
 
     # 3. each kernel against its plain version at the path's shapes
     cfg = get_config(ARCH)
@@ -767,7 +1222,20 @@ def main() -> int:
     log_peak(torch, "phase 5")
     free_device(torch)
 
+    # 5b. the cached tier's training row movers at full width
+    log(f"phase 5b: cached-tier fetch, chunked fetch and commit vs plain "
+        f"(R={r_rows}, C={c_rows}, D={d}, the misses of one batch of "
+        f"{TRAIN_BATCH})")
+    numbers.update(check_cache_movers(torch, dev, cfg, cc))
+    log_peak(torch, "phase 5b")
+    free_device(torch)
+
     # 6a. train through the launcher (plan-less lookups, on-device plans)
+    from repro_torch.core.dlrm import init_dlrm_params
+    init = init_dlrm_params(cfg, ebc, train_cli.PARAM_SEED, dev)
+    init_sum = bit_checksum(torch, init["emb"]["mega"])
+    del init
+    free_device(torch)
     argv = ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch",
             str(TRAIN_BATCH), "--log-every", "1"]
     log(f"phase 6a: python -m repro_torch.launch.train {' '.join(argv)}")
@@ -779,9 +1247,13 @@ def main() -> int:
         KERNELS, "launcher training",
         ("embedding_bag", "dot_interaction", "fused_bag_backward_adagrad"))
     losses = run.losses
+    final_sums = (bit_checksum(torch, run.params["emb"]["mega"]),
+                  bit_checksum(torch, run.state["accum"]))
     del run
     log(f"launcher run: {TRAIN_STEPS} steps in "
-        f"{time.perf_counter() - t0:.2f}s incl. init; losses {losses}")
+        f"{time.perf_counter() - t0:.2f}s incl. init; losses {losses}; "
+        f"bit checksums: initial mega {init_sum}, final (mega, accum) "
+        f"{final_sums}")
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"launcher losses not finite: {losses}")
     log_peak(torch, "phase 6a")
@@ -798,16 +1270,50 @@ def main() -> int:
          "fused_bag_backward_adagrad"))
     log_peak(torch, "phase 6b")
     log(f"training numbers: {json.dumps(train_numbers)}")
+    free_device(torch)
 
-    # 7. the numbers, then the result
+    # 7. train through the cached tier: the deployment (async stream, the
+    #    plan's cache, plans and lookahead as examples/train_cached.py),
+    #    then an eviction run on each schedule with chunked transfers
+    want = {"losses": losses, "init_sum": init_sum, "final_sums": final_sums}
+    step_kernels = ("dot_interaction", "fused_bag_backward_adagrad",
+                    "cache_exchange", "cache_commit")
+    runs = [
+        {"name": "7a", "path": "train_cached_async", "tier": "async",
+         "cache_rows": None, "fetch_chunk": 1, "hook": "plan",
+         "lookahead": True, "evicts": False,
+         "needs": step_kernels + ("dedup_embedding_bag", "cache_fetch")},
+        {"name": "7b", "path": "train_cached_async_evict", "tier": "async",
+         "cache_rows": EVICT_CACHE_ROWS, "fetch_chunk": EVICT_CHUNK,
+         "hook": "dedup", "lookahead": False, "evicts": True,
+         "needs": step_kernels + ("embedding_bag", "cache_fetch",
+                                  "cache_fetch_chunked")},
+        {"name": "7c", "path": "train_cached_sync_evict", "tier": "sync",
+         "cache_rows": EVICT_CACHE_ROWS, "fetch_chunk": EVICT_CHUNK,
+         "hook": "dedup", "lookahead": False, "evicts": True,
+         "needs": step_kernels + ("embedding_bag", "cache_fetch",
+                                  "cache_fetch_chunked")},
+    ]
+    paths = {"serve": serve_launches, "train_launcher": launcher_launches,
+             "train_planned": planned_launches}
+    for r in runs:
+        log(f"phase {r['name']}: build_cached_train_step, {TRAIN_STEPS} "
+            f"steps from the launcher's seed and batches")
+        res = train_cached(torch, dev, cfg, r, want)
+        paths[r["path"]] = read_launches(KERNELS, r["path"], r["needs"])
+        log(f"{r['name']} numbers: {json.dumps(res)}")
+        free_device(torch)
+
+    # 8. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
         "dot_interaction": "src/repro/kernels/dot_interaction.py:37",
         "cache_exchange": "src/repro/kernels/cache_ops.py:114",
+        "cache_fetch": "src/repro/kernels/cache_ops.py:226",
+        "cache_fetch_chunked": "src/repro/kernels/cache_ops.py:302",
+        "cache_commit": "src/repro/kernels/cache_ops.py:401",
         "fused_bag_backward_adagrad": "src/repro/kernels/sparse_update.py:174"}
-    paths = {"serve": serve_launches, "train_launcher": launcher_launches,
-             "train_planned": planned_launches}
     rows = []
     for k in KERNELS:
         nums = numbers[k.name]
@@ -904,4 +1410,5 @@ def serve_phase(torch, cfg, cc) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(search_main() if sys.argv[1:] == ["--evict-search"]
+             else main())

@@ -7,12 +7,15 @@ sparse-plan hook) in a background thread feeding a bounded queue, and
 deterministic per-step seeds. Batches stay numpy arrays; the trainer moves
 them to its device.
 
-Ported from `repro.data.pipeline` without the pieces of later slices:
-`peek` and `lookahead_rows` (the cached tier's async fetch lookahead), the
-fault injector, and the hooks' `n_hosts` and `row_remap` arguments.
+`DataPipeline.peek` and `lookahead_rows` give the cached tier's async
+fetch stream its lookahead: the upcoming batches, seen without being
+consumed. Ported from `repro.data.pipeline` without the pieces of later
+slices: the fault injector, and the hooks' `n_hosts` and `row_remap`
+arguments.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import queue
 import threading
@@ -42,6 +45,10 @@ class DataPipeline:
     RuntimeError naming the step, within one step; a worker that dies
     without parking an error is caught by a liveness check instead of
     deadlocking the consumer; the failure is sticky until `close()`.
+
+    `peek(i)` returns the i-th upcoming batch without consuming it; peeked
+    batches wait in a consumer-side buffer and `__next__` still returns
+    them, in order.
     """
 
     _POLL_S = 0.05             # liveness-check poll while waiting on the queue
@@ -53,6 +60,7 @@ class DataPipeline:
         self._gen = gen
         self._transform = transform
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._buf: collections.deque = collections.deque()   # peeked
         self._failed: BaseException | None = None   # sticky failure
         self._stop = threading.Event()
         self._step = start_step
@@ -95,6 +103,8 @@ class DataPipeline:
                     try:
                         return self._q.get_nowait()
                     except queue.Empty:
+                        # sticky: a peek that swallows this raise must not
+                        # turn the next __next__ into a clean end
                         self._failed = RuntimeError(
                             "data pipeline worker died without reporting an "
                             "error (reader thread no longer alive)")
@@ -105,11 +115,16 @@ class DataPipeline:
         return self
 
     def __next__(self):
-        if self._stop.is_set():
-            if self._failed is not None:
-                raise self._failed          # the stream failed, not ended
-            raise StopIteration
-        step, batch = self._pull()
+        if self._buf:
+            # batches peeked before a failure was seen are still delivered,
+            # in order, before the failure raises
+            step, batch = self._buf.popleft()
+        else:
+            if self._stop.is_set():
+                if self._failed is not None:
+                    raise self._failed      # the stream failed, not ended
+                raise StopIteration
+            step, batch = self._pull()
         if isinstance(batch, _WorkerError):
             self._failed = RuntimeError(
                 f"data pipeline worker failed at step {step}")
@@ -117,9 +132,28 @@ class DataPipeline:
             raise self._failed from batch.error
         return step, batch
 
+    def peek(self, i: int = 0) -> dict[str, np.ndarray] | None:
+        """The i-th upcoming batch (0 = what the next `__next__` returns)
+        without consuming it. None once the stream has failed or closed at
+        or before that position: the error itself is raised by the next
+        `__next__`, so a prefetching trainer runs its last steps without
+        lookahead instead of failing early."""
+        if self._stop.is_set():
+            return None
+        while len(self._buf) <= i:
+            if self._buf and isinstance(self._buf[-1][1], _WorkerError):
+                return None                 # the stream is known to be dead
+            try:
+                self._buf.append(self._pull())
+            except (StopIteration, RuntimeError):
+                return None
+        batch = self._buf[i][1]
+        return None if isinstance(batch, _WorkerError) else batch
+
     def close(self):
         self._stop.set()
         self._failed = None                 # explicit shutdown is not failure
+        self._buf.clear()
         # drain so a worker blocked in put() unblocks promptly
         with contextlib.suppress(queue.Empty):
             while True:
@@ -189,16 +223,38 @@ def sparse_plan_hook(table_offsets: Sequence[int],
     build_sparse_plan_host`), attached as
     batch["plan_rows"/"plan_offsets"/"plan_bags"]. The sort runs in the
     reader thread, so batch k's plan is built while batch k-1 computes; the
-    train step then uses it twice, for the deduplicated lookup and for the
-    fused sparse backward. The reference's hook also attaches
-    batch["uniq_rows"], which only its cached tier reads; this one leaves
-    that second sort out. `capacity` trims the plan's unique arrays; a
-    batch with more unique rows fails in the reader thread."""
+    train step then uses it for the deduplicated lookup and the fused
+    sparse backward, and the cached tier for its miss planning.
+    batch["uniq_rows"] (int64), the cached tier's prefetch set, is the
+    plan's live prefix: the same sorted unique rows as
+    `dedup_indices_hook`'s, without a second sort. `capacity` trims the
+    plan's unique arrays; a batch with more unique rows fails in the
+    reader thread."""
     offsets = np.asarray(table_offsets, np.int64)
 
     def hook(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         glob = _offset_rows(batch["idx"], offsets)
-        return {**batch, "idx": glob,
-                **build_sparse_plan_host(glob, capacity=capacity).to_batch()}
+        plan = build_sparse_plan_host(glob, capacity=capacity)
+        rows = plan.unique_rows
+        return {**batch, "idx": glob, **plan.to_batch(),
+                "uniq_rows": rows[rows >= 0].astype(np.int64)}
 
     return hook
+
+
+def lookahead_rows(pipe: DataPipeline, k: int) -> np.ndarray:
+    """The union of the next `k` upcoming batches' unique row sets (the
+    hooks attach them as batch["uniq_rows"]), peeked without consuming: the
+    k-step lookahead that the async cached step's `prefetch_rows` queues
+    behind the current batch. Stops early, returning the union so far,
+    when the stream ends or fails before position k."""
+    rows = []
+    for i in range(k):
+        batch = pipe.peek(i)
+        if batch is None or "uniq_rows" not in batch:
+            break
+        rows.append(np.asarray(batch["uniq_rows"]).ravel())
+    if not rows:
+        return np.empty((0,), np.int64)
+    cat = np.concatenate(rows)
+    return np.unique(cat[cat >= 0]).astype(np.int64)

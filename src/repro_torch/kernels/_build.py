@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Each kernel is one `csrc/<name>.cu` with a plain C entry point that takes
-raw pointers, sizes and a stream, launches, and returns `cudaGetLastError()`.
-It is compiled for Hopper (`sm_90a`) into its own shared library under
-`build/kernels/` at the root of the checkout, at first use; the file name
-carries a hash of the source and flags, so an edited source rebuilds and an
-unchanged one loads as it is. `build_all` starts one nvcc per missing
-library, all at once. Nothing is compiled or loaded when a module imports
-this one: the CPU tests import every module on a machine without nvcc.
+Each kernel has a plain C entry point in a `csrc/<source>.cu` that takes
+raw pointers, sizes and a stream, launches, and returns `cudaGetLastError()`
+(one source may hold several entry points). Each source is compiled for
+Hopper (`sm_90a`) into its own shared library under `build/kernels/` at the
+root of the checkout, at first use; the file name carries a hash of the
+source and flags, so an edited source rebuilds and an unchanged one loads
+as it is. `build_all` starts one nvcc per missing library, all at once.
+Nothing is compiled or loaded when a module imports this one: the CPU
+tests import every module on a machine without nvcc.
 """
 from __future__ import annotations
 
@@ -40,14 +41,16 @@ def _nvcc() -> str:
 
 class Kernel:
     """One hand-written CUDA kernel: its source, its built library, its C
-    entry point, and the count of launches made through it.
+    entry point, and the count of launches made through it. `source` names
+    the `csrc/` file when it is not `<name>.cu`.
 
     `launches` is a plain integer that only `launch` increments; callers
     reset it to 0 to count the launches of one run."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 source: str | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
@@ -59,7 +62,7 @@ class Kernel:
         """Path of the shared library for the current source and flags."""
         h = hashlib.sha256(self.source.read_bytes()
                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{h}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h}.so"
 
     def _command(self, out: Path) -> list[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
@@ -89,30 +92,35 @@ class Kernel:
 
 
 def build_all(kernels: list[Kernel]) -> list[str]:
-    """Compile every kernel whose library is missing, one nvcc per source,
+    """Compile every source whose library is missing, one nvcc per source,
     all started together. Raises with nvcc's output if any build fails.
-    Stores each compiler log (ptxas register/spill report) on the kernel.
-    Returns the names of the kernels it compiled."""
+    Stores each compiler log (ptxas register/spill report) on every kernel
+    of the source. Returns the names of the sources it compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    by_lib: dict[Path, list[Kernel]] = {}
     for k in kernels:
-        if k.library.exists():
+        by_lib.setdefault(k.library, []).append(k)
+    procs = []
+    for lib, ks in by_lib.items():
+        if lib.exists():
             continue
-        tmp = k.library.with_suffix(f".{os.getpid()}.tmp")
-        procs.append((k, tmp, subprocess.Popen(
-            k._command(tmp), stdout=subprocess.PIPE,
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((lib, ks, tmp, subprocess.Popen(
+            ks[0]._command(tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for k, tmp, p in procs:
-        k.build_log, _ = p.communicate()
+    for lib, ks, tmp, p in procs:
+        log, _ = p.communicate()
+        for k in ks:
+            k.build_log = log
         if p.returncode != 0:
-            failed.append(f"--- {k.name} (exit {p.returncode}) ---\n"
-                          f"{k.build_log}")
+            failed.append(f"--- {ks[0].source.name} (exit {p.returncode}) "
+                          f"---\n{log}")
             continue
-        os.replace(tmp, k.library)
+        os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return [k.name for k, _, _ in procs]
+    return [ks[0].source.stem for _, ks, _, _ in procs]
 
 
 def stream_handle(device) -> int:

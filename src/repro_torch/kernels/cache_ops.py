@@ -1,12 +1,19 @@
-"""Capacity <-> cache row exchange (CUDA C++, `csrc/cache_exchange.cu`)
-and the LFU counter update of the cached embedding tier.
+"""Row movers of the cached embedding tier (CUDA C++ under `csrc/`) and
+its LFU counter update.
 
-`cache_exchange` ports the TPU kernel `repro/kernels/cache_ops.py::
-cache_exchange_kernel`. JAX donated the five tier buffers so XLA could
-alias them; the port simply mutates the torch tensors in place. The
-split async fetch/commit kernels and the chunked fetch come with the async
-cached-tier slice. `lfu_touch` is a plain torch op here as in the
-reference, which has no kernel for it.
+  cache_exchange       `csrc/cache_exchange.cu`  fused writeback + fetch,
+                       in place (TPU kernel `cache_exchange_kernel`)
+  cache_fetch          `csrc/cache_fetch.cu`     capacity rows -> a fresh
+                       shadow slab (`cache_fetch_kernel`)
+  cache_fetch_chunked  `csrc/cache_fetch.cu`     contiguous row blocks ->
+                       a fresh slab (`cache_fetch_chunked_kernel`)
+  cache_commit         `csrc/cache_commit.cu`    writeback, then shadow row
+                       -> slot, in place (`cache_commit_kernel`)
+
+The TPU kernels live in `repro/kernels/cache_ops.py`. JAX donated the tier
+buffers so XLA could alias them; the port mutates the torch tensors in
+place. Every kernel runs on PyTorch's current stream. `lfu_touch` is a
+plain torch op here as in the reference, which has no kernel for it.
 """
 from __future__ import annotations
 
@@ -21,6 +28,24 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 KERNEL = Kernel("cache_exchange", "cache_exchange_launch",
                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P])
+FETCH_KERNEL = Kernel("cache_fetch", "cache_fetch_launch",
+                      [_P, _P, _P, _P, _P, _I64, _I64, _P])
+FETCH_CHUNKED_KERNEL = Kernel("cache_fetch_chunked",
+                              "cache_fetch_chunked_launch",
+                              [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+                              source="cache_fetch")
+COMMIT_KERNEL = Kernel("cache_commit", "cache_commit_launch",
+                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _P])
+
+
+def _check_distinct_slots(op: str, slots: torch.Tensor) -> torch.Tensor:
+    """Raise if a live (>= 0) slot repeats; returns the live mask."""
+    live = slots >= 0
+    s = slots[live]
+    if torch.unique(s).numel() != s.numel():
+        raise ValueError(f"{op} worklist repeats a cache slot")
+    return live
 
 
 def check_worklist(slots: torch.Tensor, evict_rows: torch.Tensor,
@@ -28,15 +53,159 @@ def check_worklist(slots: torch.Tensor, evict_rows: torch.Tensor,
     """Raise unless the worklist meets the exchange's no-race contract:
     live slots distinct, and no row both written back and fetched. Costs a
     host sync; tests and chip_smoke.py call it, the serving path does not."""
-    live = slots >= 0
-    s = slots[live]
-    if torch.unique(s).numel() != s.numel():
-        raise ValueError("cache_exchange worklist repeats a cache slot")
+    live = _check_distinct_slots("cache_exchange", slots)
     ev = evict_rows[live & (evict_rows >= 0)]
     ft = fetch_rows[live & (fetch_rows >= 0)]
     if torch.isin(ev, ft).any():
         raise ValueError("cache_exchange worklist writes back and fetches "
                          "the same capacity row")
+
+
+def check_commit_worklist(slots: torch.Tensor, fetch_rows: torch.Tensor,
+                          src_pos: torch.Tensor | None,
+                          shadow_rows: int) -> None:
+    """Raise unless a commit worklist meets the commit's contract: live
+    slots distinct, and every installing entry's shadow row (src_pos[i],
+    default i) inside the (shadow_rows, D) slab. Costs a host sync; tests
+    and chip_smoke.py call it."""
+    live = _check_distinct_slots("cache_commit", slots)
+    pos = (torch.arange(slots.numel(), device=slots.device)
+           if src_pos is None else src_pos.long())
+    pos = pos[live & (fetch_rows >= 0)]
+    if pos.numel() and not (0 <= int(pos.min())
+                            and int(pos.max()) < shadow_rows):
+        raise ValueError(f"cache_commit reads shadow rows outside "
+                         f"[0, {shadow_rows})")
+
+
+def check_chunk_starts(chunk_starts: torch.Tensor, chunk: int,
+                       total_rows: int) -> None:
+    """Raise unless every live block [start, start + chunk) lies inside
+    the capacity tier's [0, total_rows). Costs a host sync."""
+    live = chunk_starts[chunk_starts >= 0]
+    if live.numel() and int(live.max()) + chunk > total_rows:
+        raise ValueError(f"cache_fetch_chunked block runs past row "
+                         f"{total_rows}")
+
+
+def _check_cuda(op: str, shapes: dict) -> torch.device:
+    """The wrappers' common guard: every tensor on one CUDA device, of the
+    expected shape and dtype (int32 worklists, fp32 payload), contiguous.
+    `shapes` maps name -> (tensor, shape, dtype). Returns the device."""
+    tensors = [t for t, _, _ in shapes.values()]
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{op} needs every tensor on one CUDA device")
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+    return dev
+
+
+def cache_fetch(capacity: torch.Tensor, cap_accum: torch.Tensor,
+                fetch_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """FETCH half of the split exchange: gather capacity rows `fetch_rows`
+    (N,) int32 (-1 = pad) and their accumulators into a fresh shadow slab,
+    reading the tiers only. Returns (shadow (N, D), shadow_accum (N,)); a
+    pad gives a zero row (`ref.cache_fetch_ref`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise."""
+    tensors = (capacity, cap_accum, fetch_rows)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.cache_fetch_ref(*tensors)
+    r, d = capacity.shape
+    n = fetch_rows.shape[0]
+    dev = _check_cuda("cache_fetch", {
+        "capacity": (capacity, (r, d), torch.float32),
+        "cap_accum": (cap_accum, (r,), torch.float32),
+        "fetch_rows": (fetch_rows, (n,), torch.int32)})
+    shadow = torch.empty((n, d), dtype=torch.float32, device=dev)
+    shadow_accum = torch.empty((n,), dtype=torch.float32, device=dev)
+    FETCH_KERNEL.launch(capacity.data_ptr(), cap_accum.data_ptr(),
+                        fetch_rows.data_ptr(), shadow.data_ptr(),
+                        shadow_accum.data_ptr(), n, d, stream_handle(dev))
+    return shadow, shadow_accum
+
+
+def cache_fetch_chunked(capacity: torch.Tensor, cap_accum: torch.Tensor,
+                        chunk_starts: torch.Tensor, chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-granular fetch: gather K contiguous `chunk`-row capacity
+    blocks (+ accumulators) into one fresh (K*chunk, D) slab. chunk_starts:
+    (K,) int32 block starts from `kernels.sparse_plan.coalesce_rows`,
+    clamped so start + chunk <= R (-1 = pad, a zero block). Returns
+    (shadow (K*chunk, D), shadow_accum (K*chunk,)).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise."""
+    tensors = (capacity, cap_accum, chunk_starts)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.cache_fetch_chunked_ref(*tensors, chunk)
+    r, d = capacity.shape
+    k = chunk_starts.shape[0]
+    if chunk > r:
+        raise ValueError(f"chunk {chunk} is taller than the {r}-row table")
+    dev = _check_cuda("cache_fetch_chunked", {
+        "capacity": (capacity, (r, d), torch.float32),
+        "cap_accum": (cap_accum, (r,), torch.float32),
+        "chunk_starts": (chunk_starts, (k,), torch.int32)})
+    shadow = torch.empty((k * chunk, d), dtype=torch.float32, device=dev)
+    shadow_accum = torch.empty((k * chunk,), dtype=torch.float32, device=dev)
+    FETCH_CHUNKED_KERNEL.launch(
+        capacity.data_ptr(), cap_accum.data_ptr(), chunk_starts.data_ptr(),
+        shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d,
+        stream_handle(dev))
+    return shadow, shadow_accum
+
+
+def cache_commit(capacity: torch.Tensor, cache: torch.Tensor,
+                 cap_accum: torch.Tensor, cache_accum: torch.Tensor,
+                 shadow: torch.Tensor, shadow_accum: torch.Tensor,
+                 slots: torch.Tensor, evict_rows: torch.Tensor,
+                 fetch_rows: torch.Tensor,
+                 src_pos: torch.Tensor | None = None) -> None:
+    """COMMIT half of the split exchange, IN PLACE on capacity (R, D),
+    cache (C, D), cap_accum (R,) and cache_accum (C,): dirty-victim
+    writeback (reading the post-update cache), then shadow row src_pos[i]
+    (default i) -> slot slots[i]. shadow: (M, D), shadow_accum (M,) fp32;
+    slots, evict_rows, fetch_rows, src_pos: (N,) int32, -1 = skip (fetch
+    -1 = pure writeback). See `ref.cache_commit_ref` for the contract
+    (distinct slots, src_pos inside the slab: `check_commit_worklist`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise."""
+    tiers = (capacity, cache, cap_accum, cache_accum)
+    work = (shadow, shadow_accum, slots, evict_rows, fetch_rows)
+    extra = () if src_pos is None else (src_pos,)
+    if all(t.device.type == "cpu" for t in tiers + work + extra):
+        ref.cache_commit_ref(*tiers, *work, src_pos)
+        return
+    r, d = capacity.shape
+    c, m, n = cache.shape[0], shadow.shape[0], slots.shape[0]
+    shapes = {"capacity": (capacity, (r, d), torch.float32),
+              "cache": (cache, (c, d), torch.float32),
+              "cap_accum": (cap_accum, (r,), torch.float32),
+              "cache_accum": (cache_accum, (c,), torch.float32),
+              "shadow": (shadow, (m, d), torch.float32),
+              "shadow_accum": (shadow_accum, (m,), torch.float32),
+              "slots": (slots, (n,), torch.int32),
+              "evict_rows": (evict_rows, (n,), torch.int32),
+              "fetch_rows": (fetch_rows, (n,), torch.int32)}
+    if src_pos is not None:
+        shapes["src_pos"] = (src_pos, (n,), torch.int32)
+    dev = _check_cuda("cache_commit", shapes)
+    COMMIT_KERNEL.launch(
+        *(t.data_ptr() for t in tiers + work),
+        None if src_pos is None else src_pos.data_ptr(), n, d,
+        stream_handle(dev))
 
 
 def cache_exchange(capacity: torch.Tensor, cache: torch.Tensor,
@@ -57,30 +226,18 @@ def cache_exchange(capacity: torch.Tensor, cache: torch.Tensor,
     if all(t.device.type == "cpu" for t in tiers + work):
         ref.cache_exchange_ref(*tiers, *work)
         return
-    dev = capacity.device
-    if dev.type != "cuda" or any(t.device != dev for t in tiers + work):
-        raise ValueError("cache_exchange needs every tensor on one CUDA "
-                         "device")
     r, d = capacity.shape
-    c = cache.shape[0]
-    n = slots.shape[0]
-    shapes = {"capacity": (capacity, (r, d)), "cache": (cache, (c, d)),
-              "cap_accum": (cap_accum, (r,)),
-              "cache_accum": (cache_accum, (c,)), "freq": (freq, (c,)),
-              "evict_rows": (evict_rows, (n,)),
-              "fetch_rows": (fetch_rows, (n,)), "counts": (counts, (n,)),
-              "slots": (slots, (n,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"cache_exchange: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        want = torch.int32 if name in ("slots", "evict_rows",
-                                       "fetch_rows") else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"cache_exchange: {name} must be {want}, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"cache_exchange: {name} must be contiguous")
+    c, n = cache.shape[0], slots.shape[0]
+    dev = _check_cuda("cache_exchange", {
+        "capacity": (capacity, (r, d), torch.float32),
+        "cache": (cache, (c, d), torch.float32),
+        "cap_accum": (cap_accum, (r,), torch.float32),
+        "cache_accum": (cache_accum, (c,), torch.float32),
+        "freq": (freq, (c,), torch.float32),
+        "slots": (slots, (n,), torch.int32),
+        "evict_rows": (evict_rows, (n,), torch.int32),
+        "fetch_rows": (fetch_rows, (n,), torch.int32),
+        "counts": (counts, (n,), torch.float32)})
     KERNEL.launch(*(t.data_ptr() for t in tiers + work), n, d,
                   stream_handle(dev))
 

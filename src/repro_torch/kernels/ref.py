@@ -144,6 +144,67 @@ def cache_exchange_ref(capacity: torch.Tensor, cache: torch.Tensor,
     freq[s_ft] = counts[ft].to(freq.dtype)
 
 
+def cache_fetch_ref(capacity: torch.Tensor, cap_accum: torch.Tensor,
+                    fetch_rows: torch.Tensor):
+    """FETCH half of the split exchange: gather capacity rows `fetch_rows`
+    (N,) and their accumulators into a fresh shadow slab, reading the tiers
+    only. A -1 entry gives a zero row and a zero accumulator. Returns
+    (shadow (N, D), shadow_accum (N,))."""
+    valid = fetch_rows >= 0
+    take = fetch_rows.clamp(min=0).long()
+    shadow = capacity.index_select(0, take)
+    shadow_accum = cap_accum.index_select(0, take)
+    shadow.masked_fill_(~valid[:, None], 0)
+    shadow_accum.masked_fill_(~valid, 0)
+    return shadow, shadow_accum
+
+
+def cache_fetch_chunked_ref(capacity: torch.Tensor, cap_accum: torch.Tensor,
+                            chunk_starts: torch.Tensor, chunk: int):
+    """Chunk-granular fetch: block k of the (K*chunk, D) slab is capacity
+    rows [chunk_starts[k], chunk_starts[k] + chunk) (starts clamped by the
+    caller so the block ends inside the table; `kernels.sparse_plan.
+    coalesce_rows`), and a -1 start gives a zero block. Row i of block k is
+    slab row k*chunk + i. Returns (shadow (K*chunk, D),
+    shadow_accum (K*chunk,))."""
+    valid = chunk_starts >= 0
+    rows = (chunk_starts.clamp(min=0).long()[:, None]
+            + torch.arange(chunk, device=chunk_starts.device)[None, :])
+    shadow, shadow_accum = cache_fetch_ref(
+        capacity, cap_accum, rows.reshape(-1))
+    keep = valid.repeat_interleave(chunk)
+    shadow.masked_fill_(~keep[:, None], 0)
+    shadow_accum.masked_fill_(~keep, 0)
+    return shadow, shadow_accum
+
+
+def cache_commit_ref(capacity: torch.Tensor, cache: torch.Tensor,
+                     cap_accum: torch.Tensor, cache_accum: torch.Tensor,
+                     shadow: torch.Tensor, shadow_accum: torch.Tensor,
+                     slots: torch.Tensor, evict_rows: torch.Tensor,
+                     fetch_rows: torch.Tensor,
+                     src_pos: torch.Tensor | None = None) -> None:
+    """COMMIT half of the split exchange, IN PLACE on the four tier tensors
+    (the reference returns new arrays). Entry i with slots[i] >= 0 first
+    writes the slot and its accumulator back to capacity row evict_rows[i]
+    if that is >= 0, then, if fetch_rows[i] >= 0, installs shadow row
+    src_pos[i] (default i) and its accumulator into the slot; fetch -1 is a
+    pure writeback that keeps the slot. Slots must be distinct."""
+    live = slots >= 0
+    wb = live & (evict_rows >= 0)
+    s_wb = slots[wb].long()
+    capacity.index_copy_(0, evict_rows[wb].long(),
+                         cache.index_select(0, s_wb))
+    cap_accum.index_copy_(0, evict_rows[wb].long(),
+                          cache_accum.index_select(0, s_wb))
+    if src_pos is None:
+        src_pos = torch.arange(slots.numel(), device=slots.device)
+    ft = live & (fetch_rows >= 0)
+    s_ft, p_ft = slots[ft].long(), src_pos[ft].long()
+    cache.index_copy_(0, s_ft, shadow.index_select(0, p_ft))
+    cache_accum.index_copy_(0, s_ft, shadow_accum.index_select(0, p_ft))
+
+
 def lfu_touch_ref(freq: torch.Tensor, slots: torch.Tensor,
                   counts: torch.Tensor, decay: float) -> torch.Tensor:
     """Decay-then-bump LFU update, IN PLACE: freq *= decay, then

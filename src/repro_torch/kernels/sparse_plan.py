@@ -22,9 +22,11 @@ tests/test_torch_train.py):
     (`data.pipeline.sparse_plan_hook`), so batch k+1 is planned while batch
     k computes.
 
-The reference's per-host and per-owner splits (`split_*`), `coalesce_rows`
-and `host_plans_from_batch` serve the cached and multi-device tiers and
-come with those slices.
+The cached tier's host planning reads a hook's plan as numpy
+(`host_plan_from_batch`) and groups its sorted miss rows into contiguous
+fetch blocks (`coalesce_rows`). The reference's per-host and per-owner
+splits (`split_*`) and `host_plans_from_batch` serve the multi-device tiers
+and come with that slice.
 """
 from __future__ import annotations
 
@@ -61,6 +63,48 @@ def plan_from_batch(batch: dict) -> SparsePlan | None:
         return None
     return SparsePlan(*(torch.as_tensor(batch[k], dtype=torch.int32)
                         for k in ("plan_rows", "plan_offsets", "plan_bags")))
+
+
+def host_plan_from_batch(batch: dict) -> SparsePlan | None:
+    """numpy view of a hook-attached plan (or None), with no device
+    transfer: what the cached tier's host-side miss planning consumes."""
+    if "plan_rows" not in batch:
+        return None
+    return SparsePlan(*(np.asarray(batch[k]) for k in
+                        ("plan_rows", "plan_offsets", "plan_bags")))
+
+
+def coalesce_rows(rows: np.ndarray, chunk: int, total_rows: int,
+                  min_fill: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Greedily cover an ASCENDING row list with contiguous `chunk`-row
+    blocks, for the chunk-granular fetch (`cache_ops.cache_fetch_chunked`).
+
+    A block opens at min(row, total_rows - chunk) whenever the current one
+    cannot hold the next row, so it may cover rows below its first member
+    (read, never installed) but never past the table. Blocks holding fewer
+    than `min_fill` member rows are dropped and their rows get pos = -1,
+    for the caller's per-row fetch. Returns (starts (K,) int32, pos (N,)
+    int32): pos[i] = k*chunk + (rows[i] - starts[k]), row i's place in the
+    (K*chunk, D) slab, or -1. With chunk <= 1 every row is its own block."""
+    rows = np.asarray(rows, np.int64)
+    n = rows.shape[0]
+    if chunk <= 1 or n == 0:
+        return rows.astype(np.int32), np.arange(n, dtype=np.int32)
+    chunk = min(chunk, total_rows)
+    starts = []
+    pos = np.empty((n,), np.int32)
+    i = 0
+    while i < n:
+        start = min(int(rows[i]), total_rows - chunk)
+        j = int(np.searchsorted(rows, start + chunk, side="left"))
+        if j - i >= min_fill:
+            pos[i:j] = len(starts) * chunk + (rows[i:j] - start).astype(
+                np.int32)
+            starts.append(start)
+        else:
+            pos[i:j] = -1
+        i = j
+    return np.asarray(starts, np.int32), pos
 
 
 def _lookups_per_bag(shape, lookups_per_bag: int | None) -> int:

@@ -1,14 +1,20 @@
-"""The DLRM train step (the paper's split, Fig. 4): dense parameters with a
-dense optimizer, the embedding mega table with row-wise AdaGrad applied by
-the fused sparse backward to the rows the batch touched — no dense
-gradient of the table is ever built.
+"""The DLRM train steps (the paper's split, Fig. 4): dense parameters with
+a dense optimizer, the embedding rows with row-wise AdaGrad applied by the
+fused sparse backward to the rows the batch touched — no dense gradient of
+the table is ever built.
+
+  build_dlrm_train_step    the whole mega table on the device;
+  build_cached_train_step  a hot-row cache over the capacity tier
+                           (`core.cache`): the sync schedule for a bare
+                           `CachedEmbeddingBagCollection`, the overlapped
+                           one for `core.tiers.AsyncCachedTier`.
 
 The reference's `sparse_apply="dense"` mode scatter-adds into a
 (total_rows + 1, d) fp32 buffer: 43.6 GB at full dlrm-m1 width beside a
 43.6 GB table, which does not fit one 80 GB card. Both modes compute the
 same update (the reference pins them within 1e-6), so the port trains with
-`"sparse"`; `"dense"` is queued for a later slice, as are the cached, LM
-and table-wise steps.
+`"sparse"`; `"dense"` is queued for a later slice, as are the multi-host,
+LM and table-wise steps.
 """
 from __future__ import annotations
 
@@ -17,10 +23,13 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.configs.base import DLRMConfig
+from repro_torch.core.cache import CachedEmbeddingBagCollection
 from repro_torch.core.dlrm import dlrm_grads
 from repro_torch.core.embedding import EmbeddingBagCollection
+from repro_torch.core.tiers import AsyncCachedTier
 from repro_torch.kernels import ops
-from repro_torch.kernels.sparse_plan import plan_from_batch
+from repro_torch.kernels.sparse_plan import (host_plan_from_batch,
+                                             plan_from_batch)
 from repro_torch.nn.params import init_params
 from repro_torch.optim.optimizers import Optimizer
 
@@ -72,3 +81,154 @@ def dlrm_init_state(ebc: EmbeddingBagCollection, dense_opt: Optimizer,
     return {"dense": dense_opt.init({"bottom": params["bottom"],
                                      "top": params["top"]}),
             "accum": init_params(ebc.optimizer_specs(), 0, dev)["accum"]}
+
+# ---------------------------------------------------------------------------
+# DLRM with the cached embedding tier (core/cache.py)
+# ---------------------------------------------------------------------------
+
+
+def _build_cached_inner(cfg: DLRMConfig, cc: CachedEmbeddingBagCollection,
+                        dense_opt: Optimizer, sparse_lr: float,
+                        sparse_eps: float) -> Callable:
+    """Device half shared by the sync and async cached steps: the uncached
+    step (`build_dlrm_train_step`) with the cache slab as its table, so the
+    fused sparse backward updates the slab and its accumulators IN PLACE. A
+    slot-relabelled plan in the batch (`plan_to_slots`) drives both the
+    deduplicated slab lookup and the update. Returns inner(dense_params,
+    dense_state, cache, cache_accum, batch, step_idx) -> (dense_params,
+    dense_state, cache, cache_accum, metrics)."""
+    step = build_dlrm_train_step(cfg, cc.ebc, dense_opt, sparse_lr,
+                                 sparse_eps)
+
+    def inner(dense_params, dense_state, cache, cache_accum, batch,
+              step_idx):
+        params, state, metrics = step(
+            {**dense_params, "emb": {"mega": cache}},
+            {"dense": dense_state, "accum": cache_accum}, batch, step_idx)
+        mega = params.pop("emb")["mega"]
+        return params, state["dense"], mega, state["accum"], metrics
+
+    return inner
+
+
+def _device_batch(tier, state, batch: dict, local) -> dict:
+    """The batch for the device half: every array on the cache's device,
+    idx replaced by the slot-space remap, a hook plan relabelled onto the
+    slab, the host-only prefetch set dropped."""
+    dev = state.cache.device
+    out = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+           if k not in ("idx", "uniq_rows") and not k.startswith("plan_")}
+    out["idx"] = torch.as_tensor(local).to(dev)
+    if "plan_rows" in batch:
+        # the batch's rows are all resident after take, so a host relabel
+        # (row -> slot) carries the reader thread's plan onto the slab
+        out.update({k: torch.as_tensor(v).to(dev) for k, v in
+                    tier.plan_to_slots(state, batch).items()})
+    return out
+
+
+def _build_sync_cached_step(cfg: DLRMConfig, cc: CachedEmbeddingBagCollection,
+                            dense_opt: Optimizer, sparse_lr: float,
+                            sparse_eps: float) -> Callable:
+    """Sync schedule: `cc.take` makes the batch's rows resident (fetching
+    the misses inline) and remaps to slot space; the device half then runs
+    against the cache. Updated rows reach the capacity tier on eviction or
+    flush. A `next_batch` carrying "uniq_rows" (the hooks attach it) is
+    prefetched after the device half is queued.
+
+    Returns step(params, state, cache_state, batch, step_idx,
+    next_batch=None) -> (params, state, metrics); params = {"bottom",
+    "top"} (the embedding lives in cache_state), state = {"dense": ...},
+    batch holds host arrays with OFFSET global rows in "idx"."""
+    inner = _build_cached_inner(cfg, cc, dense_opt, sparse_lr, sparse_eps)
+
+    def step(params, state, cache_state, batch, step_idx, next_batch=None):
+        local = cc.take(cache_state, batch["idx"], train=True,
+                        plan=host_plan_from_batch(batch))
+        new_dense, new_dense_state, new_cache, new_accum, metrics = inner(
+            params, state["dense"], cache_state.cache,
+            cache_state.cache_accum,
+            _device_batch(cc, cache_state, batch, local), step_idx)
+        cc.mark_updated(cache_state, new_cache, new_accum)
+        if next_batch is not None and "uniq_rows" in next_batch:
+            cc.prefetch_rows(cache_state, next_batch["uniq_rows"])
+        metrics = {**metrics, **cc.stats(cache_state).snapshot()}
+        return new_dense, {"dense": new_dense_state}, metrics
+
+    return step
+
+
+def _build_async_cached_step(cfg: DLRMConfig, tier: AsyncCachedTier,
+                             dense_opt: Optimizer, sparse_lr: float,
+                             sparse_eps: float, strict_sync: bool
+                             ) -> Callable:
+    """Overlapped schedule: batch k+1's fetch is queued while batch k's
+    step runs. Per call: `tier.take` pops batch k's staged plan and commits
+    every pending fetch (after batch k-1's update, so dirty writebacks
+    carry post-update rows); the device half runs; `tier.stage(next_batch)`
+    plans batch k+1 and queues its shadow fetch; `prefetch_rows` (a k-step
+    lookahead, `data.pipeline.lookahead_rows`) is queued best-effort
+    behind it. `strict_sync=True` plans and commits each batch inside its
+    own step: the same results bit for bit, without the overlap.
+
+    Returns step(params, state, astate, batch, step_idx, next_batch=None,
+    prefetch_rows=None) -> (params, state, metrics); astate from
+    `tier.init_state`."""
+    inner = _build_cached_inner(cfg, tier.cc, dense_opt, sparse_lr,
+                                sparse_eps)
+
+    def step(params, state, astate, batch, step_idx, next_batch=None,
+             prefetch_rows=None):
+        local = tier.take(astate, batch["idx"], train=True,
+                          plan=host_plan_from_batch(batch))
+        new_dense, new_dense_state, new_cache, new_accum, metrics = inner(
+            params, state["dense"], astate.cache, astate.cache_accum,
+            _device_batch(tier, astate, batch, local), step_idx)
+        tier.mark_updated(astate, new_cache, new_accum)
+        # stats before staging batch k+1, so step k's metrics cover only
+        # batches that ran, in both schedules
+        metrics = {**metrics, **tier.stats(astate).snapshot()}
+        if not strict_sync and next_batch is not None:
+            tier.stage(astate, next_batch["idx"], train=True,
+                       plan=host_plan_from_batch(next_batch))
+        if not strict_sync and prefetch_rows is not None:
+            tier.prefetch_rows(astate, prefetch_rows)
+        return new_dense, {"dense": new_dense_state}, metrics
+
+    return step
+
+
+def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
+                            sparse_lr: float = 0.05,
+                            sparse_eps: float = 1e-8,
+                            strict_sync: bool = False) -> Callable:
+    """One train-step factory for the cached tiers, dispatching on the
+    tier's type:
+
+      `CachedEmbeddingBagCollection`  sync schedule (take admits the batch
+                                      inline; next_batch rows prefetch
+                                      behind the step);
+      `AsyncCachedTier(cc)`           overlapped schedule (batch k+1
+                                      stages while batch k computes;
+                                      `strict_sync=True` falls back, bit
+                                      for bit).
+
+    The transfer granularity is the collection's own `fetch_chunk`. See
+    the two builders for the step signatures. Any other tier raises
+    TypeError."""
+    if isinstance(tier, AsyncCachedTier):
+        return _build_async_cached_step(cfg, tier, dense_opt, sparse_lr,
+                                        sparse_eps, strict_sync)
+    if isinstance(tier, CachedEmbeddingBagCollection):
+        return _build_sync_cached_step(cfg, tier, dense_opt, sparse_lr,
+                                       sparse_eps)
+    raise TypeError(
+        f"build_cached_train_step: unsupported tier {type(tier).__name__}; "
+        "expected a CachedEmbeddingBagCollection or an AsyncCachedTier")
+
+
+def cached_dlrm_init_state(cc, dense_opt: Optimizer, params: dict) -> dict:
+    """Dense-only optimizer state; the row-wise accumulator lives in the
+    cached tier's state (cap_accum / cache_accum)."""
+    return {"dense": dense_opt.init({"bottom": params["bottom"],
+                                     "top": params["top"]})}

@@ -8,9 +8,10 @@ run them with
 (`--noconftest` because the suite's conftest imports jax, which the GPU
 machine does not have; this file imports only torch, numpy and the port).
 Tolerances: embedding_bag and dedup_embedding_bag walk each bag in the
-plain version's order and cache_exchange only copies, so all three must be
-bit-equal; dot_interaction's fp32 FMA chain differs from cuBLAS's order, so
-it (and its gradient) gets rtol/atol 1e-5; fused_bag_backward_adagrad sums
+plain version's order and the cached tier's row movers (cache_exchange,
+cache_fetch, cache_fetch_chunked, cache_commit) only copy, so all of them
+must be bit-equal; dot_interaction's fp32 FMA chain differs from cuBLAS's
+order, so it (and its gradient) gets rtol/atol 1e-5; fused_bag_backward_adagrad sums
 bags in the plain order but reduces mean(g^2) by warp shuffles, so touched
 rows get rtol/atol 1e-6 and untouched rows must not move.
 """
@@ -261,6 +262,184 @@ def test_fused_backward_opts_in_to_shared_memory_past_48kb(dev):
         pooled.to(dev), 0.05, 1e-8)
     torch.testing.assert_close(got_t.cpu(), want_t, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got_a.cpu(), want_a, rtol=1e-6, atol=1e-6)
+
+
+def _mover_inputs(dev, r, c, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((r, d), generator=g, device=dev),
+            torch.randn((c, d), generator=g, device=dev),
+            torch.rand((r,), generator=g, device=dev),
+            torch.rand((c,), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("d", [64, 6, 5, 128])
+def test_cache_fetch_kernel_bit_equal_to_plain(dev, d):
+    capacity, _, cap_accum, _ = _mover_inputs(dev, 300, 1, d, d)
+    rows = torch.tensor([5, -1, 299, 0, -1, 17, 5], dtype=torch.int32,
+                        device=dev)
+    before = cache_ops.FETCH_KERNEL.launches
+    got = cache_ops.cache_fetch(capacity, cap_accum, rows)
+    assert cache_ops.FETCH_KERNEL.launches == before + 1
+    want = ref.cache_fetch_ref(capacity, cap_accum, rows)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not got[0][1].any() and float(got[1][4]) == 0.0
+
+
+@pytest.mark.parametrize("chunk,d", [(1, 64), (8, 64), (16, 5), (3, 6)])
+def test_cache_fetch_chunked_kernel_bit_equal_to_plain(dev, chunk, d):
+    r = 200
+    capacity, _, cap_accum, _ = _mover_inputs(dev, r, 1, d, chunk)
+    starts = torch.tensor([0, -1, r - chunk, 41], dtype=torch.int32,
+                          device=dev)
+    cache_ops.check_chunk_starts(starts, chunk, r)
+    before = cache_ops.FETCH_CHUNKED_KERNEL.launches
+    got = cache_ops.cache_fetch_chunked(capacity, cap_accum, starts, chunk)
+    assert cache_ops.FETCH_CHUNKED_KERNEL.launches == before + 1
+    want = ref.cache_fetch_chunked_ref(capacity, cap_accum, starts, chunk)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0][2 * chunk:3 * chunk], capacity[r - chunk:])
+
+
+@pytest.mark.parametrize("remap", [False, True])
+@pytest.mark.parametrize("d", [64, 5])
+def test_cache_commit_kernel_bit_equal_to_plain(dev, d, remap):
+    tiers = _mover_inputs(dev, 300, 40, d, d + remap)
+    g = torch.Generator(device=dev).manual_seed(9)
+    m = 64 if remap else 12
+    shadow = torch.randn((m, d), generator=g, device=dev)
+    shadow_accum = torch.rand((m,), generator=g, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = torch.tensor([0, 3, 7, -1, 9, 39, 12, 13, 20, 21, 22, 30], **i32)
+    evict = torch.tensor([100, -1, 102, 5, -1, 299, -1, 7, 8, -1, 9, 10],
+                         **i32)
+    fetch = torch.tensor([200, 201, -1, -1, 202, 203, 204, 205, -1, 206,
+                          207, 208], **i32)
+    src_pos = torch.randperm(m, generator=g, device=dev)[:12].int() \
+        if remap else None
+    cache_ops.check_commit_worklist(slots, fetch, src_pos, m)
+    got = [t.clone() for t in tiers]
+    before = cache_ops.COMMIT_KERNEL.launches
+    cache_ops.cache_commit(*got, shadow, shadow_accum, slots, evict, fetch,
+                           src_pos)
+    assert cache_ops.COMMIT_KERNEL.launches == before + 1
+    want = [t.clone() for t in tiers]
+    ref.cache_commit_ref(*want, shadow, shadow_accum, slots, evict, fetch,
+                         src_pos)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_row_movers_reach_rows_past_2_pow_24(dev):
+    """A capacity tier of 2^24 + 1024 rows at D=64 (4.3 GB): row indices
+    past 2^24 and byte offsets past 2^32 in all three movers."""
+    r, d = (1 << 24) + 1024, 64
+    capacity, cache, cap_accum, cache_accum = _mover_inputs(dev, r, 64, d, 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = torch.tensor([r - 1, -1, 1 << 24, 3], **i32)
+    for a, b in zip(cache_ops.cache_fetch(capacity, cap_accum, rows),
+                    ref.cache_fetch_ref(capacity, cap_accum, rows)):
+        assert torch.equal(a, b)
+    starts = torch.tensor([r - 8, (1 << 24) - 3, -1], **i32)
+    shadow, shadow_accum = cache_ops.cache_fetch_chunked(
+        capacity, cap_accum, starts, 8)
+    want = ref.cache_fetch_chunked_ref(capacity, cap_accum, starts, 8)
+    assert torch.equal(shadow, want[0]) and torch.equal(shadow_accum, want[1])
+    slots = torch.tensor([0, 5, 63], **i32)
+    evict = torch.tensor([r - 2, (1 << 24) + 7, -1], **i32)
+    fetch = torch.tensor([r - 1, 11, (1 << 24) - 1], **i32)
+    src_pos = torch.tensor([7, 3, 5], **i32)
+    touched = torch.tensor([r - 2, (1 << 24) + 7], device=dev)
+    saved = capacity[touched].clone(), cap_accum[touched].clone()
+    got_cache, got_acc = cache.clone(), cache_accum.clone()
+    cache_ops.cache_commit(capacity, got_cache, cap_accum, got_acc, shadow,
+                           shadow_accum, slots, evict, fetch, src_pos)
+    got_rows = capacity[touched].clone(), cap_accum[touched].clone()
+    capacity[touched], cap_accum[touched] = saved
+    ref.cache_commit_ref(capacity, cache, cap_accum, cache_accum, shadow,
+                         shadow_accum, slots, evict, fetch, src_pos)
+    assert torch.equal(got_cache, cache) and torch.equal(got_acc, cache_accum)
+    assert torch.equal(got_rows[0], capacity[touched])
+    assert torch.equal(got_rows[1], cap_accum[touched])
+
+
+def test_row_mover_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    cap, acc = torch.zeros((8, 4), device=dev), torch.zeros(8, device=dev)
+    rows = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        cache_ops.cache_fetch(cap, acc, rows.long())
+    with pytest.raises(ValueError):
+        cache_ops.cache_fetch(cap.t(), acc, rows)          # not contiguous
+    with pytest.raises(ValueError):
+        cache_ops.cache_fetch_chunked(cap, acc, rows, 9)   # taller than R
+    with pytest.raises(ValueError):
+        cache_ops.cache_commit(cap, cap[:2], acc, acc[:2], cap[:1], acc[:1],
+                               rows, rows, rows, rows[:1])
+
+
+@pytest.mark.parametrize("schedule,fetch_chunk", [("sync", 1), ("sync", 4),
+                                                  ("async", 1),
+                                                  ("async", 4)])
+def test_cached_train_step_on_the_card_matches_the_cpu(dev, schedule,
+                                                       fetch_chunk):
+    """Four cached steps of the smoke dlrm-m1 through a 200-slot cache on
+    the card and on the CPU: the host state exactly equal, floats within
+    rtol/atol 1e-5 (cuBLAS sums in other orders); every row mover of the
+    schedule launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.tiers import AsyncCachedTier
+    from repro_torch.data.pipeline import sparse_plan_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=200,
+                                            fetch_chunk=fetch_chunk)
+    hook = sparse_plan_hook(cc.ebc.plan.table_offsets)
+    batches = [hook(make_dlrm_batch(cfg, 8, step=t, zipf_alpha=1.05))
+               for t in range(5)]
+    for k in KERNELS:
+        k.launches = 0
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        params = tree_map(lambda x: x.to(d), init_dlrm_params(
+            cfg, cc.ebc, 0, torch.device("cpu")))
+        tier = cc if schedule == "sync" else AsyncCachedTier(cc)
+        cs = tier.init_state(params["emb"]["mega"])
+        opt = adagrad(0.01)
+        state = cached_dlrm_init_state(cc, opt, params)
+        dense = {"bottom": params["bottom"], "top": params["top"]}
+        step = build_cached_train_step(cfg, tier, opt)
+        losses = []
+        for t in range(4):
+            dense, state, m = step(dense, state, cs, batches[t], t,
+                                   next_batch=batches[t + 1])
+            losses.append(float(m["loss"]))
+        mega, accum = tier.materialize(cs)
+        runs[d.type] = (losses, mega.cpu(), accum.cpu(),
+                        dense["top"][0]["w"].cpu(), cs)
+    cpu, card = runs["cpu"], runs["cuda"]
+    np.testing.assert_array_equal(card[4].slot_row, cpu[4].slot_row)
+    assert card[4].stats == cpu[4].stats and cpu[4].stats.evictions > 0
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(card[1:4], cpu[1:4]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # every schedule flushes through the exchange; the async one fetches
+    # and commits, and fetch_chunk > 1 fetches blocks and commits
+    movers = [cache_ops.KERNEL]
+    if schedule == "async" or fetch_chunk > 1:
+        movers.append(cache_ops.COMMIT_KERNEL)
+    movers.append(cache_ops.FETCH_CHUNKED_KERNEL if fetch_chunk > 1
+                  else cache_ops.FETCH_KERNEL if schedule == "async"
+                  else cache_ops.KERNEL)
+    assert all(k.launches > 0 for k in movers), \
+        {k.name: k.launches for k in KERNELS}
 
 
 def test_every_kernel_builds_for_hopper(dev):

@@ -200,7 +200,24 @@ def test_serve_engine_rejects_never_servable_requests(setup):
         eng.submit(ServeRequest(1, dense, idx))
 
 
-def test_fetch_chunk_above_one_names_the_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        CachedEmbeddingBagCollection.build(get_smoke_config("dlrm-m1"),
-                                           fetch_chunk=8)
+def test_fetch_chunk_above_one_names_the_later_slice(setup):
+    """The chunked transfers this test once found missing are ported: a
+    fetch_chunk=8 tier serves the same slot maps and bits as the
+    reference's, and the same probabilities as fetch_chunk=1."""
+    cfg, jcfg, ebc, jparams, host = setup
+    chunked = DLRMEngine(params_from_jax(host, device="cpu"), cfg,
+                         CachedEmbeddingBagCollection.build(
+                             cfg, cache_rows=160, fetch_chunk=8))
+    rowwise = DLRMEngine(params_from_jax(host, device="cpu"), cfg,
+                         CachedEmbeddingBagCollection.build(
+                             cfg, cache_rows=160))
+    jeng = JEngine(jparams, jcfg, JCC.build(jcfg, cache_rows=160,
+                                            fetch_chunk=8))
+    for step in range(6):
+        dense, idx = _request_arrays(cfg, ebc, step)
+        batch = {"dense": dense, "idx": idx}
+        probs = chunked.predict(batch)
+        np.testing.assert_array_equal(probs, rowwise.predict(batch))
+        np.testing.assert_allclose(probs, jeng.predict(batch), **PROB_TOL)
+        _assert_same_tier(chunked.state, jeng.state)
+    assert chunked.cache_stats.fetch_chunks > 0

@@ -589,9 +589,7 @@ def test_sparse_plan_hook_matches_reference_hook():
     raw = make_dlrm_batch(cfg, 8, step=2)
     want = jpipeline.sparse_plan_hook(ebc.plan.table_offsets)(dict(raw))
     got = pipeline.sparse_plan_hook(ebc.plan.table_offsets)(dict(raw))
-    # the port's hook leaves out "uniq_rows", which only the reference's
-    # cached tier reads
-    assert set(got) == set(want) - {"uniq_rows"}
+    assert set(got) == set(want)
     for k in got:
         assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
         np.testing.assert_array_equal(got[k], np.asarray(want[k]))
