@@ -6,7 +6,7 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the eight CUDA kernels of the serving and training paths (seven
+2. build the ten CUDA kernels of the serving and training paths (eight
    sources) with nvcc (sm_90a), one process per source, all at once;
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
@@ -27,6 +27,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    the worklist of one batch's misses (pads, writebacks, pure writebacks,
    a chunk at the table's end, installs remapped out of a chunk slab), and
    time them;
+5c. hold the segmented fused backward and the legacy row-wise AdaGrad
+   against their plain versions on the full-width 8-owner table_wise mega
+   table (205,375,296 rows, 52.6 GB) at one batch of 512 split by owner
+   (rows above 2**24, an empty segment, pads, the table's last row,
+   untouched rows by bit checksums), the segmented kernel bit-equal to the
+   one-plan kernel (8 segments, one segment, the reference's seg_cap = U)
+   and the two-pass pipeline bit-equal to the fused update, and time them;
 6. train full-width dlrm-m1 at a batch of 512: 8 steps through
    `repro_torch.launch.train` (no plans), keeping the bit checksums of the
    initial and final table and accumulator, then 8 steps from the same
@@ -40,7 +47,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    (7c) the sync collection over a small cache with chunked transfers;
    each must evict where asked, give the launcher's losses and, once
    materialized, its table and accumulator checksums;
-8. print one JSON line of per-kernel numbers, then the result line.
+8. train full-width dlrm-m1 under the 8-owner table_wise placement: (8a)
+   TRAIN_STEPS steps through `build_tablewise_train_step` with the plan
+   hook's batches and the next batch staged, one segmented update a step
+   and the step's exchange metrics equal to the analytic traffic model,
+   profiled; (8b) the oracle,
+   `build_dlrm_train_step` on the same layout, seed and batches; 8a's
+   losses and final table and accumulator checksums must equal 8b's bit
+   for bit;
+9. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -86,6 +101,8 @@ TOL_STEP = 1e-5       # abs + rel: one train step, kernels vs plain on card
 #: EVICT_SEARCH_GRAIN rows (87,040 fails at step 2)
 EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
+#: the table-wise runs: the 8 owners of a Zion / Big Basin box
+TABLEWISE_OWNERS = 8
 
 
 def log(msg: str) -> None:
@@ -696,6 +713,211 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
             "cache_commit": commit_out}
 
 
+def tablewise_batch(cfg, ebc, step: int, plant: bool):
+    """The training batch of `step` (numpy) under the table-wise layout,
+    idx offset to mega rows. `plant` adds the corner cases: an all-pad bag,
+    the table's last row repeated inside one bag and shared with another,
+    and owner 0's features left empty, so its segment has no rows."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_dlrm_batch
+    idx = ebc.offset_indices(make_dlrm_batch(cfg, TRAIN_BATCH, step)["idx"])
+    if plant:
+        plan = ebc.plan
+        owner = np.asarray(plan.table_offsets) // plan.shard_rows
+        idx[:, owner == 0, :] = -1               # an empty segment
+        top = plan.total_rows - 1
+        idx[0, -1, :] = -1                       # an all-pad bag
+        idx[1, -1, :6] = top                     # repeated inside one bag
+        idx[3, -2, 0] = top                      # ... and shared with another
+    return idx
+
+
+def check_tablewise_kernels(torch, dev, cfg, ebc) -> dict:
+    """Phase 5c: the segmented fused backward and the legacy row-wise
+    AdaGrad on the full-width table-wise mega table, each against its plain
+    version; the segmented kernel against the one-plan kernel (8 segments,
+    one segment, and the reference's seg_cap = U: the same bits), and the
+    two-pass pipeline (per-lookup grads, dedup, row-wise kernel) against
+    the fused update."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rowwise_adagrad as kr
+    from repro_torch.kernels import sparse_update as ku
+    from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
+                                                 split_plan_by_owner)
+    plan_p = ebc.plan
+    r_rows, d = plan_p.total_rows, cfg.embed_dim
+    n_seg, shard_rows = plan_p.capacity_shards, plan_p.shard_rows
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    table = torch.empty((r_rows, d), device=dev).normal_(generator=g)
+    accum = torch.rand((r_rows,), generator=g, device=dev)
+
+    def upload(*xs):
+        return [torch.as_tensor(x, device=dev) for x in xs]
+
+    def segments(idx_np, seg_cap=None):
+        plan = build_sparse_plan_host(idx_np)
+        seg_rows, seg_offs, seg_base = split_plan_by_owner(
+            plan, shard_rows, n_seg, seg_cap=seg_cap)
+        return (upload(*plan), upload(seg_rows, seg_offs, plan.bag_ids,
+                                      seg_base))
+
+    idx_np = tablewise_batch(cfg, ebc, 0, plant=True)
+    b, f, lk = idx_np.shape
+    plan, segs = segments(idx_np)
+    live_per_seg = (segs[0] >= 0).sum(1).tolist()
+    if live_per_seg[0] != 0 or min(live_per_seg[1:]) == 0:
+        raise AssertionError(f"planted batch: live rows per segment "
+                             f"{live_per_seg}, want owner 0 alone empty")
+    rows = plan[0][plan[0] >= 0].long()
+    n_live = rows.numel()
+    pooled = torch.randn((b * f, d), generator=g, device=dev) * 0.01
+    near = torch.cat([rows - 1, rows + 1]).clamp(0, r_rows - 1)
+    near = near[~torch.isin(near, rows)][:4096]
+    before = (table[rows].clone(), accum[rows].clone())
+    near_before = (table[near].clone(), accum[near].clone())
+
+    def checksum():
+        return bit_checksum(torch, table), bit_checksum(torch, accum)
+
+    sums = checksum()
+
+    def run(update, what):
+        """Apply one update in place, keep its touched rows, restore, and
+        show nothing else moved."""
+        update()
+        torch.cuda.synchronize()
+        got = (table[rows].clone(), accum[rows].clone())
+        if not (torch.equal(table[near], near_before[0])
+                and torch.equal(accum[near], near_before[1])):
+            raise AssertionError(f"{what} moved an untouched neighbour row")
+        table[rows], accum[rows] = before
+        if checksum() != sums:
+            raise AssertionError(f"{what} wrote outside the plan's rows")
+        return got
+
+    def bit_equal(a, b_, what):
+        if not (torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])):
+            raise AssertionError(f"{what}: not bit-equal")
+        log(f"  {what}: bit-equal")
+
+    seg = run(lambda: ku.fused_bag_backward_adagrad_segments(
+        table, accum, *segs[:3], pooled, segs[3], SPARSE_LR, SPARSE_EPS),
+        "fused_bag_backward_adagrad_segments")
+    one = run(lambda: ku.fused_bag_backward_adagrad(
+        table, accum, *plan, pooled, SPARSE_LR, SPARSE_EPS),
+        "fused_bag_backward_adagrad")
+    bit_equal(seg, one, f"{n_seg} segments (live rows {live_per_seg}) vs "
+              "the one-plan kernel")
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    bit_equal(run(lambda: ku.fused_bag_backward_adagrad_segments(
+        table, accum, plan[0][None], plan[1][None], plan[2], pooled, zero,
+        SPARSE_LR, SPARSE_EPS), "S=1 segments"), one,
+        "the segmented kernel at S=1, seg_base 0, vs the one-plan kernel")
+    _, segs_u = segments(idx_np, seg_cap=plan[0].numel())
+    bit_equal(run(lambda: ku.fused_bag_backward_adagrad_segments(
+        table, accum, *segs_u[:3], pooled, segs_u[3], SPARSE_LR,
+        SPARSE_EPS), "seg_cap=U segments"), seg,
+        f"seg_cap=U ({segs_u[0].shape[1]}) vs the tight cap "
+        f"({segs[0].shape[1]})")
+    del segs_u
+    # the legacy two-pass pipeline: per-lookup grads, dedup, row-wise kernel
+    flat_idx, flat_g = ebc.per_lookup_grads(
+        torch.as_tensor(idx_np, device=dev), pooled.reshape(b, f, d))
+    uniq, gsum = ref.dedup_grads_ref(flat_idx, flat_g, r_rows)
+    del flat_g
+    two = run(lambda: kr.rowwise_adagrad(table, accum, uniq, gsum,
+                                         SPARSE_LR, SPARSE_EPS),
+              "rowwise_adagrad")
+    bit_equal(two, seg, "two-pass (per-lookup grads, dedup, rowwise_adagrad)"
+              " vs the segmented fused kernel")
+    # against the plain versions on the same inputs
+    ref.fused_bag_backward_adagrad_segments_ref(
+        table, accum, *segs[:3], pooled, segs[3], SPARSE_LR, SPARSE_EPS)
+    want = (table[rows].clone(), accum[rows].clone())
+    table[rows], accum[rows] = before
+    ok_t, err_t = close(seg[0], want[0], TOL_FUSED)
+    ok_a, err_a = close(seg[1], want[1], TOL_FUSED)
+    ref.rowwise_adagrad_ref(table, accum, uniq, gsum, SPARSE_LR, SPARSE_EPS)
+    want_rw = (table[rows].clone(), accum[rows].clone())
+    table[rows], accum[rows] = before
+    ok_rt, err_rt = close(two[0], want_rw[0], TOL_FUSED)
+    ok_ra, err_ra = close(two[1], want_rw[1], TOL_FUSED)
+    moved = float((seg[0] - before[0]).abs().max())
+    log(f"  vs plain: segments table/accum max_abs_err {err_t:.3e}/"
+        f"{err_a:.3e}, rowwise_adagrad {err_rt:.3e}/{err_ra:.3e} (tol "
+        f"{TOL_FUSED} abs + rel); largest row change {moved:.3e}; "
+        f"{n_live} rows (max {int(rows.max())} of R={r_rows}), "
+        f"{near.numel()} untouched neighbours bit-equal and bit checksums "
+        f"of table and accum equal after every restore")
+    if not (ok_t and ok_a and ok_rt and ok_ra) or moved == 0.0:
+        raise AssertionError("a table-wise kernel disagrees with plain: "
+                             f"{err_t}, {err_a}, {err_rt}, {err_ra}")
+    del seg, one, two, want, want_rw, uniq, gsum, flat_idx
+
+    # timing at the main path's inputs: batch 0 unplanted, tight segments
+    idx_np = tablewise_batch(cfg, ebc, 0, plant=False)
+    plan, segs = segments(idx_np)
+    n_live = int((plan[0] >= 0).sum())
+    n_valid = int((idx_np >= 0).sum())
+    c = segs[0].shape[1]
+
+    def seg_update():
+        ku.fused_bag_backward_adagrad_segments(
+            table, accum, *segs[:3], pooled, segs[3], SPARSE_LR, SPARSE_EPS)
+
+    upd = {
+        "ms": time_ms(torch, seg_update, 100),
+        "device_ms": device_kernel_ms(torch, seg_update, 20,
+                                      "fused_bag_backward_adagrad_segments"),
+        "plain_ms": time_ms(
+            torch, lambda: ref.fused_bag_backward_adagrad_segments_ref(
+                table, accum, *segs[:3], pooled, segs[3], SPARSE_LR,
+                SPARSE_EPS), 2, 1),
+        # no single PyTorch call sums pooled bag gradients per unique row
+        # and applies row-wise AdaGrad (torch.optim.Adagrad is dense and
+        # per element)
+        "library_ms": None,
+        "max_abs_err": max(err_t, err_a),
+        "segments": n_seg, "seg_cap": c,
+        "live_rows_per_segment": (segs[0] >= 0).sum(1).tolist(),
+    }
+    upd["bound_ms"], upd["bound_by"] = bound_ms(
+        n_seg * c * 4 + n_seg * (c + 1) * 4 + n_seg * 4 + n_valid * 4
+        + b * f * d * 4 + 2 * n_live * (d * 4 + 4),
+        n_valid * d + n_live * 5 * d)
+    log(f"  fused_bag_backward_adagrad_segments: {upd}")
+    flat_idx, flat_g = ebc.per_lookup_grads(
+        torch.as_tensor(idx_np, device=dev), pooled.reshape(b, f, d))
+    uniq, gsum = ref.dedup_grads_ref(flat_idx, flat_g, r_rows)
+    del flat_g, flat_idx
+    n_uniq = uniq.numel()
+
+    def rowwise():
+        kr.rowwise_adagrad(table, accum, uniq, gsum, SPARSE_LR, SPARSE_EPS)
+
+    rw = {
+        "ms": time_ms(torch, rowwise, 100),
+        "device_ms": device_kernel_ms(torch, rowwise, 20,
+                                      "rowwise_adagrad_kernel"),
+        "plain_ms": time_ms(torch, lambda: ref.rowwise_adagrad_ref(
+            table, accum, uniq, gsum, SPARSE_LR, SPARSE_EPS), 20),
+        # no single PyTorch call applies row-wise AdaGrad to the rows of a
+        # deduplicated gradient (torch.optim.Adagrad is dense, per element)
+        "library_ms": None,
+        "max_abs_err": max(err_rt, err_ra),
+        "entries": n_uniq, "live_rows": n_live,
+    }
+    rw["bound_ms"], rw["bound_by"] = bound_ms(
+        n_uniq * 4 + n_live * d * 4 + 2 * n_live * (d * 4 + 4),
+        n_live * 5 * d)
+    log(f"  rowwise_adagrad: {rw}")
+    del table, accum, uniq, gsum
+    return {"fused_bag_backward_adagrad_segments": upd,
+            "rowwise_adagrad": rw}
+
+
 def plain_logits(torch, dense, dense_x, pooled):
     """Logits from the plain versions: MLPs, plain dot interaction."""
     from repro_torch.kernels import ref
@@ -1051,6 +1273,137 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     return out
 
 
+def train_tablewise(torch, dev, cfg, ebc, oracle: bool) -> dict:
+    """Phase 8a (oracle False): TRAIN_STEPS full-width steps through
+    `build_tablewise_train_step` on the 8-owner table-wise layout, batches
+    from the plan hook, `next_batch` peeked from the pipeline (so each
+    step stages the next one's lookup); every step's exchange metrics,
+    counted by the step, are held to the analytic model
+    `launch.analysis.tablewise_exchange_traffic`, and the last
+    PROFILED_STEPS steps run under torch.profiler. Phase 8b (oracle True):
+    the same seed and batches through `build_dlrm_train_step`. The launch
+    counts are reset just before the first step and hold the run's
+    launches when it returns. Returns the losses, the final bit checksums
+    of the table and accumulator, and the run's numbers."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.data.pipeline import ShardedLoader, sparse_plan_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.analysis import tablewise_exchange_traffic
+    from repro_torch.launch.train import PARAM_SEED, batch_to_device
+    from repro_torch.optim import adagrad
+    from repro_torch.train import (build_dlrm_train_step,
+                                   build_tablewise_train_step,
+                                   dlrm_init_state)
+
+    plan = ebc.plan
+    params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+    init_sum = bit_checksum(torch, params["emb"]["mega"])
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    if oracle:
+        step_fn = build_dlrm_train_step(cfg, ebc, opt, SPARSE_LR, SPARSE_EPS)
+    else:
+        step_fn = build_tablewise_train_step(cfg, ebc, opt, SPARSE_LR,
+                                             SPARSE_EPS)
+    owners = np.asarray(plan.table_offsets) // plan.shard_rows
+    model = tablewise_exchange_traffic(
+        TRAIN_BATCH, cfg.n_sparse_features, cfg.truncation, cfg.embed_dim,
+        plan.capacity_shards,
+        features_per_owner=np.bincount(owners,
+                                       minlength=plan.capacity_shards))
+    pipe = ShardedLoader(
+        lambda step, seed: make_dlrm_batch(cfg, TRAIN_BATCH, step, seed),
+        TRAIN_BATCH).pipeline(prefetch=2, transform=sparse_plan_hook(
+            plan.table_offsets))
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_s, wait_s, prof = [], [], [], None
+    reset_launches(KERNELS)
+    try:
+        for step in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, batch = next(pipe)                # blocked on the reader
+            last = step == TRAIN_STEPS - 1
+            nxt = None if oracle or last else pipe.peek(0)
+            wait_s.append(time.perf_counter() - t0)
+            if step == TRAIN_STEPS - PROFILED_STEPS:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            if oracle:
+                params, state, m = step_fn(
+                    params, state, batch_to_device(batch, dev), step)
+            else:
+                params, state, m = step_fn(params, state, batch, step,
+                                           next_batch=nxt)
+            losses.append(float(m["loss"]))              # syncs the step
+            host_s.append(time.perf_counter() - t0)
+            log(f"  step {step} loss {losses[-1]:.6f} host "
+                f"{host_s[-1] * 1e3:.3f} ms, reader wait "
+                f"{wait_s[-1] * 1e3:.3f} ms")
+            if not oracle:
+                got = (m["exchange_pooled_fwd_bytes"],
+                       m["exchange_pooled_bwd_bytes"],
+                       m["exchange_pair_leg_bytes"])
+                if got != (model["fwd_bytes"], model["bwd_bytes"],
+                           model["pair_leg_bytes"]):
+                    raise AssertionError(f"exchange metrics {got} differ "
+                                         f"from the model {model}")
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    finally:
+        pipe.close()
+    sums = (bit_checksum(torch, params["emb"]["mega"]),
+            bit_checksum(torch, state["accum"]))
+    peak = torch.cuda.max_memory_allocated()
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses not finite: {losses}")
+    events = device_events(prof)
+    dev_us = sum(t for _, t in events)
+    plain = slice(1, TRAIN_STEPS - PROFILED_STEPS)
+    seg_us = sum(t for name, t in events
+                 if "fused_bag_backward_adagrad" in name)
+    out = {"losses": losses, "init_sum": init_sum, "final_sums": sums,
+           "host_ms_per_step": sum(host_s[plain]) / len(host_s[plain]) * 1e3,
+           "reader_wait_ms_per_step":
+               sum(wait_s[plain]) / len(wait_s[plain]) * 1e3,
+           "profiled_host_ms_per_step":
+               sum(host_s[-PROFILED_STEPS:]) / PROFILED_STEPS * 1e3,
+           "device_busy_ms_per_step": (dev_us / 1e3 / PROFILED_STEPS
+                                       if dev_us else None),
+           "update_device_ms_per_step": (seg_us / 1e3 / PROFILED_STEPS
+                                         if dev_us else None),
+           "peak_bytes": peak}
+    out["examples_per_s"] = TRAIN_BATCH / (
+        out["host_ms_per_step"] + out["reader_wait_ms_per_step"]) * 1e3
+    if not oracle:
+        out["exchange_model"] = model
+    top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
+    out["top_device_ms_per_step"] = {
+        name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
+    log(f"  steps {plain.start}-{plain.stop - 1} (profiler off): step "
+        f"{out['host_ms_per_step']:.3f} ms, waiting on the reader "
+        f"{out['reader_wait_ms_per_step']:.3f} ms per step -> "
+        f"{out['examples_per_s']:.1f} examples/s; "
+        f"profiled: host {out['profiled_host_ms_per_step']:.3f} ms, device "
+        "busy " + (f"{out['device_busy_ms_per_step']:.3f} ms per step, the "
+                   f"sparse update {out['update_device_ms_per_step']:.4f} ms"
+                   if dev_us else "not measured (trace holds no device "
+                   "time)") + f"; peak {peak} bytes; final checksums (mega, "
+        f"accum) {sums}")
+    log("  device ms per step by kernel (profiled steps): "
+        + json.dumps(out["top_device_ms_per_step"]))
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=12))
+    del params, state
+    return out
+
+
 def evict_search(torch, dev, cfg) -> dict:
     """The smallest cache at which run 7b (AsyncCachedTier, fetch_chunk
     EVICT_CHUNK, the dedup reader, the launcher's TRAIN_STEPS batches)
@@ -1230,6 +1583,17 @@ def main() -> int:
     log_peak(torch, "phase 5b")
     free_device(torch)
 
+    # 5c. the table-wise kernels at full width on the 8-owner layout
+    ebc_tw = EmbeddingBagCollection.build(cfg, n_shards=TABLEWISE_OWNERS,
+                                          strategy="table_wise")
+    log(f"phase 5c: segmented fused backward and row-wise AdaGrad vs plain "
+        f"on the {TABLEWISE_OWNERS}-owner table_wise layout "
+        f"(R={ebc_tw.plan.total_rows}, shard_rows={ebc_tw.plan.shard_rows}, "
+        f"D={d}, batch {TRAIN_BATCH})")
+    numbers.update(check_tablewise_kernels(torch, dev, cfg, ebc_tw))
+    log_peak(torch, "phase 5c")
+    free_device(torch)
+
     # 6a. train through the launcher (plan-less lookups, on-device plans)
     from repro_torch.core.dlrm import init_dlrm_params
     init = init_dlrm_params(cfg, ebc, train_cli.PARAM_SEED, dev)
@@ -1304,7 +1668,46 @@ def main() -> int:
         log(f"{r['name']} numbers: {json.dumps(res)}")
         free_device(torch)
 
-    # 8. the numbers, then the result
+    # 8. train under the table-wise placement (8a), then the oracle on the
+    #    same layout from the same seed and batches (8b): bit-equal
+    log(f"phase 8a: ShardedLoader.pipeline(transform=sparse_plan_hook(...)) "
+        f"-> build_tablewise_train_step(next_batch staged), {TRAIN_STEPS} "
+        f"steps, {TABLEWISE_OWNERS} owners")
+    tw = train_tablewise(torch, dev, cfg, ebc_tw, oracle=False)
+    paths["train_tablewise"] = read_launches(
+        KERNELS, "train_tablewise",
+        ("embedding_bag", "dot_interaction",
+         "fused_bag_backward_adagrad_segments"))
+    counts = paths["train_tablewise"]
+    if counts["fused_bag_backward_adagrad_segments"] != TRAIN_STEPS \
+            or counts["embedding_bag"] != TRAIN_STEPS \
+            or counts["fused_bag_backward_adagrad"] != 0:
+        raise AssertionError(
+            f"8a: want one segmented update and one pooled lookup (staged "
+            f"from step 1 on) per step, no one-plan update: {counts}")
+    free_device(torch)
+    log("phase 8b: the oracle, build_dlrm_train_step on the same layout, "
+        "seed and batches")
+    tw_oracle = train_tablewise(torch, dev, cfg, ebc_tw, oracle=True)
+    paths["train_tablewise_oracle"] = read_launches(
+        KERNELS, "train_tablewise_oracle",
+        ("dedup_embedding_bag", "dot_interaction",
+         "fused_bag_backward_adagrad"))
+    free_device(torch)
+    equal = (tw["losses"] == tw_oracle["losses"]
+             and tw["final_sums"] == tw_oracle["final_sums"]
+             and tw["init_sum"] == tw_oracle["init_sum"])
+    log(f"8a vs 8b: losses {tw['losses']} vs {tw_oracle['losses']}; final "
+        f"checksums {tw['final_sums']} vs {tw_oracle['final_sums']}: "
+        f"bit-equal={equal}")
+    if not equal:
+        raise AssertionError("the table-wise run is not bit-equal to the "
+                             "oracle")
+    for name, res in (("8a", tw), ("8b", tw_oracle)):
+        log(f"{name} numbers: " + json.dumps(
+            {k: v for k, v in res.items() if k != "losses"}))
+
+    # 9. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -1313,7 +1716,10 @@ def main() -> int:
         "cache_fetch": "src/repro/kernels/cache_ops.py:226",
         "cache_fetch_chunked": "src/repro/kernels/cache_ops.py:302",
         "cache_commit": "src/repro/kernels/cache_ops.py:401",
-        "fused_bag_backward_adagrad": "src/repro/kernels/sparse_update.py:174"}
+        "fused_bag_backward_adagrad": "src/repro/kernels/sparse_update.py:174",
+        "fused_bag_backward_adagrad_segments":
+            "src/repro/kernels/sparse_update.py:126",
+        "rowwise_adagrad": "src/repro/kernels/rowwise_adagrad.py:73"}
     rows = []
     for k in KERNELS:
         nums = numbers[k.name]

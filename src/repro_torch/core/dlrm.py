@@ -103,7 +103,17 @@ def dlrm_grads(params: dict, batch: dict, cfg: DLRMConfig,
     as detached leaves, so the caller's tensors never require grad."""
     with torch.no_grad():
         pooled = _lookup(params, batch, ebc)
-    pooled.requires_grad_()
+    loss, g_dense, g_pooled = dense_grads(params, batch, pooled, cfg)
+    return loss, g_dense, (batch["idx"], g_pooled)
+
+
+def dense_grads(params: dict, batch: dict, pooled: torch.Tensor,
+                cfg: DLRMConfig):
+    """The dense half of `dlrm_grads`, from pooled embeddings looked up
+    elsewhere (the table-wise step's exchanged or staged activations):
+    BCE of `dlrm_forward_dense`, differentiated with `pooled` (B, F, d) as
+    a leaf. Returns (loss, dense_grads, pooled_grads (B, F, d) fp32)."""
+    pooled = pooled.detach().requires_grad_()
     dense = tree_map(lambda t: t.detach().requires_grad_(),
                      {"bottom": params["bottom"], "top": params["top"]})
     with torch.enable_grad():
@@ -113,7 +123,7 @@ def dlrm_grads(params: dict, batch: dict, cfg: DLRMConfig,
         grads = torch.autograd.grad(loss, leaves + [pooled])
     it = iter(grads[:-1])
     g_dense = tree_map(lambda _: next(it), dense)
-    return loss.detach(), g_dense, (batch["idx"], grads[-1].float())
+    return loss.detach(), g_dense, grads[-1].float()
 
 
 def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

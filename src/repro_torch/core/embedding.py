@@ -87,6 +87,20 @@ class EmbeddingBagCollection:
             pooled = ops.dedup_embedding_bag(mega, flat, plan, "sum")
         return pooled.reshape(b, f, -1).to(mega.dtype)
 
+    def per_lookup_grads(self, idx: torch.Tensor, pooled_grad: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """LEGACY layout: under sum pooling every lookup slot inherits its
+        bag's gradient, so this materializes the (B*F*L, d) broadcast the
+        fused sparse backward exists to avoid. It is the input of
+        `ops.rowwise_adagrad_update`, the two-pass oracle of the fused
+        update.
+
+        idx: (B, F, L); pooled_grad: (B, F, d). Returns (flat_idx
+        (B*F*L,), flat_grads (B*F*L, d))."""
+        b, f, lk = idx.shape
+        g = pooled_grad[:, :, None, :].expand(b, f, lk, pooled_grad.shape[-1])
+        return idx.reshape(-1), g.reshape(b * f * lk, -1)
+
     def table_bytes(self) -> int:
         """Total mega-table bytes at the param dtype."""
         item = 4 if self.cfg.param_dtype == "float32" else 2

@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import ref
+from repro_torch.kernels import rowwise_adagrad as _rw
 from repro_torch.kernels import sparse_update as _upd
 from repro_torch.kernels.sparse_plan import SparsePlan, build_sparse_plan
 
@@ -93,3 +95,46 @@ def fused_sparse_backward(table: torch.Tensor, accum: torch.Tensor,
     return _upd.fused_bag_backward_adagrad(
         table, accum, plan.unique_rows, plan.bag_offsets, plan.bag_ids,
         pooled2, lr, eps)
+
+
+def fused_sparse_backward_segments(table: torch.Tensor, accum: torch.Tensor,
+                                   seg_rows: torch.Tensor,
+                                   seg_offsets: torch.Tensor,
+                                   bag_ids: torch.Tensor,
+                                   pooled_grad: torch.Tensor, lr: float,
+                                   seg_base: torch.Tensor | None = None,
+                                   eps: float = 1e-8):
+    """`fused_sparse_backward` over S per-owner SEGMENTS of one plan, IN
+    PLACE: segment s covers the rows owner s holds, with segment-local row
+    ids rebased by seg_base[s] (`sparse_plan.split_plan_by_owner`).
+
+    seg_rows: (S, C) int32 -1-padded; seg_offsets: (S, C+1) int32 ABSOLUTE
+    into bag_ids (N,); pooled_grad: (B, F, D) or (B*F, D); seg_base (S,)
+    defaults to zeros (segments already in table row space). Each covered
+    row updates with the bits the unsegmented `fused_sparse_backward`
+    gives it. Returns (table, accum)."""
+    d = table.shape[1]
+    if seg_base is None:
+        seg_base = torch.zeros((seg_rows.shape[0],), dtype=torch.int32,
+                               device=seg_rows.device)
+    pooled2 = pooled_grad.reshape(-1, d).to(torch.float32).contiguous()
+    return _upd.fused_bag_backward_adagrad_segments(
+        table, accum, seg_rows, seg_offsets, bag_ids, pooled2, seg_base, lr,
+        eps)
+
+
+def rowwise_adagrad_update(table: torch.Tensor, accum: torch.Tensor,
+                           indices: torch.Tensor, grads: torch.Tensor,
+                           lr: float, eps: float = 1e-8):
+    """Deduplicated row-wise AdaGrad from PER-LOOKUP gradients (the legacy
+    two-pass layout), IN PLACE (the reference returns new arrays).
+
+    indices: (N,) int32 rows, -1 pads; grads: (N, D) per-lookup gradients
+    (`EmbeddingBagCollection.per_lookup_grads`). Pass one sums each row's
+    gradients in sorted-slot order (`ref.dedup_grads_ref`, torch ops on the
+    tensors' device); pass two is the `rowwise_adagrad` kernel. Fed the
+    broadcast of a batch's pooled gradients, the result is bit-equal to
+    `fused_sparse_backward` on the same batch, which avoids the (N, D)
+    intermediates. Returns (table, accum)."""
+    uniq, gsum = ref.dedup_grads_ref(indices, grads, table.shape[0])
+    return _rw.rowwise_adagrad(table, accum, uniq, gsum, lr, eps)

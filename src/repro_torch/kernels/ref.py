@@ -3,8 +3,8 @@
 Each function computes what its CUDA kernel computes, in the same
 accumulation order where the kernel has one, on any device. The kernel
 wrappers (`kernels/embedding_bag.py`, `dot_interaction.py`,
-`cache_ops.py`, `sparse_update.py`) call these only for tensors on the
-CPU; `chip_smoke.py` holds each kernel against its plain
+`cache_ops.py`, `sparse_update.py`, `rowwise_adagrad.py`) call these only
+for tensors on the CPU; `chip_smoke.py` holds each kernel against its plain
 version on the card, and the tests hold the plain versions against the
 reference package's `repro.kernels.ref` oracles.
 """
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.sparse_plan import build_sparse_plan
 
 
 def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
@@ -58,28 +60,56 @@ def dedup_embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
                              mode)
 
 
-def bag_grad_sums(unique_rows: torch.Tensor, bag_offsets: torch.Tensor,
-                  bag_ids: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
-    """Per plan entry i, the fp32 sum of pooled[bag_ids[j]] for j in
-    [bag_offsets[i], bag_offsets[i+1]), added one after another from zero —
-    the fused kernel's order, and (the planner's stable sort) the reference
-    scatter-add's. Returns (U, D), zeros past the unique count.
+def _csr_sums(lo: torch.Tensor, hi: torch.Tensor, bag_ids: torch.Tensor,
+              pooled: torch.Tensor) -> torch.Tensor:
+    """Per entry e, the fp32 sum of pooled[bag_ids[j]] for j in
+    [lo[e], hi[e]), added one after another from zero — the fused kernels'
+    order. lo, hi: (E,) absolute positions into bag_ids. Returns (E, D).
 
     Vectorised across entries: step k adds every entry's k-th bag, over the
-    entries whose slice is longer than k (a prefix once sorted by length)."""
-    u, d = unique_rows.numel(), pooled.shape[-1]
-    lo = bag_offsets[:-1].long()
-    lens = bag_offsets[1:].long() - lo
+    entries whose slice is longer than k (a prefix once sorted by length),
+    so the loop runs as many times as the longest slice."""
+    e, d = lo.numel(), pooled.shape[-1]
+    lo = lo.long()
+    lens = (hi.long() - lo).clamp(min=0)
     by_len = torch.argsort(lens, descending=True)
     lens_h = lens[by_len].cpu().numpy()
     lo_sorted = lo[by_len]
-    gsum = torch.zeros((u, d), dtype=torch.float32, device=pooled.device)
-    for k in range(int(lens_h[0]) if u else 0):
+    gsum = torch.zeros((e, d), dtype=torch.float32, device=pooled.device)
+    for k in range(int(lens_h[0]) if e else 0):
         m = int(np.searchsorted(-lens_h, -k, side="left"))  # lens > k
         gsum[:m] += pooled[bag_ids[lo_sorted[:m] + k].long()].float()
     out = torch.empty_like(gsum)
     out[by_len] = gsum
     return out
+
+
+def bag_grad_sums_abs(bag_offsets: torch.Tensor, bag_ids: torch.Tensor,
+                      pooled: torch.Tensor) -> torch.Tensor:
+    """Per entry i of a plan or segment with ABSOLUTE offsets into the
+    shared bag_ids, the sum of its pooled bag gradients over
+    [bag_offsets[i], bag_offsets[i+1]), in CSR order; pairs of other
+    segments are never read and pad entries (empty slices) sum to zero.
+    Returns (U, D) fp32. Bit-equal to the reference's `bag_grad_sums_abs`,
+    whose segment sum also adds a row's pairs in ascending position."""
+    return _csr_sums(bag_offsets[:-1], bag_offsets[1:], bag_ids, pooled)
+
+
+def _rowwise_apply(table: torch.Tensor, accum: torch.Tensor,
+                   rows: torch.Tensor, gsum: torch.Tensor, lr: float,
+                   eps: float) -> None:
+    """Row-wise AdaGrad IN PLACE for each entry with rows[e] >= 0:
+    acc = accum[row] + mean(g^2), w = w - lr * g * rsqrt(acc + eps), with
+    g = gsum[e]. Every update in this module goes through here, on the
+    live entries in the order given, so two callers that hand it the same
+    rows and sums produce the same bits."""
+    live = rows >= 0
+    r = rows[live].long()
+    g = gsum[live]
+    acc = accum[r] + torch.mean(torch.square(g), dim=-1)
+    upd = lr * g * torch.rsqrt(acc[:, None] + eps)
+    accum[r] = acc
+    table[r] = table[r] - upd.to(table.dtype)
 
 
 def fused_bag_backward_adagrad_ref(table: torch.Tensor, accum: torch.Tensor,
@@ -91,17 +121,75 @@ def fused_bag_backward_adagrad_ref(table: torch.Tensor, accum: torch.Tensor,
     """Fused sparse backward + row-wise AdaGrad, IN PLACE on `table` (H, D)
     and `accum` (H,) (the reference returns new arrays; the TPU kernel
     aliases them). For each live plan entry: g = its bag-gradient sum
-    (`bag_grad_sums`), acc = accum[row] + mean(g^2), then
-    w = w - lr * g * rsqrt(acc + eps). pooled: (B*F, D). Returns
+    (`bag_grad_sums_abs`), acc = accum[row] + mean(g^2), then
+    w = w - lr * g * rsqrt(acc + eps); rows the entries do not name are
+    untouched. Offsets are absolute positions into bag_ids, so this is
+    also the update over one segment of a split plan. pooled: (B*F, D).
+    Returns (table, accum)."""
+    gsum = bag_grad_sums_abs(bag_offsets, bag_ids, pooled)
+    _rowwise_apply(table, accum, unique_rows, gsum, lr, eps)
+    return table, accum
+
+
+def fused_bag_backward_adagrad_segments_ref(
+        table: torch.Tensor, accum: torch.Tensor, seg_rows: torch.Tensor,
+        seg_offsets: torch.Tensor, bag_ids: torch.Tensor,
+        pooled: torch.Tensor, seg_base: torch.Tensor, lr: float,
+        eps: float = 1e-8):
+    """The fused update over S per-owner SEGMENTS of one plan, IN PLACE:
+    entry (s, i) updates row seg_base[s] + seg_rows[s, i] (skipped when
+    seg_rows[s, i] < 0) from the bag slice [seg_offsets[s, i],
+    seg_offsets[s, i+1]) of the shared bag_ids — the segmented kernel's
+    grid, entry by entry. Segments are disjoint row ranges of one plan
+    (`sparse_plan.split_plan_by_owner`), so each row updates with the bits
+    the unsegmented update gives it. seg_rows: (S, C), seg_offsets:
+    (S, C+1), seg_base: (S,) int32. Returns (table, accum)."""
+    rows = torch.where(seg_rows >= 0,
+                       seg_rows.long() + seg_base.long()[:, None], -1)
+    gsum = _csr_sums(seg_offsets[:, :-1].reshape(-1),
+                     seg_offsets[:, 1:].reshape(-1), bag_ids, pooled)
+    _rowwise_apply(table, accum, rows.reshape(-1), gsum, lr, eps)
+    return table, accum
+
+
+def dedup_grads_ref(indices: torch.Tensor, grads: torch.Tensor,
+                    num_rows: int):
+    """Aggregate per-lookup grads (N, D) into unique-row grads: the first
+    pass of the legacy two-pass update. indices: (N,) int32 rows in
+    [0, num_rows), -1 pads.
+
+    The stable sort and run detection are the port's planner over a
+    one-slot-per-bag stream (`sparse_plan.build_sparse_plan`); each run's
+    grads are added one after another in sorted-slot order, so every sum
+    carries the bits of the reference's segment sum and, fed the legacy
+    broadcast layout (`EmbeddingBagCollection.per_lookup_grads`), of the
+    fused update's bag sums. Returns (uniq (N,) int32, gsum (N, D) fp32):
+    each unique row once, at its run head in sorted order; every other
+    slot -1 / zeros — the layout `rowwise_adagrad` consumes."""
+    n, d = grads.shape
+    if indices.shape != (n,):
+        raise ValueError(f"need indices ({n},), got {tuple(indices.shape)}")
+    plan = build_sparse_plan(indices.to(torch.int32), lookups_per_bag=1)
+    live = plan.unique_rows >= 0
+    heads = plan.bag_offsets[:-1][live].long()
+    sums = bag_grad_sums_abs(plan.bag_offsets, plan.bag_ids, grads)
+    uniq = torch.full((n,), -1, dtype=torch.int32, device=grads.device)
+    gsum = torch.zeros((n, d), dtype=torch.float32, device=grads.device)
+    uniq[heads] = plan.unique_rows[live]
+    gsum[heads] = sums[live]
+    return uniq, gsum
+
+
+def rowwise_adagrad_ref(table: torch.Tensor, accum: torch.Tensor,
+                        uniq: torch.Tensor, gsum: torch.Tensor, lr: float,
+                        eps: float = 1e-8):
+    """The legacy row-wise AdaGrad kernel's plain version, IN PLACE: for
+    each entry with uniq[i] >= 0 (distinct rows, `dedup_grads_ref`'s
+    layout), acc = accum[row] + mean(gsum[i]^2) and w = w - lr * gsum[i]
+    * rsqrt(acc + eps). The reference's `rowwise_adagrad_ref`, which takes
+    per-lookup grads, is `dedup_grads_ref` followed by this. Returns
     (table, accum)."""
-    gsum = bag_grad_sums(unique_rows, bag_offsets, bag_ids, pooled)
-    live = unique_rows >= 0
-    rows = unique_rows[live].long()
-    g = gsum[live]
-    acc = accum[rows] + torch.mean(torch.square(g), dim=-1)
-    upd = lr * g * torch.rsqrt(acc[:, None] + eps)
-    accum[rows] = acc
-    table[rows] = table[rows] - upd.to(table.dtype)
+    _rowwise_apply(table, accum, uniq, gsum, lr, eps)
     return table, accum
 
 

@@ -24,9 +24,12 @@ tests/test_torch_train.py):
 
 The cached tier's host planning reads a hook's plan as numpy
 (`host_plan_from_batch`) and groups its sorted miss rows into contiguous
-fetch blocks (`coalesce_rows`). The reference's per-host and per-owner
-splits (`split_*`) and `host_plans_from_batch` serve the multi-device tiers
-and come with that slice.
+fetch blocks (`coalesce_rows`). The table-wise step cuts a plan into
+per-owner segments (`split_plan_by_owner`, over the general
+`split_plan_by_ranges`) for the segmented fused backward. The reference's
+per-host split (`split_plan_by_host`, `host_plans_from_batch`) serves the
+multi-host cached tier and comes with that slice; its per-table split
+(`split_plan_by_table`) has no caller outside its tests.
 """
 from __future__ import annotations
 
@@ -105,6 +108,66 @@ def coalesce_rows(rows: np.ndarray, chunk: int, total_rows: int,
             pos[i:j] = -1
         i = j
     return np.asarray(starts, np.int32), pos
+
+
+def split_plan_by_ranges(plan: SparsePlan, starts, ends,
+                         seg_cap: int | None = None
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Slice a plan into segments over DISJOINT ascending row ranges:
+    segment s covers global rows [starts[s], ends[s]). Host numpy.
+
+    The plan's live prefix is sorted ascending, so each segment's rows —
+    and its (row, bag) pairs in `bag_ids` — form a contiguous slice: two
+    searchsorted calls and slicing, no sort. Rows outside every range are
+    claimed by no segment.
+
+    Returns (seg_rows (S, cap) int32 SEGMENT-LOCAL rows (global minus
+    starts[s]), -1-padded; seg_offsets (S, cap+1) int32 ABSOLUTE positions
+    into the shared `bag_ids`, pad entries equal to the segment's bag end;
+    seg_base (S,) int32 = starts, the base the segmented fused backward
+    adds back). `seg_cap` fixes the per-segment capacity (raises on
+    overflow); the default is the tight per-call maximum, which gives the
+    same update as any larger cap with a shorter grid."""
+    rows = np.asarray(plan.unique_rows)
+    offs = np.asarray(plan.bag_offsets).astype(np.int64)
+    starts = np.asarray(starts, np.int64)
+    ends = np.asarray(ends, np.int64)
+    n_seg = len(starts)
+    if len(ends) != n_seg:
+        raise ValueError(f"{len(ends)} range ends for {n_seg} starts")
+    if n_seg and not (np.all(ends >= starts)
+                      and np.all(starts[1:] >= ends[:-1])):
+        raise AssertionError("ranges must be ascending and disjoint")
+    n_live = int((rows >= 0).sum())
+    live = rows[:n_live].astype(np.int64)
+    lo = np.searchsorted(live, starts)
+    hi = np.searchsorted(live, ends)
+    widest = int((hi - lo).max()) if n_seg else 0
+    cap = widest if seg_cap is None else seg_cap
+    if widest > cap:
+        raise ValueError(
+            f"owner segment overflow: widest owner holds {widest} unique "
+            f"rows > seg_cap={cap}")
+    seg_rows = np.full((n_seg, cap), -1, np.int32)
+    seg_offs = np.zeros((n_seg, cap + 1), np.int32)
+    for s in range(n_seg):
+        a, b = int(lo[s]), int(hi[s])
+        k = b - a
+        seg_rows[s, :k] = live[a:b] - starts[s]
+        seg_offs[s, :k + 1] = offs[a:b + 1]
+        seg_offs[s, k + 1:] = offs[b]
+    return seg_rows, seg_offs, starts.astype(np.int32)
+
+
+def split_plan_by_owner(plan: SparsePlan, shard_rows: int, n_shards: int,
+                        seg_cap: int | None = None
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-OWNER segments: owner s of a table_wise placement (or of a
+    row-sharded capacity tier) holds rows [s*shard_rows,
+    (s+1)*shard_rows). See `split_plan_by_ranges` for the layout."""
+    starts = np.arange(n_shards, dtype=np.int64) * shard_rows
+    return split_plan_by_ranges(plan, starts, starts + shard_rows,
+                                seg_cap=seg_cap)
 
 
 def _lookups_per_bag(shape, lookups_per_bag: int | None) -> int:

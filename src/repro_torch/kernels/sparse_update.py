@@ -1,14 +1,21 @@
-"""Fused sparse backward kernel wrapper (CUDA C++,
-`csrc/fused_bag_backward_adagrad.cu`).
+"""Fused sparse backward kernel wrappers (CUDA C++,
+`csrc/fused_bag_backward_adagrad.cu`, two entry points over one per-row
+body).
 
-Port of the TPU kernel `repro/kernels/sparse_update.py::
-fused_bag_backward_adagrad_kernel` (the S=1 case of the segmented kernel):
-per unique row of a `SparsePlan`, sum the pooled bag gradients of its CSR
-slice, then apply row-wise AdaGrad to the row and its accumulator in place.
+Ports of the TPU kernel `repro/kernels/sparse_update.py::
+fused_bag_backward_adagrad_segments_kernel`: per unique row, sum the pooled
+bag gradients of its CSR slice, then apply row-wise AdaGrad to the row and
+its accumulator in place.
+
+  fused_bag_backward_adagrad           one plan (the S=1 case,
+                                       `fused_bag_backward_adagrad_kernel`);
+  fused_bag_backward_adagrad_segments  S per-owner segments of one plan
+                                       (S > 1), rows rebased per segment —
+                                       the table-wise step's update.
+
 The TPU's limits do not carry over: no scalar-prefetch cap on the plan's
 size and no D % 128 requirement (the reference's lane padding and its
-`sqrt(Dp/d)` learning-rate rescale have no counterpart). The per-owner
-segmented form (S > 1) comes with the multi-device slice.
+`sqrt(Dp/d)` learning-rate rescale have no counterpart).
 """
 from __future__ import annotations
 
@@ -25,6 +32,11 @@ _F = ctypes.c_float
 KERNEL = Kernel("fused_bag_backward_adagrad",
                 "fused_bag_backward_adagrad_launch",
                 [_P, _P, _P, _P, _P, _P, _I64, _I64, _F, _F, _P])
+SEGMENTS_KERNEL = Kernel("fused_bag_backward_adagrad_segments",
+                         "fused_bag_backward_adagrad_segments_launch",
+                         [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F,
+                          _F, _P],
+                         source="fused_bag_backward_adagrad")
 
 
 def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
@@ -67,16 +79,75 @@ def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
     return table, accum
 
 
-def _check_cuda(tensors) -> None:
+def fused_bag_backward_adagrad_segments(table: torch.Tensor,
+                                        accum: torch.Tensor,
+                                        seg_rows: torch.Tensor,
+                                        seg_offsets: torch.Tensor,
+                                        bag_ids: torch.Tensor,
+                                        pooled: torch.Tensor,
+                                        seg_base: torch.Tensor, lr: float,
+                                        eps: float = 1e-8):
+    """Row-wise AdaGrad from pooled bag gradients over S per-owner
+    segments of one plan, IN PLACE: entry (s, i) updates row seg_base[s] +
+    seg_rows[s, i] (skipped when seg_rows[s, i] < 0) from the bag slice
+    [seg_offsets[s, i], seg_offsets[s, i+1]) of the shared bag_ids.
+
+    table: (H, D) fp32; accum: (H,) fp32; seg_rows (S, C), seg_offsets
+    (S, C+1) absolute into bag_ids (N,), seg_base (S,), all int32
+    (`sparse_plan.split_plan_by_owner`); pooled: (B*F, D) fp32. The
+    segments must be disjoint row ranges of one plan. Returns
+    (table, accum).
+
+    CPU tensors take the plain version
+    (`ref.fused_bag_backward_adagrad_segments_ref`); CUDA tensors launch
+    the kernel, or raise."""
+    if table.dim() != 2 or accum.shape != table.shape[:1]:
+        raise ValueError(f"need table (H, D) and accum (H,), got "
+                         f"{tuple(table.shape)} and {tuple(accum.shape)}")
+    if pooled.dim() != 2 or pooled.shape[1] != table.shape[1]:
+        raise ValueError(f"need pooled (B*F, {table.shape[1]}), got "
+                         f"{tuple(pooled.shape)}")
+    if seg_rows.dim() != 2:
+        raise ValueError(f"need seg_rows (S, C), got "
+                         f"{tuple(seg_rows.shape)}")
+    s, c = seg_rows.shape
+    if seg_offsets.shape != (s, c + 1):
+        raise ValueError(f"need seg_offsets ({s}, {c + 1}), got "
+                         f"{tuple(seg_offsets.shape)}")
+    if seg_base.shape != (s,):
+        raise ValueError(f"need seg_base ({s},), got "
+                         f"{tuple(seg_base.shape)}")
+    if table.requires_grad or accum.requires_grad:
+        raise ValueError("the sparse update writes table and accum in "
+                         "place; neither may require grad")
+    tensors = (table, accum, seg_rows, seg_offsets, bag_ids, pooled,
+               seg_base)
+    if all(t.device.type == "cpu" for t in tensors):
+        with torch.no_grad():
+            return ref.fused_bag_backward_adagrad_segments_ref(
+                table, accum, seg_rows, seg_offsets, bag_ids, pooled,
+                seg_base, lr, eps)
+    _check_cuda(tensors, "fused_bag_backward_adagrad_segments")
+    SEGMENTS_KERNEL.launch(
+        table.data_ptr(), accum.data_ptr(), seg_rows.data_ptr(),
+        seg_offsets.data_ptr(), bag_ids.data_ptr(), pooled.data_ptr(),
+        seg_base.data_ptr(), s, c, table.shape[1], float(lr), float(eps),
+        stream_handle(table.device))
+    return table, accum
+
+
+def _check_cuda(tensors, name: str = "fused_bag_backward_adagrad") -> None:
+    """Every tensor on one CUDA device, contiguous; table, accum and pooled
+    (the first two and the sixth) fp32, every index array int32."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("fused_bag_backward_adagrad needs every tensor on "
-                         f"one CUDA device, got {[str(t.device) for t in tensors]}")
-    table, accum, rows, offs, bags, pooled = tensors
-    if not all(t.dtype == torch.float32 for t in (table, accum, pooled)) \
-            or not all(t.dtype == torch.int32 for t in (rows, offs, bags)):
-        raise TypeError("fused_bag_backward_adagrad kernel takes fp32 table, "
-                        "accum and pooled grads and int32 plan arrays")
+        raise ValueError(f"{name} needs every tensor on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    floats = (tensors[0], tensors[1], tensors[5])
+    ints = tensors[2:5] + tensors[6:]
+    if not all(t.dtype == torch.float32 for t in floats) \
+            or not all(t.dtype == torch.int32 for t in ints):
+        raise TypeError(f"{name} kernel takes fp32 table, accum and pooled "
+                        "grads and int32 plan arrays")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_bag_backward_adagrad kernel needs contiguous "
-                         "tensors")
+        raise ValueError(f"{name} kernel needs contiguous tensors")

@@ -3,33 +3,40 @@ a dense optimizer, the embedding rows with row-wise AdaGrad applied by the
 fused sparse backward to the rows the batch touched — no dense gradient of
 the table is ever built.
 
-  build_dlrm_train_step    the whole mega table on the device;
-  build_cached_train_step  a hot-row cache over the capacity tier
-                           (`core.cache`): the sync schedule for a bare
-                           `CachedEmbeddingBagCollection`, the overlapped
-                           one for `core.tiers.AsyncCachedTier`.
+  build_dlrm_train_step       the whole mega table on the device;
+  build_cached_train_step     a hot-row cache over the capacity tier
+                              (`core.cache`): the sync schedule for a bare
+                              `CachedEmbeddingBagCollection`, the
+                              overlapped one for `core.tiers.AsyncCachedTier`;
+  build_tablewise_train_step  a `table_wise` placement (whole tables on
+                              owners, the paper's Zion / Big Basin layout)
+                              on one device: the pooled lookup, then one
+                              segmented update over every owner's rows.
 
 The reference's `sparse_apply="dense"` mode scatter-adds into a
 (total_rows + 1, d) fp32 buffer: 43.6 GB at full dlrm-m1 width beside a
 43.6 GB table, which does not fit one 80 GB card. Both modes compute the
 same update (the reference pins them within 1e-6), so the port trains with
-`"sparse"`; `"dense"` is queued for a later slice, as are the multi-host,
-LM and table-wise steps.
+`"sparse"`; `"dense"` is queued for a later slice, as are the multi-host
+and LM steps and the table-wise step's sharded executor (its `mesh`).
 """
 from __future__ import annotations
 
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.cache import CachedEmbeddingBagCollection
-from repro_torch.core.dlrm import dlrm_grads
+from repro_torch.core.dlrm import dense_grads, dlrm_grads
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.tiers import AsyncCachedTier
 from repro_torch.kernels import ops
-from repro_torch.kernels.sparse_plan import (host_plan_from_batch,
-                                             plan_from_batch)
+from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
+                                             host_plan_from_batch,
+                                             plan_from_batch,
+                                             split_plan_by_owner)
 from repro_torch.nn.params import init_params
 from repro_torch.optim.optimizers import Optimizer
 
@@ -232,3 +239,116 @@ def cached_dlrm_init_state(cc, dense_opt: Optimizer, params: dict) -> dict:
     cached tier's state (cap_accum / cache_accum)."""
     return {"dense": dense_opt.init({"bottom": params["bottom"],
                                      "top": params["top"]})}
+
+# ---------------------------------------------------------------------------
+# DLRM under a table_wise placement (core/placement.py), on one device
+# ---------------------------------------------------------------------------
+
+
+def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
+                               dense_opt: Optimizer,
+                               sparse_lr: float = 0.05,
+                               sparse_eps: float = 1e-8) -> Callable:
+    """Train step for a `table_wise` placement: whole tables on H =
+    `ebc.plan.capacity_shards` owners, owner s holding the mega rows
+    [s*shard_rows, (s+1)*shard_rows) — the paper's Zion / Big Basin
+    placement, here with every owner's rows on one device.
+
+    Per step: on the host, the batch's plan (a hook's, else
+    `build_sparse_plan_host`) is cut into per-owner segments
+    (`split_plan_by_owner`, tight capacity); on the device, the plan-less
+    pooled lookup (`ebc.lookup`, the `embedding_bag` kernel), the dense
+    tower and BCE differentiated with the pooled activations as a leaf,
+    dense `dense_opt`, and ONE segmented fused update over all H owners
+    (`ops.fused_sparse_backward_segments`). A row's update does not depend
+    on how the plan is segmented, so the step is bit-equal to
+    `build_dlrm_train_step` on the same layout.
+
+    Given `next_batch`, the step queues that batch's pooled lookup right
+    after its update (so it reads the post-update table); the next call
+    consumes it when its step_idx is one more and its batch IS that object,
+    and otherwise looks up afresh — the same bits either way. Everything
+    runs on the current stream: the staged lookup executes while the host
+    plans the next batch. All of a step's uploads are made before its
+    device work is queued, since a pageable copy waits for the stream.
+
+    There is no `mesh`: the sharded executor (the pooled psum forward and
+    the per-owner update on `torch.distributed`) comes with the
+    multi-device slice. Metrics carry the pooled exchange a sharded run
+    would make, counted on the host from the batch's shape and the plan's
+    owners (`launch.analysis.tablewise_exchange_traffic` is the analytic
+    model it must equal).
+
+    Returns step(params, state, batch, step_idx, next_batch=None) ->
+    (params, state, metrics); params and state as in
+    `build_dlrm_train_step` (mega and accum updated IN PLACE); batch holds
+    host arrays, "idx" with OFFSET global rows, optionally a
+    `sparse_plan_hook` plan."""
+    plan = ebc.plan
+    if plan.strategy != "table_wise":
+        raise ValueError(
+            f"build_tablewise_train_step needs a table_wise placement, "
+            f"got {plan.strategy!r}")
+    if any(c != 1 for c in plan.column_shards):
+        raise NotImplementedError(
+            "column-sliced tables (column_shards > 1) need the column_wise "
+            "executor; re-plan with a larger per-shard budget or fewer "
+            "slices")
+    n_owners = plan.capacity_shards
+    shard_rows = plan.shard_rows
+    d = cfg.embed_dim
+    itemsize = 4                       # pooled activations cross in fp32
+    owners = np.asarray(plan.table_offsets) // max(shard_rows, 1)
+    max_f_owned = int(np.bincount(owners, minlength=n_owners).max())
+    staged_cell: list[tuple | None] = [None]
+
+    def step(params, state, batch, step_idx, next_batch=None):
+        mega, accum = params["emb"]["mega"], state["accum"]
+        dev = mega.device
+
+        def up(x):
+            return torch.as_tensor(x).to(dev)
+
+        idx_h = np.asarray(batch["idx"])
+        plan_h = host_plan_from_batch(batch)
+        if plan_h is None:
+            plan_h = build_sparse_plan_host(idx_h)
+        seg_rows, seg_offs, seg_base = split_plan_by_owner(
+            plan_h, shard_rows, n_owners)
+        staged, staged_cell[0] = staged_cell[0], None
+        hit = (staged is not None and staged[0] == int(step_idx)
+               and staged[1] is batch)
+        dense_batch = {"dense": up(batch["dense"]),
+                       "label": up(batch["label"])}
+        idx = None if hit else up(idx_h)
+        seg_rows, seg_offs, bag_ids, seg_base = (
+            up(x) for x in (seg_rows, seg_offs, plan_h.bag_ids, seg_base))
+        nxt = (None if next_batch is None
+               else up(np.asarray(next_batch["idx"])))
+        with torch.no_grad():
+            pooled = staged[2] if hit else ebc.lookup({"mega": mega}, idx)
+        loss, g_dense, g_pooled = dense_grads(params, dense_batch, pooled,
+                                              cfg)
+        new_dense, new_dense_state = dense_opt.apply(
+            {"bottom": params["bottom"], "top": params["top"]}, g_dense,
+            state["dense"], step_idx)
+        with torch.no_grad():
+            ops.fused_sparse_backward_segments(
+                mega, accum, seg_rows, seg_offs, bag_ids, g_pooled,
+                sparse_lr, seg_base=seg_base, eps=sparse_eps)
+            if nxt is not None:
+                # queued behind the update: reads the post-update table
+                staged_cell[0] = (int(step_idx) + 1, next_batch,
+                                  ebc.lookup({"mega": mega}, nxt))
+        b, f, _ = idx_h.shape
+        wire = (n_owners - 1) / max(n_owners, 1) * b * f * d * itemsize
+        metrics = {"loss": loss,
+                   "lookups": float(np.count_nonzero(idx_h >= 0)),
+                   "exchange_pooled_fwd_bytes": wire,
+                   "exchange_pooled_bwd_bytes": wire,
+                   "exchange_pair_leg_bytes":
+                       -(-b // max(n_owners, 1)) * max_f_owned * d * itemsize}
+        return ({**new_dense, "emb": {"mega": mega}},
+                {"dense": new_dense_state, "accum": accum}, metrics)
+
+    return step

@@ -13,7 +13,12 @@ cache_fetch, cache_fetch_chunked, cache_commit) only copy, so all of them
 must be bit-equal; dot_interaction's fp32 FMA chain differs from cuBLAS's
 order, so it (and its gradient) gets rtol/atol 1e-5; fused_bag_backward_adagrad sums
 bags in the plain order but reduces mean(g^2) by warp shuffles, so touched
-rows get rtol/atol 1e-6 and untouched rows must not move.
+rows get rtol/atol 1e-6 and untouched rows must not move. The same holds
+for its segmented form and for rowwise_adagrad against their plain
+versions; between the port's kernels the row-wise AdaGrad arithmetic is
+one sequence of operations, so the segmented kernel equals the one-plan
+kernel, and the two-pass update (dedup, then rowwise_adagrad) the fused
+one, bit for bit.
 """
 import numpy as np
 import pytest
@@ -21,8 +26,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import (KERNELS, cache_ops, dot_interaction,
-                                 embedding_bag, ops, ref, sparse_plan,
-                                 sparse_update)
+                                 embedding_bag, ops, ref, rowwise_adagrad,
+                                 sparse_plan, sparse_update)
 
 pytestmark = pytest.mark.cuda
 
@@ -442,8 +447,214 @@ def test_cached_train_step_on_the_card_matches_the_cpu(dev, schedule,
         {k.name: k.launches for k in KERNELS}
 
 
+def _segments(dev, idx, shard_rows, owners, seg_cap=None):
+    plan = sparse_plan.build_sparse_plan_host(idx.cpu().numpy())
+    segs = sparse_plan.split_plan_by_owner(plan, shard_rows, owners,
+                                           seg_cap=seg_cap)
+    return plan, [torch.from_numpy(x).to(dev) for x in
+                  (*segs[:2], plan.bag_ids, segs[2])]
+
+
+@pytest.mark.parametrize("h,d,b,f,lk,owners", [(60, 12, 5, 3, 6, 4),
+                                               (300, 64, 16, 4, 32, 8),
+                                               (97, 128, 6, 3, 7, 3)])
+def test_fused_segments_kernel_matches_plain_and_one_plan_kernel(
+        dev, h, d, b, f, lk, owners):
+    """Against the plain version: rtol/atol 1e-6 on touched rows, untouched
+    rows unmoved; against the one-plan kernel on the same batch: bit-equal,
+    at the tight capacity and at the reference's seg_cap = U. The last
+    owner is left without rows: an empty segment."""
+    shard_rows = -(-h // owners)
+    idx, table, accum, pooled = _plan_inputs(dev, h, d, b, f, lk, h + owners)
+    idx = torch.where(idx >= (owners - 1) * shard_rows, -1, idx)
+    plan, (rows, offs, bags, base) = _segments(dev, idx, shard_rows, owners)
+    assert (rows[-1] < 0).all()
+    t_k, a_k = table.clone(), accum.clone()
+    before = sparse_update.SEGMENTS_KERNEL.launches
+    sparse_update.fused_bag_backward_adagrad_segments(
+        t_k, a_k, rows, offs, bags, pooled, base, 0.05)
+    assert sparse_update.SEGMENTS_KERNEL.launches == before + 1
+    t_p, a_p = table.clone(), accum.clone()
+    ref.fused_bag_backward_adagrad_segments_ref(t_p, a_p, rows, offs, bags,
+                                                pooled, base, 0.05)
+    torch.cuda.synchronize()
+    touched = torch.zeros(h, dtype=torch.bool, device=dev)
+    touched[idx[idx >= 0].long()] = True
+    assert torch.equal(t_k[~touched], table[~touched])
+    assert torch.equal(a_k[~touched], accum[~touched])
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=1e-6)
+    t_1, a_1 = table.clone(), accum.clone()
+    sparse_update.fused_bag_backward_adagrad(
+        t_1, a_1, *(torch.from_numpy(x).to(dev) for x in plan), pooled, 0.05)
+    assert torch.equal(t_k, t_1) and torch.equal(a_k, a_1)
+    _, (rows_u, offs_u, bags_u, base_u) = _segments(
+        dev, idx, shard_rows, owners, seg_cap=idx.numel())
+    t_u, a_u = table.clone(), accum.clone()
+    sparse_update.fused_bag_backward_adagrad_segments(
+        t_u, a_u, rows_u, offs_u, bags_u, pooled, base_u, 0.05)
+    assert torch.equal(t_k, t_u) and torch.equal(a_k, a_u)
+
+
+def test_fused_segments_kernel_with_one_segment_is_the_one_plan_kernel(dev):
+    idx, table, accum, pooled = _plan_inputs(dev, 300, 64, 16, 4, 32, 11)
+    plan = sparse_plan.build_sparse_plan(idx)
+    t_s, a_s = table.clone(), accum.clone()
+    ops.fused_sparse_backward_segments(
+        t_s, a_s, plan.unique_rows[None], plan.bag_offsets[None],
+        plan.bag_ids, pooled, 0.05)
+    t_1, a_1 = table.clone(), accum.clone()
+    sparse_update.fused_bag_backward_adagrad(t_1, a_1, *plan, pooled, 0.05)
+    assert torch.equal(t_s, t_1) and torch.equal(a_s, a_1)
+
+
+@pytest.mark.parametrize("h,d,n", [(64, 8, 16), (97, 48, 23), (128, 64, 64),
+                                   (50, 200, 300)])
+def test_rowwise_adagrad_kernel_matches_plain(dev, h, d, n):
+    g = torch.Generator(device=dev).manual_seed(h + n)
+    table = torch.randn((h, d), generator=g, device=dev)
+    accum = torch.rand((h,), generator=g, device=dev)
+    idx = torch.randint(-1, h, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    grads = torch.randn((n, d), generator=g, device=dev)
+    uniq, gsum = ref.dedup_grads_ref(idx, grads, h)
+    t_k, a_k = table.clone(), accum.clone()
+    before = rowwise_adagrad.KERNEL.launches
+    rowwise_adagrad.rowwise_adagrad(t_k, a_k, uniq, gsum, 0.05)
+    assert rowwise_adagrad.KERNEL.launches == before + 1
+    t_p, a_p = table.clone(), accum.clone()
+    ref.rowwise_adagrad_ref(t_p, a_p, uniq, gsum, 0.05)
+    torch.cuda.synchronize()
+    touched = torch.zeros(h, dtype=torch.bool, device=dev)
+    touched[idx[idx >= 0].long()] = True
+    assert torch.equal(t_k[~touched], table[~touched])
+    assert torch.equal(a_k[~touched], accum[~touched])
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=1e-6)
+
+
+def test_two_pass_update_on_the_card_is_the_fused_update(dev):
+    """The dedup sums each row's gradients in the fused kernel's order, and
+    rowwise_adagrad applies them with its arithmetic: bit-equal."""
+    idx, table, accum, pooled = _plan_inputs(dev, 300, 64, 16, 4, 32, 12)
+    b, f, lk = idx.shape
+    g = pooled.reshape(b, f, 1, -1).expand(b, f, lk, -1)
+    t_2, a_2 = ops.rowwise_adagrad_update(
+        table.clone(), accum.clone(), idx.reshape(-1),
+        g.reshape(b * f * lk, -1), 0.05)
+    t_f, a_f = ops.fused_sparse_backward(table.clone(), accum.clone(), idx,
+                                         pooled, 0.05)
+    assert torch.equal(t_2, t_f) and torch.equal(a_2, a_f)
+
+
+def test_segmented_and_rowwise_kernels_reach_rows_past_2_pow_24(dev):
+    """A table of 2^24 + 1024 rows at D=64 (4.3 GB), two owners: rows past
+    2^24 (the table's last among them) and byte offsets past 2^32."""
+    r, d = (1 << 24) + 1024, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((r, d), generator=g, device=dev)
+    accum = torch.rand((r,), generator=g, device=dev)
+    idx = torch.tensor([[[r - 1, 5, r - 1, -1]], [[1 << 24, r - 1, 7, 9]]],
+                       dtype=torch.int32, device=dev)
+    pooled = torch.randn((2, d), generator=g, device=dev)
+    _, (rows, offs, bags, base) = _segments(dev, idx, r // 2, 2)
+    hit = idx[idx >= 0].long().unique()
+    saved = table[hit].clone(), accum[hit].clone()
+    sparse_update.fused_bag_backward_adagrad_segments(
+        table, accum, rows, offs, bags, pooled, base, 0.05)
+    got = table[hit].clone(), accum[hit].clone()
+    table[hit], accum[hit] = saved
+    ref.fused_bag_backward_adagrad_segments_ref(table, accum, rows, offs,
+                                                bags, pooled, base, 0.05)
+    torch.testing.assert_close(got[0], table[hit], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], accum[hit], rtol=1e-6, atol=1e-6)
+    assert not torch.equal(got[0], saved[0])
+    table[hit], accum[hit] = saved
+    uniq = torch.tensor([r - 1, -1, 1 << 24], dtype=torch.int32, device=dev)
+    gsum = torch.randn((3, d), generator=g, device=dev)
+    rowwise_adagrad.rowwise_adagrad(table, accum, uniq, gsum, 0.05)
+    got = table[hit].clone(), accum[hit].clone()
+    table[hit], accum[hit] = saved
+    ref.rowwise_adagrad_ref(table, accum, uniq, gsum, 0.05)
+    torch.testing.assert_close(got[0], table[hit], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], accum[hit], rtol=1e-6, atol=1e-6)
+
+
+def test_tablewise_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    t, a = torch.zeros((8, 4), device=dev), torch.zeros(8, device=dev)
+    rows = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    offs = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    bags = torch.zeros((5,), dtype=torch.int32, device=dev)
+    base = torch.zeros((2,), dtype=torch.int32, device=dev)
+    pooled = torch.zeros((5, 4), device=dev)
+    upd = sparse_update.fused_bag_backward_adagrad_segments
+    with pytest.raises(TypeError):
+        upd(t, a, rows, offs, bags, pooled, base.long(), 0.1)
+    with pytest.raises(TypeError):
+        upd(t, a, rows, offs, bags, pooled.double(), base, 0.1)
+    with pytest.raises(ValueError):
+        upd(t, a, rows, offs, bags, pooled, base.cpu(), 0.1)
+    with pytest.raises(ValueError):
+        upd(t, a, rows.t().contiguous().t(), offs, bags, pooled, base, 0.1)
+    uniq = torch.zeros((3,), dtype=torch.int32, device=dev)
+    gsum = torch.zeros((3, 4), device=dev)
+    with pytest.raises(TypeError):
+        rowwise_adagrad.rowwise_adagrad(t, a, uniq.long(), gsum, 0.1)
+    with pytest.raises(ValueError):
+        rowwise_adagrad.rowwise_adagrad(t, a, uniq, gsum.cpu(), 0.1)
+    with pytest.raises(ValueError):
+        rowwise_adagrad.rowwise_adagrad(t.t(), a[:4], uniq,
+                                        torch.zeros((3, 8), device=dev), 0.1)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_tablewise_step_on_the_card_matches_the_cpu(dev, staged):
+    """Three table-wise steps of the smoke dlrm-m1 over 4 owners on the
+    card and on the CPU: rtol/atol 1e-5 (kernels and cuBLAS sum in other
+    orders than the CPU); the segmented kernel launched once a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.pipeline import sparse_plan_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_tablewise_train_step,
+                                         dlrm_init_state)
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=4,
+                                       strategy="table_wise")
+    hook = sparse_plan_hook(ebc.plan.table_offsets)
+    batches = [hook(make_dlrm_batch(cfg, 16, step=t)) for t in range(3)]
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        params = tree_map(lambda x: x.to(d), init_dlrm_params(
+            cfg, ebc, 0, torch.device("cpu")))
+        state = dlrm_init_state(ebc, adagrad(0.01), params)
+        step = build_tablewise_train_step(cfg, ebc, adagrad(0.01))
+        before = sparse_update.SEGMENTS_KERNEL.launches
+        losses = []
+        for t, batch in enumerate(batches):
+            nxt = (batches[t + 1] if staged and t + 1 < len(batches)
+                   else None)
+            params, state, m = step(params, state, batch, t, next_batch=nxt)
+            losses.append(float(m["loss"]))
+        launched = sparse_update.SEGMENTS_KERNEL.launches - before
+        assert launched == (len(batches) if d.type == "cuda" else 0)
+        runs[d.type] = (losses, params["emb"]["mega"].cpu(),
+                        state["accum"].cpu(), params["top"][0]["w"].cpu())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(runs["cuda"][1:], runs["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_every_kernel_builds_for_hopper(dev):
     from repro_torch.kernels import build_all
     build_all(list(KERNELS))
     for k in KERNELS:
         assert k.library.exists()
+    sources = {k.source.name for k in KERNELS}
+    assert {"fused_bag_backward_adagrad.cu", "rowwise_adagrad.cu"} <= sources
+    assert len(KERNELS) == 10
