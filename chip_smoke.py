@@ -6,7 +6,7 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the ten CUDA kernels of the serving and training paths (eight
+2. build the eleven CUDA kernels of the serving and training paths (nine
    sources) with nvcc (sm_90a), one process per source, all at once;
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
@@ -55,7 +55,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    `build_dlrm_train_step` on the same layout, seed and batches; 8a's
    losses and final table and accumulator checksums must equal 8b's bit
    for bit;
-9. print one JSON line of per-kernel numbers, then the result line.
+9. serve stablelm-1.6b at full width (random weights from a seeded
+   torch.Generator, bf16 compute): (9a) hold the flash-attention kernel
+   against its plain version at the prefill's (1, 32, 8192, 64) in bf16
+   and fp32, the prefill_32k length on two heads, starcoder2-3b's dh 128
+   and a ragged length, probe its causality, and time it beside its plain
+   version and SDPA (timed only); (9b) `prefill_step` on 8,192 tokens of
+   `make_lm_batch` (exactly one kernel launch a layer), 16 greedy
+   `decode_step`s, one profiled prefill; (9c) the same last position
+   through an 8,191-token prefill (full attention, no kernel) and one
+   decode step, held to 9b's logits; (9d) the LM launcher at the
+   reference's defaults (8 requests, 4 slots, max_len 128, 16 new
+   tokens), every request served in full, no kernel launched;
+10. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -103,6 +115,42 @@ EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
 #: the table-wise runs: the 8 owners of a Zion / Big Basin box
 TABLEWISE_OWNERS = 8
+#: the LM serving path (phases 9a-9d): stablelm-1.6b at full width, the
+#: prefill_32k cell cut to batch 1 and 8,192 tokens (its 32 x 32,768
+#: positions of 100,352 bf16 logits alone would take 210 GB), then
+#: LM_DECODE greedy decode steps; the caches hold LM_MAX_LEN positions
+LM_ARCH = "stablelm-1.6b"
+LM_PROMPT, LM_DECODE = 8192, 16
+LM_MAX_LEN = LM_PROMPT + LM_DECODE
+LM_PARAM_SEED = 0
+#: the LM launcher at the reference launcher's defaults
+LM_SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "8", "--slots", "4",
+                 "--max-len", "128", "--new-tokens", "16"]
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+#: 9a: the kernel against its plain version at the prefill's shape (bf16
+#: and fp32), the prefill_32k length on two heads (the plain version at 32
+#: heads would need 137 GB of scores), starcoder2-3b's head dim, a ragged
+#: length; (b, h, s, dh)
+FLASH_SHAPES = (("stablelm", (1, 32, 8192, 64), "bfloat16"),
+                ("stablelm_fp32", (1, 32, 8192, 64), "float32"),
+                ("prefill_32k_2_heads", (1, 2, 32768, 64), "bfloat16"),
+                ("starcoder2_dh128", (1, 24, 4096, 128), "bfloat16"),
+                ("ragged", (1, 32, 8155, 64), "bfloat16"))
+#: (rtol, atol) of the kernel against its plain version: fp32 gets the
+#: reference's own fp32 kernel tolerance; in bf16 both round one fp32
+#: result to bf16, so they may differ by one bf16 ulp (2^-7 relative)
+TOL_FLASH = {"float32": (2e-4, 2e-4), "bfloat16": (2 ** -7, 1e-3)}
+#: 9c: the prefill's last logits (kernel path) against a decode step after
+#: an 8,191-token prefill (full attention, no kernel), bf16 through 24
+#: layers. Each bf16 rounding is 2^-9 relative and the two paths round at
+#: other places (fp32 vs bf16 P.V, one GEMM over 8,192 rows vs one row);
+#: at the smoke size (2 layers) on the CPU the same comparison gives a
+#: relative L2 error of 1.2% and a largest difference of 0.039. Held: the
+#: relative L2 error of the logits within 5e-2 and the largest difference
+#: within 0.5 (logits are ~N(0, 1) from random weights); a wrong mask,
+#: scale or tile would move them by tens of percent
+TOL_LM_REL_L2, TOL_LM_ABS = 5e-2, 0.5
 
 
 def log(msg: str) -> None:
@@ -134,9 +182,10 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 def device_kernel_ms(torch, fn, iters: int, name: str) -> float | None:
     """Mean device time per call of fn of the CUDA kernels whose name holds
-    `name` (all of a call's launches of them), from torch.profiler; None
-    when the trace has no device time. A trace now and then comes back
-    without device events, so an empty one is taken again, up to 3 times."""
+    `name` (all of a call's launches of them), from torch.profiler's
+    device-side events; None when the trace has no device time. A trace
+    now and then comes back without device events, so an empty one is
+    taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -146,9 +195,7 @@ def device_kernel_ms(torch, fn, iters: int, name: str) -> float | None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(evt, "device_time_total",
-                            getattr(evt, "cuda_time_total", 0))
-                    for evt in prof.key_averages() if name in evt.key)
+        total = sum(t for key, t in device_events(prof) if name in key)
         if total:
             return total / iters / 1e3
     return None
@@ -1404,6 +1451,258 @@ def train_tablewise(torch, dev, cfg, ebc, oracle: bool) -> dict:
     return out
 
 
+def check_flash_attention(torch, dev) -> dict:
+    """Phase 9a: the flash-attention kernel against its plain version at
+    each of FLASH_SHAPES, a causality probe at the prefill's shape, and the
+    times of the kernel, its plain version and SDPA (timed only, as the
+    yardstick). Returns the numbers by shape name."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    out = {}
+    for name, shape, dt in FLASH_SHAPES:
+        b, h, s, dh = shape
+        g = torch.Generator(device=dev)
+        g.manual_seed(s + dh)
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(getattr(torch, dt)) for _ in range(3))
+        got = kf.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        rtol, atol = TOL_FLASH[dt]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= atol + rtol * want.float().abs()).all()
+                  and torch.isfinite(got).all())
+        log(f"  flash_attention[{name}] {shape} {dt}: max_abs_err={err:.3e} "
+            f"(tol {atol} abs + {rtol:.4g} rel)")
+        if not ok:
+            raise AssertionError(f"flash_attention[{name}] disagrees: {err}")
+        del want, diff
+        if name == "stablelm":
+            p = 5000                                  # mid-tile
+            k2, v2 = k.clone(), v.clone()
+            k2[:, :, p:], v2[:, :, p:] = 7.0, -5.0
+            probe = kf.flash_attention(q, k2, v2)
+            causal = bool(torch.equal(probe[:, :, :p], got[:, :, :p]))
+            moved = not torch.equal(probe[:, :, p:], got[:, :, p:])
+            log(f"  causality: K, V past {p} perturbed -> outputs before it "
+                f"bit-equal={causal}, after it changed={moved}")
+            if not (causal and moved):
+                raise AssertionError("flash_attention is not causal")
+            del k2, v2, probe
+        flops = 4 * b * h * dh * s * (s + 1) / 2
+        t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
+        t_ops = flops / (BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS)
+        nums = {
+            "shape": list(shape), "dtype": dt, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: kf.flash_attention(q, k, v), 10,
+                          warmup=2),
+            "device_ms": device_kernel_ms(
+                torch, lambda: kf.flash_attention(q, k, v), 3,
+                "flash_attention_kernel"),
+            "plain_ms": time_ms(
+                torch, lambda: ref.flash_attention_ref(q, k, v), 2,
+                warmup=1),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 10, warmup=2),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "bound_bf16_989T_ms": flops / BF16_FLOPS * 1e3,
+            "bound_fp32_67T_ms": flops / FP32_FLOPS * 1e3}
+        log(f"  flash_attention[{name}]: {json.dumps(nums)}")
+        out[name] = nums
+        del q, k, v, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_prefill(torch, dev, cfg) -> dict:
+    """Phase 9b: prefill_step on LM_PROMPT tokens of make_lm_batch at full
+    width, then LM_DECODE greedy decode steps; one more prefill under
+    torch.profiler. Returns the numbers, the prefill's last logits (fp32,
+    host), the parameters and the tokens (9c reuses both)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models.lm import (decode_step, init_caches,
+                                       init_lm_params, prefill_step)
+    from repro_torch.nn.params import tree_leaves
+
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, LM_PARAM_SEED, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {LM_ARCH}: {n_params} parameters (fp32) drawn in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if n_params != cfg.param_count_estimate():
+        raise AssertionError(f"{n_params} parameters, want "
+                             f"{cfg.param_count_estimate()}")
+    tokens = torch.from_numpy(
+        make_lm_batch(cfg, 1, LM_PROMPT)["tokens"]).to(dev)
+    caches = init_caches(cfg, 1, LM_MAX_LEN, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    last, caches = prefill_step(params, {"tokens": tokens}, caches, cfg)
+    last = last.float()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = last.argmax(-1)
+    generated, decode_ms = [], []
+    for i in range(LM_DECODE):
+        t0 = time.perf_counter()
+        logits, caches = decode_step(params, tok[:, None], caches,
+                                     LM_PROMPT + i, cfg)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+        tok = logits.float().argmax(-1)
+        generated.append(int(tok))
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_launches(KERNELS, "lm_prefill", ("flash_attention",))
+    others = {n: c for n, c in counts.items()
+              if c and n != "flash_attention"}
+    if counts["flash_attention"] != cfg.n_layers or others:
+        raise AssertionError(f"want {cfg.n_layers} flash_attention launches "
+                             f"(one a layer) and no other kernel: {counts}")
+    if last.shape != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(last).all()):
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not "
+                             "finite or of the wrong shape")
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill_step(params, {"tokens": tokens}, caches, cfg)
+        torch.cuda.synchronize()
+    prof_host_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    dev_ms = sum(t for _, t in events) / 1e3
+    flash_ms = sum(t for n, t in events if "flash_attention" in n) / 1e3
+    top = sorted(events, key=lambda e: -e[1])[:8]
+    nums = {"prompt": LM_PROMPT, "max_len": LM_MAX_LEN,
+            "prefill_host_ms": prefill_ms,
+            "decode_host_ms": decode_ms,
+            "profiled_prefill_host_ms": prof_host_ms,
+            "prefill_device_busy_ms": dev_ms if dev_ms else None,
+            "prefill_flash_device_ms": flash_ms if dev_ms else None,
+            "peak_bytes": peak, "generated": generated,
+            "top_device_events_ms": [(n, t / 1e3) for n, t in top]}
+    log(f"9b numbers: {json.dumps(nums)}")
+    del caches
+    return {"numbers": nums, "last": last.cpu(), "params": params,
+            "tokens": tokens, "launches": counts}
+
+
+def lm_prefill_plain(torch, cfg, run: dict) -> dict:
+    """Phase 9c: prefill_step on the first LM_PROMPT - 1 tokens (not a
+    multiple of attn_block_q: full attention, no kernel), then decode_step
+    on the last token, whose logits are for 9b's last position; held to
+    9b's within TOL_LM_REL_L2 and TOL_LM_ABS."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models.lm import decode_step, init_caches, prefill_step
+
+    params, tokens = run["params"], run["tokens"]
+    dev = tokens.device
+    caches = init_caches(cfg, 1, LM_MAX_LEN, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    _, caches = prefill_step(params, {"tokens": tokens[:, :LM_PROMPT - 1]},
+                             caches, cfg)
+    logits, caches = decode_step(params, tokens[:, LM_PROMPT - 1:], caches,
+                                 LM_PROMPT - 1, cfg)
+    got = logits.float().cpu()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches(KERNELS, "lm_prefill_plain", ())
+    if any(counts.values()):
+        raise AssertionError(f"9c launched kernels: {counts}")
+    want = run["last"]
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    agree = int(got.argmax()) == int(want.argmax())
+    nums = {"prompt": LM_PROMPT - 1, "host_ms": host_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "max_abs_err": err, "rel_l2_err": rel, "argmax_agrees": agree,
+            "argmax": [int(got.argmax()), int(want.argmax())],
+            "max_abs_logit": float(want.abs().max())}
+    log(f"9c vs 9b: max_abs_err={err:.4g} (tol {TOL_LM_ABS}) rel_l2_err="
+        f"{rel:.4g} (tol {TOL_LM_REL_L2}) argmax agrees={agree}; "
+        f"{json.dumps(nums)}")
+    if not (err <= TOL_LM_ABS and rel <= TOL_LM_REL_L2
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError("the kernel prefill and the full-attention "
+                             "path disagree")
+    del caches
+    return {"numbers": nums, "launches": counts}
+
+
+def lm_serve(torch, cfg) -> dict:
+    """Phase 9d: the LM launcher at full width (LM_SERVE_ARGV): every
+    request served within its budget, no kernel launched (the engine only
+    decodes); then four more requests under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import Request
+
+    log(f"phase 9d: python -m repro_torch.launch.serve "
+        f"{' '.join(LM_SERVE_ARGV)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    engine = serve_cli.main(LM_SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches(KERNELS, "lm_serve", ())
+    if any(counts.values()):
+        raise AssertionError(f"the LM engine launched kernels: {counts}")
+    done = engine.completed
+    n_req = int(LM_SERVE_ARGV[LM_SERVE_ARGV.index("--requests") + 1])
+    budget = int(LM_SERVE_ARGV[LM_SERVE_ARGV.index("--new-tokens") + 1])
+    if sorted(done) != list(range(n_req)) or not all(
+            len(v) == budget and all(0 <= t < cfg.vocab_size for t in v)
+            for v in done.values()):
+        raise AssertionError(f"not every request got {budget} tokens: "
+                             f"{ {u: len(v) for u, v in done.items()} }")
+    steps = engine.steps_run
+    peak = torch.cuda.max_memory_allocated()
+    rng = np.random.RandomState(1)
+    for uid in range(n_req, n_req + engine.batch_slots):
+        engine.submit(Request(uid=uid, prompt=rng.randint(
+            0, cfg.vocab_size, size=(8,)).astype(np.int32),
+            max_new_tokens=budget))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+    prof_steps = engine.steps_run - steps
+    host = (time.perf_counter() - t0) * 1e3 / prof_steps
+    dev_ms = sum(t for _, t in device_events(prof)) / 1e3 / prof_steps
+    tokens = sum(len(v) for u, v in done.items() if u < n_req)
+    nums = {"requests": n_req, "tokens": tokens, "engine_steps": steps,
+            "wall_s": wall, "tok_per_s": tokens / wall, "peak_bytes": peak,
+            "profiled_steps": prof_steps,
+            "profiled_host_ms_per_step": host,
+            "profiled_device_busy_ms_per_step": dev_ms if dev_ms else None}
+    log(f"9d numbers (profiled steps include their admissions' slot-local "
+        f"prefill): {json.dumps(nums)}")
+    del engine
+    return {"numbers": nums, "launches": counts}
+
+
 def evict_search(torch, dev, cfg) -> dict:
     """The smallest cache at which run 7b (AsyncCachedTier, fetch_chunk
     EVICT_CHUNK, the dedup reader, the launcher's TRAIN_STEPS batches)
@@ -1707,7 +2006,32 @@ def main() -> int:
         log(f"{name} numbers: " + json.dumps(
             {k: v for k, v in res.items() if k != "losses"}))
 
-    # 9. the numbers, then the result
+    # 9. serve stablelm-1.6b at full width: the flash-attention kernel
+    #    against its plain version (9a), the prefill through the kernel and
+    #    greedy decode (9b), the same position through the full-attention
+    #    path (9c), the LM launcher's engine (9d)
+    lm_cfg = get_config(LM_ARCH)
+    log("phase 9a: flash_attention vs plain at " + ", ".join(
+        f"{n} {shape} {dt}" for n, shape, dt in FLASH_SHAPES))
+    flash = check_flash_attention(torch, dev)
+    numbers["flash_attention"] = flash["stablelm"]
+    log_peak(torch, "phase 9a")
+    free_device(torch)
+    log(f"phase 9b: {LM_ARCH} prefill_step on make_lm_batch(cfg, 1, "
+        f"{LM_PROMPT}) into caches of max_len {LM_MAX_LEN}, then "
+        f"{LM_DECODE} greedy decode_steps")
+    run = lm_prefill(torch, dev, lm_cfg)
+    paths["lm_prefill"] = run["launches"]
+    log(f"phase 9c: prefill_step on the first {LM_PROMPT - 1} tokens (full "
+        f"attention), decode_step on token {LM_PROMPT - 1}")
+    paths["lm_prefill_plain"] = lm_prefill_plain(torch, lm_cfg, run)[
+        "launches"]
+    del run
+    free_device(torch)
+    paths["lm_serve"] = lm_serve(torch, lm_cfg)["launches"]
+    free_device(torch)
+
+    # 10. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -1719,7 +2043,8 @@ def main() -> int:
         "fused_bag_backward_adagrad": "src/repro/kernels/sparse_update.py:174",
         "fused_bag_backward_adagrad_segments":
             "src/repro/kernels/sparse_update.py:126",
-        "rowwise_adagrad": "src/repro/kernels/rowwise_adagrad.py:73"}
+        "rowwise_adagrad": "src/repro/kernels/rowwise_adagrad.py:73",
+        "flash_attention": "src/repro/kernels/flash_attention.py:100"}
     rows = []
     for k in KERNELS:
         nums = numbers[k.name]

@@ -1,13 +1,51 @@
-"""Config registry for the port: the paper's production DLRMs and their
-reduced smoke configs. The LM architectures join with the LM slice."""
+"""Config registry of the port: the dense LM architectures (one module per
+arch), the paper's production DLRMs, and their reduced smoke configs of
+the same family for CPU tests. The six other LM archs of the reference
+(MoE, SSM, hybrid, VLM, audio) are named, and raise until their slice."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs import (chatglm3_6b, qwen1_5_32b, stablelm_1_6b,
+                                 starcoder2_3b)
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.configs.dlrm_prod import DLRMS
 
-ARCH_NAMES: list[str] = list(DLRMS)
+_ARCH_MODULES = (starcoder2_3b, stablelm_1_6b, qwen1_5_32b, chatglm3_6b)
+
+ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
+                                 for m in _ARCH_MODULES}
+
+#: the reference's other LM archs, by family: each comes with its slice
+LATER: dict[str, str] = {
+    "mamba2-780m": "ssm", "granite-moe-1b-a400m": "moe",
+    "granite-moe-3b-a800m": "moe", "internvl2-26b": "vlm",
+    "musicgen-large": "audio", "jamba-v0.1-52b": "hybrid"}
+
+ARCH_NAMES: list[str] = list(ARCHS) + list(DLRMS)
+
+
+def _smoke(cfg: ModelConfig) -> ModelConfig:
+    period = len(cfg.pattern)
+    heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    kv = min(cfg.n_kv_heads, heads) if cfg.n_kv_heads else 0
+    if kv and heads % kv:
+        kv = 1
+    return dataclasses.replace(
+        cfg,
+        n_layers=2 * period,
+        d_model=64,
+        n_heads=heads, n_kv_heads=kv, d_head=16 if heads else 0,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_headdim=16 if cfg.ssm_state else 64,
+        ssm_chunk=8,
+        attn_block_q=16, attn_block_k=16,
+        remat="none", fsdp=False,
+    )
 
 
 def _smoke_dlrm(cfg: DLRMConfig) -> DLRMConfig:
@@ -24,14 +62,20 @@ def _smoke_dlrm(cfg: DLRMConfig) -> DLRMConfig:
     )
 
 
-def get_config(name: str) -> DLRMConfig:
-    """Full-size config by name (DLRM names only in this slice)."""
+def get_config(name: str) -> ModelConfig | DLRMConfig:
+    """Full-size config by name."""
+    if name in ARCHS:
+        return ARCHS[name]
     if name in DLRMS:
         return DLRMS[name]
-    raise KeyError(f"unknown arch {name!r}; the port knows {ARCH_NAMES} "
-                   "(the LM configs arrive with the LM-zoo slice)")
+    if name in LATER:
+        raise NotImplementedError(
+            f"{name} is a {LATER[name]}-family LM; the port runs the dense "
+            "family, the rest of the LM zoo comes with a later slice")
+    raise KeyError(f"unknown arch {name!r}; the port knows {ARCH_NAMES}")
 
 
-def get_smoke_config(name: str) -> DLRMConfig:
+def get_smoke_config(name: str) -> ModelConfig | DLRMConfig:
     """Reduced CPU-test config of the same family."""
-    return _smoke_dlrm(get_config(name))
+    cfg = get_config(name)
+    return _smoke_dlrm(cfg) if isinstance(cfg, DLRMConfig) else _smoke(cfg)

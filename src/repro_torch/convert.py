@@ -1,5 +1,5 @@
-"""Copy the reference package's DLRM parameters and optimizer state into
-the port.
+"""Copy the reference package's DLRM parameters and optimizer state, and
+its LM parameters, into the port.
 
 `jax.random` cannot be replayed by torch, so a test that runs both packages
 initialises the reference, converts its trees to numpy, and hands them to
@@ -44,3 +44,13 @@ def state_from_jax(tree: dict,
     dev = resolve_device(device)
     return {"dense": tree_map(lambda x: _tensor(x, dev), tree["dense"]),
             "accum": _tensor(tree["accum"], dev)}
+
+
+def lm_params_from_jax(tree: dict,
+                       device: str | torch.device | None = None) -> dict:
+    """Map the reference's LM parameter tree (`lm_param_specs` layout: the
+    blocks stacked along a leading n_units axis; numpy leaves) to the
+    port's, the same layout with fp32 tensors on `device` (default cuda;
+    raises without it)."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _tensor(x, dev), tree)

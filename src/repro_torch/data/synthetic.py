@@ -1,16 +1,18 @@
-"""Synthetic DLRM click logs (the reference package's generator, in numpy).
+"""Synthetic DLRM click logs and LM token batches (the reference package's
+generators, in numpy).
 
 Per-table multi-hot index lists whose LENGTHS follow the paper's power-law
 (Fig. 7) and whose INDEX values follow a Zipf over the hash space (Fig. 6);
 labels come from a planted logistic model. The numpy calls, their order and
 their seeds are the reference's, so a batch is bit-identical to
-`repro.data.synthetic.make_dlrm_batch`'s for the same arguments.
+`repro.data.synthetic.make_dlrm_batch`'s (and `make_lm_batch`'s) for the
+same arguments.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 
 
 def _zipf_indices(rng: np.random.RandomState, hash_size: int, n: int,
@@ -74,3 +76,21 @@ def make_dlrm_batch(cfg: DLRMConfig, batch: int, step: int = 0,
     prob = 1.0 / (1.0 + np.exp(-score))
     label = (rng.rand(batch) < prob).astype(np.float32)
     return {"dense": dense, "idx": idx, "label": label}
+
+
+def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, step: int = 0,
+                  seed: int = 0) -> dict[str, np.ndarray]:
+    """Token batch: {tokens (B, S) i32, targets (B, S) i32 (tokens shifted
+    by one, a fresh draw last), loss_mask (B, S) f32 ones}. The vision and
+    audio frontends' embeddings come with their slice."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.frontend} batches come with the frontend slice")
+    rng = np.random.RandomState(seed * 7_777_777 + step + 1)
+    tokens = rng.randint(0, cfg.vocab_size,
+                         size=(batch, seq_len)).astype(np.int32)
+    targets = np.concatenate(
+        [tokens[:, 1:], rng.randint(0, cfg.vocab_size, size=(batch, 1))],
+        axis=1).astype(np.int32)
+    return {"tokens": tokens, "targets": targets,
+            "loss_mask": np.ones((batch, seq_len), np.float32)}

@@ -3,9 +3,10 @@
 Dispatch is by the tensor's device, not by a flag: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor the hand-written kernel (or an error).
 The TPU-only layout work of the reference wrappers — padding D to the
-128-lane width and F to the 8-row sublane, and `_pad_scale_lr`'s
-`sqrt(Dp/d)` learning-rate rescale that compensates for it — has no
-counterpart.
+128-lane width and F to the 8-row sublane, `_pad_scale_lr`'s `sqrt(Dp/d)`
+learning-rate rescale and `flash_attention`'s `sqrt(padded/dh)` query
+rescale that compensate for it, and padding the sequence to the attention
+block — has no counterpart.
 
 Gradients: `dot_interaction` is a `torch.autograd.Function` whose backward
 is the reference's `_dot_bwd` in torch ops (the reference computes it
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.kernels import dot_interaction as _dot
 from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rowwise_adagrad as _rw
 from repro_torch.kernels import sparse_update as _upd
@@ -138,3 +140,14 @@ def rowwise_adagrad_update(table: torch.Tensor, accum: torch.Tensor,
     intermediates. Returns (table, accum)."""
     uniq, gsum = ref.dedup_grads_ref(indices, grads, table.shape[0])
     return _rw.rowwise_adagrad(table, accum, uniq, gsum, lr, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention on the layer layout: q, k, v (b, s, h, dh) -> (b, s, h,
+    dh). Transposes to (b, h, s, dh) for the causal flash-attention kernel
+    (the plain version, causal or not, on the CPU) and back."""
+    out = _flash.flash_attention(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal)
+    return out.transpose(1, 2)

@@ -3,12 +3,15 @@
 Each function computes what its CUDA kernel computes, in the same
 accumulation order where the kernel has one, on any device. The kernel
 wrappers (`kernels/embedding_bag.py`, `dot_interaction.py`,
-`cache_ops.py`, `sparse_update.py`, `rowwise_adagrad.py`) call these only
-for tensors on the CPU; `chip_smoke.py` holds each kernel against its plain
-version on the card, and the tests hold the plain versions against the
-reference package's `repro.kernels.ref` oracles.
+`cache_ops.py`, `sparse_update.py`, `rowwise_adagrad.py`,
+`flash_attention.py`) call these only for tensors on the CPU;
+`chip_smoke.py` holds each kernel against its plain version on the card,
+and the tests hold the plain versions against the reference package's
+`repro.kernels.ref` oracles.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -304,3 +307,21 @@ def lfu_touch_ref(freq: torch.Tensor, slots: torch.Tensor,
     freq.mul_(decay)
     freq.index_add_(0, slots[keep].long(), counts[keep].to(freq.dtype))
     return freq
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention on (b, h, s, dh): fp32 scores scaled by 1/sqrt(dh), -1e30
+    above the diagonal when causal, softmax, times V in fp32; the result
+    in q's dtype. The flash-attention kernel computes the same function
+    with an online softmax over key tiles."""
+    dh = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s.div_(math.sqrt(dh))
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        above = (torch.arange(sk, device=q.device)[None, :]
+                 > torch.arange(sq, device=q.device)[:, None])
+        s.masked_fill_(above, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,25 +1,60 @@
-"""Serving launcher of the port: the overload-robust DLRM tier.
+"""Serving launcher of the port: the LM slot engine or the overload-robust
+DLRM tier, by the arch's config type.
 
+    python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke \\
+        --requests 8 --device cpu
+    python -m repro_torch.launch.serve --arch stablelm-1.6b
     python -m repro_torch.launch.serve --arch dlrm-m1 --smoke --requests 32 \\
         --device cpu
     python -m repro_torch.launch.serve --arch dlrm-m1 --cache-rows 22727272
 
-Replays seeded Zipf traffic through `DLRMServeEngine` and prints the same
+The LM mode drives `ServeEngine` with seeded random prompts and prints the
+reference's `served N requests, T tokens in ...` line. The DLRM mode
+replays seeded Zipf traffic through `DLRMServeEngine` and prints the same
 parseable SLO summary as the reference (`serve[dlrm]: key=value ...`).
 Runs on the card unless `--device cpu` is given; without a card it raises.
-The LM mode arrives with the LM-zoo slice, `--chaos` with the port of the
-fault injector.
+`--chaos` arrives with the port of the fault injector.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import DLRMConfig, get_config, get_smoke_config
 
 #: seed of the torch.Generator the parameters are drawn from
 PARAM_SEED = 0
+
+
+def serve_lm(cfg, args):
+    """Build the LM engine on `args.device` with seeded parameters, submit
+    `args.requests` random prompts of 4..11 tokens, drain, print the
+    summary line. Returns the engine."""
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    params = init_lm_params(cfg, PARAM_SEED, resolve_device(args.device))
+    engine = ServeEngine(params, cfg, batch_slots=args.slots,
+                         max_len=args.max_len)
+    rng = np.random.RandomState(0)
+    t0 = time.time()
+    for uid in range(args.requests):
+        prompt = rng.randint(0, cfg.vocab_size,
+                             size=(rng.randint(4, 12),)).astype(np.int32)
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=args.new_tokens))
+    done = engine.run_until_drained()
+    dt = time.time() - t0
+    total_tokens = sum(len(v) for v in done.values())
+    print(f"served {len(done)} requests, {total_tokens} tokens in {dt:.2f}s "
+          f"({total_tokens / dt:.1f} tok/s, {engine.steps_run} engine steps)",
+          flush=True)
+    for uid in sorted(done)[:4]:
+        print(f"  req {uid}: {done[uid][:8]}...", flush=True)
+    return engine
 
 
 def serve_dlrm(cfg, args):
@@ -68,11 +103,16 @@ def serve_dlrm(cfg, args):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The reference launcher's DLRM flags, plus `--device`."""
+    """The reference launcher's flags, plus `--device`."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
+    # LM knobs
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    # DLRM knobs
     ap.add_argument("--batch", type=int, default=4,
                     help="examples per DLRM request")
     ap.add_argument("--max-batch", type=int, default=16,
@@ -91,11 +131,14 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
-    """Entry point: serve the named DLRM. Returns the engine."""
+    """Entry point: dispatch on the arch's config type (LM vs DLRM).
+    Returns the engine."""
     args = parse_args(argv)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
-    return serve_dlrm(cfg, args)
+    if isinstance(cfg, DLRMConfig):
+        return serve_dlrm(cfg, args)
+    return serve_lm(cfg, args)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ card unless `--device cpu` is given; without a card it raises.
 
 The reference launcher's `--resume`, `--ckpt-*` and `--chaos` need the
 checkpoint and fault-tolerance slice; its LM mode (`--seq`, `--lr`) comes
-with the LM zoo.
+with the LM-training slice and raises until then.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import DLRMConfig, get_config, get_smoke_config
 
 #: seed of the torch.Generator the parameters are drawn from
 PARAM_SEED = 0
@@ -100,6 +100,10 @@ def main(argv=None) -> TrainRun:
     args = parse_args(argv)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if not isinstance(cfg, DLRMConfig):
+        raise NotImplementedError(
+            f"{args.arch}: the LM mode of the training launcher comes with "
+            "the LM-training slice (lm_loss, adamw, build_lm_train_step)")
     return train_dlrm(cfg, args)
 
 

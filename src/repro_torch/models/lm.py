@@ -1,0 +1,197 @@
+"""Causal LM of the port: the dense family of the reference's unified
+decoder (GQA attention with neox / glm / no RoPE, partial rotary, optional
+QKV bias, SwiGLU or GELU MLPs, RMSNorm or LayerNorm, tied or untied head).
+
+Parameters keep the reference's stacked layout: one tensor per parameter
+with a leading n_units axis, so `lm_params_from_jax` copies the reference's
+tree as it is. The reference's `scan` over units is a Python loop over
+that axis. MoE, Mamba-2, hybrid patterns and the vision and audio
+frontends raise `NotImplementedError` until their slice; `lm_loss` comes
+with the LM-training slice.
+
+Caches are written IN PLACE by `prefill_step` and `decode_step` (the
+reference returns updated copies); both return the caches they were given.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import layers as L
+from repro_torch.nn.params import ParamSpec, init_params, stack_specs, tree_map
+
+MODES = ("train", "prefill", "decode")
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """Raise for what the dense slice does not run."""
+    if cfg.pattern != ("a",) or cfg.n_experts > 0 or cfg.frontend is not None \
+            or cfg.sinusoidal_pos:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port runs the dense LM family; "
+            "MoE, Mamba-2, hybrid and the vision / audio frontends come with "
+            "a later slice")
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    """ParamSpec tree: token embedding, the stacked blocks of one unit
+    ("b0"), the final norm and, when untied, the head."""
+    _check_dense(cfg)
+    v, d = cfg.vocab_size, cfg.d_model
+    block = {"ln1": L.norm_specs(d, cfg.norm_type),
+             "attn": L.attention_specs(cfg)}
+    if cfg.d_ff > 0:
+        block["ln2"] = L.norm_specs(d, cfg.norm_type)
+        block["ffn"] = L.mlp_specs(cfg)
+    p = {"embed": {"tok": ParamSpec((v, d), init="normal", scale=0.02)},
+         "blocks": {"b0": stack_specs(block, cfg.n_units)},
+         "final_norm": L.norm_specs(d, cfg.norm_type)}
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": ParamSpec((d, v), init="fan_in")}
+    return p
+
+
+def init_lm_params(cfg: ModelConfig, seed: int,
+                   device: str | torch.device | None = None) -> dict:
+    """Parameters from a `torch.Generator` seeded `seed`, fp32, on `device`
+    (default cuda; raises without it)."""
+    return init_params(lm_param_specs(cfg), seed, resolve_device(device))
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def embed_input(params: dict, batch: dict, cfg: ModelConfig,
+                positions: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings (B, S, D) in the compute dtype, and positions
+    (B, S): `positions` from the decode path, else arange(S)."""
+    table = params["embed"]["tok"]
+    tokens = torch.as_tensor(batch["tokens"], device=table.device)
+    x = table[tokens.long()].to(_dtype(cfg))
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, positions
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """Final norm, then the tied embedding's transpose or the head."""
+    dtype = _dtype(cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_type, dtype=dtype)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["tok"].to(dtype).T
+    return x @ params["head"]["w"].to(dtype)
+
+# ---------------------------------------------------------------------------
+# blocks and the forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, mode: str, cache: dict | None,
+                 cache_index) -> torch.Tensor:
+    dtype = _dtype(cfg)
+    h = L.apply_norm(bp["ln1"], x, cfg.norm_type, dtype=dtype)
+    h, _ = L.attention(bp["attn"], h, cfg, positions, mode=mode, cache=cache,
+                       cache_index=cache_index, dtype=dtype)
+    x = x + h
+    if cfg.d_ff > 0:
+        h = L.apply_norm(bp["ln2"], x, cfg.norm_type, dtype=dtype)
+        x = x + L.mlp(bp["ffn"], h, cfg, dtype=dtype)
+    return x
+
+
+def _decode_index(cache_index, b: int, device) -> int | torch.Tensor:
+    """A decode position: a Python int shared by the batch, or a (b,) long
+    tensor on `device` of per-slot positions (continuous batching)."""
+    idx = cache_index if isinstance(cache_index, torch.Tensor) \
+        else torch.as_tensor(np.asarray(cache_index))
+    if idx.dim() == 0:
+        return int(idx)
+    if idx.shape != (b,):
+        raise ValueError(f"cache_index must be a scalar or ({b},), got "
+                         f"{tuple(idx.shape)}")
+    return idx.to(device=device, dtype=torch.long)
+
+
+def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
+               mode: str = "train", caches: dict | None = None,
+               cache_index=None
+               ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+    """Returns (logits (B, S, V), aux_loss, caches), as the reference.
+
+    train: forward only (the LM-training slice differentiates it). prefill:
+    writes the prompt's K/V into `caches` at offset 0, in place. decode:
+    one token per sequence at `cache_index` (int or (B,)), written in
+    place. aux_loss is 0: the dense family has no router."""
+    _check_dense(cfg)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    if mode != "train" and caches is None:
+        raise ValueError(f"{mode} needs caches (init_caches)")
+    dev = params["embed"]["tok"].device
+    positions, index = None, None
+    if mode == "decode":
+        if cache_index is None:
+            raise ValueError("decode needs a cache_index")
+        b = len(batch["tokens"])
+        index = _decode_index(cache_index, b, dev)
+        positions = (torch.full((b, 1), index, device=dev)
+                     if isinstance(index, int) else index[:, None])
+    x, positions = embed_input(params, batch, cfg, positions)
+    blocks = params["blocks"]["b0"]
+    for u in range(cfg.n_units):
+        unit_cache = None if caches is None else \
+            {k: t[u] for k, t in caches["b0"].items()}
+        x = _apply_block(tree_map(lambda t, u=u: t[u], blocks), x, cfg,
+                         positions, mode, unit_cache, index)
+    aux = torch.zeros((), device=dev)
+    return lm_logits(params, x, cfg), aux, caches
+
+# ---------------------------------------------------------------------------
+# caches and the serving steps
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device: str | torch.device | None = None) -> dict:
+    """Zeroed KV caches, stacked: {"b0": {"k", "v" (+ "k_scale", "v_scale"
+    for int8)}} of (n_units, batch, max_len, n_kv, d_head) on `device`
+    (default cuda). bf16 whatever the compute dtype, as the reference's."""
+    _check_dense(cfg)
+    unit = L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
+                           torch.bfloat16, cfg.kv_cache_dtype == "int8",
+                           resolve_device(device))
+    return {"b0": {k: t.new_zeros((cfg.n_units,) + t.shape)
+                   for k, t in unit.items()}}
+
+
+def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
+                cache_index, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """One token for every sequence: tokens (B, 1). Returns (logits (B, V)
+    of the new position, caches), the caches written in place."""
+    logits, _, caches = lm_forward(params, {"tokens": tokens}, cfg, "decode",
+                                   caches, cache_index)
+    return logits[:, -1], caches
+
+
+def prefill_step(params: dict, batch: dict, caches: dict, cfg: ModelConfig
+                 ) -> tuple[torch.Tensor, dict]:
+    """Run the whole prompt once, filling the caches in place. Returns
+    (last-position logits (B, V), caches)."""
+    logits, _, caches = lm_forward(params, batch, cfg, "prefill", caches)
+    return logits[:, -1], caches

@@ -1,7 +1,7 @@
 """ParamSpec trees: declare each parameter's shape and init rule once, then
 initialise the whole tree on a device from one seeded `torch.Generator`.
 
-The init rules are the reference's (`normal`, `fan_in`, `zeros`); the random
+The init rules are the reference's (`normal`, `fan_in`, `zeros`, `ones`); the random
 numbers are torch's, not `jax.random`'s, so tests that compare the two
 packages copy the reference's parameters across (`repro_torch.convert`).
 """
@@ -18,7 +18,7 @@ class ParamSpec:
     """Declarative description of one parameter tensor."""
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "fan_in"          # fan_in | normal | zeros
+    init: str = "fan_in"          # fan_in | normal | zeros | ones
     scale: float = 1.0            # stddev multiplier
     fan_axis: int = -2            # which axis is fan-in for "fan_in" init
 
@@ -27,6 +27,8 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
               device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "normal":
         std = spec.scale
     elif spec.init == "fan_in":
@@ -75,3 +77,21 @@ def init_params(specs, seed: int, device: torch.device):
         raise TypeError(f"not a ParamSpec tree node: {type(node)}")
 
     return walk(specs)
+
+
+def stack_specs(specs, n: int):
+    """Prepend a stacked-layer axis of size n to every spec (the layers of
+    a model are one tensor per parameter, sliced per unit). fan_axis moves
+    as the reference's `stack_specs` moves it: a non-negative axis shifts
+    up by one, and a negative one down by one, so a default fan_axis of -2
+    then names the axis before it (the reference's init, kept as it is)."""
+    return tree_map(
+        lambda s: dataclasses.replace(
+            s, shape=(n,) + s.shape,
+            fan_axis=s.fan_axis - 1 if s.fan_axis < 0 else s.fan_axis + 1),
+        specs)
+
+
+def param_count(specs) -> int:
+    """Number of scalars in a ParamSpec tree."""
+    return sum(math.prod(s.shape) for s in tree_leaves(specs))

@@ -1,4 +1,5 @@
-"""Serving engines of the port: overload-robust DLRM CTR serving."""
+"""Serving engines of the port: the LM slot engine and overload-robust
+DLRM CTR serving."""
 from repro_torch.serve.dlrm_engine import (  # noqa: F401
     DLRMServeEngine,
     Overloaded,
@@ -7,4 +8,9 @@ from repro_torch.serve.dlrm_engine import (  # noqa: F401
     ServeRequest,
     ServeResponse,
 )
-from repro_torch.serve.engine import DLRMEngine  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    DLRMEngine,
+    DrainTimeout,
+    Request,
+    ServeEngine,
+)

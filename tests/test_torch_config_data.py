@@ -107,3 +107,47 @@ def test_offset_indices_equal_for_numpy_and_tensors():
     np.testing.assert_array_equal(ebc.offset_indices(raw), want)
     np.testing.assert_array_equal(
         ebc.offset_indices(torch.from_numpy(raw)).numpy(), want)
+
+
+LM_NAMES = ["stablelm-1.6b", "starcoder2-3b", "chatglm3-6b", "qwen1.5-32b"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_dense_lm_config_fields_equal(name, smoke):
+    port, want = _pair(name, smoke)
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(want)]
+    for f in dataclasses.fields(want):
+        assert getattr(port, f.name) == getattr(want, f.name), f.name
+    assert (port.pattern, port.n_units) == (want.pattern, want.n_units)
+
+
+def test_lm_registry_and_shapes_equal():
+    from repro.configs.base import LM_SHAPES as JSHAPES
+    from repro.configs.base import shapes_for as jshapes_for
+    from repro.configs.registry import ARCHS as JARCHS
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import LM_SHAPES, shapes_for
+    assert sorted(ARCHS) == sorted(n for n, c in JARCHS.items()
+                                   if c.family == "dense")
+    assert {k: dataclasses.astuple(v) for k, v in LM_SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in JSHAPES.items()}
+    for name in LM_NAMES + ["mamba2-780m", "dlrm-m1"]:
+        assert {k: dataclasses.astuple(v)
+                for k, v in shapes_for(name).items()} == \
+            {k: dataclasses.astuple(v) for k, v in jshapes_for(name).items()}
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen1.5-32b"])
+def test_make_lm_batch_identical(name):
+    from repro.data.synthetic import make_lm_batch as jlm_batch
+    from repro_torch.data.synthetic import make_lm_batch
+    port, want = _pair(name, False)
+    for step, seed in ((0, 0), (3, 2)):
+        a = make_lm_batch(port, 3, 17, step=step, seed=seed)
+        b = jlm_batch(want, 3, 17, step=step, seed=seed)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k])

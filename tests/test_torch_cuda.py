@@ -18,7 +18,9 @@ for its segmented form and for rowwise_adagrad against their plain
 versions; between the port's kernels the row-wise AdaGrad arithmetic is
 one sequence of operations, so the segmented kernel equals the one-plan
 kernel, and the two-pass update (dedup, then rowwise_adagrad) the fused
-one, bit for bit.
+one, bit for bit. flash_attention computes in fp32 with __expf and an
+online softmax: fp32 outputs get the reference's own fp32 kernel tolerance
+(2e-4), bf16 outputs one bf16 ulp (2^-7 relative) plus 1e-3.
 """
 import numpy as np
 import pytest
@@ -656,5 +658,102 @@ def test_every_kernel_builds_for_hopper(dev):
     for k in KERNELS:
         assert k.library.exists()
     sources = {k.source.name for k in KERNELS}
-    assert {"fused_bag_backward_adagrad.cu", "rowwise_adagrad.cu"} <= sources
-    assert len(KERNELS) == 10
+    assert {"fused_bag_backward_adagrad.cu", "rowwise_adagrad.cu",
+            "flash_attention.cu"} <= sources
+    assert len(KERNELS) == 11
+
+
+# flash attention: fp32 within the reference's own fp32 kernel tolerance
+# (2e-4; __expf and the online softmax's order against cuBLAS's fp32
+# products); bf16 within one bf16 ulp of the output (2^-7 relative) plus
+# 1e-3 absolute, since both round an fp32 result once to bf16
+FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
+             torch.bfloat16: {"rtol": 2 ** -7, "atol": 1e-3}}
+
+
+def _qkv_on(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dh", [(2, 3, 64, 16), (1, 4, 256, 64),
+                                      (2, 2, 192, 128), (1, 3, 203, 64),
+                                      (1, 2, 37, 40), (3, 1, 1, 128)])
+def test_flash_attention_kernel_matches_plain(dev, b, h, s, dh, dtype):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _qkv_on(dev, (b, h, s, dh), dtype, s + dh)
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention(q, k, v)
+    assert flash_attention.KERNEL.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v)
+    assert got.dtype == dtype and got.shape == (b, h, s, dh)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_kernel_is_causal(dev, dh):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _qkv_on(dev, (1, 2, 300, dh), torch.bfloat16, dh)
+    base = flash_attention.flash_attention(q, k, v)
+    for p in (64, 150):                       # tile-aligned, mid-tile
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, p:], v2[:, :, p:] = 7.0, -5.0
+        out = flash_attention.flash_attention(q, k2, v2)
+        assert torch.equal(out[:, :, :p], base[:, :, :p])
+        assert not torch.equal(out[:, :, p:], base[:, :, p:])
+
+
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels import flash_attention
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError):                 # a CPU tensor with CUDA
+        flash_attention.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention.flash_attention(q, q, q, causal=False)
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention.flash_attention(h, h, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 2)
+        flash_attention.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="dh"):
+        w = torch.zeros((1, 1, 8, 256), device=dev)
+        flash_attention.flash_attention(w, w, w)
+
+
+def test_two_layer_prefill_on_the_card_matches_the_cpu(dev):
+    """stablelm-1.6b's smoke config (2 layers, dh 16 padded to 64), fp32
+    compute: a 32-token prompt (> attn_block_q 16) launches the kernel
+    once per layer; the card's logits equal the CPU's (plain attention)
+    within 1e-4 and a decode step after it, which reads the bf16 cache,
+    within 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.nn.params import tree_map
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              compute_dtype="float32")
+    params = lm.init_lm_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, size=(2, 32)))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        p = tree_map(lambda x: x.to(d), params)
+        caches = lm.init_caches(cfg, 2, 40, device=d)
+        flash_attention.KERNEL.launches = 0
+        first, caches = lm.prefill_step(p, {"tokens": tokens.to(d)}, caches,
+                                        cfg)
+        assert flash_attention.KERNEL.launches == \
+            (cfg.n_layers if d.type == "cuda" else 0)
+        nxt, _ = lm.decode_step(p, tokens[:, :1].to(d), caches, 32, cfg)
+        out[d.type] = (first.cpu(), nxt.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
+                               atol=1e-3)
