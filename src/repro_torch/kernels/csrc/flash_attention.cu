@@ -1,41 +1,76 @@
 // Causal flash attention, forward: O = softmax(Q K^T / sqrt(dh) + causal
-// mask) V on (b, h, s, dh) fp32 or bf16 tensors, fp32 arithmetic.
+// mask) V on (b, h, s, dh) bf16 or fp32 tensors.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention_kernel (body _flash_kernel) and keeps its arithmetic:
-// fp32 scores of the pre-scaled query, -1e30 above the diagonal, an online
-// softmax with fp32 running max m, denominator l and accumulator, each key
-// tile folded in as m' = max(m, rowmax s), p = exp(s - m'), l' = l e^(m-m')
-// + sum p, acc' = acc e^(m-m') + p V; the result is acc / max(l, 1e-30) in
-// the input's dtype. Not its block layout: the TPU kernel streams K/V tiles
-// by DMA into VMEM for one (b, h, q-block) grid step at a time and pads dh
-// to the 128-lane width and s to the block.
+// flash_attention_kernel (body _flash_kernel) and keeps its semantics:
+// scores scaled by 1/sqrt(dh), -1e30 above the diagonal, an online softmax
+// with fp32 running max m, denominator l and accumulator, each key tile
+// folded in as m' = max(m, rowmax s), p = exp(s - m'), l' = l e^(m-m') +
+// sum p, acc' = acc e^(m-m') + p V; the result is acc / max(l, 1e-30) in
+// the input's dtype. Not its block layout: the TPU kernel streams K/V
+// tiles by DMA into VMEM for one (b, h, q-block) grid step at a time and
+// pads dh to the 128-lane width and s to the block.
 //
 // Bound on the H100: operations. A call does 4 b h dh s(s+1)/2 FLOPs (QK^T
 // and PV over the causal half) on 4 b h s dh elements of input and output:
 // at (1, 32, 8192, 64) that is 0.275 TFLOP against 134 MB in bf16, 0.278 ms
 // at the dense bf16 tensor-core rate (989 TFLOP/s) and 0.04 ms of memory
-// traffic. This first kernel does its FMAs on the CUDA cores in fp32 (67
-// TFLOP/s peak), so it sits well above that bound; wgmma with bf16 operands
-// for QK^T and PV, TMA loads and a pipelined K/V ring are the redesign.
+// traffic.
 //
-// Design: one block of 8 warps per (b*h, 64-query tile); the grid walks the
-// tiles heaviest first (tile n_qt-1 has the longest causal prefix). The
-// block stages its pre-scaled Q tile once and then, per 64-key tile up to
-// and including the diagonal one (the causal bound), K transposed (row
-// stride 65: conflict-free column reads and only 2-way conflicts on the
-// transposing stores) and V in shared memory, converted to fp32. Each warp
-// owns 8 query rows: lane j scores keys j and j+32 against them, the row
-// max and sum reduce by warp shuffles, the warp's probabilities go through
-// its own slice of shared memory (8 rows of a key side by side, read back
-// as two float4 broadcasts), and lane j accumulates dh/32 contiguous output
-// columns of the 8 rows in registers. Only the diagonal tile is masked; a
-// ragged last tile is zero-filled, and its keys past s lie above every
-// valid query, so the causal mask covers them. Rows past s are not stored.
+// bf16 (sm90::flash_attention_kernel_sm90, what the LM prefill runs). The
+// first kernel did both products as fp32 FMAs on the CUDA cores (67 TFLOP/s
+// peak), loaded every tile with plain loads between two __syncthreads and
+// staged it in fp32 at 64 x 64. This one:
+// - runs QK^T and PV on the tensor cores: wgmma m64nNk16 with bf16 operands
+//   and fp32 accumulators in registers. S = Q K^T reads Q and K from shared
+//   memory (both K-major). P is rounded to bf16 in registers and is wgmma's
+//   A operand from registers (the fp32 accumulator fragment of S for keys
+//   16j..16j+15 is exactly the A fragment of k-step j); V is the B operand,
+//   read MN-major (transposed) from shared memory, so nothing is
+//   transposed by hand;
+// - loads by TMA: one producer thread puts the Q tile into shared memory
+//   once and streams K and V tiles through a ring of kStages stages, each
+//   with a full barrier for K, one for V (TMA's transaction bytes) and an
+//   empty barrier that the consumers arrive on after their PV of the
+//   stage has completed; loads of the next tiles overlap this tile's math.
+//   Tiles use the 128B swizzle, which the wgmma descriptors read without
+//   bank conflicts; dh 128 is two 64-column boxes, since a box's inner
+//   extent may not exceed the 128-byte swizzle span;
+// - one block of 3 warpgroups per (b*h, 128-query tile), heaviest causal
+//   tiles first: warpgroup 0 is the producer and gives its registers to the
+//   two consumer warpgroups (setmaxnreg 24 / 240), each of which owns 64
+//   query rows. Key tiles are 128 wide for dh 64 and 64 for dh 128 (see
+//   block_k).
+// The softmax runs in registers in the log2 domain: x = s * (scale *
+// log2(e)) in fp32 and exp2 (ex2.approx), which is exp(s * scale) with
+// log2(e) folded into the scale; a row of the accumulator lives on the 4
+// lanes of a quad, so its max takes two shuffles. l sums the unrounded fp32
+// P. Only the tiles that reach the diagonal are masked, and tiles above it
+// are never loaded. TMA zero-fills key rows past s; they lie above every
+// valid query, so the causal mask covers them. Output rows past s are not
+// stored. ref.flash_attention_tiled_ref is its plain version, with the
+// same tiles and rounding points.
+//
+// fp32 (flash_attention_kernel, unchanged from the first port; only the
+// 9a fp32 shape and the card tests run it): one block of 8 warps per
+// (b*h, 64-query tile), heaviest tiles first. The block stages its
+// pre-scaled Q tile once and then, per 64-key tile up to and including the
+// diagonal one, K transposed (row stride 65: conflict-free column reads
+// and only 2-way conflicts on the transposing stores) and V in shared
+// memory. Each warp owns 8 query rows: lane j scores keys j and j+32
+// against them, the row max and sum reduce by warp shuffles, the warp's
+// probabilities go through its own slice of shared memory (8 rows of a key
+// side by side, read back as two float4 broadcasts), and lane j
+// accumulates dh/32 contiguous output columns of the 8 rows in registers,
+// with __expf. Only the diagonal tile is masked; a ragged last tile is
+// zero-filled. Rows past s are not stored. Its plain version is
+// ref.flash_attention_ref.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -51,19 +86,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -250,25 +273,577 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA and a warp-specialised K/V ring
+// ---------------------------------------------------------------------------
+namespace sm90 {
+
+constexpr int kBQ = 128;              // query rows per block, 64 a consumer
+constexpr int kStages = 3;            // depth of the K/V ring
+constexpr int kThreads = 384;         // producer warpgroup + 2 consumers
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 24;     // setmaxnreg: the producer gives
+constexpr int kConsumerRegs = 240;    // its registers to the consumers
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kHangCycles = 40000000000LL;  // ~20 s at 1.98 GHz
+
+// Keys per tile: 128 for dh 64 (S is 64 fp32 registers a thread, O 32);
+// 64 for dh 128, so that S (32) and O (64) stay as small as dh 64's and
+// the consumers fit 240 registers without spills; the K and V tiles are
+// 16 KB each either way.
+template <int DH>
+constexpr int block_k() { return DH == 64 ? 128 : 64; }
+
+// Shared memory: the Q tile, then kStages K tiles and kStages V tiles,
+// each stored as DH/64 column blocks of (rows x 64) bf16 with 128-byte
+// rows in TMA's 128B swizzle (1024-byte aligned), then the mbarriers.
+template <int DH>
+struct Layout {
+  static constexpr int kBK = block_k<DH>();
+  static constexpr uint32_t kQBytes = kBQ * DH * 2;
+  static constexpr uint32_t kTileBytes = kBK * DH * 2;   // one K or V tile
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kBars = kV + kStages * kTileBytes;
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr uint32_t kEnd = kBars + 8 * (1 + 3 * kStages);
+  static constexpr size_t kSmem = kEnd + 1024;           // alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed. A wait that
+// lasts kHangCycles traps, so a fault in the ring raises an error instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+#pragma unroll 1
+  for (int it = 0;; ++it) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (it == 0) t0 = clock64();
+    else if (clock64() - t0 > kHangCycles) __trap();
+  }
+}
+
+// One (64 x rows) box of a 3-D (dh, s, b*h) tensor map into shared memory;
+// completion is reported to `bar` as transaction bytes. Rows past s are
+// zero-filled.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128B swizzle: start address, leading
+// byte offset, stride byte offset (all >> 4), layout type 1 in bits 62-63.
+// K-major tile (rows of 128 bytes): SBO 1024 steps 8 rows, LBO unused.
+// MN-major tile (the transposed V): SBO 1024 steps 8 keys, LBO the next
+// 64 columns (the next column block).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns those registers
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D (64 x 64, fp32) = A (64 x 16) B (16 x 64), both bf16 K-major in
+// shared memory; scale_d 0 overwrites D, 1 accumulates
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, fp32) = A (64 x 16) B (16 x 128), both bf16 K-major in
+// shared memory; scale_d 0 overwrites D, 1 accumulates
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x 64)
+// with B bf16 MN-major (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) B (16 x 128)
+// with B bf16 MN-major (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            __nv_bfloat16* __restrict__ o, int S,
+                            float scale_log2) {
+  using L = Layout<DH>;
+  constexpr int kBK = L::kBK;
+  constexpr int kColBlocks = DH / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // heaviest first
+  const int q0 = qt * kBQ;
+  // key tiles up to the causal bound, none wholly past s
+  const int n_kt = (min(q0 + kBQ, S) + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(k_full + 8 * i, 1);
+      mbar_init(v_full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full by TMA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int cb = 0; cb < kColBlocks; ++cb)
+        tma_load(base + L::kQ + cb * (kBQ * 128), &tm_q, cb * 64, q0, bh,
+                 q_full);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        const uint32_t round = kt / kStages;
+        // the first round finds every stage empty (parity trick)
+        mbar_wait(empty + 8 * st, (round & 1) ^ 1);
+        const uint32_t kdst = base + L::kK + st * L::kTileBytes;
+        const uint32_t vdst = base + L::kV + st * L::kTileBytes;
+        mbar_expect_tx(k_full + 8 * st, L::kTileBytes);
+#pragma unroll
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load(kdst + cb * (kBK * 128), &tm_k, cb * 64, kt * kBK, bh,
+                   k_full + 8 * st);
+        mbar_expect_tx(v_full + 8 * st, L::kTileBytes);
+#pragma unroll
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load(vdst + cb * (kBK * 128), &tm_v, cb * 64, kt * kBK, bh,
+                   v_full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows q0 + 64c .. q0 + 64c + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  // this thread's two rows of every accumulator fragment, and its columns
+  // 8i + 2(lane % 4) + {0, 1}
+  const int row0 = q0 + 64 * c + 16 * (t / 32) + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+  const int col = 2 * (lane % 4);
+
+  float acc[DH / 2];                   // O: 64 x DH, fp32
+  float s[kBK / 2];                    // S, then P: 64 x kBK, fp32
+  uint32_t p[kBK / 16][4];             // P as bf16 pairs: wgmma's A
+  float m[2] = {-INFINITY, -INFINITY}; // running max (log2 units)
+  float l[2] = {0.f, 0.f};             // this thread's part of the sum
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  const uint32_t qa = base + L::kQ + c * (64 * 128);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    const uint32_t parity = (kt / kStages) & 1;
+    const uint32_t kb = base + L::kK + st * L::kTileBytes;
+    const uint32_t vb = base + L::kV + st * L::kTileBytes;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T: dh/16 k-steps; a step moves 32 bytes along a 128-byte
+    // swizzled row, and the next column block after 4 steps
+    mbar_wait(k_full + 8 * st, parity);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<kBK>(s,
+                    sw128_desc(qa + (kk / 4) * (kBQ * 128) + off, 16),
+                    sw128_desc(kb + (kk / 4) * (kBK * 128) + off, 16),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // online softmax in the log2 domain: x = s * scale * log2(e), -1e30
+    // above the diagonal (only the tiles that reach it are masked)
+    const bool diag = k0 + kBK > q0 + 64 * c;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kBK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * i + e] * scale_log2;
+        if (diag && k0 + 8 * i + col + (e & 1) > rows[e >> 1]) x = kMasked;
+        s[4 * i + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {   // a row lives on the 4 lanes of a quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = ex2(s[4 * i + e] - m[e >> 1]);
+        s[4 * i + e] = pe;
+        l[e >> 1] += pe;             // l sums the unrounded fp32 P
+      }
+    }
+    // S's fragment for keys 16j..16j+15 is P's A fragment for k-step j
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      p[j][0] = pack_bf16(s[8 * j + 0], s[8 * j + 1]);
+      p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+      p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+      p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      acc[4 * i + 0] *= corr[0];
+      acc[4 * i + 1] *= corr[0];
+      acc[4 * i + 2] *= corr[1];
+      acc[4 * i + 3] *= corr[1];
+    }
+
+    // O += P V: kBK/16 k-steps of 16 keys (2048 bytes of the V tile); V is
+    // read transposed (MN-major), its column blocks kBK * 128 bytes apart
+    mbar_wait(v_full + 8 * st, parity);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j)
+      wgmma_rs<DH>(acc, p[j], sw128_desc(vb + j * 2048, kBK * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * st);     // the stage may be loaded again
+  }
+
+  // acc / max(l, 1e-30) in bf16; rows past s are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  const int64_t base_row = (int64_t)bh * S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= S) continue;
+    __nv_bfloat16* orow = o + (base_row + rows[r]) * DH + col;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] / l[r],
+                                acc[4 * i + 2 * r + 1] / l[r]);
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver-API call, reached through the runtime's
+// entry-point query so that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+typedef CUresult (*GetErrorString)(CUresult, const char**);
+
+// a driver error is returned as kDriverError + its CUresult
+constexpr int kDriverError = 1 << 20;
+
+cudaError_t driver_entry(const char* name, void** fn) {
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, fn, 12000,
+                                                     cudaEnableDefault,
+                                                     &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, fn, cudaEnableDefault,
+                                            &found);
+#endif
+  if (err != cudaSuccess) return err;
+  return found == cudaDriverEntryPointSuccess && *fn
+             ? cudaSuccess : cudaErrorSymbolNotFound;
+}
+
+// (dh, s, b*h) view of a (b*h, s, dh) bf16 tensor, boxes of 64 x rows
+int encode(CUtensorMap* map, const void* ptr, int64_t BH, int64_t S,
+           int DH, int rows) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    cudaError_t err = driver_entry("cuTensorMapEncodeTiled",
+                                   reinterpret_cast<void**>(&fn));
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)(S * DH * 2)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                          const_cast<void*>(ptr), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kDriverError + (int)res;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
+           int64_t S, float scale, cudaStream_t stream) {
+  using L = Layout<DH>;
+  auto kern = flash_attention_kernel_sm90<DH>;
+  static int regs = -1;
+  if (regs < 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return (int)err;
+    regs = attr.numRegs;
+  }
+  cudaError_t attr_err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  // setmaxnreg moves registers within the block's allocation: the
+  // consumers' 240 must come out of what the launch gives 384 threads
+  if (regs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, BH, S, DH, kBQ);
+  if (!err) err = encode(&tk, k, BH, S, DH, L::kBK);
+  if (!err) err = encode(&tv, v, BH, S, DH, L::kBK);
+  if (err) return err;
+  const dim3 grid((unsigned)BH, (unsigned)((S + kBQ - 1) / kBQ));
+  kern<<<grid, kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)S, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 // q, k, v, o: (BH, S, DH) contiguous, DH 64 or 128, one dtype (is_bf16:
-// bf16, else fp32); scale multiplies q (1/sqrt of the unpadded dh).
+// bf16, else fp32); scale is 1/sqrt of the unpadded dh. bf16 runs the
+// tensor-core kernel (16-byte aligned pointers for TMA), fp32 the SIMT one.
+// Returns a cudaError, or kDriverError + a CUresult when a TMA descriptor
+// could not be encoded.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t BH,
                                       int64_t S, int64_t DH, int64_t is_bf16,
                                       float scale, void* stream) {
   if (BH == 0 || S == 0) return 0;
-  if (BH > 65535 || S > (int64_t)INT32_MAX / 128)
-    return (int)cudaErrorInvalidValue;
+  if (S > (int64_t)INT32_MAX / 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (BH > INT32_MAX || (S + sm90::kBQ - 1) / sm90::kBQ > 65535)
+      return (int)cudaErrorInvalidValue;
+    if (DH == 64) return sm90::launch<64>(q, k, v, o, BH, S, scale, st);
+    if (DH == 128) return sm90::launch<128>(q, k, v, o, BH, S, scale, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (BH > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (DH == 64) {
-    err = is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, BH, S, scale, st)
-                  : launch<float, 64>(q, k, v, o, BH, S, scale, st);
+    err = launch<float, 64>(q, k, v, o, BH, S, scale, st);
   } else if (DH == 128) {
-    err = is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, BH, S, scale, st)
-                  : launch<float, 128>(q, k, v, o, BH, S, scale, st);
+    err = launch<float, 128>(q, k, v, o, BH, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -276,5 +851,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code < sm90::kDriverError)
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+  static thread_local char msg[160];
+  const CUresult res = static_cast<CUresult>(code - sm90::kDriverError);
+  const char* text = "unknown";
+  sm90::GetErrorString fn = nullptr;
+  if (sm90::driver_entry("cuGetErrorString",
+                         reinterpret_cast<void**>(&fn)) == cudaSuccess)
+    fn(res, &text);
+  snprintf(msg, sizeof msg,
+           "CUDA driver error %d (%s) encoding a TMA descriptor", (int)res,
+           text);
+  return msg;
 }

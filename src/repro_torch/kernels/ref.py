@@ -314,7 +314,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention on (b, h, s, dh): fp32 scores scaled by 1/sqrt(dh), -1e30
     above the diagonal when causal, softmax, times V in fp32; the result
     in q's dtype. The flash-attention kernel computes the same function
-    with an online softmax over key tiles."""
+    with an online softmax over key tiles: this is its plain version in
+    fp32, the fp32 oracle of the bf16 kernel and the function the TPU
+    kernel computes."""
     dh = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     s.div_(math.sqrt(dh))
@@ -325,3 +327,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s.masked_fill_(above, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+#: log2(e): the bf16 flash-attention kernel folds it into the scale
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, block_k: int,
+                              causal: bool = True) -> torch.Tensor:
+    """The bf16 flash-attention kernel's arithmetic as torch ops on
+    (b, h, s, dh): a loop over key tiles of `block_k` keys, each folded
+    into an online softmax over all query rows at once. Scores are fp32
+    products of the inputs, times scale * log2(e) (both fp32, their product
+    rounded to fp32), -1e30 above the diagonal; then per tile the running
+    max m' = max(m, rowmax x), p = exp2(x - m') in fp32, l' = l 2^(m-m') +
+    sum p (the unrounded fp32 p), acc' = acc 2^(m-m') + P V with P rounded
+    to v's dtype (bf16 for the kernel's inputs; fp32 inputs keep P in fp32)
+    and fp32 products and sums; the result acc / max(l, 1e-30) in q's
+    dtype. A tile wholly above a row's diagonal is all -1e30 there and
+    changes nothing (2^0 = 1, exp2(-1e30 - m) = 0), so the loop needs no
+    causal bound of its own."""
+    sq, sk, dh = q.shape[2], k.shape[2], q.shape[-1]
+    scale = float(np.float32(np.float32(1.0 / math.sqrt(dh))
+                             * np.float32(LOG2E)))
+    qf = q.float()
+    m = torch.full(q.shape[:3], -math.inf, device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    acc = torch.zeros(q.shape[:3] + (v.shape[-1],), device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, sk, block_k):
+        x = torch.einsum("bhqd,bhkd->bhqk", qf,
+                         k[:, :, k0:k0 + block_k].float()).mul_(scale)
+        if causal:
+            cols = torch.arange(k0, min(k0 + block_k, sk),
+                                device=q.device)[None, :]
+            x.masked_fill_(cols > rows, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                          v[:, :, k0:k0 + block_k].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)

@@ -114,16 +114,29 @@ def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _decode_index(cache_index, b: int, device) -> int | torch.Tensor:
+def _decode_index(cache_index, b: int, device,
+                  max_len: int) -> int | torch.Tensor:
     """A decode position: a Python int shared by the batch, or a (b,) long
-    tensor on `device` of per-slot positions (continuous batching)."""
+    tensor on `device` of per-slot positions (continuous batching).
+
+    Raises ValueError on the host for a position outside [0, max_len),
+    before any cache is indexed. The reference clamps such a scalar (its
+    dynamic_update_slice writes the last row) and drops such an entry of a
+    vector (its scatter skips it); the port refuses both, since either
+    would silently serve a token from the wrong cache row, and on the card
+    an out-of-range vector entry would trip a device-side assert that ends
+    the process's CUDA context."""
     idx = cache_index if isinstance(cache_index, torch.Tensor) \
         else torch.as_tensor(np.asarray(cache_index))
-    if idx.dim() == 0:
-        return int(idx)
-    if idx.shape != (b,):
+    if idx.dim() != 0 and idx.shape != (b,):
         raise ValueError(f"cache_index must be a scalar or ({b},), got "
                          f"{tuple(idx.shape)}")
+    host = idx.cpu()
+    if bool(((host < 0) | (host >= max_len)).any()):
+        raise ValueError(f"cache_index {host.tolist()} outside the caches' "
+                         f"[0, {max_len})")
+    if idx.dim() == 0:
+        return int(host)
     return idx.to(device=device, dtype=torch.long)
 
 
@@ -148,7 +161,8 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
         if cache_index is None:
             raise ValueError("decode needs a cache_index")
         b = len(batch["tokens"])
-        index = _decode_index(cache_index, b, dev)
+        index = _decode_index(cache_index, b, dev,
+                              caches["b0"]["k"].shape[2])
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
     x, positions = embed_input(params, batch, cfg, positions)

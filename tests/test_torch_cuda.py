@@ -18,9 +18,12 @@ for its segmented form and for rowwise_adagrad against their plain
 versions; between the port's kernels the row-wise AdaGrad arithmetic is
 one sequence of operations, so the segmented kernel equals the one-plan
 kernel, and the two-pass update (dedup, then rowwise_adagrad) the fused
-one, bit for bit. flash_attention computes in fp32 with __expf and an
-online softmax: fp32 outputs get the reference's own fp32 kernel tolerance
-(2e-4), bf16 outputs one bf16 ulp (2^-7 relative) plus 1e-3.
+one, bit for bit. flash_attention's fp32 kernel computes in fp32 with
+__expf and an online softmax and gets the reference's own fp32 kernel
+tolerance (2e-4) against ref.flash_attention_ref; its bf16 kernel (wgmma,
+bf16 P) gets one bf16 ulp (2^-7 relative) plus 1e-3 against its tiled
+plain version ref.flash_attention_tiled_ref, and 2^-9 max|V| more against
+the fp32 oracle.
 """
 import numpy as np
 import pytest
@@ -665,10 +668,16 @@ def test_every_kernel_builds_for_hopper(dev):
 
 # flash attention: fp32 within the reference's own fp32 kernel tolerance
 # (2e-4; __expf and the online softmax's order against cuBLAS's fp32
-# products); bf16 within one bf16 ulp of the output (2^-7 relative) plus
-# 1e-3 absolute, since both round an fp32 result once to bf16
+# products) of ref.flash_attention_ref; bf16 within one bf16 ulp of the
+# output (2^-7 relative) plus 1e-3 absolute of ref.flash_attention_tiled_ref,
+# which rounds P where the kernel does, since both round an fp32 result once
+# to bf16
 FLASH_TOL = {torch.float32: {"rtol": 2e-4, "atol": 2e-4},
              torch.bfloat16: {"rtol": 2 ** -7, "atol": 1e-3}}
+#: bf16 against the fp32 oracle: the kernel rounds each P to bf16 (2^-9
+#: relative) and divides by the unrounded sum, so O, a convex combination
+#: of V's rows, may move by 2^-9 max|V| more
+FLASH_ORACLE_V = 2 ** -9
 
 
 def _qkv_on(dev, shape, dtype, seed):
@@ -681,16 +690,30 @@ def _qkv_on(dev, shape, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,s,dh", [(2, 3, 64, 16), (1, 4, 256, 64),
                                       (2, 2, 192, 128), (1, 3, 203, 64),
-                                      (1, 2, 37, 40), (3, 1, 1, 128)])
+                                      (1, 2, 37, 40), (3, 1, 1, 128),
+                                      # one 128-query tile, one row past it,
+                                      # one short of two, eight
+                                      (1, 2, 128, 64), (1, 2, 129, 64),
+                                      (1, 2, 255, 128), (1, 2, 1024, 64),
+                                      # b*h > 1: heavy and light tiles
+                                      (2, 3, 1000, 128)])
 def test_flash_attention_kernel_matches_plain(dev, b, h, s, dh, dtype):
     from repro_torch.kernels import flash_attention
     q, k, v = _qkv_on(dev, (b, h, s, dh), dtype, s + dh)
     before = flash_attention.KERNEL.launches
     got = flash_attention.flash_attention(q, k, v)
     assert flash_attention.KERNEL.launches == before + 1
-    want = ref.flash_attention_ref(q, k, v)
+    oracle = ref.flash_attention_ref(q, k, v)
     assert got.dtype == dtype and got.shape == (b, h, s, dh)
-    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, oracle, **FLASH_TOL[dtype])
+        return
+    plain = ref.flash_attention_tiled_ref(q, k, v, flash_attention.block_k(dh))
+    torch.testing.assert_close(got, plain, **FLASH_TOL[dtype])
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        got, oracle, rtol=tol["rtol"],
+        atol=tol["atol"] + FLASH_ORACLE_V * float(v.float().abs().max()))
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -698,12 +721,48 @@ def test_flash_attention_kernel_is_causal(dev, dh):
     from repro_torch.kernels import flash_attention
     q, k, v = _qkv_on(dev, (1, 2, 300, dh), torch.bfloat16, dh)
     base = flash_attention.flash_attention(q, k, v)
-    for p in (64, 150):                       # tile-aligned, mid-tile
+    for p in (64, 128, 150):   # mid-tile, tile-aligned, mid-tile
         k2, v2 = k.clone(), v.clone()
         k2[:, :, p:], v2[:, :, p:] = 7.0, -5.0
         out = flash_attention.flash_attention(q, k2, v2)
         assert torch.equal(out[:, :, :p], base[:, :, :p])
         assert not torch.equal(out[:, :, p:], base[:, :, p:])
+
+
+def test_flash_attention_builds_for_sm90a_without_spills(dev, tmp_path):
+    """The source compiles for sm_90a with the library's flags, and ptxas
+    reports no spill stores or loads for any entry function: the bf16
+    tensor-core kernel at dh 64 and 128 and the fp32 kernel at both."""
+    import subprocess
+
+    from repro_torch.kernels import flash_attention
+    cmd = flash_attention.KERNEL._command(tmp_path / "flash_attention.so")
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log
+    entries = [line for line in log.splitlines()
+               if "Compiling entry function" in line]
+    assert len(entries) == 4, log
+    assert all("flash_attention_kernel" in e and "sm_90a" in e
+               for e in entries), log
+    assert sum("flash_attention_kernel_sm90" in e for e in entries) == 2
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == 4, log
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line
+               for line in spills), log
+
+
+def test_flash_attention_tma_encode_failure_raises_the_driver_error(dev):
+    """A bf16 call whose TMA descriptor cannot be encoded (a base address
+    that is not 16-byte aligned) raises with the driver's error; nothing
+    falls back to the fp32 kernel or the plain version."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels._build import stream_handle
+    q = torch.zeros((1, 1, 130, 64), device=dev, dtype=torch.bfloat16)
+    ptr = q.data_ptr() + 2
+    with pytest.raises(RuntimeError, match="driver error"):
+        flash_attention.KERNEL.launch(ptr, ptr, ptr, q.data_ptr(), 1, 128,
+                                      64, 1, 0.125, stream_handle(dev))
 
 
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):

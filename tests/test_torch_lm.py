@@ -39,7 +39,7 @@ from repro.nn.params import param_count as jparam_count
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import flash_attention as kflash
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import lm
 from repro_torch.nn import layers as L
 from repro_torch.nn.params import param_count, tree_leaves, tree_map
@@ -395,6 +395,147 @@ def test_flash_attention_wrapper_takes_the_plain_version_on_the_cpu():
         kflash.flash_attention(q, k[:, :2], v)
 
 # ---------------------------------------------------------------------------
+# the bf16 kernel's plain version, ref.flash_attention_tiled_ref
+# ---------------------------------------------------------------------------
+
+
+def _bhsd(t):
+    """(b, s, h, dh) -> (b, h, s, dh) and back (a transpose is its own
+    inverse on these two axes)."""
+    return t.transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,s,h,dh,bq,bk", [
+    (2, 64, 3, 16, 16, 16),     # the reference kernel test's shapes
+    (1, 128, 2, 128, 32, 64),
+    (2, 96, 2, 40, 32, 32),
+    (1, 203, 2, 64, 64, 64),    # more than one of the kernel's key tiles
+])
+def test_flash_attention_tiled_ref_matches_reference_pallas_kernel(
+        b, s, h, dh, bq, bk):
+    """bf16 inputs. The Pallas kernel (interpret mode) runs P.V in fp32; the
+    tiled version rounds each P to bf16 (at most 2^-9 relative) and divides
+    by the sum of the unrounded P, so O, a convex combination of V's rows,
+    moves by at most 2^-9 max|V|; fp32 scores and sums in other orders add
+    ~1e-6, and both round their fp32 result to bf16 once, which rtol 2^-7
+    (one bf16 ulp) covers."""
+    rng = np.random.RandomState(s + dh)
+    jq, tq = _pair(rng.randn(b, s, h, dh) * 0.5, "bfloat16")
+    jk, tk = _pair(rng.randn(b, s, h, dh) * 0.5, "bfloat16")
+    jv, tv = _pair(rng.randn(b, s, h, dh), "bfloat16")
+    got = _bhsd(ref.flash_attention_tiled_ref(
+        _bhsd(tq), _bhsd(tk), _bhsd(tv), kflash.block_k(dh)))
+    want = jops.flash_attention(jq, jk, jv, block_q=bq, block_k=bk,
+                                causal=True, use_kernel=None, interpret=True)
+    assert got.dtype == torch.bfloat16
+    atol = 2 ** -9 * float(tv.float().abs().max()) + 1e-5
+    _close(got, want, {"rtol": 2 ** -7, "atol": atol})
+
+
+@pytest.mark.parametrize("b,s,h,dh,bq,bk", [
+    (2, 64, 3, 16, 16, 16),     # the smoke configs' attn_block_q/k
+    (1, 128, 2, 128, 32, 64),
+    (2, 256, 2, 64, 64, 128),
+])
+def test_flash_attention_tiled_ref_matches_reference_blockwise_attention(
+        b, s, h, dh, bq, bk):
+    """bf16 inputs against the reference's model path at its block sizes.
+    blockwise_attention rounds each score to bf16 twice (the bf16 product,
+    then times the bf16 scale): within eps = 2^-7 max|s| of the tiled
+    version's fp32 scores. Logits that move by at most eps move each
+    softmax weight by a factor within e^(+-2 eps), so O by at most
+    expm1(2 eps) max|V|. Both round P to bf16 (2^-9 max|V| each, see the
+    test above) and blockwise_attention rounds each block's P.V to bf16
+    before adding it (2^-9 max|V| over all blocks): in all (2^-8 + 2^-9 +
+    expm1(2 eps)) max|V|, and one bf16 ulp of the output (rtol 2^-7)."""
+    rng = np.random.RandomState(s + dh + 1)
+    jq, tq = _pair(rng.randn(b, s, h, dh) * 0.5, "bfloat16")
+    jk, tk = _pair(rng.randn(b, s, h, dh) * 0.5, "bfloat16")
+    jv, tv = _pair(rng.randn(b, s, h, dh), "bfloat16")
+    q, k, v = _bhsd(tq), _bhsd(tk), _bhsd(tv)
+    got = _bhsd(ref.flash_attention_tiled_ref(q, k, v, kflash.block_k(dh)))
+    want = JL.blockwise_attention(jq, jk, jv, bq, bk, causal=True)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / dh ** .5
+    eps = 2 ** -7 * float(scores.abs().max())
+    atol = (2 ** -8 + 2 ** -9 + np.expm1(2 * eps)) * float(
+        tv.float().abs().max()) + 1e-5
+    _close(got, want, {"rtol": 2 ** -7, "atol": atol})
+
+
+@pytest.mark.parametrize("shape,block_k", [((2, 3, 203, 64), 128),
+                                           ((1, 2, 130, 128), 64),
+                                           ((1, 1, 1, 64), 128),
+                                           ((2, 2, 37, 40), 16)])
+def test_flash_attention_tiled_ref_fp32_matches_the_oracle(shape, block_k):
+    """fp32 inputs keep P in fp32, so the tile loop alone is checked: the
+    online softmax in exp2 against one softmax, other fp32 sum orders."""
+    rng = np.random.RandomState(sum(shape))
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               for _ in range(3))
+    for causal in (True, False):
+        torch.testing.assert_close(
+            ref.flash_attention_tiled_ref(q, k, v, block_k, causal),
+            ref.flash_attention_ref(q, k, v, causal), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_wrapper_takes_the_tiled_version_for_bf16_on_the_cpu():
+    """bf16 on the CPU runs the bf16 kernel's plain version at its key tile
+    (128 keys up to dh 64, 64 above), and launches nothing."""
+    rng = np.random.RandomState(13)
+    before = kflash.KERNEL.launches
+    for dh, bk in ((40, 128), (64, 128), (100, 64), (128, 64)):
+        q, k, v = (torch.from_numpy(rng.randn(1, 2, 150, dh).astype(
+            np.float32)).bfloat16() for _ in range(3))
+        assert kflash.block_k(dh) == bk
+        assert torch.equal(kflash.flash_attention(q, k, v),
+                           ref.flash_attention_tiled_ref(q, k, v, bk))
+    assert kflash.KERNEL.launches == before
+
+
+def test_bf16_forward_gap_to_the_reference_is_its_score_rounding():
+    """How far the port's bf16 train-mode forward (flash branch: the tiled
+    plain version on the CPU) is from the reference's, against the
+    reference's own jitted and op-by-op runs (stablelm-1.6b smoke, seed 1).
+    With the reference's blockwise_attention put in place of the port's
+    attention op, the rest of the port is as far from the reference as the
+    reference is from itself, give or take one bf16 ulp at |logit| < 4
+    (2^-6); with the tiled version the gap grows by what blockwise_attention
+    rounds and the kernel does not, the scores to bf16, and stays within
+    MODEL_TOL."""
+    cfg, jcfg = _cfgs("stablelm-1.6b", "bfloat16")
+    jp, tp = _params(jcfg, seed=1)
+    tokens = np.random.RandomState(11).randint(0, 256, size=(2, 32))
+    want = _np(jlm.lm_forward(jp, {"tokens": jnp.asarray(tokens)}, jcfg,
+                              "train", rules={})[0])
+    with jax.disable_jit():
+        own = _np(jlm.lm_forward(jp, {"tokens": jnp.asarray(tokens)}, jcfg,
+                                 "train", rules={})[0])
+
+    def port():
+        return _np(lm.lm_forward(tp, {"tokens": torch.from_numpy(tokens)},
+                                 cfg, "train")[0])
+
+    def blockwise(q, k, v, causal=True):
+        out = JL.blockwise_attention(*(jnp.asarray(_np(t), jnp.bfloat16)
+                                       for t in (q, k, v)),
+                                     cfg.attn_block_q, cfg.attn_block_k,
+                                     causal)
+        return torch.tensor(_np(out)).to(q.dtype)
+
+    kernel_path = port()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "flash_attention", blockwise)
+        reference_attention = port()
+    own_gap = np.abs(own - want).max()
+    rest_gap = np.abs(reference_attention - want).max()
+    kernel_gap = np.abs(kernel_path - want).max()
+    print(f"bf16 logits, max |diff| from the reference's jitted forward: "
+          f"its own op-by-op run {own_gap}, the port with the reference's "
+          f"attention {rest_gap}, the port {kernel_gap}")
+    assert rest_gap <= own_gap + 2 ** -6
+    np.testing.assert_allclose(kernel_path, want, **MODEL_TOL["bfloat16"])
+
+# ---------------------------------------------------------------------------
 # the model: train-mode forward, prefill_step, decode_step
 # ---------------------------------------------------------------------------
 
@@ -459,3 +600,58 @@ def test_decode_writes_only_the_named_positions():
     touched[:, 0, 2] = touched[:, 1, 6] = True
     assert torch.equal(k[~touched], k0[~touched])
     assert k[touched].abs().sum() > 0
+
+
+def test_decode_index_out_of_range_raises_where_the_reference_clamps():
+    """A (2, 4, 1, 2) cache (max_len 4) and a position past its end: the
+    reference clamps the scalar 4 (dynamic_update_slice writes row 3) and
+    drops the out-of-range entry of [1, 4] (row 1 of sequence 0 is
+    written, sequence 1 is not); the port deliberately refuses both with a
+    ValueError on the host, before any cache is indexed, through
+    `_decode_index` and through `decode_step`."""
+    rng = np.random.RandomState(14)
+    cache = rng.randn(2, 4, 1, 2).astype(np.float32)
+    new = rng.randn(2, 1, 1, 2).astype(np.float32)
+    jc = {"k": jnp.asarray(cache), "v": jnp.asarray(cache)}
+    clamped = np.asarray(JL.update_kv_cache(jc, jnp.asarray(new),
+                                            jnp.asarray(new), 4)["k"])
+    want = cache.copy()
+    want[:, 3] = new[:, 0]
+    np.testing.assert_array_equal(clamped, want)
+    dropped = np.asarray(JL.update_kv_cache(
+        jc, jnp.asarray(new), jnp.asarray(new),
+        jnp.asarray([1, 4]))["k"])
+    want = cache.copy()
+    want[0, 1] = new[0, 0]
+    np.testing.assert_array_equal(dropped, want)
+    for index in (4, torch.tensor([1, 4]), -1, torch.tensor([-1, 0])):
+        with pytest.raises(ValueError, match="outside"):
+            lm._decode_index(index, 2, "cpu", 4)
+    cfg = get_smoke_config("stablelm-1.6b")
+    tp = lm.init_lm_params(cfg, 3, device="cpu")
+    caches = lm.init_caches(cfg, 2, 4, device="cpu")
+    before = tree_map(torch.clone, caches)
+    for index in (4, torch.tensor([1, 4])):
+        with pytest.raises(ValueError, match="outside"):
+            lm.decode_step(tp, torch.tensor([[5], [6]]), caches, index, cfg)
+    for key in caches["b0"]:
+        assert torch.equal(caches["b0"][key], before["b0"][key])
+
+
+@pytest.mark.parametrize("index", [3, [1, 3], [0, 0]])
+def test_decode_index_in_range_writes_what_the_reference_writes(index):
+    """In range the check moves nothing: the position `_decode_index`
+    returns writes the (2, 4, 1, 2) cache bit for bit as the reference."""
+    rng = np.random.RandomState(15)
+    k, v = (rng.randn(2, 4, 1, 2).astype(np.float32) for _ in range(2))
+    k1, v1 = (rng.randn(2, 1, 1, 2).astype(np.float32) for _ in range(2))
+    ti = index if isinstance(index, int) else torch.tensor(index)
+    got = L.update_kv_cache(
+        {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())},
+        torch.from_numpy(k1), torch.from_numpy(v1),
+        lm._decode_index(ti, 2, "cpu", 4))
+    want = JL.update_kv_cache({"k": jnp.asarray(k), "v": jnp.asarray(v)},
+                              jnp.asarray(k1), jnp.asarray(v1),
+                              jnp.asarray(index))
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(_np(got[key]), _np(want[key]))
