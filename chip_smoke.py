@@ -20,13 +20,19 @@ Phases, each of which makes the script exit non-zero when it fails:
 5. hold the two training kernels (the plan-driven dedup embedding bag and
    the fused sparse backward with row-wise AdaGrad) against their plain
    versions on a full-width dlrm-m1 mega table at a batch of 512 (rows
-   above 2**24, a row repeated inside a bag, an all-pad bag), the fused
-   update in place with its untouched rows checked, and time them;
+   above 2**24, a row repeated inside a bag, an all-pad bag), the dedup
+   kernel again on a second table of another height and a second plan,
+   then on the first (each bit-equal: no call reads a position an earlier
+   call left in its uncleared row map), the fused update in place with its
+   untouched rows checked, and time them;
 5b. hold the cached tier's fetch, chunked fetch and commit against their
    plain versions on a full-width capacity tier and the plan's cache, at
    the worklist of one batch's misses (pads, writebacks, pure writebacks,
    a chunk at the table's end, installs remapped out of a chunk slab), and
-   time them;
+   time them, with the chunked fetch's host µs per call split into its
+   guard, allocations, stream handle and bare launch; check that the raw
+   stream handle the wrappers launch on is PyTorch's current stream, also
+   inside torch.cuda.stream(side);
 5c. hold the segmented fused backward and the legacy row-wise AdaGrad
    against their plain versions on the full-width 8-owner table_wise mega
    table (205,375,296 rows, 52.6 GB) at one batch of 512 split by owner
@@ -108,6 +114,8 @@ SPARSE_LR, SPARSE_EPS = 0.05, 1e-8  # build_dlrm_train_step's defaults
 TOL_FUSED = 1e-6      # abs + rel: bag sums in plain order, mean(g^2) by
 #                       warp shuffles and rsqrtf
 TOL_STEP = 1e-5       # abs + rel: one train step, kernels vs plain on card
+#: host-clock loops of phase 5b's informative host_us breakdown
+HOST_ITERS = 200
 #: the cached eviction runs: 8-row chunked transfers over the smallest
 #: cache at which the async run's thrash guard holds (it protects the
 #: 87,271 rows two consecutive batches touch); `--evict-search` checks it
@@ -217,6 +225,12 @@ def device_events(prof) -> list[tuple[str, float]]:
     return [(e.key, getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)))
             for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+
+
+def kernel_ms_per_step(events, name: str) -> float:
+    """Device ms per profiled step of the kernels whose name holds
+    `name` (both of the dedup lookup's kernels for "dedup_")."""
+    return sum(t for key, t in events if name in key) / 1e3 / PROFILED_STEPS
 
 
 def reset_launches(kernels) -> None:
@@ -464,6 +478,41 @@ def train_batch(cfg, ebc, step: int):
     return idx
 
 
+def dedup_twice(torch, kb, ref, ebc, cfg, table, flat, plan) -> float:
+    """The dedup kernel on a second table and plan right after the first
+    (the leading half of the rows and 7 more: 85,180,967 at full width,
+    past 2**24; batch 1 folded into them), then on
+    the first again: each result bit-equal to its plain version and to
+    embedding_bag, so no call reads a map entry that an earlier call wrote.
+    Returns the largest difference."""
+    import numpy as np
+    from repro_torch.kernels.sparse_plan import build_sparse_plan
+    h2 = table.shape[0] // 2 + 7
+    table2 = table[:h2]
+    idx2 = train_batch(cfg, ebc, 1)
+    idx2 = torch.as_tensor(np.where(idx2 >= 0, idx2 % h2, -1),
+                           device=table.device)
+    flat2 = idx2.reshape(flat.shape)
+    plan2 = build_sparse_plan(idx2)
+    err = 0.0
+    for what, (t, x, p) in (("second table", (table2, flat2, plan2)),
+                            ("first table again", (table, flat, plan))):
+        got = kb.dedup_embedding_bag(t, x, p.unique_rows)
+        want = ref.dedup_embedding_bag_ref(t, x, p.unique_rows)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not (torch.equal(got, want)
+                and torch.equal(got, kb.embedding_bag(t, x))):
+            raise AssertionError(f"dedup_embedding_bag on the {what} is "
+                                 f"not bit-equal: {err}")
+    n2 = int((plan2.unique_rows >= 0).sum())
+    log(f"  dedup_embedding_bag twice in a row: H={table.shape[0]}, then "
+        f"H={h2} ({n2} unique rows, max row "
+        f"{int(plan2.unique_rows.max())}), then H={table.shape[0]} again: "
+        f"each bit-equal to plain and to embedding_bag")
+    return err
+
+
 def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     """Phase 5: the dedup embedding bag and the fused sparse backward on a
     full-width mega table, each against its plain version."""
@@ -513,6 +562,7 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
             f"embedding_bag (tol 0)")
     if float(got[0].abs().max()) != 0.0:
         raise AssertionError("all-pad bag did not pool to zero")
+    err = max(err, dedup_twice(torch, kb, ref, ebc, cfg, table, flat, plan))
     valid = flat >= 0
     lib_idx = flat[valid].long()
     offsets = torch.cumsum(valid.sum(1), 0) - valid.sum(1)
@@ -610,6 +660,92 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd}
 
 
+def host_us(torch, fn, iters: int = HOST_ITERS) -> float:
+    """Mean host µs per call of fn on the host's clock (no synchronise
+    inside the loop: what the caller's thread spends issuing it)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def chunked_host_us(torch, kc, capacity, cap_accum, starts, chunk,
+                    block_rows) -> dict:
+    """Informative: where `cache_fetch_chunked`'s host time goes, each part
+    timed in its own loop; the wrapper's own allocations beside the two
+    forms it did not take (torch.empty, one allocation split in two), the
+    raw stream handle beside the torch.cuda.Stream object the handle used
+    to come from, the ctypes launch beside the same launch with the GIL
+    held (ctypes.PyDLL), and the whole wrapper and index_select on the
+    same clock. The launch loops enqueue kernels of ~3.4 µs, so they read
+    no less than the device's rate."""
+    from repro_torch.kernels._build import stream_handle
+    dev = capacity.device
+    k, d = starts.numel(), capacity.shape[1]
+    n = k * chunk
+    shadow, shadow_accum = kc.cache_fetch_chunked(capacity, cap_accum,
+                                                  starts, chunk)
+    fn = kc.FETCH_CHUNKED_KERNEL._fn
+    args = (capacity.data_ptr(), cap_accum.data_ptr(), starts.data_ptr(),
+            shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d,
+            stream_handle(dev))
+
+    def one_split():
+        a, b = capacity.new_empty((n * (d + 1),)).split((n * d, n))
+        return a.view(n, d), b
+
+    # the same entry point loaded through ctypes.PyDLL, which keeps the
+    # GIL across the call (CDLL releases and retakes it)
+    import ctypes
+    k_ = kc.FETCH_CHUNKED_KERNEL
+    held = getattr(ctypes.PyDLL(str(k_.library)), k_.symbol)
+    held.argtypes, held.restype = k_.argtypes, ctypes.c_int
+
+    out = {
+        "guard": host_us(torch, lambda: kc.check_fetch_chunked(
+            capacity, cap_accum, starts)),
+        "alloc": host_us(torch, lambda: (capacity.new_empty((n, d)),
+                                         capacity.new_empty((n,)))),
+        "alloc_torch_empty": host_us(torch, lambda: (
+            torch.empty((n, d), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.float32, device=dev))),
+        "alloc_one_split": host_us(torch, one_split),
+        "stream_handle": host_us(torch, lambda: stream_handle(
+            capacity.get_device())),
+        "stream_object": host_us(
+            torch, lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "launch": host_us(torch, lambda: fn(*args)),
+        "launch_gil_held": host_us(torch, lambda: held(*args)),
+        "wrapper": host_us(torch, lambda: kc.cache_fetch_chunked(
+            capacity, cap_accum, starts, chunk)),
+        "index_select": host_us(
+            torch, lambda: capacity.index_select(0, block_rows)),
+    }
+    log(f"  cache_fetch_chunked host µs per call: {out}")
+    return out
+
+
+def check_stream_handle(torch, dev) -> None:
+    """The raw handle the wrappers launch on is PyTorch's current stream,
+    on the default stream and inside torch.cuda.stream(side)."""
+    from repro_torch.kernels._build import stream_handle
+    side = torch.cuda.Stream(dev)
+    seen = [(stream_handle(dev), torch.cuda.current_stream(dev).cuda_stream)]
+    with torch.cuda.stream(side):
+        seen.append((stream_handle(dev),
+                     torch.cuda.current_stream(dev).cuda_stream))
+    if any(a != b for a, b in seen) or seen[1][0] != side.cuda_stream:
+        raise AssertionError(f"stream_handle is not the current stream: "
+                             f"{seen}, side {side.cuda_stream}")
+    log(f"  stream_handle == current_stream(dev).cuda_stream on the default "
+        f"and a side stream: {seen}")
+
+
 def check_cache_movers(torch, dev, cfg, cc) -> dict:
     """Phase 5b: the cached tier's fetch, chunked fetch and commit against
     their plain versions on a full-width capacity tier and the plan's
@@ -619,6 +755,7 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.sparse_plan import coalesce_rows
     import numpy as np
+    check_stream_handle(torch, dev)
     r_rows, c_rows, d = cc.ebc.plan.total_rows, cc.cache_rows, cfg.embed_dim
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -704,6 +841,8 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     }
     chunked_out["bound_ms"], chunked_out["bound_by"] = bound_ms(
         k * 4 + k_live * chunk * (d * 4 + 4) + k * chunk * (d * 4 + 4), 0)
+    chunked_out["host_us"] = chunked_host_us(torch, kc, capacity, cap_accum,
+                                             starts, chunk, block_rows)
     covered = int((pos >= 0).sum())
     log(f"  cache_fetch_chunked chunk={chunk}: {k} "
         f"blocks ({k_live} live, one at R-{chunk}, one pad) cover "
@@ -1176,6 +1315,7 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
         f"{out['profiled_host_ms_per_step']:.3f} ms, device busy "
         + (f"{out['device_busy_ms_per_step']:.3f} ms per step" if dev_us
            else "not measured (trace holds no device time)"))
+    out["dedup_device_ms_per_step"] = kernel_ms_per_step(dev, "dedup_")
     top = sorted(dev, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
@@ -1322,6 +1462,7 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     out["h2d_device_ms_per_step"] = (sum(t for _, t in h2d) / 1e3
                                      / PROFILED_STEPS)
     out["copy_host_ms_per_step"] = (sum(copy_cpu) / 1e3 / PROFILED_STEPS)
+    out["dedup_device_ms_per_step"] = kernel_ms_per_step(events, "dedup_")
     top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
@@ -1451,6 +1592,7 @@ def train_tablewise(torch, dev, cfg, ebc, oracle: bool) -> dict:
         out["host_ms_per_step"] + out["reader_wait_ms_per_step"]) * 1e3
     if not oracle:
         out["exchange_model"] = model
+    out["dedup_device_ms_per_step"] = kernel_ms_per_step(events, "dedup_")
     top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}

@@ -124,6 +124,13 @@ def build_all(kernels: list[Kernel]) -> list[str]:
 
 
 def stream_handle(device) -> int:
-    """Raw cudaStream_t of PyTorch's current stream on `device`."""
+    """Raw cudaStream_t of PyTorch's current stream on `device` (a
+    torch.device, or a device index). Asks PyTorch's C++ side for the
+    handle, as PyTorch's own generated Triton launchers do, without
+    building a `torch.cuda.Stream` object on every launch; the CPU build of
+    torch lacks that call, and only CUDA tensors reach this function."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -143,27 +143,51 @@ def cache_fetch_chunked(capacity: torch.Tensor, cap_accum: torch.Tensor,
     (shadow (K*chunk, D), shadow_accum (K*chunk,)).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise."""
-    tensors = (capacity, cap_accum, chunk_starts)
+    raise. The device's part is a few microseconds, so this path keeps its
+    host work to direct checks, two allocations and the launch."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if all(t.device.type == "cpu" for t in tensors):
-        return ref.cache_fetch_chunked_ref(*tensors, chunk)
+    if capacity.is_cpu and cap_accum.is_cpu and chunk_starts.is_cpu:
+        return ref.cache_fetch_chunked_ref(capacity, cap_accum, chunk_starts,
+                                           chunk)
     r, d = capacity.shape
     k = chunk_starts.shape[0]
     if chunk > r:
         raise ValueError(f"chunk {chunk} is taller than the {r}-row table")
-    dev = _check_cuda("cache_fetch_chunked", {
-        "capacity": (capacity, (r, d), torch.float32),
-        "cap_accum": (cap_accum, (r,), torch.float32),
-        "chunk_starts": (chunk_starts, (k,), torch.int32)})
-    shadow = torch.empty((k * chunk, d), dtype=torch.float32, device=dev)
-    shadow_accum = torch.empty((k * chunk,), dtype=torch.float32, device=dev)
+    check_fetch_chunked(capacity, cap_accum, chunk_starts)
+    n = k * chunk
+    shadow = capacity.new_empty((n, d))
+    shadow_accum = capacity.new_empty((n,))
     FETCH_CHUNKED_KERNEL.launch(
         capacity.data_ptr(), cap_accum.data_ptr(), chunk_starts.data_ptr(),
         shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d,
-        stream_handle(dev))
+        stream_handle(capacity.get_device()))
     return shadow, shadow_accum
+
+
+def check_fetch_chunked(capacity: torch.Tensor, cap_accum: torch.Tensor,
+                        chunk_starts: torch.Tensor) -> None:
+    """`cache_fetch_chunked`'s guard: `_check_cuda`'s checks written out
+    directly (no dict, no loop); on a failure `_check_cuda` raises its own
+    exception and message."""
+    dev = capacity.get_device()
+    if not (capacity.is_cuda and cap_accum.get_device() == dev
+            and chunk_starts.get_device() == dev
+            and cap_accum.shape == capacity.shape[:1]
+            and chunk_starts.dim() == 1
+            and capacity.dtype == torch.float32
+            and cap_accum.dtype == torch.float32
+            and chunk_starts.dtype == torch.int32
+            and capacity.is_contiguous() and cap_accum.is_contiguous()
+            and chunk_starts.is_contiguous()):
+        r, d = capacity.shape
+        _check_cuda("cache_fetch_chunked", {
+            "capacity": (capacity, (r, d), torch.float32),
+            "cap_accum": (cap_accum, (r,), torch.float32),
+            "chunk_starts": (chunk_starts, (chunk_starts.shape[0],),
+                             torch.int32)})
+        raise AssertionError("cache_fetch_chunked's guard and _check_cuda "
+                             "disagree")
 
 
 def cache_commit(capacity: torch.Tensor, cache: torch.Tensor,

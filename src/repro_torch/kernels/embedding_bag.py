@@ -22,7 +22,7 @@ _I64 = ctypes.c_int64
 KERNEL = Kernel("embedding_bag", "embedding_bag_launch",
                 [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P])
 DEDUP_KERNEL = Kernel("dedup_embedding_bag", "dedup_embedding_bag_launch",
-                      [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P])
+                      [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P])
 MODES = ("sum", "mean")
 
 
@@ -60,7 +60,9 @@ def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     (B, D) fp32, bit-equal to `embedding_bag`.
 
     A CPU tensor takes the plain version (`ref.dedup_embedding_bag_ref`); a
-    CUDA tensor launches the kernel (gather, then pool), or raises."""
+    CUDA tensor launches the kernel (gather, then pool), or raises. The
+    kernel's scratch, the (U, D) slab and an (H,) int32 row-to-slab-position
+    map (4 bytes a table row), is one uncleared allocation per call."""
     if mode not in MODES:
         raise ValueError(f"unknown pooling mode {mode!r}; expected {MODES}")
     if table.dim() != 2 or indices.dim() != 2 or unique_rows.dim() != 1:
@@ -68,25 +70,33 @@ def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                          f"(U,), got {tuple(table.shape)}, "
                          f"{tuple(indices.shape)} and "
                          f"{tuple(unique_rows.shape)}")
-    tensors = (table, indices, unique_rows)
-    if all(t.device.type == "cpu" for t in tensors):
+    if table.is_cpu and indices.is_cpu and unique_rows.is_cpu:
         return ref.dedup_embedding_bag_ref(table, indices, unique_rows, mode)
-    _check_cuda(table, indices)
-    if unique_rows.device != table.device or unique_rows.dtype != torch.int32 \
-            or not unique_rows.is_contiguous():
+    # the wrapper's host time is most of its cost at the training batch,
+    # so the checks are direct; a failure raises what `_check_cuda` raises
+    dev = table.get_device()
+    if not (table.is_cuda and indices.get_device() == dev
+            and unique_rows.get_device() == dev
+            and table.dtype == torch.float32 and indices.dtype == torch.int32
+            and unique_rows.dtype == torch.int32 and table.is_contiguous()
+            and indices.is_contiguous() and unique_rows.is_contiguous()):
+        _check_cuda(table, indices)
         raise ValueError("dedup_embedding_bag kernel needs contiguous int32 "
                          "unique_rows on the table's device")
     if unique_rows.numel() == 0:
         raise ValueError("dedup_embedding_bag needs a plan with at least one "
                          "entry")
     b, length = indices.shape
-    u, d = unique_rows.numel(), table.shape[1]
-    compact = torch.empty((u, d), dtype=torch.float32, device=table.device)
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    h, d = table.shape
+    u = unique_rows.numel()
+    # the slab's fp32 words, then the map's int32 words
+    scratch = table.new_empty((u * d + h,))
+    out = table.new_empty((b, d))
+    compact = scratch.data_ptr()
     DEDUP_KERNEL.launch(table.data_ptr(), unique_rows.data_ptr(),
-                        indices.data_ptr(), compact.data_ptr(),
+                        indices.data_ptr(), compact, compact + u * d * 4,
                         out.data_ptr(), u, b, length, d,
-                        stream_handle(table.device))
+                        stream_handle(dev))
     if mode == "mean":
         out = out / (indices >= 0).sum(dim=1, keepdim=True).clamp(
             min=1).float()

@@ -49,9 +49,11 @@ def dedup_embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
     """Plan-shared pooled lookup: the table is gathered once per plan entry
     into a compact (U, D) slab, and every lookup slot reads its row from
     that slab through a searchsorted remap into the plan's ascending live
-    prefix — the CUDA kernel's two phases. The pooling is
-    `embedding_bag_ref` itself, so the result is bit-equal to it whenever
-    `unique_rows` covers every valid index (the planner's contract).
+    prefix (the reference oracle's remap; the CUDA kernel finds the same
+    slab row through a row-indexed position map written by its gather).
+    The pooling is `embedding_bag_ref` itself, so the result is bit-equal
+    to it whenever `unique_rows` covers every valid index (the planner's
+    contract).
 
     table: (H, D); indices: (B, L) int32, -1 pads; unique_rows: (U,) int32,
     live prefix strictly ascending, -1 past the unique count."""

@@ -169,6 +169,131 @@ def test_dedup_embedding_bag_kernel_bit_equal_to_plain(dev, h, d, b, f, lk,
     assert torch.equal(got, embedding_bag.embedding_bag(table, flat, mode))
 
 
+def _dedup_bit_equal(table, flat, unique_rows, mode="sum"):
+    """One dedup launch, bit-equal to its plain version and to the
+    plan-less kernel; returns the result."""
+    before = embedding_bag.DEDUP_KERNEL.launches
+    got = embedding_bag.dedup_embedding_bag(table, flat, unique_rows, mode)
+    assert embedding_bag.DEDUP_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.dedup_embedding_bag_ref(table, flat,
+                                                        unique_rows, mode))
+    assert torch.equal(got, embedding_bag.embedding_bag(table, flat, mode))
+    return got
+
+
+def _live_batch(dev, h, d, n_live, b=24, lk=9, seed=0):
+    """A batch whose plan has exactly n_live unique rows (pads between)."""
+    rng = np.random.RandomState(seed)
+    rows = rng.choice(h, size=n_live, replace=False)
+    idx = rows[rng.randint(0, n_live, size=(b, lk))].astype(np.int32)
+    idx[rng.rand(b, lk) < 0.2] = -1
+    idx = idx.reshape(-1)
+    idx[:n_live] = rows                       # every row appears
+    table = torch.from_numpy(rng.randn(h, d).astype(np.float32)).to(dev)
+    return table, torch.from_numpy(idx.reshape(b, lk)).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("plan", ["no_tail", "trimmed", "full"])
+def test_dedup_embedding_bag_plans_with_and_without_a_tail(dev, plan, mode):
+    """U = the live count (no -1 tail), a capacity below N that still
+    covers, and the planner's full N-entry plan."""
+    table, flat = _live_batch(dev, 500, 64, 77)
+    n = flat.numel()
+    cap = {"no_tail": 77, "trimmed": 77 + 40, "full": None}[plan]
+    p = sparse_plan.build_sparse_plan(flat.reshape(-1),
+                                      lookups_per_bag=flat.shape[1],
+                                      capacity=cap)
+    assert p.unique_rows.numel() == (cap or n)
+    assert int((p.unique_rows >= 0).sum()) == 77
+    _dedup_bit_equal(table, flat, p.unique_rows, mode)
+
+
+@pytest.mark.parametrize("d", [64, 12, 5, 200])
+@pytest.mark.parametrize("n_live", [1, 3, 8, 43, 64, 81, 700])
+def test_dedup_embedding_bag_live_prefix_ends_anywhere(dev, n_live, d):
+    """The gather's warps take groups of plan entries (8 at D=64) and its
+    blocks 8 warps; the live prefix ends inside a group, on a group's or a
+    block's edge, and inside a later block."""
+    table, flat = _live_batch(dev, 4000, d, n_live, b=96, lk=11,
+                              seed=n_live)
+    p = sparse_plan.build_sparse_plan(flat.reshape(-1),
+                                      lookups_per_bag=flat.shape[1])
+    assert int((p.unique_rows >= 0).sum()) == n_live
+    _dedup_bit_equal(table, flat, p.unique_rows)
+    _dedup_bit_equal(table, flat, p.unique_rows[:n_live].contiguous())
+
+
+def test_dedup_embedding_bag_of_pads_only_is_zero(dev):
+    table = torch.randn((50, 64), device=dev)
+    flat = torch.full((16, 7), -1, dtype=torch.int32, device=dev)
+    p = sparse_plan.build_sparse_plan(flat.reshape(-1), lookups_per_bag=7)
+    assert not (p.unique_rows >= 0).any()
+    for mode in ("sum", "mean"):
+        got = _dedup_bit_equal(table, flat, p.unique_rows, mode)
+        assert not got.any()
+
+
+def test_dedup_embedding_bag_reaches_rows_past_2_pow_24(dev):
+    """A (2^24 + 1024, 16) table (1.1 GB): rows past 2^24 and the table's
+    last row, the map 4 bytes a row."""
+    h, d = (1 << 24) + 1024, 16
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = torch.randn((h, d), generator=g, device=dev)
+    rng = np.random.RandomState(5)
+    idx = rng.randint(-1, h, size=(32, 10)).astype(np.int32)
+    idx[0, :4] = h - 1
+    idx[1, ::2] = 1 << 24
+    idx[2, 1] = (1 << 24) - 1
+    flat = torch.from_numpy(idx).to(dev)
+    p = sparse_plan.build_sparse_plan(flat.reshape(-1), lookups_per_bag=10)
+    assert int(p.unique_rows.max()) == h - 1
+    _dedup_bit_equal(table, flat, p.unique_rows)
+
+
+def test_dedup_embedding_bag_twice_on_other_tables_and_plans(dev):
+    """The position map is taken uncleared on every call: a call after one
+    on another table and plan (other H, other rows) reads only what its own
+    gather wrote, in both orders."""
+    big, flat_big = _live_batch(dev, 9000, 64, 600, b=64, lk=13, seed=1)
+    small, flat_small = _live_batch(dev, 700, 64, 90, b=40, lk=5, seed=2)
+    plans = [sparse_plan.build_sparse_plan(f.reshape(-1),
+                                           lookups_per_bag=f.shape[1])
+             for f in (flat_big, flat_small)]
+    for _ in range(2):
+        _dedup_bit_equal(big, flat_big, plans[0].unique_rows)
+        _dedup_bit_equal(small, flat_small, plans[1].unique_rows)
+    # the same rows at other plan positions: the map must follow the plan
+    _dedup_bit_equal(big, flat_big, plans[0].unique_rows)
+    _dedup_bit_equal(big, flat_big[:7], sparse_plan.build_sparse_plan(
+        flat_big[:7].reshape(-1), lookups_per_bag=13).unique_rows)
+
+
+def test_dedup_embedding_bag_on_a_side_stream(dev):
+    table, flat = _live_batch(dev, 800, 64, 150, b=48, lk=8, seed=3)
+    p = sparse_plan.build_sparse_plan(flat.reshape(-1), lookups_per_bag=8)
+    want = ref.dedup_embedding_bag_ref(table, flat, p.unique_rows)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = embedding_bag.dedup_embedding_bag(table, flat, p.unique_rows)
+    side.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_stream_handle_is_the_current_stream(dev):
+    from repro_torch.kernels._build import stream_handle
+    assert stream_handle(dev) == torch.cuda.current_stream(dev).cuda_stream
+    assert stream_handle(torch.cuda.current_device()) == \
+        torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert stream_handle(dev) == side.cuda_stream
+        assert stream_handle(dev) == \
+            torch.cuda.current_stream(dev).cuda_stream
+    assert stream_handle(dev) != side.cuda_stream
+
+
 def test_sparse_plan_on_the_card_equals_the_host_plan(dev):
     rng = np.random.RandomState(3)
     idx = rng.randint(-1, 9, size=(64, 5, 16)).astype(np.int32)
@@ -386,6 +511,40 @@ def test_row_mover_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cache_ops.cache_commit(cap, cap[:2], acc, acc[:2], cap[:1], acc[:1],
                                rows, rows, rows, rows[:1])
+
+
+def test_cache_fetch_chunked_guards_raise_as_before(dev):
+    """The chunked fetch checks directly, and each failure still raises
+    `_check_cuda`'s exception type and message."""
+    cap, acc = torch.zeros((8, 4), device=dev), torch.zeros(8, device=dev)
+    starts = torch.zeros(2, dtype=torch.int32, device=dev)
+    wide = torch.zeros((8, 8), device=dev)
+    bad = [
+        (ValueError, "chunk must be >= 1", (cap, acc, starts, 0)),
+        (ValueError, "taller than the 8-row table", (cap, acc, starts, 9)),
+        (ValueError, "one CUDA device", (cap, acc.cpu(), starts, 2)),
+        (ValueError, "one CUDA device", (cap, acc, starts.cpu(), 2)),
+        (ValueError, "cap_accum has shape", (cap, acc[:7], starts, 2)),
+        (ValueError, "chunk_starts has shape",
+         (cap, acc, starts.reshape(2, 1), 2)),
+        (TypeError, "capacity must be", (cap.double(), acc, starts, 2)),
+        (TypeError, "cap_accum must be", (cap, acc.double(), starts, 2)),
+        (TypeError, "chunk_starts must be", (cap, acc, starts.long(), 2)),
+        (ValueError, "capacity must be contiguous",
+         (wide[:, :4], acc, starts, 2)),
+        (ValueError, "cap_accum must be contiguous",
+         (cap, torch.zeros(16, device=dev)[::2], starts, 2)),
+        (ValueError, "chunk_starts must be contiguous",
+         (cap, acc, torch.zeros(4, dtype=torch.int32, device=dev)[::2], 2)),
+    ]
+    before = cache_ops.FETCH_CHUNKED_KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            cache_ops.cache_fetch_chunked(*args)
+    assert cache_ops.FETCH_CHUNKED_KERNEL.launches == before
+    shadow, shadow_accum = cache_ops.cache_fetch_chunked(cap, acc, starts, 2)
+    assert shadow.shape == (4, 4) and shadow_accum.shape == (4,)
+    assert shadow.dtype == shadow_accum.dtype == torch.float32
 
 
 @pytest.mark.parametrize("schedule,fetch_chunk", [("sync", 1), ("sync", 4),

@@ -337,6 +337,44 @@ def test_dedup_embedding_bag_matches_reference(case, mode):
                                                mode), plain)
 
 
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("case", ["no_tail", "trimmed", "all_pad"])
+def test_dedup_embedding_bag_plan_shapes_match_reference(case, mode):
+    """Plans whose live prefix fills them (U = the unique count, no -1
+    tail), plans trimmed below the flat stream but still covering it, and a
+    batch of pads only, through the port's lookup on the CPU: allclose to
+    the reference's Pallas body in interpret mode (it adds in CSR order),
+    bit-equal to the reference's jnp oracle and to the plan-less lookup."""
+    rng = np.random.RandomState(11)
+    b, lk, h = 24, 32, 90
+    idx = _zipf_idx(rng, b, 1, lk, h).reshape(b, lk)
+    if case == "all_pad":
+        idx[:] = -1
+    n_unique = len(np.unique(idx[idx >= 0]))
+    capacity = {"no_tail": n_unique, "trimmed": n_unique + 5,
+                "all_pad": None}[case]
+    table = rng.randn(h, 40).astype(np.float32)
+    plan = jsp.build_sparse_plan_host(idx.reshape(-1), lookups_per_bag=lk,
+                                      capacity=capacity)
+    rows = plan[0]
+    assert (rows >= 0).sum() == n_unique
+    assert rows.shape[0] == (capacity or b * lk)
+    got = ops.dedup_embedding_bag(_t(table), _t(idx),
+                                  sparse_plan.SparsePlan(*map(_t, plan)),
+                                  mode)
+    jplan = jsp.SparsePlan(*map(jnp.asarray, plan))
+    body = jops.dedup_embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                                    jplan, mode, None, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(body), **BAG_TOL)
+    oracle = jref.dedup_embedding_bag_ref(jnp.asarray(table),
+                                          jnp.asarray(idx),
+                                          jnp.asarray(rows), mode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(oracle))
+    assert torch.equal(got, ops.embedding_bag(_t(table), _t(idx), mode))
+    if case == "all_pad":
+        assert not got.any()
+
+
 def test_dedup_embedding_bag_rejects_bad_input():
     t = torch.zeros((4, 8))
     i = torch.zeros((2, 3), dtype=torch.int32)
