@@ -24,13 +24,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernel again on a second table of another height and a second plan,
    then on the first (each bit-equal: no call reads a position an earlier
    call left in its uncleared row map), the fused update in place with its
-   untouched rows checked, and time them;
+   untouched rows checked, and time them; log the plan's longest CSR runs;
 5b. hold the cached tier's fetch, chunked fetch and commit against their
    plain versions on a full-width capacity tier and the plan's cache, at
    the worklist of one batch's misses (pads, writebacks, pure writebacks,
    a chunk at the table's end, installs remapped out of a chunk slab), and
-   time them, with the chunked fetch's host µs per call split into its
-   guard, allocations, stream handle and bare launch; check that the raw
+   time them, with each fetch's host µs per call split into its guard,
+   allocations, stream handle, bare launch, whole wrapper and the
+   index_select of the same rows; check that the raw
    stream handle the wrappers launch on is PyTorch's current stream, also
    inside torch.cuda.stream(side);
 5c. hold the segmented fused backward and the legacy row-wise AdaGrad
@@ -44,7 +45,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    `repro_torch.launch.train` (no plans), keeping the bit checksums of the
    initial and final table and accumulator, then 8 steps from the same
    seed through `ShardedLoader.pipeline(transform=sparse_plan_hook(...))`
-   and `build_dlrm_train_step` (planned lookups); count each kernel's
+   and `build_dlrm_train_step` (planned lookups), the launcher's final
+   checksums equal to the ones recorded before the fused update's
+   redesign; count each kernel's
    launches in each run, recompute the planned run's first step with the
    plain versions on the card, and profile its last steps;
 7. train the same 8 batches from the same table through
@@ -60,7 +63,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    profiled; (8b) the oracle,
    `build_dlrm_train_step` on the same layout, seed and batches; 8a's
    losses and final table and accumulator checksums must equal 8b's bit
-   for bit;
+   for bit, and the checksums the recorded ones;
 9. serve stablelm-1.6b at full width (random weights from a seeded
    torch.Generator, bf16 compute): (9a) hold the flash-attention kernel
    against its plain version at the prefill's (1, 32, 8192, 64) in bf16
@@ -114,6 +117,15 @@ SPARSE_LR, SPARSE_EPS = 0.05, 1e-8  # build_dlrm_train_step's defaults
 TOL_FUSED = 1e-6      # abs + rel: bag sums in plain order, mean(g^2) by
 #                       warp shuffles and rsqrtf
 TOL_STEP = 1e-5       # abs + rel: one train step, kernels vs plain on card
+#: bag rows a stage of the fused update's register body at D = 64
+#: (csrc/fused_bag_backward_adagrad.cu, Depth<2>::K): phase 5 counts the
+#: CSR runs longer than one stage
+FUSED_STAGE_BAGS = 32
+#: the final (mega, accum) bit checksums that the port's earlier chip runs
+#: recorded for phase 6a's launcher run and for phases 8a/8b (H100 80GB
+#: HBM3), before the fused update's redesign; the redesign keeps every bit
+LAUNCHER_FINAL_SUMS = (4241575280325291242, -3422734398129733286)
+TABLEWISE_FINAL_SUMS = (-6725920379925815923, -2627766141846941821)
 #: host-clock loops of phase 5b's informative host_us breakdown
 HOST_ITERS = 200
 #: the cached eviction runs: 8-row chunked transfers over the smallest
@@ -544,6 +556,9 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
         f"unique rows of U={u} plan entries (max row {int(rows.max())}); "
         f"bags per unique row: mean {n_valid / n_live:.2f}, longest run "
         f"{int(runs.max())}; device plan == host plan")
+    log(f"  CSR runs: the five longest {sorted(runs.tolist())[-5:]}; "
+        f"{int((runs > FUSED_STAGE_BAGS).sum())} of {n_live} longer than a "
+        f"stage of the fused update ({FUSED_STAGE_BAGS} bags)")
 
     # -- dedup embedding bag: bit-equal to its plain version and to the
     #    plan-less kernel, sum and mean
@@ -655,9 +670,44 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
         n_live * 4 + (n_live + 1) * 4 + n_valid * 4 + b * f * d * 4
         + 2 * n_live * (d * 4 + 4),
         n_valid * d + n_live * 5 * d)
+    upd.update(fused_parts_ms(torch, ku, table, accum, plan, pooled))
     log(f"  fused_bag_backward_adagrad: {upd}")
     del table, accum
     return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd}
+
+
+def fused_parts_ms(torch, ku, table, accum, plan, pooled) -> dict:
+    """Informative: the fused update's device ms on two parts of the plan,
+    to show where its time goes: the longest CSR run alone (one warp walks
+    it), and every run cut to its first 32 bags (the rest of the work
+    without the long runs)."""
+    import numpy as np
+    rows = plan.unique_rows.cpu().numpy()
+    offs = plan.bag_offsets.cpu().numpy()
+    bags = plan.bag_ids.cpu().numpy()
+    live = rows >= 0
+    lens = np.where(live, np.diff(offs), 0)
+    top = int(np.argmax(lens))
+    cut = np.minimum(lens, 32)
+    keep = np.concatenate([np.arange(o, o + c) for o, c in
+                           zip(offs[:-1][live], cut[live])])
+    dev = table.device
+    parts = {
+        "longest_run": (rows[top:top + 1], np.array([0, lens[top]]),
+                        bags[offs[top]:offs[top + 1]]),
+        "runs_cut_to_32": (rows, np.concatenate([[0], np.cumsum(cut)]),
+                           bags[keep]),
+    }
+    out = {}
+    for name, arrays in parts.items():
+        r, o, g = (torch.as_tensor(np.asarray(x, np.int32), device=dev)
+                   for x in arrays)
+        out[f"{name}_device_ms"] = device_kernel_ms(
+            torch, lambda: ku.fused_bag_backward_adagrad(
+                table, accum, r, o, g, pooled, SPARSE_LR, SPARSE_EPS),
+            20, "fused_bag_backward_adagrad")
+    out["longest_run_bags"] = int(lens[top])
+    return out
 
 
 def host_us(torch, fn, iters: int = HOST_ITERS) -> float:
@@ -674,59 +724,29 @@ def host_us(torch, fn, iters: int = HOST_ITERS) -> float:
     return t / iters * 1e6
 
 
-def chunked_host_us(torch, kc, capacity, cap_accum, starts, chunk,
-                    block_rows) -> dict:
-    """Informative: where `cache_fetch_chunked`'s host time goes, each part
-    timed in its own loop; the wrapper's own allocations beside the two
-    forms it did not take (torch.empty, one allocation split in two), the
-    raw stream handle beside the torch.cuda.Stream object the handle used
-    to come from, the ctypes launch beside the same launch with the GIL
-    held (ctypes.PyDLL), and the whole wrapper and index_select on the
-    same clock. The launch loops enqueue kernels of ~3.4 µs, so they read
-    no less than the device's rate."""
+def fetch_host_us(torch, name, kernel, guard, wrapper, n, capacity,
+                  args, index_select) -> dict:
+    """Informative: where a fetch wrapper's host time goes, each part timed
+    in its own loop: the guard, the two allocations of the (n, D) slab and
+    its accumulators, the raw stream handle, the bare ctypes launch of
+    `kernel` with `args` (the stream handle appended), the whole wrapper
+    and `index_select` of the same rows, on the same clock. The launch
+    loops enqueue kernels of a few µs, so they read no less than the
+    device's rate."""
     from repro_torch.kernels._build import stream_handle
-    dev = capacity.device
-    k, d = starts.numel(), capacity.shape[1]
-    n = k * chunk
-    shadow, shadow_accum = kc.cache_fetch_chunked(capacity, cap_accum,
-                                                  starts, chunk)
-    fn = kc.FETCH_CHUNKED_KERNEL._fn
-    args = (capacity.data_ptr(), cap_accum.data_ptr(), starts.data_ptr(),
-            shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d,
-            stream_handle(dev))
-
-    def one_split():
-        a, b = capacity.new_empty((n * (d + 1),)).split((n * d, n))
-        return a.view(n, d), b
-
-    # the same entry point loaded through ctypes.PyDLL, which keeps the
-    # GIL across the call (CDLL releases and retakes it)
-    import ctypes
-    k_ = kc.FETCH_CHUNKED_KERNEL
-    held = getattr(ctypes.PyDLL(str(k_.library)), k_.symbol)
-    held.argtypes, held.restype = k_.argtypes, ctypes.c_int
-
+    d = capacity.shape[1]
+    launch_args = (*args, stream_handle(capacity.device))
     out = {
-        "guard": host_us(torch, lambda: kc.check_fetch_chunked(
-            capacity, cap_accum, starts)),
+        "guard": host_us(torch, guard),
         "alloc": host_us(torch, lambda: (capacity.new_empty((n, d)),
                                          capacity.new_empty((n,)))),
-        "alloc_torch_empty": host_us(torch, lambda: (
-            torch.empty((n, d), dtype=torch.float32, device=dev),
-            torch.empty((n,), dtype=torch.float32, device=dev))),
-        "alloc_one_split": host_us(torch, one_split),
         "stream_handle": host_us(torch, lambda: stream_handle(
             capacity.get_device())),
-        "stream_object": host_us(
-            torch, lambda: torch.cuda.current_stream(dev).cuda_stream),
-        "launch": host_us(torch, lambda: fn(*args)),
-        "launch_gil_held": host_us(torch, lambda: held(*args)),
-        "wrapper": host_us(torch, lambda: kc.cache_fetch_chunked(
-            capacity, cap_accum, starts, chunk)),
-        "index_select": host_us(
-            torch, lambda: capacity.index_select(0, block_rows)),
+        "launch": host_us(torch, lambda: kernel._fn(*launch_args)),
+        "wrapper": host_us(torch, wrapper),
+        "index_select": host_us(torch, index_select),
     }
-    log(f"  cache_fetch_chunked host µs per call: {out}")
+    log(f"  {name} host µs per call: {out}")
     return out
 
 
@@ -803,6 +823,15 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     }
     fetch_out["bound_ms"], fetch_out["bound_by"] = bound_ms(
         n * 4 + n_ft * (d * 4 + 4) + n * (d * 4 + 4), 0)
+    shadow, shadow_accum = got
+    fetch_out["host_us"] = fetch_host_us(
+        torch, "cache_fetch", kc.FETCH_KERNEL,
+        lambda: kc.check_fetch(capacity, cap_accum, fetch),
+        lambda: kc.cache_fetch(capacity, cap_accum, fetch), n, capacity,
+        (capacity.data_ptr(), cap_accum.data_ptr(), fetch.data_ptr(),
+         shadow.data_ptr(), shadow_accum.data_ptr(), n, d),
+        lambda: capacity.index_select(0, lib_rows))
+    del shadow, shadow_accum
     log(f"  cache_fetch entries={n} "
         f"pads={n - n_ft} (max row {int(fetch.max())}): {fetch_out}")
 
@@ -841,8 +870,16 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     }
     chunked_out["bound_ms"], chunked_out["bound_by"] = bound_ms(
         k * 4 + k_live * chunk * (d * 4 + 4) + k * chunk * (d * 4 + 4), 0)
-    chunked_out["host_us"] = chunked_host_us(torch, kc, capacity, cap_accum,
-                                             starts, chunk, block_rows)
+    shadow, shadow_accum = got
+    chunked_out["host_us"] = fetch_host_us(
+        torch, "cache_fetch_chunked", kc.FETCH_CHUNKED_KERNEL,
+        lambda: kc.check_fetch_chunked(capacity, cap_accum, starts),
+        lambda: kc.cache_fetch_chunked(capacity, cap_accum, starts, chunk),
+        k * chunk, capacity,
+        (capacity.data_ptr(), cap_accum.data_ptr(), starts.data_ptr(),
+         shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d),
+        lambda: capacity.index_select(0, block_rows))
+    del shadow, shadow_accum
     covered = int((pos >= 0).sum())
     log(f"  cache_fetch_chunked chunk={chunk}: {k} "
         f"blocks ({k_live} live, one at R-{chunk}, one pad) cover "
@@ -1316,6 +1353,8 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
         + (f"{out['device_busy_ms_per_step']:.3f} ms per step" if dev_us
            else "not measured (trace holds no device time)"))
     out["dedup_device_ms_per_step"] = kernel_ms_per_step(dev, "dedup_")
+    out["update_device_ms_per_step"] = kernel_ms_per_step(
+        dev, "fused_bag_backward_adagrad")
     top = sorted(dev, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
@@ -1463,6 +1502,8 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
                                      / PROFILED_STEPS)
     out["copy_host_ms_per_step"] = (sum(copy_cpu) / 1e3 / PROFILED_STEPS)
     out["dedup_device_ms_per_step"] = kernel_ms_per_step(events, "dedup_")
+    out["update_device_ms_per_step"] = kernel_ms_per_step(
+        events, "fused_bag_backward_adagrad")
     top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
@@ -2108,6 +2149,11 @@ def main() -> int:
         f"{final_sums}")
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"launcher losses not finite: {losses}")
+    log(f"launcher final checksums equal the recorded "
+        f"{LAUNCHER_FINAL_SUMS}: {final_sums == LAUNCHER_FINAL_SUMS}")
+    if final_sums != LAUNCHER_FINAL_SUMS:
+        raise AssertionError(f"launcher final checksums {final_sums} differ "
+                             f"from the recorded {LAUNCHER_FINAL_SUMS}")
     log_peak(torch, "phase 6a")
     free_device(torch)
 
@@ -2191,6 +2237,13 @@ def main() -> int:
     if not equal:
         raise AssertionError("the table-wise run is not bit-equal to the "
                              "oracle")
+    log(f"8a and 8b final checksums equal the recorded "
+        f"{TABLEWISE_FINAL_SUMS}: "
+        f"{tw['final_sums'] == tw_oracle['final_sums'] == TABLEWISE_FINAL_SUMS}")
+    if tw["final_sums"] != TABLEWISE_FINAL_SUMS:
+        raise AssertionError(f"table-wise final checksums {tw['final_sums']} "
+                             f"differ from the recorded "
+                             f"{TABLEWISE_FINAL_SUMS}")
     for name, res in (("8a", tw), ("8b", tw_oracle)):
         log(f"{name} numbers: " + json.dumps(
             {k: v for k, v in res.items() if k != "losses"}))

@@ -47,9 +47,10 @@ def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
     """Row-wise AdaGrad from pooled bag gradients, IN PLACE.
 
     table: (H, D) fp32; accum: (H,) fp32; plan arrays (U,), (U+1,), (N,)
-    int32 (`kernels.sparse_plan`); pooled: (B*F, D) fp32. Neither table nor
-    accum may require grad: the update is the optimizer, not a graph node.
-    Returns (table, accum).
+    int32 (`kernels.sparse_plan`), unique_rows a live prefix as the planner
+    makes it (the kernel may skip a live entry that follows a pad);
+    pooled: (B*F, D) fp32. Neither table nor accum may require grad: the
+    update is the optimizer, not a graph node. Returns (table, accum).
 
     CPU tensors take the plain version (`ref.fused_bag_backward_adagrad_ref`);
     CUDA tensors launch the kernel, or raise."""
@@ -66,16 +67,16 @@ def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
         raise ValueError("the sparse update writes table and accum in "
                          "place; neither may require grad")
     tensors = (table, accum, unique_rows, bag_offsets, bag_ids, pooled)
-    if all(t.device.type == "cpu" for t in tensors):
+    if table.is_cpu and all(t.is_cpu for t in tensors):
         with torch.no_grad():
             return ref.fused_bag_backward_adagrad_ref(
                 table, accum, unique_rows, bag_offsets, bag_ids, pooled,
                 lr, eps)
-    _check_cuda(tensors)
+    _check_direct("fused_bag_backward_adagrad", *tensors)
     KERNEL.launch(table.data_ptr(), accum.data_ptr(), unique_rows.data_ptr(),
                   bag_offsets.data_ptr(), bag_ids.data_ptr(),
                   pooled.data_ptr(), unique_rows.numel(), table.shape[1],
-                  float(lr), float(eps), stream_handle(table.device))
+                  float(lr), float(eps), stream_handle(table.get_device()))
     return table, accum
 
 
@@ -122,21 +123,46 @@ def fused_bag_backward_adagrad_segments(table: torch.Tensor,
                          "place; neither may require grad")
     tensors = (table, accum, seg_rows, seg_offsets, bag_ids, pooled,
                seg_base)
-    if all(t.device.type == "cpu" for t in tensors):
+    if table.is_cpu and all(t.is_cpu for t in tensors):
         with torch.no_grad():
             return ref.fused_bag_backward_adagrad_segments_ref(
                 table, accum, seg_rows, seg_offsets, bag_ids, pooled,
                 seg_base, lr, eps)
-    _check_cuda(tensors, "fused_bag_backward_adagrad_segments")
+    _check_direct("fused_bag_backward_adagrad_segments", table, accum,
+                  seg_rows, seg_offsets, bag_ids, pooled, seg_base)
     SEGMENTS_KERNEL.launch(
         table.data_ptr(), accum.data_ptr(), seg_rows.data_ptr(),
         seg_offsets.data_ptr(), bag_ids.data_ptr(), pooled.data_ptr(),
         seg_base.data_ptr(), s, c, table.shape[1], float(lr), float(eps),
-        stream_handle(table.device))
+        stream_handle(table.get_device()))
     return table, accum
 
 
-def _check_cuda(tensors, name: str = "fused_bag_backward_adagrad") -> None:
+def _check_direct(name: str, table, accum, rows, offsets, bag_ids, pooled,
+                  seg_base=None) -> None:
+    """The wrappers' guard: `_check_cuda`'s checks written out directly;
+    on a failure `_check_cuda` raises its own exception and message."""
+    dev = table.get_device()
+    f32, i32 = torch.float32, torch.int32
+    if not (table.is_cuda and accum.get_device() == dev
+            and rows.get_device() == dev and offsets.get_device() == dev
+            and bag_ids.get_device() == dev and pooled.get_device() == dev
+            and table.dtype == f32 and accum.dtype == f32
+            and pooled.dtype == f32 and rows.dtype == i32
+            and offsets.dtype == i32 and bag_ids.dtype == i32
+            and table.is_contiguous() and accum.is_contiguous()
+            and rows.is_contiguous() and offsets.is_contiguous()
+            and bag_ids.is_contiguous() and pooled.is_contiguous()
+            and (seg_base is None
+                 or (seg_base.get_device() == dev and seg_base.dtype == i32
+                     and seg_base.is_contiguous()))):
+        tensors = (table, accum, rows, offsets, bag_ids, pooled)
+        _check_cuda(tensors + (() if seg_base is None else (seg_base,)),
+                    name)
+        raise AssertionError(f"{name}'s guard and _check_cuda disagree")
+
+
+def _check_cuda(tensors, name: str) -> None:
     """Every tensor on one CUDA device, contiguous; table, accum and pooled
     (the first two and the sixth) fp32, every index array int32."""
     dev = tensors[0].device

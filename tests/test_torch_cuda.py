@@ -399,6 +399,241 @@ def test_fused_backward_opts_in_to_shared_memory_past_48kb(dev):
     torch.testing.assert_close(got_a.cpu(), want_a, rtol=1e-6, atol=1e-6)
 
 
+# The fused update walks each CSR run in stages of K bag rows (K = 32 at
+# D = 32 and 64, 16 at 96 and 128; D = 12 and 200 take the shared-memory
+# body) and reads bag ids 32 at a time: runs of 1, K-1, K, K+1, 31, 32, 33
+# and 2K+1 bags for K = 8, 16 and 32, and one of 4,000 (a Zipf head row's
+# length at the training batch)
+RUN_LENGTHS = sorted({n for k in (8, 16, 32)
+                      for n in (1, k - 1, k, k + 1, 31, 32, 33, 2 * k + 1)})
+
+
+def _runs_plan(h, d, lengths, pads, seed):
+    """A plan whose live runs have the given lengths (random distinct rows,
+    random bags), `pads` -1 entries after them; the table, accumulators and
+    pooled gradients; numpy."""
+    rng = np.random.RandomState(seed)
+    n_bags = 97
+    rows = np.sort(rng.choice(h, size=len(lengths), replace=False))
+    offs = np.concatenate([[0], np.cumsum(lengths)])
+    unique_rows = np.concatenate([rows, np.full(pads, -1)]).astype(np.int32)
+    bag_offsets = np.concatenate(
+        [offs, np.full(pads, offs[-1])]).astype(np.int32)
+    bag_ids = rng.randint(0, n_bags, size=int(offs[-1])).astype(np.int32)
+    table = rng.randn(h, d).astype(np.float32)
+    accum = rng.rand(h).astype(np.float32)
+    pooled = (rng.randn(n_bags, d) * 0.1).astype(np.float32)
+    return unique_rows, bag_offsets, bag_ids, table, accum, pooled
+
+
+def _fused_held(dev, unique_rows, bag_offsets, bag_ids, table, accum,
+                pooled):
+    """Runs the fused update on the card and holds it bit-equal to the
+    two-pass update (the CSR pairs as per-lookup gradients, in CSR order,
+    then the unchanged rowwise_adagrad kernel) and within 1e-6 of the plain
+    version; untouched rows must not move. Returns (table, accum)."""
+    plan = [torch.tensor(x, device=dev)
+            for x in (unique_rows, bag_offsets, bag_ids)]
+    t0, a0, pg = (torch.tensor(x, device=dev) for x in (table, accum, pooled))
+    t_k, a_k = t0.clone(), a0.clone()
+    before = sparse_update.KERNEL.launches
+    sparse_update.fused_bag_backward_adagrad(t_k, a_k, *plan, pg, 0.05)
+    assert sparse_update.KERNEL.launches == before + 1
+    live = unique_rows >= 0
+    lengths = np.diff(bag_offsets)[live]
+    flat_idx = torch.from_numpy(
+        np.repeat(unique_rows[live], lengths).astype(np.int32)).to(dev)
+    flat_g = pg[plan[2][:int(lengths.sum())].long()]
+    t_2, a_2 = ops.rowwise_adagrad_update(t0.clone(), a0.clone(), flat_idx,
+                                          flat_g, 0.05)
+    t_p, a_p = t0.clone(), a0.clone()
+    ref.fused_bag_backward_adagrad_ref(t_p, a_p, *plan, pg, 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_2) and torch.equal(a_k, a_2)
+    torch.testing.assert_close(t_k, t_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=1e-6)
+    touched = torch.zeros(t0.shape[0], dtype=torch.bool, device=dev)
+    touched[torch.from_numpy(unique_rows[live]).long().to(dev)] = True
+    assert torch.equal(t_k[~touched], t0[~touched])
+    assert torch.equal(a_k[~touched], a0[~touched])
+    assert bool((t_k[touched] != t0[touched]).any(1).all())
+    return t_k, a_k
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 12, 200])
+def test_fused_update_bit_equal_at_every_pipeline_cut(dev, d):
+    lengths = list(np.random.RandomState(d).permutation(
+        RUN_LENGTHS + [4000]))
+    _fused_held(dev, *_runs_plan(6000, d, lengths, 50, seed=d))
+
+
+def test_fused_update_of_pads_only_and_of_an_empty_plan(dev):
+    for pads in (0, 70):
+        rows, offs, bags, table, accum, pooled = _runs_plan(300, 64, [],
+                                                            pads, seed=1)
+        t, a = (torch.tensor(x, device=dev) for x in (table, accum))
+        plan = [torch.tensor(x, device=dev) for x in (rows, offs, bags)]
+        before = sparse_update.KERNEL.launches
+        sparse_update.fused_bag_backward_adagrad(
+            t, a, *plan, torch.tensor(pooled, device=dev), 0.05)
+        assert sparse_update.KERNEL.launches == before + 1
+        assert torch.equal(t.cpu(), torch.from_numpy(table))
+        assert torch.equal(a.cpu(), torch.from_numpy(accum))
+
+
+@pytest.mark.parametrize("n_live", [1, 31, 32, 33, 45, 64, 300, 2000])
+def test_fused_update_live_prefix_ends_anywhere(dev, n_live):
+    """A warp reads 32 plan entries a round, dealt one by one across the
+    grid's warps, and stops at its first round without a live entry: the
+    live prefix ends before, at and past a multiple of 32, and past the
+    first round of every warp."""
+    lengths = list(np.random.RandomState(n_live).randint(1, 12, n_live))
+    _fused_held(dev, *_runs_plan(9000, 64, lengths, 90, seed=n_live))
+
+
+@pytest.mark.parametrize("d", [64, 12])
+def test_fused_segments_with_empty_and_group_edge_segments(dev, d):
+    """Five owners of 100 rows each, C = 64 (or 96) entries a segment:
+    owner 0 has no rows, owner 1's live prefix ends on a 32-entry group's
+    edge, owner 3 fills its segment and holds a 1,333-bag run, owner 4's
+    prefix ends inside a group. Bit-equal to the one-plan kernel (whose
+    bits the two-pass update holds) at the tight and a wider capacity."""
+    owners, shard = 5, 100
+    rng = np.random.RandomState(d)
+    per = [0, 32, 45, 64, 7]
+    rows = np.concatenate([np.sort(rng.choice(shard, n, replace=False))
+                           + s * shard for s, n in enumerate(per)])
+    lengths = rng.randint(1, 40, size=rows.size)
+    lengths[per[1] + per[2] + 5] = 1333
+    _, offs, bags, table, accum, pooled = _runs_plan(owners * shard, d,
+                                                     list(lengths), 17,
+                                                     seed=d)
+    plan = sparse_plan.SparsePlan(
+        np.concatenate([rows, np.full(17, -1)]).astype(np.int32), offs, bags)
+    t_1, a_1 = _fused_held(dev, *plan, table, accum, pooled)
+    for cap in (None, 96):
+        seg_rows, seg_offs, seg_base = (
+            torch.tensor(x, device=dev) for x in
+            sparse_plan.split_plan_by_owner(plan, shard, owners,
+                                            seg_cap=cap))
+        assert not (seg_rows[0] >= 0).any()
+        assert (seg_rows >= 0).sum(1).tolist() == per
+        t, a = (torch.tensor(x, device=dev) for x in (table, accum))
+        before = sparse_update.SEGMENTS_KERNEL.launches
+        sparse_update.fused_bag_backward_adagrad_segments(
+            t, a, seg_rows, seg_offs, torch.tensor(bags, device=dev),
+            torch.tensor(pooled, device=dev), seg_base, 0.05)
+        assert sparse_update.SEGMENTS_KERNEL.launches == before + 1
+        assert torch.equal(t, t_1) and torch.equal(a, a_1)
+
+
+def test_fused_update_on_a_side_stream(dev):
+    rows, offs, bags, table, accum, pooled = _runs_plan(
+        3000, 64, list(np.random.RandomState(4).randint(1, 300, 150)), 40,
+        seed=4)
+    plan = [torch.tensor(x, device=dev) for x in (rows, offs, bags)]
+    pg = torch.tensor(pooled, device=dev)
+    want = [torch.tensor(x, device=dev) for x in (table, accum)]
+    sparse_update.fused_bag_backward_adagrad(*want, *plan, pg, 0.05)
+    got = [torch.tensor(x, device=dev) for x in (table, accum)]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        sparse_update.fused_bag_backward_adagrad(*got, *plan, pg, 0.05)
+    side.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_update_of_tensors_off_an_8_byte_boundary(dev, d):
+    """D = 64 and 128 load float2 pairs; a pooled tensor that starts one
+    float into its storage takes the shared-memory body, and agrees."""
+    rows, offs, bags, table, accum, pooled = _runs_plan(
+        500, d, [1, 40, 17, 300, 3], 9, seed=d + 1)
+    plan = [torch.tensor(x, device=dev) for x in (rows, offs, bags)]
+    buf = torch.zeros(pooled.size + 1, device=dev)
+    shifted = buf[1:].view(pooled.shape)
+    shifted.copy_(torch.tensor(pooled))
+    assert shifted.data_ptr() % 8 != 0 and shifted.is_contiguous()
+    want = [torch.tensor(x, device=dev) for x in (table, accum)]
+    sparse_update.fused_bag_backward_adagrad(
+        *want, *plan, torch.tensor(pooled, device=dev), 0.05)
+    got = [torch.tensor(x, device=dev) for x in (table, accum)]
+    sparse_update.fused_bag_backward_adagrad(*got, *plan, shifted, 0.05)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_update_builds_without_spills(dev, tmp_path):
+    """Both entry kernels at every NC (1-4: sums in registers) and the
+    shared-memory body (0) compile for sm_90a with no spill stores or
+    loads."""
+    import subprocess
+    cmd = sparse_update.KERNEL._command(tmp_path / "fused.so")
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log
+    entries = [line for line in log.splitlines()
+               if "Compiling entry function" in line]
+    assert len(entries) == 10, log
+    assert sum("segments_kernel" in e for e in entries) == 5, log
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == 10, log
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line
+               for line in spills), log
+
+
+def test_fused_update_guards_raise_as_before(dev):
+    """Both wrappers check directly, and each failure still raises
+    `_check_cuda`'s exception type and message."""
+    t, a = torch.zeros((8, 4), device=dev), torch.zeros(8, device=dev)
+    rows = torch.zeros((2,), dtype=torch.int32, device=dev)
+    offs = torch.zeros((3,), dtype=torch.int32, device=dev)
+    bags = torch.zeros((5,), dtype=torch.int32, device=dev)
+    pooled = torch.zeros((5, 4), device=dev)
+    one = "fused_bag_backward_adagrad"
+    bad = [
+        (ValueError, f"{one} needs every tensor on one CUDA device",
+         (t, a.cpu(), rows, offs, bags, pooled)),
+        (ValueError, "one CUDA device", (t, a, rows, offs, bags.cpu(),
+                                         pooled)),
+        (TypeError, f"{one} kernel takes fp32",
+         (t, a, rows, offs, bags, pooled.double())),
+        (TypeError, "int32 plan arrays", (t, a, rows.long(), offs, bags,
+                                          pooled)),
+        (TypeError, "int32 plan arrays", (t, a, rows, offs.long(), bags,
+                                          pooled)),
+        (ValueError, f"{one} kernel needs contiguous",
+         (torch.zeros((8, 8), device=dev)[:, :4], a, rows, offs, bags,
+          pooled)),
+        (ValueError, "contiguous", (t, a, rows, offs,
+                                    torch.zeros(10, dtype=torch.int32,
+                                                device=dev)[::2], pooled)),
+    ]
+    before = sparse_update.KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            sparse_update.fused_bag_backward_adagrad(*args, 0.1)
+    assert sparse_update.KERNEL.launches == before
+    seg = "fused_bag_backward_adagrad_segments"
+    base = torch.zeros((1,), dtype=torch.int32, device=dev)
+    strided = torch.zeros((1, 4), dtype=torch.int32, device=dev)[:, ::2]
+    bad = [
+        (ValueError, f"{seg} needs every tensor on one CUDA device",
+         (t, a, rows[None], offs[None], bags, pooled, base.cpu())),
+        (TypeError, f"{seg} kernel takes fp32",
+         (t, a, rows[None], offs[None], bags, pooled, base.long())),
+        (TypeError, f"{seg} kernel takes fp32",
+         (t.double(), a, rows[None], offs[None], bags, pooled, base)),
+        (ValueError, f"{seg} kernel needs contiguous",
+         (t, a, strided, offs[None], bags, pooled, base)),
+    ]
+    before = sparse_update.SEGMENTS_KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            sparse_update.fused_bag_backward_adagrad_segments(*args, 0.1)
+    assert sparse_update.SEGMENTS_KERNEL.launches == before
+
+
 def _mover_inputs(dev, r, c, d, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((r, d), generator=g, device=dev),
@@ -545,6 +780,41 @@ def test_cache_fetch_chunked_guards_raise_as_before(dev):
     shadow, shadow_accum = cache_ops.cache_fetch_chunked(cap, acc, starts, 2)
     assert shadow.shape == (4, 4) and shadow_accum.shape == (4,)
     assert shadow.dtype == shadow_accum.dtype == torch.float32
+
+
+def test_cache_fetch_guards_raise_as_before(dev):
+    """The row fetch checks directly, and each failure still raises
+    `_check_cuda`'s exception type and message."""
+    cap, acc = torch.zeros((8, 4), device=dev), torch.zeros(8, device=dev)
+    rows = torch.zeros(3, dtype=torch.int32, device=dev)
+    wide = torch.zeros((8, 8), device=dev)
+    bad = [
+        (ValueError, "cache_fetch needs every tensor on one CUDA device",
+         (cap, acc.cpu(), rows)),
+        (ValueError, "one CUDA device", (cap, acc, rows.cpu())),
+        (ValueError, "one CUDA device", (cap.cpu(), acc, rows)),
+        (ValueError, "cap_accum has shape", (cap, acc[:7], rows)),
+        (ValueError, "fetch_rows has shape", (cap, acc, rows.reshape(3, 1))),
+        (TypeError, "capacity must be", (cap.double(), acc, rows)),
+        (TypeError, "cap_accum must be", (cap, acc.double(), rows)),
+        (TypeError, "fetch_rows must be", (cap, acc, rows.long())),
+        (ValueError, "capacity must be contiguous", (wide[:, :4], acc, rows)),
+        (ValueError, "cap_accum must be contiguous",
+         (cap, torch.zeros(16, device=dev)[::2], rows)),
+        (ValueError, "fetch_rows must be contiguous",
+         (cap, acc, torch.zeros(6, dtype=torch.int32, device=dev)[::2])),
+    ]
+    before = cache_ops.FETCH_KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            cache_ops.cache_fetch(*args)
+        with pytest.raises(exc, match=msg):
+            cache_ops.check_fetch(*args)
+    assert cache_ops.FETCH_KERNEL.launches == before
+    shadow, shadow_accum = cache_ops.cache_fetch(cap, acc, rows)
+    assert shadow.shape == (3, 4) and shadow_accum.shape == (3,)
+    assert shadow.dtype == shadow_accum.dtype == torch.float32
+    assert shadow.device == cap.device
 
 
 @pytest.mark.parametrize("schedule,fetch_chunk", [("sync", 1), ("sync", 4),

@@ -94,7 +94,22 @@ def _corpus(case, seed=0, h=60, b=5, f=3, lk=6):
     if case == "empty_bags":
         uniform[::2] = -1                      # whole examples empty
         return uniform
+    if case == "long_runs":
+        return _long_runs_idx(rng, h, 131, 1, 32)
     return np.full((1, 1, 1), h - 1, np.int32)   # single
+
+
+def _long_runs_idx(rng, h, b, f, lk):
+    """A batch whose plan has one row of ~4,000 bags (a Zipf head row, met
+    many times in one bag) and rows of 31, 32, 33 and 65 bags: the lengths
+    at which the port's fused kernel cuts a run into stages and 32-bag id
+    groups. The other slots are pads."""
+    slots = np.concatenate([np.full(n, r, np.int32) for r, n in
+                            ((0, 4000), (1, 31), (2, 32), (3, 33), (4, 65))])
+    assert slots.size <= b * f * lk and h > 4
+    idx = np.full(b * f * lk, -1, np.int32)
+    idx[:slots.size] = slots
+    return rng.permutation(idx).reshape(b, f, lk)
 
 
 def _np(plan):
@@ -230,7 +245,7 @@ def _fused_inputs(case, seed=0, h=60, d=12):
     return idx, table, accum, pooled
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ["long_runs"])
 def test_bag_grad_sums_bit_equal_to_reference(case):
     idx, _, _, pooled = _fused_inputs(case)
     plan = jsp.build_sparse_plan_host(idx)
@@ -260,14 +275,23 @@ def test_fused_sparse_backward_matches_reference_oracle(case):
     np.testing.assert_array_equal(ga.numpy()[~touched], accum[~touched])
 
 
-@pytest.mark.parametrize("h,d,b,f,lk", [
-    (64, 128, 4, 2, 5),      # lane-aligned d
-    (97, 48, 6, 3, 7),       # the reference pads and rescales d
-    (33, 200, 2, 1, 32),     # d > lane, truncation-sized lk
+@pytest.mark.parametrize("h,d,b,f,lk,corpus", [
+    # lane-aligned d
+    pytest.param(64, 128, 4, 2, 5, "uniform", id="64-128-4-2-5"),
+    # the reference pads and rescales d
+    pytest.param(97, 48, 6, 3, 7, "uniform", id="97-48-6-3-7"),
+    # d > lane, truncation-sized lk
+    pytest.param(33, 200, 2, 1, 32, "uniform", id="33-200-2-1-32"),
+    # a ~4,000-bag run and runs at the kernel's stage and group lengths
+    pytest.param(60, 64, 131, 1, 32, "long_runs", id="long_runs"),
 ])
-def test_fused_sparse_backward_matches_pallas_interpret(h, d, b, f, lk):
+def test_fused_sparse_backward_matches_pallas_interpret(h, d, b, f, lk,
+                                                        corpus):
     rng = np.random.RandomState(h)
-    idx = rng.randint(-1, h, size=(b, f, lk)).astype(np.int32)
+    if corpus == "long_runs":
+        idx = _long_runs_idx(rng, h, b, f, lk)
+    else:
+        idx = rng.randint(-1, h, size=(b, f, lk)).astype(np.int32)
     table = rng.randn(h, d).astype(np.float32)
     accum = np.abs(rng.randn(h)).astype(np.float32)
     pooled = rng.randn(b, f, d).astype(np.float32)
