@@ -12,7 +12,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
    writeback entries, rows above 2**24 and byte offsets above 2**32), and
    time it beside the plain version and, where one PyTorch call computes
-   the same function, that call;
+   the same function, that call; split embedding_bag's and
+   dot_interaction's host µs per call into guard, allocation, stream
+   handle, bare launch, wrapper and one PyTorch call;
 4. serve dlrm-m1 at full width through `repro_torch.launch.serve` (random
    weights from a seeded torch.Generator, 64 Zipf-1.05 requests), count
    each kernel's launches in that run, and recompute one batch with the
@@ -25,6 +27,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    then on the first (each bit-equal: no call reads a position an earlier
    call left in its uncleared row map), the fused update in place with its
    untouched rows checked, and time them; log the plan's longest CSR runs;
+   time the plan-less embedding_bag on the same batch (bit-equal to plain)
+   and dot_interaction at (512, 31, 64), the two kernels' training shapes;
 5b. hold the cached tier's fetch, chunked fetch and commit against their
    plain versions on a full-width capacity tier and the plan's cache, at
    the worklist of one batch's misses (pads, writebacks, pure writebacks,
@@ -353,6 +357,16 @@ def check_embedding_bag(torch, dev, c_rows: int, d: int, n_bags: int,
     out["bound_ms"], out["bound_by"] = bound_ms(
         n_valid * d * 4 + n_bags * length * 4 + n_bags * d * 4,
         n_valid * d)
+    res = kb.embedding_bag(table, idx)
+    out["host_us"] = wrapper_host_us(
+        torch, "embedding_bag", kb.KERNEL,
+        lambda: kb.check_bag(table, idx),
+        lambda: table.new_empty((n_bags, d)), table.get_device(),
+        (table.data_ptr(), idx.data_ptr(), res.data_ptr(), n_bags, length,
+         d, 0),
+        lambda: kb.embedding_bag(table, idx),
+        lambda: lib(flat, table, offsets, mode="sum"), "F.embedding_bag")
+    del res
     log(f"  embedding_bag H={c_rows} bags={n_bags} L={length} D={d} "
         f"valid={n_valid}: {out}")
     del table
@@ -384,6 +398,7 @@ def check_dot_interaction(torch, dev, b: int, f: int, d: int) -> dict:
             torch, lambda: kd.dot_interaction(z), 50,
             "dot_interaction_kernel"),
         "plain_ms": time_ms(torch, lambda: ref.dot_interaction_ref(z), 200),
+        "shape": [b, f, d],
         "library_ms": None,
         "max_abs_err": err,
         # informative only: torch.bmm gives the full unpacked Z Z^T
@@ -392,6 +407,14 @@ def check_dot_interaction(torch, dev, b: int, f: int, d: int) -> dict:
     }
     out["bound_ms"], out["bound_by"] = bound_ms(
         b * f * d * 4 + b * p * 4, b * p * 2 * d)
+    res = kd.dot_interaction(z)
+    out["host_us"] = wrapper_host_us(
+        torch, f"dot_interaction B={b}", kd.KERNEL, lambda: kd.check_dot(z),
+        lambda: z.new_empty((b, p)), z.get_device(),
+        (z.data_ptr(), res.data_ptr(), b, f, d),
+        lambda: kd.dot_interaction(z),
+        lambda: torch.bmm(z, z.transpose(1, 2)), "bmm_unpacked")
+    del res
     log(f"  dot_interaction B={b} F={f} D={d}: {out}")
     return out
 
@@ -595,13 +618,7 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
         "library_ms": time_ms(
             torch, lambda: lib(lib_idx, table, offsets, mode="sum"), 100),
         "max_abs_err": err,
-        # informative only: the plan-less kernel on the same batch, and
-        # the dedup kernel's two phases
-        "embedding_bag_ms": time_ms(
-            torch, lambda: kb.embedding_bag(table, flat), 100),
-        "embedding_bag_device_ms": device_kernel_ms(
-            torch, lambda: kb.embedding_bag(table, flat), 20,
-            "embedding_bag_kernel"),
+        # informative only: the dedup kernel's two phases
         "gather_device_ms": device_kernel_ms(torch, dedup, 20,
                                              "dedup_gather_kernel"),
         "pool_device_ms": device_kernel_ms(torch, dedup, 20,
@@ -611,6 +628,34 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
         n_live * d * 4 + b * f * lk * 4 + n_live * 4 + b * f * d * 4,
         n_valid * d)
     log(f"  dedup_embedding_bag: {bag}")
+
+    # -- the plan-less embedding_bag on the same batch: the kernels line's
+    #    second shape of that row. Its bound reads each unique row once,
+    #    the dedup lookup's yardstick
+    plain_bag = ref.embedding_bag_ref(table, flat)
+    got_bag = kb.embedding_bag(table, flat)
+    torch.cuda.synchronize()
+    bag_err = float((got_bag - plain_bag).abs().max())
+    if not torch.equal(got_bag, plain_bag):
+        raise AssertionError(f"embedding_bag at the training batch is not "
+                             f"bit-equal to plain: {bag_err}")
+    del got_bag, plain_bag
+    eb = {
+        "shape": f"{b * f} bags x L={lk}, D={d}, {n_valid} lookups of "
+                 f"{n_live} unique rows (batch {b})",
+        "ms": time_ms(torch, lambda: kb.embedding_bag(table, flat), 100),
+        "device_ms": device_kernel_ms(
+            torch, lambda: kb.embedding_bag(table, flat), 20,
+            "embedding_bag_kernel"),
+        "plain_ms": time_ms(
+            torch, lambda: ref.embedding_bag_ref(table, flat), 5),
+        "library_ms": bag["library_ms"],
+        "max_abs_err": bag_err,
+    }
+    eb["bound_ms"], eb["bound_by"] = bound_ms(
+        n_live * d * 4 + b * f * lk * 4 + b * f * d * 4, n_valid * d)
+    log(f"  embedding_bag (no plan), the same batch, bit-equal to plain: "
+        f"{eb}")
 
     # -- fused sparse backward: in place, so save the touched rows, run the
     #    kernel, restore, show nothing else moved, run the plain version
@@ -673,7 +718,8 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     upd.update(fused_parts_ms(torch, ku, table, accum, plan, pooled))
     log(f"  fused_bag_backward_adagrad: {upd}")
     del table, accum
-    return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd}
+    return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd,
+            "embedding_bag_train": eb}
 
 
 def fused_parts_ms(torch, ku, table, accum, plan, pooled) -> dict:
@@ -724,30 +770,38 @@ def host_us(torch, fn, iters: int = HOST_ITERS) -> float:
     return t / iters * 1e6
 
 
-def fetch_host_us(torch, name, kernel, guard, wrapper, n, capacity,
-                  args, index_select) -> dict:
-    """Informative: where a fetch wrapper's host time goes, each part timed
-    in its own loop: the guard, the two allocations of the (n, D) slab and
-    its accumulators, the raw stream handle, the bare ctypes launch of
-    `kernel` with `args` (the stream handle appended), the whole wrapper
-    and `index_select` of the same rows, on the same clock. The launch
-    loops enqueue kernels of a few µs, so they read no less than the
-    device's rate."""
+def wrapper_host_us(torch, name, kernel, guard, alloc, device, args,
+                    wrapper, library, library_name) -> dict:
+    """Informative: where a wrapper's host time goes, each part timed in its
+    own loop: the guard, the output allocations, the raw stream handle, the
+    bare ctypes launch of `kernel` with `args` (the stream handle
+    appended), the whole wrapper and one PyTorch call over the same inputs
+    (`library_name`), on the same clock. The launch loops enqueue kernels
+    of a few µs, so they read no less than the device's rate."""
     from repro_torch.kernels._build import stream_handle
-    d = capacity.shape[1]
-    launch_args = (*args, stream_handle(capacity.device))
+    launch_args = (*args, stream_handle(device))
     out = {
         "guard": host_us(torch, guard),
-        "alloc": host_us(torch, lambda: (capacity.new_empty((n, d)),
-                                         capacity.new_empty((n,)))),
-        "stream_handle": host_us(torch, lambda: stream_handle(
-            capacity.get_device())),
+        "alloc": host_us(torch, alloc),
+        "stream_handle": host_us(torch, lambda: stream_handle(device)),
         "launch": host_us(torch, lambda: kernel._fn(*launch_args)),
         "wrapper": host_us(torch, wrapper),
-        "index_select": host_us(torch, index_select),
+        library_name: host_us(torch, library),
     }
     log(f"  {name} host µs per call: {out}")
     return out
+
+
+def fetch_host_us(torch, name, kernel, guard, wrapper, n, capacity,
+                  args, index_select) -> dict:
+    """`wrapper_host_us` of a fetch: its allocations are the (n, D) slab
+    and its accumulators, its PyTorch call `index_select` of the same
+    rows."""
+    d = capacity.shape[1]
+    return wrapper_host_us(
+        torch, name, kernel, guard,
+        lambda: (capacity.new_empty((n, d)), capacity.new_empty((n,))),
+        capacity.get_device(), args, wrapper, index_select, "index_select")
 
 
 def check_stream_handle(torch, dev) -> None:
@@ -2100,7 +2154,12 @@ def main() -> int:
                                        strategy="replicated")
     log(f"phase 5: training kernels vs plain at {ARCH} shapes "
         f"(R={ebc.plan.total_rows}, D={d}, batch {TRAIN_BATCH})")
-    numbers.update(check_training_kernels(torch, dev, cfg, ebc))
+    trained = check_training_kernels(torch, dev, cfg, ebc)
+    numbers["embedding_bag"]["train_shape"] = trained.pop(
+        "embedding_bag_train")
+    numbers.update(trained)
+    numbers["dot_interaction"]["train_shape"] = check_dot_interaction(
+        torch, dev, TRAIN_BATCH, f + 1, d)
     log_peak(torch, "phase 5")
     free_device(torch)
 
@@ -2309,7 +2368,8 @@ def main() -> int:
                 "library_ms", "device_ms")},
             **{key: nums[key] for key in (
                 "device_ms_from", "device_ms_9a_profiler",
-                "max_abs_err_vs_fp32_oracle") if key in nums}})
+                "max_abs_err_vs_fp32_oracle", "train_shape", "host_us")
+                if key in nums}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

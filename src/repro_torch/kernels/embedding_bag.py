@@ -32,22 +32,34 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     every other entry in [0, H). Returns (B, D) fp32.
 
     A CPU tensor takes the plain version (`ref.embedding_bag_ref`); a CUDA
-    tensor launches the kernel, or raises."""
+    tensor launches the kernel, or raises. The kernel's part is a few
+    microseconds at the serving shape, so this path keeps its host work to
+    direct checks, one allocation and the launch."""
     if mode not in MODES:
         raise ValueError(f"unknown pooling mode {mode!r}; expected {MODES}")
     if table.dim() != 2 or indices.dim() != 2:
         raise ValueError(f"need table (H, D) and indices (B, L), got "
                          f"{tuple(table.shape)} and {tuple(indices.shape)}")
-    if table.device.type == "cpu" and indices.device.type == "cpu":
+    if table.is_cpu and indices.is_cpu:
         return ref.embedding_bag_ref(table, indices, mode)
-    _check_cuda(table, indices)
+    check_bag(table, indices)
     b, length = indices.shape
     d = table.shape[1]
-    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    out = table.new_empty((b, d))
     KERNEL.launch(table.data_ptr(), indices.data_ptr(), out.data_ptr(),
                   b, length, d, int(mode == "mean"),
-                  stream_handle(table.device))
+                  stream_handle(table.get_device()))
     return out
+
+
+def check_bag(table: torch.Tensor, indices: torch.Tensor) -> None:
+    """`embedding_bag`'s guard: `_check_cuda`'s checks written out directly;
+    on a failure `_check_cuda` raises its own exception and message."""
+    if not (table.is_cuda and indices.get_device() == table.get_device()
+            and table.dtype == torch.float32 and indices.dtype == torch.int32
+            and table.is_contiguous() and indices.is_contiguous()):
+        _check_cuda(table, indices)
+        raise AssertionError("embedding_bag's guard and _check_cuda disagree")
 
 
 def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,

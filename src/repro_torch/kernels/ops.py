@@ -17,6 +17,8 @@ autograd leaf and hands their gradient to `fused_sparse_backward`, so
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import dot_interaction as _dot
@@ -49,6 +51,14 @@ def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     return _bag.dedup_embedding_bag(table, indices, plan.unique_rows, mode)
 
 
+@functools.lru_cache(maxsize=None)
+def _tril(f: int, device: torch.device) -> torch.Tensor:
+    """(2, F*(F-1)//2) strict-lower-triangle indices on `device`, built once
+    per (F, device): a training step's backward reuses them instead of
+    allocating and filling them on the device every time."""
+    return torch.tril_indices(f, f, offset=-1, device=device)
+
+
 class _DotInteraction(torch.autograd.Function):
     """Forward: the dot-interaction kernel (plain version on the CPU).
     Backward: the reference's `_dot_bwd` — scatter the packed gradient into
@@ -64,7 +74,7 @@ class _DotInteraction(torch.autograd.Function):
         (z,) = ctx.saved_tensors
         b, f, _ = z.shape
         dt = torch.promote_types(z.dtype, torch.float32)
-        rows, cols = torch.tril_indices(f, f, offset=-1, device=z.device)
+        rows, cols = _tril(f, z.device)
         s_bar = torch.zeros((b, f, f), dtype=dt, device=z.device)
         s_bar[:, rows, cols] = g.to(dt)
         s_bar = s_bar + s_bar.transpose(1, 2)

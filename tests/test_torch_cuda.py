@@ -69,6 +69,178 @@ def test_dot_interaction_kernel_matches_plain(dev, b, f, d):
                                rtol=1e-5, atol=1e-5)
 
 
+# embedding_bag takes a bag's slots in stages of 32 (16 at VEC 4), all of
+# a stage's row loads before its adds: L = 32 fills a stage, 33 and 64
+# cross stage edges; D = 5 and 40 take the scalar lanes (40 in two column
+# chunks), 64 float2 and 128 float4
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("pads", ["none", "interleaved", "random"])
+@pytest.mark.parametrize("lk", [32, 33, 64])
+@pytest.mark.parametrize("d", [5, 40, 64, 128])
+def test_embedding_bag_stages_bit_equal_to_plain(dev, d, lk, pads, mode):
+    rng = np.random.RandomState(d * 1000 + lk)
+    h, b = 1000, 37
+    table = torch.from_numpy(rng.randn(h, d).astype(np.float32)).to(dev)
+    idx = rng.randint(0, h, size=(b, lk)).astype(np.int32)
+    if pads == "interleaved":
+        idx[:, 1::2] = -1
+    elif pads == "random":
+        idx[rng.rand(b, lk) < 0.5] = -1
+    idx[0] = -1                                     # an all-pad bag
+    idx[1, 3:] = idx[1, 2]                          # a row repeated
+    idx = torch.from_numpy(idx).to(dev)
+    before = embedding_bag.KERNEL.launches
+    got = embedding_bag.embedding_bag(table, idx, mode)
+    assert embedding_bag.KERNEL.launches == before + 1
+    assert torch.equal(got, ref.embedding_bag_ref(table, idx, mode))
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_at_the_serving_shape(dev, mode):
+    """480 bags (16 examples x 30 tables) of L = 32, about half valid, over
+    a 100,000-row table."""
+    rng = np.random.RandomState(480)
+    table = torch.from_numpy(rng.randn(100_000, 64).astype(np.float32)
+                             ).to(dev)
+    idx = rng.randint(0, 100_000, size=(480, 32)).astype(np.int32)
+    idx[np.arange(32)[None, :] >= rng.randint(0, 33, size=(480, 1))] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    assert torch.equal(embedding_bag.embedding_bag(table, idx, mode),
+                       ref.embedding_bag_ref(table, idx, mode))
+
+
+@pytest.mark.parametrize("d", [5, 64, 128])
+def test_embedding_bag_async_and_register_stages_agree(dev, d):
+    """A launch of at most 32 bags an SM takes the asynchronous stage
+    (cp.async into shared memory), a larger one the register stage: the
+    first 480 bags of a 6,000-bag call are bit-equal to the same bags sent
+    alone, and both to the plain version."""
+    rng = np.random.RandomState(d)
+    table = torch.from_numpy(rng.randn(5000, d).astype(np.float32)).to(dev)
+    idx = rng.randint(0, 5000, size=(6000, 33)).astype(np.int32)
+    idx[rng.rand(6000, 33) < 0.4] = -1
+    idx[3] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    for mode in ("sum", "mean"):
+        many = embedding_bag.embedding_bag(table, idx, mode)
+        few = embedding_bag.embedding_bag(table, idx[:480], mode)
+        assert torch.equal(many[:480], few)
+        assert torch.equal(many, ref.embedding_bag_ref(table, idx, mode))
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_embedding_bag_reaches_rows_past_2_pow_24(dev, d):
+    """A (2^24 + 1024, D) table (1.1 and 4.3 GB): rows past 2^24 and the
+    last row, whose byte offsets pass 2^32 at D = 64."""
+    h = (1 << 24) + 1024
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((h, d), generator=g, device=dev)
+    rng = np.random.RandomState(6)
+    idx = rng.randint(-1, h, size=(40, 33)).astype(np.int32)
+    idx[0, :5] = h - 1
+    idx[1, ::2] = 1 << 24
+    idx[2, 1] = (1 << 24) - 1
+    idx = torch.from_numpy(idx).to(dev)
+    for mode in ("sum", "mean"):
+        assert torch.equal(embedding_bag.embedding_bag(table, idx, mode),
+                           ref.embedding_bag_ref(table, idx, mode))
+
+
+# dot_interaction tiles each example's pair triangle (4 x 4 pairs a thread
+# when the batch fills the card, else 2 x 2) and splits or packs examples
+# over blocks by B: F = 2, 14, 31 and 128 are dlrm-m2's, m1's and m3's
+# F + 1 and the smallest; rtol/atol 1e-5 against the plain version
+@pytest.mark.parametrize("b", [1, 16, 512])
+@pytest.mark.parametrize("d", [5, 40, 64])
+@pytest.mark.parametrize("f", [2, 14, 31, 128])
+def test_dot_interaction_at_every_tiling_matches_plain(dev, f, d, b):
+    z = torch.from_numpy(np.random.RandomState(f * d + b).randn(b, f, d)
+                         .astype(np.float32)).to(dev)
+    before = dot_interaction.KERNEL.launches
+    got = dot_interaction.dot_interaction(z)
+    assert dot_interaction.KERNEL.launches == before + 1
+    assert got.shape == (b, f * (f - 1) // 2)
+    torch.testing.assert_close(got, ref.dot_interaction_ref(z),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("f,d", [(31, 64), (128, 64), (14, 40), (31, 5)])
+def test_dot_interaction_does_not_depend_on_the_tiling(dev, f, d):
+    """Each pair is one fmaf chain over d from 0.f whatever tile, block or
+    staging path computes it: a B = 512 call's rows are bit-equal to the
+    same examples sent 16 and 1 at a time, and to a copy of z off a
+    16-byte boundary (the 4-byte staging path)."""
+    z = torch.from_numpy(np.random.RandomState(f).randn(512, f, d)
+                         .astype(np.float32)).to(dev)
+    full = dot_interaction.dot_interaction(z)
+    for s in range(0, 512, 16):
+        assert torch.equal(full[s:s + 16],
+                           dot_interaction.dot_interaction(z[s:s + 16]))
+    for s in range(0, 512, 37):
+        assert torch.equal(full[s:s + 1],
+                           dot_interaction.dot_interaction(z[s:s + 1]))
+    buf = torch.empty(z.numel() + 1, device=dev)
+    shifted = buf[1:].view(z.shape)
+    shifted.copy_(z)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(full, dot_interaction.dot_interaction(shifted))
+
+
+def test_bag_and_dot_guards_raise_as_before(dev):
+    """Both wrappers check directly; each failure still raises the
+    exception and message it raised before, and launches nothing."""
+    t = torch.zeros((4, 8), device=dev)
+    i = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    bad = [
+        (ValueError, "one CUDA device", (t, i.cpu())),
+        (ValueError, "one CUDA device", (t.cpu(), i)),
+        (TypeError, "fp32 table and int32 indices", (t.double(), i)),
+        (TypeError, "fp32 table and int32 indices", (t, i.long())),
+        (ValueError, "contiguous", (torch.zeros((4, 16), device=dev)[:, ::2],
+                                    i)),
+        (ValueError, "contiguous", (t, torch.zeros(
+            (2, 6), dtype=torch.int32, device=dev)[:, ::2])),
+    ]
+    before = embedding_bag.KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            embedding_bag.embedding_bag(*args)
+    assert embedding_bag.KERNEL.launches == before
+    z = torch.zeros((2, 5, 8), device=dev)
+    bad = [
+        (TypeError, "takes fp32", z.double()),
+        (ValueError, "contiguous", z.transpose(1, 2)),
+        (ValueError, "exceeds", torch.zeros((2, 400, 64), device=dev)),
+    ]
+    before = dot_interaction.KERNEL.launches
+    for exc, msg, arg in bad:
+        with pytest.raises(exc, match=msg):
+            dot_interaction.dot_interaction(arg)
+    assert dot_interaction.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("name,entries", [("embedding_bag", 6),
+                                          ("dot_interaction", 4)])
+def test_bag_and_dot_build_without_spills(dev, tmp_path, name, entries):
+    """embedding_bag's three lane widths times two stages and
+    dot_interaction's two tile sizes times two staging paths compile for
+    sm_90a with no spills."""
+    import subprocess
+    kernel = {"embedding_bag": embedding_bag.KERNEL,
+              "dot_interaction": dot_interaction.KERNEL}[name]
+    run = subprocess.run(kernel._command(tmp_path / f"{name}.so"),
+                         capture_output=True, text=True)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log
+    assert sum("Compiling entry function" in line
+               for line in log.splitlines()) == entries, log
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == entries, log
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line
+               for line in spills), log
+
+
 @pytest.mark.parametrize("d", [16, 64, 128, 40])
 def test_cache_exchange_kernel_bit_equal_to_plain(dev, d):
     rng = np.random.RandomState(d)

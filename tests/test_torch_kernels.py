@@ -34,7 +34,7 @@ def _bag_inputs(seed, h, d, b, lk):
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 @pytest.mark.parametrize("h,d,b,lk", [(64, 8, 4, 3), (97, 48, 16, 7),
-                                      (300, 64, 12, 32)])
+                                      (300, 64, 12, 32), (200, 64, 9, 40)])
 def test_embedding_bag_plain_matches_reference(h, d, b, lk, mode):
     table, idx = _bag_inputs(h + lk, h, d, b, lk)
     got = ref.embedding_bag_ref(torch.from_numpy(table),
@@ -64,7 +64,8 @@ def test_embedding_bag_wrapper_rejects_bad_input():
         ops.embedding_bag(t, torch.zeros((6,), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("b,f,d", [(8, 7, 16), (16, 31, 64)])
+@pytest.mark.parametrize("b,f,d", [(8, 7, 16), (16, 31, 64), (4, 14, 64),
+                                   (2, 128, 64)])
 def test_dot_interaction_plain_matches_reference(b, f, d):
     z = np.random.RandomState(f).randn(b, f, d).astype(np.float32)
     got = ops.dot_interaction(torch.from_numpy(z)).numpy()
@@ -83,6 +84,24 @@ def test_dot_interaction_packs_in_tril_order():
     for p, (i, j) in enumerate(zip(rows, cols)):
         assert torch.allclose(out[:, p], (z[:, i] * z[:, j]).sum(-1),
                               rtol=1e-6, atol=1e-6)
+
+
+def test_dot_interaction_backward_reuses_its_tril_indices():
+    """The backward's scatter indices are built once per (F, device) and
+    are np.tril_indices(F, -1); the gradient is the plain version's."""
+    z = torch.from_numpy(np.random.RandomState(9).randn(3, 6, 4)
+                         .astype(np.float32))
+    rows, cols = np.tril_indices(6, -1)
+    first = ops._tril(6, z.device)
+    assert ops._tril(6, z.device) is first
+    np.testing.assert_array_equal(first.numpy(), np.stack([rows, cols]))
+    g = torch.from_numpy(np.random.RandomState(10).randn(3, 15)
+                         .astype(np.float32))
+    zk = z.clone().requires_grad_()
+    ops.dot_interaction(zk).backward(g)
+    zp = z.clone().requires_grad_()
+    ref.dot_interaction_ref(zp).backward(g)
+    torch.testing.assert_close(zk.grad, zp.grad, rtol=1e-6, atol=1e-6)
 
 
 def test_lfu_touch_bit_equal_to_reference():
