@@ -304,6 +304,18 @@ def ptxas_report(build_log: str) -> dict[str, list[str]]:
     return out
 
 
+def log_ptxas(kernel, name: str) -> None:
+    """Log the registers and spills ptxas gave each entry function of
+    `kernel`'s source whose name holds `name`."""
+    report = ptxas_report(kernel.build_log)
+    for fn, lines in report.items():
+        if name in fn:
+            log(f"  ptxas {fn}: {'; '.join(lines)}")
+    if not report:
+        log("  ptxas: no build log (the library was built by an earlier "
+            "run)")
+
+
 def close(a, b, tol: float) -> tuple[bool, float]:
     """|a - b| <= tol + tol * |b| everywhere, and the max abs difference."""
     diff = (a - b).abs()
@@ -943,6 +955,7 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     # -- commit: the chunked slab installed through src_pos, half the
     #    entries write a dirty victim back, a tenth are pure writebacks,
     #    a twentieth are pad slots
+    log_ptxas(kc.COMMIT_KERNEL, "cache_commit_kernel")
     single = np.flatnonzero(pos < 0)
     src_np = pos.copy()
     src_np[single] = len(starts_np) * chunk + np.arange(len(single))
@@ -1121,6 +1134,7 @@ def check_tablewise_kernels(torch, dev, cfg, ebc) -> dict:
         f"({segs[0].shape[1]})")
     del segs_u
     # the legacy two-pass pipeline: per-lookup grads, dedup, row-wise kernel
+    log_ptxas(kr.KERNEL, "rowwise_adagrad_kernel")
     flat_idx, flat_g = ebc.per_lookup_grads(
         torch.as_tensor(idx_np, device=dev), pooled.reshape(b, f, d))
     uniq, gsum = ref.dedup_grads_ref(flat_idx, flat_g, r_rows)
@@ -1558,6 +1572,9 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     out["dedup_device_ms_per_step"] = kernel_ms_per_step(events, "dedup_")
     out["update_device_ms_per_step"] = kernel_ms_per_step(
         events, "fused_bag_backward_adagrad")
+    # the step-boundary commits of the shadow rows in the profiled steps
+    out["commit_device_ms_per_step"] = kernel_ms_per_step(
+        events, "cache_commit_kernel")
     top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
     out["top_device_ms_per_step"] = {
         name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t}
@@ -1719,13 +1736,7 @@ def check_flash_attention(torch, dev) -> dict:
 
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
-    report = ptxas_report(kf.KERNEL.build_log)
-    for fn, lines in report.items():
-        if "flash_attention_kernel_sm90" in fn:
-            log(f"  ptxas {fn}: {'; '.join(lines)}")
-    if not report:
-        log("  ptxas: no build log (the library was built by an earlier "
-            "run)")
+    log_ptxas(kf.KERNEL, "flash_attention_kernel_sm90")
     out = {}
     for name, shape, dt in FLASH_SHAPES:
         b, h, s, dh = shape

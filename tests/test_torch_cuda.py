@@ -873,6 +873,124 @@ def test_cache_commit_kernel_bit_equal_to_plain(dev, d, remap):
         assert torch.equal(a, b)
 
 
+def _commit_case(dev, n, d, offset=0, seed=0):
+    """A contract worklist of n entries (distinct slots and writeback rows,
+    src_pos remapping a larger slab) over tiers that start `offset` floats
+    into their buffers: ~40% of the entries write a victim back, ~15% are
+    pure writebacks, ~10% are pad slots (their other fields left >= 0),
+    ~5% are live slots with nothing to do; the last cache slot and the
+    last capacity row are in it. Returns (tiers, work)."""
+    r, c, m = 2 * n + 1000, n + 500, n + 300
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def at_offset(shape, fill):
+        numel = int(np.prod(shape))
+        buf = torch.empty(numel + offset, device=dev)
+        t = buf[offset:].view(shape)
+        t.copy_(fill(shape))
+        return t
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def rand(shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    tiers = (at_offset((r, d), randn), at_offset((c, d), randn),
+             rand((r,)), rand((c,)))
+    shadow, shadow_accum = at_offset((m, d), randn), rand((m,))
+    # entry 0 takes the last slot and writes back to the last row
+    slots = torch.randperm(c - 1, generator=g, device=dev)[:n].int()
+    evict = torch.randperm(r - 1, generator=g, device=dev)[:n].int()
+    slots[0], evict[0] = c - 1, r - 1
+    fetch = torch.randint(0, r, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    src_pos = torch.randperm(m, generator=g, device=dev)[:n].int()
+    u = rand((n,))
+    u[0] = 0.7
+    evict[u < 0.6] = -1                             # no victim
+    fetch[u > 0.85] = -1                            # pure writebacks
+    slots[(u > 0.2) & (u < 0.3)] = -1               # pads
+    evict[(u > 0.4) & (u < 0.45)] = -1              # live, nothing to do
+    fetch[(u > 0.4) & (u < 0.45)] = -1
+    cache_ops.check_commit_worklist(slots, fetch, src_pos, m)
+    return tiers, (shadow, shadow_accum, slots, evict, fetch, src_pos)
+
+
+def _commit_held(tiers, work):
+    """The kernel's commit, bit-equal to the plain version's, one launch."""
+    got = [t.clone() for t in tiers]
+    before = cache_ops.COMMIT_KERNEL.launches
+    cache_ops.cache_commit(*tiers, *work)
+    assert cache_ops.COMMIT_KERNEL.launches == before + 1
+    ref.cache_commit_ref(*got, *work)
+    for a, b in zip(tiers, got):
+        assert torch.equal(a, b)
+
+
+# The commit walks its worklist in rounds of 8 entries on a persistent
+# grid: at D = 64 half a warp moves each of two rows a step (float4), at
+# D = 128 a warp one row (float4); D = 5 and 6, and tiers 4 or 8 bytes off
+# a 16-byte boundary, take the column loop in 1 or 2 floats
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 128, 5, 6])
+def test_cache_commit_rounds_bit_equal_to_plain(dev, d, offset):
+    tiers, work = _commit_case(dev, 5003, d, offset, seed=d + offset)
+    assert tiers[0].data_ptr() % 16 == 4 * offset
+    _commit_held(tiers, work)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cache_commit_past_one_grid_of_rounds(dev, d):
+    """2^22 + 17 entries: more than 32 entries for each warp of four
+    waves of the most 4-warp blocks an H100 holds at once (132 SMs x 16),
+    so every warp of the persistent grid walks several rounds."""
+    tiers, work = _commit_case(dev, (1 << 22) + 17, d, seed=d)
+    _commit_held(tiers, work)
+
+
+def test_cache_commit_of_an_all_pad_worklist(dev):
+    tiers, work = _commit_case(dev, 77, 64, seed=5)
+    work[2].fill_(-1)
+    want = [t.clone() for t in tiers]
+    _commit_held(tiers, work)
+    for a, b in zip(tiers, want):
+        assert torch.equal(a, b)
+
+
+def test_cache_commit_guard_raises_as_before(dev):
+    """The wrapper checks directly, and each failure still raises
+    `_check_cuda`'s exception type and message, before any launch."""
+    tiers, (sh, sa, sl, ev, ft, sp) = _commit_case(dev, 40, 8)
+    cap, cch, ca, cc = tiers
+    bad = [
+        (ValueError, "cache_commit needs every tensor on one CUDA device",
+         (cap, cch, ca, cc, sh, sa, sl, ev, ft.cpu(), sp)),
+        (ValueError, "cache_commit needs every tensor on one CUDA device",
+         (cap, cch, ca, cc, sh, sa, sl, ev, ft, sp.cpu())),
+        (ValueError, r"cache_commit: cache has shape \(540, 4\)",
+         (cap, cch[:, :4].contiguous(), ca, cc, sh, sa, sl, ev, ft, sp)),
+        (ValueError, "cache_commit: shadow_accum has shape",
+         (cap, cch, ca, cc, sh, sa[:-1], sl, ev, ft, sp)),
+        (ValueError, "cache_commit: src_pos has shape",
+         (cap, cch, ca, cc, sh, sa, sl, ev, ft, sp[:-1])),
+        (TypeError, "cache_commit: slots must be torch.int32",
+         (cap, cch, ca, cc, sh, sa, sl.long(), ev, ft, sp)),
+        (TypeError, "cache_commit: capacity must be torch.float32",
+         (cap.double(), cch, ca, cc, sh, sa, sl, ev, ft, sp)),
+        (ValueError, "cache_commit: cache must be contiguous",
+         (cap, cch.t().contiguous().t(), ca, cc, sh, sa, sl, ev, ft, sp)),
+        (ValueError, "cache_commit: evict_rows must be contiguous",
+         (cap, cch, ca, cc, sh, sa, sl,
+          torch.stack([ev, ev], 1)[:, 0], ft, sp)),
+    ]
+    before = cache_ops.COMMIT_KERNEL.launches
+    for exc, msg, args in bad:
+        with pytest.raises(exc, match=msg):
+            cache_ops.cache_commit(*args)
+    assert cache_ops.COMMIT_KERNEL.launches == before
+
+
 def test_row_movers_reach_rows_past_2_pow_24(dev):
     """A capacity tier of 2^24 + 1024 rows at D=64 (4.3 GB): row indices
     past 2^24 and byte offsets past 2^32 in all three movers."""
@@ -1139,10 +1257,13 @@ def test_rowwise_adagrad_kernel_matches_plain(dev, h, d, n):
     torch.testing.assert_close(a_k, a_p, rtol=1e-6, atol=1e-6)
 
 
-def test_two_pass_update_on_the_card_is_the_fused_update(dev):
+# rowwise_adagrad's register body runs at D = 32, 64, 96 and 128 (float2
+# pairs at 64 and 128), its scalar body at any other D (48)
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 48])
+def test_two_pass_update_on_the_card_is_the_fused_update(dev, d):
     """The dedup sums each row's gradients in the fused kernel's order, and
     rowwise_adagrad applies them with its arithmetic: bit-equal."""
-    idx, table, accum, pooled = _plan_inputs(dev, 300, 64, 16, 4, 32, 12)
+    idx, table, accum, pooled = _plan_inputs(dev, 300, d, 16, 4, 32, 12)
     b, f, lk = idx.shape
     g = pooled.reshape(b, f, 1, -1).expand(b, f, lk, -1)
     t_2, a_2 = ops.rowwise_adagrad_update(
@@ -1151,6 +1272,87 @@ def test_two_pass_update_on_the_card_is_the_fused_update(dev):
     t_f, a_f = ops.fused_sparse_backward(table.clone(), accum.clone(), idx,
                                          pooled, 0.05)
     assert torch.equal(t_2, t_f) and torch.equal(a_2, a_f)
+
+
+def test_two_pass_update_past_one_grid_of_rounds_is_the_fused_update(dev):
+    """2^22 lookups, so 2^22 dedup entries: more rounds of 32 than four
+    waves of the most 4-warp blocks an H100 holds at once, so every warp
+    of rowwise_adagrad's persistent grid walks several rounds, its
+    read-ahead crossing their edges; every live row moves."""
+    idx, table, accum, pooled = _plan_inputs(dev, 300_000, 64, 2048, 16,
+                                             128, 21)
+    b, f, lk = idx.shape
+    g = pooled.reshape(b, f, 1, -1).expand(b, f, lk, -1)
+    before = rowwise_adagrad.KERNEL.launches
+    t_2, a_2 = ops.rowwise_adagrad_update(
+        table.clone(), accum.clone(), idx.reshape(-1),
+        g.reshape(b * f * lk, -1), 0.05)
+    assert rowwise_adagrad.KERNEL.launches == before + 1
+    del g
+    t_f, a_f = ops.fused_sparse_backward(table.clone(), accum.clone(), idx,
+                                         pooled, 0.05)
+    assert torch.equal(t_2, t_f) and torch.equal(a_2, a_f)
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device=dev)
+    touched[idx[idx >= 0].long()] = True
+    assert torch.equal((t_2 != table).any(1), touched)
+
+
+def test_rowwise_adagrad_of_an_all_dead_uniq(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = torch.randn((100, 64), generator=g, device=dev)
+    accum = torch.rand((100,), generator=g, device=dev)
+    uniq = torch.full((1000,), -1, dtype=torch.int32, device=dev)
+    gsum = torch.randn((1000, 64), generator=g, device=dev)
+    t, a = table.clone(), accum.clone()
+    before = rowwise_adagrad.KERNEL.launches
+    rowwise_adagrad.rowwise_adagrad(t, a, uniq, gsum, 0.05)
+    assert rowwise_adagrad.KERNEL.launches == before + 1
+    assert torch.equal(t, table) and torch.equal(a, accum)
+
+
+@pytest.mark.parametrize("shifted", ["table", "gsum"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rowwise_adagrad_off_an_8_byte_boundary(dev, d, shifted):
+    """D = 64 and 128 load float2 pairs; a table or gsum that starts one
+    float into its storage takes the scalar body, with the same bits."""
+    idx, table, accum, pooled = _plan_inputs(dev, 500, d, 16, 4, 32, d)
+    grads = torch.randn((idx.numel(), d), device=dev)
+    uniq, gsum = ref.dedup_grads_ref(idx.reshape(-1), grads, 500)
+    want = table.clone(), accum.clone()
+    rowwise_adagrad.rowwise_adagrad(*want, uniq, gsum, 0.05)
+    src = table if shifted == "table" else gsum
+    buf = torch.zeros(src.numel() + 1, device=dev)
+    moved = buf[1:].view(src.shape)
+    moved.copy_(src)
+    assert moved.data_ptr() % 8 != 0 and moved.is_contiguous()
+    got = (moved if shifted == "table" else table.clone()), accum.clone()
+    rowwise_adagrad.rowwise_adagrad(
+        *got, uniq, moved if shifted == "gsum" else gsum, 0.05)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((want[0] != table).any())
+
+
+@pytest.mark.parametrize("module,entries", [("cache_commit", 5),
+                                            ("rowwise_adagrad", 5)])
+def test_commit_and_rowwise_kernels_build_without_spills(dev, tmp_path,
+                                                         module, entries):
+    """cache_commit's five bodies (float4 pairs at D = 64, float4 rows at
+    128, the column loop at VEC 4, 2, 1) and rowwise_adagrad's (register
+    bodies at NC 1-4, the scalar body) compile for sm_90a with no spill
+    stores or loads."""
+    import subprocess
+    kernel = (cache_ops.COMMIT_KERNEL if module == "cache_commit"
+              else rowwise_adagrad.KERNEL)
+    run = subprocess.run(kernel._command(tmp_path / f"{module}.so"),
+                         capture_output=True, text=True)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log
+    assert sum("Compiling entry function" in line
+               for line in log.splitlines()) == entries, log
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == entries, log
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line
+               for line in spills), log
 
 
 def test_segmented_and_rowwise_kernels_reach_rows_past_2_pow_24(dev):
