@@ -82,7 +82,21 @@ Phases, each of which makes the script exit non-zero when it fails:
    decode step, held to 9b's logits; (9d) the LM launcher at the
    reference's defaults (8 requests, 4 slots, max_len 128, 16 new
    tokens), every request served in full, no kernel launched;
-10. print one JSON line of per-kernel numbers, then the result line.
+10. run the reference trainer at its defaults on full-width dlrm-m2
+   (24.3 GB table): hold embedding_bag and dot_interaction against their
+   plain versions at its training shapes; (10a) 8 steps through
+   `repro_torch.launch.train` with the dense update (exactly one lookup
+   and one interaction a step, no fused update, finite losses, the final
+   checksums M2_FINAL_SUMS), then the dense update alone timed beside its
+   bound; (10b) the same run cut at
+   step 4 by a checkpoint and resumed by a second launcher call, bit-equal
+   to 10a (losses and final checksums), with the save and restore seconds
+   and bytes; (10c) `--sparse-apply sparse` for 4 steps from the same
+   seed, held to 10a's losses and the dense table saved at step 4 within
+   TOL_M2_SPARSE; (10d) `--chaos` on the smoke config for three seeds,
+   each bit-equal to its fault-free run, a fault fired; (10e) full-width
+   dlrm-m1 served under `--chaos`, all 32 requests served or shed;
+11. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -152,6 +166,35 @@ LM_PARAM_SEED = 0
 #: the LM launcher at the reference launcher's defaults
 LM_SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "8", "--slots", "4",
                  "--max-len", "128", "--new-tokens", "16"]
+#: phases 10a-10e: the reference trainer at its defaults on full-width
+#: dlrm-m2 (94,900,001 rows x 64, 24.3 GB; the dense update's buffer is
+#: as large again, and both fit one card, where dlrm-m1's would not):
+#: M2_STEPS steps, cut at M2_RESUME_AT and resumed
+M2_ARCH = "dlrm-m2"
+M2_STEPS, M2_RESUME_AT = 8, 4
+#: 10a's final (mega, accum) bit checksums, as this script's first run of
+#: phase 10a recorded them (H100 80GB HBM3); the deterministic scatter
+#: makes them a gate on the dense path's bits
+M2_FINAL_SUMS = (-3071726836737484320, 7712813785258312859)
+#: calls of the dense update alone that 10a times, then profiles
+DENSE_TIMED = 3
+#: 10c, the sparse update against the dense one, abs + rel on the losses,
+#: the table and the accumulator: both add a row's slots in example order
+#: (a row belongs to one table), and at full widths with tables cut 2,000x
+#: the CPU gives the same bits; on the card mean(g^2) (warp shuffles vs
+#: torch.mean) and rsqrt may differ by ulps, and 4 steps of the 1024-wide
+#: MLP, whose loss leaps from ~0.6 to hundreds, amplify them; a wrong row
+#: moves by its whole update, lr * g * rsqrt(acc) ~ 0.05
+TOL_M2_SPARSE = 1e-3
+#: 10d: the launcher's chaos on the card, cut to the smoke config (full
+#: width would write a 24.7 GB bundle every two steps): seeds whose
+#: schedules hold a torn bundle and a reader error (0), a preemption and
+#: a killed reader (2), and all three kinds (3)
+CHAOS_SEEDS = (0, 2, 3)
+CHAOS_ARGV = ["--arch", M2_ARCH, "--smoke", "--steps", "16", "--ckpt-every",
+              "2", "--log-every", "100"]
+#: 10e: requests served under the serving tier's chaos
+CHAOS_REQUESTS = 32
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12
 #: 9a: the kernel against its plain version at the prefill's shape (bf16
@@ -1879,7 +1922,7 @@ def lm_prefill(torch, dev, cfg) -> dict:
     events = device_events(prof)
     dev_ms = sum(t for _, t in events) / 1e3
     flash_ms = sum(t for n, t in events if "flash_attention" in n) / 1e3
-    top = sorted(events, key=lambda e: -e[1])[:8]
+    top = sorted(events, key=lambda e: -e[1])[:10]
     nums = {"prompt": LM_PROMPT, "max_len": LM_MAX_LEN,
             "prefill_host_ms": prefill_ms,
             "decode_host_ms": decode_ms,
@@ -1995,6 +2038,325 @@ def lm_serve(torch, cfg) -> dict:
     log(f"9d numbers (profiled steps include their admissions' slot-local "
         f"prefill): {json.dumps(nums)}")
     del engine
+    return {"numbers": nums, "launches": counts}
+
+
+class Tee:
+    """A stdout that also keeps what was written (a launcher's lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_cli(main, argv: list[str]):
+    """main(argv) with its stdout also captured: (result, printed text)."""
+    import contextlib
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = main(argv)
+    return res, tee.text()
+
+
+def m2_argv(*extra: str) -> list[str]:
+    """The launcher at its defaults on full-width dlrm-m2, batch 512."""
+    return ["--arch", M2_ARCH, "--batch", str(TRAIN_BATCH), "--log-every",
+            "1", *extra]
+
+
+def rss_bytes() -> tuple[int, int]:
+    """(current, peak) resident set of this process, from /proc."""
+    import resource
+    with open("/proc/self/status") as f:
+        cur = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS"))
+    return cur * 1024, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss \
+        * 1024
+
+
+def time_dense_update(torch, dev, cfg, ebc, mega, accum) -> dict:
+    """The dense update alone (`dense_sparse_update`) on the trained
+    full-width table and one batch's rows: ms per call by CUDA events and
+    device ms from torch.profiler, beside its bound: the buffer zeroed
+    ((h + 1) * d * 4 bytes written), the row pass (gsum and mega read,
+    mega written, accum read and written) and the scatter's reads of idx,
+    the bag gradients and each touched row; ~7 fp32 operations per
+    element of the row pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.train.steps import dense_sparse_update
+    raw = make_dlrm_batch(cfg, TRAIN_BATCH, step=0)
+    idx = torch.as_tensor(ebc.offset_indices(raw["idx"])).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    grad = torch.randn((TRAIN_BATCH, cfg.n_sparse_features, cfg.embed_dim),
+                       generator=g, device=dev).mul_(1e-3)
+
+    def update():
+        dense_sparse_update(mega, accum, idx, grad, SPARSE_LR, SPARSE_EPS)
+
+    ms = time_ms(torch, update, DENSE_TIMED, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DENSE_TIMED):
+            update()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    dev_us = sum(t for _, t in events)
+    h, d = mega.shape
+    touched = int(torch.unique(idx[idx >= 0]).numel())
+    slots = idx.numel()
+    n_bytes = ((h + 1) * d * 4 + 3 * h * d * 4 + 2 * h * 4
+               + slots * 4 + grad.numel() * 4 + 2 * touched * d * 4)
+    out = {"ms": ms, "device_ms": dev_us / 1e3 / DENSE_TIMED if dev_us
+           else None, "rows": h, "touched_rows": touched}
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 7 * h * d)
+    by_name: dict[str, float] = {}
+    for name, t in events:
+        by_name[name[:100]] = by_name.get(name[:100], 0.0) + t
+    out["device_ms_by_kernel"] = {
+        name: t / 1e3 / DENSE_TIMED for name, t in
+        sorted(by_name.items(), key=lambda e: -e[1])[:10] if t}
+    return out
+
+
+def launcher_m2(torch, dev, cfg, ebc, ckdir: str) -> dict:
+    """Phase 10a: the launcher at the reference's defaults on full-width
+    dlrm-m2 (the dense update, async checkpoints every 50 steps, so none
+    in M2_STEPS): exactly one plan-less lookup and one interaction a step
+    and no fused update; then the dense update timed alone."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    argv = m2_argv("--steps", str(M2_STEPS), "--ckpt-dir", ckdir)
+    log(f"phase 10a: python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    run, _ = run_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches(KERNELS, "train_m2",
+                           ("embedding_bag", "dot_interaction"))
+    if counts["embedding_bag"] != M2_STEPS \
+            or counts["dot_interaction"] != M2_STEPS \
+            or counts["fused_bag_backward_adagrad"] != 0:
+        raise AssertionError(f"10a: want {M2_STEPS} lookups and "
+                             f"interactions and no fused update: {counts}")
+    losses = run.losses
+    if len(losses) != M2_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"10a losses not finite: {losses}")
+    sums = (bit_checksum(torch, run.params["emb"]["mega"]),
+            bit_checksum(torch, run.state["accum"]))
+    step_ms = [s * 1e3 for s in run.times["step_s"]]
+    nums = {"wall_s_incl_init": wall, "host_ms_per_step": step_ms,
+            "host_ms_per_step_after_first": sum(step_ms[1:])
+            / max(len(step_ms) - 1, 1),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"10a: losses {losses}; final (mega, accum) bit checksums {sums} "
+        f"(recorded {M2_FINAL_SUMS}: equal={sums == M2_FINAL_SUMS}); "
+        f"{json.dumps(nums)}")
+    if sums != M2_FINAL_SUMS:
+        raise AssertionError(f"10a's final checksums {sums} differ from the "
+                             f"recorded {M2_FINAL_SUMS}")
+    nums["dense_update"] = time_dense_update(
+        torch, dev, cfg, ebc, run.params["emb"]["mega"], run.state["accum"])
+    log(f"10a dense update alone: {json.dumps(nums['dense_update'])}")
+    del run
+    return {"losses": losses, "final_sums": sums, "launches": counts,
+            "numbers": nums}
+
+
+def resume_m2(torch, want: dict, ckdir: str) -> dict:
+    """Phase 10b: the 10a run cut at M2_RESUME_AT (a checkpoint there),
+    then resumed to M2_STEPS in a new launcher call: its losses and final
+    checksums must equal 10a's bit for bit."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    first = m2_argv("--steps", str(M2_RESUME_AT), "--ckpt-every",
+                    str(M2_RESUME_AT), "--ckpt-dir", ckdir)
+    second = m2_argv("--steps", str(M2_STEPS), "--resume", "--ckpt-dir",
+                     ckdir)
+    log(f"phase 10b: python -m repro_torch.launch.train {' '.join(first)}; "
+        f"then {' '.join(second)}")
+    rss_before = rss_bytes()
+    run, _ = run_cli(train_cli.main, first)
+    if run.losses != want["losses"][:M2_RESUME_AT]:
+        raise AssertionError(f"10b's first half {run.losses} is not 10a's")
+    saved = {k: v for k, v in run.times.items() if k != "step_s"}
+    del run
+    rss_saved = rss_bytes()
+    free_device(torch)
+    step_dir = os.path.join(ckdir, M2_ARCH, f"step_{M2_RESUME_AT:09d}")
+    disk = sum(os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir))
+    reset_launches(KERNELS)
+    run, text = run_cli(train_cli.main, second)
+    torch.cuda.synchronize()
+    counts = read_launches(KERNELS, "train_m2_resume",
+                           ("embedding_bag", "dot_interaction"))
+    rss_restored = rss_bytes()
+    sums = (bit_checksum(torch, run.params["emb"]["mega"]),
+            bit_checksum(torch, run.state["accum"]))
+    resumed = f"resumed from step {M2_RESUME_AT}" in text
+    equal = (run.losses == want["losses"][M2_RESUME_AT:]
+             and sums == want["final_sums"])
+    save_s = saved["save_snapshot_s"] + saved["save_wait_s"]
+    nums = {"disk_bytes": disk, **saved, "save_s": save_s,
+            "save_gb_per_s": disk / save_s / 1e9,
+            "restore_s": run.times["restore_s"],
+            "restore_gb_per_s": disk / run.times["restore_s"] / 1e9,
+            "rss_bytes_before": rss_before[0],
+            "rss_bytes_after_save": rss_saved[0],
+            "rss_bytes_after_restore": rss_restored[0],
+            "rss_peak_bytes": rss_restored[1]}
+    log(f"10b: 'resumed from step {M2_RESUME_AT}' printed: {resumed}; "
+        f"steps {M2_RESUME_AT}-{M2_STEPS - 1} losses {run.losses} vs 10a "
+        f"{want['losses'][M2_RESUME_AT:]}; final checksums {sums} vs "
+        f"{want['final_sums']}: bit-equal={equal}; {json.dumps(nums)}")
+    del run
+    if not resumed or not equal:
+        raise AssertionError("the resumed run is not 10a's continuation")
+    if counts["embedding_bag"] != M2_STEPS - M2_RESUME_AT:
+        raise AssertionError(f"10b: want {M2_STEPS - M2_RESUME_AT} lookups "
+                             f"in the resumed run: {counts}")
+    return {"numbers": nums, "launches": counts}
+
+
+def sparse_m2(torch, dev, want: dict, ckdir: str) -> dict:
+    """Phase 10c: `--sparse-apply sparse` from the same seed for
+    M2_RESUME_AT steps, held to 10a's losses and to the dense table and
+    accumulator that 10b saved at that step, within TOL_M2_SPARSE."""
+    import numpy as np
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    argv = m2_argv("--steps", str(M2_RESUME_AT), "--sparse-apply", "sparse",
+                   "--ckpt-dir", os.path.join(ckdir, "sparse"))
+    log(f"phase 10c: python -m repro_torch.launch.train {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    run, _ = run_cli(train_cli.main, argv)
+    torch.cuda.synchronize()
+    counts = read_launches(KERNELS, "train_m2_sparse",
+                           ("embedding_bag", "dot_interaction",
+                            "fused_bag_backward_adagrad"))
+    dense_losses = np.asarray(want["losses"][:M2_RESUME_AT])
+    loss_err = np.abs(np.asarray(run.losses) - dense_losses)
+    ok = bool((loss_err <= TOL_M2_SPARSE
+               + TOL_M2_SPARSE * np.abs(dense_losses)).all())
+    step_dir = os.path.join(ckdir, M2_ARCH, f"step_{M2_RESUME_AT:09d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        files = {e["path"]: e["file"] for e in json.load(f)["leaves"]}
+    errs = {}
+    for path, got in (("params/emb/mega", run.params["emb"]["mega"]),
+                      ("state/accum", run.state["accum"])):
+        saved = np.load(os.path.join(step_dir, files[path]), mmap_mode="r")
+        err = 0.0
+        for lo in range(0, saved.shape[0], 1 << 20):
+            part = torch.from_numpy(np.array(saved[lo:lo + (1 << 20)])).to(
+                dev)
+            good, e = close(got[lo:lo + (1 << 20)], part, TOL_M2_SPARSE)
+            ok, err = ok and good, max(err, e)
+        errs[path] = err
+    nums = {"loss_max_abs_err": float(loss_err.max()),
+            "mega_max_abs_err": errs["params/emb/mega"],
+            "accum_max_abs_err": errs["state/accum"],
+            "host_ms_per_step": [s * 1e3 for s in run.times["step_s"]],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"10c: sparse losses {run.losses} vs dense {dense_losses.tolist()}; "
+        f"{json.dumps(nums)} (tol {TOL_M2_SPARSE} abs + rel)")
+    del run
+    if not ok:
+        raise AssertionError("the sparse update disagrees with the dense")
+    return {"numbers": nums, "launches": counts}
+
+
+def chaos_smoke(torch, base: str) -> dict:
+    """Phase 10d: the launcher under `--chaos` for each of CHAOS_SEEDS on
+    the card (smoke dlrm-m2, CHAOS_ARGV), each held bit for bit to the
+    same run without faults; at least one fault must fire. The chaos
+    runs' launches are counted."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    counts = {k.name: 0 for k in KERNELS}
+    fired, rows = 0, []
+    for seed in CHAOS_SEEDS:
+        clean, _ = run_cli(train_cli.main, CHAOS_ARGV + [
+            "--ckpt-dir", os.path.join(base, f"clean_{seed}")])
+        argv = CHAOS_ARGV + ["--ckpt-dir", os.path.join(base, f"chaos_{seed}"),
+                             "--chaos", "--chaos-seed", str(seed)]
+        log(f"phase 10d: python -m repro_torch.launch.train {' '.join(argv)}")
+        reset_launches(KERNELS)
+        run, text = run_cli(train_cli.main, argv)
+        torch.cuda.synchronize()
+        for k in KERNELS:
+            counts[k.name] += k.launches
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith("chaos: fired "))
+        n = 0 if line.endswith(" nothing") else line.count("]=")
+        fired += n
+        equal = (run.losses == clean.losses
+                 and bit_checksum(torch, run.params["emb"]["mega"])
+                 == bit_checksum(torch, clean.params["emb"]["mega"])
+                 and bit_checksum(torch, run.state["accum"])
+                 == bit_checksum(torch, clean.state["accum"]))
+        rows.append({"seed": seed, "fired": n, "bit_equal": equal})
+        log(f"10d seed {seed}: {line}; losses bit-equal to the fault-free "
+            f"run: {equal}")
+        if not equal:
+            raise AssertionError(f"10d seed {seed}: the chaos run is not the "
+                                 "fault-free run")
+        del clean, run
+    log(f"launches in the train_m2_chaos runs: {counts}")
+    if fired < 1:
+        raise AssertionError("10d: no fault fired over the chaos runs")
+    for name in ("embedding_bag", "dot_interaction"):
+        if counts[name] <= 0:
+            raise AssertionError(f"10d: {name} never launched")
+    return {"numbers": rows, "launches": counts}
+
+
+def serve_chaos(torch, cc) -> dict:
+    """Phase 10e: full-width dlrm-m1 served through the launcher with
+    `--chaos` (a seeded FaultInjector on serve.fetch and serve.admit, one
+    retry): every request is served or shed, and a fault fires."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve as serve_cli
+    argv = ["--arch", ARCH, "--cache-rows", str(cc.cache_rows), "--requests",
+            str(CHAOS_REQUESTS), "--chaos", "--chaos-seed", "13"]
+    log(f"phase 10e: python -m repro_torch.launch.serve {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    engine, text = run_cli(serve_cli.main, argv)
+    torch.cuda.synchronize()
+    counts = read_launches(KERNELS, "serve_chaos",
+                           ("embedding_bag", "dot_interaction",
+                            "cache_exchange"))
+    summary = next(ln for ln in text.splitlines()
+                   if ln.startswith("serve[dlrm]:"))
+    kv = dict(part.split("=", 1) for part in summary.split()[1:])
+    fired = engine.injector.fired
+    nums = {"served": int(kv["served"]), "shed": int(kv["shed"]),
+            "degraded": int(kv["degraded"]), "fired": fired,
+            "transitions": engine.breaker.transitions,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"10e: {json.dumps(nums, default=str)}")
+    del engine
+    if nums["served"] + nums["shed"] != CHAOS_REQUESTS or not fired \
+            or "chaos: fired=" not in text:
+        raise AssertionError(f"10e: want all {CHAOS_REQUESTS} requests "
+                             f"resolved and a fault fired: {nums}")
     return {"numbers": nums, "launches": counts}
 
 
@@ -2200,7 +2562,7 @@ def main() -> int:
     del init
     free_device(torch)
     argv = ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--log-every", "1"]
+            str(TRAIN_BATCH), "--log-every", "1", "--sparse-apply", "sparse"]
     log(f"phase 6a: python -m repro_torch.launch.train {' '.join(argv)}")
     reset_launches(KERNELS)
     t0 = time.perf_counter()
@@ -2351,7 +2713,56 @@ def main() -> int:
     paths["lm_serve"] = lm_serve(torch, lm_cfg)["launches"]
     free_device(torch)
 
-    # 10. the numbers, then the result
+    # 10. the reference trainer at its defaults on full-width dlrm-m2: the
+    #     launcher (10a), the same run cut and resumed (10b), the sparse
+    #     update from the same seed (10c); then the launcher's chaos on the
+    #     smoke config (10d) and the serving tier's on full-width dlrm-m1
+    #     (10e)
+    import shutil
+    import tempfile
+    m2 = get_config(M2_ARCH)
+    ebc_m2 = EmbeddingBagCollection.build(m2, n_shards=1,
+                                          strategy="replicated")
+    log(f"phase 10a: embedding_bag and dot_interaction vs plain at "
+        f"{M2_ARCH}'s training shapes (R={ebc_m2.plan.total_rows}, "
+        f"D={m2.embed_dim}, batch {TRAIN_BATCH})")
+    numbers["embedding_bag"]["m2_train_shape"] = check_embedding_bag(
+        torch, dev, ebc_m2.plan.total_rows, m2.embed_dim,
+        TRAIN_BATCH * m2.n_sparse_features, m2.truncation)
+    numbers["dot_interaction"]["m2_train_shape"] = check_dot_interaction(
+        torch, dev, TRAIN_BATCH, m2.n_sparse_features + 1, m2.embed_dim)
+    free_device(torch)
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_m2_",
+                             dir=os.path.join(ROOT, "runs"))
+    try:
+        m2_run = launcher_m2(torch, dev, m2, ebc_m2,
+                             os.path.join(ckdir, "10a"))
+        paths["train_m2"] = m2_run["launches"]
+        log_peak(torch, "phase 10a")
+        free_device(torch)
+        paths["train_m2_resume"] = resume_m2(
+            torch, m2_run, os.path.join(ckdir, "10b"))["launches"]
+        log_peak(torch, "phase 10b")
+        free_device(torch)
+        paths["train_m2_sparse"] = sparse_m2(
+            torch, dev, m2_run, os.path.join(ckdir, "10b"))["launches"]
+        log_peak(torch, "phase 10c")
+        free_device(torch)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_",
+                             dir=os.path.join(ROOT, "runs"))
+    try:
+        paths["train_m2_chaos"] = chaos_smoke(torch, ckdir)["launches"]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    free_device(torch)
+    paths["serve_chaos"] = serve_chaos(torch, cc)["launches"]
+    log_peak(torch, "phase 10e")
+    free_device(torch)
+
+    # 11. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -2379,7 +2790,8 @@ def main() -> int:
                 "library_ms", "device_ms")},
             **{key: nums[key] for key in (
                 "device_ms_from", "device_ms_9a_profiler",
-                "max_abs_err_vs_fp32_oracle", "train_shape", "host_us")
+                "max_abs_err_vs_fp32_oracle", "train_shape",
+                "m2_train_shape", "host_us")
                 if key in nums}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,17 +32,20 @@ does on one device: the overlap comes from the host planning ahead of the
 queued device work. Each worklist upload (`_device_ints`) is a pageable
 copy, which waits for the work queued before it.
 
-The checkpoint surface (`state_dict`/`load_state_dict`), the fault
-injector on the training path, the bulk tier and the multi-host tier come
-with later slices.
+`state_dict`/`load_state_dict` checkpoint the whole tier (device slabs
+and host maps, both schedules), and an `injector` fires "cache.fetch"
+before each capacity-tier fetch, with `retry` absorbing transient faults.
+The bulk tier and the multi-host tier come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.kernels import cache_ops
@@ -371,6 +374,10 @@ class CachedEmbeddingBagCollection:
     cache_rows: int
     decay: float = 0.98        # LFU decay per step
     fetch_chunk: int = 1       # capacity->cache transfer granularity in rows
+    injector: Any = None       # FaultInjector firing "cache.fetch" ahead of
+                               # every capacity-tier fetch
+    retry: Any = None          # RetryPolicy bounding transient-fault
+                               # retries in `_fetch_guard`; None fails fast
 
     def __post_init__(self):
         if self.cache_rows <= 0:
@@ -475,6 +482,9 @@ class CachedEmbeddingBagCollection:
         n = len(missing)
         if n == 0:
             return 0
+        # the fault gate comes before any host-map mutation: a propagated
+        # transient fault leaves the tier consistent for a replay
+        _fetch_guard(self.injector, self.retry, "cache.fetch")
         slots, victims = _pick_slots(
             state.slot_row, state.freq, n, protect,
             f"the batch working set exceeds cache_rows={state.cache_rows};"
@@ -788,6 +798,9 @@ class CachedEmbeddingBagCollection:
         src_pos = None
         shadow = shadow_accum = None
         if n:
+            # fault gate first: a plan that dies here leaves the maps
+            # unflipped and the queue intact (the batch re-plans at take)
+            _fetch_guard(self.injector, self.retry, "cache.fetch")
             # the fetch only reads the tiers: queued behind the in-flight
             # step, it never touches a slot that step uses
             if self.fetch_chunk > 1:
@@ -949,3 +962,78 @@ class CachedEmbeddingBagCollection:
         batches."""
         self.flush_async(astate)
         return astate.capacity, astate.cap_accum
+
+    # -- checkpointing -------------------------------------------------------
+
+    def state_dict(self, state: CacheState | AsyncCacheState) -> dict:
+        """The whole tier as a checkpointable tree: the device tensors
+        (capacity, cap_accum, cache, cache_accum, and the sync schedule's
+        freq) are the tier's OWN tensors on its device, not copies (a
+        full-width capacity tier does not fit twice), so save or load them
+        before the tier steps again; the host maps are owned numpy copies.
+
+        An AsyncCacheState is first drained (`commit_async`) and a staged
+        but unconsumed plan is unwound to a prefetch, as `take_async` does
+        on a mismatch: its rows stay admitted and the restored run
+        re-plans the batch, which leaves the model's math unchanged.
+        Mutates `state` (drain + unwind) before taking it."""
+        is_async = isinstance(state, AsyncCacheState)
+        if is_async:
+            self.commit_async(state)
+            st = state.staged
+            state.staged = None
+            if st is not None:
+                state.stats.hits -= st.hits
+                state.stats.misses -= st.misses
+                state.stats.steps -= 1
+                state.stats.prefetched += st.misses
+            state.inflight_mask = None
+        d = {k: getattr(state, k) for k in
+             ("capacity", "cap_accum", "cache", "cache_accum")}
+        d["freq"] = np.array(state.freq) if is_async else state.freq
+        d.update({k: np.array(getattr(state, k)) for k in
+                  ("slot_row", "row_slot", "dirty", "ema", "ema_tick")})
+        d["tick"] = np.int64(state.tick)
+        d["stats"] = {k: np.int64(v)
+                      for k, v in dataclasses.asdict(state.stats).items()}
+        if is_async:
+            d["slot_epoch"] = np.array(state.slot_epoch)
+            d["epoch"] = np.int64(state.epoch)
+        return d
+
+    def load_state_dict(self, d: dict, device=None
+                        ) -> CacheState | AsyncCacheState:
+        """Rebuild the tier from a `state_dict` tree (as restored by
+        `CheckpointManager.restore`, or numpy leaves). Tensor leaves are
+        taken as they are, without a copy; numpy device leaves go to the
+        capacity tensor's device, else to `device` (default cuda). The
+        host maps become owned copies, since the planner mutates them. The
+        async-only `epoch` key selects the state's flavour."""
+        cap = d["capacity"]
+        dev = (cap.device if isinstance(cap, torch.Tensor)
+               else resolve_device(device))
+
+        def on_dev(x, dtype):
+            if isinstance(x, torch.Tensor):
+                return x
+            return torch.from_numpy(np.array(x, dtype)).to(dev)
+
+        stats = CacheStats(**{k: int(v) for k, v in d["stats"].items()})
+        tensors = dict(capacity=on_dev(cap, np.float32),
+                       cap_accum=on_dev(d["cap_accum"], np.float32),
+                       cache=on_dev(d["cache"], np.float32),
+                       cache_accum=on_dev(d["cache_accum"], np.float32))
+        host = dict(
+            slot_row=np.array(d["slot_row"], np.int64),
+            row_slot=np.array(d["row_slot"], np.int32),
+            dirty=np.array(d["dirty"], bool),
+            ema=np.array(d["ema"], np.float32),
+            ema_tick=np.array(d["ema_tick"], np.int64))
+        if "epoch" in d:
+            return AsyncCacheState(
+                **tensors, freq=np.array(d["freq"], np.float32), **host,
+                slot_epoch=np.array(d["slot_epoch"], np.int64),
+                epoch=int(d["epoch"]), pending=[], inflight_mask=None,
+                staged=None, tick=int(d["tick"]), stats=stats)
+        return CacheState(**tensors, freq=on_dev(d["freq"], np.float32),
+                          **host, tick=int(d["tick"]), stats=stats)

@@ -1,10 +1,11 @@
 """The async exchange stream as an embedding tier.
 
 `AsyncCachedTier(cc)` maps the tier protocol (`take`, `stage`,
-`prefetch_rows`, `commit`, `flush`, `materialize`) onto the wrapped
-collection's *_async methods, so the schedule is a tier choice:
-`train.steps.build_cached_train_step` runs the overlapped schedule for an
-`AsyncCachedTier` and the sync one for the bare collection.
+`prefetch_rows`, `commit`, `flush`, `materialize`, `state_dict`,
+`load_state_dict`) onto the wrapped collection's *_async methods, so the
+schedule is a tier choice: `train.steps.build_cached_train_step` runs the
+overlapped schedule for an `AsyncCachedTier` and the sync one for the
+bare collection.
 
 Ported from `repro.core.tiers` without the pieces of later slices: the
 `EmbeddingTier` protocol with its conformance check, the bulk store and the
@@ -73,6 +74,15 @@ class AsyncCachedTier:
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """`materialize_async`."""
         return self.cc.materialize_async(state)
+
+    def state_dict(self, state: AsyncCacheState) -> dict:
+        """The collection's `state_dict` (drains and unwinds first)."""
+        return self.cc.state_dict(state)
+
+    def load_state_dict(self, d: dict, device=None) -> AsyncCacheState:
+        """The collection's `load_state_dict` (an async state dict
+        restores the async flavour)."""
+        return self.cc.load_state_dict(d, device)
 
     def stats(self, state: AsyncCacheState) -> CacheStats:
         """The tier's CacheStats."""

@@ -9,9 +9,10 @@ them to its device.
 
 `DataPipeline.peek` and `lookahead_rows` give the cached tier's async
 fetch stream its lookahead: the upcoming batches, seen without being
-consumed. Ported from `repro.data.pipeline` without the pieces of later
-slices: the fault injector, and the hooks' `n_hosts` and `row_remap`
-arguments.
+consumed. A fault injector (`train.fault_tolerance.FaultInjector`) fires
+the "pipeline.batch" site once per batch in the reader thread. Ported from
+`repro.data.pipeline` without the hooks' `n_hosts` and `row_remap`
+arguments, which come with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -49,6 +50,10 @@ class DataPipeline:
     `peek(i)` returns the i-th upcoming batch without consuming it; peeked
     batches wait in a consumer-side buffer and `__next__` still returns
     them, in order.
+
+    `injector` fires "pipeline.batch" in the reader once per produced
+    batch: an "error" or "kill" spec is the reader-thread death, which
+    reaches the consumer through the failure contract above.
     """
 
     _POLL_S = 0.05             # liveness-check poll while waiting on the queue
@@ -56,9 +61,11 @@ class DataPipeline:
     def __init__(self, gen: Callable[[int], dict[str, np.ndarray]],
                  prefetch: int = 2, start_step: int = 0,
                  transform: Callable[[dict[str, np.ndarray]],
-                                     dict[str, np.ndarray]] | None = None):
+                                     dict[str, np.ndarray]] | None = None,
+                 injector=None):
         self._gen = gen
         self._transform = transform
+        self._injector = injector
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._buf: collections.deque = collections.deque()   # peeked
         self._failed: BaseException | None = None   # sticky failure
@@ -82,6 +89,8 @@ class DataPipeline:
                 batch = self._gen(step)
                 if self._transform is not None:
                     batch = self._transform(batch)
+                if self._injector is not None:
+                    self._injector.fire("pipeline.batch", step=step)
                 self._put((step, batch))
                 step += 1
         except BaseException as e:  # noqa: BLE001 — surface in the consumer
@@ -186,8 +195,10 @@ class ShardedLoader:
         return {k: v[lo:lo + self.host_batch] for k, v in full.items()}
 
     def pipeline(self, prefetch: int = 2, start_step: int = 0,
-                 transform: Callable | None = None) -> DataPipeline:
-        return DataPipeline(self.host_slice, prefetch, start_step, transform)
+                 transform: Callable | None = None,
+                 injector=None) -> DataPipeline:
+        return DataPipeline(self.host_slice, prefetch, start_step, transform,
+                            injector=injector)
 
 
 def _offset_rows(idx: np.ndarray, offsets: np.ndarray) -> np.ndarray:

@@ -26,6 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched. A RuntimeError, as
+    these failures were before it existed; the chaos loop
+    (`train.fault_tolerance.run_chaos_loop`) tells it apart from the faults
+    it restores from and never replays it."""
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = os.path.join(home, "bin", "nvcc")
@@ -33,7 +40,7 @@ def _nvcc() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
             "kernels are built on the machine with the card")
     return found
@@ -86,7 +93,7 @@ class Kernel:
         self.launches += 1
         code = self._fn(*args)
         if code != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"CUDA kernel {self.name} failed to launch: "
                 f"{self._err(code).decode()} (cudaError {code})")
 
@@ -119,7 +126,7 @@ def build_all(kernels: list[Kernel]) -> list[str]:
             continue
         os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
     return [ks[0].source.stem for _, ks, _, _ in procs]
 
 

@@ -12,8 +12,10 @@ The LM mode drives `ServeEngine` with seeded random prompts and prints the
 reference's `served N requests, T tokens in ...` line. The DLRM mode
 replays seeded Zipf traffic through `DLRMServeEngine` and prints the same
 parseable SLO summary as the reference (`serve[dlrm]: key=value ...`).
-Runs on the card unless `--device cpu` is given; without a card it raises.
-`--chaos` arrives with the port of the fault injector.
+`--chaos` arms a seeded `FaultInjector` on the engine's `serve.fetch`
+and `serve.admit` sites with one retry, as the reference does, and
+prints what fired. Runs on the card unless `--device cpu` is given;
+without a card it raises.
 """
 from __future__ import annotations
 
@@ -66,17 +68,22 @@ def serve_dlrm(cfg, args):
     from repro_torch.data.synthetic import make_dlrm_batch
     from repro_torch.serve import DLRMServeEngine, ServeRequest
 
-    if args.chaos:
-        raise NotImplementedError(
-            "--chaos arms the FaultInjector, which is ported with the "
-            "fault-tolerance slice")
     device = resolve_device(args.device)
     ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
                                        strategy="replicated")
     params = init_dlrm_params(cfg, ebc, PARAM_SEED, device)
     cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=args.cache_rows)
+    injector = retry = None
+    if args.chaos:
+        from repro_torch.train.fault_tolerance import (FaultInjector,
+                                                       RetryPolicy)
+        injector = FaultInjector.from_seed(
+            args.chaos_seed, args.requests,
+            sites=("serve.fetch", "serve.admit"), n_faults=3)
+        retry = RetryPolicy(max_retries=1, backoff_s=1e-4)
     engine = DLRMServeEngine(params, cfg, cc, max_queue=args.max_queue,
-                             max_batch=args.max_batch)
+                             max_batch=args.max_batch, injector=injector,
+                             retry=retry)
 
     t0 = time.time()
     for uid in range(args.requests):
@@ -99,6 +106,9 @@ def serve_dlrm(cfg, args):
           f"p99_ms={m['p99_latency'] * 1e3:.3f} "
           f"batches={int(m['batches'])} breaker={engine.breaker.state} "
           f"wall_s={dt:.2f}", flush=True)
+    if args.chaos:
+        print(f"  chaos: fired={injector.fired} "
+              f"transitions={engine.breaker.transitions}", flush=True)
     return engine
 
 
@@ -123,7 +133,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="requests submitted per engine step (offered load)")
     ap.add_argument("--zipf-alpha", type=float, default=1.05)
     ap.add_argument("--chaos", action="store_true",
-                    help="arm a seeded fault injector (later slice)")
+                    help="arm a seeded fault injector on the serving "
+                         "tier's fetch and admission paths")
     ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")

@@ -1,9 +1,14 @@
 """The DLRM train steps (the paper's split, Fig. 4): dense parameters with
-a dense optimizer, the embedding rows with row-wise AdaGrad applied by the
-fused sparse backward to the rows the batch touched — no dense gradient of
-the table is ever built.
+a dense optimizer, the embedding rows with row-wise AdaGrad.
 
-  build_dlrm_train_step       the whole mega table on the device;
+  build_dlrm_train_step       the whole mega table on the device, with
+                              either update of the reference:
+                              `sparse_apply="sparse"` (the fused sparse
+                              backward on the rows the batch touched, no
+                              dense gradient of the table) or `"dense"`
+                              (a scatter-add into a (total_rows + 1, d)
+                              buffer, then a row pass over the whole
+                              table: the reference launcher's default);
   build_cached_train_step     a hot-row cache over the capacity tier
                               (`core.cache`): the sync schedule for a bare
                               `CachedEmbeddingBagCollection`, the
@@ -13,12 +18,9 @@ the table is ever built.
                               on one device: the pooled lookup, then one
                               segmented update over every owner's rows.
 
-The reference's `sparse_apply="dense"` mode scatter-adds into a
-(total_rows + 1, d) fp32 buffer: 43.6 GB at full dlrm-m1 width beside a
-43.6 GB table, which does not fit one 80 GB card. Both modes compute the
-same update (the reference pins them within 1e-6), so the port trains with
-`"sparse"`; `"dense"` is queued for a later slice, as are the multi-host
-and LM steps and the table-wise step's sharded executor (its `mesh`).
+The multi-host and LM steps, the table-wise step's sharded executor (its
+`mesh`) and the dense update's `psum` lookup (`sparse_update_shardmap`)
+come with the multi-device and LM-training slices.
 """
 from __future__ import annotations
 
@@ -41,6 +43,79 @@ from repro_torch.nn.params import init_params
 from repro_torch.optim.optimizers import Optimizer
 
 
+#: rows per chunk of the dense update's row pass: its temporaries take a
+#: few times chunk * d * 4 bytes (256 MiB each at d = 64), not the
+#: table's size again and again
+DENSE_CHUNK_ROWS = 1 << 20
+
+
+def dense_gradient_sum(h: int, idx: torch.Tensor,
+                       g_pooled: torch.Tensor) -> torch.Tensor:
+    """The dense update's scatter: a zeroed (h + 1, d) fp32 buffer into
+    which every valid (b, lk) slot of every feature adds its bag's
+    gradient at its row, in the reference's scan order (feature by
+    feature, then slot order). idx: (B, F, L) rows, -1 pads; g_pooled:
+    (B, F, d). The reference sends pads to row h with zero gradients; here
+    they are left out (row h stays zero either way), since thousands of
+    adds to one row would run one after another.
+
+    CUDA's `index_add_` adds with atomics, so its sum order (and so its
+    bits) changes from run to run. `index_put_(accumulate=True)` under
+    deterministic algorithms sorts the indices stably and adds each row's
+    slots in that order onto the row's value, the order of a sequential
+    scatter; the setting is restored afterwards."""
+    b, f, lk = idx.shape
+    d = g_pooled.shape[-1]
+    gsum = torch.zeros((h + 1, d), dtype=torch.float32,
+                       device=g_pooled.device)
+    idx_f = idx.transpose(0, 1)                     # (F, B, L): scan order
+    valid = idx_f >= 0
+    rows = idx_f[valid].long()
+    vals = g_pooled.float().transpose(0, 1)[:, :, None, :].expand(
+        f, b, lk, d)[valid]
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        gsum.index_put_((rows,), vals, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn_only)
+    return gsum
+
+
+def dense_row_pass(mega: torch.Tensor, accum: torch.Tensor,
+                   gsum: torch.Tensor, lr: float, eps: float,
+                   chunk_rows: int = DENSE_CHUNK_ROWS) -> None:
+    """Row-wise AdaGrad over every row of the table, IN PLACE, in the
+    reference's operand order: touched = any(gsum != 0); accum +=
+    where(touched, mean(gsum^2), 0); mega -= where(touched, lr * gsum *
+    rsqrt(accum + eps), 0). Untouched rows keep their bits. The rows are
+    walked in chunks of `chunk_rows`, so the peak stays near the table
+    plus `gsum`; a row's result does not depend on the chunking."""
+    h = mega.shape[0]
+    for lo in range(0, h, chunk_rows):
+        hi = min(lo + chunk_rows, h)
+        g = gsum[lo:hi]
+        touched = torch.any(g != 0.0, dim=-1)
+        g2 = torch.mean(torch.square(g), dim=-1)
+        new_acc = accum[lo:hi] + torch.where(touched, g2, 0.0)
+        upd = lr * g * torch.rsqrt(new_acc[:, None] + eps)
+        mega[lo:hi] -= torch.where(touched[:, None], upd, 0.0).to(
+            mega.dtype)
+        accum[lo:hi] = new_acc
+
+
+def dense_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
+                        idx: torch.Tensor, g_pooled: torch.Tensor,
+                        lr: float, eps: float,
+                        chunk_rows: int = DENSE_CHUNK_ROWS) -> None:
+    """The reference's `sparse_apply="dense"` update (`sparse_update`):
+    `dense_gradient_sum`, then `dense_row_pass`, mega and accum in place.
+    Its buffer is the size of the table again: (h + 1) * d * 4 bytes."""
+    gsum = dense_gradient_sum(mega.shape[0], idx, g_pooled)
+    dense_row_pass(mega, accum, gsum, lr, eps, chunk_rows)
+
+
 def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                           dense_opt: Optimizer, sparse_lr: float = 0.05,
                           sparse_eps: float = 1e-8,
@@ -51,27 +126,48 @@ def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
 
     batch holds tensors on the parameters' device: "dense", "idx" (offset
     rows, -1 pads), "label", and optionally a `sparse_plan_hook` plan,
-    which then drives both the deduplicated lookup and the sparse update;
-    without one the update plans on the device.
+    which then drives the deduplicated lookup (and, in "sparse" mode, the
+    update); without one the sparse update plans on the device.
+
+    sparse_apply:
+      "sparse"  the fused sparse backward: row-wise AdaGrad on the rows
+                the batch touched, O(lookups);
+      "dense"   the reference's scatter-add over the full row space into a
+                (total_rows + 1, d) fp32 buffer, then a row pass over the
+                whole table (`dense_sparse_update`), O(table height).
+    Both compute the same update up to the order of each row's sum. The
+    default stays "sparse", unlike the reference's: the dense buffer is a
+    second table, and full-width dlrm-m1 (43.6 GB) does not fit one 80 GB
+    card twice; the cached, table-wise and chip-smoke callers rely on the
+    default. The launcher defaults to "dense", as the reference's does.
+    A `psum` lookup (`cfg.lookup_impl`) needs the multi-device slice.
 
     The mega table and the accumulator are updated IN PLACE (the returned
     params["emb"]["mega"] and state["accum"] are the tensors passed in);
     the dense parameters and their state are new tensors each step."""
-    if sparse_apply != "sparse":
+    if sparse_apply not in ("sparse", "dense"):
+        raise ValueError(f"sparse_apply={sparse_apply!r}; expected 'sparse' "
+                         "or 'dense'")
+    if sparse_apply == "dense" and cfg.lookup_impl == "psum":
         raise NotImplementedError(
-            f"sparse_apply={sparse_apply!r}: only 'sparse' is ported; the "
-            "full-row-space 'dense' scatter comes with a later slice of the "
-            "port (it needs a second table-sized buffer)")
+            "sparse_apply='dense' with lookup_impl='psum' is the reference's "
+            "shard_map update (sparse_update_shardmap); it comes with the "
+            "multi-device slice of the port")
 
     def step(params, state, batch, step_idx):
         loss, g_dense, (idx, g_pooled) = dlrm_grads(params, batch, cfg, ebc)
         new_dense, new_dense_state = dense_opt.apply(
             {"bottom": params["bottom"], "top": params["top"]}, g_dense,
             state["dense"], step_idx)
+        mega, accum = params["emb"]["mega"], state["accum"]
         with torch.no_grad():
-            mega, accum = ops.fused_sparse_backward(
-                params["emb"]["mega"], state["accum"], idx, g_pooled,
-                sparse_lr, sparse_eps, plan=plan_from_batch(batch))
+            if sparse_apply == "dense":
+                dense_sparse_update(mega, accum, idx, g_pooled, sparse_lr,
+                                    sparse_eps)
+            else:
+                ops.fused_sparse_backward(mega, accum, idx, g_pooled,
+                                          sparse_lr, sparse_eps,
+                                          plan=plan_from_batch(batch))
         lookups = (batch["idx"] >= 0).sum().to(torch.float32)
         return ({**new_dense, "emb": {"mega": mega}},
                 {"dense": new_dense_state, "accum": accum},

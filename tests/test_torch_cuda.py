@@ -1619,3 +1619,146 @@ def test_two_layer_prefill_on_the_card_matches_the_cpu(dev):
                                atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
                                atol=1e-3)
+
+# ---------------------------------------------------------------------------
+# the dense update, checkpoints and the cached tier's recovery on the card
+# ---------------------------------------------------------------------------
+
+
+def _dense_run(dev, n_steps=2, seed=0):
+    """n_steps of the launcher's dense step at the smoke dlrm-m2 (batch 32)
+    from seeded parameters made on the CPU; returns (losses, mega, accum)
+    on the host."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    cfg = get_smoke_config("dlrm-m2")
+    ebc = EmbeddingBagCollection.build(cfg, strategy="replicated")
+    params = tree_map(lambda t: t.to(dev),
+                      init_dlrm_params(cfg, ebc, seed, torch.device("cpu")))
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step = build_dlrm_train_step(cfg, ebc, opt, sparse_apply="dense")
+    losses = []
+    for t in range(n_steps):
+        raw = make_dlrm_batch(cfg, 32, step=t)
+        raw["idx"] = ebc.offset_indices(raw["idx"])
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in raw.items()}
+        params, state, m = step(params, state, batch, t)
+        losses.append(float(m["loss"]))
+    return losses, params["emb"]["mega"].cpu(), state["accum"].cpu()
+
+
+def test_dense_steps_are_bit_equal_run_to_run(dev):
+    """The scatter adds through index_put_ under deterministic algorithms:
+    two runs give the same bits (index_add_'s atomics would not)."""
+    resolve_device("cuda")
+    a, b = _dense_run(dev), _dense_run(dev)
+    assert a[0] == b[0]
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_dense_steps_on_the_card_match_the_cpu(dev):
+    """Within rtol/atol 1e-5: fp32 matmuls (TF32 off), the dot kernel's
+    FMA chain and mean(g^2) reduce in other orders than the CPU's."""
+    resolve_device("cuda")
+    card, cpu = _dense_run(dev, 3), _dense_run(torch.device("cpu"), 3)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card[1], cpu[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card[2], cpu[2], rtol=1e-5, atol=1e-5)
+
+
+def test_checkpoint_round_trip_of_card_tensors_in_place(dev, tmp_path):
+    from repro_torch.train.checkpoint import CheckpointManager
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"mega": torch.randn(1000, 64, generator=g, device=dev),
+            "half": torch.randn(33, generator=g, device=dev).to(
+                torch.bfloat16),
+            "n": torch.arange(5, dtype=torch.int64, device=dev)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree, async_=True)
+    mgr.wait()
+    example = {k: torch.zeros_like(v) for k, v in tree.items()}
+    out = mgr.restore(example)
+    for k in tree:
+        assert out[k] is example[k] and out[k].device == tree[k].device
+        assert torch.equal(out[k], tree[k])
+
+
+def _cached_tools(dev, injector=None, retry=None):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.tiers import AsyncCachedTier
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+    cfg = get_smoke_config("dlrm-m1")
+    cc = dataclasses.replace(
+        CachedEmbeddingBagCollection.build(cfg, cache_rows=256),
+        injector=injector, retry=retry)
+    params = init_dlrm_params(cfg, cc.ebc, 0, dev)
+    opt = adagrad(0.01)
+    dense = {"bottom": params["bottom"], "top": params["top"]}
+    return (cfg, cc, build_cached_train_step(cfg, AsyncCachedTier(cc), opt),
+            dense, cached_dlrm_init_state(cc, opt, params),
+            cc.init_async_state(params["emb"]["mega"]))
+
+
+def _cached_segment(cfg, cc, step, dense, cstate, astate, t0, t1, n):
+    from repro_torch.data.synthetic import make_dlrm_batch
+
+    def batch(t):
+        raw = make_dlrm_batch(cfg, 8, step=t)
+        return {**raw, "idx": cc.ebc.offset_indices(raw["idx"])}
+
+    losses = []
+    for t in range(t0, t1):
+        dense, cstate, m = step(dense, cstate, astate, batch(t), t,
+                                next_batch=batch(t + 1) if t + 1 < n
+                                else None)
+        losses.append(float(m["loss"]))
+    return dense, cstate, losses
+
+
+def test_async_tier_state_dict_resumes_bit_equal_on_the_card(dev):
+    resolve_device("cuda")
+    cfg, cc, step, dense, cstate, astate = _cached_tools(dev)
+    _, _, want = _cached_segment(cfg, cc, step, dense, cstate, astate, 0, 4,
+                                 4)
+    want_m, want_a = (t.clone() for t in cc.materialize_async(astate))
+    cfg, cc, step, dense, cstate, astate = _cached_tools(dev)
+    dense, cstate, got = _cached_segment(cfg, cc, step, dense, cstate,
+                                         astate, 0, 2, 4)
+    snap = cc.state_dict(astate)
+    assert snap["cache"].device.type == "cuda"
+    _, cc2, step2, *_ = _cached_tools(dev)
+    astate2 = cc2.load_state_dict(snap)
+    _, _, more = _cached_segment(cfg, cc2, step2, dense, cstate, astate2, 2,
+                                 4, 4)
+    got_m, got_a = cc2.materialize_async(astate2)
+    assert got + more == want
+    assert torch.equal(got_m, want_m) and torch.equal(got_a, want_a)
+
+
+def test_transient_cache_fetch_fault_is_absorbed_on_the_card(dev):
+    from repro_torch.train.fault_tolerance import (FaultInjector, FaultSpec,
+                                                   RetryPolicy)
+    resolve_device("cuda")
+    cfg, cc, step, dense, cstate, astate = _cached_tools(dev)
+    _, _, want = _cached_segment(cfg, cc, step, dense, cstate, astate, 0, 3,
+                                 3)
+    inj = FaultInjector([FaultSpec("cache.fetch", 1, "error")])
+    cfg, cc, step, dense, cstate, astate = _cached_tools(
+        dev, inj, RetryPolicy(max_retries=1, backoff_s=1e-5))
+    before = cache_ops.FETCH_KERNEL.launches
+    _, _, got = _cached_segment(cfg, cc, step, dense, cstate, astate, 0, 3,
+                                3)
+    assert inj.fired == [("cache.fetch", 1, "error")]
+    assert got == want and cache_ops.FETCH_KERNEL.launches > before

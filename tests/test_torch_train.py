@@ -601,14 +601,6 @@ def test_planned_and_unplanned_steps_are_bit_equal():
         assert torch.equal(a, b)
 
 
-def test_only_sparse_apply_sparse_is_ported():
-    cfg = get_smoke_config("dlrm-m1")
-    ebc = EmbeddingBagCollection.build(cfg, strategy="replicated")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        steps.build_dlrm_train_step(cfg, ebc, adagrad(0.01),
-                                    sparse_apply="dense")
-
-
 def test_optimizer_specs_and_init_state_match_reference_layout():
     cfg, jcfg, ebc, jebc, jparams = _setup(False)
     spec, jspec = ebc.optimizer_specs(), jebc.optimizer_specs()
@@ -756,9 +748,9 @@ def test_pipeline_clean_shutdown_with_nonempty_queue():
 # ---------------------------------------------------------------------------
 
 
-def test_launcher_trains_on_cpu_and_needs_cuda_otherwise(capsys):
+def test_launcher_trains_on_cpu_and_needs_cuda_otherwise(capsys, tmp_path):
     argv = ["--arch", "dlrm-m1", "--smoke", "--steps", "3", "--batch", "16",
-            "--log-every", "1"]
+            "--log-every", "1", "--ckpt-dir", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_cli.main(argv)
@@ -772,11 +764,12 @@ def test_launcher_trains_on_cpu_and_needs_cuda_otherwise(capsys):
     assert run.state["accum"].abs().sum() > 0      # sparse rows moved
 
 
-def test_launcher_module_runs_as_a_program():
+def test_launcher_module_runs_as_a_program(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "dlrm-m1", "--smoke", "--steps", "3", "--device", "cpu"],
+         "dlrm-m1", "--smoke", "--steps", "3", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "done at step 3; loss" in out.stdout
