@@ -96,7 +96,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    TOL_M2_SPARSE; (10d) `--chaos` on the smoke config for three seeds,
    each bit-equal to its fault-free run, a fault fired; (10e) full-width
    dlrm-m1 served under `--chaos`, all 32 requests served or shed;
-11. print one JSON line of per-kernel numbers, then the result line.
+11. put the capacity tier (the table and its accumulator) in page-locked
+   host memory that the card addresses directly, time a 1 GiB copy each
+   way, and (11a) train 7a's, 7b's and 7c's runs over it, each bit-equal
+   to the launcher (losses and final checksums) with a device peak under
+   HOST_PEAK_LIMIT, then hold the four row movers over it against their
+   plain versions and the same call on the card, timed against their
+   bound at the measured rates; (11b) train the three-tier
+   `BulkCachedEmbeddingBagCollection` over it (a memory-mapped bulk store
+   seeded cold with every row, a DRAM budget of BULK_DRAM_ROWS), sync and
+   async, bit-equal to the launcher, with promotions, demotions and an
+   exclusive residency; dlrm-m3's 118.3 GB of rows do not fit the host
+   memory of the card's machine, so no phase 11c;
+12. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -152,6 +164,15 @@ HOST_ITERS = 200
 #: by bisection between EVICT_SEARCH_LO and EVICT_CACHE_ROWS in steps of
 #: EVICT_SEARCH_GRAIN rows (87,040 fails at step 2)
 EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
+#: phase 11b's three tiers: the reference's bulk block and latency, and a
+#: DRAM budget that TRAIN_STEPS steps overflow (a quarter of the table,
+#: 42.6M rows, never fills in 8 steps, which evict ~1e5 rows, so no
+#: demotion would run)
+BULK_DRAM_ROWS, BULK_CHUNK, BULK_LATENCY_US = 32_768, 32, 50.0
+#: bytes of each timed copy between the page-locked tier and the card
+PCIE_PROBE_BYTES = 1 << 30
+#: phase 11's device peak from step 0, with the capacity tier on the host
+HOST_PEAK_LIMIT = 10 * 10 ** 9
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
 #: the table-wise runs: the 8 owners of a Zion / Big Basin box
 TABLEWISE_OWNERS = 8
@@ -1067,6 +1088,180 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
             "cache_commit": commit_out}
 
 
+def pcie_rates(torch, dev, host: dict) -> dict:
+    """Phase 11a: host<->device bytes/s of a timed PCIE_PROBE_BYTES copy
+    each way between the page-locked capacity tier and the card (the
+    host-to-device copy first, so the copy back writes the same bytes)."""
+    src = host["mega"].view(-1).view(torch.uint8)[:PCIE_PROBE_BYTES]
+    card = torch.empty((PCIE_PROBE_BYTES,), dtype=torch.uint8, device=dev)
+    h2d = time_ms(torch, lambda: card.copy_(src, non_blocking=True), 5)
+    d2h = time_ms(torch, lambda: src.copy_(card, non_blocking=True), 5)
+    out = {"h2d_bytes_per_s": PCIE_PROBE_BYTES / (h2d * 1e-3),
+           "d2h_bytes_per_s": PCIE_PROBE_BYTES / (d2h * 1e-3),
+           "h2d_ms": h2d, "d2h_ms": d2h}
+    log(f"  host<->device over {PCIE_PROBE_BYTES} bytes of page-locked "
+        f"memory: {json.dumps(out)}")
+    del card
+    return out
+
+
+def host_bound_ms(rates: dict, h2d: float, d2h: float,
+                  hbm: float) -> tuple[float, str]:
+    """Least time with the capacity tier on the host: the bytes read from
+    it over the measured host-to-device rate, the bytes written to it over
+    the device-to-host rate (the link is full duplex) and the card's own
+    bytes over its HBM rate, whichever is longest."""
+    return max(h2d / rates["h2d_bytes_per_s"], d2h / rates["d2h_bytes_per_s"],
+               hbm / HBM_BYTES_PER_S) * 1e3, "bytes"
+
+
+def check_host_movers(torch, dev, cfg, ebc, host: dict,
+                      rates: dict) -> dict:
+    """Phase 11a: the four row movers with the full-width capacity tier
+    page-locked on the host, at the worklists of one training batch's
+    misses over EVICT_CACHE_ROWS slots: each bit-equal to its plain version
+    and to the same call with the tier on the card (a copy there), and
+    timed, with its bound at the measured PCIe rates."""
+    import numpy as np
+    from repro_torch.core.cache import _chunk_min_fill
+    from repro_torch.kernels import cache_ops as kc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparse_plan import coalesce_rows
+    r_rows, d, c_rows = ebc.plan.total_rows, cfg.embed_dim, EVICT_CACHE_ROWS
+    row = d * 4 + 4
+    h_cap, h_acc = host["mega"], host["accum"]
+    c_cap, c_acc = h_cap.to(dev), h_acc.to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    cache = torch.empty((c_rows, d), device=dev).normal_(generator=g)
+    cache_accum = torch.rand((c_rows,), generator=g, device=dev)
+    freq = torch.rand((c_rows,), generator=g, device=dev)
+    idx = train_batch(cfg, ebc, 0)
+    rows_np = np.unique(idx[idx >= 0]).astype(np.int64)
+    n = len(rows_np)
+    i32 = dict(dtype=torch.int32, device=dev)
+    fetch = torch.as_tensor(rows_np, **i32)
+    fetch[::97] = -1
+    chunk = EVICT_CHUNK
+    starts_np, _ = coalesce_rows(rows_np, chunk, r_rows,
+                                 min_fill=_chunk_min_fill(chunk))
+    starts = torch.as_tensor(np.concatenate(
+        [starts_np, [r_rows - chunk, -1]]).astype(np.int32), device=dev)
+    slots = torch.randperm(c_rows, generator=g, device=dev)[:n].int()
+    evict = torch.randperm(r_rows, generator=g, device=dev)[:n].int()
+    u = torch.rand((n,), generator=g, device=dev)
+    evict[u < 0.5] = -1                               # half write back
+    ins = fetch.clone()
+    ins[u > 0.9] = -1                                 # pure writebacks
+    slots[(u > 0.45) & (u < 0.5)] = -1                # pads
+    # no row both written back and fetched (the exchange's contract)
+    evict[torch.isin(evict, ins)] = -1
+    kc.check_worklist(slots, evict, ins)
+    shadow, shadow_accum = kc.cache_fetch(c_cap, c_acc, fetch)
+    counts = torch.rand((n,), generator=g, device=dev) * 10
+    live = slots >= 0
+    n_wb = int((live & (evict >= 0)).sum())
+    n_in = int((live & (ins >= 0)).sum())
+    n_ft = int((fetch >= 0).sum())
+    k_live = int((starts >= 0).sum())
+    wb_rows = evict[live & (evict >= 0)].long()
+    out = {}
+
+    def compare(name, host_out, card_out, plain_out):
+        equal = all(torch.equal(a.to(dev), b) and torch.equal(b, p)
+                    for a, b, p in zip(host_out, card_out, plain_out))
+        err = max(float((a.to(dev) - p).abs().max()) if p.numel() else 0.0
+                  for a, p in zip(host_out, plain_out))
+        log(f"  {name} over the host tier: bit-equal to plain and to the "
+            f"card={equal} max_abs_err={err:.3e} (tol 0: values are "
+            "copied)")
+        if not equal:
+            raise AssertionError(f"{name} over the host tier differs")
+        return err
+
+    def timed(name, fn, bound):
+        res = {"ms": time_ms(torch, fn, 50),
+               "device_ms": device_kernel_ms(torch, fn, 10,
+                                             f"{name}_kernel"),
+               "max_abs_err": errs[name]}
+        res["bound_ms"], res["bound_by"] = bound
+        res["bound_rates"] = {k: rates[k] for k in ("h2d_bytes_per_s",
+                                                    "d2h_bytes_per_s")}
+        log(f"  {name} over the host tier: {json.dumps(res)}")
+        out[name] = res
+
+    errs = {}
+    # the two fetches only read the tiers
+    errs["cache_fetch"] = compare(
+        "cache_fetch", kc.cache_fetch(h_cap, h_acc, fetch),
+        kc.cache_fetch(c_cap, c_acc, fetch),
+        ref.cache_fetch_ref(c_cap, c_acc, fetch))
+    errs["cache_fetch_chunked"] = compare(
+        "cache_fetch_chunked",
+        kc.cache_fetch_chunked(h_cap, h_acc, starts, chunk),
+        kc.cache_fetch_chunked(c_cap, c_acc, starts, chunk),
+        ref.cache_fetch_chunked_ref(c_cap, c_acc, starts, chunk))
+
+    # the commit and the exchange write both tiers in place: each runs on
+    # fresh copies of the device tier, and the host tier's written rows
+    # are held against the card's and restored after
+    def in_place(name, call):
+        saved = h_cap[wb_rows.cpu()].clone(), h_acc[wb_rows.cpu()].clone()
+        on_host = call(h_cap, h_acc)
+        torch.cuda.synchronize()
+        got = [h_cap[wb_rows.cpu()], h_acc[wb_rows.cpu()], *on_host]
+        h_cap[wb_rows.cpu()], h_acc[wb_rows.cpu()] = saved
+        c_saved = c_cap[wb_rows].clone(), c_acc[wb_rows].clone()
+        on_card = call(c_cap, c_acc)
+        card = [c_cap[wb_rows], c_acc[wb_rows], *on_card]
+        c_cap[wb_rows], c_acc[wb_rows] = c_saved
+        plain = call(c_cap, c_acc, plain=True)
+        want = [c_cap[wb_rows], c_acc[wb_rows], *plain]
+        c_cap[wb_rows], c_acc[wb_rows] = c_saved
+        errs[name] = compare(name, got, card, want)
+
+    def commit(cap, acc, plain=False):
+        cch, cch_acc = cache.clone(), cache_accum.clone()
+        (ref.cache_commit_ref if plain else kc.cache_commit)(
+            cap, cch, acc, cch_acc, shadow, shadow_accum, slots, evict, ins)
+        return [cch, cch_acc]
+
+    def exchange(cap, acc, plain=False):
+        cch, cch_acc, fq = cache.clone(), cache_accum.clone(), freq.clone()
+        (ref.cache_exchange_ref if plain else kc.cache_exchange)(
+            cap, cch, acc, cch_acc, fq, slots, evict, ins, counts)
+        return [cch, cch_acc, fq]
+
+    in_place("cache_commit", commit)
+    in_place("cache_exchange", exchange)
+    timed("cache_fetch",
+          lambda: kc.cache_fetch(h_cap, h_acc, fetch),
+          host_bound_ms(rates, n_ft * row, 0, n * 4 + n * row))
+    timed("cache_fetch_chunked",
+          lambda: kc.cache_fetch_chunked(h_cap, h_acc, starts, chunk),
+          host_bound_ms(rates, k_live * chunk * row, 0,
+                        starts.numel() * (4 + chunk * row)))
+    cch, cch_acc, fq = cache.clone(), cache_accum.clone(), freq.clone()
+    saved = h_cap[wb_rows.cpu()].clone(), h_acc[wb_rows.cpu()].clone()
+    timed("cache_commit",
+          lambda: kc.cache_commit(h_cap, cch, h_acc, cch_acc, shadow,
+                                  shadow_accum, slots, evict, ins),
+          host_bound_ms(rates, 0, n_wb * row,
+                        n * 16 + n_wb * row + 2 * n_in * row))
+    timed("cache_exchange",
+          lambda: kc.cache_exchange(h_cap, cch, h_acc, cch_acc, fq, slots,
+                                    evict, ins, counts),
+          host_bound_ms(rates, n_in * row, n_wb * row,
+                        n * 16 + n_wb * row + n_in * (row + 4)))
+    torch.cuda.synchronize()
+    h_cap[wb_rows.cpu()], h_acc[wb_rows.cpu()] = saved
+    log(f"  worklists: {n} entries, {n_ft} row fetches, {k_live} live "
+        f"{chunk}-row blocks, {n_wb} writebacks, {n_in} installs")
+    del c_cap, c_acc, cache, cache_accum, freq, shadow, shadow_accum, cch
+    del cch_acc, fq
+    return out
+
+
 def tablewise_batch(cfg, ebc, step: int, plant: bool):
     """The training batch of `step` (numpy) under the table-wise layout,
     idx offset to mega rows. `plant` adds the corner cases: an all-pad bag,
@@ -1477,20 +1672,25 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
     return out
 
 
-def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
-    """Phase 7: TRAIN_STEPS full-width steps through
+def train_cached(torch, dev, cfg, run: dict, want: dict,
+                 host: dict | None = None) -> dict:
+    """Phases 7 and 11: TRAIN_STEPS full-width steps through
     `build_cached_train_step` from the launcher's seed and batches. `run`
     names the tier ("async" or "sync"), `cache_rows` (None: the plan's),
-    `fetch_chunk`, the reader hook ("plan" or "dedup") and whether the
-    k-step lookahead feeds `prefetch_rows`. `want` holds the launcher's
-    losses and the initial and final bit checksums. The last PROFILED_STEPS
-    steps run under torch.profiler. Returns the run's numbers; the launch
-    counts are reset just before the first step and hold the run's
-    launches, materialize included, when it returns."""
+    `fetch_chunk`, the reader hook ("plan" or "dedup"), whether the k-step
+    lookahead feeds `prefetch_rows`, and, in phase 11, `bulk` (the
+    three-tier collection's knobs, or None). `host` (phase 11) holds the
+    page-locked `mega` and `accum` the capacity tier moves into: the table
+    is made on the card, copied there and freed on the card. `want` holds
+    the launcher's losses and the initial and final bit checksums. The
+    last PROFILED_STEPS steps run under torch.profiler. Returns the run's
+    numbers; the launch counts are reset just before the first step and
+    hold the run's launches, materialize included, when it returns."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.tiers import BulkCachedEmbeddingBagCollection
     from repro_torch.core.dlrm import init_dlrm_params
     from repro_torch.core.tiers import AsyncCachedTier
     from repro_torch.data.pipeline import (ShardedLoader, dedup_indices_hook,
@@ -1502,8 +1702,14 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     from repro_torch.train.steps import (build_cached_train_step,
                                          cached_dlrm_init_state)
 
-    cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=run["cache_rows"],
-                                            fetch_chunk=run["fetch_chunk"])
+    if run.get("bulk"):
+        cc = BulkCachedEmbeddingBagCollection.build(
+            cfg, cache_rows=run["cache_rows"],
+            fetch_chunk=run["fetch_chunk"], **run["bulk"])
+    else:
+        cc = CachedEmbeddingBagCollection.build(
+            cfg, cache_rows=run["cache_rows"],
+            fetch_chunk=run["fetch_chunk"])
     tier = AsyncCachedTier(cc) if run["tier"] == "async" else cc
     params = init_dlrm_params(cfg, cc.ebc, PARAM_SEED, dev)
     if bit_checksum(torch, params["emb"]["mega"]) != want["init_sum"]:
@@ -1512,7 +1718,29 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     opt = adagrad(0.01)
     state = cached_dlrm_init_state(cc, opt, params)
     dense = {"bottom": params["bottom"], "top": params["top"]}
-    cs = tier.init_state(params.pop("emb")["mega"])   # owned, no copy
+    mega, accum = params.pop("emb")["mega"], None
+    out = {}
+    if host is not None:
+        t0 = time.perf_counter()
+        host["mega"].copy_(mega)
+        host["accum"].zero_()
+        torch.cuda.synchronize()
+        out["copy_to_host_s"] = time.perf_counter() - t0
+        del mega
+        gc.collect()
+        torch.cuda.empty_cache()
+        mega, accum = host["mega"], host["accum"]
+        if torch.cuda.memory_allocated() > 1 << 30:
+            raise AssertionError("the table is still on the card")
+    t0 = time.perf_counter()
+    cs = tier.init_state(mega, accum, device=dev)     # owned, no copy
+    out["init_state_s"] = time.perf_counter() - t0
+    del mega, accum
+    log(f"  capacity tier on {cs.capacity.device}"
+        + (f" (page-locked; copied there in {out['copy_to_host_s']:.2f} s)"
+           if host is not None else "")
+        + f", device tier on {cs.cache.device}; init_state "
+        f"{out['init_state_s']:.2f} s")
     step_fn = build_cached_train_step(cfg, tier, opt, SPARSE_LR, SPARSE_EPS)
     hook = (sparse_plan_hook if run["hook"] == "plan"
             else dedup_indices_hook)(cc.ebc.plan.table_offsets)
@@ -1587,21 +1815,31 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     if run["evicts"] and not (st.evictions > 0 and st.writebacks > 0):
         raise AssertionError(f"{run['name']}: no eviction or writeback")
 
+    if run.get("strict") and not (equal and sums == want["final_sums"]):
+        raise AssertionError(f"{run['name']}: losses or final checksums "
+                             "differ from the launcher's")
+    peak = torch.cuda.max_memory_allocated()
+    if host is not None and peak >= HOST_PEAK_LIMIT:
+        raise AssertionError(f"{run['name']}: device peak {peak} bytes with "
+                             f"the capacity tier on the host")
+    if run.get("bulk"):
+        out["tiers"] = check_tiers(cc, cs, st)
     events = device_events(prof)
     dev_us = sum(t for _, t in events)
     plain = slice(1, TRAIN_STEPS - PROFILED_STEPS)
-    out = {"losses_bit_equal": equal, "checksums_equal":
-           sums == want["final_sums"],
-           "host_ms_per_step": sum(host_s[plain]) / len(host_s[plain]) * 1e3,
-           "profiled_host_ms_per_step":
-               sum(host_s[-PROFILED_STEPS:]) / PROFILED_STEPS * 1e3,
-           "device_busy_ms_per_step": (dev_us / 1e3 / PROFILED_STEPS
-                                       if dev_us else None),
-           "peak_bytes": torch.cuda.max_memory_allocated(),
-           "stats": {k: getattr(st, k) for k in (
-               "hits", "misses", "fetches", "evictions", "writebacks",
-               "prefetched", "fetch_chunks", "overfetch_rows")},
-           "widest_two_batch_working_set": widest}
+    out.update({
+        "losses_bit_equal": equal,
+        "checksums_equal": sums == want["final_sums"],
+        "host_ms_per_step": sum(host_s[plain]) / len(host_s[plain]) * 1e3,
+        "profiled_host_ms_per_step":
+            sum(host_s[-PROFILED_STEPS:]) / PROFILED_STEPS * 1e3,
+        "device_busy_ms_per_step": (dev_us / 1e3 / PROFILED_STEPS
+                                    if dev_us else None),
+        "peak_bytes": peak,
+        "stats": {k: getattr(st, k) for k in (
+            "hits", "misses", "fetches", "evictions", "writebacks",
+            "prefetched", "fetch_chunks", "overfetch_rows")},
+        "widest_two_batch_working_set": widest})
     # the worklist uploads are pageable host-to-device copies, each of
     # which waits for the work queued before it
     h2d = [(e.count, getattr(e, "self_device_time_total", 0))
@@ -1634,6 +1872,61 @@ def train_cached(torch, dev, cfg, run: dict, want: dict) -> dict:
     log(prof.key_averages().table(sort_by="self_cpu_time_total",
                                   row_limit=12))
     del cs, mega, accum, dense, state
+    return out
+
+
+def check_tiers(cc, cs, st) -> dict:
+    """Phase 11b's gates on a three-tier run: bulk promotions and
+    demotions happened, and device, DRAM and bulk partition the rows. Logs
+    the TierCacheStats snapshot, the DRAM occupancy (which may pass the
+    budget by the last admission's evictions: they never demote in the
+    same breath), the hidden share of the injected bulk latency and the
+    traffic model at the run's measured DRAM hit rate beside the counted
+    bytes and blocks."""
+    from repro_torch.launch.analysis import tier_hierarchy_traffic
+    masks = cc.tier_residency(cs)
+    hbm, dram, bulk = masks["hbm"], masks["dram"], masks["bulk"]
+    exclusive = (not (hbm & dram).any() and not (hbm & bulk).any()
+                 and not (dram & bulk).any()
+                 and int(hbm.sum() + dram.sum() + bulk.sum()) == len(hbm))
+    occupancy = cs.dram_occupancy
+    out = {"snapshot": st.snapshot(),
+           "residency_rows": {k: int(m.sum()) for k, m in masks.items()},
+           "residency_exclusive": exclusive, "dram_occupancy": occupancy,
+           "dram_budget": cc._dram_cap(),
+           "bulk_sched_us": st.bulk_sched_us,
+           "bulk_wait_us": st.bulk_wait_us,
+           "hidden_fraction": st.hidden_fraction,
+           "dram_hit_rate": st.dram_hit_rate}
+    model = tier_hierarchy_traffic(
+        st.dram_hits + st.bulk_hits, cc.ebc.cfg.embed_dim, st.dram_hit_rate,
+        bulk_chunk=cc.bulk_chunk, bulk_latency_us=cc.bulk_latency_us,
+        demotion_rows=st.demotions)
+    out["model"] = model
+    # the model's blocks assume dense bulk_chunk-row blocks; the run's
+    # promotions are scattered rows: the model again at the measured
+    # rows per block
+    density = st.bulk_hits / max(st.bulk_read_chunks * cc.bulk_chunk, 1)
+    out["model_at_measured_density"] = {"chunk_density": density, **{
+        k: v for k, v in tier_hierarchy_traffic(
+            st.dram_hits + st.bulk_hits, cc.ebc.cfg.embed_dim,
+            st.dram_hit_rate, bulk_chunk=cc.bulk_chunk,
+            bulk_latency_us=cc.bulk_latency_us, chunk_density=density,
+            demotion_rows=st.demotions).items()
+        if k in ("bulk_read_blocks", "bulk_write_blocks",
+                 "bulk_latency_us", "total_bytes")}}
+    out["counted"] = {"bulk_rows": st.bulk_hits,
+                      "bulk_read_blocks": st.bulk_read_chunks,
+                      "bulk_write_blocks": st.bulk_write_chunks,
+                      "promotion_bytes": st.promotion_bytes,
+                      "demotion_bytes": st.demotion_bytes,
+                      "bulk_latency_us": st.bulk_sched_us}
+    log(f"  tiers: {json.dumps(out)}")
+    if not (st.bulk_hits > 0 and st.demotions > 0):
+        raise AssertionError(f"no bulk promotion or demotion: {out}")
+    if not exclusive:
+        raise AssertionError(f"residency is not an exclusive partition: "
+                             f"{out}")
     return out
 
 
@@ -2762,7 +3055,84 @@ def main() -> int:
     log_peak(torch, "phase 10e")
     free_device(torch)
 
-    # 11. the numbers, then the result
+    # 11. the capacity tier page-locked in host memory, read and written
+    #     by the row movers over PCIe: 7a-7c's runs over it (11a), the
+    #     four movers over it against their plain versions and the card,
+    #     then three tiers with a memory-mapped bulk store (11b). dlrm-m3
+    #     (11c, 118.3 GB of rows) does not fit this machine's host memory
+    import mmap
+
+    from repro_torch.core import hostmem
+    with open("/proc/meminfo") as f:
+        mem = {k: v.strip() for k, v in (
+            line.split(":", 1) for line in f if ":" in line)}
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    disk = shutil.disk_usage(os.path.join(ROOT, "runs"))
+    log(f"phase 11: host MemTotal {mem.get('MemTotal')}, MemAvailable "
+        f"{mem.get('MemAvailable')}; disk under runs/: {disk.free} bytes "
+        f"free of {disk.total}")
+    r_rows = ebc.plan.total_rows
+    t0 = time.perf_counter()
+    host = {"mega": hostmem.pinned_zeros((r_rows, d)),
+            "accum": hostmem.pinned_zeros((r_rows,))}
+    pin_s = time.perf_counter() - t0
+    locked = hostmem.page_locked_bytes()
+    exact = sum(-(-b // mmap.PAGESIZE) * mmap.PAGESIZE
+                for b in (r_rows * d * 4, r_rows * 4))
+    log(f"phase 11: {locked} bytes page-locked and mapped in {pin_s:.1f} s "
+        f"(table {r_rows * d * 4} + accumulator {r_rows * 4}, in whole "
+        f"pages {exact})")
+    if locked != exact:
+        raise AssertionError(f"{locked} bytes page-locked, not {exact}")
+    rates = pcie_rates(torch, dev, host)
+    for r in runs:
+        hr = dict(r, name="11a-" + r["name"], path="host_" + r["path"],
+                  strict=True)
+        log(f"phase {hr['name']}: build_cached_train_step, {TRAIN_STEPS} "
+            f"steps from the launcher's seed and batches, the capacity "
+            f"tier page-locked on the host")
+        res = train_cached(torch, dev, cfg, hr, want, host)
+        paths[hr["path"]] = read_launches(KERNELS, hr["path"], hr["needs"])
+        log(f"{hr['name']} numbers: {json.dumps(res)}")
+        free_device(torch)
+    log(f"phase 11a: the four row movers over the host tier vs plain and "
+        f"the card (R={r_rows}, C={EVICT_CACHE_ROWS}, D={d})")
+    host_movers = check_host_movers(torch, dev, cfg, ebc, host, rates)
+    free_device(torch)
+    bulk_dir = tempfile.mkdtemp(prefix="chip_smoke_bulk_",
+                                dir=os.path.join(ROOT, "runs"))
+    try:
+        for kind in ("sync", "async"):
+            br = {"name": f"11b-{kind}", "path": f"host_bulk_{kind}",
+                  "tier": kind, "cache_rows": EVICT_CACHE_ROWS,
+                  "fetch_chunk": EVICT_CHUNK, "hook": "dedup",
+                  "lookahead": False, "evicts": True, "strict": True,
+                  "bulk": {"dram_rows": BULK_DRAM_ROWS,
+                           "bulk_chunk": BULK_CHUNK,
+                           "bulk_latency_us": BULK_LATENCY_US,
+                           "bulk_path": os.path.join(bulk_dir,
+                                                     f"{kind}.npy")},
+                  "needs": step_kernels + ("embedding_bag", "cache_fetch",
+                                           "cache_fetch_chunked")}
+            log(f"phase {br['name']}: BulkCachedEmbeddingBagCollection "
+                f"over the host tier, {TRAIN_STEPS} steps: {br['bulk']}")
+            res = train_cached(torch, dev, cfg, br, want, host)
+            paths[br["path"]] = read_launches(KERNELS, br["path"],
+                                              br["needs"])
+            log(f"{br['name']} numbers: {json.dumps(res)}")
+            free_device(torch)
+            for f in os.listdir(bulk_dir):
+                os.remove(os.path.join(bulk_dir, f))
+    finally:
+        shutil.rmtree(bulk_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    del host
+    gc.collect()
+    log(f"phase 11: host tier unregistered and unmapped in "
+        f"{time.perf_counter() - t0:.1f} s; page-locked bytes left "
+        f"{hostmem.page_locked_bytes()}")
+
+    # 12. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -2793,6 +3163,11 @@ def main() -> int:
                 "max_abs_err_vs_fp32_oracle", "train_shape",
                 "m2_train_shape", "host_us")
                 if key in nums}})
+        if k.name in host_movers:
+            rows[-1]["host_capacity"] = {
+                **host_movers[k.name], "launches": sum(
+                    p[k.name] for n, p in paths.items()
+                    if n.startswith("host_"))}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

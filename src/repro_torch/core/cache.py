@@ -14,10 +14,19 @@ them to cache slots (fetch-on-miss through the hand-written row movers of
 `kernels.cache_ops`, which move a row and its AdaGrad accumulator
 together), and the lookup and the sparse update then run against the small
 cache tensor. Eviction is LFU with decay; dirty victims are written back.
-The payload tensors live on the device and are updated IN PLACE (the
-reference donated them to XLA); the slot maps and per-row EMA counters are
-host numpy, exactly as in the reference, so eviction choices are the
-reference's.
+The payload tensors are updated IN PLACE (the reference donated them to
+XLA); the slot maps and per-row EMA counters are host numpy, exactly as in
+the reference, so eviction choices are the reference's.
+
+Placement (`init_state(mega, device=...)`): the device tier goes on
+`device` (default: mega's device). The capacity tier stays where `mega`
+is: on the card, or, for a CUDA device tier, in page-locked host memory
+(`core.hostmem.pinned_zeros`), the paper's system-memory tier, which the
+row movers read and write across PCIe. A pageable host `mega` under a CUDA
+device tier raises: the kernels cannot reach it. Kernels write a host
+capacity tier asynchronously, so every host read of it (`materialize`,
+`state_dict`, the bulk tier's demotions and reseed) first waits on an event
+recorded after the last kernel that writes it (`capacity_fence`).
 
 Two schedules, bit-identical in their results:
   sync   `prepare`/`take` fetch and install the batch's misses inline
@@ -35,18 +44,22 @@ copy, which waits for the work queued before it.
 `state_dict`/`load_state_dict` checkpoint the whole tier (device slabs
 and host maps, both schedules), and an `injector` fires "cache.fetch"
 before each capacity-tier fetch, with `retry` absorbing transient faults.
-The bulk tier and the multi-host tier come with later slices.
+Two tier hooks, `_stage_capacity` before every capacity-tier read and
+`_absorb_evictions` after every eviction, are no-ops here; the bulk tier
+(`core.tiers`) overrides them. The multi-host tier comes with a later
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import DLRMConfig
+from repro_torch.core import hostmem
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.kernels import cache_ops
 from repro_torch.kernels.sparse_plan import coalesce_rows
@@ -85,6 +98,11 @@ class CacheStats:
                 "cache_fetch_chunks": float(self.fetch_chunks),
                 "cache_overfetch_rows": float(self.overfetch_rows)}
 
+    def reset(self) -> None:
+        """Zero every counter in place (subclasses' too)."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
 
 @dataclasses.dataclass
 class CacheState:
@@ -103,6 +121,8 @@ class CacheState:
     ema_tick: np.ndarray       # (R,) int64 tick of each row's last EMA touch
     tick: int                  # EMA clock: one tick per planned batch
     stats: CacheStats
+    capacity_event: Any = None  # CUDA event after the last kernel that
+                                # writes a host capacity tier
 
     @property
     def cache_rows(self) -> int:
@@ -170,11 +190,37 @@ class AsyncCacheState:
     ema_tick: np.ndarray       # (R,) int64 tick of each row's last EMA touch
     tick: int                  # EMA clock: one tick per planned batch
     stats: CacheStats
+    capacity_event: Any = None  # see CacheState
 
     @property
     def cache_rows(self) -> int:
         """Device-tier height C (slots)."""
         return int(self.cache.shape[0])
+
+
+def _host_capacity(state) -> bool:
+    """True when the capacity tier is host memory under a CUDA device
+    tier (written by queued kernels, read by host code)."""
+    return state.capacity.device.type == "cpu" and state.cache.is_cuda
+
+
+def _capacity_written(state) -> None:
+    """Record an event after the kernels queued so far, which may write a
+    host capacity tier."""
+    if _host_capacity(state):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(state.cache.device))
+        state.capacity_event = ev
+
+
+def capacity_fence(state) -> None:
+    """Wait until no queued kernel writes the capacity tier any more.
+    Needed before host code reads a host capacity tier; a no-op when the
+    tier is on the card (torch orders its reads on the stream) or nothing
+    was queued."""
+    if state.capacity_event is not None:
+        state.capacity_event.synchronize()
+        state.capacity_event = None
 
 
 def _host(x) -> np.ndarray:
@@ -258,14 +304,16 @@ def _chunk_min_fill(chunk: int) -> int:
 
 
 def _chunked_shadow_fetch(capacity: torch.Tensor, cap_accum: torch.Tensor,
-                          missing: np.ndarray, chunk: int, stats: CacheStats
+                          missing: np.ndarray, chunk: int, stats: CacheStats,
+                          dev: torch.device | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Chunk-granular shadow fetch of the sorted `missing` rows, shared by
     the sync and async admissions: dense blocks through
     `cache_fetch_chunked`, the isolated rest through `cache_fetch`, one
     slab. Books `fetch_chunks` (transfers) and `overfetch_rows` (block
-    padding). Returns (shadow, shadow_accum, src_pos): src_pos[i] is miss
-    i's slab row, the commit's install remap."""
+    padding). The worklists and the slab go on `dev`, the device tier's
+    (default capacity's). Returns (shadow, shadow_accum, src_pos): src_pos[i] is miss i's slab
+    row, the commit's install remap."""
     total = int(capacity.shape[0])
     chunk = min(chunk, total)
     starts, pos = coalesce_rows(missing, chunk, total,
@@ -274,7 +322,7 @@ def _chunked_shadow_fetch(capacity: torch.Tensor, cap_accum: torch.Tensor,
     src_pos = pos.copy()
     src_pos[single] = len(starts) * chunk + np.arange(len(single),
                                                       dtype=np.int32)
-    dev = capacity.device
+    dev = capacity.device if dev is None else dev
     parts = []
     if len(starts):
         parts.append(cache_ops.cache_fetch_chunked(
@@ -379,6 +427,8 @@ class CachedEmbeddingBagCollection:
     retry: Any = None          # RetryPolicy bounding transient-fault
                                # retries in `_fetch_guard`; None fails fast
 
+    _stats_cls: ClassVar[type] = CacheStats
+
     def __post_init__(self):
         if self.cache_rows <= 0:
             raise ValueError("cached_host plan produced an empty cache")
@@ -398,15 +448,30 @@ class CachedEmbeddingBagCollection:
 
     # -- state ---------------------------------------------------------------
 
-    def _tiers(self, mega: torch.Tensor, accum: torch.Tensor | None):
+    def _tiers(self, mega: torch.Tensor, accum: torch.Tensor | None,
+               device):
         r, d = mega.shape
         if r != self.ebc.plan.total_rows:
             raise ValueError(f"mega has {r} rows, the plan "
                              f"{self.ebc.plan.total_rows}")
-        dev = mega.device
+        dev = mega.device if device is None else torch.device(device)
+        on_host = mega.device.type == "cpu" and dev.type == "cuda"
+        if on_host:
+            for name, t in (("mega", mega), ("accum", accum)):
+                if t is not None and t.device.type == "cpu" \
+                        and not hostmem.is_page_locked(t):
+                    raise ValueError(
+                        f"{name} is pageable host memory under a CUDA "
+                        "device tier: the kernels cannot reach it; make it "
+                        "with core.hostmem.pinned_zeros or keep it on the "
+                        "card")
+        elif mega.device.type != dev.type:
+            raise ValueError(f"a capacity tier on {mega.device} under a "
+                             f"device tier on {dev}")
         c = self.cache_rows
         if accum is None:
-            accum = torch.zeros((r,), dtype=torch.float32, device=dev)
+            accum = (hostmem.pinned_zeros((r,)) if on_host else
+                     torch.zeros((r,), dtype=torch.float32, device=dev))
         return dict(
             capacity=mega, cap_accum=accum,
             cache=torch.zeros((c, d), dtype=mega.dtype, device=dev),
@@ -416,23 +481,27 @@ class CachedEmbeddingBagCollection:
             dirty=np.zeros((c,), bool),
             ema=np.zeros((r,), np.float32),
             ema_tick=np.zeros((r,), np.int64),
-            tick=0, stats=CacheStats())
+            tick=0, stats=self._stats_cls())
 
     def init_state(self, mega: torch.Tensor,
-                   accum: torch.Tensor | None = None) -> CacheState:
+                   accum: torch.Tensor | None = None,
+                   device=None) -> CacheState:
         """mega: (total_rows, d) fp32 capacity-tier table; accum: optional
-        (total_rows,) AdaGrad accumulator.
+        (total_rows,) AdaGrad accumulator; device: the device tier's
+        device (default mega's).
 
         The state TAKES OWNERSHIP of `mega` (and `accum`) without copying:
         the row movers write the capacity tier in place, so the caller must
         not use `mega` for anything else afterwards. (The reference copies;
         at full dlrm-m1 width two 43.6 GB copies do not fit in one card.)
         The cache, its accumulators and the LFU scores are allocated on
-        mega's device."""
-        t = self._tiers(mega, accum)
+        `device`. With a CUDA `device`, a host `mega` (and `accum`) must be
+        page-locked (`core.hostmem.pinned_zeros`), else ValueError before
+        any allocation; a missing `accum` is then allocated page-locked."""
+        t = self._tiers(mega, accum, device)
         return CacheState(freq=torch.zeros((self.cache_rows,),
                                            dtype=torch.float32,
-                                           device=mega.device), **t)
+                                           device=t["cache"].device), **t)
 
     # -- admission -----------------------------------------------------------
 
@@ -470,6 +539,18 @@ class CachedEmbeddingBagCollection:
         local = row_slot[np.where(valid, idx, 0)]
         return np.where(valid, local, -1).astype(np.int32)
 
+    # -- tier hooks (the bulk tier, core/tiers.py, overrides them) ---------
+
+    def _stage_capacity(self, state, missing: np.ndarray) -> None:
+        """Called by every admission with the sorted unique `missing` rows
+        right before the capacity tier is read. The two-tier collection
+        stages nothing: capacity is its slowest tier."""
+
+    def _absorb_evictions(self, state, evicted_rows: np.ndarray) -> None:
+        """Called by every admission after the host maps flip, with the
+        rows displaced from the device tier. The two-tier collection needs
+        nothing: evicted rows already live in capacity."""
+
     def _admit(self, state: CacheState, missing: np.ndarray,
                seeds: np.ndarray, protect: np.ndarray) -> int:
         """Bring `missing` global rows (SORTED ascending) into cache slots,
@@ -485,6 +566,8 @@ class CachedEmbeddingBagCollection:
         # the fault gate comes before any host-map mutation: a propagated
         # transient fault leaves the tier consistent for a replay
         _fetch_guard(self.injector, self.retry, "cache.fetch")
+        # tier hook: stage the rows into capacity before the fetch reads it
+        self._stage_capacity(state, missing)
         slots, victims = _pick_slots(
             state.slot_row, state.freq, n, protect,
             f"the batch working set exceeds cache_rows={state.cache_rows};"
@@ -499,7 +582,7 @@ class CachedEmbeddingBagCollection:
         if self.fetch_chunk > 1:
             shadow, shadow_accum, pos = _chunked_shadow_fetch(
                 state.capacity, state.cap_accum, missing, self.fetch_chunk,
-                state.stats)
+                state.stats, dev)
             slots_t = _device_ints(slots, dev)
             cache_ops.cache_commit(
                 state.capacity, state.cache, state.cap_accum,
@@ -514,11 +597,14 @@ class CachedEmbeddingBagCollection:
                 state.cache_accum, state.freq, _device_ints(slots, dev),
                 _device_ints(evict_rows, dev), _device_ints(missing, dev),
                 _device_floats(seeds, dev))
+        _capacity_written(state)
         # host maps
         state.row_slot[evicted_rows] = -1
         state.slot_row[slots] = missing
         state.row_slot[missing] = slots.astype(np.int32)
         state.dirty[slots] = False
+        # tier hook: evicted rows fall back to the next tier down
+        self._absorb_evictions(state, evicted_rows)
         state.stats.fetches += n
         state.stats.evictions += len(victims)
         state.stats.writebacks += int(wb_mask.sum())
@@ -683,6 +769,7 @@ class CachedEmbeddingBagCollection:
             _device_ints(state.slot_row[slots], dev),
             torch.full((len(slots),), -1, dtype=torch.int32, device=dev),
             torch.zeros((len(slots),), dtype=torch.float32, device=dev))
+        _capacity_written(state)
         state.dirty[slots] = False
         state.stats.writebacks += len(slots)
         return len(slots)
@@ -695,8 +782,10 @@ class CachedEmbeddingBagCollection:
     def materialize(self, state: CacheState
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Flush and return the up-to-date (mega, accum) capacity tensors —
-        what a checkpoint or an uncached evaluator should read."""
+        what a checkpoint or an uncached evaluator should read. A host
+        capacity tier is returned after its writebacks have landed."""
         self.flush(state)
+        capacity_fence(state)
         return state.capacity, state.cap_accum
 
     def stats(self, state) -> CacheStats:
@@ -724,12 +813,12 @@ class CachedEmbeddingBagCollection:
     # Victims never come from the in-flight, staged or queued working sets.
 
     def init_async_state(self, mega: torch.Tensor,
-                         accum: torch.Tensor | None = None
-                         ) -> AsyncCacheState:
+                         accum: torch.Tensor | None = None,
+                         device=None) -> AsyncCacheState:
         """Async twin of `init_state`, with the same ownership of `mega`
-        and `accum` (no copy), host-resident LFU scores and an empty commit
-        queue at epoch 0."""
-        t = self._tiers(mega, accum)
+        and `accum` (no copy) and placement (`device`), host-resident LFU
+        scores and an empty commit queue at epoch 0."""
+        t = self._tiers(mega, accum, device)
         c = self.cache_rows
         return AsyncCacheState(
             freq=np.zeros((c,), np.float32),
@@ -801,16 +890,20 @@ class CachedEmbeddingBagCollection:
             # fault gate first: a plan that dies here leaves the maps
             # unflipped and the queue intact (the batch re-plans at take)
             _fetch_guard(self.injector, self.retry, "cache.fetch")
+            # tier hook: stage the rows into capacity before the fetch
+            # reads it (its own fault gate also fires before any mutation)
+            self._stage_capacity(astate, missing)
             # the fetch only reads the tiers: queued behind the in-flight
             # step, it never touches a slot that step uses
+            dev = astate.cache.device
             if self.fetch_chunk > 1:
                 shadow, shadow_accum, src_pos = _chunked_shadow_fetch(
                     astate.capacity, astate.cap_accum, missing,
-                    self.fetch_chunk, astate.stats)
+                    self.fetch_chunk, astate.stats, dev)
             else:
                 shadow, shadow_accum = cache_ops.cache_fetch(
                     astate.capacity, astate.cap_accum,
-                    _device_ints(missing, astate.capacity.device))
+                    _device_ints(missing, dev))
         epoch = astate.epoch + 1
         astate.epoch = epoch
         # flip the host maps to the post-commit view now: later plans see
@@ -831,6 +924,9 @@ class CachedEmbeddingBagCollection:
                                 shadow_accum, src_pos)
         if n:                                  # nothing to commit for all-hit
             astate.pending.append(pending)
+        # tier hook after the append: a demotion that must drain queued
+        # dirty writebacks sees this entry too
+        self._absorb_evictions(astate, evicted_rows)
         return pending
 
     def _plan_async(self, astate: AsyncCacheState, idx, train: bool,
@@ -933,6 +1029,8 @@ class CachedEmbeddingBagCollection:
                 src_pos=None if p.src_pos is None
                 else _device_ints(p.src_pos, dev))
             done += 1
+        if done:
+            _capacity_written(astate)
         # the slabs are freed here, after their commits are queued on the
         # same stream, so the allocator cannot hand them out too early
         astate.pending.clear()
@@ -961,6 +1059,7 @@ class CachedEmbeddingBagCollection:
         tensors — bit-equal to the sync `materialize` after the same
         batches."""
         self.flush_async(astate)
+        capacity_fence(astate)
         return astate.capacity, astate.cap_accum
 
     # -- checkpointing -------------------------------------------------------
@@ -976,7 +1075,8 @@ class CachedEmbeddingBagCollection:
         but unconsumed plan is unwound to a prefetch, as `take_async` does
         on a mismatch: its rows stay admitted and the restored run
         re-plans the batch, which leaves the model's math unchanged.
-        Mutates `state` (drain + unwind) before taking it."""
+        Mutates `state` (drain + unwind) before taking it. A host capacity
+        tier is returned after its queued writebacks have landed."""
         is_async = isinstance(state, AsyncCacheState)
         if is_async:
             self.commit_async(state)
@@ -988,6 +1088,7 @@ class CachedEmbeddingBagCollection:
                 state.stats.steps -= 1
                 state.stats.prefetched += st.misses
             state.inflight_mask = None
+        capacity_fence(state)
         d = {k: getattr(state, k) for k in
              ("capacity", "cap_accum", "cache", "cache_accum")}
         d["freq"] = np.array(state.freq) if is_async else state.freq
@@ -1005,24 +1106,41 @@ class CachedEmbeddingBagCollection:
                         ) -> CacheState | AsyncCacheState:
         """Rebuild the tier from a `state_dict` tree (as restored by
         `CheckpointManager.restore`, or numpy leaves). Tensor leaves are
-        taken as they are, without a copy; numpy device leaves go to the
-        capacity tensor's device, else to `device` (default cuda). The
+        taken as they are, without a copy, so a page-locked host capacity
+        tier stays there (`CheckpointManager.restore` fills the example
+        tree's own tensors in place). Numpy leaves go to the device tier's
+        device: `device`, else the `cache` leaf's, else a tensor capacity
+        leaf's unless it is page-locked host memory (default cuda). The
         host maps become owned copies, since the planner mutates them. The
         async-only `epoch` key selects the state's flavour."""
-        cap = d["capacity"]
-        dev = (cap.device if isinstance(cap, torch.Tensor)
-               else resolve_device(device))
+        cap, cache = d["capacity"], d["cache"]
+        if device is not None:
+            dev = resolve_device(device)
+        elif isinstance(cache, torch.Tensor):
+            dev = cache.device
+        elif isinstance(cap, torch.Tensor) and not (
+                cap.device.type == "cpu" and hostmem.is_page_locked(cap)):
+            dev = cap.device
+        else:
+            dev = resolve_device(None)
 
         def on_dev(x, dtype):
             if isinstance(x, torch.Tensor):
                 return x
             return torch.from_numpy(np.array(x, dtype)).to(dev)
 
-        stats = CacheStats(**{k: int(v) for k, v in d["stats"].items()})
+        stats = self._stats_cls(**{k: int(v) for k, v in d["stats"].items()})
         tensors = dict(capacity=on_dev(cap, np.float32),
                        cap_accum=on_dev(d["cap_accum"], np.float32),
-                       cache=on_dev(d["cache"], np.float32),
+                       cache=on_dev(cache, np.float32),
                        cache_accum=on_dev(d["cache_accum"], np.float32))
+        if tensors["cache"].is_cuda:
+            for name in ("capacity", "cap_accum"):
+                t = tensors[name]
+                if t.device.type == "cpu" and not hostmem.is_page_locked(t):
+                    raise ValueError(
+                        f"{name} is pageable host memory under a CUDA "
+                        "device tier: the kernels cannot reach it")
         host = dict(
             slot_row=np.array(d["slot_row"], np.int64),
             row_slot=np.array(d["row_slot"], np.int32),

@@ -14,6 +14,13 @@ The TPU kernels live in `repro/kernels/cache_ops.py`. JAX donated the tier
 buffers so XLA could alias them; the port mutates the torch tensors in
 place. Every kernel runs on PyTorch's current stream. `lfu_touch` is a
 plain torch op here as in the reference, which has no kernel for it.
+
+Dispatch goes by the worklist's device: all-CPU calls take the plain
+version; a CUDA worklist launches the kernel on its device, with the
+cache and the shadow slab there too, and the capacity tier (`capacity`,
+`cap_accum`) either there or in page-locked host memory
+(`core.hostmem`), which the kernel reads and writes over PCIe through the
+same pointers (UVA). Anything else raises: no copy, no fallback.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hostmem import is_page_locked
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, stream_handle
 
@@ -88,14 +96,23 @@ def check_chunk_starts(chunk_starts: torch.Tensor, chunk: int,
                          f"{total_rows}")
 
 
+_HOST_OK = ("capacity", "cap_accum")
+
+
 def _check_cuda(op: str, shapes: dict) -> torch.device:
-    """The wrappers' common guard: every tensor on one CUDA device, of the
-    expected shape and dtype (int32 worklists, fp32 payload), contiguous.
-    `shapes` maps name -> (tensor, shape, dtype). Returns the device."""
-    tensors = [t for t, _, _ in shapes.values()]
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{op} needs every tensor on one CUDA device")
+    """The wrappers' common guard: every tensor on one CUDA device (the
+    capacity tier's two tensors may be page-locked host memory instead),
+    of the expected shape and dtype (int32 worklists, fp32 payload),
+    contiguous. `shapes` maps name -> (tensor, shape, dtype). Returns the
+    device."""
+    dev = next(t.device for name, (t, _, _) in shapes.items()
+               if name not in _HOST_OK)
+    if dev.type != "cuda" or any(
+            t.device != dev and not (name in _HOST_OK and is_page_locked(t))
+            for name, (t, _, _) in shapes.items()):
+        raise ValueError(f"{op} needs every tensor on one CUDA device "
+                         "(capacity and cap_accum may be page-locked host "
+                         "memory instead)")
     for name, (t, shape, dtype) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
@@ -114,21 +131,23 @@ def cache_fetch(capacity: torch.Tensor, cap_accum: torch.Tensor,
     reading the tiers only. Returns (shadow (N, D), shadow_accum (N,)); a
     pad gives a zero row (`ref.cache_fetch_ref`).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise. The device's part is ~12 µs on an H100 at a training batch's
-    misses, so this path keeps its host work to direct checks, two
-    allocations and the launch, as `cache_fetch_chunked` does."""
+    CPU tensors take the plain version; a CUDA worklist launches the
+    kernel (the slab on its device; the capacity tier there or page-locked
+    on the host), or raises. The device's part is ~12 µs on an H100 at a
+    training batch's misses, so this path keeps its host work to direct
+    checks, two allocations and the launch, as `cache_fetch_chunked`
+    does."""
     if capacity.is_cpu and cap_accum.is_cpu and fetch_rows.is_cpu:
         return ref.cache_fetch_ref(capacity, cap_accum, fetch_rows)
     r, d = capacity.shape
     n = fetch_rows.shape[0]
     check_fetch(capacity, cap_accum, fetch_rows)
-    shadow = capacity.new_empty((n, d))
-    shadow_accum = capacity.new_empty((n,))
+    shadow = fetch_rows.new_empty((n, d), dtype=torch.float32)
+    shadow_accum = fetch_rows.new_empty((n,), dtype=torch.float32)
     FETCH_KERNEL.launch(capacity.data_ptr(), cap_accum.data_ptr(),
                         fetch_rows.data_ptr(), shadow.data_ptr(),
                         shadow_accum.data_ptr(), n, d,
-                        stream_handle(capacity.get_device()))
+                        stream_handle(fetch_rows.get_device()))
     return shadow, shadow_accum
 
 
@@ -148,9 +167,10 @@ def cache_fetch_chunked(capacity: torch.Tensor, cap_accum: torch.Tensor,
     clamped so start + chunk <= R (-1 = pad, a zero block). Returns
     (shadow (K*chunk, D), shadow_accum (K*chunk,)).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise. The device's part is a few microseconds, so this path keeps its
-    host work to direct checks, two allocations and the launch."""
+    CPU tensors take the plain version; a CUDA worklist launches the
+    kernel (as `cache_fetch`), or raises. The device's part is a few
+    microseconds, so this path keeps its host work to direct checks, two
+    allocations and the launch."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if capacity.is_cpu and cap_accum.is_cpu and chunk_starts.is_cpu:
@@ -162,12 +182,12 @@ def cache_fetch_chunked(capacity: torch.Tensor, cap_accum: torch.Tensor,
         raise ValueError(f"chunk {chunk} is taller than the {r}-row table")
     check_fetch_chunked(capacity, cap_accum, chunk_starts)
     n = k * chunk
-    shadow = capacity.new_empty((n, d))
-    shadow_accum = capacity.new_empty((n,))
+    shadow = chunk_starts.new_empty((n, d), dtype=torch.float32)
+    shadow_accum = chunk_starts.new_empty((n,), dtype=torch.float32)
     FETCH_CHUNKED_KERNEL.launch(
         capacity.data_ptr(), cap_accum.data_ptr(), chunk_starts.data_ptr(),
         shadow.data_ptr(), shadow_accum.data_ptr(), k, chunk, d,
-        stream_handle(capacity.get_device()))
+        stream_handle(chunk_starts.get_device()))
     return shadow, shadow_accum
 
 
@@ -183,9 +203,10 @@ def _check_gather(op: str, capacity: torch.Tensor, cap_accum: torch.Tensor,
     """The two fetches' guard: `_check_cuda`'s checks written out directly
     (no dict, no loop); on a failure `_check_cuda` raises its own exception
     and message."""
-    dev = capacity.get_device()
-    if not (capacity.is_cuda and cap_accum.get_device() == dev
-            and rows.get_device() == dev
+    dev = rows.get_device()
+    if not (rows.is_cuda
+            and (capacity.get_device() == dev or is_page_locked(capacity))
+            and (cap_accum.get_device() == dev or is_page_locked(cap_accum))
             and cap_accum.shape == capacity.shape[:1]
             and rows.dim() == 1
             and capacity.dtype == torch.float32
@@ -215,10 +236,11 @@ def cache_commit(capacity: torch.Tensor, cache: torch.Tensor,
     -1 = pure writeback). See `ref.cache_commit_ref` for the contract
     (distinct slots, src_pos inside the slab: `check_commit_worklist`).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise. The device's part is a few tens of µs on an H100 at a training
-    batch's misses, so this path keeps its host work to direct checks and
-    the launch, as the fetches do."""
+    CPU tensors take the plain version; a CUDA worklist launches the
+    kernel (cache and slab on its device; the capacity tier there or
+    page-locked on the host), or raises. The device's part is a few tens
+    of µs on an H100 at a training batch's misses, so this path keeps its
+    host work to direct checks and the launch, as the fetches do."""
     if (capacity.is_cpu and cache.is_cpu and cap_accum.is_cpu
             and cache_accum.is_cpu and shadow.is_cpu and shadow_accum.is_cpu
             and slots.is_cpu and evict_rows.is_cpu and fetch_rows.is_cpu
@@ -234,7 +256,7 @@ def cache_commit(capacity: torch.Tensor, cache: torch.Tensor,
         cache_accum.data_ptr(), shadow.data_ptr(), shadow_accum.data_ptr(),
         slots.data_ptr(), evict_rows.data_ptr(), fetch_rows.data_ptr(),
         None if src_pos is None else src_pos.data_ptr(), slots.shape[0],
-        capacity.shape[1], stream_handle(capacity.get_device()))
+        capacity.shape[1], stream_handle(slots.get_device()))
 
 
 def _check_commit(capacity: torch.Tensor, cache: torch.Tensor,
@@ -247,14 +269,14 @@ def _check_commit(capacity: torch.Tensor, cache: torch.Tensor,
     (no dict, no loop); on a failure `_check_cuda` raises its own exception
     and message."""
     r, d = capacity.shape
-    dev = capacity.get_device()
+    dev = slots.get_device()
     n = slots.shape[0]
-    if not (capacity.is_cuda and cache.get_device() == dev
-            and cap_accum.get_device() == dev
+    if not (slots.is_cuda and cache.get_device() == dev
+            and (capacity.get_device() == dev or is_page_locked(capacity))
+            and (cap_accum.get_device() == dev or is_page_locked(cap_accum))
             and cache_accum.get_device() == dev
             and shadow.get_device() == dev
             and shadow_accum.get_device() == dev
-            and slots.get_device() == dev
             and evict_rows.get_device() == dev
             and fetch_rows.get_device() == dev
             and (src_pos is None or src_pos.get_device() == dev)
@@ -309,8 +331,9 @@ def cache_exchange(capacity: torch.Tensor, cache: torch.Tensor,
     skip), counts (N,) fp32 LFU seeds; see `ref.cache_exchange_ref` for the
     per-entry contract (distinct slots, disjoint evict/fetch rows).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, or
-    raise."""
+    CPU tensors take the plain version; a CUDA worklist launches the
+    kernel (the capacity tier on its device or page-locked on the host),
+    or raises."""
     tiers = (capacity, cache, cap_accum, cache_accum, freq)
     work = (slots, evict_rows, fetch_rows, counts)
     if all(t.device.type == "cpu" for t in tiers + work):

@@ -1,14 +1,16 @@
 """Fault injection and crash-consistent recovery for the port's trainer.
 
   * `FaultInjector`: deterministic, seed-driven fault schedules fired at
-    named hook points (`pipeline.batch`, `cache.fetch`,
-    `checkpoint.write`, `loop.step`, and the serving tier's `serve.fetch`
-    and `serve.admit`), threaded through data/pipeline.py, core/cache.py,
-    train/checkpoint.py and serve/dlrm_engine.py. `from_seed` draws the
+    named hook points (`pipeline.batch`, `cache.fetch`, the bulk tier's
+    `bulk.fetch`, `checkpoint.write`, `loop.step`, and the serving tier's
+    `serve.fetch` and `serve.admit`), threaded through data/pipeline.py,
+    core/cache.py, core/tiers.py, train/checkpoint.py and
+    serve/dlrm_engine.py. `from_seed` draws the
     reference's schedule for the same seed (the same `RandomState` draws
     in the same order).
   * `RetryPolicy`: bounded retry with backoff for transient fetch faults
-    (consumed duck-typed by core/cache.py's `_fetch_guard`).
+    (consumed duck-typed by core/cache.py's `_fetch_guard`, which
+    core/tiers.py's bulk promotions call too).
   * `DegradationManager`: the async -> strict_sync state machine.
   * `TrainState` with `save_train_state` / `restore_train_state`: params,
     optimizer state, the cache tier's `state_dict` and the pipeline cursor
@@ -16,7 +18,8 @@
   * `PreemptionHandler`, `StragglerDetector`, `StepTimer`.
   * `run_resilient_loop` and `run_chaos_loop`, the loops; the
     chaos invariant (any fault schedule ends bit-equal to the fault-free
-    run) is held by tests/test_torch_chaos.py.
+    run) is held by tests/test_torch_chaos.py on the sync, async and
+    three-tier bulk collections.
 
 `_recoverable` differs from the reference's on purpose: a kernel that
 failed to build or launch (`kernels._build.KernelError`), a device out of
@@ -41,7 +44,7 @@ import torch
 from repro_torch.kernels._build import KernelError
 
 #: hook points a FaultSpec can target (call sites fire these by name);
-#: `bulk.fetch` is the bulk tier's, which comes with the N-tier slice
+#: `bulk.fetch` fires before a bulk tier's promotion (core/tiers.py)
 SITES = ("pipeline.batch", "cache.fetch", "bulk.fetch", "checkpoint.write",
          "loop.step", "serve.fetch", "serve.admit")
 

@@ -11,7 +11,8 @@ a dense optimizer, the embedding rows with row-wise AdaGrad.
                               table: the reference launcher's default);
   build_cached_train_step     a hot-row cache over the capacity tier
                               (`core.cache`): the sync schedule for a bare
-                              `CachedEmbeddingBagCollection`, the
+                              `CachedEmbeddingBagCollection` (or the
+                              three-tier `core.tiers` subclass), the
                               overlapped one for `core.tiers.AsyncCachedTier`;
   build_tablewise_train_step  a `table_wise` placement (whole tables on
                               owners, the paper's Zion / Big Basin layout)
@@ -33,7 +34,7 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core.cache import CachedEmbeddingBagCollection
 from repro_torch.core.dlrm import dense_grads, dlrm_grads
 from repro_torch.core.embedding import EmbeddingBagCollection
-from repro_torch.core.tiers import AsyncCachedTier
+from repro_torch.core.tiers import AsyncCachedTier, tier_conformance
 from repro_torch.kernels import ops
 from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              host_plan_from_batch,
@@ -305,11 +306,12 @@ def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
                             sparse_lr: float = 0.05,
                             sparse_eps: float = 1e-8,
                             strict_sync: bool = False) -> Callable:
-    """One train-step factory for the cached tiers, dispatching on the
-    tier's type:
+    """One train-step factory for every cached tier, dispatching on the
+    tier's type (all of them consume the tier through the `EmbeddingTier`
+    protocol, `core.tiers`):
 
       `CachedEmbeddingBagCollection`  sync schedule (take admits the batch
-                                      inline; next_batch rows prefetch
+      (the bulk-backed subclass too)  inline; next_batch rows prefetch
                                       behind the step);
       `AsyncCachedTier(cc)`           overlapped schedule (batch k+1
                                       stages while batch k computes;
@@ -327,7 +329,10 @@ def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
                                        sparse_eps)
     raise TypeError(
         f"build_cached_train_step: unsupported tier {type(tier).__name__}; "
-        "expected a CachedEmbeddingBagCollection or an AsyncCachedTier")
+        "expected an EmbeddingTier (CachedEmbeddingBagCollection, "
+        "AsyncCachedTier or the bulk-backed subclass); protocol "
+        f"conformance (core.tiers.tier_conformance): "
+        f"{tier_conformance(tier)}")
 
 
 def cached_dlrm_init_state(cc, dense_opt: Optimizer, params: dict) -> dict:

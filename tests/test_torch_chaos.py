@@ -5,8 +5,10 @@ ends with losses, the materialized capacity tier, its accumulators and
 the dense parameters BIT-EQUAL to the port's fault-free run. Recovery
 restores the TrainState bundle (params, optimizer state, the cache tier's
 `state_dict`, the pipeline cursor) from the newest intact checkpoint and
-replays. The reference's bulk, multi-host and elastic cases wait for
-their tiers.
+replays. The sync, async and three-tier bulk collections all resume
+bit-equal under faults on their fetch sites ("cache.fetch", and
+"bulk.fetch" for the bulk tier); the reference's multi-host and elastic
+cases wait for their tiers.
 
 Against the reference: `FaultInjector.from_seed` draws the reference's
 schedules exactly, and a faulted run's losses and table match the
@@ -36,7 +38,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.cache import CachedEmbeddingBagCollection
 from repro_torch.core.embedding import EmbeddingBagCollection
-from repro_torch.core.tiers import AsyncCachedTier
+from repro_torch.core.tiers import (AsyncCachedTier,
+                                    BulkCachedEmbeddingBagCollection)
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import make_dlrm_batch
 from repro_torch.kernels._build import KernelError
@@ -83,9 +86,17 @@ def _batch(cfg, ebc, t):
 
 def _tools(cfg, host, tier="async", injector=None, retry=None):
     """(collection, step adapter, dense, cstate, tier state) of a fresh job
-    from `host`'s parameters (the tier takes ownership of its table)."""
+    from `host`'s parameters (the tier takes ownership of its table).
+    "bulk" is the three-tier collection on the sync schedule, its DRAM
+    budget below the table height, so promotions pull from bulk and
+    evictions overflow DRAM back into it."""
     opt = adagrad(0.01)
-    cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=CACHE_ROWS)
+    if tier == "bulk":
+        cc = BulkCachedEmbeddingBagCollection.build(
+            cfg, cache_rows=CACHE_ROWS, dram_rows=32, bulk_chunk=16,
+            bulk_latency_us=0.0)
+    else:
+        cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=CACHE_ROWS)
     cc = dataclasses.replace(cc, injector=injector, retry=retry)
     params = params_from_jax(host, device="cpu")
     dense = {"bottom": params["bottom"], "top": params["top"]}
@@ -127,7 +138,7 @@ def oracle(setup):
 
 
 def _run_chaos(setup, ckpt_dir, injector, *, checkpoint_every=2, retry=None,
-               degradation=None, max_restarts=10, keep=4):
+               degradation=None, max_restarts=10, keep=4, tier="async"):
     """`run_chaos_loop` over the whole stack: the DataPipeline (injector in
     the reader), the async cached tier (injector + retry on the fetch
     path), the CheckpointManager (torn leaves, CRC fallback) and the
@@ -140,7 +151,7 @@ def _run_chaos(setup, ckpt_dir, injector, *, checkpoint_every=2, retry=None,
     def restore_cb():
         if job.get("pipe") is not None:
             job["pipe"].close()
-        cc, step, dense, cstate, astate = _tools(cfg, host,
+        cc, step, dense, cstate, astate = _tools(cfg, host, tier,
                                                  injector=injector,
                                                  retry=retry)
         example = TrainState(dense, cstate, cc.state_dict(astate), 0)
@@ -182,7 +193,7 @@ def _run_chaos(setup, ckpt_dir, injector, *, checkpoint_every=2, retry=None,
                          injector=injector, degradation=degradation,
                          max_restarts=max_restarts)
     job["pipe"].close()
-    mega, accum = job["cc"].materialize_async(job["astate"])
+    mega, accum = _materialize(job["cc"], tier, job["astate"])
     return rep, mgr, (losses, mega, accum, job["dense"])
 
 
@@ -239,6 +250,22 @@ def test_chaos_preempt_with_torn_checkpoint_falls_back(setup, oracle,
     rep, mgr, got = _run_chaos(setup, tmp_path, inj)
     assert rep.restarts == 1 and mgr.last_restored_step == 4
     assert 8 in mgr.saved_steps()
+    _assert_matches_oracle(got, oracle)
+
+
+def test_chaos_loop_on_the_bulk_tier_resumes_bitexact(setup, oracle,
+                                                      tmp_path):
+    """The three-tier collection under the chaos loop: a dead reader (a
+    restart from the newest checkpoint, whose bulk store reseeds from
+    capacity) and a transient "bulk.fetch" error absorbed by the retry
+    end bit-equal to the two-tier async fault-free run."""
+    inj = FaultInjector([FaultSpec("pipeline.batch", 5, "kill"),
+                         FaultSpec("bulk.fetch", 3, "error")])
+    rep, _, got = _run_chaos(setup, tmp_path, inj, tier="bulk",
+                             retry=RetryPolicy(max_retries=2,
+                                               backoff_s=1e-5))
+    assert rep.restarts >= 1 and rep.last_step == N_STEPS
+    assert ("bulk.fetch", 3, "error") in inj.fired
     _assert_matches_oracle(got, oracle)
 
 
@@ -453,8 +480,9 @@ def _check_resume_equivalence(setup, tier, seed):
     cc, step, dense, cstate, tstate = _tools(cfg, host, tier)
     dense, cstate, l1 = segment(step, dense, cstate, tstate, 0, n1)
     snap = cc.state_dict(tstate)
-    inj = FaultInjector.from_seed(seed, 32, sites=("cache.fetch",),
-                                  n_faults=2)
+    sites = (("cache.fetch", "bulk.fetch") if tier == "bulk"
+             else ("cache.fetch",))
+    inj = FaultInjector.from_seed(seed, 32, sites=sites, n_faults=2)
     cc2, step2, _, _, fresh = _tools(cfg, host, tier, injector=inj,
                                      retry=RetryPolicy(max_retries=3,
                                                        backoff_s=1e-5))
@@ -466,9 +494,51 @@ def _check_resume_equivalence(setup, tier, seed):
     assert torch.equal(got_m, want_m) and torch.equal(got_a, want_a)
 
 
-@pytest.mark.parametrize("tier", ["sync", "async"])
+@pytest.mark.parametrize("tier", ["sync", "async", "bulk"])
 def test_resume_under_faults_equals_uninterrupted(setup, tier):
     _check_resume_equivalence(setup, tier, seed=5)
+
+
+def test_chaos_bulk_latency_fault_with_preemption_bitexact(setup):
+    """Three tiers: latency faults on the bulk promotion path
+    ("bulk.fetch") plus a transient error, and a preemption in the middle
+    (snapshot, drop the live state, restore into a fresh faulty
+    collection), leave the run bit-equal to the fault-free uninterrupted
+    one. The capacity tier is always current, so the restored bulk store
+    reseeds bit-identically."""
+    cfg, ebc, _, host = setup
+    n1, n2 = 2, 3
+
+    def segment(step, dense, cstate, tstate, t0, t1):
+        losses = []
+        for t in range(t0, t1):
+            dense, cstate, m = step(dense, cstate, tstate,
+                                    _batch(cfg, ebc, t), t)
+            losses.append(float(m["loss"]))
+        return dense, cstate, losses
+
+    cc, step, dense, cstate, tstate = _tools(cfg, host, "bulk")
+    _, _, want_l = segment(step, dense, cstate, tstate, 0, n1 + n2)
+    want_m, want_a = cc.materialize(tstate)
+    assert tstate.stats.bulk_hits > 0 and tstate.stats.demotions > 0
+
+    cc, step, dense, cstate, tstate = _tools(cfg, host, "bulk")
+    dense, cstate, l1 = segment(step, dense, cstate, tstate, 0, n1)
+    snap = cc.state_dict(tstate)
+    del tstate
+    inj = FaultInjector([FaultSpec("bulk.fetch", 0, "latency", 0.002),
+                         FaultSpec("bulk.fetch", 1, "error"),
+                         FaultSpec("bulk.fetch", 2, "latency", 0.002)])
+    cc2, step2, _, _, fresh = _tools(cfg, host, "bulk", injector=inj,
+                                     retry=RetryPolicy(max_retries=3,
+                                                       backoff_s=1e-5))
+    del fresh
+    tstate2 = cc2.load_state_dict(snap)
+    _, _, l2 = segment(step2, dense, cstate, tstate2, n1, n1 + n2)
+    got_m, got_a = cc2.materialize(tstate2)
+    assert l1 + l2 == want_l
+    assert any(site == "bulk.fetch" for site, _, _ in inj.fired)
+    assert torch.equal(got_m, want_m) and torch.equal(got_a, want_a)
 
 
 def test_state_dict_drains_unwinds_and_owns_its_host_maps(setup):
@@ -499,7 +569,7 @@ if HAS_HYPOTHESIS:
 
     @requires_hypothesis
     @settings(max_examples=3, deadline=None)
-    @given(tier=st.sampled_from(["sync", "async"]),
+    @given(tier=st.sampled_from(["sync", "async", "bulk"]),
            seed=st.integers(0, 10 ** 6))
     def test_resume_under_fuzzed_faults_equals_uninterrupted(setup, tier,
                                                              seed):

@@ -1762,3 +1762,261 @@ def test_transient_cache_fetch_fault_is_absorbed_on_the_card(dev):
                                 3)
     assert inj.fired == [("cache.fetch", 1, "error")]
     assert got == want and cache_ops.FETCH_KERNEL.launches > before
+
+
+# ---------------------------------------------------------------------------
+# the capacity tier in page-locked host memory, read over PCIe (UVA)
+# ---------------------------------------------------------------------------
+
+
+def _host_tier(capacity, cap_accum):
+    """Page-locked host copies of a capacity tier."""
+    from repro_torch.core import hostmem
+    cap = hostmem.pinned_zeros(capacity.shape)
+    acc = hostmem.pinned_zeros(cap_accum.shape)
+    cap.copy_(capacity)
+    acc.copy_(cap_accum)
+    return cap, acc
+
+
+def test_pinned_zeros_is_exact_mapped_and_released(dev):
+    import gc
+
+    from repro_torch.core import hostmem
+    before = hostmem.page_locked_bytes()
+    t = hostmem.pinned_zeros((1000, 64))
+    assert t.shape == (1000, 64) and t.dtype == torch.float32
+    assert not t.any() and t.is_pinned() and hostmem.is_page_locked(t)
+    assert hostmem.is_page_locked(t[500:])
+    # exactly the tensor's bytes, rounded up to one page: no power of two
+    assert hostmem.page_locked_bytes() - before == 258_048
+    assert not hostmem.is_page_locked(torch.zeros(4))
+    assert hostmem.is_page_locked(torch.zeros(4).pin_memory())
+    del t
+    gc.collect()
+    assert hostmem.page_locked_bytes() == before
+
+
+@pytest.mark.parametrize("d", [64, 5])
+@pytest.mark.parametrize("op", ["fetch", "fetch_chunked", "commit",
+                                "exchange"])
+def test_cache_movers_over_a_page_locked_capacity_tier(dev, op, d):
+    """Each row mover with its capacity tier in page-locked host memory,
+    read and written by the kernel across PCIe: bit-equal to its plain
+    version and to the same call with the tier on the card, and one
+    launch."""
+    r, c = 300, 40
+    capacity, cache, cap_accum, cache_accum = _mover_inputs(dev, r, c, d,
+                                                            d + 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    slots = torch.tensor([0, 3, 7, -1, 9, 39, 12, 13], **i32)
+    evict = torch.tensor([100, -1, 102, 5, -1, 299, -1, 7], **i32)
+    fetch = torch.tensor([200, 201, -1, -1, 202, 203, 204, 205], **i32)
+    starts = torch.tensor([0, -1, r - 8, 41], **i32)
+    g = torch.Generator(device=dev).manual_seed(5)
+    shadow = torch.randn((8, d), generator=g, device=dev)
+    shadow_accum = torch.rand((8,), generator=g, device=dev)
+    freq = torch.arange(c, dtype=torch.float32, device=dev)
+    seeds = torch.full((8,), 2.0, device=dev)
+
+    def call(cap, acc, plain=False):
+        cch, cch_acc = cache.clone(), cache_accum.clone()
+        if op == "fetch":
+            f = ref.cache_fetch_ref if plain else cache_ops.cache_fetch
+            return list(f(cap, acc, fetch))
+        if op == "fetch_chunked":
+            f = (ref.cache_fetch_chunked_ref if plain
+                 else cache_ops.cache_fetch_chunked)
+            return list(f(cap, acc, starts, 8))
+        if op == "commit":
+            f = ref.cache_commit_ref if plain else cache_ops.cache_commit
+            f(cap, cch, acc, cch_acc, shadow, shadow_accum, slots, evict,
+              fetch)
+        else:
+            f = ref.cache_exchange_ref if plain else cache_ops.cache_exchange
+            f(cap, cch, acc, cch_acc, freq.clone(), slots, evict, fetch,
+              seeds)
+        return [cap, cch, acc, cch_acc]
+
+    kernel = {"fetch": cache_ops.FETCH_KERNEL,
+              "fetch_chunked": cache_ops.FETCH_CHUNKED_KERNEL,
+              "commit": cache_ops.COMMIT_KERNEL,
+              "exchange": cache_ops.KERNEL}[op]
+    host_cap, host_acc = _host_tier(capacity, cap_accum)
+    before = kernel.launches
+    on_host = call(host_cap, host_acc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    on_card = call(capacity.clone(), cap_accum.clone())
+    plain = call(capacity.clone(), cap_accum.clone(), plain=True)
+    for a, b, p in zip(on_host, on_card, plain):
+        assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), p.cpu())
+    if op in ("fetch", "fetch_chunked"):
+        assert on_host[0].is_cuda            # the slab is on the card
+    else:
+        assert on_host[0] is host_cap        # written in place on the host
+
+
+def test_cache_movers_refuse_pageable_host_capacity(dev):
+    cap, acc = torch.zeros((8, 4)), torch.zeros(8)
+    rows = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = cache_ops.FETCH_KERNEL.launches
+    with pytest.raises(ValueError, match="page-locked host memory instead"):
+        cache_ops.cache_fetch(cap, acc, rows)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cache_ops.cache_fetch_chunked(cap, acc, rows, 2)
+    pinned_cap, pinned_acc = _host_tier(cap, acc)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cache_ops.cache_fetch(pinned_cap, acc, rows)      # accum pageable
+    assert cache_ops.FETCH_KERNEL.launches == before
+    shadow, _ = cache_ops.cache_fetch(pinned_cap, pinned_acc, rows)
+    assert shadow.device == rows.device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    cc = CachedEmbeddingBagCollection.build(get_smoke_config("dlrm-m1"),
+                                            cache_rows=64)
+    r, d = cc.ebc.plan.total_rows, cc.ebc.cfg.embed_dim
+    with pytest.raises(ValueError, match="pageable"):
+        cc.init_state(torch.zeros((r, d)), device=dev)
+    mega, accum = _host_tier(torch.zeros((r, d)), torch.zeros(r))
+    with pytest.raises(ValueError, match="accum is pageable"):
+        cc.init_state(mega, torch.zeros(r), device=dev)
+    st = cc.init_state(mega, device=dev)
+    assert st.cache.is_cuda and st.freq.is_cuda and st.capacity is mega
+    from repro_torch.core.hostmem import is_page_locked
+    assert is_page_locked(st.cap_accum)
+
+
+@pytest.mark.parametrize("tier_kind", ["sync", "async", "bulk_sync",
+                                       "bulk_async"])
+def test_cached_train_step_with_host_capacity_equals_on_card(dev,
+                                                             tier_kind):
+    """Four cached steps of the smoke dlrm-m1 with the capacity tier in
+    page-locked host memory, against the same run with it on the card:
+    losses, materialized table and accumulator, host maps and counters
+    bit-equal (the movers copy; the rest runs on the card either way)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import CachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.tiers import (AsyncCachedTier,
+                                        BulkCachedEmbeddingBagCollection)
+    from repro_torch.data.pipeline import dedup_indices_hook
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    if tier_kind.startswith("bulk"):
+        cc = BulkCachedEmbeddingBagCollection.build(
+            cfg, cache_rows=256, fetch_chunk=4, dram_rows=32, bulk_chunk=16,
+            bulk_latency_us=0.0)
+    else:
+        cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=256,
+                                                fetch_chunk=4)
+    hook = dedup_indices_hook(cc.ebc.plan.table_offsets)
+    batches = [hook(make_dlrm_batch(cfg, 8, step=t)) for t in range(5)]
+    runs = []
+    for on_host in (False, True):
+        params = init_dlrm_params(cfg, cc.ebc, 0, dev)
+        tier = AsyncCachedTier(cc) if tier_kind.endswith("async") else cc
+        mega = params.pop("emb")["mega"]
+        if on_host:
+            mega, _ = _host_tier(mega, torch.zeros(1, device=dev))
+        cs = tier.init_state(mega, device=dev)
+        opt = adagrad(0.01)
+        state = cached_dlrm_init_state(cc, opt, params)
+        dense = {"bottom": params["bottom"], "top": params["top"]}
+        step = build_cached_train_step(cfg, tier, opt)
+        losses = []
+        for t in range(4):
+            dense, state, m = step(dense, state, cs, batches[t], t,
+                                   next_batch=batches[t + 1])
+            losses.append(float(m["loss"]))
+        got = tier.materialize(cs)
+        assert got[0].device.type == ("cpu" if on_host else "cuda")
+        runs.append((losses, got[0].cpu(), got[1].cpu(), cs))
+    (l0, m0, a0, s0), (l1, m1, a1, s1) = runs
+    assert l0 == l1 and torch.equal(m0, m1) and torch.equal(a0, a1)
+    np.testing.assert_array_equal(s0.slot_row, s1.slot_row)
+    assert s0.stats == s1.stats and s0.stats.evictions > 0
+    if tier_kind.startswith("bulk"):
+        assert s1.stats.bulk_hits > 0 and s1.stats.demotions > 0
+
+
+def test_host_demotion_after_a_queued_writeback_reads_the_written_bits(
+        dev, monkeypatch):
+    """The host/device race of a host capacity tier: a demotion that must
+    first queue a pending commit (its writeback hits a demotion victim)
+    reads capacity on the host right after the launch. Restaging a batch
+    whose rows are all resident admits nothing, so its demotion's drained
+    commit is the last kernel queued before the read (no worklist upload
+    in between waits for it). Each commit here waits behind ~10 ms of
+    device sleep, so without `capacity_fence` the host would read the bits
+    from before the writeback. The bulk store, the residency and the table
+    must equal the same sequence run on the CPU, where nothing is
+    asynchronous."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import hostmem
+    from repro_torch.core.tiers import (AsyncCachedTier,
+                                        BulkCachedEmbeddingBagCollection)
+    from repro_torch.data.synthetic import make_dlrm_batch
+    cfg = get_smoke_config("dlrm-m1")
+    bc = BulkCachedEmbeddingBagCollection.build(
+        cfg, cache_rows=256, dram_rows=4, bulk_chunk=16, bulk_latency_us=0.0)
+    tier = AsyncCachedTier(bc)
+    r, d = bc.ebc.plan.total_rows, cfg.embed_dim
+    idx = [bc.ebc.offset_indices(make_dlrm_batch(cfg, 8, step=t)["idx"])
+           for t in range(10)]
+    mega = torch.from_numpy(np.random.RandomState(0).randn(r, d)
+                            .astype(np.float32))
+    real_commit = cache_ops.cache_commit
+    real_demote = BulkCachedEmbeddingBagCollection._demote_overflow
+    drained = {"in": False, "n": 0}
+
+    def slow_commit(*args, **kw):
+        drained["n"] += drained["in"]
+        if args[1].is_cuda:
+            torch.cuda._sleep(20_000_000)
+        return real_commit(*args, **kw)
+
+    def demote(self, *args):
+        drained["in"] = True
+        try:
+            return real_demote(self, *args)
+        finally:
+            drained["in"] = False
+
+    monkeypatch.setattr(cache_ops, "cache_commit", slow_commit)
+    monkeypatch.setattr(BulkCachedEmbeddingBagCollection, "_demote_overflow",
+                        demote)
+    runs = []
+    for on_card in (True, False):
+        rng = np.random.RandomState(1)
+        if on_card:
+            cap = hostmem.pinned_zeros((r, d))
+            cap.copy_(mega)
+            st = tier.init_state(cap, device=dev)
+        else:
+            st = tier.init_state(mega.clone(), device="cpu")
+        drained["n"] = 0
+        for t in range(8):
+            tier.take(st, idx[t], train=True)
+            st.cache.add_(0.5)
+            tier.stage(st, idx[t + 1], train=True)
+            tier.stage(st, idx[t + 1], train=True)     # all resident now
+            tier.prefetch_rows(st, rng.choice(r, 64, replace=False))
+        runs.append((st, drained["n"]))
+    (card, n_card), (cpu, n_cpu) = runs
+    assert n_card == n_cpu > 0                 # the race's setting occurred
+    assert card.stats == cpu.stats and card.stats.demotions > 0
+    np.testing.assert_array_equal(card.dram_resident, cpu.dram_resident)
+    bulk_rows = np.flatnonzero(bc.tier_residency(cpu)["bulk"])
+    np.testing.assert_array_equal(card.bulk.values[bulk_rows],
+                                  cpu.bulk.values[bulk_rows])
+    np.testing.assert_array_equal(card.bulk.accum[bulk_rows],
+                                  cpu.bulk.accum[bulk_rows])
+    got, want = tier.materialize(card), tier.materialize(cpu)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(card.bulk.values[bulk_rows],
+                                  got[0].numpy()[bulk_rows])
