@@ -108,7 +108,22 @@ Phases, each of which makes the script exit non-zero when it fails:
    async, bit-equal to the launcher, with promotions, demotions and an
    exclusive residency; dlrm-m3's 118.3 GB of rows do not fit the host
    memory of the card's machine, so no phase 11c;
-12. print one JSON line of per-kernel numbers, then the result line.
+12. run the sharded executors on `torch.distributed`, every rank a process
+   spawned on this card (`launch.mesh.run_ranks`, gloo: NCCL refuses two
+   ranks on one device) that loads the kernels built in phase 2 and takes
+   CUDA IPC views of the parent's table: (12a) 8a's run on a (1, 8) mesh,
+   one rank per owner (the psum lookup, each owner's segmented update on
+   its own shard), every rank's losses equal to 8a's and the shards'
+   checksums adding up to TABLEWISE_FINAL_SUMS; (12b) the psum dense update
+   on full-width dlrm-m2 under row_wise, mesh (1, 4), held to the
+   one-device dense step within TOL_PSUM_LOSS / TOL_PSUM_TABLE, and again
+   with a bf16 reduce, held to the fp32 run within TOL_PSUM_BF16; (12c) the
+   hybrid table-wise step on dlrm-m2, 4 owners on a (2, 4) mesh, the two
+   data replicas of every shard bit-equal to each other and the whole
+   within TOL_HYBRID (the dense parameters TOL_HYBRID_DENSE) of the
+   one-device step; each rank's launches exact,
+   its host and device ms and all_reduce calls, bytes and ms a step;
+13. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -176,6 +191,44 @@ HOST_PEAK_LIMIT = 10 * 10 ** 9
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
 #: the table-wise runs: the 8 owners of a Zion / Big Basin box
 TABLEWISE_OWNERS = 8
+#: phases 12a-12c: the sharded executors' meshes (data, model): 8a's 8
+#: owners; dlrm-m2's table in 4 row_wise shards (each rank's dense-update
+#: buffer is its shard's size again: 4 x 6.07 GB beside the 24.3 GB
+#: table); dlrm-m2 on 4 table_wise owners with 2 data replicas each (the
+#: second replica's copies: 28.4 GB beside the 28.4 GB table)
+MESH_PSUM_SHAPE, MESH_HYBRID_SHAPE = (1, 4), (2, 4)
+#: steps of 12b's runs and 12c's (the reference's psum test takes one
+#: step, its table-wise mesh test 4); 12a takes TRAIN_STEPS, as 8a
+MESH_PSUM_STEPS, MESH_HYBRID_STEPS = 2, 4
+#: steps each rank runs under torch.profiler (its last ones)
+MESH_PROFILED_STEPS = 1
+#: seconds a world of ranks may take, from spawn to its last report,
+#: before every rank is killed and the phase fails
+MESH_TIMEOUT_S = 300
+#: 12b against the one-device dense step, the reference's own bounds
+#: (tests/test_multidevice.py:82-85): the losses relative; the table and
+#: accumulator (rtol, atol). A bag split between two row_wise shards sums
+#: two partials, so its pool moves by an ulp
+TOL_PSUM_LOSS, TOL_PSUM_TABLE = 1e-5, (1e-4, 1e-5)
+#: 12b's bf16 reduce against its fp32 run: the first loss bit-equal (it is
+#: computed before any update); the second relative. Each gradient sum is
+#: rounded to bf16 (2^-9 relative), which moves a row's AdaGrad update by
+#: up to about 2^-8 of itself; the step-1 loss moves by at most that share
+#: of what the embeddings add to it
+TOL_PSUM_BF16 = 2 ** -8
+#: 12c against the one-device step (tests/test_tablewise.py:377): rtol =
+#: atol on the losses, table and accumulator. The data replicas sum two
+#: slices' dense gradients, so the dense parameters drift by ulps; the
+#: replicas themselves are held bit-equal
+TOL_HYBRID = 1e-6
+#: 12c's dense parameters (atol; rtol TOL_HYBRID): two 256-example sums of
+#: a gradient differ from one 512-example sum by rounding, up to 2^-24 of
+#: the summed |per-example gradients|, and dense AdaGrad's step moves a
+#: parameter by up to lr / sqrt(eps) = 100 times its gradient's change
+#: where |g| ~ sqrt(eps); at dlrm-m2's losses (1 -> 350 -> 28 -> 5.6) that
+#: is a few 1e-6 a step in the elements whose gradient nearly cancels
+#: (3.8e-6 after 4 steps on an H100 80GB HBM3 at 700 W)
+TOL_HYBRID_DENSE = 1e-5
 #: the LM serving path (phases 9a-9d): stablelm-1.6b at full width, the
 #: prefill_32k cell cut to batch 1 and 8,192 tokens (its 32 x 32,768
 #: positions of 100,352 bf16 logits alone would take 210 GB), then
@@ -2062,6 +2115,461 @@ def train_tablewise(torch, dev, cfg, ebc, oracle: bool) -> dict:
     return out
 
 
+def rank_device(dev) -> str:
+    """The device string each spawned rank runs on: the parent's card."""
+    import torch
+    if dev.type == "cuda":
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(dev)
+
+
+def host_dense(params) -> dict:
+    """The dense parameters as numpy arrays, the way a rank takes them."""
+    return {part: [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+                   for layer in params[part]] for part in ("bottom", "top")}
+
+
+def mesh_run(torch, dev, name: str, job: dict, n_ranks: int,
+             per_rank: dict) -> tuple[list, dict]:
+    """Spawn `n_ranks` ranks of `train.sharded.train_rank` on the card
+    (gloo: NCCL refuses two ranks on one device), each loading the kernels
+    the parent built; hold every rank's launches to `per_rank` (kernel ->
+    exact count) and its modules clear of jax and the reference. Returns
+    the ranks' reports and the phase's numbers: host ms a step (steps 1
+    on), each rank's device span and busy ms a step, the all_reduce calls,
+    bytes and ms a step (the bytes of calls over a one-rank axis, which
+    run no collective, apart), examples/s and the ranks' summed peaks."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train.sharded import train_rank
+    t0 = time.perf_counter()
+    timings: dict = {}
+    res = run_ranks(train_rank, n_ranks, (job,), backend="gloo",
+                    device=rank_device(dev), timeout_s=MESH_TIMEOUT_S,
+                    timings=timings)
+    wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    for r in res:
+        log(f"  {name} rank {r['rank']} {r['coords']} rows {r['rows']}: "
+            f"losses {r['losses']}; launches {r['launches']}; host ms "
+            f"{[round(x, 3) for x in r['host_ms']]}; device span ms "
+            f"{[round(x, 3) for x in r['device_span_ms']]}; busy ms a "
+            f"profiled step {r['device_busy_ms_per_step']}; peak "
+            f"{r['peak_bytes']} bytes")
+        bad = {k: (r["launches"][k], want) for k, want in per_rank.items()
+               if r["launches"][k] != want}
+        if bad:
+            raise AssertionError(f"{name} rank {r['rank']}: launches "
+                                 f"(got, want) {bad}")
+        if r["foreign_modules"]:
+            raise AssertionError(f"{name} rank {r['rank']} loaded "
+                                 f"{r['foreign_modules']}")
+    n = len(res[0]["host_ms"])
+    later = slice(1, n) if n > 1 else slice(0, n)
+
+    def per_step(key):
+        return float(np.mean([st[key] for r in res
+                              for st in r["all_reduce"][later]]))
+
+    host_ms = float(np.mean([np.mean(r["host_ms"][later]) for r in res]))
+    busy = [r["device_busy_ms_per_step"] for r in res]
+    spans = {key: max(t[key] for t in timings["ranks"])
+             for key in ("started", "imported", "entered", "joined",
+                         "returned")}
+    nums = {"ranks": n_ranks, "spawn_and_run_s": wall,
+            "last_rank_started_s": spans["started"],
+            "last_rank_imported_s": spans["imported"],
+            "last_rank_entered_s": spans["entered"],
+            "last_rank_joined_s": spans["joined"],
+            "last_rank_reported_s": spans["returned"],
+            "all_exited_s": timings["all_exited_s"],
+            "rank_setup_s": {k: float(max(r["setup"][k] for r in res))
+                             for k in res[0]["setup"]},
+            "host_ms_per_step": host_ms,
+            "max_rank_host_ms_per_step": float(max(
+                np.mean(r["host_ms"][later]) for r in res)),
+            "device_span_ms_per_step": float(np.mean(
+                [np.mean(r["device_span_ms"][later]) for r in res]))
+            if res[0]["device_span_ms"] else None,
+            "device_busy_ms_per_step_by_rank": busy,
+            "all_reduce_calls_per_step": per_step("all_reduce_calls"),
+            "all_reduce_bytes_per_step": per_step("all_reduce_bytes"),
+            "all_reduce_ms_per_step": per_step("all_reduce_ms"),
+            "one_rank_axis_bytes_per_step": per_step("skipped_bytes"),
+            "ranks_peak_bytes": sum(r["peak_bytes"] or 0 for r in res),
+            "examples_per_s": TRAIN_BATCH / host_ms * 1e3,
+            "launches": {k: sum(r["launches"][k] for r in res)
+                         for k in res[0]["launches"]},
+            "launches_per_rank": [r["launches"] for r in res]}
+    log(f"  {name}: " + json.dumps({k: v for k, v in nums.items()
+                                     if k != "launches_per_rank"}))
+    return res, nums
+
+
+def release_shared(torch, dev) -> None:
+    """Free the blocks the ranks held by CUDA IPC: PyTorch keeps a shared
+    block after its last local reference until every rank has let go of
+    it, and frees it only when asked."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()
+
+
+def chunked_close(torch, dev, got, want_host, rtol: float, atol: float,
+                  chunk: int = 1 << 24) -> tuple[bool, float]:
+    """|got - want| <= atol + rtol * |want| over a table on the card and
+    its oracle in host memory, a chunk of rows at a time; (all within,
+    the largest difference)."""
+    ok, worst = True, 0.0
+    for lo in range(0, got.shape[0], chunk):
+        g = got[lo:lo + chunk]
+        w = want_host[lo:lo + chunk].to(dev)
+        err = (g - w).abs()
+        ok = ok and not bool((err > atol + rtol * w.abs()).any())
+        worst = max(worst, float(err.max()))
+        del w, err
+    return ok, worst
+
+
+def mesh_reckoning(name: str, table_bytes: int, extra_bytes: int,
+                   parent_peak: int, nums: dict) -> None:
+    log(f"  {name} memory: reckoned {table_bytes} bytes of table and "
+        f"accumulator in the parent's memory + {extra_bytes} bytes the "
+        f"ranks allocate (contexts aside); measured max_memory_allocated: "
+        f"parent {parent_peak}, ranks summed {nums['ranks_peak_bytes']}")
+
+
+def mesh_tablewise_m1(torch, dev, cfg, ebc, want: dict) -> dict:
+    """Phase 12a: 8a's run on a (1, 8) mesh, one rank per owner: each rank
+    views its owner's 25.7M rows of the parent's table (CUDA IPC), draws
+    8a's batches from the same pipeline, stages the next one, pools with
+    the psum lookup and updates its own shard. Gates: every rank's losses
+    equal 8a's, the ranks' shard checksums add up to the parent's table,
+    and that to TABLEWISE_FINAL_SUMS, bit for bit; each rank one pooled
+    lookup, one interaction and one segmented update a step; the
+    exchange metrics equal the traffic model."""
+    import numpy as np
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.launch.analysis import tablewise_exchange_traffic
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.train.sharded import add_checksums
+
+    plan = ebc.plan
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+    mega = params["emb"]["mega"]
+    accum = torch.zeros((plan.total_rows,), dtype=torch.float32, device=dev)
+    job = {"cfg": cfg, "mesh": (1, TABLEWISE_OWNERS),
+           "strategy": "table_wise", "step": "tablewise",
+           "dense": host_dense(params), "mega": mega, "accum": accum,
+           "n_steps": TRAIN_STEPS,
+           "batches": mesh_batches(cfg, ebc, TRAIN_STEPS, "plan"),
+           "staged": True, "sparse_lr": SPARSE_LR, "sparse_eps": SPARSE_EPS,
+           "profile_steps": MESH_PROFILED_STEPS}
+    per_rank = {"embedding_bag": TRAIN_STEPS,
+                "dot_interaction": TRAIN_STEPS,
+                "fused_bag_backward_adagrad_segments": TRAIN_STEPS,
+                "fused_bag_backward_adagrad": 0,
+                "dedup_embedding_bag": 0}
+    res, nums = mesh_run(torch, dev, "12a", job, TABLEWISE_OWNERS, per_rank)
+    del job
+    sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+    shard_sums = (add_checksums(r["mega_sum"] for r in res),
+                  add_checksums(r["accum_sum"] for r in res))
+    owners = np.asarray(plan.table_offsets) // plan.shard_rows
+    model = tablewise_exchange_traffic(
+        TRAIN_BATCH, cfg.n_sparse_features, cfg.truncation, cfg.embed_dim,
+        plan.capacity_shards,
+        features_per_owner=np.bincount(owners,
+                                       minlength=plan.capacity_shards))
+    log(f"12a: losses {res[0]['losses']} (8a {want['losses']}); final "
+        f"checksums: parent {sums}, ranks added {shard_sums}, recorded "
+        f"{TABLEWISE_FINAL_SUMS}; exchange metrics {res[0]['exchange']} "
+        f"vs the model {model}; all_reduce bytes a step "
+        f"{nums['all_reduce_bytes_per_step']} (one (B, F, d) fp32 pool: "
+        f"{TRAIN_BATCH * cfg.n_sparse_features * cfg.embed_dim * 4}; the "
+        f"model's all-to-all wire bytes each way {model['fwd_bytes']})")
+    mesh_reckoning("12a", (mega.numel() + accum.numel()) * 4, 0,
+                   torch.cuda.max_memory_allocated(), nums)
+    for r in res:
+        if r["losses"] != want["losses"]:
+            raise AssertionError(f"12a rank {r['rank']} losses "
+                                 f"{r['losses']} differ from 8a's")
+        if r["exchange"] != {"exchange_pooled_fwd_bytes": model["fwd_bytes"],
+                             "exchange_pooled_bwd_bytes": model["bwd_bytes"],
+                             "exchange_pair_leg_bytes":
+                                 model["pair_leg_bytes"]}:
+            raise AssertionError(f"12a exchange metrics {r['exchange']} "
+                                 f"differ from the model {model}")
+    if not sums == shard_sums == TABLEWISE_FINAL_SUMS:
+        raise AssertionError(f"12a checksums: parent {sums}, ranks "
+                             f"{shard_sums}, recorded {TABLEWISE_FINAL_SUMS}")
+    del params, mega, accum
+    release_shared(torch, dev)
+    return nums
+
+
+def mesh_batches(cfg, ebc, n_steps: int, hook: str) -> list:
+    """A mesh phase's batches, drawn once here through the training
+    pipeline (`train.sharded.pipeline_batches`, seed 0) and handed to the
+    oracle and to every rank, so the ranks do not each run the reader."""
+    from repro_torch.train.sharded import pipeline_batches
+    return pipeline_batches(cfg, ebc, n_steps, TRAIN_BATCH, hook)
+
+
+def oracle_m2(torch, dev, cfg, ebc, batches: list, sparse_apply: str
+              ) -> dict:
+    """The single-device oracle of 12b / 12c: `build_dlrm_train_step` on
+    the same layout, seed and batches as the mesh run; its final table,
+    accumulator and dense parameters go to host memory."""
+    import numpy as np
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.launch.train import PARAM_SEED, batch_to_device
+    from repro_torch.optim import adagrad
+    from repro_torch.train import build_dlrm_train_step, dlrm_init_state
+    params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step = build_dlrm_train_step(cfg, ebc, opt, SPARSE_LR, SPARSE_EPS,
+                                 sparse_apply=sparse_apply)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for t, batch in enumerate(batches):
+        params, state, m = step(params, state, batch_to_device(batch, dev),
+                                t)
+        losses.append(float(m["loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"oracle losses not finite: {losses}")
+    out = {"losses": losses, "mega": params["emb"]["mega"].cpu(),
+           "accum": state["accum"].cpu(), "dense": host_dense(params),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  oracle ({sparse_apply} update, one device): losses {losses}; "
+        f"peak {out['peak_bytes']} bytes")
+    del params, state
+    return out
+
+
+def close_dense(got: dict, want: dict, rtol: float, atol: float
+                ) -> tuple[bool, float]:
+    """(every element within atol + rtol * |want|, the largest difference)
+    between two dense parameter trees."""
+    import numpy as np
+    ok, worst = True, 0.0
+    for part in ("bottom", "top"):
+        for a, b in zip(got[part], want[part]):
+            for k in a:
+                err = np.abs(a[k] - b[k])
+                ok = ok and bool((err <= atol + rtol * np.abs(b[k])).all())
+                worst = max(worst, float(err.max()))
+    return ok, worst
+
+
+def mesh_psum_m2(torch, dev, m2) -> dict:
+    """Phase 12b: the psum dense update on full-width dlrm-m2 under
+    row_wise, mesh (1, 4): the single-device dense step first (the
+    oracle, same layout, seed and batches), then MESH_PSUM_STEPS steps on
+    4 ranks, each on a view of its quarter of the parent's table with its
+    own (rows_local, d) gradient buffer; then the same with a bf16 reduce
+    from a fresh table. Gates: losses within TOL_PSUM_LOSS, table and
+    accumulator within TOL_PSUM_TABLE of the oracle; the bf16 run's first
+    loss bit-equal to the fp32 run's, its second within TOL_PSUM_BF16;
+    each step's gradient sum handed to the (one-rank) data axis is
+    rows_local * d * 4 bytes (2 in bf16)."""
+    import dataclasses
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.launch.train import PARAM_SEED
+    cfg = dataclasses.replace(m2, lookup_impl="psum")
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=MESH_PSUM_SHAPE[1],
+                                       strategy="row_wise")
+    rows, d = ebc.plan.total_rows, cfg.embed_dim
+    rows_local = rows // MESH_PSUM_SHAPE[1]
+    log(f"phase 12b: the oracle, build_dlrm_train_step(sparse_apply="
+        f"'dense') on one device, R={rows}, {MESH_PSUM_STEPS} steps")
+    batches = mesh_batches(cfg, ebc, MESH_PSUM_STEPS, "offset")
+    oracle = oracle_m2(torch, dev, m2, ebc, batches, "dense")
+    free_device(torch)
+    out, fp32_losses = {}, None
+    per_rank = {"embedding_bag": MESH_PSUM_STEPS,
+                "dot_interaction": MESH_PSUM_STEPS,
+                "fused_bag_backward_adagrad": 0,
+                "fused_bag_backward_adagrad_segments": 0}
+    for dtype in ("float32", "bfloat16"):
+        name = "12b" if dtype == "float32" else "12b-bf16"
+        log(f"phase {name}: {MESH_PSUM_SHAPE[1]} ranks, mesh "
+            f"{MESH_PSUM_SHAPE}, the psum update with a {dtype} reduce, "
+            f"rows_local {rows_local}")
+        torch.cuda.reset_peak_memory_stats()
+        params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+        mega = params["emb"]["mega"]
+        accum = torch.zeros((rows,), dtype=torch.float32, device=dev)
+        job = {"cfg": dataclasses.replace(cfg, grad_reduce_dtype=dtype),
+               "mesh": MESH_PSUM_SHAPE, "strategy": "row_wise",
+               "step": "dense_psum", "dense": host_dense(params),
+               "mega": mega, "accum": accum, "n_steps": MESH_PSUM_STEPS,
+               "batches": batches,
+               "sparse_lr": SPARSE_LR, "sparse_eps": SPARSE_EPS,
+               "report_dense": True,
+               "profile_steps": MESH_PROFILED_STEPS}
+        res, nums = mesh_run(torch, dev, name, job, MESH_PSUM_SHAPE[1],
+                             per_rank)
+        del job
+        buf = rows_local * d * (4 if dtype == "float32" else 2)
+        mesh_reckoning(name, (mega.numel() + accum.numel()) * 4,
+                       MESH_PSUM_SHAPE[1] * (rows_local + 1) * d * 4
+                       + (0 if dtype == "float32"
+                          else MESH_PSUM_SHAPE[1] * buf),
+                       torch.cuda.max_memory_allocated(), nums)
+        for r in res:
+            steps_bytes = [st["skipped_bytes"] for st in r["all_reduce"]]
+            if steps_bytes != [buf] * MESH_PSUM_STEPS:
+                raise AssertionError(f"{name}: the data axis took "
+                                     f"{steps_bytes} bytes a step, not "
+                                     f"rows_local * d * itemsize = {buf}")
+        losses = res[0]["losses"]
+        if any(r["losses"] != losses for r in res):
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if dtype == "float32":
+            fp32_losses = losses
+            ok_t, err_t = chunked_close(torch, dev, mega, oracle["mega"],
+                                        *TOL_PSUM_TABLE)
+            ok_a, err_a = chunked_close(torch, dev, accum, oracle["accum"],
+                                        *TOL_PSUM_TABLE)
+            ok_d, err_d = close_dense(res[0]["dense"], oracle["dense"],
+                                      *TOL_PSUM_TABLE)
+            err_l = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, oracle["losses"]))
+            log(f"12b vs the oracle: losses {losses} vs "
+                f"{oracle['losses']} (largest relative difference "
+                f"{err_l:.3e}, tol {TOL_PSUM_LOSS}); table max |diff| "
+                f"{err_t:.3e}, accumulator {err_a:.3e}, dense {err_d:.3e} "
+                f"(rtol, atol {TOL_PSUM_TABLE})")
+            if not (ok_t and ok_a and ok_d and err_l <= TOL_PSUM_LOSS):
+                raise AssertionError("12b is not within its tolerance of "
+                                     "the one-device dense step")
+            nums.update(loss_rel_err=err_l, table_err=err_t,
+                        accum_err=err_a, dense_err=err_d)
+        else:
+            rel = abs(losses[1] - fp32_losses[1]) / abs(fp32_losses[1])
+            log(f"12b-bf16 vs fp32: losses {losses} vs {fp32_losses}: "
+                f"step 0 equal {losses[0] == fp32_losses[0]}, step 1 "
+                f"relative difference {rel:.3e} (tol {TOL_PSUM_BF16})")
+            if losses[0] != fp32_losses[0] or not rel <= TOL_PSUM_BF16:
+                raise AssertionError("12b-bf16 is not within its tolerance "
+                                     "of the fp32 run")
+            nums["step1_loss_rel_diff"] = rel
+        out[name] = nums
+        del params, mega, accum
+        release_shared(torch, dev)
+        free_device(torch)
+    del oracle
+    return out
+
+
+def mesh_hybrid_m2(torch, dev, m2) -> dict:
+    """Phase 12c: the hybrid table-wise step on full-width dlrm-m2, 4
+    owners on a (2, 4) mesh: data replica 0 of each owner views the
+    parent's rows (CUDA IPC), replica 1 trains its own copy; the oracle,
+    `build_dlrm_train_step(sparse_apply="sparse")` on one device with the
+    same layout, seed and batches, runs first. Gates: the two replicas of
+    every shard bit-equal to each other (rows, accumulator, dense
+    parameters, losses); table, accumulator and losses within TOL_HYBRID
+    of the oracle, the dense parameters within TOL_HYBRID_DENSE; the
+    exchange metrics equal to the traffic model."""
+    import numpy as np
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.launch.analysis import tablewise_exchange_traffic
+    from repro_torch.launch.train import PARAM_SEED
+    data, owners = MESH_HYBRID_SHAPE
+    ebc = EmbeddingBagCollection.build(m2, n_shards=owners,
+                                       strategy="table_wise")
+    plan = ebc.plan
+    log(f"phase 12c: the oracle, build_dlrm_train_step(sparse_apply="
+        f"'sparse') on one device, {owners} owners of {plan.shard_rows} "
+        f"rows, {MESH_HYBRID_STEPS} steps")
+    batches = mesh_batches(m2, ebc, MESH_HYBRID_STEPS, "offset")
+    oracle = oracle_m2(torch, dev, m2, ebc, batches, "sparse")
+    free_device(torch)
+    log(f"phase 12c: {data * owners} ranks, mesh {MESH_HYBRID_SHAPE}, the "
+        f"table-wise step with the next batch staged")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dlrm_params(m2, ebc, PARAM_SEED, dev)
+    mega = params["emb"]["mega"]
+    accum = torch.zeros((plan.total_rows,), dtype=torch.float32, device=dev)
+    job = {"cfg": m2, "mesh": MESH_HYBRID_SHAPE, "strategy": "table_wise",
+           "step": "tablewise", "dense": host_dense(params), "mega": mega,
+           "accum": accum, "n_steps": MESH_HYBRID_STEPS,
+           "batches": batches,
+           "staged": True, "sparse_lr": SPARSE_LR, "sparse_eps": SPARSE_EPS,
+           "report_dense": True, "profile_steps": MESH_PROFILED_STEPS}
+    per_rank = {"embedding_bag": MESH_HYBRID_STEPS,
+                "dot_interaction": MESH_HYBRID_STEPS,
+                "fused_bag_backward_adagrad_segments": MESH_HYBRID_STEPS,
+                "fused_bag_backward_adagrad": 0}
+    res, nums = mesh_run(torch, dev, "12c", job, data * owners, per_rank)
+    del job
+    mesh_reckoning("12c", (mega.numel() + accum.numel()) * 4,
+                   (data - 1) * (mega.numel() + accum.numel()) * 4,
+                   torch.cuda.max_memory_allocated(), nums)
+    model = tablewise_exchange_traffic(
+        TRAIN_BATCH, m2.n_sparse_features, m2.truncation, m2.embed_dim,
+        owners, features_per_owner=np.bincount(
+            np.asarray(plan.table_offsets) // plan.shard_rows,
+            minlength=owners))
+    pairs = []
+    for m in range(owners):
+        reps = [r for r in res if r["coords"]["model"] == m]
+        pairs.append({"rows": reps[0]["rows"],
+                      "replica_equal": [r["replica_equal"] for r in reps[1:]],
+                      "sums_equal": len({(r["mega_sum"], r["accum_sum"])
+                                         for r in reps}) == 1})
+    same = (all(p["sums_equal"] and all(p["replica_equal"]) for p in pairs)
+            and len({tuple(r["dense_sums"]) for r in res}) == 1
+            and len({tuple(r["losses"]) for r in res}) == 1)
+    ok_t, err_t = chunked_close(torch, dev, mega, oracle["mega"], TOL_HYBRID,
+                                TOL_HYBRID)
+    ok_a, err_a = chunked_close(torch, dev, accum, oracle["accum"],
+                                TOL_HYBRID, TOL_HYBRID)
+    ok_d, err_d = close_dense(res[0]["dense"], oracle["dense"], TOL_HYBRID,
+                              TOL_HYBRID_DENSE)
+    losses = res[0]["losses"]
+    err_l = max(abs(a - b) for a, b in zip(losses, oracle["losses"]))
+    ok_l = all(abs(a - b) <= TOL_HYBRID * (1 + abs(b))
+               for a, b in zip(losses, oracle["losses"]))
+    log(f"12c: replicas {pairs}; every replica's dense parameters and "
+        f"losses equal: {same}; losses {losses} vs the oracle's "
+        f"{oracle['losses']} (largest difference {err_l:.3e}, within "
+        f"{TOL_HYBRID} * (1 + |loss|): {ok_l}); table max |diff| "
+        f"{err_t:.3e}, accumulator {err_a:.3e} (rtol = atol = {TOL_HYBRID}: "
+        f"{ok_t and ok_a}); dense {err_d:.3e} (rtol {TOL_HYBRID}, atol "
+        f"{TOL_HYBRID_DENSE}: {ok_d}); exchange {res[0]['exchange']} vs "
+        f"the model {model}; all_reduce bytes a step "
+        f"{nums['all_reduce_bytes_per_step']}")
+    if not same:
+        raise AssertionError("12c: the data replicas drifted apart")
+    if not (ok_t and ok_a and ok_d and ok_l):
+        raise AssertionError("12c is not within its tolerance of the "
+                             "one-device step")
+    if res[0]["exchange"] != {"exchange_pooled_fwd_bytes": model["fwd_bytes"],
+                              "exchange_pooled_bwd_bytes": model["bwd_bytes"],
+                              "exchange_pair_leg_bytes":
+                                  model["pair_leg_bytes"]}:
+        raise AssertionError(f"12c exchange metrics {res[0]['exchange']} "
+                             f"differ from the model {model}")
+    nums.update(loss_err=err_l, table_err=err_t, accum_err=err_a,
+                dense_err=err_d)
+    del params, mega, accum, oracle
+    release_shared(torch, dev)
+    return nums
+
+
 def check_flash_attention(torch, dev) -> dict:
     """Phase 9a: the flash-attention kernel against its plain version at
     each of FLASH_SHAPES (bf16 also against the fp32 oracle), a causality
@@ -3132,7 +3640,26 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; page-locked bytes left "
         f"{hostmem.page_locked_bytes()}")
 
-    # 12. the numbers, then the result
+    # 12. the sharded executors on torch.distributed: spawned ranks on this
+    #     card through gloo, CUDA IPC views of the parent's tables; the
+    #     table-wise step over 8a's 8 owners (12a), the psum dense update
+    #     on dlrm-m2 (12b), the hybrid (data, model) step on dlrm-m2 (12c)
+    log(f"phase 12: ranks spawned on this card, gloo, the parent's tables "
+        f"shared by CUDA IPC (PYTORCH_CUDA_ALLOC_CONF="
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r})")
+    log(f"phase 12a: build_tablewise_train_step(mesh=(1, "
+        f"{TABLEWISE_OWNERS})), 8a's seed and batches, next batch staged")
+    mesh = {"12a": mesh_tablewise_m1(torch, dev, cfg, ebc_tw, tw)}
+    free_device(torch)
+    mesh.update(mesh_psum_m2(torch, dev, m2))
+    mesh["12c"] = mesh_hybrid_m2(torch, dev, m2)
+    free_device(torch)
+    for name, nums in mesh.items():
+        paths[f"mesh_{name}"] = nums["launches"]
+        log(f"{name} numbers: " + json.dumps(
+            {k: v for k, v in nums.items() if k != "launches_per_rank"}))
+
+    # 13. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -3163,6 +3690,9 @@ def main() -> int:
                 "max_abs_err_vs_fp32_oracle", "train_shape",
                 "m2_train_shape", "host_us")
                 if key in nums}})
+        rows[-1]["launches_per_rank"] = {
+            name: [c[k.name] for c in nums["launches_per_rank"]]
+            for name, nums in mesh.items()}
         if k.name in host_movers:
             rows[-1]["host_capacity"] = {
                 **host_movers[k.name], "launches": sum(

@@ -116,7 +116,7 @@ class DLRMConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"            # paper trains fp32
     placement: str = "auto"                   # auto|table_wise|row_wise|replicated|cached_host
-    lookup_impl: str = "gather"               # gather | psum (multi-device slice)
+    lookup_impl: str = "gather"               # gather | psum (under a mesh)
     grad_reduce_dtype: str = "float32"
     hbm_budget_gb: float = 6.0                # per-chip EMB budget
     notes: str = ""

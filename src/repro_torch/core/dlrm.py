@@ -3,6 +3,14 @@ EmbeddingBagCollection over sparse features -> feature interaction -> top
 MLP -> logit, and the split dense / sparse gradients of the paper's
 training step (Fig. 4): autograd over the dense tower, with the pooled
 embeddings as a leaf whose gradient feeds the fused sparse backward.
+
+Under a (data, model) mesh (`launch.mesh`) the dense tower is data
+parallel, as pjit makes the reference's: each rank runs its `data` slice
+of the batch, its BCE is its examples' sum over the GLOBAL batch size, the
+dense gradients are summed over `data`, and the reported loss is the mean
+of every example's term gathered over `data` (so it is the single-device
+loss whenever the per-example terms are). `cfg.lookup_impl == "psum"`
+then pools through `EmbeddingBagCollection.lookup_pooled_psum`.
 """
 from __future__ import annotations
 
@@ -69,8 +77,10 @@ def dlrm_forward_dense(params: dict, dense_x: torch.Tensor,
     return logit[..., 0].float()
 
 
-def _lookup(params: dict, batch: dict,
-            ebc: EmbeddingBagCollection) -> torch.Tensor:
+def _lookup(params: dict, batch: dict, cfg: DLRMConfig,
+            ebc: EmbeddingBagCollection, mesh=None) -> torch.Tensor:
+    if cfg.lookup_impl == "psum" and mesh is not None:
+        return ebc.lookup_pooled_psum(params["emb"], batch["idx"], mesh)
     # a batch-attached plan (data.pipeline.sparse_plan_hook) dedups the
     # forward gather; the fused sparse backward reuses the same plan
     return ebc.lookup(params["emb"], batch["idx"],
@@ -82,7 +92,7 @@ def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig,
     """Full forward: embedding lookup + dense tower -> (B,) logits.
     batch: {"dense" (B, n_dense), "idx" (B, F, L) int32 offset rows}, and
     optionally a plan's "plan_rows"/"plan_offsets"/"plan_bags"."""
-    pooled = _lookup(params, batch, ebc)
+    pooled = _lookup(params, batch, cfg, ebc)
     return dlrm_forward_dense(params, batch["dense"], pooled, cfg)
 
 
@@ -93,43 +103,69 @@ def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig,
 
 
 def dlrm_grads(params: dict, batch: dict, cfg: DLRMConfig,
-               ebc: EmbeddingBagCollection):
+               ebc: EmbeddingBagCollection, mesh=None):
     """Returns (loss, dense_grads, (idx (B,F,L), pooled_grads (B,F,d) fp32)).
 
     The mega table only ever sees sparse gradients: the lookup runs without
     autograd and its pooled output becomes a leaf, so the backward stops
     there and every valid lookup slot inherits its bag's gradient
     (`kernels.ops.fused_sparse_backward`). The dense parameters are taken
-    as detached leaves, so the caller's tensors never require grad."""
+    as detached leaves, so the caller's tensors never require grad.
+
+    Under `mesh`, batch is this rank's `data` slice and params["emb"] its
+    `model` shard (see the module docstring)."""
     with torch.no_grad():
-        pooled = _lookup(params, batch, ebc)
-    loss, g_dense, g_pooled = dense_grads(params, batch, pooled, cfg)
+        pooled = _lookup(params, batch, cfg, ebc, mesh)
+    loss, g_dense, g_pooled = dense_grads(params, batch, pooled, cfg, mesh)
     return loss, g_dense, (batch["idx"], g_pooled)
 
 
 def dense_grads(params: dict, batch: dict, pooled: torch.Tensor,
-                cfg: DLRMConfig):
+                cfg: DLRMConfig, mesh=None):
     """The dense half of `dlrm_grads`, from pooled embeddings looked up
     elsewhere (the table-wise step's exchanged or staged activations):
     BCE of `dlrm_forward_dense`, differentiated with `pooled` (B, F, d) as
-    a leaf. Returns (loss, dense_grads, pooled_grads (B, F, d) fp32)."""
+    a leaf. Returns (loss, dense_grads, pooled_grads (B, F, d) fp32).
+
+    With a mesh whose `data` axis has more than one rank, batch and pooled
+    are this rank's slice: the dense gradients come back summed over the
+    axis (the same bits on every rank), the pooled gradients stay this
+    slice's, and the loss is the global batch's mean."""
+    n_data = 1 if mesh is None else mesh.size("data")
     pooled = pooled.detach().requires_grad_()
     dense = tree_map(lambda t: t.detach().requires_grad_(),
                      {"bottom": params["bottom"], "top": params["top"]})
     with torch.enable_grad():
         logits = dlrm_forward_dense(dense, batch["dense"], pooled, cfg)
-        loss = _bce(logits, batch["label"])
+        if n_data == 1:
+            loss = _bce(logits, batch["label"])
+        else:
+            # the gradient of the global mean: each example's term over
+            # the global batch size, as the single-device mean gives it
+            terms = _bce_terms(logits, batch["label"])
+            loss = terms.sum() / (terms.shape[0] * n_data)
         leaves = tree_leaves(dense)
         grads = torch.autograd.grad(loss, leaves + [pooled])
-    it = iter(grads[:-1])
-    g_dense = tree_map(lambda _: next(it), dense)
-    return loss.detach(), g_dense, grads[-1].float()
+    g_dense = grads[:-1]
+    if n_data > 1:
+        # one all_reduce of every dense gradient, flattened
+        flat = torch.cat([g.reshape(-1) for g in g_dense])
+        mesh.all_reduce(flat, "data")
+        g_dense = [x.view_as(g) for x, g in zip(
+            torch.split(flat, [g.numel() for g in g_dense]), g_dense)]
+        loss = torch.mean(mesh.gather_rows(terms.detach(), "data"))
+    it = iter(g_dense)
+    return loss.detach(), tree_map(lambda _: next(it), dense), \
+        grads[-1].float()
+
+
+def _bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return torch.mean(
-        torch.clamp(logits, min=0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits))))
+    return torch.mean(_bce_terms(logits, labels))
 
 
 def normalized_entropy(logits: torch.Tensor,

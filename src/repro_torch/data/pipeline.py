@@ -12,7 +12,7 @@ fetch stream its lookahead: the upcoming batches, seen without being
 consumed. A fault injector (`train.fault_tolerance.FaultInjector`) fires
 the "pipeline.batch" site once per batch in the reader thread. Ported from
 `repro.data.pipeline` without the hooks' `n_hosts` and `row_remap`
-arguments, which come with the multi-device slice.
+arguments, which come with the multi-host cached tier's slice.
 """
 from __future__ import annotations
 

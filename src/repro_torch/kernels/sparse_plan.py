@@ -26,10 +26,11 @@ The cached tier's host planning reads a hook's plan as numpy
 (`host_plan_from_batch`) and groups its sorted miss rows into contiguous
 fetch blocks (`coalesce_rows`). The table-wise step cuts a plan into
 per-owner segments (`split_plan_by_owner`, over the general
-`split_plan_by_ranges`) for the segmented fused backward. The reference's
-per-host split (`split_plan_by_host`, `host_plans_from_batch`) serves the
-multi-host cached tier and comes with that slice; its per-table split
-(`split_plan_by_table`) has no caller outside its tests.
+`split_plan_by_ranges`) for the segmented fused backward, and into
+per-table segments (`split_plan_by_table`, each table's unique footprint).
+The reference's per-host split (`split_plan_by_host`,
+`host_plans_from_batch`) serves the multi-host cached tier and comes with
+that slice.
 """
 from __future__ import annotations
 
@@ -168,6 +169,25 @@ def split_plan_by_owner(plan: SparsePlan, shard_rows: int, n_shards: int,
     starts = np.arange(n_shards, dtype=np.int64) * shard_rows
     return split_plan_by_ranges(plan, starts, starts + shard_rows,
                                 seg_cap=seg_cap)
+
+
+def split_plan_by_table(plan: SparsePlan, table_offsets, table_rows,
+                        seg_cap: int | None = None
+                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-TABLE segments: table t owns the mega rows [table_offsets[t],
+    table_offsets[t] + table_rows[t]) under any layout whose tables do not
+    interleave. Segments come in TABLE order (the caller's ids), not row
+    order: the split runs over the ranges sorted by start and is unpermuted
+    here. The layout of `split_plan_by_ranges`, with seg_base[t] =
+    table_offsets[t]."""
+    starts = np.asarray(table_offsets, np.int64)
+    ends = starts + np.asarray(table_rows, np.int64)
+    order = np.argsort(starts, kind="stable")
+    seg_rows, seg_offs, seg_base = split_plan_by_ranges(
+        plan, starts[order], ends[order], seg_cap=seg_cap)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    return seg_rows[inv], seg_offs[inv], seg_base[inv]
 
 
 def _lookups_per_bag(shape, lookups_per_bag: int | None) -> int:

@@ -10,6 +10,7 @@ from repro_torch.train.fault_tolerance import (ChaosReport,
                                                RetryPolicy,
                                                StragglerDetector, TrainState,
                                                TransientFetchFault,
+                                               elastic_tablewise_repack,
                                                restore_train_state,
                                                run_chaos_loop,
                                                run_resilient_loop,
@@ -25,5 +26,6 @@ __all__ = ["ChaosReport", "CheckpointCorruptionError", "CheckpointManager",
            "StragglerDetector", "TrainState", "TransientFetchFault",
            "build_cached_train_step", "build_dlrm_train_step",
            "build_tablewise_train_step", "cached_dlrm_init_state",
-           "dlrm_init_state", "restore_train_state", "run_chaos_loop",
+           "dlrm_init_state", "elastic_tablewise_repack",
+           "restore_train_state", "run_chaos_loop",
            "run_resilient_loop", "save_train_state"]

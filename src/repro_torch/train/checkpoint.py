@@ -32,7 +32,8 @@ the write starts, since the train step updates the table and its
 accumulator in place; restore copies each leaf into the example tree's
 tensor of that path, on its device, reading the file through a memory
 map in row chunks, so the host never holds a table twice. There is no
-`shardings`: the sharded restore comes with the multi-device slice.
+`shardings`: restoring a mesh's checkpoint onto another mesh shape comes
+with a later multi-device slice (the multi-host cached tier's).
 """
 from __future__ import annotations
 
@@ -268,7 +269,7 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore(shardings=...) re-places leaves on a new mesh; it "
-                "comes with the multi-device slice of the port")
+                "comes with a later multi-device slice of the port")
         if step is not None:
             tree = self._restore_step(step, example_tree)
             self.last_restored_step = step

@@ -20,12 +20,13 @@
     chaos invariant (any fault schedule ends bit-equal to the fault-free
     run) is held by tests/test_torch_chaos.py on the sync, async and
     three-tier bulk collections.
+  * `elastic_tablewise_repack`: host-loss recovery of a table_wise
+    placement (re-plan for the surviving owners, move every row).
 
 `_recoverable` differs from the reference's on purpose: a kernel that
 failed to build or launch (`kernels._build.KernelError`), a device out of
 memory and a CUDA fault are RuntimeErrors too, and replaying them from a
 checkpoint would only fail again, so the chaos loop raises them at once.
-The elastic table-wise re-pack waits for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -269,6 +270,48 @@ def restore_train_state(mgr, example: TrainState, step: int | None = None
                       cache=tree.get("cache"), step=int(tree["cursor"]),
                       rng=None if "rng" not in tree
                       else np.asarray(tree["rng"]))
+
+
+# -- elastic table-wise restore --------------------------------------------
+
+#: rows a chunk of `elastic_tablewise_repack`'s re-scatter moves: its index
+#: tensors and gathered rows take chunk * (16 + d * itemsize) bytes
+REPACK_CHUNK_ROWS = 1 << 22
+
+
+def elastic_tablewise_repack(cfg, old_ebc, mega: torch.Tensor,
+                             accum: torch.Tensor, n_shards_new: int,
+                             chunk_rows: int = REPACK_CHUNK_ROWS):
+    """Host-loss recovery for a table_wise placement: re-run the
+    `plan_placement` bin-pack for the `n_shards_new` surviving owners and
+    re-scatter the restored mega / accum rows under the new placement
+    (`core.placement.elastic_table_remap`'s worklist), into new tensors on
+    the table's device. The worklist moves through index tensors on that
+    device, `chunk_rows` rows at a time, so the only table-sized
+    allocation is the new table itself.
+
+    Per-bag pooling and per-row AdaGrad do not depend on where a row
+    lives, so a repacked run's losses are bit-equal to the uninterrupted
+    one. Returns (new_ebc, new_mega, new_accum); batches must be offset
+    with the NEW collection's `offset_indices`."""
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.core.placement import elastic_table_remap
+
+    new_ebc = EmbeddingBagCollection.build(cfg, n_shards=n_shards_new,
+                                           strategy="table_wise")
+    src, dst = elastic_table_remap(old_ebc.plan, new_ebc.plan,
+                                   cfg.hash_sizes)
+    dev = mega.device
+    new_mega = torch.zeros((new_ebc.plan.total_rows, mega.shape[1]),
+                           dtype=mega.dtype, device=dev)
+    new_accum = torch.zeros((new_ebc.plan.total_rows,), dtype=accum.dtype,
+                            device=dev)
+    for lo in range(0, len(src), chunk_rows):
+        s = torch.as_tensor(src[lo:lo + chunk_rows]).to(dev)
+        d = torch.as_tensor(dst[lo:lo + chunk_rows]).to(dev)
+        new_mega.index_copy_(0, d, mega.index_select(0, s))
+        new_accum.index_copy_(0, d, accum.index_select(0, s))
+    return new_ebc, new_mega, new_accum
 
 
 # -- preemption / stragglers ------------------------------------------------

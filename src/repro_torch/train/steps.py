@@ -9,6 +9,9 @@ a dense optimizer, the embedding rows with row-wise AdaGrad.
                               (a scatter-add into a (total_rows + 1, d)
                               buffer, then a row pass over the whole
                               table: the reference launcher's default);
+                              under a (data, model) mesh, `"dense"` with
+                              `lookup_impl="psum"`: the reference's
+                              shard_map update (`psum_sparse_update`);
   build_cached_train_step     a hot-row cache over the capacity tier
                               (`core.cache`): the sync schedule for a bare
                               `CachedEmbeddingBagCollection` (or the
@@ -16,12 +19,18 @@ a dense optimizer, the embedding rows with row-wise AdaGrad.
                               overlapped one for `core.tiers.AsyncCachedTier`;
   build_tablewise_train_step  a `table_wise` placement (whole tables on
                               owners, the paper's Zion / Big Basin layout)
-                              on one device: the pooled lookup, then one
-                              segmented update over every owner's rows.
+                              on one device (the pooled lookup, then one
+                              segmented update over every owner's rows) or
+                              over a (data, model) mesh (the pooled psum
+                              lookup, a data-parallel dense tower, each
+                              owner's segment on its own shard).
 
-The multi-host and LM steps, the table-wise step's sharded executor (its
-`mesh`) and the dense update's `psum` lookup (`sparse_update_shardmap`)
-come with the multi-device and LM-training slices.
+Under a mesh (`launch.mesh`, one process per rank) a step takes the
+GLOBAL batch on every rank, as the reference's pjit steps take global
+arrays: each rank looks up and differentiates its `data` slice, and
+params["emb"]["mega"] / state["accum"] are its `model` shard of the rows
+(`EmbeddingBagCollection.shard_range`). The multi-host cached step and
+the LM step come with later slices.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              host_plan_from_batch,
                                              plan_from_batch,
-                                             split_plan_by_owner)
+                                             split_plan_by_owner,
+                                             split_plan_by_ranges)
 from repro_torch.nn.params import init_params
 from repro_torch.optim.optimizers import Optimizer
 
@@ -106,6 +116,55 @@ def dense_row_pass(mega: torch.Tensor, accum: torch.Tensor,
         accum[lo:hi] = new_acc
 
 
+def psum_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
+                       idx: torch.Tensor, g_pooled: torch.Tensor,
+                       row_lo: int, lr: float, eps: float, mesh,
+                       reduce_dtype: str = "float32",
+                       chunk_rows: int = DENSE_CHUNK_ROWS) -> None:
+    """The reference's `sparse_update_shardmap`, on one rank: mega / accum
+    are this rank's shard, global rows [row_lo, row_lo + len(mega)); idx
+    (B, F, L) and g_pooled (B, F, d) its slice of the batch.
+
+    The rows outside the shard become pads; each local row's bag gradients
+    are summed into a zeroed (rows_local, d) fp32 buffer in slot order
+    (`dense_gradient_sum`: the order of the reference's CSR sums over its
+    shard-local plan, since a row's slots all belong to one feature); ONE
+    all_reduce over `data` merges the slices' partial sums (in bf16
+    when `reduce_dtype` is "bfloat16", as the reference's psum); then the
+    row pass (`dense_row_pass`, the reference's operand order), IN PLACE.
+    The buffer is the shard's size again."""
+    h = mega.shape[0]
+    loc = torch.where((idx >= row_lo) & (idx < row_lo + h), idx - row_lo,
+                      -1)
+    gsum = dense_gradient_sum(h, loc, g_pooled)[:h]
+    if reduce_dtype == "bfloat16":
+        half = gsum.to(torch.bfloat16)
+        mesh.all_reduce(half, "data")
+        gsum.copy_(half)
+        del half
+    else:
+        mesh.all_reduce(gsum, "data")
+    dense_row_pass(mega, accum, gsum, lr, eps, chunk_rows)
+
+
+def _check_mesh(mesh) -> None:
+    if set(mesh.axis_names) != {"data", "model"}:
+        raise ValueError(f"the sharded steps run on a (data, model) mesh, "
+                         f"got axes {mesh.axis_names}")
+
+
+def _data_slice(batch: dict, mesh, keys=("dense", "idx", "label")) -> dict:
+    """This rank's rows of the global batch's `keys`: the `data`
+    coordinate's contiguous block (the reference's P(batch_axes))."""
+    n, c = mesh.size("data"), mesh.coords["data"]
+    b = batch["idx"].shape[0]
+    if b % n:
+        raise ValueError(f"a global batch of {b} does not split over "
+                         f"{n} data ranks")
+    lo, hi = c * (b // n), (c + 1) * (b // n)
+    return {k: batch[k][lo:hi] for k in keys}
+
+
 def dense_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
                         idx: torch.Tensor, g_pooled: torch.Tensor,
                         lr: float, eps: float,
@@ -120,7 +179,8 @@ def dense_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
 def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                           dense_opt: Optimizer, sparse_lr: float = 0.05,
                           sparse_eps: float = 1e-8,
-                          sparse_apply: str = "sparse") -> Callable:
+                          sparse_apply: str = "sparse",
+                          mesh=None) -> Callable:
     """Returns step(params, state, batch, step_idx) -> (params, state,
     metrics), state = {"dense": dense_opt state, "accum": (rows,) fp32},
     metrics = {"loss", "lookups"} (0-dim tensors on the batch's device).
@@ -141,7 +201,20 @@ def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
     second table, and full-width dlrm-m1 (43.6 GB) does not fit one 80 GB
     card twice; the cached, table-wise and chip-smoke callers rely on the
     default. The launcher defaults to "dense", as the reference's does.
-    A `psum` lookup (`cfg.lookup_impl`) needs the multi-device slice.
+
+    `mesh` (a `launch.mesh.Mesh` over ("data", "model"), one process per
+    rank) runs the reference's sharded path, `sparse_apply="dense"` with
+    `cfg.lookup_impl == "psum"`: batch is the GLOBAL batch on every rank;
+    params["emb"]["mega"] and state["accum"] are this rank's `model` shard
+    (`ebc.shard_range(mesh)`); each rank pools its `data` slice with
+    `lookup_pooled_psum`, runs the data-parallel dense tower
+    (`core.dlrm.dense_grads`) and `psum_sparse_update` with
+    `cfg.grad_reduce_dtype`. Metrics: the global loss and lookups. The
+    reference's pjit `"gather"` path under a mesh is XLA's own
+    partitioning and has no counterpart: it raises, as does the fused
+    update under a mesh. Without a mesh, the psum update raises too (the
+    reference's would fail on its missing mesh); a psum lookup without a
+    mesh falls back to the gather lookup, as the reference's does.
 
     The mega table and the accumulator are updated IN PLACE (the returned
     params["emb"]["mega"] and state["accum"] are the tensors passed in);
@@ -149,11 +222,15 @@ def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
     if sparse_apply not in ("sparse", "dense"):
         raise ValueError(f"sparse_apply={sparse_apply!r}; expected 'sparse' "
                          "or 'dense'")
+    if mesh is not None:
+        return _build_psum_dlrm_step(cfg, ebc, dense_opt, sparse_lr,
+                                     sparse_eps, sparse_apply, mesh)
     if sparse_apply == "dense" and cfg.lookup_impl == "psum":
-        raise NotImplementedError(
+        raise ValueError(
             "sparse_apply='dense' with lookup_impl='psum' is the reference's "
-            "shard_map update (sparse_update_shardmap); it comes with the "
-            "multi-device slice of the port")
+            "shard_map update: it needs a (data, model) mesh, "
+            "build_dlrm_train_step(..., mesh=launch.mesh.make_test_mesh("
+            "...)) on every rank")
 
     def step(params, state, batch, step_idx):
         loss, g_dense, (idx, g_pooled) = dlrm_grads(params, batch, cfg, ebc)
@@ -169,6 +246,44 @@ def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                 ops.fused_sparse_backward(mega, accum, idx, g_pooled,
                                           sparse_lr, sparse_eps,
                                           plan=plan_from_batch(batch))
+        lookups = (batch["idx"] >= 0).sum().to(torch.float32)
+        return ({**new_dense, "emb": {"mega": mega}},
+                {"dense": new_dense_state, "accum": accum},
+                {"loss": loss, "lookups": lookups})
+
+    return step
+
+
+def _build_psum_dlrm_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
+                          dense_opt: Optimizer, sparse_lr: float,
+                          sparse_eps: float, sparse_apply: str,
+                          mesh) -> Callable:
+    """`build_dlrm_train_step` under a mesh (see there)."""
+    _check_mesh(mesh)
+    if cfg.lookup_impl != "psum":
+        raise NotImplementedError(
+            f"lookup_impl={cfg.lookup_impl!r} under a mesh is the "
+            "reference's pjit path, which XLA partitions; the port's "
+            "sharded step runs lookup_impl='psum' with sparse_apply='dense'")
+    if sparse_apply != "dense":
+        raise NotImplementedError(
+            "under a mesh the port's sharded step runs sparse_apply='dense' "
+            "with lookup_impl='psum' (the reference's shard_map update); "
+            "the table-wise step shards the fused update")
+    row_lo, _ = ebc.shard_range(mesh)
+
+    def step(params, state, batch, step_idx):
+        local = _data_slice(batch, mesh)
+        loss, g_dense, (idx, g_pooled) = dlrm_grads(params, local, cfg, ebc,
+                                                    mesh)
+        new_dense, new_dense_state = dense_opt.apply(
+            {"bottom": params["bottom"], "top": params["top"]}, g_dense,
+            state["dense"], step_idx)
+        mega, accum = params["emb"]["mega"], state["accum"]
+        with torch.no_grad():
+            psum_sparse_update(mega, accum, idx, g_pooled, row_lo,
+                               sparse_lr, sparse_eps, mesh,
+                               cfg.grad_reduce_dtype)
         lookups = (batch["idx"] >= 0).sum().to(torch.float32)
         return ({**new_dense, "emb": {"mega": mega}},
                 {"dense": new_dense_state, "accum": accum},
@@ -349,11 +464,12 @@ def cached_dlrm_init_state(cc, dense_opt: Optimizer, params: dict) -> dict:
 def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                                dense_opt: Optimizer,
                                sparse_lr: float = 0.05,
-                               sparse_eps: float = 1e-8) -> Callable:
+                               sparse_eps: float = 1e-8,
+                               mesh=None) -> Callable:
     """Train step for a `table_wise` placement: whole tables on H =
     `ebc.plan.capacity_shards` owners, owner s holding the mega rows
     [s*shard_rows, (s+1)*shard_rows) — the paper's Zion / Big Basin
-    placement, here with every owner's rows on one device.
+    placement.
 
     Per step: on the host, the batch's plan (a hook's, else
     `build_sparse_plan_host`) is cut into per-owner segments
@@ -365,6 +481,20 @@ def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
     on how the plan is segmented, so the step is bit-equal to
     `build_dlrm_train_step` on the same layout.
 
+    Under `mesh` (a `launch.mesh.Mesh` over ("data", "model") with
+    mesh.size("model") == H, one process per rank) rank (d, m) holds
+    owner m's rows (params["emb"]["mega"], state["accum"]: its shard) and
+    the batch's `data` slice d: the pooled lookup is
+    `ebc.lookup_pooled_psum` (pool, then one all_reduce of the (B/D, F, d)
+    pools over `model`); the dense tower is data parallel
+    (`core.dlrm.dense_grads`); the slices' pooled gradients are gathered
+    over `data` into the whole batch's (an all_reduce of a zero-padded
+    buffer), and owner m runs the segmented update on its own shard with
+    its own segment of the global plan. Every `data` replica of an owner
+    applies the same update to the same rows, so the replicas stay
+    bit-equal; on a (1, H) mesh the run is bit-equal to the one-device
+    step, since the other owners add exact zeros to each bag.
+
     Given `next_batch`, the step queues that batch's pooled lookup right
     after its update (so it reads the post-update table); the next call
     consumes it when its step_idx is one more and its batch IS that object,
@@ -373,18 +503,16 @@ def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
     plans the next batch. All of a step's uploads are made before its
     device work is queued, since a pageable copy waits for the stream.
 
-    There is no `mesh`: the sharded executor (the pooled psum forward and
-    the per-owner update on `torch.distributed`) comes with the
-    multi-device slice. Metrics carry the pooled exchange a sharded run
-    would make, counted on the host from the batch's shape and the plan's
-    owners (`launch.analysis.tablewise_exchange_traffic` is the analytic
-    model it must equal).
+    Metrics carry the pooled exchange of a sharded run, counted on the
+    host from the batch's shape and the plan's owners
+    (`launch.analysis.tablewise_exchange_traffic` is the analytic model it
+    must equal).
 
     Returns step(params, state, batch, step_idx, next_batch=None) ->
     (params, state, metrics); params and state as in
     `build_dlrm_train_step` (mega and accum updated IN PLACE); batch holds
-    host arrays, "idx" with OFFSET global rows, optionally a
-    `sparse_plan_hook` plan."""
+    host arrays (the GLOBAL batch, on every rank of a mesh), "idx" with
+    OFFSET global rows, optionally a `sparse_plan_hook` plan."""
     plan = ebc.plan
     if plan.strategy != "table_wise":
         raise ValueError(
@@ -397,11 +525,23 @@ def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
             "slices")
     n_owners = plan.capacity_shards
     shard_rows = plan.shard_rows
+    if mesh is not None:
+        _check_mesh(mesh)
+        if mesh["model"].size() != n_owners:
+            raise AssertionError(f"mesh model axis of "
+                                 f"{mesh['model'].size()} ranks for "
+                                 f"{n_owners} owners")
+        owner = mesh.coords["model"]
     d = cfg.embed_dim
     itemsize = 4                       # pooled activations cross in fp32
     owners = np.asarray(plan.table_offsets) // max(shard_rows, 1)
     max_f_owned = int(np.bincount(owners, minlength=n_owners).max())
     staged_cell: list[tuple | None] = [None]
+
+    def lookup(mega, idx):
+        if mesh is None:
+            return ebc.lookup({"mega": mega}, idx)
+        return ebc.lookup_pooled_psum({"mega": mega}, idx, mesh)
 
     def step(params, state, batch, step_idx, next_batch=None):
         mega, accum = params["emb"]["mega"], state["accum"]
@@ -414,33 +554,47 @@ def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
         plan_h = host_plan_from_batch(batch)
         if plan_h is None:
             plan_h = build_sparse_plan_host(idx_h)
-        seg_rows, seg_offs, seg_base = split_plan_by_owner(
-            plan_h, shard_rows, n_owners)
+        if mesh is None:
+            seg_rows, seg_offs, seg_base = split_plan_by_owner(
+                plan_h, shard_rows, n_owners)
+            local = batch
+        else:
+            # this owner's segment, its rows local to its shard
+            lo = owner * shard_rows
+            seg_rows, seg_offs, _ = split_plan_by_ranges(
+                plan_h, [lo], [lo + shard_rows])
+            seg_base = np.zeros((1,), np.int32)
+            local = _data_slice(batch, mesh)
         staged, staged_cell[0] = staged_cell[0], None
         hit = (staged is not None and staged[0] == int(step_idx)
                and staged[1] is batch)
-        dense_batch = {"dense": up(batch["dense"]),
-                       "label": up(batch["label"])}
-        idx = None if hit else up(idx_h)
+        dense_batch = {"dense": up(local["dense"]),
+                       "label": up(local["label"])}
+        idx = None if hit else up(np.asarray(local["idx"]))
         seg_rows, seg_offs, bag_ids, seg_base = (
             up(x) for x in (seg_rows, seg_offs, plan_h.bag_ids, seg_base))
-        nxt = (None if next_batch is None
-               else up(np.asarray(next_batch["idx"])))
+        nxt = None
+        if next_batch is not None:
+            nxt = up(np.asarray(next_batch["idx"] if mesh is None else
+                                _data_slice(next_batch, mesh,
+                                            ("idx",))["idx"]))
         with torch.no_grad():
-            pooled = staged[2] if hit else ebc.lookup({"mega": mega}, idx)
+            pooled = staged[2] if hit else lookup(mega, idx)
         loss, g_dense, g_pooled = dense_grads(params, dense_batch, pooled,
-                                              cfg)
+                                              cfg, mesh)
         new_dense, new_dense_state = dense_opt.apply(
             {"bottom": params["bottom"], "top": params["top"]}, g_dense,
             state["dense"], step_idx)
         with torch.no_grad():
+            if mesh is not None:
+                g_pooled = mesh.gather_rows(g_pooled, "data")
             ops.fused_sparse_backward_segments(
                 mega, accum, seg_rows, seg_offs, bag_ids, g_pooled,
                 sparse_lr, seg_base=seg_base, eps=sparse_eps)
             if nxt is not None:
                 # queued behind the update: reads the post-update table
                 staged_cell[0] = (int(step_idx) + 1, next_batch,
-                                  ebc.lookup({"mega": mega}, nxt))
+                                  lookup(mega, nxt))
         b, f, _ = idx_h.shape
         wire = (n_owners - 1) / max(n_owners, 1) * b * f * d * itemsize
         metrics = {"loss": loss,

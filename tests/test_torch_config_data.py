@@ -79,20 +79,18 @@ def test_auto_resolves_like_the_reference_or_names_the_later_slice():
     b = jplan(*args, hbm_budget_bytes=smoke.hbm_budget_gb * 1e9)
     assert (a.strategy, a.table_offsets) == (b.strategy, b.table_offsets)
     # the table-wise slice ported the planning of auto, table_wise and
-    # row_wise (they raised NotImplementedError before it); column_wise
-    # still names the multi-device slice
+    # row_wise, the multi-device slice column_wise (each raised
+    # NotImplementedError before)
     full = get_config("dlrm-m1")
     args = (full.hash_sizes, full.mean_lookups, full.embed_dim, 4)
     kw = dict(hbm_budget_bytes=full.hbm_budget_gb * 1e9)
-    for strategy in ("auto", "table_wise", "row_wise"):
+    for strategy in ("auto", "table_wise", "row_wise", "column_wise"):
         a = plan_placement(*args, **kw, strategy=strategy)
         b = jplan(*args, **kw, strategy=strategy)
         for field in ("strategy", "table_offsets", "total_rows",
                       "shard_of_table", "bytes_per_shard", "load_per_shard",
-                      "shard_rows", "column_shards"):
+                      "shard_rows", "column_shards", "pspec"):
             assert getattr(a, field) == getattr(b, field), (strategy, field)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        plan_placement(*args, **kw, strategy="column_wise")
 
 
 def test_offset_indices_equal_for_numpy_and_tensors():

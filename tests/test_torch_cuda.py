@@ -2020,3 +2020,77 @@ def test_host_demotion_after_a_queued_writeback_reads_the_written_bits(
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     np.testing.assert_array_equal(card.bulk.values[bulk_rows],
                                   got[0].numpy()[bulk_rows])
+
+
+def test_sharded_steps_on_the_card_match_the_one_device_steps(dev):
+    """The mesh executors on the card: 4 gloo ranks spawned on it, each
+    table handed over as a CUDA IPC view. The table-wise step on (1, 4)
+    bit-equal to the one-device sparse step (the parent's table updated in
+    place through the views); on (2, 2) the data replicas bit-equal and
+    the whole within 1e-6; the psum dense update on (1, 4) row_wise within
+    the reference's 1e-5 / 1e-4 of the one-device dense step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import adagrad
+    from repro_torch.train import build_dlrm_train_step, dlrm_init_state
+    from repro_torch.train.sharded import (pipeline_batches, run_calls,
+                                           train_rank)
+    cfg = get_smoke_config("dlrm-m1")
+    runs = {"tw14": ((1, 4), "table_wise", "tablewise", cfg),
+            "tw22": ((2, 2), "table_wise", "tablewise", cfg),
+            "psum14": ((1, 4), "row_wise", "dense_psum",
+                       dataclasses.replace(cfg, lookup_impl="psum"))}
+    calls, want = [], {}
+    for name, (shape, strategy, kind, c) in runs.items():
+        ebc = EmbeddingBagCollection.build(c, n_shards=shape[1],
+                                           strategy=strategy)
+        batches = pipeline_batches(c, ebc, 4, 16, "offset")
+        opt = adagrad(0.01)
+        p = init_dlrm_params(c, ebc, 0, dev)
+        dense = {k: [{n: t.cpu().numpy() for n, t in layer.items()}
+                     for layer in p[k]] for k in ("bottom", "top")}
+        table = p["emb"]["mega"].clone()
+        s = dlrm_init_state(ebc, opt, p)
+        step = build_dlrm_train_step(
+            dataclasses.replace(c, lookup_impl="gather"), ebc, opt,
+            sparse_apply="dense" if kind == "dense_psum" else "sparse")
+        losses = []
+        for t, b in enumerate(batches):
+            p, s, m = step(p, s, {k: torch.as_tensor(v).to(dev)
+                                  for k, v in b.items()}, t)
+            losses.append(float(m["loss"]))
+        want[name] = (losses, p["emb"]["mega"], s["accum"], table)
+        calls.append((train_rank, {
+            "cfg": c, "mesh": shape, "strategy": strategy, "step": kind,
+            "dense": dense, "mega": table,
+            "accum": torch.zeros_like(s["accum"]), "n_steps": 4,
+            "batches": batches, "staged": True}))
+    out = run_ranks(run_calls, 4, (calls,), backend="gloo",
+                    device=f"cuda:{torch.cuda.current_device()}",
+                    timeout_s=240)
+    torch.cuda.synchronize()
+    for i, name in enumerate(runs):
+        losses, mega, accum, table = want[name]
+        res = [r[i] for r in out]
+        got = calls[i][1]["accum"]
+        assert all(r["launches"]["embedding_bag"] == 4 for r in res)
+        if name == "tw14":
+            assert all(r["losses"] == losses for r in res)
+            assert torch.equal(table, mega) and torch.equal(got, accum)
+            assert all(r["launches"]["fused_bag_backward_adagrad_segments"]
+                       == 4 for r in res)
+        elif name == "tw22":
+            assert all(r["replica_equal"] for r in res
+                       if r["coords"]["data"] == 1)
+            assert len({tuple(r["dense_sums"]) for r in res}) == 1
+            np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-6)
+            torch.testing.assert_close(table, mega, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(got, accum, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-5)
+            torch.testing.assert_close(table, mega, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(got, accum, rtol=1e-4, atol=1e-5)

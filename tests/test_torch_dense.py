@@ -192,7 +192,7 @@ def test_dense_mode_guards_and_the_builders_default():
         "sparse_apply"].default == "sparse"
     steps.build_dlrm_train_step(cfg, ebc, adagrad(0.01), sparse_apply="dense")
     psum = dataclasses.replace(cfg, lookup_impl="psum")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="needs a \\(data, model\\) mesh"):
         steps.build_dlrm_train_step(psum, ebc, adagrad(0.01),
                                     sparse_apply="dense")
     with pytest.raises(ValueError, match="sparse_apply"):

@@ -1,7 +1,8 @@
 """Boundaries of the port: it never imports jax, ml_dtypes or the reference
-package, its entry point runs on the card unless asked for the CPU, and
-its smoke script refuses to report a result without a card or without the
-checkout.
+package (the mesh executors' spawned ranks neither:
+tests/test_torch_multidevice.py reads each rank's modules), its entry
+point runs on the card unless asked for the CPU, and its smoke script
+refuses to report a result without a card or without the checkout.
 """
 import ast
 import os
@@ -44,7 +45,8 @@ def _env():
 
 def test_importing_the_entry_point_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.kernels, "
-            "repro_torch.launch.train, repro_torch.convert, repro_torch.train; "
+            "repro_torch.launch.train, repro_torch.convert, repro_torch.train, "
+            "repro_torch.launch.mesh, repro_torch.train.sharded; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,

@@ -1,7 +1,11 @@
 """The port's table-wise slice against the reference, on the CPU: the
-placement planner (each strategy it plans), the per-owner / per-range
-plan splits, the segmented fused sparse backward, the legacy two-pass
-update (dedup, then row-wise AdaGrad) and `build_tablewise_train_step`.
+placement planner (each strategy it plans, with `table_costs`,
+`second_axis_size` and `capacity_shards`), `frequency_reorder` and
+`elastic_table_remap`, the per-owner / per-range / per-table plan splits,
+the segmented fused sparse backward, the legacy two-pass update (dedup,
+then row-wise AdaGrad), `build_tablewise_train_step` and the host-loss
+re-pack (`elastic_tablewise_repack`, the reference's chaos scenario 4).
+The step under a mesh is held in tests/test_torch_multidevice.py.
 Inputs come from numpy seeds; parameters are copied across
 (`repro_torch.convert`). Sizes: the smoke dlrm-m1 (6 tables, d=16) over 4
 owners, batch 16; the planner also at full dlrm-m1 width (numpy only, no
@@ -61,7 +65,7 @@ KERNEL_TOL = {"rtol": 1e-5, "atol": 1e-6}
 PLAN_FIELDS = ("strategy", "table_offsets", "total_rows", "shard_of_table",
                "n_shards", "bytes_per_shard", "load_per_shard", "cache_rows",
                "capacity_shards", "shard_rows", "column_shards",
-               "load_imbalance")
+               "load_imbalance", "pspec")
 
 
 def _t(x):
@@ -91,6 +95,18 @@ PLACEMENTS = {
     "auto_replicated": dict(n_shards=2, budget=1e9, strategy="auto"),
     "auto_table_wise": dict(n_shards=4, budget=80_000, strategy="auto"),
     "auto_row_wise": dict(n_shards=2, budget=30_000, strategy="auto"),
+    "column_wise": dict(n_shards=4, budget=1e9, strategy="column_wise"),
+    "row_wise_second_axis": dict(n_shards=2, budget=20_000,
+                                 strategy="row_wise", second_axis_size=4),
+    "row_wise_second_axis_unused": dict(n_shards=2, budget=1e9,
+                                        strategy="row_wise",
+                                        second_axis_size=4),
+    "cached_host_sharded": dict(n_shards=2, budget=20_000,
+                                strategy="cached_host", capacity_shards=3),
+    "table_wise_priced": dict(n_shards=2, budget=1e9, strategy="table_wise",
+                              table_costs=[1.0, 9.0, 1.0, 8.0, 2.0]),
+    "table_wise_named_axis": dict(n_shards=3, budget=1e9,
+                                  strategy="table_wise", model_axis="owners"),
 }
 
 
@@ -126,13 +142,101 @@ def test_table_wise_oversized_table_flagged_like_reference():
 
 
 def test_column_wise_names_the_later_slice():
-    """column_wise plans only for the sliced executor of the multi-device
-    slice; an unknown strategy is refused."""
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        placement.plan_placement([100, 50], [1.0, 1.0], 32, 4, 1e9,
-                                 strategy="column_wise")
+    """column_wise plans as the reference's does (every table sliced over
+    all shards, the dim split) and refuses a dim the shards do not divide,
+    with the reference's message; an unknown strategy is refused."""
+    want = jplacement.plan_placement([100, 50], [1.0, 1.0], 64, 4, 1e9,
+                                     strategy="column_wise")
+    got = placement.plan_placement([100, 50], [1.0, 1.0], 64, 4, 1e9,
+                                   strategy="column_wise")
+    _same_plan(got, want)
+    assert got.column_shards == (4, 4) and got.pspec == (None, "model")
+    msgs = []
+    for mod in (jplacement, placement):
+        with pytest.raises(ValueError, match="divisible") as e:
+            mod.plan_placement([100, 50], [1.0, 1.0], 30, 4, 1e9,
+                               strategy="column_wise")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="unknown placement"):
         placement.plan_placement([100], [1.0], 16, 1, 1e9, strategy="nope")
+
+
+def test_table_wise_priced_costs_override_loads_like_reference():
+    """The reference's case: costs that invert the load order split the
+    tables the costs call heavy, and balance the summed cost."""
+    sizes, loads = [400, 400, 400, 400], [10.0, 10.0, 1.0, 1.0]
+    costs = [1.0, 1.0, 10.0, 10.0]
+    want = jplacement.plan_placement(sizes, loads, 16, 2, 1e9,
+                                     strategy="table_wise",
+                                     table_costs=costs)
+    got = placement.plan_placement(sizes, loads, 16, 2, 1e9,
+                                   strategy="table_wise", table_costs=costs)
+    _same_plan(got, want)
+    owners = np.asarray(got.table_offsets) // got.shard_rows
+    assert owners[2] != owners[3]
+    assert got.load_per_shard[0] == got.load_per_shard[1]
+
+
+@pytest.mark.parametrize("strategy,kw", [
+    ("row_wise", dict(second_axis_size=2)),
+    ("cached_host", dict(capacity_shards=4)),
+    ("table_wise", dict()),
+], ids=["row_wise_second_axis", "cached_host_sharded", "table_wise"])
+def test_full_width_options_equal_reference(strategy, kw):
+    """The options at full dlrm-m1 width through the collection's build,
+    with the reference's 6 GB budget: row_wise over 4 x 2 shards, the
+    capacity tier over 4 hosts, table_wise over 4 owners."""
+    cfg, jcfg = get_config("dlrm-m1"), jget_config("dlrm-m1")
+    got = EmbeddingBagCollection.build(cfg, n_shards=4, strategy=strategy,
+                                       **kw).plan
+    want = JEBC.build(jcfg, n_shards=4, strategy=strategy, **kw).plan
+    _same_plan(got, want)
+
+
+def test_frequency_reorder_equals_reference():
+    """The reference's case (tests/test_cache_admission.py) and a random
+    one over a smoke table's layout: integers equal."""
+    offs, sizes = [0, 10], [10, 6]
+    freq = np.zeros((16,))
+    freq[[3, 7, 9]] = [5, 9, 2]
+    freq[[12, 15]] = [4, 1]
+    cases = [(offs, sizes, freq, 16)]
+    cfg = get_smoke_config("dlrm-m1")
+    plan = EmbeddingBagCollection.build(cfg, n_shards=3,
+                                        strategy="table_wise").plan
+    rng = np.random.RandomState(6)
+    cases.append((plan.table_offsets, cfg.hash_sizes,
+                  rng.randint(0, 5, plan.total_rows), plan.total_rows))
+    for args in cases:
+        want = jplacement.frequency_reorder(*args)
+        got = placement.frequency_reorder(*args)
+        for w, g in zip(want, got):
+            assert g.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
+    remap, inverse = placement.frequency_reorder(offs, sizes, freq, 16)
+    assert remap[7] == 0 and remap[3] == 1 and remap[9] == 2
+    assert (inverse[remap] == np.arange(16)).all()
+    for mod in (jplacement, placement):
+        with pytest.raises(ValueError, match="shape"):
+            mod.frequency_reorder([0], [4], np.zeros((3,)), 4)
+
+
+@pytest.mark.parametrize("owners", [(4, 3), (3, 4), (4, 1)])
+def test_elastic_table_remap_equals_reference(owners):
+    cfg, jcfg = get_smoke_config("dlrm-m1"), jget_smoke("dlrm-m1")
+    old, new = (EmbeddingBagCollection.build(cfg, n_shards=n,
+                                             strategy="table_wise").plan
+                for n in owners)
+    jold, jnew = (JEBC.build(jcfg, n_shards=n, strategy="table_wise").plan
+                  for n in owners)
+    want = jplacement.elastic_table_remap(jold, jnew, jcfg.hash_sizes)
+    got = placement.elastic_table_remap(old, new, cfg.hash_sizes)
+    for w, g in zip(want, got):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="same tables"):
+        placement.elastic_table_remap(old, new, cfg.hash_sizes[:-1])
 
 
 def test_auto_at_one_shard_plans_full_width_m1_like_reference():
@@ -225,6 +329,43 @@ def test_split_by_ranges_rejects_overlap_like_reference():
     for mod in (jsp, sparse_plan):
         with pytest.raises(AssertionError, match="ascending and disjoint"):
             mod.split_plan_by_ranges(plan, [0, 5], [10, 15])
+
+
+@pytest.mark.parametrize("name", CORPUS)
+def test_split_by_table_equals_reference(name):
+    """Tables at offsets out of row order (a table_wise layout's), with a
+    gap between two: the segments in TABLE order, integers equal."""
+    plan = jsp.build_sparse_plan_host(_corpus()[name])
+    offs, rows = [24, 0, 40, 12], [12, 10, 8, 6]
+    for cap in (None, len(plan.unique_rows)):
+        want = jsp.split_plan_by_table(plan, offs, rows, seg_cap=cap)
+        got = sparse_plan.split_plan_by_table(plan, offs, rows, seg_cap=cap)
+        for w, g in zip(want, got):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[2], offs)
+
+
+def test_split_by_table_recovers_per_table_footprints():
+    """The reference's property on the smoke table_wise layout: each
+    table's segment is the live rows in its span, as many as the batch's
+    unique rows there."""
+    cfg = get_smoke_config("dlrm-m1")
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=2, strategy="table_wise")
+    idx = ebc.offset_indices(make_dlrm_batch(cfg, 8, step=0)["idx"])
+    plan = sparse_plan.build_sparse_plan_host(idx)
+    offs = np.asarray(ebc.plan.table_offsets, np.int64)
+    rows_of = np.asarray([-(-h // 8) * 8 for h in cfg.hash_sizes], np.int64)
+    seg_rows, _, seg_base = sparse_plan.split_plan_by_table(plan, offs,
+                                                            rows_of)
+    np.testing.assert_array_equal(seg_base, offs.astype(np.int32))
+    live = plan.unique_rows[plan.unique_rows >= 0]
+    for t in range(len(offs)):
+        mine = seg_rows[t][seg_rows[t] >= 0] + offs[t]
+        span = (live >= offs[t]) & (live < offs[t] + rows_of[t])
+        np.testing.assert_array_equal(mine, live[span])
+        inside = idx[(idx >= offs[t]) & (idx < offs[t] + rows_of[t])]
+        assert len(mine) == len(np.unique(inside))
 
 
 def test_split_overflow_message_equals_reference():
@@ -649,3 +790,84 @@ def test_tablewise_exchange_traffic_equals_reference():
             janalysis.tablewise_exchange_traffic(b, f, lk, d, h, **kw)
     one = analysis.tablewise_exchange_traffic(b, f, lk, d, 1)
     assert one["total_bytes"] == 0.0 and one["pooling_reduction"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# host loss: the elastic table-wise re-pack (the reference's chaos scenario 4)
+# ---------------------------------------------------------------------------
+
+
+def _repack_batch(cfg, ebc, t):
+    raw = make_dlrm_batch(cfg, BATCH, step=t)
+    return {**raw, "idx": ebc.offset_indices(raw["idx"])}
+
+
+def test_elastic_repack_equals_reference_repack():
+    """A re-pack only moves rows: the port's new table and accumulator are
+    the reference's repack of the same arrays, bit for bit, and so is the
+    new plan."""
+    from repro.train import fault_tolerance as jft
+    from repro_torch.train import elastic_tablewise_repack
+    cfg, jcfg = get_smoke_config("dlrm-m1"), jget_smoke("dlrm-m1")
+    ebc4 = EmbeddingBagCollection.build(cfg, n_shards=4,
+                                        strategy="table_wise")
+    jebc4 = JEBC.build(jcfg, n_shards=4, strategy="table_wise")
+    rng = np.random.RandomState(7)
+    mega = rng.randn(ebc4.plan.total_rows, cfg.embed_dim).astype(np.float32)
+    accum = rng.rand(ebc4.plan.total_rows).astype(np.float32)
+    jnew, jmega, jaccum = jft.elastic_tablewise_repack(jcfg, jebc4, mega,
+                                                       accum, 3)
+    new, got_mega, got_accum = elastic_tablewise_repack(
+        cfg, ebc4, _t(mega), _t(accum), 3, chunk_rows=37)
+    _same_plan(new.plan, jnew.plan)
+    np.testing.assert_array_equal(got_mega.numpy(), np.asarray(jmega))
+    np.testing.assert_array_equal(got_accum.numpy(), np.asarray(jaccum))
+
+
+def test_chaos_host_loss_elastic_repack_bitexact(tmp_path):
+    """Losing one of 4 table-wise owners at step 3: checkpoint the bundle,
+    restore it, re-pack the rows for 3 survivors and continue. Row
+    renumbering changes neither per-bag pooling nor per-row AdaGrad, so the
+    losses are bit-equal to the uninterrupted 4-owner run."""
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.train import (CheckpointManager, FaultInjector,
+                                   FaultSpec, elastic_tablewise_repack)
+    cfg = get_smoke_config("dlrm-m1")
+    ebc4 = EmbeddingBagCollection.build(cfg, n_shards=4,
+                                        strategy="table_wise")
+    opt = adagrad(0.01)
+
+    def fresh():
+        p = init_dlrm_params(cfg, ebc4, 3, torch.device("cpu"))
+        return p, dlrm_init_state(ebc4, opt, p)
+
+    p, s = fresh()
+    step = build_tablewise_train_step(cfg, ebc4, opt)
+    want = []
+    for t in range(6):
+        p, s, m = step(p, s, _repack_batch(cfg, ebc4, t), t)
+        want.append(float(m["loss"]))
+
+    inj = FaultInjector([FaultSpec("loop.step", 3, "host_loss", arg=1)])
+    mgr = CheckpointManager(str(tmp_path), injector=inj)
+    e, (p, s) = ebc4, fresh()
+    step = build_tablewise_train_step(cfg, ebc4, opt)
+    got, repacked = [], 0
+    for t in range(6):
+        spec = inj.fire("loop.step", step=t)
+        if spec is not None and spec.kind == "host_loss":
+            mgr.save(t, {"params": p, "state": s})
+            tree = mgr.restore({"params": p, "state": s})
+            e, mega, accum = elastic_tablewise_repack(
+                cfg, e, tree["params"]["emb"]["mega"],
+                tree["state"]["accum"], 3)
+            p = {"bottom": tree["params"]["bottom"],
+                 "top": tree["params"]["top"], "emb": {"mega": mega}}
+            s = {"dense": tree["state"]["dense"], "accum": accum}
+            step = build_tablewise_train_step(cfg, e, opt)
+            repacked += 1
+        p, s, m = step(p, s, _repack_batch(cfg, e, t), t)
+        got.append(float(m["loss"]))
+    assert repacked == 1
+    assert e.plan.strategy == "table_wise" and e.plan.capacity_shards == 3
+    assert got == want
