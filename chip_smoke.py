@@ -123,7 +123,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    within TOL_HYBRID (the dense parameters TOL_HYBRID_DENSE) of the
    one-device step; each rank's launches exact,
    its host and device ms and all_reduce calls, bytes and ms a step;
-13. print one JSON line of per-kernel numbers, then the result line.
+13. train full-width dlrm-m1 through the multi-host cached tier, 4 hosts'
+   caches over one row-sharded capacity tier (`build_cached_train_step` on
+   `MultiHostCachedEmbeddingBagCollection`): (13a) the plan's cache a
+   host, batches from `sparse_plan_hook(n_hosts=4)`, the next batch
+   prefetched; (13b) strict_sync, no hook plans, 8-row fetch chunks and
+   MULTIHOST_EVICT_CACHE_ROWS slots a host, which evict and invalidate;
+   each step exactly 4 embedding_bag, 1 dot_interaction and 1 segmented
+   update launches, the losses the launcher's bit for bit and the
+   materialized checksums LAUNCHER_FINAL_SUMS, every lookup a hit or a
+   miss; RouteStats logged beside `multihost_exchange_traffic`;
+14. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -137,6 +147,7 @@ trials as one JSON line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -179,6 +190,13 @@ HOST_ITERS = 200
 #: by bisection between EVICT_SEARCH_LO and EVICT_CACHE_ROWS in steps of
 #: EVICT_SEARCH_GRAIN rows (87,040 fails at step 2)
 EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
+#: phases 13a-13b: the multi-host tier's hosts (batch 512 -> 128 examples
+#: a host), and 13b's per-host cache: the largest per-host one-batch
+#: working set over the launcher's TRAIN_STEPS batches (17,814 rows, host
+#: 2 at step 3), rounded up to a multiple of 8, so the caches evict and
+#: `_admit_host`'s guard cannot fire
+MULTIHOST_HOSTS = 4
+MULTIHOST_EVICT_CACHE_ROWS = 17_816
 #: phase 11b's three tiers: the reference's bulk block and latency, and a
 #: DRAM budget that TRAIN_STEPS steps overflow (a quarter of the table,
 #: 42.6M rows, never fills in 8 steps, which evict ~1e5 rows, so no
@@ -1928,6 +1946,200 @@ def train_cached(torch, dev, cfg, run: dict, want: dict,
     return out
 
 
+def train_multihost(torch, dev, cfg, run: dict, want: dict) -> dict:
+    """Phases 13a-13b: TRAIN_STEPS full-width steps through
+    `build_cached_train_step` on `MultiHostCachedEmbeddingBagCollection`
+    (MULTIHOST_HOSTS hosts) from the launcher's seed and batches. `run`
+    names the per-host `cache_rows` (None: the plan's), the reader hook
+    ("plan": `sparse_plan_hook(n_hosts=...)`, whose sub-plans the step
+    reads; "dedup": none, `plan_step` plans), `strict_sync` and
+    `fetch_chunk`. Gates: each step's launches exactly 4 embedding_bag, 1
+    dot_interaction and 1 segmented update; the losses and the
+    materialized checksums the launcher's; hits + misses the batches'
+    valid lookups; with `evicts`, evictions and invalidations. The last
+    PROFILED_STEPS steps run under torch.profiler. Returns the run's
+    numbers, "launches" the run's counts (reset before its first step)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.data.pipeline import (ShardedLoader, dedup_indices_hook,
+                                           sparse_plan_hook)
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.analysis import multihost_exchange_traffic
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+
+    hn = MULTIHOST_HOSTS
+    mc = MultiHostCachedEmbeddingBagCollection.build(
+        cfg, n_hosts=hn, cache_rows=run["cache_rows"])
+    r_rows, d = mc.ebc.plan.total_rows, cfg.embed_dim
+    params = init_dlrm_params(cfg, mc.ebc, PARAM_SEED, dev)
+    if bit_checksum(torch, params["emb"]["mega"]) != want["init_sum"]:
+        raise AssertionError("the multi-host run's initial table differs "
+                             "from the launcher's")
+    opt = adagrad(0.01)
+    state = cached_dlrm_init_state(mc, opt, params)
+    dense = {"bottom": params["bottom"], "top": params["top"]}
+    mega = params.pop("emb")["mega"]
+    out = {}
+    t0 = time.perf_counter()
+    ms = mc.init_state(mega)                   # owned, no copy
+    out["init_state_s"] = time.perf_counter() - t0
+    del mega
+    reckoning = {"capacity": r_rows * d * 4, "accum": r_rows * 4,
+                 "caches": hn * mc.cache_rows * d * 4}
+    reckoning["total"] = sum(reckoning.values())
+    host_maps = sum(getattr(ms, k).nbytes for k in (
+        "freq", "slot_row", "row_slot", "ema", "ema_tick"))
+    log(f"  {hn} hosts x {mc.cache_rows} slots, shard_rows "
+        f"{mc.shard_rows}, capacity {tuple(ms.capacity.shape)} on "
+        f"{ms.capacity.device}; device bytes by the reckoning "
+        f"{json.dumps(reckoning)}, allocated "
+        f"{torch.cuda.memory_allocated()}; host maps {host_maps} bytes; "
+        f"init_state {out['init_state_s']:.2f} s")
+    step_fn = build_cached_train_step(cfg, mc, opt, SPARSE_LR, SPARSE_EPS,
+                                      strict_sync=run["strict_sync"],
+                                      fetch_chunk=run["fetch_chunk"])
+    offsets = mc.ebc.plan.table_offsets
+    hook = (sparse_plan_hook(offsets, n_hosts=hn) if run["hook"] == "plan"
+            else dedup_indices_hook(offsets))
+    pipe = ShardedLoader(
+        lambda step, seed: make_dlrm_batch(cfg, TRAIN_BATCH, step, seed),
+        TRAIN_BATCH).pipeline(prefetch=2, transform=hook)
+    want_step = {"embedding_bag": hn, "dot_interaction": 1,
+                 "fused_bag_backward_adagrad_segments": 1}
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_s, lookups, model, widest = [], [], 0, [], 0
+    prof = None
+    reset_launches(KERNELS)
+    try:
+        for step in range(TRAIN_STEPS):
+            _, batch = next(pipe)
+            idx = batch["idx"]
+            bh = idx.shape[0] // hn
+            ws = [len(np.unique(s[s >= 0])) for s in
+                  (idx[h * bh:(h + 1) * bh] for h in range(hn))]
+            widest = max(widest, max(ws))
+            lookups += int(np.count_nonzero(idx >= 0))
+            nxt = None if step == TRAIN_STEPS - 1 else pipe.peek(0)
+            if step == TRAIN_STEPS - PROFILED_STEPS:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            before = {k.name: k.launches for k in KERNELS}
+            fetches = ms.stats.fetches
+            t0 = time.perf_counter()
+            dense, state, m = step_fn(dense, state, ms, batch, step,
+                                      next_batch=nxt)
+            losses.append(float(m["loss"]))              # syncs the step
+            host_s.append(time.perf_counter() - t0)
+            got = {k.name: k.launches - before[k.name] for k in KERNELS}
+            if got != {**dict.fromkeys(got, 0), **want_step}:
+                raise AssertionError(f"{run['name']} step {step}: launches "
+                                     f"{got}, want {want_step} and no other")
+            # the traffic model at this step's counted unique rows and
+            # admissions (plan and prefetch): a row hit rate over U_h
+            u_h = sum(ws) / hn
+            fetched = ms.stats.fetches - fetches
+            model.append(multihost_exchange_traffic(
+                TRAIN_BATCH, cfg.n_sparse_features, cfg.truncation, d, hn,
+                u_h, len(np.unique(idx[idx >= 0])),
+                1.0 - fetched / (hn * u_h)))
+            log(f"  step {step} loss {losses[-1]:.6f} host "
+                f"{host_s[-1] * 1e3:.3f} ms hit_rate "
+                f"{m['cache_hit_rate']:.4f} route_fetch_remote "
+                f"{m['route_fetch_remote']:.0f} route_invalidations "
+                f"{m['route_invalidations']:.0f}")
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    finally:
+        pipe.close()
+    launches = read_launches(KERNELS, run["path"], tuple(want_step))
+    mega, accum = mc.materialize(ms)
+    sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+    st, route = mc.stats(ms), ms.route
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  cache: hits={st.hits} misses={st.misses} fetches={st.fetches} "
+        f"evictions={st.evictions} prefetched={st.prefetched} "
+        f"fetch_chunks={st.fetch_chunks} overfetch_rows={st.overfetch_rows}"
+        f" hit_rate={st.hit_rate:.4f}; valid lookups {lookups}; largest "
+        f"per-host one-batch working set {widest} vs cache_rows "
+        f"{mc.cache_rows}")
+    log(f"  route: {json.dumps(route.snapshot())}")
+    log_peak(torch, run["name"])
+    log(f"  peak {peak} bytes vs the reckoning's {reckoning['total']}")
+    equal = losses == want["losses"]
+    log(f"  losses vs the launcher's: bit-equal={equal}; materialized "
+        f"checksums (mega, accum) {sums} vs LAUNCHER_FINAL_SUMS "
+        f"{LAUNCHER_FINAL_SUMS}: equal={sums == LAUNCHER_FINAL_SUMS}")
+    if not equal:
+        raise AssertionError(f"{run['name']}: losses {losses} differ from "
+                             f"the launcher's {want['losses']}")
+    if sums != LAUNCHER_FINAL_SUMS:
+        raise AssertionError(f"{run['name']}: final checksums {sums} differ "
+                             f"from {LAUNCHER_FINAL_SUMS}")
+    if st.hits + st.misses != lookups:
+        raise AssertionError(f"{run['name']}: hits {st.hits} + misses "
+                             f"{st.misses} != {lookups} valid lookups")
+    if run["evicts"] and not (st.evictions > 0 and route.invalidations > 0):
+        raise AssertionError(f"{run['name']}: no eviction or invalidation")
+    row = d * 4
+    counted = {"fetch_bytes": route.fetch_remote * (row + 4),
+               "grad_bytes": route.grad_pairs_remote * (row + 4),
+               "refresh_bytes": route.refresh_remote * row,
+               "dup_rows": route.dup_rows}
+    counted["total_bytes"] = (counted["fetch_bytes"] + counted["grad_bytes"]
+                              + counted["refresh_bytes"])
+    modelled = {k: sum(m_[k] for m_ in model) for k in counted}
+    log(f"  exchange bytes over the run, counted from RouteStats "
+        f"{json.dumps(counted)} vs multihost_exchange_traffic at each "
+        f"step's counted unique rows and row hit rate "
+        f"{json.dumps(modelled)}")
+    events = device_events(prof)
+    dev_us = sum(t for _, t in events)
+    plain = slice(1, TRAIN_STEPS - PROFILED_STEPS)
+    top = sorted(events, key=lambda e: e[1], reverse=True)[:10]
+    out.update({
+        "losses_bit_equal": equal, "checksums_equal": True,
+        "host_ms_per_step": sum(host_s[plain]) / len(host_s[plain]) * 1e3,
+        "profiled_host_ms_per_step":
+            sum(host_s[-PROFILED_STEPS:]) / PROFILED_STEPS * 1e3,
+        "device_busy_ms_per_step": (dev_us / 1e3 / PROFILED_STEPS
+                                    if dev_us else None),
+        "peak_bytes": peak, "reckoning_bytes": reckoning,
+        "host_map_bytes": host_maps,
+        "stats": {k: getattr(st, k) for k in (
+            "hits", "misses", "fetches", "evictions", "prefetched",
+            "fetch_chunks", "overfetch_rows")},
+        "route": dataclasses.asdict(route),
+        "exchange_counted": counted, "exchange_model": modelled,
+        "widest_host_working_set": widest,
+        "update_device_ms_per_step": kernel_ms_per_step(
+            events, "fused_bag_backward_adagrad"),
+        "lookup_device_ms_per_step": kernel_ms_per_step(
+            events, "embedding_bag"),
+        "top_device_ms_per_step": {
+            name[:60]: t / 1e3 / PROFILED_STEPS for name, t in top if t},
+        "launches": launches})
+    log(f"  {run['name']}: steps {plain.start}-{plain.stop - 1} host "
+        f"{out['host_ms_per_step']:.3f} ms per step (profiler off); "
+        f"profiled: host {out['profiled_host_ms_per_step']:.3f} ms, device "
+        "busy " + (f"{out['device_busy_ms_per_step']:.3f} ms per step"
+                   if dev_us else "not measured (trace holds no device time)"))
+    log("  device ms per step by kernel (profiled steps): "
+        + json.dumps(out["top_device_ms_per_step"]))
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=12))
+    del ms, mega, accum, dense, state
+    return out
+
+
 def check_tiers(cc, cs, st) -> dict:
     """Phase 11b's gates on a three-tier run: bulk promotions and
     demotions happened, and device, DRAM and bulk partition the rows. Logs
@@ -3659,7 +3871,29 @@ def main() -> int:
         log(f"{name} numbers: " + json.dumps(
             {k: v for k, v in nums.items() if k != "launches_per_rank"}))
 
-    # 13. the numbers, then the result
+    # 13. the multi-host cached tier: 4 hosts' caches over one row-sharded
+    #     capacity tier, at the plan's cache (13a) and at a cache that
+    #     evicts, strict and without hook plans (13b)
+    for r in (
+            {"name": "13a", "path": "train_multihost", "cache_rows": None,
+             "hook": "plan", "strict_sync": False, "fetch_chunk": None,
+             "evicts": False},
+            {"name": "13b", "path": "train_multihost_evict",
+             "cache_rows": MULTIHOST_EVICT_CACHE_ROWS, "hook": "dedup",
+             "strict_sync": True, "fetch_chunk": EVICT_CHUNK,
+             "evicts": True}):
+        log(f"phase {r['name']}: build_cached_train_step("
+            f"MultiHostCachedEmbeddingBagCollection(n_hosts="
+            f"{MULTIHOST_HOSTS}, cache_rows={r['cache_rows']}), "
+            f"strict_sync={r['strict_sync']}, fetch_chunk="
+            f"{r['fetch_chunk']}), hook {r['hook']}, {TRAIN_STEPS} steps "
+            f"from the launcher's seed and batches")
+        res = train_multihost(torch, dev, cfg, r, want)
+        paths[r["path"]] = res.pop("launches")
+        log(f"{r['name']} numbers: {json.dumps(res)}")
+        free_device(torch)
+
+    # 14. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",

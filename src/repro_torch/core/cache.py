@@ -46,8 +46,13 @@ and host maps, both schedules), and an `injector` fires "cache.fetch"
 before each capacity-tier fetch, with `retry` absorbing transient faults.
 Two tier hooks, `_stage_capacity` before every capacity-tier read and
 `_absorb_evictions` after every eviction, are no-ops here; the bulk tier
-(`core.tiers`) overrides them. The multi-host tier comes with a later
-slice.
+(`core.tiers`) overrides them.
+
+`MultiHostCachedEmbeddingBagCollection` is the data-parallel tier: H
+hosts' clean hot caches over ONE row-sharded capacity tier. Its host maps
+are numpy as in the reference; its slab installs are index ops on the
+card (`install`), and its train step (`train.steps`) routes every update
+to the owning shard through the segmented fused update.
 """
 from __future__ import annotations
 
@@ -62,7 +67,10 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import hostmem
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.kernels import cache_ops
-from repro_torch.kernels.sparse_plan import coalesce_rows
+from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
+                                             coalesce_rows,
+                                             split_plan_by_host,
+                                             split_plan_by_owner)
 
 
 @dataclasses.dataclass
@@ -401,6 +409,27 @@ class StaleRowSnapshot:
         out = self.values[rows].copy()
         out[~self.seen[rows]] = 0
         return out
+
+
+def _restore_device(cap, cache, device) -> torch.device:
+    """The device a `load_state_dict` puts numpy leaves on: `device`, else
+    the device tier's (`cache` leaf), else a tensor capacity leaf's unless
+    it is page-locked host memory, else cuda."""
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(cache, torch.Tensor):
+        return cache.device
+    if isinstance(cap, torch.Tensor) and not (
+            cap.device.type == "cpu" and hostmem.is_page_locked(cap)):
+        return cap.device
+    return resolve_device(None)
+
+
+def _leaf_on(x, dtype, dev: torch.device) -> torch.Tensor:
+    """A restored leaf as a tensor: a tensor as it is, numpy onto `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, dtype)).to(dev)
 
 
 def _device_ints(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -1114,20 +1143,10 @@ class CachedEmbeddingBagCollection:
         host maps become owned copies, since the planner mutates them. The
         async-only `epoch` key selects the state's flavour."""
         cap, cache = d["capacity"], d["cache"]
-        if device is not None:
-            dev = resolve_device(device)
-        elif isinstance(cache, torch.Tensor):
-            dev = cache.device
-        elif isinstance(cap, torch.Tensor) and not (
-                cap.device.type == "cpu" and hostmem.is_page_locked(cap)):
-            dev = cap.device
-        else:
-            dev = resolve_device(None)
+        dev = _restore_device(cap, cache, device)
 
         def on_dev(x, dtype):
-            if isinstance(x, torch.Tensor):
-                return x
-            return torch.from_numpy(np.array(x, dtype)).to(dev)
+            return _leaf_on(x, dtype, dev)
 
         stats = self._stats_cls(**{k: int(v) for k, v in d["stats"].items()})
         tensors = dict(capacity=on_dev(cap, np.float32),
@@ -1155,3 +1174,563 @@ class CachedEmbeddingBagCollection:
                 staged=None, tick=int(d["tick"]), stats=stats)
         return CacheState(**tensors, freq=on_dev(d["freq"], np.float32),
                           **host, tick=int(d["tick"]), stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# The multi-host tier: per-host caches over one row-sharded capacity tier
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RouteStats:
+    """Per-row traffic counters of the multi-host tier: which shard served
+    each capacity-tier touch. `local` means the touching host owns the row
+    (owner == host); `remote` rows crossed the host interconnect, the
+    all-to-all legs `launch.analysis.multihost_exchange_traffic` prices."""
+    fetch_local: int = 0       # miss rows served by the host's own shard
+    fetch_remote: int = 0      # miss rows pulled from a remote owner
+    refresh_local: int = 0     # post-update working-set rows, own shard
+    refresh_remote: int = 0    # ... returned by a remote owner
+    grad_pairs_local: int = 0  # (row, bag) grads aggregated at a local owner
+    grad_pairs_remote: int = 0  # pairs routed to a remote owner
+    dup_rows: int = 0          # rows in >1 host's working set, reduced once
+                               # at the owner
+    invalidations: int = 0     # cached copies dropped after a remote update
+    fetch_chunks: int = 0      # per-(host, owner) transfer descriptors after
+                               # run-coalescing the miss messages
+    steps: int = 0
+
+    @property
+    def remote_fetch_fraction(self) -> float:
+        """Fraction of fetched rows served by a remote owner shard."""
+        total = self.fetch_local + self.fetch_remote
+        return self.fetch_remote / total if total else 0.0
+
+    def snapshot(self) -> dict[str, float]:
+        """Flat metrics dict (the train step's logging payload)."""
+        return {"route_fetch_local": float(self.fetch_local),
+                "route_fetch_remote": float(self.fetch_remote),
+                "route_refresh_remote": float(self.refresh_remote),
+                "route_grad_pairs_remote": float(self.grad_pairs_remote),
+                "route_dup_rows": float(self.dup_rows),
+                "route_invalidations": float(self.invalidations),
+                "route_fetch_chunks": float(self.fetch_chunks),
+                "route_remote_fetch_fraction": self.remote_fetch_fraction}
+
+    def reset(self) -> None:
+        """Zero every counter in place."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+
+@dataclasses.dataclass
+class MultiHostCacheState:
+    """State of the data-parallel cached tier: ONE row-sharded capacity
+    tier (owner h holds rows [h*shard_rows, (h+1)*shard_rows)) under H
+    independent per-host hot caches over the whole row space.
+
+    Cached copies are clean by construction: updates are routed to the
+    owning shard and applied there once, each host's working set is
+    refreshed from the post-update capacity inside the same step, and
+    copies a remote update left stale are invalidated before the next
+    batch plans. Eviction never writes back, and the AdaGrad accumulator
+    never leaves the owner."""
+    capacity: torch.Tensor     # (R, d) row-sharded capacity tier
+    cap_accum: torch.Tensor    # (R,) fp32 AdaGrad accumulator, owner-only
+    caches: torch.Tensor       # (H, C, d) per-host clean hot caches
+    freq: np.ndarray           # (H, C) host fp32 LFU-with-decay scores
+    slot_row: np.ndarray       # (H, C) int64: row held by slot, -1 free
+    row_slot: np.ndarray       # (H, R) int32: slot holding row, -1 uncached
+    ema: np.ndarray            # (R,) fp32 EMA-decayed GLOBAL per-row counts
+    ema_tick: np.ndarray       # (R,) int64 tick of each row's last EMA touch
+    tick: int                  # EMA clock: one tick per planned batch
+    stats: CacheStats          # aggregate over hosts
+    route: RouteStats
+
+    @property
+    def n_hosts(self) -> int:
+        """Host count H (one hot cache each)."""
+        return int(self.caches.shape[0])
+
+    @property
+    def cache_rows(self) -> int:
+        """Per-host device-tier height C (slots)."""
+        return int(self.caches.shape[1])
+
+
+@dataclasses.dataclass
+class MultiHostStepPlan:
+    """One batch's host-planned worklist: every array the multi-host step
+    consumes (`train.steps`), host numpy, -1-padded; the miss and
+    working-set lists hold each host's live entries first."""
+    local_idx: np.ndarray      # (H, B/H, F, L) slot-space remap
+    miss_rows: np.ndarray      # (H, M) capacity rows to install pre-forward
+    miss_slots: np.ndarray     # (H, M) destination cache slots
+    ws_rows: np.ndarray        # (H, M) working-set rows to refresh post-update
+    ws_slots: np.ndarray       # (H, M) their cache slots
+    seg_rows: np.ndarray       # (H, U) OWNER-LOCAL unique rows per segment
+    seg_offsets: np.ndarray    # (H, U+1) absolute positions into bag_ids
+    seg_base: np.ndarray       # (H,) owner row bases
+    bag_ids: np.ndarray        # (N,) shared flat-bag list of the global plan
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiHostCachedEmbeddingBagCollection:
+    """The cached tier under data parallelism: H hosts each run a
+    `cache_rows` hot cache over a capacity tier row-sharded across the same
+    H hosts. Misses resolve against the owning shard (each host's sorted
+    sub-plan grouped by owner), and gradients of rows cached on several
+    hosts are routed to the owner and reduced once before the fused
+    AdaGrad update (per-owner segments of the global plan).
+
+    With host h holding examples [h*B/H, (h+1)*B/H), the owner's reduction
+    runs in flat-batch order, so the tier is bit-equal to the uncached
+    step (`build_dlrm_train_step(sparse_apply="sparse")`).
+
+    Single-controller: one process drives every host's cache, all on the
+    capacity tier's device. The host maps (`freq`, `slot_row`, `row_slot`,
+    `ema`, `ema_tick`) are host numpy with the reference's integers and
+    fp32 arithmetic; slab installs are `index_select` / `index_copy_` on the
+    device (`install`)."""
+    ebc: EmbeddingBagCollection
+    n_hosts: int
+    cache_rows: int
+    decay: float = 0.98        # LFU and EMA decay per step
+    fetch_chunk: int = 1       # miss-message granularity in rows: > 1
+                               # coalesces each (host, owner) message's
+                               # sorted rows into blocks (booked in
+                               # RouteStats.fetch_chunks)
+    injector: Any = None       # FaultInjector firing "cache.fetch" once per
+                               # planned global batch and per prefetch,
+                               # before any host map mutates
+    retry: Any = None          # RetryPolicy for transient faults
+
+    def __post_init__(self):
+        if self.cache_rows <= 0:
+            raise ValueError("cached_host plan produced an empty cache")
+        if self.fetch_chunk < 1:
+            raise ValueError(f"fetch_chunk must be >= 1, got "
+                             f"{self.fetch_chunk}")
+
+    @classmethod
+    def build(cls, cfg: DLRMConfig, n_hosts: int,
+              cache_rows: int | None = None, decay: float = 0.98,
+              fetch_chunk: int = 1
+              ) -> MultiHostCachedEmbeddingBagCollection:
+        """Build over a fresh `cached_host` collection whose capacity tier
+        is row-sharded over `n_hosts`; `cache_rows` (per host) defaults to
+        the plan's."""
+        ebc = EmbeddingBagCollection.build(cfg, n_shards=n_hosts,
+                                           strategy="cached_host",
+                                           capacity_shards=n_hosts)
+        rows = cache_rows if cache_rows is not None else ebc.plan.cache_rows
+        return cls(ebc, int(n_hosts), int(rows), decay, int(fetch_chunk))
+
+    @property
+    def shard_rows(self) -> int:
+        """Capacity rows owned by each host shard."""
+        return self.ebc.plan.shard_rows
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self, mega: torch.Tensor,
+                   accum: torch.Tensor | None = None,
+                   device=None) -> MultiHostCacheState:
+        """mega: (rows, d) capacity table, rows <= total_rows; accum:
+        optional (rows,) fp32 AdaGrad accumulator; device: the caches'
+        device (default mega's), which must be the capacity tier's.
+
+        A `mega` (and `accum`) of height total_rows is TAKEN, not copied:
+        the update writes the capacity tier in place, so the caller must
+        not use it for anything else afterwards (at full dlrm-m1 width a
+        second 43.6 GB capacity does not fit beside the caches). A shorter
+        one (a single-host layout, whose tail padding is 8-aligned rather
+        than H*8-aligned) is zero-padded into a new tensor, as the
+        reference does; pad rows are unreachable."""
+        r, d = mega.shape
+        total = self.ebc.plan.total_rows
+        if r > total:
+            raise ValueError(f"mega has {r} rows, the plan {total}")
+        dev = mega.device if device is None else torch.device(device)
+        if mega.device.type != dev.type or (
+                accum is not None and accum.device.type != dev.type):
+            raise ValueError(
+                f"the multi-host tier keeps its capacity tier on the caches' "
+                f"device ({dev}); got mega on {mega.device}")
+        if accum is None:
+            accum = torch.zeros((r,), dtype=torch.float32, device=dev)
+        accum = accum.to(torch.float32)
+        capacity, cap_accum = mega, accum
+        if r < total:
+            capacity = torch.zeros((total, d), dtype=mega.dtype, device=dev)
+            capacity[:r] = mega
+            cap_accum = torch.zeros((total,), dtype=torch.float32,
+                                    device=dev)
+            cap_accum[:r] = accum
+        h, c = self.n_hosts, self.cache_rows
+        return MultiHostCacheState(
+            capacity=capacity, cap_accum=cap_accum,
+            caches=torch.zeros((h, c, d), dtype=mega.dtype, device=dev),
+            freq=np.zeros((h, c), np.float32),
+            slot_row=np.full((h, c), -1, np.int64),
+            row_slot=np.full((h, total), -1, np.int32),
+            ema=np.zeros((total,), np.float32),
+            ema_tick=np.zeros((total,), np.int64),
+            tick=0, stats=CacheStats(), route=RouteStats())
+
+    # -- per-host admission --------------------------------------------------
+
+    def _admit_host(self, state: MultiHostCacheState, h: int,
+                    missing: np.ndarray, seeds: np.ndarray,
+                    protect: np.ndarray) -> np.ndarray:
+        """Assign host h's cache slots to `missing` rows: free slots first,
+        then the coldest unprotected residents. `seeds` are the slots'
+        initial LFU scores. Caches are clean, so a displaced copy is just
+        dropped. Returns the slots."""
+        n = len(missing)
+        if n == 0:
+            return np.empty((0,), np.int64)
+        slots, victims = _pick_slots(
+            state.slot_row[h], state.freq[h], n, protect,
+            f"host {h}'s batch working set exceeds cache_rows="
+            f"{state.cache_rows}; raise the HBM budget or shrink the "
+            "per-host batch")
+        evicted = state.slot_row[h, victims]
+        state.row_slot[h, evicted] = -1
+        state.slot_row[h, slots] = missing
+        state.row_slot[h, missing] = slots.astype(np.int32)
+        state.freq[h, slots] = seeds.astype(np.float32)
+        state.stats.fetches += n
+        state.stats.evictions += len(victims)
+        return slots
+
+    def _book_fetch_chunks(self, state: MultiHostCacheState,
+                           missing: np.ndarray) -> None:
+        """Book the per-(host, owner) miss messages of one host's sorted
+        `missing` rows as chunked transfers: each owner's slice coalesces
+        on its own (blocks never straddle shard boundaries)."""
+        chunk = min(self.fetch_chunk, self.shard_rows)
+        cuts = np.searchsorted(
+            missing, np.arange(self.n_hosts + 1) * self.shard_rows)
+        for s in range(self.n_hosts):
+            a, b = int(cuts[s]), int(cuts[s + 1])
+            if b > a:
+                starts, pos = coalesce_rows(
+                    missing[a:b] - s * self.shard_rows, chunk,
+                    self.shard_rows, min_fill=_chunk_min_fill(chunk))
+                n_single = int((pos < 0).sum())
+                descs = len(starts) + n_single
+                state.route.fetch_chunks += descs
+                state.stats.fetch_chunks += descs
+                state.stats.overfetch_rows += \
+                    len(starts) * chunk - (b - a - n_single)
+
+    # -- step planning -------------------------------------------------------
+
+    def plan_step(self, state: MultiHostCacheState, idx, host_plans=None,
+                  global_plan=None, train: bool = True) -> MultiHostStepPlan:
+        """Plan one global batch on the host: per host, split its
+        contiguous sub-batch into hits and misses off its sub-plan (the
+        live prefix is the host's sorted unique row set), admit the misses
+        (LFU eviction, clean drop) and remap to slot space. Cross-host legs
+        are booked in RouteStats by owner (row // shard_rows). When
+        `train`, also cut the global plan into per-owner update segments
+        (`split_plan_by_owner`, seg_cap = the plan's height) and invalidate
+        the cached copies this step's remote updates leave stale (working
+        set copies are exempt: the step refreshes them).
+
+        idx: (B, F, L) OFFSET global rows, B divisible by n_hosts;
+        host_plans / global_plan: a hook's (`host_plans_from_batch` /
+        `host_plan_from_batch`), else built here. Mutates the host maps."""
+        # the fault gate comes before any mutation (tick, EMA, maps): a
+        # propagated transient fault leaves this call cleanly replayable
+        _fetch_guard(self.injector, self.retry, "cache.fetch")
+        idx = _host(idx)
+        b, f, lk = idx.shape
+        hn = self.n_hosts
+        if b % hn:
+            raise ValueError(f"a global batch of {b} does not split over "
+                             f"{hn} hosts")
+        bh = b // hn
+        if global_plan is None:
+            global_plan = build_sparse_plan_host(idx)
+        if host_plans is None:
+            host_plans = split_plan_by_host(global_plan, hn, bh * f)
+        m = bh * f * lk                       # per-host worklist capacity
+        local_idx = np.empty((hn, bh, f, lk), np.int32)
+        miss_rows = np.full((hn, m), -1, np.int32)
+        miss_slots = np.full((hn, m), -1, np.int32)
+        ws_rows = np.full((hn, m), -1, np.int32)
+        ws_slots = np.full((hn, m), -1, np.int32)
+        g_rows = np.asarray(global_plan.unique_rows)
+        n_live = int((g_rows >= 0).sum())
+        dup = -n_live
+        state.tick += 1          # one EMA tick per planned global batch
+        for h in range(hn):
+            (sub, valid, rows, counts, hit_slots, hit_counts, missing,
+             _) = CachedEmbeddingBagCollection._split_batch(
+                idx[h * bh:(h + 1) * bh], state.row_slot[h],
+                self.cache_rows, host_plans[h])
+            dup += len(rows)
+            # host LFU: decay everything, bump hits; admissions seed below
+            state.freq[h] *= np.float32(self.decay)
+            state.freq[h, hit_slots] += hit_counts.astype(np.float32)
+            # the GLOBAL per-row EMA: hosts touch in turn, so a shared row
+            # adds every host's counts at this tick
+            _ema_touch(state.ema, state.ema_tick, rows, counts, state.tick,
+                       self.decay)
+            protect = np.zeros((self.cache_rows,), bool)
+            protect[hit_slots] = True
+            # EMA admission, as the single-host tier: a re-admitted row
+            # re-enters at its GLOBAL post-touch EMA score
+            slots = self._admit_host(state, h, missing, state.ema[missing],
+                                     protect)
+            miss_rows[h, :len(missing)] = missing
+            miss_slots[h, :len(missing)] = slots
+            ws_rows[h, :len(rows)] = rows
+            ws_slots[h, :len(rows)] = state.row_slot[h, rows]
+            local_idx[h] = CachedEmbeddingBagCollection._remap(
+                state.row_slot[h], sub, valid)
+            state.stats.hits += int(counts.sum()) - len(missing)
+            state.stats.misses += len(missing)
+            owner_m = missing // self.shard_rows
+            state.route.fetch_remote += int((owner_m != h).sum())
+            state.route.fetch_local += int((owner_m == h).sum())
+            if self.fetch_chunk > 1 and len(missing):
+                self._book_fetch_chunks(state, missing)
+            if train:
+                remote = rows // self.shard_rows != h
+                state.route.refresh_remote += int(remote.sum())
+                state.route.refresh_local += int((~remote).sum())
+                state.route.grad_pairs_remote += int(counts[remote].sum())
+                state.route.grad_pairs_local += int(counts[~remote].sum())
+        state.stats.steps += 1
+        state.route.steps += 1
+        state.route.dup_rows += max(dup, 0)
+        if train:
+            touched = g_rows[:n_live].astype(np.int64)
+            for h in range(hn):
+                slots_t = state.row_slot[h, touched]
+                in_ws = np.zeros((self.cache_rows,), bool)
+                wss = ws_slots[h]
+                in_ws[wss[wss >= 0]] = True
+                kill = (slots_t >= 0) & ~in_ws[np.clip(slots_t, 0, None)]
+                state.slot_row[h, slots_t[kill]] = -1
+                state.row_slot[h, touched[kill]] = -1
+                state.freq[h, slots_t[kill]] = 0.0
+                state.route.invalidations += int(kill.sum())
+            seg_rows, seg_offs, seg_base = split_plan_by_owner(
+                global_plan, self.shard_rows, hn, seg_cap=len(g_rows))
+        else:
+            u = len(g_rows)
+            seg_rows = np.full((hn, u), -1, np.int32)
+            seg_offs = np.zeros((hn, u + 1), np.int32)
+            seg_base = np.zeros((hn,), np.int32)
+        return MultiHostStepPlan(
+            local_idx, miss_rows, miss_slots, ws_rows, ws_slots,
+            seg_rows, seg_offs, seg_base,
+            np.asarray(global_plan.bag_ids, np.int32))
+
+    # -- slab installs -------------------------------------------------------
+
+    def live_worklist(self, rows, slots) -> list[np.ndarray]:
+        """Each host's live entries of (H, M) -1-padded `rows` / `slots`
+        (the ones with a slot), as the flat list [rows_0, slots_0, ...,
+        rows_{H-1}, slots_{H-1}] of int32 arrays, for `hostmem.upload`. The
+        mask runs on the host: on the device it would sync."""
+        rows, slots = _host(rows), _host(slots)
+        out = []
+        for h in range(self.n_hosts):
+            keep = slots[h] >= 0
+            out += [rows[h][keep].astype(np.int32),
+                    slots[h][keep].astype(np.int32)]
+        return out
+
+    def install(self, caches: torch.Tensor, source: torch.Tensor,
+                worklist) -> torch.Tensor:
+        """Copy each host's rows of `source` (the capacity tier) into its
+        slab, IN PLACE: worklist is `live_worklist`'s list as tensors on
+        the device. Every install leg (miss install, post-update refresh,
+        prefetch) is this one copy. Returns caches."""
+        for h in range(self.n_hosts):
+            rows, slots = worklist[2 * h], worklist[2 * h + 1]
+            if rows.numel():
+                caches[h].index_copy_(0, slots.long(),
+                                      source.index_select(0, rows))
+        return caches
+
+    def fill_slabs(self, caches: torch.Tensor, source: torch.Tensor,
+                   rows, slots) -> torch.Tensor:
+        """Install `rows` gathered from `source` into each host's slab at
+        `slots`, IN PLACE: rows / slots (H, M) host int arrays, entries
+        with slot -1 dropped (the reference's mode="drop"). One upload of
+        the live entries, then `install`. Returns caches."""
+        return self.install(caches, source, hostmem.upload(
+            self.live_worklist(rows, slots), caches.device))
+
+    # -- eval / serving ------------------------------------------------------
+
+    def install_misses(self, state: MultiHostCacheState,
+                       splan: MultiHostStepPlan) -> None:
+        """Resolve the planned misses eagerly: gather each host's missing
+        rows from the owning shards into its slab."""
+        self.fill_slabs(state.caches, state.capacity, splan.miss_rows,
+                        splan.miss_slots)
+
+    def lookup(self, state: MultiHostCacheState, idx, host_plans=None,
+               global_plan=None) -> torch.Tensor:
+        """plan + fetch + per-host pooled lookup, concatenated back to the
+        global batch: equal to the uncached collection's lookup on the same
+        indices. Eval path (no update legs)."""
+        splan = self.plan_step(state, idx, host_plans, global_plan,
+                               train=False)
+        self.install_misses(state, splan)
+        local = torch.from_numpy(splan.local_idx).to(state.caches.device)
+        return torch.cat([self.ebc.lookup({"mega": state.caches[h]},
+                                          local[h])
+                          for h in range(self.n_hosts)])
+
+    # -- prefetch ------------------------------------------------------------
+
+    def prefetch(self, state: MultiHostCacheState, idx, host_plans=None,
+                 global_plan=None, gate: bool = False) -> int:
+        """Best-effort admission of the NEXT batch's per-host misses, queued
+        behind the step on the current stream, so the gathers read the
+        post-update capacity. Never evicts a requested resident; overflow
+        beyond free + evictable slots is dropped. `gate=True` adds the EMA
+        admission threshold per host (`_gate_admission`). Returns rows
+        admitted."""
+        _fetch_guard(self.injector, self.retry, "cache.fetch")
+        idx = _host(idx)
+        b, f, _ = idx.shape
+        hn, c = self.n_hosts, self.cache_rows
+        if global_plan is None:
+            global_plan = build_sparse_plan_host(idx)
+        if host_plans is None:
+            host_plans = split_plan_by_host(global_plan, hn, b // hn * f)
+        worklist, total = [], 0
+        for h in range(hn):
+            prows = np.asarray(host_plans[h].unique_rows)
+            rows = prows[:int((prows >= 0).sum())].astype(np.int64)
+            resident = state.row_slot[h, rows] >= 0
+            missing = rows[~resident]
+            protect = np.zeros((c,), bool)
+            protect[state.row_slot[h, rows[resident]]] = True
+            # seed = EMA score + 1: this request counts as one access
+            seeds = _ema_score(state.ema, state.ema_tick, missing,
+                               state.tick, self.decay) + np.float32(1.0)
+            if gate and len(missing):
+                keep = _gate_admission(state.slot_row[h], state.freq[h],
+                                       protect, missing, seeds)
+                missing, seeds = missing[keep], seeds[keep]
+            evictable = int(((state.slot_row[h] >= 0) & ~protect).sum())
+            free = int((state.slot_row[h] < 0).sum())
+            missing = missing[:free + evictable]
+            seeds = seeds[:free + evictable]
+            slots = self._admit_host(state, h, missing, seeds, protect)
+            worklist += [missing.astype(np.int32), slots.astype(np.int32)]
+            owner = missing // self.shard_rows
+            state.route.fetch_remote += int((owner != h).sum())
+            state.route.fetch_local += int((owner == h).sum())
+            total += len(missing)
+        if total:
+            self.install(state.caches, state.capacity,
+                         hostmem.upload(worklist, state.caches.device))
+        state.stats.prefetched += total
+        return total
+
+    def mark_updated(self, state: MultiHostCacheState, capacity: torch.Tensor,
+                     cap_accum: torch.Tensor, caches: torch.Tensor) -> None:
+        """Install the step's outputs (the port updates in place, so these
+        are the state's own tensors)."""
+        state.capacity = capacity
+        state.cap_accum = cap_accum
+        state.caches = caches
+
+    def materialize(self, state: MultiHostCacheState
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The up-to-date (mega, accum) capacity tensors. Nothing to flush:
+        every update already lives at its owner."""
+        return state.capacity, state.cap_accum
+
+    # -- the tier protocol (core.tiers.EmbeddingTier) ------------------------
+
+    def take(self, state: MultiHostCacheState, idx, train: bool = True,
+             plan=None) -> np.ndarray:
+        """Protocol `take`: plan the batch, install its misses, return the
+        (H, B/H, F, L) slot-space remap. The train step uses `plan_step`
+        itself (its worklist is richer than a remap). `plan` is the global
+        host SparsePlan when the reader built one."""
+        splan = self.plan_step(state, idx, global_plan=plan, train=train)
+        self.install_misses(state, splan)
+        return splan.local_idx
+
+    def stage(self, state: MultiHostCacheState, idx, train: bool = True,
+              plan=None) -> None:
+        """Protocol `stage`: this tier overlaps through `prefetch` of the
+        whole next batch; returns None."""
+        return None
+
+    def prefetch_rows(self, state: MultiHostCacheState, rows,
+                      gate: bool = False) -> int:
+        """Protocol `prefetch_rows`: splitting rows by host needs the
+        (B, F, L) batch (`prefetch`), so a bare row list admits nothing;
+        returns 0."""
+        return 0
+
+    def commit(self, state: MultiHostCacheState) -> int:
+        """Protocol `commit`: installs happen in the step; returns 0."""
+        return 0
+
+    def flush(self, state: MultiHostCacheState) -> int:
+        """Protocol `flush`: caches are clean by construction; returns 0."""
+        return 0
+
+    def stats(self, state: MultiHostCacheState) -> CacheStats:
+        """The tier's aggregate CacheStats."""
+        return state.stats
+
+    def placement(self) -> dict:
+        """Static tier layout, fastest level first."""
+        return {"strategy": "cached_host", "stream": "multihost",
+                "n_hosts": self.n_hosts,
+                "levels": [{"tier": "hbm", "rows": self.cache_rows},
+                           {"tier": "dram",
+                            "rows": self.ebc.plan.total_rows}]}
+
+    # -- checkpointing -------------------------------------------------------
+
+    def state_dict(self, state: MultiHostCacheState) -> dict:
+        """The whole tier as a checkpointable tree: the device tensors
+        (capacity, cap_accum, caches) are the tier's OWN tensors, not
+        copies (save them before the tier steps again); the host maps are
+        owned numpy copies. Nothing to drain: caches are clean."""
+        d = {k: getattr(state, k) for k in ("capacity", "cap_accum",
+                                            "caches")}
+        d.update({k: np.array(getattr(state, k)) for k in
+                  ("freq", "slot_row", "row_slot", "ema", "ema_tick")})
+        d["tick"] = np.int64(state.tick)
+        for k in ("stats", "route"):
+            d[k] = {f: np.int64(v) for f, v in
+                    dataclasses.asdict(getattr(state, k)).items()}
+        return d
+
+    def load_state_dict(self, d: dict, device=None) -> MultiHostCacheState:
+        """Rebuild the tier from a `state_dict` tree. Tensor leaves are
+        taken as they are (`CheckpointManager.restore` fills the example's
+        own tensors in place); numpy leaves go to `device`, else the
+        `caches` leaf's device, else the capacity leaf's, else cuda. The
+        host maps become owned copies."""
+        dev = _restore_device(d["capacity"], d["caches"], device)
+        return MultiHostCacheState(
+            capacity=_leaf_on(d["capacity"], np.float32, dev),
+            cap_accum=_leaf_on(d["cap_accum"], np.float32, dev),
+            caches=_leaf_on(d["caches"], np.float32, dev),
+            freq=np.array(d["freq"], np.float32),
+            slot_row=np.array(d["slot_row"], np.int64),
+            row_slot=np.array(d["row_slot"], np.int32),
+            ema=np.array(d["ema"], np.float32),
+            ema_tick=np.array(d["ema_tick"], np.int64),
+            tick=int(d["tick"]),
+            stats=CacheStats(**{k: int(v) for k, v in d["stats"].items()}),
+            route=RouteStats(**{k: int(v) for k, v in d["route"].items()}))

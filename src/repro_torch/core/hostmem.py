@@ -16,6 +16,10 @@ which is checked, never assumed, so a kernel may take `data_ptr()`. The
 range is unregistered, after the device has finished its queued work, when
 the last tensor over it is freed.
 
+`upload` stages a step's small host arrays (worklists, dense features)
+in one page-locked block from PyTorch's caching host allocator and copies
+them to the card in one transfer that does not block the host.
+
 `is_page_locked` is the kernels' guard: a lookup in the ranges registered
 here, and only for other memory PyTorch's `is_pinned` (a driver call).
 The runtime is reached through ctypes on libcudart, as
@@ -27,6 +31,7 @@ import ctypes
 import mmap
 import os
 
+import numpy as np
 import torch
 
 _REGISTER_PORTABLE = 0x01
@@ -137,3 +142,35 @@ def is_page_locked(t: torch.Tensor) -> bool:
 def page_locked_bytes() -> int:
     """Bytes of host memory registered by `pinned_zeros` and still live."""
     return sum(end - start for start, end in _LIVE.items())
+
+
+_UPLOAD_DTYPES = {np.dtype(np.int32): torch.int32,
+                  np.dtype(np.float32): torch.float32}
+
+
+def upload(arrays, device) -> list[torch.Tensor]:
+    """Copy host arrays (int32 or float32, any shapes) to `device` in ONE
+    transfer and return them as tensors of their shapes and dtypes, views
+    of one buffer. They are packed into one staging buffer, page-locked
+    (`pin_memory=True`) when `device` is a CUDA device, and copied with
+    `non_blocking=True`: the copy is queued on the current stream behind
+    the work queued before it, and the host goes on. PyTorch's caching
+    host allocator keeps the block until the copy has run, so it may be
+    dropped at once. On the CPU the views share the packed buffer."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    bad = {str(a.dtype) for a in arrays if a.dtype not in _UPLOAD_DTYPES}
+    if bad:
+        raise TypeError(f"upload takes int32 and float32 arrays, got {bad}")
+    dev = torch.device(device)
+    buf = torch.empty((sum(a.size for a in arrays),), dtype=torch.int32,
+                      pin_memory=dev.type == "cuda")
+    flat, off = buf.numpy(), 0
+    for a in arrays:
+        flat[off:off + a.size] = a.reshape(-1).view(np.int32)
+        off += a.size
+    moved, out, off = buf.to(dev, non_blocking=True), [], 0
+    for a in arrays:
+        out.append(moved[off:off + a.size].view(_UPLOAD_DTYPES[a.dtype])
+                   .view(a.shape))
+        off += a.size
+    return out

@@ -8,6 +8,8 @@ Ported from `repro.core.tiers`:
                     `stats`, `placement`); `train.steps`,
                     `train.fault_tolerance` and the launchers consume tiers
                     through it, and `tier_conformance` checks it.
+  (`core.cache.MultiHostCachedEmbeddingBagCollection`, the multi-host
+  tier, implements it in place.)
   `AsyncCachedTier` the async exchange stream as a tier: the protocol
                     mapped onto the wrapped collection's *_async methods, so
                     `build_cached_train_step` runs the overlapped schedule
@@ -245,8 +247,10 @@ class BulkStore:
 class EmbeddingTier(Protocol):
     """The one surface every cached embedding tier implements:
     `CachedEmbeddingBagCollection` (sync two-tier), `AsyncCachedTier` (its
-    overlapped stream) and `BulkCachedEmbeddingBagCollection` (three
-    tiers, sync or wrapped async)."""
+    overlapped stream), `core.cache.MultiHostCachedEmbeddingBagCollection`
+    (per-host caches over a row-sharded capacity tier) and
+    `BulkCachedEmbeddingBagCollection` (three tiers, sync or wrapped
+    async)."""
 
     def init_state(self, mega: torch.Tensor,
                    accum: torch.Tensor | None = None, device=None):

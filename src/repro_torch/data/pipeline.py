@@ -11,8 +11,9 @@ them to its device.
 fetch stream its lookahead: the upcoming batches, seen without being
 consumed. A fault injector (`train.fault_tolerance.FaultInjector`) fires
 the "pipeline.batch" site once per batch in the reader thread. Ported from
-`repro.data.pipeline` without the hooks' `n_hosts` and `row_remap`
-arguments, which come with the multi-host cached tier's slice.
+`repro.data.pipeline`: the hooks take the reference's `row_remap` (a
+`core.placement.frequency_reorder` permutation) and `sparse_plan_hook` its
+`n_hosts` (per-host sub-plans for the multi-host cached tier).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from collections.abc import Callable, Iterator, Sequence
 
 import numpy as np
 
-from repro_torch.kernels.sparse_plan import build_sparse_plan_host
+from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
+                                             split_plan_by_host)
 
 
 class _WorkerError:
@@ -201,24 +203,32 @@ class ShardedLoader:
                             injector=injector)
 
 
-def _offset_rows(idx: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+def _offset_rows(idx: np.ndarray, offsets: np.ndarray,
+                 remap: np.ndarray | None) -> np.ndarray:
     """(B, F, L) per-table indices -> offset global mega-table rows, int32,
-    -1 pads kept."""
-    return np.where(idx >= 0, idx + offsets[None, :, None], -1).astype(
-        np.int32)
+    -1 pads kept; `remap` (total_rows,) permutes the offset rows."""
+    valid = idx >= 0
+    glob = np.where(valid, idx + offsets[None, :, None], -1)
+    if remap is not None:
+        glob = np.where(valid, remap[glob], -1)
+    return glob.astype(np.int32)
 
 
-def dedup_indices_hook(table_offsets: Sequence[int]
+def dedup_indices_hook(table_offsets: Sequence[int],
+                       row_remap: np.ndarray | None = None
                        ) -> Callable[[dict[str, np.ndarray]],
                                      dict[str, np.ndarray]]:
     """Reader-thread transform: rewrites batch["idx"] from (B, F, L)
     per-table indices to offset global mega-table rows (int32, -1 pads) and
     attaches the sorted unique row set as batch["uniq_rows"] (int64), the
-    cached tier's prefetch set."""
+    cached tier's prefetch set. `row_remap` (total_rows,), e.g.
+    `core.placement.frequency_reorder`'s, is applied to the offset rows
+    here, so no consumer sees un-remapped ids."""
     offsets = np.asarray(table_offsets, np.int64)
+    remap = None if row_remap is None else np.asarray(row_remap, np.int64)
 
     def hook(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        glob = _offset_rows(batch["idx"], offsets)
+        glob = _offset_rows(batch["idx"], offsets, remap)
         return {**batch, "idx": glob,
                 "uniq_rows": np.unique(glob[glob >= 0]).astype(np.int64)}
 
@@ -226,7 +236,9 @@ def dedup_indices_hook(table_offsets: Sequence[int]
 
 
 def sparse_plan_hook(table_offsets: Sequence[int],
-                     capacity: int | None = None
+                     capacity: int | None = None,
+                     n_hosts: int | None = None,
+                     row_remap: np.ndarray | None = None
                      ) -> Callable[[dict[str, np.ndarray]],
                                    dict[str, np.ndarray]]:
     """Reader-thread transform: the offset rewrite of `dedup_indices_hook`
@@ -240,15 +252,30 @@ def sparse_plan_hook(table_offsets: Sequence[int],
     plan's live prefix: the same sorted unique rows as
     `dedup_indices_hook`'s, without a second sort. `capacity` trims the
     plan's unique arrays; a batch with more unique rows fails in the
-    reader thread."""
+    reader thread.
+
+    `n_hosts` > 1 also splits the plan by host bag range
+    (`split_plan_by_host`, the multi-host cached tier's data-parallel
+    split) and stacks the sub-plans (H, ...) under
+    batch["hplan_rows"/"hplan_offsets"/"hplan_bags"]. `row_remap` is
+    applied before the plan is built (see `dedup_indices_hook`)."""
     offsets = np.asarray(table_offsets, np.int64)
+    remap = None if row_remap is None else np.asarray(row_remap, np.int64)
 
     def hook(batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        glob = _offset_rows(batch["idx"], offsets)
+        glob = _offset_rows(batch["idx"], offsets, remap)
         plan = build_sparse_plan_host(glob, capacity=capacity)
         rows = plan.unique_rows
-        return {**batch, "idx": glob, **plan.to_batch(),
-                "uniq_rows": rows[rows >= 0].astype(np.int64)}
+        out = {**batch, "idx": glob, **plan.to_batch(),
+               "uniq_rows": rows[rows >= 0].astype(np.int64)}
+        if n_hosts is not None and n_hosts > 1:
+            b, f, _ = glob.shape
+            subs = split_plan_by_host(plan, n_hosts, b // n_hosts * f)
+            out.update({key: np.stack([np.asarray(p[i]) for p in subs])
+                        for i, key in enumerate(("hplan_rows",
+                                                 "hplan_offsets",
+                                                 "hplan_bags"))})
+        return out
 
     return hook
 

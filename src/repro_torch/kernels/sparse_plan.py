@@ -28,9 +28,9 @@ fetch blocks (`coalesce_rows`). The table-wise step cuts a plan into
 per-owner segments (`split_plan_by_owner`, over the general
 `split_plan_by_ranges`) for the segmented fused backward, and into
 per-table segments (`split_plan_by_table`, each table's unique footprint).
-The reference's per-host split (`split_plan_by_host`,
-`host_plans_from_batch`) serves the multi-host cached tier and comes with
-that slice.
+The multi-host cached tier splits a plan by host bag range
+(`split_plan_by_host`; a hook's per-host sub-plans come back through
+`host_plans_from_batch`).
 """
 from __future__ import annotations
 
@@ -76,6 +76,61 @@ def host_plan_from_batch(batch: dict) -> SparsePlan | None:
         return None
     return SparsePlan(*(np.asarray(batch[k]) for k in
                         ("plan_rows", "plan_offsets", "plan_bags")))
+
+
+def host_plans_from_batch(batch: dict) -> list[SparsePlan] | None:
+    """numpy views of the per-host sub-plans a `sparse_plan_hook` with
+    `n_hosts` attached (stacked (H, ...) under the hplan_* keys), or None:
+    what the multi-host cached tier's per-host miss planning consumes."""
+    if "hplan_rows" not in batch:
+        return None
+    rows, offs, bags = (np.asarray(batch[k]) for k in
+                        ("hplan_rows", "hplan_offsets", "hplan_bags"))
+    return [SparsePlan(rows[h], offs[h], bags[h])
+            for h in range(rows.shape[0])]
+
+
+def split_plan_by_host(plan: SparsePlan, n_hosts: int,
+                       bags_per_host: int) -> list[SparsePlan]:
+    """Split a host-built GLOBAL plan into per-host sub-plans by bag range:
+    host h owns the flat bags [h*bags_per_host, (h+1)*bags_per_host), the
+    data-parallel batch split. Each sub-plan is in host-local bag space and
+    equals `build_sparse_plan_host` on that host's sub-batch (rows,
+    offsets, and the live bag prefix). Host numpy.
+
+    No sort: the plan's runs are row-ascending and each run's bags are
+    flat-order ascending, so a host's pairs are a mask and a stable
+    selection, and its rows the heads of the selected runs."""
+    rows = np.asarray(plan.unique_rows)
+    offs = np.asarray(plan.bag_offsets).astype(np.int64)
+    bags = np.asarray(plan.bag_ids).astype(np.int64)
+    nh = bags.shape[0] // n_hosts          # per-host lookup capacity
+    n_live = int((rows >= 0).sum())
+    n_valid = int(offs[n_live])
+    host_of = bags[:n_valid] // bags_per_host
+    # run id of each live pair: the live prefix of offsets is sorted
+    run_of = np.searchsorted(offs[:n_live + 1], np.arange(n_valid),
+                             side="right") - 1
+    out = []
+    for h in range(n_hosts):
+        sel = np.flatnonzero(host_of == h)  # ascending (row, local bag)
+        r_sel = run_of[sel]
+        sub_rows = np.full((nh,), -1, np.int32)
+        sub_offs = np.zeros((nh + 1,), np.int32)
+        sub_bags = np.zeros((nh,), np.int32)
+        if len(sel):
+            change = np.empty(len(sel), bool)
+            change[0] = True
+            change[1:] = r_sel[1:] != r_sel[:-1]
+            head_pos = np.flatnonzero(change)
+            k = len(head_pos)
+            sub_rows[:k] = rows[r_sel[head_pos]]
+            ends = np.append(head_pos[1:], len(sel)).astype(np.int64)
+            sub_offs[:k + 1] = np.concatenate([[0], ends])
+            sub_offs[k + 1:] = ends[-1]
+            sub_bags[:len(sel)] = bags[sel] - h * bags_per_host
+        out.append(SparsePlan(sub_rows, sub_offs, sub_bags))
+    return out
 
 
 def coalesce_rows(rows: np.ndarray, chunk: int, total_rows: int,

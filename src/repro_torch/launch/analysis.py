@@ -4,8 +4,9 @@ Ported from `repro.launch.analysis`: the table-wise pooled exchange,
 which `train.steps.build_tablewise_train_step`'s metrics must equal, and
 the cached tiers' transfer models (`cache_admission_traffic`, the
 capacity->cache fetch leg; `tier_hierarchy_traffic`, the HBM -> DRAM ->
-bulk hierarchy of `core.tiers`), which a run's `TierCacheStats` are read
-beside. The reference's compiled-program analyzers, its other traffic
+bulk hierarchy of `core.tiers`; `multihost_exchange_traffic`, the
+multi-host tier's three all-to-all legs), which a run's `TierCacheStats`
+and `RouteStats` are read beside. The reference's compiled-program analyzers, its other traffic
 models and `recommend_placement` come with the port's `launch/` slice.
 """
 from __future__ import annotations
@@ -48,6 +49,55 @@ def tablewise_exchange_traffic(batch: int, n_features: int, truncation: int,
             "pair_leg_bytes": pair_leg,
             "rowshard_bytes": rowshard,
             "pooling_reduction": rowshard / total if total else 1.0}
+
+
+def multihost_exchange_traffic(batch: int, n_features: int, truncation: int,
+                               embed_dim: int, n_hosts: int,
+                               unique_per_host: float, unique_global: float,
+                               hit_rate: float, itemsize: int = 4,
+                               index_itemsize: int = 4) -> dict[str, float]:
+    """Cross-host bytes per step of the multi-host cached tier
+    (`core.cache.MultiHostCachedEmbeddingBagCollection`) under a uniform
+    row -> owner map (a remote fraction of (H-1)/H):
+
+      fetch    each host's misses leave the owning shards:
+               H * U_h * (1 - hit_rate) rows (payload + index);
+      grads    each (row, bag) pair whose bag gradient must reach a remote
+               owner: B*F*L pairs (per-bag routing keeps the owner's
+               reduction in flat-batch order, so bit-exact); a per-(host,
+               row) partial-sum variant would ship H*U_h rows instead
+               (`grad_rowsum_bytes`);
+      refresh  every working-set row returns post-update: H * U_h rows.
+
+    The baseline ships per-lookup gradients and rows for the whole batch
+    slice, 2 * B*F*L * (H-1)/H * D * itemsize, with no dedup and no cache.
+    `dup_rows` = H * U_h - U_g rows are reduced once at the owner. Returns
+    each leg's bytes, `total_bytes`, the baseline and `reduction` =
+    baseline / total; H = 1 gives zero cross-host bytes (and the baseline
+    itself as the reduction)."""
+    remote = (n_hosts - 1) / n_hosts
+    row_bytes = embed_dim * itemsize
+    pairs = float(batch * n_features * truncation)
+    fetch_bytes = (n_hosts * unique_per_host * (1.0 - hit_rate)
+                   * remote * (row_bytes + index_itemsize))
+    grad_bytes = pairs * remote * (row_bytes + index_itemsize)
+    grad_rowsum_bytes = (n_hosts * unique_per_host * remote
+                         * (row_bytes + index_itemsize))
+    refresh_bytes = n_hosts * unique_per_host * remote * row_bytes
+    total = fetch_bytes + grad_bytes + refresh_bytes
+    rowsum_total = fetch_bytes + grad_rowsum_bytes + refresh_bytes
+    baseline = 2.0 * pairs * remote * row_bytes
+    return {"fetch_bytes": fetch_bytes,
+            "grad_bytes": grad_bytes,
+            "grad_rowsum_bytes": grad_rowsum_bytes,
+            "refresh_bytes": refresh_bytes,
+            "total_bytes": total,
+            "rowsum_total_bytes": rowsum_total,
+            "baseline_bytes": baseline,
+            "dup_rows": n_hosts * unique_per_host - unique_global,
+            "reduction": baseline / total if total else baseline,
+            "rowsum_reduction": (baseline / rowsum_total if n_hosts > 1
+                                 else baseline)}
 
 
 def cache_admission_traffic(fetched_rows: float, embed_dim: int,

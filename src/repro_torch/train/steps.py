@@ -16,7 +16,11 @@ a dense optimizer, the embedding rows with row-wise AdaGrad.
                               (`core.cache`): the sync schedule for a bare
                               `CachedEmbeddingBagCollection` (or the
                               three-tier `core.tiers` subclass), the
-                              overlapped one for `core.tiers.AsyncCachedTier`;
+                              overlapped one for `core.tiers.AsyncCachedTier`,
+                              the routed one for
+                              `MultiHostCachedEmbeddingBagCollection` (H
+                              hosts' caches over one row-sharded capacity
+                              tier);
   build_tablewise_train_step  a `table_wise` placement (whole tables on
                               owners, the paper's Zion / Big Basin layout)
                               on one device (the pooled lookup, then one
@@ -29,24 +33,29 @@ Under a mesh (`launch.mesh`, one process per rank) a step takes the
 GLOBAL batch on every rank, as the reference's pjit steps take global
 arrays: each rank looks up and differentiates its `data` slice, and
 params["emb"]["mega"] / state["accum"] are its `model` shard of the rows
-(`EmbeddingBagCollection.shard_range`). The multi-host cached step and
-the LM step come with later slices.
+(`EmbeddingBagCollection.shard_range`). The multi-host cached step runs
+single-controller (one process drives every host's cache); its `mesh=`
+form and the LM step come with later slices.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import DLRMConfig
-from repro_torch.core.cache import CachedEmbeddingBagCollection
+from repro_torch.core import hostmem
+from repro_torch.core.cache import (CachedEmbeddingBagCollection,
+                                    MultiHostCachedEmbeddingBagCollection)
 from repro_torch.core.dlrm import dense_grads, dlrm_grads
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.tiers import AsyncCachedTier, tier_conformance
 from repro_torch.kernels import ops
 from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              host_plan_from_batch,
+                                             host_plans_from_batch,
                                              plan_from_batch,
                                              split_plan_by_owner,
                                              split_plan_by_ranges)
@@ -417,10 +426,87 @@ def _build_async_cached_step(cfg: DLRMConfig, tier: AsyncCachedTier,
     return step
 
 
+def _build_multihost_cached_step(cfg: DLRMConfig,
+                                 mc: MultiHostCachedEmbeddingBagCollection,
+                                 dense_opt: Optimizer, sparse_lr: float,
+                                 sparse_eps: float, strict_sync: bool
+                                 ) -> Callable:
+    """Routed schedule (`MultiHostCachedEmbeddingBagCollection`): H hosts'
+    clean caches over one row-sharded capacity tier, single-controller.
+
+    Per step, on the host: `mc.plan_step` (per-host hit/miss split off the
+    batch's hook sub-plans or its own, LFU admission, owner grouping,
+    stale-copy invalidation), then ONE upload of every array the device
+    half reads (`hostmem.upload`: the live miss and working-set entries,
+    the remap, the owner segments). On the device, in order on the current
+    stream: the miss install from the pre-update capacity (`mc.install`);
+    H pooled lookups (`EmbeddingBagCollection.lookup`, the `embedding_bag`
+    kernel on each slab), concatenated to the global batch; the dense
+    tower and BCE with the pooled embeddings as a leaf; dense AdaGrad; the
+    routed update, one segmented fused update over the H owners
+    (`ops.fused_sparse_backward_segments`, seg_base = h * shard_rows) IN
+    PLACE on the capacity tier; the working-set refresh from the
+    post-update capacity. Then, unless `strict_sync`, `mc.prefetch` of
+    `next_batch`, queued behind the update. Host h holds examples
+    [h*B/H, (h+1)*B/H), so the owners reduce in flat-batch order and the
+    step is bit-equal to `build_dlrm_train_step(sparse_apply="sparse")`;
+    `strict_sync` gives the same bits.
+
+    Returns step(params, state, mstate, batch, step_idx, next_batch=None)
+    -> (params, state, metrics); metrics carry the loss, the lookups and
+    the tier's CacheStats and RouteStats snapshots (taken before the
+    prefetch); batch holds host arrays, "idx" with OFFSET global rows,
+    optionally a `sparse_plan_hook(n_hosts=H)` plan."""
+    hn, ebc = mc.n_hosts, mc.ebc
+
+    def step(params, state, mstate, batch, step_idx, next_batch=None):
+        splan = mc.plan_step(mstate, batch["idx"],
+                             host_plans=host_plans_from_batch(batch),
+                             global_plan=host_plan_from_batch(batch),
+                             train=True)
+        caches, capacity, accum = (mstate.caches, mstate.capacity,
+                                   mstate.cap_accum)
+        (dense_x, label, local_idx, seg_rows, seg_offs, seg_base, bag_ids,
+         *lists) = hostmem.upload(
+            [np.asarray(batch["dense"], np.float32),
+             np.asarray(batch["label"], np.float32), splan.local_idx,
+             splan.seg_rows, splan.seg_offsets, splan.seg_base,
+             splan.bag_ids]
+            + mc.live_worklist(splan.miss_rows, splan.miss_slots)
+            + mc.live_worklist(splan.ws_rows, splan.ws_slots),
+            caches.device)
+        with torch.no_grad():
+            mc.install(caches, capacity, lists[:2 * hn])
+            pooled = torch.cat([ebc.lookup({"mega": caches[h]}, local_idx[h])
+                                for h in range(hn)])
+        loss, g_dense, g_pooled = dense_grads(
+            params, {"dense": dense_x, "label": label}, pooled, cfg)
+        new_dense, new_dense_state = dense_opt.apply(
+            {"bottom": params["bottom"], "top": params["top"]}, g_dense,
+            state["dense"], step_idx)
+        with torch.no_grad():
+            ops.fused_sparse_backward_segments(
+                capacity, accum, seg_rows, seg_offs, bag_ids, g_pooled,
+                sparse_lr, seg_base=seg_base, eps=sparse_eps)
+            mc.install(caches, capacity, lists[2 * hn:])
+        mc.mark_updated(mstate, capacity, accum, caches)
+        metrics = {"loss": loss,
+                   "lookups": float(np.count_nonzero(splan.local_idx >= 0)),
+                   **mc.stats(mstate).snapshot(), **mstate.route.snapshot()}
+        if not strict_sync and next_batch is not None:
+            mc.prefetch(mstate, next_batch["idx"],
+                        host_plans=host_plans_from_batch(next_batch),
+                        global_plan=host_plan_from_batch(next_batch))
+        return new_dense, {"dense": new_dense_state}, metrics
+
+    return step
+
+
 def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
                             sparse_lr: float = 0.05,
                             sparse_eps: float = 1e-8,
-                            strict_sync: bool = False) -> Callable:
+                            strict_sync: bool = False, mesh=None,
+                            fetch_chunk: int | None = None) -> Callable:
     """One train-step factory for every cached tier, dispatching on the
     tier's type (all of them consume the tier through the `EmbeddingTier`
     protocol, `core.tiers`):
@@ -431,23 +517,45 @@ def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
       `AsyncCachedTier(cc)`           overlapped schedule (batch k+1
                                       stages while batch k computes;
                                       `strict_sync=True` falls back, bit
-                                      for bit).
+                                      for bit);
+      `MultiHostCachedEmbeddingBagCollection`
+                                      routed schedule (per-host caches
+                                      over a row-sharded capacity tier;
+                                      `strict_sync=True` drops the
+                                      next-batch prefetch, bit for bit).
 
-    The transfer granularity is the collection's own `fetch_chunk`. See
-    the two builders for the step signatures. Any other tier raises
+    `fetch_chunk` (> 1) replaces the tier's transfer granularity; None
+    keeps the collection's own. `mesh` (the multi-host tier's owner update
+    under a host mesh) is not ported yet and raises NotImplementedError.
+    See the builders for the step signatures. Any other tier raises
     TypeError."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_cached_train_step(mesh=...) runs the multi-host tier's "
+            "owner update over a host mesh; it comes with a later slice of "
+            "the port (the single-controller step, mesh=None, is ported)")
+    if fetch_chunk is not None and isinstance(tier, AsyncCachedTier):
+        tier = AsyncCachedTier(dataclasses.replace(tier.cc,
+                                                   fetch_chunk=fetch_chunk))
+    elif fetch_chunk is not None and isinstance(
+            tier, (CachedEmbeddingBagCollection,
+                   MultiHostCachedEmbeddingBagCollection)):
+        tier = dataclasses.replace(tier, fetch_chunk=fetch_chunk)
     if isinstance(tier, AsyncCachedTier):
         return _build_async_cached_step(cfg, tier, dense_opt, sparse_lr,
                                         sparse_eps, strict_sync)
+    if isinstance(tier, MultiHostCachedEmbeddingBagCollection):
+        return _build_multihost_cached_step(cfg, tier, dense_opt, sparse_lr,
+                                            sparse_eps, strict_sync)
     if isinstance(tier, CachedEmbeddingBagCollection):
         return _build_sync_cached_step(cfg, tier, dense_opt, sparse_lr,
                                        sparse_eps)
     raise TypeError(
         f"build_cached_train_step: unsupported tier {type(tier).__name__}; "
         "expected an EmbeddingTier (CachedEmbeddingBagCollection, "
-        "AsyncCachedTier or the bulk-backed subclass); protocol "
-        f"conformance (core.tiers.tier_conformance): "
-        f"{tier_conformance(tier)}")
+        "AsyncCachedTier, MultiHostCachedEmbeddingBagCollection or the "
+        "bulk-backed subclass); protocol conformance "
+        f"(core.tiers.tier_conformance): {tier_conformance(tier)}")
 
 
 def cached_dlrm_init_state(cc, dense_opt: Optimizer, params: dict) -> dict:

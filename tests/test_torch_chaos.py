@@ -5,10 +5,9 @@ ends with losses, the materialized capacity tier, its accumulators and
 the dense parameters BIT-EQUAL to the port's fault-free run. Recovery
 restores the TrainState bundle (params, optimizer state, the cache tier's
 `state_dict`, the pipeline cursor) from the newest intact checkpoint and
-replays. The sync, async and three-tier bulk collections all resume
-bit-equal under faults on their fetch sites ("cache.fetch", and
-"bulk.fetch" for the bulk tier); the reference's multi-host and elastic
-cases wait for their tiers.
+replays. The sync, async, multi-host (2 hosts) and three-tier bulk
+collections all resume bit-equal under faults on their fetch sites
+("cache.fetch", and "bulk.fetch" for the bulk tier).
 
 Against the reference: `FaultInjector.from_seed` draws the reference's
 schedules exactly, and a faulted run's losses and table match the
@@ -36,7 +35,8 @@ from repro.train import fault_tolerance as jft
 from repro.train import steps as jsteps
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
-from repro_torch.core.cache import CachedEmbeddingBagCollection
+from repro_torch.core.cache import (CachedEmbeddingBagCollection,
+                                    MultiHostCachedEmbeddingBagCollection)
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.tiers import (AsyncCachedTier,
                                     BulkCachedEmbeddingBagCollection)
@@ -89,12 +89,16 @@ def _tools(cfg, host, tier="async", injector=None, retry=None):
     from `host`'s parameters (the tier takes ownership of its table).
     "bulk" is the three-tier collection on the sync schedule, its DRAM
     budget below the table height, so promotions pull from bulk and
-    evictions overflow DRAM back into it."""
+    evictions overflow DRAM back into it; "multihost" is two hosts'
+    caches over a row-sharded capacity tier, next batch prefetched."""
     opt = adagrad(0.01)
     if tier == "bulk":
         cc = BulkCachedEmbeddingBagCollection.build(
             cfg, cache_rows=CACHE_ROWS, dram_rows=32, bulk_chunk=16,
             bulk_latency_us=0.0)
+    elif tier == "multihost":
+        cc = MultiHostCachedEmbeddingBagCollection.build(
+            cfg, n_hosts=2, cache_rows=CACHE_ROWS)
     else:
         cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=CACHE_ROWS)
     cc = dataclasses.replace(cc, injector=injector, retry=retry)
@@ -104,6 +108,9 @@ def _tools(cfg, host, tier="async", injector=None, retry=None):
     if tier == "async":
         tstate = cc.init_async_state(params["emb"]["mega"])
         step = build_cached_train_step(cfg, AsyncCachedTier(cc), opt)
+    elif tier == "multihost":
+        tstate = cc.init_state(params["emb"]["mega"])
+        step = build_cached_train_step(cfg, cc, opt)
     else:
         tstate = cc.init_state(params["emb"]["mega"])
         sync = build_cached_train_step(cfg, cc, opt)
@@ -453,7 +460,7 @@ def test_straggler_detection():
     assert det.flagged_steps
 
 # ---------------------------------------------------------------------------
-# snapshot / restore + faults == uninterrupted, on the sync and async tiers
+# snapshot / restore + faults == uninterrupted, on every cached tier
 # ---------------------------------------------------------------------------
 
 
@@ -494,7 +501,7 @@ def _check_resume_equivalence(setup, tier, seed):
     assert torch.equal(got_m, want_m) and torch.equal(got_a, want_a)
 
 
-@pytest.mark.parametrize("tier", ["sync", "async", "bulk"])
+@pytest.mark.parametrize("tier", ["sync", "async", "multihost", "bulk"])
 def test_resume_under_faults_equals_uninterrupted(setup, tier):
     _check_resume_equivalence(setup, tier, seed=5)
 
@@ -569,7 +576,7 @@ if HAS_HYPOTHESIS:
 
     @requires_hypothesis
     @settings(max_examples=3, deadline=None)
-    @given(tier=st.sampled_from(["sync", "async", "bulk"]),
+    @given(tier=st.sampled_from(["sync", "async", "multihost", "bulk"]),
            seed=st.integers(0, 10 ** 6))
     def test_resume_under_fuzzed_faults_equals_uninterrupted(setup, tier,
                                                              seed):

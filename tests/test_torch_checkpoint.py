@@ -343,3 +343,45 @@ def test_bulk_tier_roundtrips_through_a_verified_checkpoint(tmp_path,
     assert back.stats == live.stats
     got, want = tier.materialize(back), tier.materialize(live)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_multihost_tier_roundtrips_through_a_verified_checkpoint(tmp_path):
+    """The multi-host tier's `state_dict` (capacity, accumulator and the
+    per-host caches as its own tensors; the host maps, CacheStats and
+    RouteStats as numpy) saves with CRCs and restores in place into a
+    fresh tier's tensors; the restored tier serves the next lookups
+    bit-equal to the uninterrupted one, with the same maps and counters."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.data.synthetic import make_dlrm_batch
+
+    cfg = get_smoke_config("dlrm-m1")
+    mc = MultiHostCachedEmbeddingBagCollection.build(cfg, n_hosts=2,
+                                                     cache_rows=96)
+    r, d = mc.ebc.plan.total_rows, cfg.embed_dim
+    mega = np.random.RandomState(3).randn(r, d).astype(np.float32)
+
+    def idx(t):
+        return mc.ebc.offset_indices(make_dlrm_batch(cfg, 8, step=t)["idx"])
+
+    live = mc.init_state(torch.from_numpy(mega.copy()))
+    for t in range(4):
+        mc.lookup(live, idx(t))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, mc.state_dict(live))
+    example = mc.state_dict(mc.init_state(torch.from_numpy(mega.copy())))
+    restored = mgr.restore(example)
+    assert restored["caches"] is example["caches"]     # filled in place
+    back = mc.load_state_dict(restored)
+    assert back.stats == live.stats and back.route == live.route
+    assert back.stats.evictions > 0
+    for t in range(4, 6):
+        assert torch.equal(mc.lookup(back, idx(t)), mc.lookup(live, idx(t)))
+    for k in ("freq", "slot_row", "row_slot", "ema", "ema_tick"):
+        np.testing.assert_array_equal(getattr(back, k), getattr(live, k))
+    assert dataclasses.asdict(back.route) == dataclasses.asdict(live.route)
+    got, want = mc.materialize(back), mc.materialize(live)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(back.caches, live.caches)

@@ -23,7 +23,9 @@ __expf and an online softmax and gets the reference's own fp32 kernel
 tolerance (2e-4) against ref.flash_attention_ref; its bf16 kernel (wgmma,
 bf16 P) gets one bf16 ulp (2^-7 relative) plus 1e-3 against its tiled
 plain version ref.flash_attention_tiled_ref, and 2^-9 max|V| more against
-the fp32 oracle.
+the fp32 oracle. The multi-host cached step launches those kernels and
+torch index ops (its slab installs), so with the kernels it is bit-equal
+to the uncached step on the card, and within 1e-5 of its plain run.
 """
 import numpy as np
 import pytest
@@ -2094,3 +2096,132 @@ def test_sharded_steps_on_the_card_match_the_one_device_steps(dev):
             np.testing.assert_allclose(res[0]["losses"], losses, rtol=1e-5)
             torch.testing.assert_close(table, mega, rtol=1e-4, atol=1e-5)
             torch.testing.assert_close(got, accum, rtol=1e-4, atol=1e-5)
+
+
+def _multihost_run(cfg, batches, d, n_hosts=4, cache_rows=512, **kw):
+    """The multi-host step over `batches` on device `d` from seed-0
+    parameters: (losses, capacity, accumulator, dense top weights, state,
+    launches a step)."""
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+    mc = MultiHostCachedEmbeddingBagCollection.build(
+        cfg, n_hosts=n_hosts, cache_rows=cache_rows)
+    params = tree_map(lambda x: x.to(d), init_dlrm_params(
+        cfg, mc.ebc, 0, torch.device("cpu")))
+    opt = adagrad(0.01)
+    state = cached_dlrm_init_state(mc, opt, params)
+    dense = {"bottom": params["bottom"], "top": params["top"]}
+    ms = mc.init_state(params["emb"]["mega"])
+    step = build_cached_train_step(cfg, mc, opt, **kw)
+    losses, launches = [], []
+    for t, batch in enumerate(batches):
+        nxt = batches[t + 1] if t + 1 < len(batches) else None
+        before = {k.name: k.launches for k in KERNELS}
+        dense, state, m = step(dense, state, ms, batch, t, next_batch=nxt)
+        losses.append(float(m["loss"]))
+        launches.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS if k.launches != before[k.name]})
+    mega, accum = mc.materialize(ms)
+    return (losses, mega.cpu(), accum.cpu(), dense["top"][0]["w"].cpu(), ms,
+            launches)
+
+
+@pytest.mark.parametrize("cache_rows,hook", [(512, True), (96, False)])
+def test_multihost_step_on_the_card(dev, monkeypatch, cache_rows, hook):
+    """Three multi-host steps of the smoke dlrm-m1 (4 hosts, batch 16; 96
+    slots a host evict): with the kernels, each step launches exactly 4
+    embedding_bag, 1 dot_interaction and 1 segmented update and nothing
+    else, and the run is bit-equal to the uncached step on the card
+    (`build_dlrm_train_step(sparse_apply="sparse")`, the same kernels);
+    with the three kernels' plain versions on the card, and on the CPU,
+    within rtol/atol 1e-5 (dot_interaction's FMA chain and the update's
+    warp-shuffled mean(g^2) differ from the plain order by ulps, as their
+    own tests allow), with the same host maps and counters."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.pipeline import (dedup_indices_hook,
+                                           sparse_plan_hook)
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.nn.params import tree_map
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=4,
+                                       strategy="cached_host",
+                                       capacity_shards=4)
+    offs = ebc.plan.table_offsets
+    hook_fn = (sparse_plan_hook(offs, n_hosts=4) if hook
+               else dedup_indices_hook(offs))
+    batches = [hook_fn(make_dlrm_batch(cfg, 16, step=t)) for t in range(3)]
+    kern = _multihost_run(cfg, batches, dev, cache_rows=cache_rows)
+    assert kern[5] == [{"embedding_bag": 4, "dot_interaction": 1,
+                        "fused_bag_backward_adagrad_segments": 1}] * 3
+    if cache_rows < 512:
+        assert kern[4].stats.evictions > 0
+    params = tree_map(lambda x: x.to(dev), init_dlrm_params(
+        cfg, ebc, 0, torch.device("cpu")))
+    state = dlrm_init_state(ebc, adagrad(0.01), params)
+    step = build_dlrm_train_step(cfg, ebc, adagrad(0.01),
+                                 sparse_apply="sparse")
+    losses = []
+    for t, b in enumerate(batches):
+        tb = {k: torch.as_tensor(b[k]).to(dev)
+              for k in ("dense", "idx", "label")}
+        params, state, m = step(params, state, tb, t)
+        losses.append(float(m["loss"]))
+    assert kern[0] == losses
+    assert torch.equal(kern[1], params["emb"]["mega"].cpu())
+    assert torch.equal(kern[2], state["accum"].cpu())
+    assert torch.equal(kern[3], params["top"][0]["w"].cpu())
+    cpu = _multihost_run(cfg, batches, torch.device("cpu"),
+                         cache_rows=cache_rows)
+    monkeypatch.setattr(ops._bag, "embedding_bag", ref.embedding_bag_ref)
+    monkeypatch.setattr(ops._dot, "dot_interaction", ref.dot_interaction_ref)
+    monkeypatch.setattr(ops._upd, "fused_bag_backward_adagrad_segments",
+                        ref.fused_bag_backward_adagrad_segments_ref)
+    plain = _multihost_run(cfg, batches, dev, cache_rows=cache_rows)
+    assert plain[5] == [{}] * 3
+    for other in (plain, cpu):
+        np.testing.assert_allclose(other[0], kern[0], rtol=1e-5, atol=1e-5)
+        for a, b in zip(other[1:4], kern[1:4]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        for k in ("freq", "slot_row", "row_slot", "ema", "ema_tick"):
+            np.testing.assert_array_equal(getattr(other[4], k),
+                                          getattr(kern[4], k))
+        assert other[4].stats == kern[4].stats
+        assert other[4].route == kern[4].route
+
+
+def test_multihost_fill_slabs_on_the_card_equals_the_cpu(dev):
+    """`fill_slabs` on the card (one pinned upload of the live entries,
+    index_select / index_copy_ on each host's slab) equals its CPU
+    result bit for bit; -1 slots are dropped; the mesh form raises."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_cached_train_step
+    resolve_device("cuda")
+    cfg = get_smoke_config("dlrm-m1")
+    mc = MultiHostCachedEmbeddingBagCollection.build(cfg, n_hosts=4,
+                                                     cache_rows=64)
+    rng = np.random.RandomState(7)
+    total = mc.ebc.plan.total_rows
+    source = torch.from_numpy(rng.randn(total, 16).astype(np.float32))
+    rows = np.full((4, 40), -1, np.int32)
+    slots = np.full((4, 40), -1, np.int32)
+    for h, n in enumerate((40, 17, 0, 1)):
+        rows[h, :n] = rng.choice(total, n, replace=False)
+        slots[h, :n] = rng.choice(64, n, replace=False)
+    base = torch.from_numpy(rng.randn(4, 64, 16).astype(np.float32))
+    want = mc.fill_slabs(base.clone(), source, rows, slots)
+    got = mc.fill_slabs(base.to(dev), source.to(dev), rows, slots)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want[2], base[2])       # a host with no entries
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_cached_train_step(cfg, mc, adagrad(0.01), mesh=object())

@@ -39,7 +39,9 @@ from repro.optim import adagrad as jadagrad
 from repro.train import steps as jsteps
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
-from repro_torch.core.cache import CachedEmbeddingBagCollection, CacheStats
+from repro_torch.core.cache import (CachedEmbeddingBagCollection,
+                                    CacheStats,
+                                    MultiHostCachedEmbeddingBagCollection)
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.hostmem import is_page_locked
 from repro_torch.core.tiers import (AsyncCachedTier, BulkCacheState,
@@ -111,9 +113,13 @@ def test_every_tier_of_the_port_conforms(setup):
     cfg = setup[0]
     sync = CachedEmbeddingBagCollection.build(cfg, cache_rows=256)
     bulk = _bulk(cfg)
-    for t in (sync, AsyncCachedTier(sync), bulk, AsyncCachedTier(bulk)):
+    multihost = MultiHostCachedEmbeddingBagCollection.build(
+        cfg, n_hosts=2, cache_rows=256)
+    for t in (sync, AsyncCachedTier(sync), multihost, bulk,
+              AsyncCachedTier(bulk)):
         assert tier_conformance(t), type(t).__name__
         assert isinstance(t, EmbeddingTier)
+        assert callable(steps.build_cached_train_step(cfg, t, adagrad(0.01)))
     assert not tier_conformance(object())
     assert not tier_conformance(sync.ebc)
 
