@@ -6,7 +6,7 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the eleven CUDA kernels of the serving and training paths (nine
+2. build the twelve CUDA kernels of the serving and training paths (ten
    sources) with nvcc (sm_90a), one process per source, all at once;
 3. hold each serving kernel against its plain PyTorch version on the card
    at the serving path's dlrm-m1 shapes (pads, an all-pad bag, mean mode,
@@ -133,7 +133,26 @@ Phases, each of which makes the script exit non-zero when it fails:
    update launches, the losses the launcher's bit for bit and the
    materialized checksums LAUNCHER_FINAL_SUMS, every lookup a hit or a
    miss; RouteStats logged beside `multihost_exchange_traffic`;
-14. print one JSON line of per-kernel numbers, then the result line.
+14. train stablelm-1.6b at full width at train_4k's 4,096 tokens, its
+   batch cut to 4: (14a) hold the forward's o and log-sum-exp and the
+   flash-attention backward kernel against their plain versions (the
+   plain backward fed the plain forward's o and lse) at the train shape
+   (4, 32, 4096, 64) in bf16 and at (1, 32, 4096, 64) in fp32, two
+   backward launches bit-equal, and time it beside
+   its bound, its plain version and SDPA's backward (timed only), with the
+   forward with and without its log-sum-exp store; (14b) 4 steps of
+   `repro_torch.launch.train` at its defaults (adamw, remat="full"):
+   finite losses, 48 forward and 24 backward launches a step and no other
+   kernel, the peak beside the reckoning, host ms a step, tokens/s, and
+   one more step profiled for device-busy ms; (14c) step 0 at batch 1
+   through the kernels (twice, bit-equal) and through full_attention under
+   autograd, in bf16 and fp32 compute, the loss and every gradient within
+   TOL_LM_TRAIN and every unit's wq, wk, wv gradient non-zero; (14d)
+   `build_lm_train_step(accum_steps=2)` on a batch of 8: a finite loss,
+   twice 14b's launches, the peak beside the reckoning plus a gradient
+   sum; (14e) the smoke LM launcher's plain, resumed and chaos runs on the
+   card, bit-equal;
+15. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -318,6 +337,48 @@ TOL_FLASH_ORACLE_V = 2 ** -9
 #: within 0.5 (logits are ~N(0, 1) from random weights); a wrong mask,
 #: scale or tile would move them by tens of percent
 TOL_LM_REL_L2, TOL_LM_ABS = 5e-2, 0.5
+#: phases 14a-14e: LM training on full-width stablelm-1.6b at train_4k's
+#: 4,096 tokens with its global batch of 256 cut to LM_TRAIN_BATCH (the
+#: fp32 parameters, gradients and AdamW moments take 26.3 GB, and the
+#: step about 50 GB by `lm_reckoning_bytes`; batch 8 would need about
+#: 75 GB), LM_TRAIN_STEPS steps of the launcher at its defaults
+#: (adamw(3e-4), clip 1.0, remat="full", bf16 compute)
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_STEPS = 4096, 4, 4
+LM_TRAIN_ARGV = ["--arch", LM_ARCH, "--seq", str(LM_TRAIN_SEQ), "--batch",
+                 str(LM_TRAIN_BATCH), "--steps", str(LM_TRAIN_STEPS),
+                 "--log-every", "1"]
+#: 14e: steps of the smoke LM launcher's plain, resumed and chaos runs
+LM_SMOKE_STEPS = 16
+#: 14a: the backward kernel at 14b's attention shape in bf16, and in fp32
+#: at batch 1; (b, h, s, dh)
+FLASH_BWD_SHAPES = (("train_4k", (4, 32, 4096, 64), "bfloat16"),
+                    ("train_4k_fp32", (1, 32, 4096, 64), "float32"))
+#: 14a: the forward's log-sum-exp at the train shape against its plain
+#: version's (the tiled one in bf16, the fp32 oracle in fp32), (rtol,
+#: atol) in log2 units: both are fp32 m + log2(l) over the same tiles;
+#: a row off by 1e-2 scales its P in the backward by 0.7%
+TOL_FLASH_LSE = (1e-5, 1e-4)
+#: 14a: the backward kernel against ref.flash_attention_bwd_ref fed the
+#: plain forward's o and lse (so a wrong forward cannot cancel out), its
+#: largest error as a share of the largest plain value: fp32 1e-4 (the
+#: same fp32 arithmetic in other summation orders, exp2f against
+#: torch.exp2); bf16 2^-7 (both round an fp32 sum to bf16 once, one ulp at
+#: the largest value); and the relative L2 error within 1e-2 either way
+TOL_FLASH_BWD = {"float32": 1e-4, "bfloat16": 2 ** -7}
+TOL_FLASH_BWD_REL_L2 = 1e-2
+#: 14c: step 0 at batch 1 through the kernels against the plain attention
+#: (full_attention, autograd), (loss relative error, largest relative L2
+#: error of a parameter's gradient). fp32: the two paths differ only in
+#: the attention's fp32 summation order (on the CPU at 24 layers of the
+#: smoke config the gap is 9e-7); bf16: the paths round at other places
+#: (bf16 P in P V and fp32 dP in the kernels, bf16 probabilities and
+#: products in full_attention) and 24 layers amplify it: on the CPU the
+#: smoke config at 24 layers, through the kernels' plain versions, gives a
+#: loss gap of 1.6e-4 and gradient gaps of 0.16 (median) to 0.20 (worst);
+#: on the H100 at full width the bf16 gaps are 5.0e-5 (loss) and 1.8e-3
+#: to 8.5e-2 (gradients), held at 1.5x the worst; a wrong scale, mask or
+#: tile moves the fp32 gradients by O(1)
+TOL_LM_TRAIN = {"float32": (1e-4, 1e-3), "bfloat16": (2e-3, 0.125)}
 
 
 def log(msg: str) -> None:
@@ -3054,6 +3115,459 @@ def lm_serve(torch, cfg) -> dict:
     return {"numbers": nums, "launches": counts}
 
 
+def tree_checksums(torch, tree) -> list[int]:
+    """bit_checksum of every leaf of a parameter tree, in tree order."""
+    from repro_torch.nn.params import tree_leaves
+    return [bit_checksum(torch, t) for t in tree_leaves(tree)]
+
+
+def lm_reckoning_bytes(cfg, batch: int, seq: int) -> dict:
+    """The LM step's device memory by the reckoning: fp32 parameters,
+    gradients and both AdamW moments; each unit's bf16 input, which
+    remat="full" keeps; the logits in bf16 and fp32 and as much again
+    for their gradient; one unit's recompute (about 2 GB at 16,384
+    tokens, scaled by the tokens)."""
+    n = cfg.param_count_estimate()
+    tokens = batch * seq
+    parts = {"params_grads_moments": 4 * 4 * n,
+             "unit_inputs": cfg.n_units * tokens * cfg.d_model * 2,
+             "logits_and_grad": 2 * tokens * cfg.vocab_size * (2 + 4),
+             "unit_recompute": int(2e9 * tokens / 16384)}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def check_flash_attention_bwd(torch, dev) -> dict:
+    """Phase 14a: at each of FLASH_BWD_SHAPES, the forward's o and
+    log-sum-exp against the plain forward's (TOL_FLASH, TOL_FLASH_LSE),
+    and the backward kernel (fed the kernel's o and lse) against its plain
+    version fed the plain forward's, so a fault in the forward's store
+    cannot cancel out (the plain versions one batch element at a time: at
+    batch 4 its (4, 32, 4096, 4096) fp32 scores alone would take 8.6 GB a
+    tensor; its time is the sum of those calls, each once), two launches
+    bit-equal, and the times of the kernel, its plain version and SDPA's
+    backward (timed only), with the forward's time with and without the
+    log-sum-exp store at the same shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    log_ptxas(kf.BWD_KERNEL, "flash_bwd")
+    out = {}
+    for name, shape, dt in FLASH_BWD_SHAPES:
+        b, h, s, dh = shape
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev)
+        g.manual_seed(s + dh + 1)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        o, lse = kf.flash_attention(q, k, v, with_lse=True)
+        got = kf.flash_attention_bwd(q, k, v, o, do, lse)
+        again = kf.flash_attention_bwd(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        del again
+        errs, abs_errs, rels = [0.0] * 3, [0.0] * 3, [0.0] * 3
+        o_err, lse_err, fwd_ok = 0.0, 0.0, True
+        rtol, atol = TOL_FLASH[dt]
+        plain_ms = 0.0
+        for i in range(b):
+            qi, ki, vi = (t[i:i + 1] for t in (q, k, v))
+            if dt == "bfloat16":
+                o_p, lse_p = ref.flash_attention_tiled_ref(
+                    qi, ki, vi, kf.block_k(dh), with_lse=True)
+            else:
+                o_p, lse_p = ref.flash_attention_ref(qi, ki, vi,
+                                                     with_lse=True)
+            d_o = (o[i:i + 1].float() - o_p.float()).abs()
+            d_lse = (lse[i:i + 1] - lse_p.float()).abs()
+            o_err = max(o_err, float(d_o.max()))
+            lse_err = max(lse_err, float(d_lse.max()))
+            fwd_ok &= bool((d_o <= atol + rtol * o_p.float().abs()).all()
+                           and (d_lse <= TOL_FLASH_LSE[1] + TOL_FLASH_LSE[0]
+                                * lse_p.float().abs()).all())
+            del d_o, d_lse
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ref.flash_attention_bwd_ref(qi, ki, vi, o_p, do[i:i + 1],
+                                               lse_p)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            for j, (a, w) in enumerate(zip(got, want)):
+                a, w = a[i:i + 1].float(), w.float()
+                top = float(w.abs().max())
+                err = float((a - w).abs().max())
+                errs[j] = max(errs[j], err / top)
+                abs_errs[j] = max(abs_errs[j], err)
+                rels[j] = max(rels[j], float((a - w).norm() / w.norm()))
+            del want, o_p, lse_p
+        log(f"  flash_attention[{name}] {shape} {dt} forward vs plain: o "
+            f"max_abs_err={o_err:.3e} (tol {atol:.4g} abs + {rtol:.4g} "
+            f"rel), lse max_abs_err={lse_err:.3e} (tol {TOL_FLASH_LSE[1]} "
+            f"abs + {TOL_FLASH_LSE[0]} rel)")
+        if not fwd_ok:
+            raise AssertionError(f"flash_attention[{name}]: o or lse "
+                                 "disagrees with its plain version")
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        log(f"  flash_attention_bwd[{name}] {shape} {dt} vs plain: max abs "
+            f"err / max |plain| (dq, dk, dv) {errs} (tol "
+            f"{TOL_FLASH_BWD[dt]}), rel L2 {rels} (tol "
+            f"{TOL_FLASH_BWD_REL_L2}); two launches bit-equal={same}")
+        if not (finite and same and max(errs) <= TOL_FLASH_BWD[dt]
+                and max(rels) <= TOL_FLASH_BWD_REL_L2):
+            raise AssertionError(f"flash_attention_bwd[{name}] disagrees "
+                                 f"with its plain version or itself")
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        fwd_flops = 4 * b * h * dh * s * (s + 1) / 2
+        flops = 2.5 * fwd_flops
+        n_bytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+        t_ops = flops / (BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS)
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        nums = {
+            "shape": list(shape), "dtype": dt,
+            "max_abs_err": max(abs_errs),
+            "max_err_share_of_max_plain": max(errs),
+            "rel_l2_err": max(rels),
+            "forward_o_max_abs_err": o_err,
+            "forward_lse_max_abs_err": lse_err,
+            "bit_equal_twice": same,
+            "ms": time_ms(torch, lambda: kf.flash_attention_bwd(
+                q, k, v, o, do, lse), 5, warmup=1),
+            "device_ms": device_kernel_ms(
+                torch, lambda: kf.flash_attention_bwd(q, k, v, o, do, lse),
+                2, "flash_bwd"),
+            "plain_ms": plain_ms,
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), do, retain_graph=True), 5, warmup=1),
+            "library": "scaled_dot_product_attention backward",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
+            "forward_ms": time_ms(torch, lambda: kf.flash_attention(q, k, v),
+                                  10, warmup=2),
+            "forward_with_lse_ms": time_ms(
+                torch, lambda: kf.flash_attention(q, k, v, with_lse=True),
+                10, warmup=2)}
+        log(f"  flash_attention_bwd[{name}]: {json.dumps(nums)}")
+        out[name] = nums
+        del q, k, v, do, o, lse, got, qg, kg, vg, sdpa
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_launcher(torch, dev, cfg) -> dict:
+    """Phase 14b: the LM launcher at full width (LM_TRAIN_ARGV): finite
+    losses, exactly 48 flash_attention launches a step (24 forward, 24
+    recomputed under remat="full") and 24 flash_attention_bwd, no other
+    kernel; peak device memory beside the reckoning, host ms a step,
+    tokens/s over steps 1-3; then one more step under torch.profiler for
+    the device-busy ms a step. Returns the numbers, the launches and the
+    run (its parameters and AdamW state, for 14d)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_lm_train_step
+
+    log(f"phase 14b: python -m repro_torch.launch.train "
+        f"{' '.join(LM_TRAIN_ARGV)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    run, _ = run_cli(train_cli.main, LM_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches(KERNELS, "lm_train",
+                           ("flash_attention", "flash_attention_bwd"))
+    others = {n: c for n, c in counts.items()
+              if c and n not in ("flash_attention", "flash_attention_bwd")}
+    want = {"flash_attention": 2 * cfg.n_layers * LM_TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * LM_TRAIN_STEPS}
+    if others or any(counts[n] != c for n, c in want.items()):
+        raise AssertionError(f"14b: want {want} launches and no other "
+                             f"kernel: {counts}")
+    losses = run.losses
+    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"14b losses not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [t * 1e3 for t in run.times["step_s"]]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    # one more step, profiled (the launcher's step at step LM_TRAIN_STEPS)
+    step = build_lm_train_step(cfg, adamw(3e-4))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+        cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, 0).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, m = step(run.params, run.state, batch, LM_TRAIN_STEPS)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy = sum(t for _, t in events) / 1e3
+    top = sorted(events, key=lambda e: -e[1])[:12]
+    nums = {"losses": losses, "wall_s_incl_init": wall,
+            "host_ms_per_step": step_ms,
+            "tokens_per_s_steps_1_3": 3 * tokens / sum(step_ms[1:4]) * 1e3,
+            "launches_per_step": {n: counts[n] // LM_TRAIN_STEPS
+                                  for n in want},
+            "peak_bytes": peak,
+            "reckoning_bytes": lm_reckoning_bytes(cfg, LM_TRAIN_BATCH,
+                                                  LM_TRAIN_SEQ),
+            "profiled_step_host_ms": prof_ms,
+            "profiled_step_device_busy_ms": busy if busy else None,
+            "profiled_step_flash_fwd_device_ms": sum(
+                t for n, t in events if "flash_attention_kernel" in n) / 1e3,
+            "profiled_step_flash_bwd_device_ms": sum(
+                t for n, t in events if "flash_bwd" in n) / 1e3,
+            "top_device_events_ms": [(n, t / 1e3) for n, t in top]}
+    log(f"14b numbers: {json.dumps(nums)}")
+    return {"numbers": nums, "launches": counts, "run": run}
+
+
+def lm_grads(torch, params, batch, cfg, plain: bool):
+    """(loss, gradient leaves) of lm_loss at `params`; `plain` puts the
+    layers' full_attention (torch ops, differentiated by autograd) in
+    place of the flash-attention op, under the same remat."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.params import tree_leaves, tree_map
+    real = ops.flash_attention
+    if plain:
+        ops.flash_attention = lambda q, k, v, causal=True: \
+            L.full_attention(q, k, v)
+    try:
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = lm_loss(leaves, batch, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    finally:
+        ops.flash_attention = real
+    return float(loss.detach()), grads
+
+
+def lm_train_plain(torch, dev, cfg) -> dict:
+    """Phase 14c: step 0's loss and gradients at batch 1 through the
+    kernels, twice, and through the plain attention, in the config's bf16
+    compute and again in fp32 (TOL_LM_TRAIN); every unit's wq, wk and wv
+    gradient non-zero; the two kernel runs bit-equal; the plain runs
+    launch no kernel."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import init_lm_params
+
+    params = init_lm_params(cfg, train_cli.PARAM_SEED, dev)
+    names = ["/".join(p) for p in leaf_paths(params)]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+        cfg, 1, LM_TRAIN_SEQ, 0, 0).items()}
+    out = {}
+    reset_launches(KERNELS)
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        t0 = time.perf_counter()
+        loss, grads = lm_grads(torch, params, batch, c, plain=False)
+        torch.cuda.synchronize()
+        kernel_ms = (time.perf_counter() - t0) * 1e3
+        unit_zero = {n: int((g.flatten(1).abs().amax(1) == 0).sum())
+                     for n, g in zip(names, grads)
+                     if n.split("/")[-1] in ("wq", "wk", "wv")}
+        before = {k.name: k.launches for k in KERNELS}
+        t0 = time.perf_counter()
+        p_loss, p_grads = lm_grads(torch, params, batch, c, plain=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if any(k.launches != before[k.name] for k in KERNELS):
+            raise AssertionError("14c: the plain path launched a kernel")
+        rel = {n: float((a.float() - b.float()).norm()
+                        / b.float().norm().clamp_min(1e-30))
+               for n, a, b in zip(names, grads, p_grads)}
+        del p_grads
+        loss2, grads2 = lm_grads(torch, params, batch, c, plain=False)
+        same = loss2 == loss and all(
+            torch.equal(a, b) for a, b in zip(grads, grads2))
+        del grads2
+        tol_loss, tol_grad = TOL_LM_TRAIN[dt]
+        loss_rel = abs(loss - p_loss) / abs(p_loss)
+        worst = max(rel, key=rel.get)
+        nums = {"dtype": dt, "loss": loss, "plain_loss": p_loss,
+                "loss_rel_err": loss_rel, "grad_rel_l2": rel,
+                "worst_leaf": worst, "attn_units_with_zero_grad": unit_zero,
+                "kernel_runs_bit_equal": same, "kernel_host_ms": kernel_ms,
+                "plain_host_ms": plain_ms,
+                "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
+        log(f"14c [{dt}]: loss {loss} vs plain {p_loss} (rel {loss_rel:.3e},"
+            f" tol {tol_loss}); worst gradient {worst} rel L2 "
+            f"{rel[worst]:.3e} (tol {tol_grad}); {json.dumps(nums)}")
+        if not (nums["finite"] and same and loss_rel <= tol_loss
+                and rel[worst] <= tol_grad and not any(unit_zero.values())):
+            raise AssertionError(f"14c [{dt}]: the kernel path and the "
+                                 "plain attention disagree, a kernel run "
+                                 "is not repeatable, or an attention "
+                                 "weight got no gradient")
+        out[dt] = nums
+        del grads
+    counts = read_launches(KERNELS, "lm_train_plain_check",
+                           ("flash_attention", "flash_attention_bwd"))
+    want = {"flash_attention": 2 * 2 * 2 * cfg.n_layers,
+            "flash_attention_bwd": 2 * 2 * cfg.n_layers}
+    if any(counts[n] != c for n, c in want.items()):
+        raise AssertionError(f"14c: want {want} launches (two kernel runs "
+                             f"in each dtype), got {counts}")
+    del params
+    return {"numbers": out, "launches": counts}
+
+
+def leaf_paths(tree, path=()):
+    """The key paths of a tree's leaves, in tree order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, path + (k,))]
+    return [path]
+
+
+def lm_train_accum(torch, dev, cfg, run) -> dict:
+    """Phase 14d: build_lm_train_step(accum_steps=2) on a batch of
+    2 * LM_TRAIN_BATCH from 14b's parameters and state: a finite loss,
+    twice 14b's launches, the peak beside 14b's reckoning plus one fp32
+    gradient sum."""
+    import math
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_lm_train_step
+
+    step = build_lm_train_step(cfg, adamw(3e-4), accum_steps=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+        cfg, 2 * LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS + 1, 0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    _, _, m = step(run.params, run.state, batch, LM_TRAIN_STEPS + 1)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches(KERNELS, "lm_train_accum",
+                           ("flash_attention", "flash_attention_bwd"))
+    want = {"flash_attention": 4 * cfg.n_layers,
+            "flash_attention_bwd": 2 * cfg.n_layers}
+    if any(counts[n] != c for n, c in want.items()) or not math.isfinite(
+            loss):
+        raise AssertionError(f"14d: loss {loss}, launches {counts}, want "
+                             f"{want}")
+    reckon = lm_reckoning_bytes(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    grad_sum = 4 * cfg.param_count_estimate()
+    nums = {"loss": loss, "host_ms": host_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "reckoning_bytes": reckon["total"] + grad_sum,
+            "grad_sum_bytes": grad_sum,
+            "tokens_per_s": 2 * LM_TRAIN_BATCH * LM_TRAIN_SEQ / host_ms * 1e3}
+    log(f"14d numbers: {json.dumps(nums)}")
+    return {"numbers": nums, "launches": counts}
+
+
+def lm_train_resilience(torch, base: str) -> dict:
+    """Phase 14e: the LM launcher at --smoke on the card, LM_SMOKE_STEPS
+    steps: a plain run; the same run cut by a checkpoint at half way and
+    resumed by a second call; --chaos for each of CHAOS_SEEDS. Each must
+    give the plain run's losses and final parameter and moment bits."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+
+    def argv(name, *extra):
+        return ["--arch", LM_ARCH, "--smoke", "--log-every", "100",
+                "--ckpt-dir", os.path.join(base, name), *extra]
+
+    reset_launches(KERNELS)
+    steps = str(LM_SMOKE_STEPS)
+    log(f"phase 14e: python -m repro_torch.launch.train "
+        f"{' '.join(argv('plain', '--steps', steps))}")
+    plain = train_cli.main(argv("plain", "--steps", steps))
+    want = (plain.losses, tree_checksums(torch, plain.params),
+            tree_checksums(torch, plain.state))
+    half = str(LM_SMOKE_STEPS // 2)
+    first = train_cli.main(argv("resume", "--steps", half, "--ckpt-every",
+                                half))
+    resumed = train_cli.main(argv("resume", "--steps", steps, "--resume"))
+    runs = {"resume": (first.losses + resumed.losses,
+                       tree_checksums(torch, resumed.params),
+                       tree_checksums(torch, resumed.state))}
+    for seed in CHAOS_SEEDS:
+        res, text = run_cli(train_cli.main, argv(
+            f"chaos{seed}", "--steps", steps, "--ckpt-every", "2",
+            "--chaos", "--chaos-seed", str(seed)))
+        fired = next((ln for ln in text.splitlines()
+                      if ln.startswith("chaos: fired ")), "")
+        if fired in ("", "chaos: fired nothing"):
+            raise AssertionError(f"14e chaos seed {seed}: no fault fired")
+        runs[f"chaos{seed}"] = (res.losses, tree_checksums(torch, res.params),
+                                tree_checksums(torch, res.state))
+    counts = read_launches(KERNELS, "lm_train_smoke",
+                           ("flash_attention", "flash_attention_bwd"))
+    equal = {name: r == want for name, r in runs.items()}
+    log(f"14e: plain losses {plain.losses}; bit-equal to the plain run "
+        f"(losses, parameters, moments): {equal}")
+    if not all(equal.values()):
+        raise AssertionError("14e: a resumed or chaos run differs from the "
+                             "plain run")
+    return {"launches": counts, "equal": equal}
+
+
+def lm_train_phases(torch, dev, cfg) -> dict:
+    """Phases 14a-14e (LM training on full-width stablelm-1.6b). Returns
+    the backward kernel's numbers, the forward's at the train shape and
+    each path's launches."""
+    import shutil
+    import tempfile
+    log("phase 14a: flash_attention_bwd vs plain at " + ", ".join(
+        f"{n} {shape} {dt}" for n, shape, dt in FLASH_BWD_SHAPES))
+    bwd = check_flash_attention_bwd(torch, dev)
+    log_peak(torch, "phase 14a")
+    free_device(torch)
+    paths = {}
+    res = lm_train_launcher(torch, dev, cfg)
+    paths["lm_train"] = res["launches"]
+    # 14a's per-kernel trace, late in this process, can come back partial
+    # (as 9a's does): the kernels line takes 14b's profiled step, whose 24
+    # launches run at 14a's bf16 shape, and keeps 14a's beside it
+    nb = bwd["train_4k"]
+    step_ms = res["numbers"]["profiled_step_flash_bwd_device_ms"]
+    if step_ms:
+        nb["device_ms_14a_profiler"] = nb["device_ms"]
+        nb["device_ms"] = step_ms / cfg.n_layers
+        nb["device_ms_from"] = "14b profiled step, per launch"
+    log_peak(torch, "phase 14b")
+    log("phase 14c: step 0 at batch 1 through the kernels (twice) and "
+        "through full_attention, bf16 and fp32 compute")
+    paths["lm_train_plain_check"] = lm_train_plain(torch, dev, cfg)[
+        "launches"]
+    log_peak(torch, "phase 14c")
+    log(f"phase 14d: build_lm_train_step(accum_steps=2) on a batch of "
+        f"{2 * LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} from 14b's state")
+    paths["lm_train_accum"] = lm_train_accum(torch, dev, cfg, res["run"])[
+        "launches"]
+    del res
+    free_device(torch)
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    base = tempfile.mkdtemp(prefix="chip_smoke_lm_",
+                            dir=os.path.join(ROOT, "runs"))
+    try:
+        paths["lm_train_smoke"] = lm_train_resilience(torch, base)["launches"]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    free_device(torch)
+    return {"bwd": bwd, "paths": paths}
+
+
 class Tee:
     """A stdout that also keeps what was written (a launcher's lines)."""
 
@@ -3893,7 +4407,20 @@ def main() -> int:
         log(f"{r['name']} numbers: {json.dumps(res)}")
         free_device(torch)
 
-    # 14. the numbers, then the result
+    # 14. LM training on full-width stablelm-1.6b: the backward kernel
+    #     against its plain version (14a), the launcher at train_4k's 4,096
+    #     tokens (14b), step 0 through the kernels and the plain attention
+    #     (14c), gradient accumulation (14d), resume and chaos at --smoke
+    #     (14e)
+    lm_train = lm_train_phases(torch, dev, lm_cfg)
+    paths.update(lm_train["paths"])
+    numbers["flash_attention_bwd"] = dict(lm_train["bwd"]["train_4k"],
+                                          fp32=lm_train["bwd"]["train_4k_fp32"])
+    fa = numbers["flash_attention"]
+    fa["train_shape"] = {k: lm_train["bwd"]["train_4k"][k] for k in (
+        "shape", "forward_ms", "forward_with_lse_ms")}
+
+    # 15. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -3906,7 +4433,10 @@ def main() -> int:
         "fused_bag_backward_adagrad_segments":
             "src/repro/kernels/sparse_update.py:126",
         "rowwise_adagrad": "src/repro/kernels/rowwise_adagrad.py:73",
-        "flash_attention": "src/repro/kernels/flash_attention.py:100"}
+        "flash_attention": "src/repro/kernels/flash_attention.py:100",
+        # no TPU kernel: the gradient the reference takes by XLA autodiff
+        # of its blockwise attention
+        "flash_attention_bwd": "src/repro/nn/layers.py:196"}
     rows = []
     for k in KERNELS:
         nums = numbers[k.name]
@@ -3922,11 +4452,17 @@ def main() -> int:
             **{key: nums[key] for key in (
                 "device_ms_from", "device_ms_9a_profiler",
                 "max_abs_err_vs_fp32_oracle", "train_shape",
-                "m2_train_shape", "host_us")
+                "m2_train_shape", "host_us", "fp32", "library",
+                "max_err_share_of_max_plain", "rel_l2_err",
+                "device_ms_14a_profiler")
                 if key in nums}})
         rows[-1]["launches_per_rank"] = {
             name: [c[k.name] for c in nums["launches_per_rank"]]
             for name, nums in mesh.items()}
+        if k.name == "flash_attention_bwd":
+            rows[-1]["replaces_note"] = (
+                "no TPU kernel: the reference trains through XLA's autodiff "
+                "of nn/layers.py::blockwise_attention")
         if k.name in host_movers:
             rows[-1]["host_capacity"] = {
                 **host_movers[k.name], "launches": sum(

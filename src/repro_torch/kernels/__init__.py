@@ -13,8 +13,8 @@ from repro_torch.kernels._build import Kernel, build_all
 #: lookups and the interaction, the cached tier's row movers (serving's
 #: exchange, then training's fetch, chunked fetch and commit), the updates
 #: (one plan, then the table-wise step's owner segments), the legacy
-#: row-wise AdaGrad that the fused updates are held to, and the LM
-#: prefill's causal flash attention
+#: row-wise AdaGrad that the fused updates are held to, the LM prefill's
+#: causal flash attention and, for LM training, its backward
 KERNELS: tuple[Kernel, ...] = (embedding_bag.KERNEL,
                                embedding_bag.DEDUP_KERNEL,
                                dot_interaction.KERNEL, cache_ops.KERNEL,
@@ -24,7 +24,8 @@ KERNELS: tuple[Kernel, ...] = (embedding_bag.KERNEL,
                                sparse_update.KERNEL,
                                sparse_update.SEGMENTS_KERNEL,
                                rowwise_adagrad.KERNEL,
-                               flash_attention.KERNEL)
+                               flash_attention.KERNEL,
+                               flash_attention.BWD_KERNEL)
 
 __all__ = ["KERNELS", "Kernel", "build_all", "cache_ops", "dot_interaction",
            "embedding_bag", "flash_attention", "rowwise_adagrad",

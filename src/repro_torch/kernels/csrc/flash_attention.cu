@@ -9,7 +9,11 @@
 // sum p, acc' = acc e^(m-m') + p V; the result is acc / max(l, 1e-30) in
 // the input's dtype. Not its block layout: the TPU kernel streams K/V
 // tiles by DMA into VMEM for one (b, h, q-block) grid step at a time and
-// pads dh to the 128-lane width and s to the block.
+// pads dh to the 128-lane width and s to the block. For training, the
+// caller may pass an lse buffer: both kernels then store each row's
+// log-sum-exp in log2 units (m + log2 l of the log2-domain softmax), which
+// the backward (flash_attention_bwd.cu) reads to rebuild P; with a null
+// lse, as the prefill passes, no store runs.
 //
 // Bound on the H100: operations. A call does 4 b h dh s(s+1)/2 FLOPs (QK^T
 // and PV over the causal half) on 4 b h s dh elements of input and output:
@@ -51,8 +55,9 @@
 // stored. ref.flash_attention_tiled_ref is its plain version, with the
 // same tiles and rounding points.
 //
-// fp32 (flash_attention_kernel, unchanged from the first port; only the
-// 9a fp32 shape and the card tests run it): one block of 8 warps per
+// fp32 (flash_attention_kernel, the first port's, with the log-sum-exp
+// store as a second instantiation; the 9a and 14a fp32 shapes, 14c's fp32
+// run and the card tests run it): one block of 8 warps per
 // (b*h, 64-query tile), heaviest tiles first. The block stages its
 // pre-scaled Q tile once and then, per 64-key tile up to and including the
 // diagonal one, K transposed (row stride 65: conflict-free column reads
@@ -81,6 +86,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kBQ / kWarps;   // query rows per warp
 constexpr int kKtStride = kBK + 1;    // row stride of the transposed K tile
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -107,11 +113,14 @@ constexpr size_t smem_bytes() {
                           (size_t)kBK * DH + (size_t)kWarps * kBK * kRows);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+// kLse: store each row's log-sum-exp; that instantiation (fp32 training
+// only) takes one block an SM's registers, since at dh 128 the store did
+// not fit the 128 a thread that two blocks an SM leave without a spill
+template <typename T, int DH, bool kLse>
+__global__ void __launch_bounds__(kThreads, kLse ? 1 : 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, float scale) {
   constexpr int kCols = DH / 32;               // output columns per lane
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                            // kBQ x DH, pre-scaled
@@ -255,21 +264,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + base + (int64_t)qq * DH + lane * kCols;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store1(orow + c, acc[r][c] / den);
+    // m and l are the warp's (reduced by shuffles): the row's log-sum-exp
+    // of s * scale, stored in log2 units as the bf16 kernel stores it
+    if (kLse && lane == 0)
+      lse[(int64_t)blockIdx.y * S + qq] = (m[r] + logf(l[r])) * kLog2e;
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t BH, int64_t S, float scale, cudaStream_t stream) {
+                   float* lse, int64_t BH, int64_t S, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  auto kern = flash_attention_kernel<T, DH>;
+  auto kern = lse != nullptr ? flash_attention_kernel<T, DH, true>
+                             : flash_attention_kernel<T, DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)BH);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)S, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, (int)S, scale);
   return cudaGetLastError();
 }
 
@@ -285,7 +300,6 @@ constexpr int kConsumerThreads = 256;
 constexpr int kProducerRegs = 24;     // setmaxnreg: the producer gives
 constexpr int kConsumerRegs = 240;    // its registers to the consumers
 constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr long long kHangCycles = 40000000000LL;  // ~20 s at 1.98 GHz
 
 // Keys per tile: 128 for dh 64 (S is 64 fp32 registers a thread, O 32);
@@ -542,7 +556,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ o, int S,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S,
                             float scale_log2) {
   using L = Layout<DH>;
   constexpr int kBK = L::kBK;
@@ -723,6 +738,14 @@ flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
     l[r] = fmaxf(l[r], 1e-30f);
   }
   const int64_t base_row = (int64_t)bh * S;
+  // the row's log-sum-exp in log2 units, m + log2(l): the softmax above
+  // runs on x = s * scale * log2(e), so this is log2 of sum 2^x, which is
+  // lse(s * scale) * log2(e); one lane of the quad stores it
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < S) lse[base_row + rows[r]] = m[r] + log2f(l[r]);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= S) continue;
@@ -786,8 +809,8 @@ int encode(CUtensorMap* map, const void* ptr, int64_t BH, int64_t S,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
-           int64_t S, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t BH, int64_t S, float scale, cudaStream_t stream) {
   using L = Layout<DH>;
   auto kern = flash_attention_kernel_sm90<DH>;
   static int regs = -1;
@@ -811,7 +834,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
   if (err) return err;
   const dim3 grid((unsigned)BH, (unsigned)((S + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)S, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, (int)S,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -822,28 +846,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
 // q, k, v, o: (BH, S, DH) contiguous, DH 64 or 128, one dtype (is_bf16:
 // bf16, else fp32); scale is 1/sqrt of the unpadded dh. bf16 runs the
 // tensor-core kernel (16-byte aligned pointers for TMA), fp32 the SIMT one.
-// Returns a cudaError, or kDriverError + a CUresult when a TMA descriptor
-// could not be encoded.
+// lse: null, or (BH, S) fp32 that receives each row's log-sum-exp of the
+// scaled scores in log2 units (log2 sum_j 2^(s_j scale log2 e)), which the
+// backward (flash_attention_bwd.cu) reads; the prefill passes null and no
+// store runs. Returns a cudaError, or kDriverError + a CUresult when a TMA
+// descriptor could not be encoded.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t BH,
-                                      int64_t S, int64_t DH, int64_t is_bf16,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int64_t BH, int64_t S, int64_t DH,
+                                      int64_t is_bf16, float scale,
+                                      void* stream) {
   if (BH == 0 || S == 0) return 0;
   if (S > (int64_t)INT32_MAX / 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (BH > INT32_MAX || (S + sm90::kBQ - 1) / sm90::kBQ > 65535)
       return (int)cudaErrorInvalidValue;
-    if (DH == 64) return sm90::launch<64>(q, k, v, o, BH, S, scale, st);
-    if (DH == 128) return sm90::launch<128>(q, k, v, o, BH, S, scale, st);
+    if (DH == 64) return sm90::launch<64>(q, k, v, o, lse, BH, S, scale, st);
+    if (DH == 128)
+      return sm90::launch<128>(q, k, v, o, lse, BH, S, scale, st);
     return (int)cudaErrorInvalidValue;
   }
   if (BH > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (DH == 64) {
-    err = launch<float, 64>(q, k, v, o, BH, S, scale, st);
+    err = launch<float, 64>(q, k, v, o, lse, BH, S, scale, st);
   } else if (DH == 128) {
-    err = launch<float, 128>(q, k, v, o, BH, S, scale, st);
+    err = launch<float, 128>(q, k, v, o, lse, BH, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -10,10 +10,12 @@ block — has no counterpart.
 
 Gradients: `dot_interaction` is a `torch.autograd.Function` whose backward
 is the reference's `_dot_bwd` in torch ops (the reference computes it
-outside any Pallas kernel too). The lookups are never differentiated on the
-training path: `core.dlrm.dlrm_grads` makes the pooled embeddings an
-autograd leaf and hands their gradient to `fused_sparse_backward`, so
-`embedding_bag`'s scatter-add backward has no caller and is not ported.
+outside any Pallas kernel too); `flash_attention`'s is the backward
+kernel (`kernels.flash_attention.FlashAttention`). The lookups are never
+differentiated on the training path: `core.dlrm.dlrm_grads` makes the
+pooled embeddings an autograd leaf and hands their gradient to
+`fused_sparse_backward`, so `embedding_bag`'s scatter-add backward has no
+caller and is not ported.
 """
 from __future__ import annotations
 
@@ -156,8 +158,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention on the layer layout: q, k, v (b, s, h, dh) -> (b, s, h,
     dh). Transposes to (b, h, s, dh) for the causal flash-attention kernel
-    (the plain version, causal or not, on the CPU) and back."""
-    out = _flash.flash_attention(q.transpose(1, 2).contiguous(),
-                                 k.transpose(1, 2).contiguous(),
-                                 v.transpose(1, 2).contiguous(), causal)
+    (the plain version, causal or not, on the CPU) and back. Where autograd
+    records (grad mode on, an input that requires a gradient) it goes
+    through `FlashAttention`: the forward kernel stores the log-sum-exp and
+    the backward kernel differentiates it; otherwise (the prefill) the
+    forward kernel runs alone and stores nothing more."""
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _flash.FlashAttention.apply(q, k, v, causal)
+    else:
+        out = _flash.flash_attention(q, k, v, causal)
     return out.transpose(1, 2)

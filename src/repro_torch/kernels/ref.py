@@ -311,33 +311,56 @@ def lfu_touch_ref(freq: torch.Tensor, slots: torch.Tensor,
     return freq
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32, or the input's dtype where it is wider (float64 for gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _above_diagonal(sq: int, sk: int, device) -> torch.Tensor:
+    return (torch.arange(sk, device=device)[None, :]
+            > torch.arange(sq, device=device)[:, None])
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, with_lse: bool = False):
     """Attention on (b, h, s, dh): fp32 scores scaled by 1/sqrt(dh), -1e30
     above the diagonal when causal, softmax, times V in fp32; the result
     in q's dtype. The flash-attention kernel computes the same function
     with an online softmax over key tiles: this is its plain version in
     fp32, the fp32 oracle of the bf16 kernel and the function the TPU
-    kernel computes."""
+    kernel computes. float64 inputs compute in float64.
+
+    with_lse: also return each row's log-sum-exp of the scaled scores in
+    log2 units, (b, h, s) in the compute dtype, as the kernels store it
+    for the backward (`flash_attention_bwd_ref`)."""
     dh = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    acc = _acc_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc))
     s.div_(math.sqrt(dh))
     if causal:
-        sq, sk = q.shape[2], k.shape[2]
-        above = (torch.arange(sk, device=q.device)[None, :]
-                 > torch.arange(sq, device=q.device)[:, None])
-        s.masked_fill_(above, -1e30)
+        s.masked_fill_(_above_diagonal(q.shape[2], k.shape[2], q.device),
+                       -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc)).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).mul_(LOG2E)
 
 
 #: log2(e): the bf16 flash-attention kernel folds it into the scale
 LOG2E = 1.4426950408889634
 
 
+def _scale_log2(dh: int) -> float:
+    """1/sqrt(dh) * log2(e) as the kernels form it: both factors rounded to
+    fp32, their product rounded to fp32."""
+    return float(np.float32(np.float32(1.0 / math.sqrt(dh))
+                            * np.float32(LOG2E)))
+
+
 def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, block_k: int,
-                              causal: bool = True) -> torch.Tensor:
+                              causal: bool = True, with_lse: bool = False):
     """The bf16 flash-attention kernel's arithmetic as torch ops on
     (b, h, s, dh): a loop over key tiles of `block_k` keys, each folded
     into an online softmax over all query rows at once. Scores are fp32
@@ -349,10 +372,10 @@ def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
     and fp32 products and sums; the result acc / max(l, 1e-30) in q's
     dtype. A tile wholly above a row's diagonal is all -1e30 there and
     changes nothing (2^0 = 1, exp2(-1e30 - m) = 0), so the loop needs no
-    causal bound of its own."""
+    causal bound of its own. with_lse: also return m + log2(l) (fp32,
+    (b, h, s)), the log-sum-exp in log2 units that the kernel stores."""
     sq, sk, dh = q.shape[2], k.shape[2], q.shape[-1]
-    scale = float(np.float32(np.float32(1.0 / math.sqrt(dh))
-                             * np.float32(LOG2E)))
+    scale = _scale_log2(dh)
     qf = q.float()
     m = torch.full(q.shape[:3], -math.inf, device=q.device)
     l = torch.zeros(q.shape[:3], device=q.device)
@@ -373,4 +396,45 @@ def flash_attention_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                           v[:, :, k0:k0 + block_k].float())
         acc = acc * corr[..., None] + pv
         m = m_new
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, m + torch.log2(l)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor,
+                            causal: bool = True):
+    """dQ, dK, dV of attention on (b, h, s, dh), the backward kernel's
+    arithmetic (`csrc/flash_attention_bwd.cu`) as torch ops: from the
+    forward's output o and its log-sum-exp `lse` in log2 units,
+    x = (Q K^T) * scale * log2(e) (the kernels' fp32 product of the two
+    factors), P = 2^(x - lse) with 0 above the diagonal when causal,
+    dP = dO V^T, delta = rowsum(dO o O), dS = P o (dP - delta),
+    dV = P^T dO with P rounded to v's dtype first (bf16 for the bf16
+    kernel's inputs, as the forward rounds P before P V), dK = dS^T Q scale
+    and dQ = dS K scale, all in fp32 (float64 for float64 inputs); the
+    results in q's dtype. Materialises (b, h, s, s) scores: a check of the
+    kernel, not a way to train at length."""
+    dh = q.shape[-1]
+    acc = _acc_dtype(q)
+    if acc == torch.float32:
+        scale, scale_log2 = float(np.float32(1.0 / math.sqrt(dh))), \
+            _scale_log2(dh)
+    else:
+        scale = 1.0 / math.sqrt(dh)
+        scale_log2 = scale * LOG2E
+    qa, ka, va, oa, da = (t.to(acc) for t in (q, k, v, o, do))
+    p = torch.einsum("bhqd,bhkd->bhqk", qa, ka).mul_(scale_log2)
+    p = torch.exp2(p.sub_(lse.to(acc)[..., None]))
+    if causal:
+        p.masked_fill_(_above_diagonal(q.shape[2], k.shape[2], q.device),
+                       0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", da, va)
+    delta = (da * oa).sum(-1)
+    ds = p * dp.sub_(delta[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).to(acc), da)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qa).mul_(scale)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, ka).mul_(scale)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -1,7 +1,12 @@
-"""Training launcher of the port: the DLRM mode of the reference launcher.
+"""Training launcher of the port: the reference launcher's DLRM and LM
+modes.
 
     python -m repro_torch.launch.train --arch dlrm-m1 --smoke --steps 20 \\
         --device cpu
+    python -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
+        --steps 30 --device cpu
+    python -m repro_torch.launch.train --arch stablelm-1.6b --seq 4096 \\
+        --batch 4 --steps 4
     python -m repro_torch.launch.train --arch dlrm-m2 --steps 8 --batch 512
     python -m repro_torch.launch.train --arch dlrm-m2 --steps 8 --resume
     python -m repro_torch.launch.train --arch dlrm-m1 --steps 8 --batch 512 \\
@@ -9,10 +14,14 @@
     python -m repro_torch.launch.train --arch dlrm-m2 --smoke --chaos \\
         --chaos-seed 3 --steps 16 --ckpt-every 2 --device cpu
 
-Seeded parameters (`init_dlrm_params`, seed 0) with the whole mega table on
-the device, dense `adagrad(0.01)`, synthetic batches through a prefetching
-`ShardedLoader` pipeline and `build_dlrm_train_step` with the reference
-launcher's defaults: the dense update (`--sparse-apply dense`), an async
+DLRM: seeded parameters (`init_dlrm_params`, seed 0) with the whole mega
+table on the device, dense `adagrad(0.01)`, `make_dlrm_batch` batches and
+`build_dlrm_train_step` with the reference launcher's defaults: the dense
+update (`--sparse-apply dense`). LM (a dense-family arch): seeded
+parameters (`init_lm_params`, seed 0), `adamw(--lr)` with its global-norm
+clip at 1.0, `make_lm_batch` batches of `--seq` tokens and
+`build_lm_train_step`. Both: synthetic batches through a prefetching
+`ShardedLoader` pipeline, an async
 CRC-verified checkpoint of {"params", "state"} every `--ckpt-every` steps
 into `<ckpt-dir>/<arch>`, `--resume` from its newest intact step, and
 `run_resilient_loop` with SIGTERM preemption and straggler flags.
@@ -30,7 +39,6 @@ batch for batch: the pipeline starts at the resumed step, and the step
 resumed from is the one that loaded (`last_restored_step`).
 
 Runs on the card unless `--device cpu` is given; without a card it raises.
-The LM mode (`--seq`, `--lr`) comes with the LM-training slice.
 """
 from __future__ import annotations
 
@@ -88,30 +96,14 @@ def check_dense_fits(total_rows: int, d: int, device: torch.device) -> None:
             "--sparse-apply sparse")
 
 
-def train_dlrm(cfg, args) -> TrainRun:
-    """Train `cfg` for `args.steps` steps on `args.device`."""
+def _dlrm_job(cfg, args, device):
+    """(fresh, gen, step_fn) of the DLRM mode."""
     from repro_torch.core.dlrm import init_dlrm_params
     from repro_torch.core.embedding import EmbeddingBagCollection
-    from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.data.synthetic import make_dlrm_batch
     from repro_torch.optim import adagrad
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.fault_tolerance import (FaultInjector,
-                                                   PreemptionHandler,
-                                                   StragglerDetector,
-                                                   run_resilient_loop)
     from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
 
-    device = resolve_device(args.device)
-    inj = None
-    if args.chaos:
-        # cache.fetch is left out: this launcher drives the uncached step
-        inj = FaultInjector.from_seed(
-            args.chaos_seed, args.steps, n_faults=args.chaos_faults,
-            sites=("pipeline.batch", "checkpoint.write", "loop.step"))
-        print("chaos schedule: " + ", ".join(
-            f"{s.site}[{s.at}]={s.kind}" for s in inj.schedule), flush=True)
-    ckpt = CheckpointManager(f"{args.ckpt_dir}/{args.arch}", injector=inj)
     ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
                                        strategy="replicated")
     opt = adagrad(0.01)
@@ -130,6 +122,51 @@ def train_dlrm(cfg, args) -> TrainRun:
         raw["idx"] = ebc.offset_indices(raw["idx"])
         return raw
 
+    return fresh, gen, step_fn
+
+
+def _lm_job(cfg, args, device):
+    """(fresh, gen, step_fn) of the LM mode."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_lm_train_step
+
+    opt = adamw(args.lr)
+    step_fn = build_lm_train_step(cfg, opt)
+
+    def fresh():
+        params = init_lm_params(cfg, PARAM_SEED, device)
+        return params, opt.init(params)
+
+    def gen(step, seed):
+        return make_lm_batch(cfg, args.batch, args.seq, step, seed)
+
+    return fresh, gen, step_fn
+
+
+def train(cfg, args) -> TrainRun:
+    """Train `cfg` (a DLRM or a dense LM) for `args.steps` steps on
+    `args.device`."""
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import (FaultInjector,
+                                                   PreemptionHandler,
+                                                   StragglerDetector,
+                                                   run_resilient_loop)
+
+    device = resolve_device(args.device)
+    inj = None
+    if args.chaos:
+        # cache.fetch is left out: this launcher drives the uncached step
+        inj = FaultInjector.from_seed(
+            args.chaos_seed, args.steps, n_faults=args.chaos_faults,
+            sites=("pipeline.batch", "checkpoint.write", "loop.step"))
+        print("chaos schedule: " + ", ".join(
+            f"{s.site}[{s.at}]={s.kind}" for s in inj.schedule), flush=True)
+    ckpt = CheckpointManager(f"{args.ckpt_dir}/{args.arch}", injector=inj)
+    job = _dlrm_job if isinstance(cfg, DLRMConfig) else _lm_job
+    fresh, gen, step_fn = job(cfg, args, device)
     loader = ShardedLoader(gen, args.batch)
     preempt = PreemptionHandler()
     try:
@@ -251,14 +288,18 @@ def _chaos_main(args, device, inj, ckpt, preempt, loader, fresh,
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The reference launcher's DLRM flags, plus `--sparse-apply` and
-    `--device`."""
+    """The reference launcher's flags, plus `--sparse-apply` (DLRM mode)
+    and `--device`."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM mode: tokens a sequence")
+    ap.add_argument("--lr", type=float, default=3e-4,
+                    help="LM mode: AdamW's learning rate")
     ap.add_argument("--ckpt-dir", default="runs/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -284,15 +325,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> TrainRun:
-    """Entry point: train the named DLRM. Returns the run."""
+    """Entry point: train the named DLRM or dense LM. Returns the run."""
     args = parse_args(argv)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
-    if not isinstance(cfg, DLRMConfig):
-        raise NotImplementedError(
-            f"{args.arch}: the LM mode of the training launcher comes with "
-            "the LM-training slice (lm_loss, adamw, build_lm_train_step)")
-    return train_dlrm(cfg, args)
+    return train(cfg, args)
 
 
 if __name__ == "__main__":

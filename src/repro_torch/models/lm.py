@@ -6,23 +6,29 @@ Parameters keep the reference's stacked layout: one tensor per parameter
 with a leading n_units axis, so `lm_params_from_jax` copies the reference's
 tree as it is. The reference's `scan` over units is a Python loop over
 that axis. MoE, Mamba-2, hybrid patterns and the vision and audio
-frontends raise `NotImplementedError` until their slice; `lm_loss` comes
-with the LM-training slice.
+frontends raise `NotImplementedError` until their slice. `lm_loss` is the
+training objective; in train mode with autograd recording, each unit runs
+under the config's `remat` (activation checkpointing).
 
 Caches are written IN PLACE by `prefill_step` and `decode_step` (the
 reference returns updated copies); both return the caches they were given.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import layers as L
-from repro_torch.nn.params import ParamSpec, init_params, stack_specs, tree_map
+from repro_torch.nn.params import ParamSpec, init_params, stack_specs
 
 MODES = ("train", "prefill", "decode")
+REMAT = ("none", "dots", "full")
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -140,19 +146,59 @@ def _decode_index(cache_index, b: int, device,
     return idx.to(device=device, dtype=torch.long)
 
 
+#: the weight products, whose outputs remat="dots" keeps: the counterpart
+#: of `dots_with_no_batch_dims_saveable` (the attention products are
+#: batched, bmm or the kernel, and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_unit(remat: str, fn, *args):
+    """fn(*args) under the reference's remat modes: "full" keeps only the
+    unit's input and recomputes the rest in the backward, "dots" keeps the
+    weight products' outputs as well, "none" keeps everything. The three
+    give the same bits: a recompute repeats the same operations on the
+    same inputs."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The n units' parameter trees of a stacked tree, by one `unbind` per
+    stacked tensor: its gradient is one stack of the units' gradients,
+    where indexing unit by unit would scatter each into a zeroed
+    full-size tensor."""
+    subs = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+            for k, v in tree.items()}
+    return [{k: sub[u] for k, sub in subs.items()} for u in range(n)]
+
+
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
                mode: str = "train", caches: dict | None = None,
                cache_index=None
                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
     """Returns (logits (B, S, V), aux_loss, caches), as the reference.
 
-    train: forward only (the LM-training slice differentiates it). prefill:
-    writes the prompt's K/V into `caches` at offset 0, in place. decode:
-    one token per sequence at `cache_index` (int or (B,)), written in
-    place. aux_loss is 0: the dense family has no router."""
+    train: with autograd recording, each unit runs under `cfg.remat`
+    (`_run_unit`); `lm_loss` differentiates it. prefill: writes the
+    prompt's K/V into `caches` at offset 0, in place. decode: one token per
+    sequence at `cache_index` (int or (B,)), written in place. aux_loss is
+    0: the dense family has no router."""
     _check_dense(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    if cfg.remat not in REMAT:
+        raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT}")
     if mode != "train" and caches is None:
         raise ValueError(f"{mode} needs caches (init_caches)")
     dev = params["embed"]["tok"].device
@@ -166,14 +212,47 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
     x, positions = embed_input(params, batch, cfg, positions)
-    blocks = params["blocks"]["b0"]
+    units = _unstack(params["blocks"]["b0"], cfg.n_units)
+    remat = cfg.remat if mode == "train" and torch.is_grad_enabled() \
+        else "none"
     for u in range(cfg.n_units):
         unit_cache = None if caches is None else \
             {k: t[u] for k, t in caches["b0"].items()}
-        x = _apply_block(tree_map(lambda t, u=u: t[u], blocks), x, cfg,
-                         positions, mode, unit_cache, index)
+        x = _run_unit(remat, _apply_block, units[u], x, cfg, positions,
+                      mode, unit_cache, index)
     aux = torch.zeros((), device=dev)
     return lm_logits(params, x, cfg), aux, caches
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """The reference's training objective: the train-mode forward, then
+    per position the fp32 logsumexp of the logits minus the target's
+    logit (the mean over codebooks for (B, S, K) targets), the mean over
+    the loss mask (divided by max(mask.sum(), 1)), and total = ce +
+    aux_loss_coef * aux. Returns (total, {"ce", "aux"}).
+
+    The target's logit is `take_along_dim`, where the reference contracts
+    the logits with a one-hot of the vocabulary (a gather would all-gather
+    its model-sharded vocab axis). For finite logits both give the same
+    bits, as every other term of the contraction is +-0, and the one-hot
+    would be another (B, S, V) fp32 tensor: 6.6 GB at stablelm-1.6b's
+    train_4k cut to batch 4."""
+    logits, aux, _ = lm_forward(params, batch, cfg, "train")
+    dev = logits.device
+    targets = torch.as_tensor(batch["targets"], device=dev).long()
+    mask = torch.as_tensor(batch["loss_mask"], device=dev,
+                           dtype=torch.float32)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.take_along_dim(lf, targets[..., None], dim=-1)[..., 0]
+    nll = lse - tgt                                   # (B,S) or (B,S,K)
+    if nll.dim() == 3:                                # audio codebooks
+        nll = nll.mean(dim=-1)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    total = ce + cfg.aux_loss_coef * aux
+    return total, {"ce": ce, "aux": aux}
 
 # ---------------------------------------------------------------------------
 # caches and the serving steps

@@ -17,6 +17,7 @@ from repro_torch.train.fault_tolerance import (ChaosReport,
                                                save_train_state)
 from repro_torch.train.steps import (build_cached_train_step,
                                      build_dlrm_train_step,
+                                     build_lm_train_step,
                                      build_tablewise_train_step,
                                      cached_dlrm_init_state, dlrm_init_state)
 
@@ -25,6 +26,7 @@ __all__ = ["ChaosReport", "CheckpointCorruptionError", "CheckpointManager",
            "InjectedFault", "PreemptionHandler", "RetryPolicy",
            "StragglerDetector", "TrainState", "TransientFetchFault",
            "build_cached_train_step", "build_dlrm_train_step",
+           "build_lm_train_step",
            "build_tablewise_train_step", "cached_dlrm_init_state",
            "dlrm_init_state", "elastic_tablewise_repack",
            "restore_train_state", "run_chaos_loop",

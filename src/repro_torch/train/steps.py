@@ -1,5 +1,7 @@
-"""The DLRM train steps (the paper's split, Fig. 4): dense parameters with
-a dense optimizer, the embedding rows with row-wise AdaGrad.
+"""The train steps: the LM's (`build_lm_train_step`: AdamW on every
+parameter, optional gradient accumulation) and the DLRM's (the paper's
+split, Fig. 4): dense parameters with a dense optimizer, the embedding
+rows with row-wise AdaGrad.
 
   build_dlrm_train_step       the whole mega table on the device, with
                               either update of the reference:
@@ -35,7 +37,8 @@ arrays: each rank looks up and differentiates its `data` slice, and
 params["emb"]["mega"] / state["accum"] are its `model` shard of the rows
 (`EmbeddingBagCollection.shard_range`). The multi-host cached step runs
 single-controller (one process drives every host's cache); its `mesh=`
-form and the LM step come with later slices.
+form comes with a later slice. The LM step runs on one device and takes
+no sharding `rules`: those come with `nn/sharding.py`.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.core import hostmem
 from repro_torch.core.cache import (CachedEmbeddingBagCollection,
                                     MultiHostCachedEmbeddingBagCollection)
@@ -59,7 +62,8 @@ from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              plan_from_batch,
                                              split_plan_by_owner,
                                              split_plan_by_ranges)
-from repro_torch.nn.params import init_params
+from repro_torch.models.lm import lm_loss
+from repro_torch.nn.params import init_params, tree_leaves, tree_map
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -713,5 +717,86 @@ def build_tablewise_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                        -(-b // max(n_owners, 1)) * max_f_owned * d * itemsize}
         return ({**new_dense, "emb": {"mega": mega}},
                 {"dense": new_dense_state, "accum": accum}, metrics)
+
+    return step
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+
+def _chunk(x, i: int, n: int):
+    """Chunk i of n equal chunks of x along its first axis."""
+    size = x.shape[0] // n
+    return x[i * size:(i + 1) * size]
+
+
+def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
+                        accum_steps: int = 1,
+                        grad_dtype: str = "float32") -> Callable:
+    """Returns step(params, opt_state, batch, step_idx) -> (params,
+    opt_state, metrics), the reference's LM step: `lm_loss` and its
+    gradient with respect to every parameter (autograd through the
+    train-mode forward, the flash-attention kernels on the card), then
+    `opt.apply`. metrics: "loss", "ce" and "aux" (0-dim tensors on the
+    parameters' device).
+
+    accum_steps > 1 splits the batch into that many equal chunks along
+    its first axis and sums the chunks' fp32 gradients and losses in
+    chunk order, then scales both sums by 1 / accum_steps (ce and aux
+    likewise); only one chunk's activations live at a time.
+    grad_dtype="bfloat16" casts the gradients before the optimizer, as the
+    reference does before its cross-shard reduction. The parameters are
+    not marked as requiring gradients: the step differentiates detached
+    views of them, and an in-place optimizer (`adamw`) updates the
+    tensors it was given."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if grad_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"grad_dtype must be float32 or bfloat16, got "
+                         f"{grad_dtype!r}")
+
+    def grads_of(params, batch):
+        """(loss, parts, grads) of one batch, all detached."""
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        flat = tree_leaves(leaves)
+        with torch.enable_grad():
+            loss, parts = lm_loss(leaves, batch, cfg)
+            grads = iter(torch.autograd.grad(loss, flat,
+                                               materialize_grads=True))
+        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+                tree_map(lambda _: next(grads), leaves))
+
+    def accumulated(params, batch):
+        n = next(iter(batch.values())).shape[0]
+        if n % accum_steps:
+            raise ValueError(f"a batch of {n} does not split into "
+                             f"{accum_steps} equal chunks")
+        dev = tree_leaves(params)[0].device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        parts_sum = {"ce": loss_sum.clone(), "aux": loss_sum.clone()}
+        grads_sum = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        for i in range(accum_steps):
+            mb = {k: _chunk(v, i, accum_steps) for k, v in batch.items()}
+            loss, parts, grads = grads_of(params, mb)
+            tree_map(lambda a, g: a.add_(g.float()), grads_sum, grads)
+            del grads
+            loss_sum = loss_sum + loss
+            parts_sum = {k: parts_sum[k] + parts[k] for k in parts_sum}
+        inv = 1.0 / accum_steps
+        tree_map(lambda g: g.mul_(inv), grads_sum)
+        return (loss_sum * inv, {k: v * inv for k, v in parts_sum.items()},
+                grads_sum)
+
+    def step(params, opt_state, batch, step_idx):
+        if accum_steps > 1:
+            loss, parts, grads = accumulated(params, batch)
+        else:
+            loss, parts, grads = grads_of(params, batch)
+        if grad_dtype == "bfloat16":
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+        params, opt_state = opt.apply(params, grads, opt_state, step_idx)
+        return params, opt_state, {"loss": loss, **parts}
 
     return step

@@ -13,7 +13,9 @@ Against the reference: `FaultInjector.from_seed` draws the reference's
 schedules exactly, and a faulted run's losses and table match the
 reference's fault-free run within STEP_TOL of tests/test_torch_train.py
 (fp32 matmuls and sums in other orders). Smoke dlrm-m1, batch 8, a
-256-slot cache, 8 steps.
+256-slot cache, 8 steps. The LM launcher under chaos (smoke stablelm-1.6b,
+batch 2 of 32 tokens, 6 steps) equals a plain loop of its train step bit
+for bit.
 """
 import dataclasses
 
@@ -274,6 +276,40 @@ def test_chaos_loop_on_the_bulk_tier_resumes_bitexact(setup, oracle,
     assert rep.restarts >= 1 and rep.last_step == N_STEPS
     assert ("bulk.fetch", 3, "error") in inj.fired
     _assert_matches_oracle(got, oracle)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_lm_launcher_chaos_equals_the_plain_lm_step_loop(tmp_path, capsys,
+                                                          seed):
+    """The LM launcher under a seeded fault schedule (reader death, a torn
+    checkpoint, a preemption) gives the losses and parameters of a plain
+    loop of `build_lm_train_step` over the same `make_lm_batch` batches
+    from the same seeded parameters, bit for bit."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_lm_train_step
+    argv = ["--arch", "stablelm-1.6b", "--smoke", "--batch", "2", "--seq",
+            "32", "--steps", "6", "--ckpt-every", "2", "--device", "cpu",
+            "--log-every", "100", "--ckpt-dir", str(tmp_path), "--chaos",
+            "--chaos-seed", str(seed)]
+    run = train_cli.main(argv)
+    assert "chaos: fired nothing" not in capsys.readouterr().out
+    cfg = get_smoke_config("stablelm-1.6b")
+    params = init_lm_params(cfg, train_cli.PARAM_SEED, device="cpu")
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    step = build_lm_train_step(cfg, opt)
+    losses = []
+    for t in range(6):
+        batch = {k: torch.from_numpy(v)
+                 for k, v in make_lm_batch(cfg, 2, 32, t, 0).items()}
+        params, state, m = step(params, state, batch, t)
+        losses.append(float(m["loss"]))
+    assert run.losses == losses
+    for a, b in zip(tree_leaves(run.params), tree_leaves(params)):
+        assert torch.equal(a, b)
 
 
 def test_byte_flip_on_disk_falls_back_to_previous_step(tmp_path):

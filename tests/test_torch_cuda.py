@@ -23,9 +23,15 @@ __expf and an online softmax and gets the reference's own fp32 kernel
 tolerance (2e-4) against ref.flash_attention_ref; its bf16 kernel (wgmma,
 bf16 P) gets one bf16 ulp (2^-7 relative) plus 1e-3 against its tiled
 plain version ref.flash_attention_tiled_ref, and 2^-9 max|V| more against
-the fp32 oracle. The multi-host cached step launches those kernels and
-torch index ops (its slab installs), so with the kernels it is bit-equal
-to the uncached step on the card, and within 1e-5 of its plain run.
+the fp32 oracle. Its log-sum-exp (stored for training) is within 1e-4 of
+the plain one's. flash_attention_bwd computes in fp32 as its plain
+version ref.flash_attention_bwd_ref does, in other summation orders and
+with exp2f: fp32 gradients within 1e-4 of the largest plain value, bf16
+ones within 2^-7 of it (one bf16 ulp there; both round one fp32 sum to
+bf16), and two launches give the same bits. The multi-host cached step
+launches those kernels and torch index ops (its slab installs), so with
+the kernels it is bit-equal to the uncached step on the card, and within
+1e-5 of its plain run.
 """
 import numpy as np
 import pytest
@@ -1468,7 +1474,7 @@ def test_every_kernel_builds_for_hopper(dev):
     sources = {k.source.name for k in KERNELS}
     assert {"fused_bag_backward_adagrad.cu", "rowwise_adagrad.cu",
             "flash_attention.cu"} <= sources
-    assert len(KERNELS) == 11
+    assert len(KERNELS) == 12
 
 
 # flash attention: fp32 within the reference's own fp32 kernel tolerance
@@ -1537,7 +1543,8 @@ def test_flash_attention_kernel_is_causal(dev, dh):
 def test_flash_attention_builds_for_sm90a_without_spills(dev, tmp_path):
     """The source compiles for sm_90a with the library's flags, and ptxas
     reports no spill stores or loads for any entry function: the bf16
-    tensor-core kernel at dh 64 and 128 and the fp32 kernel at both."""
+    tensor-core kernel at dh 64 and 128 and the fp32 kernel at both, with
+    and without the log-sum-exp store."""
     import subprocess
 
     from repro_torch.kernels import flash_attention
@@ -1547,14 +1554,36 @@ def test_flash_attention_builds_for_sm90a_without_spills(dev, tmp_path):
     assert run.returncode == 0, log
     entries = [line for line in log.splitlines()
                if "Compiling entry function" in line]
-    assert len(entries) == 4, log
+    assert len(entries) == 6, log
     assert all("flash_attention_kernel" in e and "sm_90a" in e
                for e in entries), log
     assert sum("flash_attention_kernel_sm90" in e for e in entries) == 2
     spills = [line for line in log.splitlines() if "spill" in line]
-    assert len(spills) == 4, log
+    assert len(spills) == 6, log
     assert all("0 bytes spill stores, 0 bytes spill loads" in line
                for line in spills), log
+
+
+def test_flash_attention_bwd_builds_for_sm90a_without_spills(dev, tmp_path):
+    """The backward's three kernels (delta, dK/dV, dQ) at bf16 and fp32, dh
+    64 and 128, compile for sm_90a with no spill stores or loads."""
+    import subprocess
+
+    from repro_torch.kernels import flash_attention
+    cmd = flash_attention.BWD_KERNEL._command(tmp_path / "bwd.so")
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    log = run.stdout + run.stderr
+    assert run.returncode == 0, log
+    entries = [line for line in log.splitlines()
+               if "Compiling entry function" in line]
+    assert len(entries) == 12 and all("sm_90a" in e for e in entries), log
+    for name in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel"):
+        assert sum(name in e for e in entries) == 4, log
+    spills = [line for line in log.splitlines() if "spill" in line]
+    assert len(spills) == 12 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line
+        for line in spills), log
 
 
 def test_flash_attention_tma_encode_failure_raises_the_driver_error(dev):
@@ -1566,8 +1595,8 @@ def test_flash_attention_tma_encode_failure_raises_the_driver_error(dev):
     q = torch.zeros((1, 1, 130, 64), device=dev, dtype=torch.bfloat16)
     ptr = q.data_ptr() + 2
     with pytest.raises(RuntimeError, match="driver error"):
-        flash_attention.KERNEL.launch(ptr, ptr, ptr, q.data_ptr(), 1, 128,
-                                      64, 1, 0.125, stream_handle(dev))
+        flash_attention.KERNEL.launch(ptr, ptr, ptr, q.data_ptr(), 0, 1,
+                                      128, 64, 1, 0.125, stream_handle(dev))
 
 
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -1586,6 +1615,189 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="dh"):
         w = torch.zeros((1, 1, 8, 256), device=dev)
         flash_attention.flash_attention(w, w, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dh", [(2, 3, 64, 16), (1, 4, 256, 64),
+                                      (1, 3, 203, 64), (1, 2, 37, 40),
+                                      (2, 2, 130, 128), (3, 1, 1, 128)])
+def test_flash_attention_lse_matches_plain(dev, b, h, s, dh, dtype):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _qkv_on(dev, (b, h, s, dh), dtype, s + dh + 1)
+    out, lse = flash_attention.flash_attention(q, k, v, with_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention.flash_attention(q, k, v))
+    if dtype == torch.bfloat16:
+        _, want = ref.flash_attention_tiled_ref(
+            q, k, v, flash_attention.block_k(dh), with_lse=True)
+    else:
+        _, want = ref.flash_attention_ref(q, k, v, with_lse=True)
+    torch.testing.assert_close(lse, want.float(), rtol=1e-5, atol=1e-4)
+
+
+#: the backward kernel against ref.flash_attention_bwd_ref, each gradient
+#: as a share of its own largest plain value: fp32 1e-4, bf16 2^-7 (one
+#: bf16 ulp there); and each gradient's relative L2 error within 1e-2
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+FLASH_BWD_REL_L2 = 1e-2
+#: at s = 1 dq and dk are 0 up to the fp32 rounding of dP - delta, which
+#: reaches ~1e-6 of the largest of the three gradients, so their own size
+#: is no scale: no gradient's scale (largest value, L2 norm) is taken
+#: below this share of the largest of the three (at s > 1 each gradient's
+#: own largest value is several tenths of it, so the floor does not bind)
+FLASH_BWD_FLOOR = 0.1
+
+
+def _assert_bwd_close(got, want, dtype):
+    top = max(float(w.float().abs().max()) for w in want)
+    top_norm = max(float(w.float().norm()) for w in want)
+    for name, a, w in zip("qkv", got, want):
+        a, w = a.float(), w.float()
+        scale = max(float(w.abs().max()), FLASH_BWD_FLOOR * top)
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=FLASH_BWD_TOL[dtype] * scale,
+                                   msg=f"d{name}")
+        norm = max(float(w.norm()), FLASH_BWD_FLOOR * top_norm)
+        assert float((a - w).norm()) <= FLASH_BWD_REL_L2 * norm, f"d{name}"
+
+
+def _flash_bwd_case(dev, shape, dtype, seed):
+    from repro_torch.kernels import flash_attention
+    q, k, v = _qkv_on(dev, shape, dtype, seed)
+    out, lse = flash_attention.flash_attention(q, k, v, with_lse=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    do = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return q, k, v, out, do, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dh", [(2, 3, 64, 16), (1, 4, 256, 64),
+                                      (1, 3, 203, 64), (1, 2, 37, 40),
+                                      (2, 2, 130, 128), (1, 2, 65, 128),
+                                      (3, 1, 1, 64), (1, 2, 300, 16)])
+def test_flash_attention_bwd_kernel_matches_plain(dev, b, h, s, dh, dtype):
+    from repro_torch.kernels import flash_attention
+    args = _flash_bwd_case(dev, (b, h, s, dh), dtype, s + dh)
+    before = flash_attention.BWD_KERNEL.launches
+    got = flash_attention.flash_attention_bwd(*args)
+    assert flash_attention.BWD_KERNEL.launches == before + 1
+    want = ref.flash_attention_bwd_ref(*args)
+    for name, a in zip("qkv", got):
+        assert a.dtype == dtype and a.shape == (b, h, s, dh), name
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_is_deterministic(dev, dtype):
+    from repro_torch.kernels import flash_attention
+    args = _flash_bwd_case(dev, (2, 4, 517, 64), dtype, 3)
+    first = flash_attention.flash_attention_bwd(*args)
+    for _ in range(3):
+        again = flash_attention.flash_attention_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_bwd_is_causal(dev):
+    """dK and dV of a key see only the queries at or after it: changing
+    the queries and output gradients before position p leaves dK, dV at
+    and after p as they were."""
+    from repro_torch.kernels import flash_attention
+    q, k, v, out, do, lse = _flash_bwd_case(dev, (1, 2, 300, 64),
+                                            torch.bfloat16, 5)
+    _, dk, dv = flash_attention.flash_attention_bwd(q, k, v, out, do, lse)
+    p = 150
+    q2, do2 = q.clone(), do.clone()
+    q2[:, :, :p], do2[:, :, :p] = 3.0, -2.0
+    out2, lse2 = flash_attention.flash_attention(q2, k, v, with_lse=True)
+    _, dk2, dv2 = flash_attention.flash_attention_bwd(q2, k, v, out2, do2,
+                                                      lse2)
+    assert torch.equal(dk2[:, :, p:], dk[:, :, p:])
+    assert torch.equal(dv2[:, :, p:], dv[:, :, p:])
+    assert not torch.equal(dv2[:, :, :p], dv[:, :, :p])
+
+
+def test_flash_attention_bwd_wrapper_raises_on_what_the_kernel_does_not_take(
+        dev):
+    from repro_torch.kernels import flash_attention
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q, lse, causal=False)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q, lse.double())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_bwd(q, q, q, q, q.cpu(), lse)
+    with pytest.raises(TypeError):
+        h = q.half()
+        flash_attention.flash_attention_bwd(h, h, h, h, h, lse)
+
+
+def test_flash_attention_function_launches_both_kernels(dev):
+    """FlashAttention on the card: one forward launch (with the
+    log-sum-exp) and one backward launch, whose gradients are the bare
+    backward's."""
+    from repro_torch.kernels import flash_attention
+    q, k, v = (t.requires_grad_() for t in _qkv_on(
+        dev, (1, 4, 200, 64), torch.bfloat16, 9))
+    f0, b0 = (flash_attention.KERNEL.launches,
+              flash_attention.BWD_KERNEL.launches)
+    out = flash_attention.FlashAttention.apply(q, k, v, True)
+    do = torch.randn_like(out)
+    out.backward(do)
+    assert (flash_attention.KERNEL.launches - f0,
+            flash_attention.BWD_KERNEL.launches - b0) == (1, 1)
+    o2, lse = flash_attention.flash_attention(q.detach(), k.detach(),
+                                              v.detach(), with_lse=True)
+    want = flash_attention.flash_attention_bwd(
+        q.detach(), k.detach(), v.detach(), o2, do, lse)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
+
+
+def test_lm_gradients_reach_wq_wk_wv_on_the_card(dev):
+    """The fault the backward repairs: through the forward kernel alone no
+    gradient reached wq, wk or wv. Smoke stablelm-1.6b in fp32 at 32
+    tokens (the flash branch, dh 16 padded to 64): every parameter's
+    gradient on the card is within a relative L2 error of 1e-4 of the
+    CPU's (plain attention), wq's, wk's and wv's are not zero, and a step
+    launches the forward kernel twice a layer (remat="full" recomputes it)
+    and the backward once."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.nn.params import tree_leaves, tree_map
+    resolve_device("cuda")
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              compute_dtype="float32", remat="full")
+    params = lm.init_lm_params(cfg, 0, device="cpu")
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, axis=1),
+             "loss_mask": np.ones((2, 32), np.float32)}
+    grads = {}
+    for d in (torch.device("cpu"), dev):
+        leaves = tree_map(lambda x: x.detach().to(d).requires_grad_(),
+                          params)
+        flash_attention.KERNEL.launches = 0
+        flash_attention.BWD_KERNEL.launches = 0
+        loss, _ = lm.lm_loss(leaves, batch, cfg)
+        loss.backward()
+        want = (2 * cfg.n_layers, cfg.n_layers) if d.type == "cuda" \
+            else (0, 0)
+        assert (flash_attention.KERNEL.launches,
+                flash_attention.BWD_KERNEL.launches) == want
+        grads[d.type] = (tree_map(lambda x: x.grad.cpu(), leaves),
+                         float(loss.detach()))
+    attn = grads["cuda"][0]["blocks"]["b0"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        assert attn[name].abs().max() > 0, name
+    assert abs(grads["cuda"][1] - grads["cpu"][1]) < 1e-4
+    for a, b in zip(tree_leaves(grads["cuda"][0]),
+                    tree_leaves(grads["cpu"][0])):
+        assert float((a - b).norm() / b.norm()) < 1e-4
 
 
 def test_two_layer_prefill_on_the_card_matches_the_cpu(dev):

@@ -4,7 +4,8 @@ in-process on the CPU: the counterparts of tests/test_cli_e2e.py's resume
 own tests hold: a resumed run and a chaos run give the losses and the
 table of the uninterrupted, fault-free run bit for bit (the same step
 recomputed on the same bits). Smoke dlrm-m2 (and dlrm-m1 for serving),
-batch 16.
+batch 16; the LM mode on smoke stablelm-1.6b, batch 4 of 32 tokens (the
+flash-attention branch).
 """
 import signal
 
@@ -14,9 +15,12 @@ import torch
 
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
+from repro_torch.nn.params import tree_leaves
 from repro_torch.train import steps
 
 BASE = ["--arch", "dlrm-m2", "--smoke", "--batch", "16", "--device", "cpu"]
+LM_BASE = ["--arch", "stablelm-1.6b", "--smoke", "--batch", "4", "--seq",
+           "32", "--device", "cpu", "--log-every", "100"]
 
 
 def _train(tmp_path, *extra):
@@ -145,3 +149,57 @@ def test_serve_cli_dlrm_chaos(capsys):
     assert 0.0 <= float(kv["degraded_fraction"]) <= 1.0
     chaos = next(ln for ln in out.splitlines() if "chaos: fired=" in ln)
     assert chaos.strip() != "chaos: fired=[] transitions=[]"
+
+
+def _train_lm(tmp_path, *extra):
+    return train_cli.main(LM_BASE + ["--ckpt-dir", str(tmp_path), *extra])
+
+
+@pytest.fixture(scope="module")
+def lm_straight(tmp_path_factory):
+    """8 uninterrupted LM steps with no checkpoint."""
+    return _train_lm(tmp_path_factory.mktemp("lm_straight"), "--steps", "8")
+
+
+def _same_tree(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def test_train_cli_lm_trains_with_falling_losses(tmp_path, capsys):
+    """The LM mode at the reference's defaults (adamw(3e-4), seq 64, batch
+    32) on the smoke config: the loss falls over 30 steps."""
+    run = train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--steps",
+                          "30", "--device", "cpu", "--ckpt-dir",
+                          str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "done at step 30; loss " in out
+    assert len(run.losses) == 30 and np.isfinite(run.losses).all()
+    assert np.mean(run.losses[-5:]) < np.mean(run.losses[:5])
+    assert set(run.state) == {"m", "v"}
+
+
+def test_train_cli_lm_resume_is_bit_equal(tmp_path, capsys, lm_straight):
+    first = _train_lm(tmp_path, "--steps", "4", "--ckpt-every", "2")
+    run = _train_lm(tmp_path, "--steps", "8", "--resume", "--ckpt-every",
+                    "2")
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert run.start_step == 4
+    assert first.losses + run.losses == lm_straight.losses
+    assert _same_tree(run.params, lm_straight.params)
+    assert _same_tree(run.state, lm_straight.state)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_train_cli_lm_chaos_is_bit_equal_to_the_fault_free_run(
+        tmp_path, capsys, seed, lm_straight):
+    run = _train_lm(tmp_path, "--steps", "8", "--ckpt-every", "2",
+                    "--chaos", "--chaos-seed", str(seed))
+    out = capsys.readouterr().out
+    fired = next(ln for ln in out.splitlines()
+                 if ln.startswith("chaos: fired "))
+    assert fired != "chaos: fired nothing"
+    assert "chaos done at step 8: " in out
+    assert run.losses == lm_straight.losses
+    assert _same_tree(run.params, lm_straight.params)
+    assert _same_tree(run.state, lm_straight.state)
