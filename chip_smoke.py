@@ -137,10 +137,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    batch cut to 4: (14a) hold the forward's o and log-sum-exp and the
    flash-attention backward kernel against their plain versions (the
    plain backward fed the plain forward's o and lse) at the train shape
-   (4, 32, 4096, 64) in bf16 and at (1, 32, 4096, 64) in fp32, two
-   backward launches bit-equal, and time it beside
-   its bound, its plain version and SDPA's backward (timed only), with the
-   forward with and without its log-sum-exp store; (14b) 4 steps of
+   (4, 32, 4096, 64) in bf16, at (1, 32, 4096, 64) in fp32 and at
+   (1, 24, 4096, 128) in bf16, two backward launches bit-equal, and time
+   it beside its bound, its plain version and SDPA's backward (timed
+   only), with the forward with and without its log-sum-exp store. The
+   bf16 backward is two tensor-core passes with no atomics (wgmma with
+   bf16 operands and fp32 sums, TMA rings, a producer warpgroup and two
+   consumer warpgroups): dK/dV per 128-key tile, computed transposed
+   (S^T = K Q^T, dP^T = V dO^T, P^T and dS^T rounded to bf16 in
+   registers as the A operand of dV += P^T dO and dK += dS^T Q), and dQ
+   per 128-query tile (S, dP, then dQ += dS K); fp32 keeps the SIMT
+   kernels; (14b) 4 steps of
    `repro_torch.launch.train` at its defaults (adamw, remat="full"):
    finite losses, 48 forward and 24 backward launches a step and no other
    kernel, the peak beside the reckoning, host ms a step, tokens/s, and
@@ -349,10 +356,12 @@ LM_TRAIN_ARGV = ["--arch", LM_ARCH, "--seq", str(LM_TRAIN_SEQ), "--batch",
                  "--log-every", "1"]
 #: 14e: steps of the smoke LM launcher's plain, resumed and chaos runs
 LM_SMOKE_STEPS = 16
-#: 14a: the backward kernel at 14b's attention shape in bf16, and in fp32
-#: at batch 1; (b, h, s, dh)
+#: 14a: the backward kernel at 14b's attention shape in bf16, in fp32 at
+#: batch 1, and in bf16 at dh 128 with starcoder2-3b's heads (d_model
+#: 3072 / 24 heads) at the same 4,096 tokens; (b, h, s, dh)
 FLASH_BWD_SHAPES = (("train_4k", (4, 32, 4096, 64), "bfloat16"),
-                    ("train_4k_fp32", (1, 32, 4096, 64), "float32"))
+                    ("train_4k_fp32", (1, 32, 4096, 64), "float32"),
+                    ("train_4k_dh128", (1, 24, 4096, 128), "bfloat16"))
 #: 14a: the forward's log-sum-exp at the train shape against its plain
 #: version's (the tiled one in bf16, the fp32 oracle in fp32), (rtol,
 #: atol) in log2 units: both are fp32 m + log2(l) over the same tiles;
@@ -362,8 +371,9 @@ TOL_FLASH_LSE = (1e-5, 1e-4)
 #: plain forward's o and lse (so a wrong forward cannot cancel out), its
 #: largest error as a share of the largest plain value: fp32 1e-4 (the
 #: same fp32 arithmetic in other summation orders, exp2f against
-#: torch.exp2); bf16 2^-7 (both round an fp32 sum to bf16 once, one ulp at
-#: the largest value); and the relative L2 error within 1e-2 either way
+#: torch.exp2); bf16 2^-7 (both round P and dS to bf16 before the products
+#: that take them and an fp32 sum to bf16 once, one ulp at the largest
+#: value); and the relative L2 error within 1e-2 either way
 TOL_FLASH_BWD = {"float32": 1e-4, "bfloat16": 2 ** -7}
 TOL_FLASH_BWD_REL_L2 = 1e-2
 #: 14c: step 0 at batch 1 through the kernels against the plain attention
@@ -4414,8 +4424,9 @@ def main() -> int:
     #     (14e)
     lm_train = lm_train_phases(torch, dev, lm_cfg)
     paths.update(lm_train["paths"])
-    numbers["flash_attention_bwd"] = dict(lm_train["bwd"]["train_4k"],
-                                          fp32=lm_train["bwd"]["train_4k_fp32"])
+    numbers["flash_attention_bwd"] = dict(
+        lm_train["bwd"]["train_4k"], fp32=lm_train["bwd"]["train_4k_fp32"],
+        dh128=lm_train["bwd"]["train_4k_dh128"])
     fa = numbers["flash_attention"]
     fa["train_shape"] = {k: lm_train["bwd"]["train_4k"][k] for k in (
         "shape", "forward_ms", "forward_with_lse_ms")}
@@ -4452,7 +4463,7 @@ def main() -> int:
             **{key: nums[key] for key in (
                 "device_ms_from", "device_ms_9a_profiler",
                 "max_abs_err_vs_fp32_oracle", "train_shape",
-                "m2_train_shape", "host_us", "fp32", "library",
+                "m2_train_shape", "host_us", "fp32", "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
                 "device_ms_14a_profiler")
                 if key in nums}})

@@ -5,8 +5,8 @@ raw pointers, sizes and a stream, launches, and returns `cudaGetLastError()`
 (one source may hold several entry points). Each source is compiled for
 Hopper (`sm_90a`) into its own shared library under `build/kernels/` at the
 root of the checkout, at first use; the file name carries a hash of the
-source and flags, so an edited source rebuilds and an unchanged one loads
-as it is. `build_all` starts one nvcc per missing library, all at once.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one loads as it is. `build_all` starts one nvcc per missing library, all at once.
 Nothing is compiled or loaded when a module imports this one: the CPU
 tests import every module on a machine without nvcc.
 """
@@ -66,10 +66,14 @@ class Kernel:
 
     @property
     def library(self) -> Path:
-        """Path of the shared library for the current source and flags."""
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+        """Path of the shared library for the current source, the headers
+        beside it (every `*.cuh` there, which a source may include) and
+        the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def _command(self, out: Path) -> list[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]

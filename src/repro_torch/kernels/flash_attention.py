@@ -17,9 +17,11 @@ also stores each row's log-sum-exp (log2 units) for the backward.
 Backward: no TPU kernel to port (the reference trains through XLA's
 autodiff of its blockwise attention). `flash_attention_bwd` is the causal
 FlashAttention-2 backward from (q, k, v, o, dO, lse), deterministic (no
-atomics), bf16 or fp32 at the forward's head dims. `FlashAttention` runs
-the forward with the log-sum-exp and the backward kernel; on the CPU both
-take their plain versions.
+atomics), bf16 or fp32 at the forward's head dims: bf16 inputs run two
+tensor-core passes (wgmma, TMA) that round P and dS to bf16 before the
+products that take them, fp32 inputs fp32 SIMT kernels. `FlashAttention`
+runs the forward with the log-sum-exp and the backward kernel; on the CPU
+both take their plain versions.
 """
 from __future__ import annotations
 

@@ -412,11 +412,13 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     x = (Q K^T) * scale * log2(e) (the kernels' fp32 product of the two
     factors), P = 2^(x - lse) with 0 above the diagonal when causal,
     dP = dO V^T, delta = rowsum(dO o O), dS = P o (dP - delta),
-    dV = P^T dO with P rounded to v's dtype first (bf16 for the bf16
-    kernel's inputs, as the forward rounds P before P V), dK = dS^T Q scale
-    and dQ = dS K scale, all in fp32 (float64 for float64 inputs); the
-    results in q's dtype. Materialises (b, h, s, s) scores: a check of the
-    kernel, not a way to train at length."""
+    dV = P^T dO, dK = dS^T Q scale and dQ = dS K scale, with P and dS
+    rounded to v's dtype before the products that take them (bf16 for the
+    bf16 kernels' inputs, whose tensor cores take bf16 operands: the
+    forward rounds P before P V the same way; fp32 and float64 inputs round
+    nothing), every product and sum in fp32 (float64 for float64 inputs);
+    the results in q's dtype. Materialises (b, h, s, s) scores: a check of
+    the kernel, not a way to train at length."""
     dh = q.shape[-1]
     acc = _acc_dtype(q)
     if acc == torch.float32:
@@ -433,7 +435,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                        0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", da, va)
     delta = (da * oa).sum(-1)
-    ds = p * dp.sub_(delta[..., None])
+    ds = (p * dp.sub_(delta[..., None])).to(v.dtype).to(acc)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).to(acc), da)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qa).mul_(scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, ka).mul_(scale)

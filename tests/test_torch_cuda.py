@@ -24,14 +24,17 @@ tolerance (2e-4) against ref.flash_attention_ref; its bf16 kernel (wgmma,
 bf16 P) gets one bf16 ulp (2^-7 relative) plus 1e-3 against its tiled
 plain version ref.flash_attention_tiled_ref, and 2^-9 max|V| more against
 the fp32 oracle. Its log-sum-exp (stored for training) is within 1e-4 of
-the plain one's. flash_attention_bwd computes in fp32 as its plain
-version ref.flash_attention_bwd_ref does, in other summation orders and
-with exp2f: fp32 gradients within 1e-4 of the largest plain value, bf16
-ones within 2^-7 of it (one bf16 ulp there; both round one fp32 sum to
-bf16), and two launches give the same bits. The multi-host cached step
-launches those kernels and torch index ops (its slab installs), so with
-the kernels it is bit-equal to the uncached step on the card, and within
-1e-5 of its plain run.
+the plain one's. flash_attention_bwd rounds where its plain version
+ref.flash_attention_bwd_ref does (bf16: P and dS to bf16 before the
+tensor-core products that take them; fp32: nowhere) and sums in fp32 in
+other orders, with ex2.approx or exp2f: fp32 gradients within 1e-4 of the
+largest plain value, bf16 ones within 2^-7 of it (one bf16 ulp there; both
+round one fp32 sum to bf16, and a dS element whose fp32 value lands the
+other side of a bf16 rounding boundary moves its products by one bf16 ulp
+of that element), and two launches give the same bits. The multi-host
+cached step launches those kernels and torch index ops (its slab
+installs), so with the kernels it is bit-equal to the uncached step on the
+card, and within 1e-5 of its plain run.
 """
 import numpy as np
 import pytest
@@ -1565,25 +1568,58 @@ def test_flash_attention_builds_for_sm90a_without_spills(dev, tmp_path):
 
 
 def test_flash_attention_bwd_builds_for_sm90a_without_spills(dev, tmp_path):
-    """The backward's three kernels (delta, dK/dV, dQ) at bf16 and fp32, dh
-    64 and 128, compile for sm_90a with no spill stores or loads."""
+    """The backward's kernels compile for sm_90a with no spill stores or
+    loads: delta at bf16 and fp32, the bf16 tensor-core dK/dV and dQ
+    passes and the fp32 SIMT ones, each at dh 64 and 128. In the SASS of
+    the built library both bf16 passes run on the tensor cores (HGMMA),
+    and no function holds an atomic or a reduction to memory (ATOM, ATOMS,
+    ATOMG, RED.; REDUX is a warp-level reduction)."""
+    import os
+    import re
     import subprocess
 
     from repro_torch.kernels import flash_attention
-    cmd = flash_attention.BWD_KERNEL._command(tmp_path / "bwd.so")
-    run = subprocess.run(cmd, capture_output=True, text=True)
+    from repro_torch.kernels._build import _nvcc
+    lib = tmp_path / "bwd.so"
+    run = subprocess.run(flash_attention.BWD_KERNEL._command(lib),
+                         capture_output=True, text=True)
     log = run.stdout + run.stderr
     assert run.returncode == 0, log
     entries = [line for line in log.splitlines()
                if "Compiling entry function" in line]
     assert len(entries) == 12 and all("sm_90a" in e for e in entries), log
-    for name in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                 "flash_bwd_dq_kernel"):
-        assert sum(name in e for e in entries) == 4, log
+    for name, count in (("flash_bwd_delta_kernel", 4),
+                        ("flash_bwd_dkdv_kernel_sm90", 2),
+                        ("flash_bwd_dq_kernel_sm90", 2),
+                        ("flash_bwd_dkdv_kernelIf", 2),
+                        ("flash_bwd_dq_kernelIf", 2)):
+        assert sum(name in e for e in entries) == count, (name, log)
     spills = [line for line in log.splitlines() if "spill" in line]
     assert len(spills) == 12 and all(
         "0 bytes spill stores, 0 bytes spill loads" in line
         for line in spills), log
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    code: dict[str, list[str]] = {}
+    fn = None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            code[fn] = []
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            code[fn].append(line)
+    assert len(code) == 12, sorted(code)
+    for fn, lines in code.items():
+        atomics = [x for x in lines
+                   if re.search(r"\b(ATOM|ATOMS|ATOMG)\b|\bRED\.", x)]
+        assert not atomics, (fn, atomics[:4])
+        hgmma = sum("HGMMA" in x for x in lines)
+        if "_sm90" in fn:
+            assert hgmma > 0, fn
+        else:
+            assert hgmma == 0, fn
 
 
 def test_flash_attention_tma_encode_failure_raises_the_driver_error(dev):
@@ -1597,6 +1633,30 @@ def test_flash_attention_tma_encode_failure_raises_the_driver_error(dev):
     with pytest.raises(RuntimeError, match="driver error"):
         flash_attention.KERNEL.launch(ptr, ptr, ptr, q.data_ptr(), 0, 1,
                                       128, 64, 1, 0.125, stream_handle(dev))
+
+
+def test_flash_attention_bwd_tma_encode_failure_raises_the_driver_error(
+        dev):
+    """The backward's twin: a bf16 call whose Q, K, V and dO cannot be
+    described to TMA (base addresses 2 bytes off a 16-byte boundary)
+    raises with the driver's error before anything is launched, so the
+    gradients stay as they were; nothing falls back to the fp32 kernels
+    or the plain version."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels._build import stream_handle
+    shape = (1, 1, 130, 64)
+    q = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+    lse, delta = (torch.zeros((1, 1, 130), device=dev) for _ in range(2))
+    grads = [torch.full(shape, 7.0, device=dev, dtype=torch.bfloat16)
+             for _ in range(3)]
+    ptr = q.data_ptr() + 2
+    with pytest.raises(RuntimeError, match="driver error"):
+        flash_attention.BWD_KERNEL.launch(
+            ptr, ptr, ptr, q.data_ptr(), ptr, lse.data_ptr(),
+            *(g.data_ptr() for g in grads), delta.data_ptr(), 1, 128, 64, 1,
+            0.125, stream_handle(dev))
+    torch.cuda.synchronize()
+    assert all(bool((g == 7.0).all()) for g in grads)
 
 
 def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -1675,7 +1735,8 @@ def _flash_bwd_case(dev, shape, dtype, seed):
 @pytest.mark.parametrize("b,h,s,dh", [(2, 3, 64, 16), (1, 4, 256, 64),
                                       (1, 3, 203, 64), (1, 2, 37, 40),
                                       (2, 2, 130, 128), (1, 2, 65, 128),
-                                      (3, 1, 1, 64), (1, 2, 300, 16)])
+                                      (3, 1, 1, 64), (1, 2, 300, 16),
+                                      (1, 2, 333, 128), (1, 1, 1100, 128)])
 def test_flash_attention_bwd_kernel_matches_plain(dev, b, h, s, dh, dtype):
     from repro_torch.kernels import flash_attention
     args = _flash_bwd_case(dev, (b, h, s, dh), dtype, s + dh)

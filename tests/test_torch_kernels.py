@@ -184,3 +184,31 @@ def test_kernels_target_hopper_and_build_lazily():
         note = ("Replaces no TPU kernel" if k.name == "flash_attention_bwd"
                 else "Replaces the TPU kernel")
         assert note in text and "Bound on the H100" in text
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
+def test_library_path_follows_the_shared_headers(tmp_path, name):
+    """Both attention sources include `csrc/sm90.cuh`: a library's path
+    hashes the headers beside its source as well as the source, so an
+    edited header gives a new path (a rebuild) rather than a stale
+    library, and the same bytes give the same path wherever they lie."""
+    import shutil
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels._build import CSRC
+    kernel = next(k for k in KERNELS if k.name == name)
+    assert '#include "sm90.cuh"' in kernel.source.read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    copy = type(kernel)(kernel.name, kernel.symbol, kernel.argtypes)
+    copy.source = csrc / kernel.source.name
+    assert copy.library == kernel.library
+    header = csrc / "sm90.cuh"
+    text = header.read_bytes()
+    header.write_bytes(text + b"// edited\n")
+    edited = copy.library
+    assert edited != kernel.library and edited.parent == kernel.library.parent
+    header.write_bytes(text)
+    assert copy.library == kernel.library
+    (csrc / "extra.cuh").write_text("// a second header\n")
+    assert copy.library != kernel.library

@@ -14,9 +14,11 @@ parameter's gradient within a relative L2 error of 1e-5 (measured up to
 3.6e-6); an AdamW step within rtol/atol 1e-6 of the reference's (its
 rsqrt and pow against XLA's, measured 1.5e-8). bf16: the attention
 gradients within a relative L2 error of 1.5e-2 of the reference's and
-1e-2 of the fp32 oracle (measured 5.3e-3 and 2.4e-3: the reference
-rounds dP, dV and the products' outputs to bf16 where the port keeps
-fp32; three bf16 roundings of the output are 2^-9 each); `lm_loss` within
+1e-2 of the fp32 oracle (measured 5.5e-3 and 3.1e-3; 5.3e-3 and 2.3e-3
+before the port rounded dS to bf16, as the tensor-core kernel and the
+reference's bf16 autodiff do: the reference also rounds dP, dV and the
+products' outputs to bf16 where the port keeps fp32; three bf16
+roundings of the output are 2^-9 each); `lm_loss` within
 5e-3 (measured 2.2e-3) and each gradient within a relative L2 error of
 0.1 of the reference's, and no farther from the fp32 gradient than
 1.5 times the reference's own bf16 gradient is, plus 0.01 (the
@@ -180,6 +182,49 @@ def test_flash_attention_bwd_rounds_p_to_bf16_for_bf16_inputs():
     torch.testing.assert_close(dv16.float(), torch.full_like(dv32, 3 * p16)
                                .bfloat16().float())
 
+
+
+def test_flash_attention_bwd_rounds_ds_to_bf16_for_bf16_inputs():
+    """The plain backward rounds dS to v's dtype before dS^T Q and dS K, as
+    the tensor-core kernel does; fp32 inputs keep dS in fp32. Q and K are
+    small integers on disjoint halves of dh, so S = 0 and P = 2^-lse with
+    lse = log2(3) (P = 1/3, not exact in bf16); V, O and dO = 1 are small
+    integers, so dP and delta are exact and dS = P (dP - delta) is one
+    fp32 product. dK = dS^T Q / 4 and dQ = dS K / 4 are worked out here in
+    float64 from dS rounded to bf16 or not: bf16 inputs give exactly the
+    rounded ones in bf16 (sums of bf16 dS times integers are exact in
+    fp32), fp32 inputs the unrounded ones to fp32 rounding, and each is
+    2^-9-sized away from the other."""
+    rng = np.random.RandomState(3)
+    s, dh = 3, 16
+    q, k = np.zeros((2, 1, 1, s, dh), np.float32)
+    q[..., :8] = rng.choice([-2, -1, 1, 2], size=(1, 1, s, 8))
+    k[..., 8:] = rng.choice([-2, -1, 1, 2], size=(1, 1, s, 8))
+    v, o = (rng.randint(-2, 3, size=(1, 1, s, dh)).astype(np.float32)
+            for _ in range(2))
+    q, k, v, o = (torch.from_numpy(x) for x in (q, k, v, o))
+    do = torch.ones(1, 1, s, dh)
+    lse = torch.full((1, 1, s), float(np.log2(3.0)), dtype=torch.float32)
+    p = torch.exp2(-lse)[..., None].expand(1, 1, s, s)
+    dp = v.sum(-1)[..., None, :].expand(1, 1, s, s)
+    ds = p * (dp - o.sum(-1)[..., None])
+
+    def by_hand(ds_):
+        d = ds_.double()
+        return ((d @ k.double()) / 4, (d.transpose(-1, -2) @ q.double()) / 4)
+
+    rounded = by_hand(ds.bfloat16().float())
+    exact = by_hand(ds)
+    args = [t.bfloat16() for t in (q, k, v, o, do)]
+    got16 = ref.flash_attention_bwd_ref(*args, lse, False)[:2]
+    got32 = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, False)[:2]
+    for name, g16, g32, r, x in zip(("dq", "dk"), got16, got32, rounded,
+                                    exact):
+        assert torch.equal(g16, r.bfloat16()), name
+        assert not torch.equal(g16, x.bfloat16()), name
+        torch.testing.assert_close(g32.double(), x, rtol=1e-6, atol=0)
+        assert float(((g32.double() - r) / x.abs().max()).abs().max()) \
+            > 1e-4, name
 
 def test_lse_is_the_log2_logsumexp_of_the_scaled_scores():
     rng = np.random.RandomState(0)
