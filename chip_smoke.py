@@ -14,7 +14,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    time it beside the plain version and, where one PyTorch call computes
    the same function, that call; split embedding_bag's and
    dot_interaction's host µs per call into guard, allocation, stream
-   handle, bare launch, wrapper and one PyTorch call;
+   handle, bare launch, wrapper and one PyTorch call; time cache_exchange
+   also from a CUDA graph of 20 launches (graph_ms), with the L2 emptied
+   before each launch (cold_device_ms) and, where
+   PARENT_KERNELS_DIR holds an earlier cache_exchange.cu and
+   cache_fetch.cu, that kernel bit-equal and timed beside it (here and in
+   5b, 11a and the flushes);
 4. serve dlrm-m1 at full width through `repro_torch.launch.serve` (random
    weights from a seeded torch.Generator, 64 Zipf-1.05 requests), count
    each kernel's launches in that run, and recompute one batch with the
@@ -35,7 +40,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    a chunk at the table's end, installs remapped out of a chunk slab), and
    time them, with each fetch's host µs per call split into its guard,
    allocations, stream handle, bare launch, whole wrapper and the
-   index_select of the same rows; check that the raw
+   index_select of the same rows, and the row fetch as phase 3's
+   exchange; check that the raw
    stream handle the wrappers launch on is PyTorch's current stream, also
    inside torch.cuda.stream(side);
 5c. hold the segmented fused backward and the legacy row-wise AdaGrad
@@ -59,7 +65,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    with plans and the pipeline's lookahead, (7b) `AsyncCachedTier` and
    (7c) the sync collection over a small cache with chunked transfers;
    each must evict where asked, give the launcher's losses and, once
-   materialized, its table and accumulator checksums;
+   materialized, its table and accumulator checksums; the materialize's
+   flush (one pure-writeback cache_exchange) logs its rows and events ms,
+   and its worklist is timed again beside the parent's exchange;
 8. train full-width dlrm-m1 under the 8-owner table_wise placement: (8a)
    TRAIN_STEPS steps through `build_tablewise_train_step` with the plan
    hook's batches and the next batch staged, one segmented update a step
@@ -102,7 +110,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    to the launcher (losses and final checksums) with a device peak under
    HOST_PEAK_LIMIT, then hold the four row movers over it against their
    plain versions and the same call on the card, timed against their
-   bound at the measured rates; (11b) train the three-tier
+   bound at the measured rates, and attribute their time over PCIe: the
+   exchange's worklist cut to its fetches and to its writebacks, with
+   cap_accum on the host and on the card, the rows on the card with
+   cap_accum on the host, the rows packed into contiguous runs, the
+   writebacks in row order, each bit-equal to plain and timed beside the
+   parent's kernel (`host_mover_variants`); (11b) train the three-tier
    `BulkCachedEmbeddingBagCollection` over it (a memory-mapped bulk store
    seeded cold with every row, a DRAM budget of BULK_DRAM_ROWS), sync and
    async, bit-equal to the launcher, with promotions, demotions and an
@@ -173,6 +186,7 @@ trials as one JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -233,6 +247,20 @@ PCIE_PROBE_BYTES = 1 << 30
 #: phase 11's device peak from step 0, with the capacity tier on the host
 HOST_PEAK_LIMIT = 10 * 10 ** 9
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
+#: where a copy of an earlier cache_exchange.cu and cache_fetch.cu may sit
+#: (under the ignored build/, never committed): phases 3, 5b, 11a and the
+#: flush of 11a-7a then time them beside this tree's kernels in the same
+#: call, on the same worklists
+PARENT_KERNELS_DIR = os.path.join(ROOT, "build", "parent_kernels")
+#: name -> Kernel of those copies, filled by `load_parent_movers`
+PARENT: dict = {}
+#: floats of the buffer read between launches to empty the L2 (50 MB on
+#: the H100) before an L2-cold timing: 256 MB
+L2_FLUSH_FLOATS = 64 << 20
+#: the script's start, for the wall clock on each phase line
+T_START = time.perf_counter()
+#: wall seconds of the movers' added measurements, by part (`clocked`)
+MEASURE_S: dict = {}
 #: the table-wise runs: the 8 owners of a Zion / Big Basin box
 TABLEWISE_OWNERS = 8
 #: phases 12a-12c: the sharded executors' meshes (data, model): 8a's 8
@@ -392,7 +420,22 @@ TOL_LM_TRAIN = {"float32": (1e-4, 1e-3), "bfloat16": (2e-3, 0.125)}
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's first line ends with the wall seconds since
+    the script started."""
+    if msg.startswith("phase "):
+        msg += f" [at {time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def clocked(part: str):
+    """Adds the wall seconds of the block to MEASURE_S[part]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        MEASURE_S[part] = (MEASURE_S.get(part, 0.0)
+                           + time.perf_counter() - t0)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -437,6 +480,95 @@ def device_kernel_ms(torch, fn, iters: int, name: str) -> float | None:
         if total:
             return total / iters / 1e3
     return None
+
+
+def cold_device_ms(torch, fn, iters: int, name: str) -> float | None:
+    """As `device_kernel_ms`, with the L2 emptied before each call by a read
+    of L2_FLUSH_FLOATS floats: the kernel finds none of its inputs in the
+    L2, as a step's first touch of its rows does (its writes may still
+    end in the L2)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros((L2_FLUSH_FLOATS,), device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(t for key, t in device_events(prof) if name in key)
+        if total:
+            return total / iters / 1e3
+    return None
+
+
+def graph_ms(torch, fn, launches: int = 20, replays: int = 5) -> float:
+    """Mean ms per call of fn replayed from one CUDA graph of `launches`
+    calls, by CUDA events: the device's time with no host work between
+    the launches (a kernel launched through ctypes on PyTorch's current
+    stream is captured like any other)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def load_parent_movers() -> None:
+    """Fill PARENT with the cache_exchange and cache_fetch found under
+    PARENT_KERNELS_DIR, built like the port's (the same C entry points,
+    without the placement argument); the kernels line counts none of their
+    launches."""
+    from pathlib import Path
+
+    from repro_torch.kernels import cache_ops as kc
+    from repro_torch.kernels._build import Kernel, build_all
+    for k in (kc.KERNEL, kc.FETCH_KERNEL):
+        src = Path(PARENT_KERNELS_DIR) / k.source.name
+        if src.exists():
+            PARENT[k.name] = Kernel(f"parent_{k.name}", k.symbol,
+                                    k.argtypes[:-2] + k.argtypes[-1:])
+            PARENT[k.name].source = src
+    build_all(list(PARENT.values()))
+    log(f"parent movers under {PARENT_KERNELS_DIR}: "
+        f"{sorted(PARENT) or 'none'}")
+    for k in PARENT.values():
+        log_ptxas(k, "_kernel")
+
+
+def parent_exchange(tiers, work) -> None:
+    """The parent's cache_exchange launched on the wrapper's arguments."""
+    from repro_torch.kernels._build import stream_handle
+    PARENT["cache_exchange"].launch(
+        *(t.data_ptr() for t in (*tiers, *work)), work[0].shape[0],
+        tiers[0].shape[1], stream_handle(work[0].device))
+
+
+def parent_fetch(torch, capacity, cap_accum, fetch):
+    """The parent's cache_fetch launched on the wrapper's arguments."""
+    from repro_torch.kernels._build import stream_handle
+    n, d = fetch.shape[0], capacity.shape[1]
+    shadow = fetch.new_empty((n, d), dtype=torch.float32)
+    shadow_accum = fetch.new_empty((n,), dtype=torch.float32)
+    PARENT["cache_fetch"].launch(
+        capacity.data_ptr(), cap_accum.data_ptr(), fetch.data_ptr(),
+        shadow.data_ptr(), shadow_accum.data_ptr(), n, d,
+        stream_handle(fetch.device))
+    return shadow, shadow_accum
 
 
 def device_events(prof) -> list[tuple[str, float]]:
@@ -706,6 +838,30 @@ def check_cache_exchange(torch, dev, r_rows: int, c_rows: int, d: int,
         "library_ms": None,
         "max_abs_err": err,
     }
+    with clocked("graph and L2-cold timings"):
+        out["graph_ms"] = graph_ms(
+            torch, lambda: kc.cache_exchange(*tiers, *work))
+        out["cold_device_ms"] = cold_device_ms(
+            torch, lambda: kc.cache_exchange(*tiers, *work), 20,
+            "cache_exchange_kernel")
+    if "cache_exchange" in PARENT:
+        with clocked("the parent's kernels"):
+            restore(before)
+            parent_exchange(tiers, work)
+            torch.cuda.synchronize()
+            parent_equal = all(torch.equal(a, b)
+                               for a, b in zip(touched(), want))
+            log(f"  the parent's cache_exchange bit-equal={parent_equal}")
+            if not parent_equal:
+                raise AssertionError("the parent's cache_exchange differs")
+            out["parent_device_ms"] = device_kernel_ms(
+                torch, lambda: parent_exchange(tiers, work), 20,
+                "cache_exchange_kernel")
+            out["parent_graph_ms"] = graph_ms(
+                torch, lambda: parent_exchange(tiers, work))
+            out["parent_cold_device_ms"] = cold_device_ms(
+                torch, lambda: parent_exchange(tiers, work), 20,
+                "cache_exchange_kernel")
     row = d * 4
     out["bound_ms"], out["bound_by"] = bound_ms(
         n * 16 + n_wb * 2 * (row + 4) + n_ft * 2 * (row + 4) + n_ft * 4,
@@ -1095,13 +1251,34 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
     }
     fetch_out["bound_ms"], fetch_out["bound_by"] = bound_ms(
         n * 4 + n_ft * (d * 4 + 4) + n * (d * 4 + 4), 0)
+    with clocked("graph and L2-cold timings"):
+        fetch_out["graph_ms"] = graph_ms(
+            torch, lambda: kc.cache_fetch(capacity, cap_accum, fetch))
+        fetch_out["cold_device_ms"] = cold_device_ms(
+            torch, lambda: kc.cache_fetch(capacity, cap_accum, fetch), 20,
+            "cache_fetch_kernel")
+    if "cache_fetch" in PARENT:
+        with clocked("the parent's kernels"):
+            compare("the parent's cache_fetch",
+                    parent_fetch(torch, capacity, cap_accum, fetch), want)
+            fetch_out["parent_device_ms"] = device_kernel_ms(
+                torch,
+                lambda: parent_fetch(torch, capacity, cap_accum, fetch), 20,
+                "cache_fetch_kernel")
+            fetch_out["parent_graph_ms"] = graph_ms(
+                torch,
+                lambda: parent_fetch(torch, capacity, cap_accum, fetch))
+            fetch_out["parent_cold_device_ms"] = cold_device_ms(
+                torch,
+                lambda: parent_fetch(torch, capacity, cap_accum, fetch), 20,
+                "cache_fetch_kernel")
     shadow, shadow_accum = got
     fetch_out["host_us"] = fetch_host_us(
         torch, "cache_fetch", kc.FETCH_KERNEL,
         lambda: kc.check_fetch(capacity, cap_accum, fetch),
         lambda: kc.cache_fetch(capacity, cap_accum, fetch), n, capacity,
         (capacity.data_ptr(), cap_accum.data_ptr(), fetch.data_ptr(),
-         shadow.data_ptr(), shadow_accum.data_ptr(), n, d),
+         shadow.data_ptr(), shadow_accum.data_ptr(), n, d, 0),
         lambda: capacity.index_select(0, lib_rows))
     del shadow, shadow_accum
     log(f"  cache_fetch entries={n} "
@@ -1321,11 +1498,14 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
             raise AssertionError(f"{name} over the host tier differs")
         return err
 
-    def timed(name, fn, bound):
+    def timed(name, fn, bound, parent=None):
         res = {"ms": time_ms(torch, fn, 50),
                "device_ms": device_kernel_ms(torch, fn, 10,
                                              f"{name}_kernel"),
                "max_abs_err": errs[name]}
+        if parent is not None and name in PARENT:
+            with clocked("the parent's kernels"):
+                res["parent_ms"] = time_ms(torch, parent, 50)
         res["bound_ms"], res["bound_by"] = bound
         res["bound_rates"] = {k: rates[k] for k in ("h2d_bytes_per_s",
                                                     "d2h_bytes_per_s")}
@@ -1378,7 +1558,8 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
     in_place("cache_exchange", exchange)
     timed("cache_fetch",
           lambda: kc.cache_fetch(h_cap, h_acc, fetch),
-          host_bound_ms(rates, n_ft * row, 0, n * 4 + n * row))
+          host_bound_ms(rates, n_ft * row, 0, n * 4 + n * row),
+          lambda: parent_fetch(torch, h_cap, h_acc, fetch))
     timed("cache_fetch_chunked",
           lambda: kc.cache_fetch_chunked(h_cap, h_acc, starts, chunk),
           host_bound_ms(rates, k_live * chunk * row, 0,
@@ -1394,13 +1575,198 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
           lambda: kc.cache_exchange(h_cap, cch, h_acc, cch_acc, fq, slots,
                                     evict, ins, counts),
           host_bound_ms(rates, n_in * row, n_wb * row,
-                        n * 16 + n_wb * row + n_in * (row + 4)))
+                        n * 16 + n_wb * row + n_in * (row + 4)),
+          lambda: parent_exchange((h_cap, cch, h_acc, cch_acc, fq),
+                                  (slots, evict, ins, counts)))
     torch.cuda.synchronize()
     h_cap[wb_rows.cpu()], h_acc[wb_rows.cpu()] = saved
+    with clocked("11a's attribution"):
+        out["variants"] = host_mover_variants(
+            torch, dev, rates, (h_cap, h_acc, c_cap, c_acc),
+            (cache, cache_accum, freq, shadow, shadow_accum),
+            (slots, evict, ins, counts, fetch))
     log(f"  worklists: {n} entries, {n_ft} row fetches, {k_live} live "
         f"{chunk}-row blocks, {n_wb} writebacks, {n_in} installs")
     del c_cap, c_acc, cache, cache_accum, freq, shadow, shadow_accum, cch
     del cch_acc, fq
+    return out
+
+
+def host_mover_variants(torch, dev, rates: dict, tiers, device_tier,
+                        work) -> dict:
+    """Phase 11a's attribution of the movers' time over PCIe. Phase 11a's
+    exchange worklist cut to its installs (fetch_only) and to its
+    writebacks (writeback_only, a flush's shape) beside the whole (mixed),
+    through cache_exchange, the writebacks also through cache_commit and
+    the row fetch through cache_fetch; each with cap_accum on the host and
+    again on the card while the rows stay on the host (which takes the
+    4-byte accumulator traffic off PCIe). Then the two cuts again with the
+    rows on the card and cap_accum on the host (the accumulators alone over
+    PCIe), and with the same counts of rows packed into one contiguous run
+    each (the same traffic without its random addresses); the
+    writebacks in the order of their rows; and the two cuts as two
+    launches on two streams at once. Each is bit-equal
+    to its plain version on the card and timed by CUDA events over 50
+    launches, beside the parent's kernel where PARENT has it; its bound is
+    at the measured rates for its placement."""
+    from repro_torch.kernels import cache_ops as kc
+    from repro_torch.kernels import ref
+    h_cap, h_acc, c_cap, c_acc = tiers
+    cache, cache_accum, freq, shadow, shadow_accum = device_tier
+    slots, evict, ins, counts, fetch = work
+    n, d = slots.shape[0], h_cap.shape[1]
+    live = slots >= 0
+    none = torch.full_like(evict, -1)
+    row = d * 4
+
+    def packed(rows, base):
+        """rows with each entry >= 0 renumbered base, base + 1, ..."""
+        out = rows.clone()
+        m = rows >= 0
+        out[m] = base + torch.arange(int(m.sum()), dtype=torch.int32,
+                                     device=dev)
+        return out
+
+    def exchange(kind, wl):
+        fn = {"kernel": kc.cache_exchange, "plain": ref.cache_exchange_ref,
+              "parent": lambda *a: parent_exchange(a[:5], a[5:])}[kind]
+        return lambda cap, acc, t: fn(cap, t[0], acc, t[1], t[2], *wl)
+
+    def commit(kind, wl):
+        fn = {"kernel": kc.cache_commit, "plain": ref.cache_commit_ref}[kind]
+        return lambda cap, acc, t: fn(cap, t[0], acc, t[1], shadow,
+                                      shadow_accum, *wl[:3])
+
+    def run(call, cap, acc, wl, timed: bool):
+        """call on fresh copies of the device tier; the rows it writes back
+        (the worklist's live writeback rows) restored in cap and acc after.
+        Returns what it wrote, or its ms."""
+        wb = wl[1][(wl[0] >= 0) & (wl[1] >= 0)].long()
+        r_cap = wb if cap.is_cuda else wb.cpu()
+        r_acc = wb if acc.is_cuda else wb.cpu()
+        saved = cap[r_cap].clone(), acc[r_acc].clone()
+        t = (cache.clone(), cache_accum.clone(), freq.clone())
+        if timed:
+            got = time_ms(torch, lambda: call(cap, acc, t), 50)
+        else:
+            call(cap, acc, t)
+        torch.cuda.synchronize()
+        if not timed:
+            got = [cap[r_cap].to(dev), acc[r_acc].to(dev), *t]
+        cap[r_cap], acc[r_acc] = saved
+        return got
+
+    def bound(op, n_rd, n_wr, cap, acc):
+        """host_bound_ms of op's bytes: a row or accumulator on the host
+        crosses PCIe, on the card it is HBM traffic."""
+        on_host = (row if cap.is_cpu else 0) + (4 if acc.is_cpu else 0)
+        on_card = row + 4 - on_host
+        if op == "cache_fetch":
+            return host_bound_ms(rates, n_rd * on_host, 0,
+                                 n * 4 + n * (row + 4) + n_rd * on_card)
+        hbm = (n * 16 + n_wr * (row + 4) + (n_wr + n_rd) * on_card
+               + (n_rd * (row + 8) if op == "cache_exchange" else 0))
+        return host_bound_ms(rates, n_rd * on_host, n_wr * on_host, hbm)
+
+    cases = []      # (key, op, worklist, cap, acc)
+    for acc_on, acc in (("host", h_acc), ("card", c_acc)):
+        for cut, ev, ft in (("mixed", evict, ins), ("fetch_only", none, ins),
+                            ("writeback_only", evict, none)):
+            wl = (slots, ev, ft, counts)
+            cases.append((f"cache_exchange {cut}, cap_accum on the {acc_on}",
+                          "cache_exchange", wl, h_cap, acc))
+            if cut == "writeback_only":
+                cases.append((f"cache_commit {cut}, cap_accum on the "
+                              f"{acc_on}", "cache_commit", wl, h_cap, acc))
+        cases.append((f"cache_fetch, cap_accum on the {acc_on}",
+                      "cache_fetch", (slots, none, fetch, counts), h_cap, acc))
+    r_rows = h_cap.shape[0]
+    for cut, ev, ft in (("fetch_only", none, packed(ins, 0)),
+                        ("writeback_only", packed(evict, r_rows // 2), none)):
+        cases.append((f"cache_exchange {cut}, rows packed, cap_accum on the "
+                      "card", "cache_exchange", (slots, ev, ft, counts),
+                      h_cap, c_acc))
+    # the writebacks in the order of their rows: neighbours in a page
+    # follow each other
+    order = torch.argsort(torch.where(live, evict, -1))
+    cases.append(("cache_exchange writeback_only, entries in row order, "
+                  "cap_accum on the card", "cache_exchange",
+                  (slots[order], evict[order], none, counts[order]), h_cap,
+                  c_acc))
+    for cut, ev, ft in (("fetch_only", none, ins),
+                        ("writeback_only", evict, none)):
+        cases.append((f"cache_exchange {cut}, rows on the card, cap_accum "
+                      "on the host", "cache_exchange",
+                      (slots, ev, ft, counts), c_cap, h_acc))
+
+    out = {}
+    for key, op, wl, cap, acc in cases:
+        results = {}
+        wl_live = wl[0] >= 0
+        ft = wl[2]
+        if op == "cache_fetch":
+            want = ref.cache_fetch_ref(c_cap, c_acc, ft)
+            calls = {"ms": lambda: kc.cache_fetch(cap, acc, ft)}
+            if "cache_fetch" in PARENT:
+                calls["parent_ms"] = lambda: parent_fetch(torch, cap, acc, ft)
+            for kind, call in calls.items():
+                if not all(torch.equal(g, w) for g, w in zip(call(), want)):
+                    raise AssertionError(f"{key} ({kind}) differs from plain")
+                results[kind] = time_ms(torch, call, 50)
+            n_rd, n_wr = int((ft >= 0).sum()), 0
+        else:
+            make = exchange if op == "cache_exchange" else commit
+            want = run(make("plain", wl), c_cap, c_acc, wl, False)
+            kinds = ["kernel"] + (["parent"] if op in PARENT else [])
+            for kind in kinds:
+                got = run(make(kind, wl), cap, acc, wl, False)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{key} ({kind}) differs from plain")
+                results["ms" if kind == "kernel" else "parent_ms"] = run(
+                    make(kind, wl), cap, acc, wl, True)
+            n_rd = int((wl_live & (ft >= 0)).sum())
+            n_wr = int((wl_live & (wl[1] >= 0)).sum())
+        res = dict(results, reads=n_rd, writebacks=n_wr)
+        res["bound_ms"], res["bound_by"] = bound(op, n_rd, n_wr, cap, acc)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        log(f"  11a attribution, {key}: {json.dumps(res)}")
+        out[key] = res
+
+    # the writebacks and the installs as two launches on two streams at
+    # once, cap_accum on the host: nothing orders one after the other, so
+    # the time says whether the card's traffic to host memory overlaps
+    # them at all
+    wl_wb, wl_ft = (slots, evict, none, counts), (slots, none, ins, counts)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    t_ft = (cache.clone(), cache_accum.clone(), freq.clone())
+
+    def both(cap, acc, t):
+        cur = torch.cuda.current_stream()
+        s1.wait_stream(cur)
+        s2.wait_stream(cur)
+        with torch.cuda.stream(s1):
+            kc.cache_exchange(cap, t[0], acc, t[1], t[2], *wl_wb)
+        with torch.cuda.stream(s2):
+            kc.cache_exchange(cap, t_ft[0], acc, t_ft[1], t_ft[2], *wl_ft)
+        cur.wait_stream(s1)
+        cur.wait_stream(s2)
+
+    key = ("cache_exchange writeback_only and fetch_only on two streams "
+           "at once, cap_accum on the host")
+    want = (run(exchange("plain", wl_wb), c_cap, c_acc, wl_wb, False)
+            + run(exchange("plain", wl_ft), c_cap, c_acc, wl_ft, False)[2:])
+    got = run(both, h_cap, h_acc, wl_wb, False) + list(t_ft)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{key} differs from plain")
+    n_rd = int((live & (ins >= 0)).sum())
+    n_wr = int((live & (evict >= 0)).sum())
+    res = {"ms": run(both, h_cap, h_acc, wl_wb, True), "reads": n_rd,
+           "writebacks": n_wr}
+    res["bound_ms"], res["bound_by"] = bound("cache_exchange", n_rd, n_wr,
+                                             h_cap, h_acc)
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    log(f"  11a attribution, {key}: {json.dumps(res)}")
+    out[key] = res
     return out
 
 
@@ -1838,7 +2204,7 @@ def train_cached(torch, dev, cfg, run: dict, want: dict,
     from repro_torch.data.pipeline import (ShardedLoader, dedup_indices_hook,
                                            lookahead_rows, sparse_plan_hook)
     from repro_torch.data.synthetic import make_dlrm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch.train import PARAM_SEED
     from repro_torch.optim import adagrad
     from repro_torch.train.steps import (build_cached_train_step,
@@ -1924,9 +2290,12 @@ def train_cached(torch, dev, cfg, run: dict, want: dict,
     finally:
         pipe.close()
     t0 = time.perf_counter()
-    mega, accum = tier.materialize(cs)
+    flushes = []
+    with exchange_spy(flushes):
+        mega, accum = tier.materialize(cs)
     sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
     materialize_ms = (time.perf_counter() - t0) * 1e3
+    out["flush"] = flush_numbers(torch, flushes)
     st = tier.stats(cs)
     log(f"  cache: hits={st.hits} misses={st.misses} fetches={st.fetches} "
         f"evictions={st.evictions} writebacks={st.writebacks} "
@@ -2017,6 +2386,61 @@ def train_cached(torch, dev, cfg, run: dict, want: dict,
     return out
 
 
+@contextlib.contextmanager
+def exchange_spy(seen: list):
+    """While open, every `cache_ops.cache_exchange` call (the flush inside
+    a tier's materialize) appends (its arguments, its CUDA events ms) to
+    `seen`; the call itself is unchanged."""
+    import torch
+
+    from repro_torch.kernels import cache_ops as kc
+    real = kc.cache_exchange
+
+    def spy(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(*args)
+        end.record()
+        end.synchronize()
+        seen.append((args, start.elapsed_time(end)))
+
+    kc.cache_exchange = spy
+    try:
+        yield
+    finally:
+        kc.cache_exchange = real
+
+
+def flush_numbers(torch, flushes: list) -> dict | None:
+    """A materialize's flush: its rows and events ms and, where PARENT has
+    the exchange, the same worklist again through this tree's kernel and
+    the parent's, 3 launches a reading, in two turns (a pure writeback of
+    rows already written back rewrites the same bytes). This tree's kernel
+    goes through its bare C entry point, as `wrapper_host_us` times it, so
+    the re-timing adds nothing to the path's launch count."""
+    from repro_torch.kernels import cache_ops as kc
+    from repro_torch.kernels._build import stream_handle
+    if not flushes:
+        return None
+    args, ms = flushes[-1]
+    res = {"rows": int((args[6] >= 0).sum()), "ms": ms,
+           "capacity_on": str(args[0].device)}
+    if "cache_exchange" in PARENT:
+        bare = (*(t.data_ptr() for t in args), args[5].shape[0],
+                args[0].shape[1], int(args[0].is_cpu),
+                stream_handle(args[5].device))
+        calls = {"again_ms": lambda: kc.KERNEL._fn(*bare),
+                 "parent_ms": lambda: parent_exchange(args[:5], args[5:])}
+        with clocked("the flushes' re-timing"):
+            for _ in range(2):
+                for key, call in calls.items():
+                    res.setdefault(key, []).append(
+                        time_ms(torch, call, 3, warmup=1))
+    log(f"  flush (materialize's cache_exchange): {json.dumps(res)}")
+    return res
+
+
 def train_multihost(torch, dev, cfg, run: dict, want: dict) -> dict:
     """Phases 13a-13b: TRAIN_STEPS full-width steps through
     `build_cached_train_step` on `MultiHostCachedEmbeddingBagCollection`
@@ -2038,7 +2462,7 @@ def train_multihost(torch, dev, cfg, run: dict, want: dict) -> dict:
     from repro_torch.data.pipeline import (ShardedLoader, dedup_indices_hook,
                                            sparse_plan_hook)
     from repro_torch.data.synthetic import make_dlrm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch.analysis import multihost_exchange_traffic
     from repro_torch.launch.train import PARAM_SEED
     from repro_torch.optim import adagrad
@@ -2284,7 +2708,7 @@ def train_tablewise(torch, dev, cfg, ebc, oracle: bool) -> dict:
     from repro_torch.core.dlrm import init_dlrm_params
     from repro_torch.data.pipeline import ShardedLoader, sparse_plan_hook
     from repro_torch.data.synthetic import make_dlrm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch.analysis import tablewise_exchange_traffic
     from repro_torch.launch.train import PARAM_SEED, batch_to_device
     from repro_torch.optim import adagrad
@@ -2949,7 +3373,7 @@ def lm_prefill(torch, dev, cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.models.lm import (decode_step, init_caches,
                                        init_lm_params, prefill_step)
     from repro_torch.nn.params import tree_leaves
@@ -3028,7 +3452,7 @@ def lm_prefill_plain(torch, cfg, run: dict) -> dict:
     multiple of attn_block_q: full attention, no kernel), then decode_step
     on the last token, whose logits are for 9b's last position; held to
     9b's within TOL_LM_REL_L2 and TOL_LM_ABS."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.models.lm import decode_step, init_caches, prefill_step
 
     params, tokens = run["params"], run["tokens"]
@@ -3074,7 +3498,7 @@ def lm_serve(torch, cfg) -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import Request
 
@@ -3279,7 +3703,7 @@ def lm_train_launcher(torch, dev, cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_lm_train_step
@@ -3371,7 +3795,7 @@ def lm_train_plain(torch, dev, cfg) -> dict:
     import dataclasses
 
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     from repro_torch.models.lm import init_lm_params
 
@@ -3451,7 +3875,7 @@ def lm_train_accum(torch, dev, cfg, run) -> dict:
     import math
 
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_lm_train_step
 
@@ -3490,7 +3914,7 @@ def lm_train_resilience(torch, base: str) -> dict:
     steps: a plain run; the same run cut by a checkpoint at half way and
     resumed by a second call; --chaos for each of CHAOS_SEEDS. Each must
     give the plain run's losses and final parameter and moment bits."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
 
     def argv(name, *extra):
@@ -3673,7 +4097,7 @@ def launcher_m2(torch, dev, cfg, ebc, ckdir: str) -> dict:
     and no fused update; then the dense update timed alone."""
     import numpy as np
 
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     argv = m2_argv("--steps", str(M2_STEPS), "--ckpt-dir", ckdir)
     log(f"phase 10a: python -m repro_torch.launch.train {' '.join(argv)}")
@@ -3718,7 +4142,7 @@ def resume_m2(torch, want: dict, ckdir: str) -> dict:
     """Phase 10b: the 10a run cut at M2_RESUME_AT (a checkpoint there),
     then resumed to M2_STEPS in a new launcher call: its losses and final
     checksums must equal 10a's bit for bit."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     first = m2_argv("--steps", str(M2_RESUME_AT), "--ckpt-every",
                     str(M2_RESUME_AT), "--ckpt-dir", ckdir)
@@ -3776,7 +4200,7 @@ def sparse_m2(torch, dev, want: dict, ckdir: str) -> dict:
     accumulator that 10b saved at that step, within TOL_M2_SPARSE."""
     import numpy as np
 
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     argv = m2_argv("--steps", str(M2_RESUME_AT), "--sparse-apply", "sparse",
                    "--ckpt-dir", os.path.join(ckdir, "sparse"))
@@ -3824,7 +4248,7 @@ def chaos_smoke(torch, base: str) -> dict:
     the card (smoke dlrm-m2, CHAOS_ARGV), each held bit for bit to the
     same run without faults; at least one fault must fire. The chaos
     runs' launches are counted."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import train as train_cli
     counts = {k.name: 0 for k in KERNELS}
     fired, rows = 0, []
@@ -3868,7 +4292,7 @@ def serve_chaos(torch, cc) -> dict:
     """Phase 10e: full-width dlrm-m1 served through the launcher with
     `--chaos` (a seeded FaultInjector on serve.fetch and serve.admit, one
     retry): every request is served or shed, and a fault fires."""
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import serve as serve_cli
     argv = ["--arch", ARCH, "--cache-rows", str(cc.cache_rows), "--requests",
             str(CHAOS_REQUESTS), "--chaos", "--chaos-seed", "13"]
@@ -4036,6 +4460,7 @@ def main() -> int:
             if ("Function properties" in line or "registers" in line
                     or "spill" in line):
                 log(f"  {src}: {line.strip()}")
+    load_parent_movers()
 
     # 3. each kernel against its plain version at the path's shapes
     cfg = get_config(ARCH)
@@ -4461,7 +4886,9 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms")},
             **{key: nums[key] for key in (
-                "device_ms_from", "device_ms_9a_profiler",
+                "device_ms_from", "device_ms_9a_profiler", "graph_ms",
+                "cold_device_ms", "parent_device_ms", "parent_graph_ms",
+                "parent_cold_device_ms",
                 "max_abs_err_vs_fp32_oracle", "train_shape",
                 "m2_train_shape", "host_us", "fp32", "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
@@ -4479,6 +4906,9 @@ def main() -> int:
                 **host_movers[k.name], "launches": sum(
                     p[k.name] for n, p in paths.items()
                     if n.startswith("host_"))}
+    log(f"the movers' added measurements, wall seconds by part: "
+        f"{json.dumps(MEASURE_S)}; the whole run "
+        f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4494,7 +4924,7 @@ def serve_phase(torch, cfg, cc) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_dlrm_batch
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, build_all
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import ServeRequest, ServeResponse
 

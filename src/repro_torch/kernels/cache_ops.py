@@ -34,10 +34,13 @@ from repro_torch.kernels._build import Kernel, stream_handle
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+# the exchange and the row fetch take the capacity tier's placement (1:
+# page-locked host memory) before the stream: it picks their schedule
 KERNEL = Kernel("cache_exchange", "cache_exchange_launch",
-                [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P])
+                [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P])
 FETCH_KERNEL = Kernel("cache_fetch", "cache_fetch_launch",
-                      [_P, _P, _P, _P, _P, _I64, _I64, _P])
+                      [_P, _P, _P, _P, _P, _I64, _I64, _I32, _P])
 FETCH_CHUNKED_KERNEL = Kernel("cache_fetch_chunked",
                               "cache_fetch_chunked_launch",
                               [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
@@ -146,7 +149,7 @@ def cache_fetch(capacity: torch.Tensor, cap_accum: torch.Tensor,
     shadow_accum = fetch_rows.new_empty((n,), dtype=torch.float32)
     FETCH_KERNEL.launch(capacity.data_ptr(), cap_accum.data_ptr(),
                         fetch_rows.data_ptr(), shadow.data_ptr(),
-                        shadow_accum.data_ptr(), n, d,
+                        shadow_accum.data_ptr(), n, d, int(capacity.is_cpu),
                         stream_handle(fetch_rows.get_device()))
     return shadow, shadow_accum
 
@@ -352,7 +355,7 @@ def cache_exchange(capacity: torch.Tensor, cache: torch.Tensor,
         "fetch_rows": (fetch_rows, (n,), torch.int32),
         "counts": (counts, (n,), torch.float32)})
     KERNEL.launch(*(t.data_ptr() for t in tiers + work), n, d,
-                  stream_handle(dev))
+                  int(capacity.is_cpu), stream_handle(dev))
 
 
 def lfu_touch(freq: torch.Tensor, slots: torch.Tensor, counts: torch.Tensor,

@@ -232,54 +232,125 @@ def test_bag_and_dot_guards_raise_as_before(dev):
 
 
 @pytest.mark.parametrize("name,entries", [("embedding_bag", 6),
-                                          ("dot_interaction", 4)])
+                                          ("dot_interaction", 4),
+                                          ("cache_exchange", 7),
+                                          ("cache_fetch", 10)])
 def test_bag_and_dot_build_without_spills(dev, tmp_path, name, entries):
-    """embedding_bag's three lane widths times two stages and
-    dot_interaction's two tile sizes times two staging paths compile for
-    sm_90a with no spills."""
+    """embedding_bag's three lane widths times two stages,
+    dot_interaction's two tile sizes times two staging paths,
+    cache_exchange's bodies (the register ring at D = 64 and 128, each at
+    the ring depth of either placement of the capacity tier, and the
+    column loop at VEC 4, 2, 1) and cache_fetch's row fetch (the same
+    seven) compile for sm_90a with no spills. cache_fetch.cu also holds
+    the chunk fetch's three lane widths, counted among its entry
+    functions; its body is the first design's, whose float4 instance
+    spills 16 bytes."""
     import subprocess
     kernel = {"embedding_bag": embedding_bag.KERNEL,
-              "dot_interaction": dot_interaction.KERNEL}[name]
+              "dot_interaction": dot_interaction.KERNEL,
+              "cache_exchange": cache_ops.KERNEL,
+              "cache_fetch": cache_ops.FETCH_KERNEL}[name]
     run = subprocess.run(kernel._command(tmp_path / f"{name}.so"),
                          capture_output=True, text=True)
     log = run.stdout + run.stderr
     assert run.returncode == 0, log
-    assert sum("Compiling entry function" in line
-               for line in log.splitlines()) == entries, log
-    spills = [line for line in log.splitlines() if "spill" in line]
+    spills, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spills[fn] = line
     assert len(spills) == entries, log
     assert all("0 bytes spill stores, 0 bytes spill loads" in line
-               for line in spills), log
+               for fn, line in spills.items()
+               if "cache_fetch_chunked_kernel" not in fn), log
 
 
-@pytest.mark.parametrize("d", [16, 64, 128, 40])
-def test_cache_exchange_kernel_bit_equal_to_plain(dev, d):
-    rng = np.random.RandomState(d)
-    r, c, n = 500, 60, 40
-    tiers = [rng.randn(r, d), rng.randn(c, d), rng.rand(r), rng.rand(c),
-             rng.rand(c)]
-    slots = rng.permutation(c)[:n]
-    rows = rng.permutation(r)[:2 * n]
-    fetch, evict = rows[:n].copy(), rows[n:].copy()
-    evict[::3] = -1
-    fetch[::5] = -1
-    slots[7] = -1
-    work = [slots, evict, fetch, rng.rand(n) * 4]
-    dtypes = [torch.int32] * 3 + [torch.float32]
+def _at_offset(dev, shape, fill, offset):
+    """fill(shape) in a view `offset` floats into a fresh card buffer."""
+    numel = int(np.prod(shape))
+    t = torch.empty(numel + offset, device=dev)[offset:].view(shape)
+    t.copy_(fill(shape))
+    return t
 
-    def fresh():
-        t = [torch.tensor(x, dtype=torch.float32, device=dev) for x in tiers]
-        w = [torch.tensor(x, dtype=dt, device=dev)
-             for x, dt in zip(work, dtypes)]
-        return t, w
 
-    got, w = fresh()
-    cache_ops.check_worklist(*w[:3])
-    cache_ops.cache_exchange(*got, *w)
-    want, w = fresh()
-    ref.cache_exchange_ref(*want, *w)
-    for a, b in zip(got, want):
+def _exchange_case(dev, n, d, offset=0, seed=0, cut="mixed"):
+    """An exchange worklist of n entries that meets its contract (distinct
+    slots, writeback and fetch rows disjoint) over tiers `offset` floats
+    into their buffers: ~40% of the entries write a victim back, ~15% are
+    pure writebacks, ~10% are pad slots (their other fields left >= 0),
+    ~5% are live slots with nothing to do, and entry 0 takes the last slot
+    and writes back to the last row. `cut` "fetch_only" drops every
+    writeback, "writeback_only" every fetch, "pads" every slot. Returns
+    (tiers, work)."""
+    r, c = 2 * n + 1000, n + 500
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def rand(shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    tiers = (_at_offset(dev, (r, d), randn, offset),
+             _at_offset(dev, (c, d), randn, offset), rand((r,)), rand((c,)),
+             rand((c,)))
+    slots = torch.randperm(c - 1, generator=g, device=dev)[:n].int()
+    rows = torch.randperm(r - 1, generator=g, device=dev)[:2 * n].int()
+    evict, fetch = rows[:n].clone(), rows[n:].clone()
+    slots[0], evict[0] = c - 1, r - 1
+    counts = rand((n,)) * 8
+    u = rand((n,))
+    u[0] = 0.7
+    evict[u < 0.6] = -1                             # no victim
+    fetch[u > 0.85] = -1                            # pure writebacks
+    slots[(u > 0.2) & (u < 0.3)] = -1               # pads
+    evict[(u > 0.4) & (u < 0.45)] = -1              # live, nothing to do
+    fetch[(u > 0.4) & (u < 0.45)] = -1
+    if cut == "fetch_only":
+        evict.fill_(-1)
+    elif cut == "writeback_only":
+        fetch.fill_(-1)
+    elif cut == "pads":
+        slots.fill_(-1)
+    cache_ops.check_worklist(slots, evict, fetch)
+    return tiers, (slots, evict, fetch, counts)
+
+
+def _exchange_held(tiers, work):
+    """One launch of the exchange, bit-equal to the plain version on copies
+    of the tiers."""
+    want = [t.clone() for t in tiers]
+    before = cache_ops.KERNEL.launches
+    cache_ops.cache_exchange(*tiers, *work)
+    assert cache_ops.KERNEL.launches == before + 1
+    ref.cache_exchange_ref(*want, *work)
+    for a, b in zip(tiers, want):
         assert torch.equal(a, b)
+
+
+# The exchange walks its worklist in rounds of 8 entries on a persistent
+# grid: at D = 64 half a warp moves each of two rows a step (float4), at
+# D = 128 a warp one row; D = 16 and 40, and tiers 4 or 8 bytes off a
+# 16-byte boundary, take the column loop. n 1, 7, 8, 9 and 17 cut the
+# first rounds at their edges; 2^22 + 17 entries are more than 8 for each
+# warp of the largest grid an H100 takes (four waves of 132 SMs x 16
+# four-warp blocks), so every warp walks several rounds.
+_EXCHANGE_CASES = (
+    [(n, d, 0, "mixed") for n in (1, 7, 8, 9, 17, 5003)
+     for d in (16, 40, 64, 128)]
+    + [(5003, d, 0, cut) for cut in ("pads", "writeback_only", "fetch_only")
+       for d in (40, 64, 128)]
+    + [(5003, d, offset, "mixed") for offset in (1, 2) for d in (64, 128)]
+    + [((1 << 22) + 17, d, 0, "mixed") for d in (64, 128)])
+
+
+@pytest.mark.parametrize("n,d,offset,cut", _EXCHANGE_CASES)
+def test_cache_exchange_kernel_bit_equal_to_plain(dev, n, d, offset, cut):
+    tiers, work = _exchange_case(dev, n, d, offset, seed=n + d + offset,
+                                 cut=cut)
+    assert tiers[0].data_ptr() % 16 == 4 * offset
+    _exchange_held(tiers, work)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -825,18 +896,46 @@ def _mover_inputs(dev, r, c, d, seed):
             torch.rand((c,), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("d", [64, 6, 5, 128])
-def test_cache_fetch_kernel_bit_equal_to_plain(dev, d):
-    capacity, _, cap_accum, _ = _mover_inputs(dev, 300, 1, d, d)
-    rows = torch.tensor([5, -1, 299, 0, -1, 17, 5], dtype=torch.int32,
-                        device=dev)
+def _fetch_case(dev, n, d, offset=0, seed=0, pads=0.1):
+    """A fetch worklist of n rows (repeats allowed, row 0 the table's last)
+    over a capacity tier `offset` floats into its buffer, a share `pads`
+    of the entries -1 (1.0: all). Returns (capacity, cap_accum, rows)."""
+    r = 2 * n + 1000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    capacity = _at_offset(
+        dev, (r, d), lambda s: torch.randn(s, generator=g, device=dev),
+        offset)
+    cap_accum = torch.rand((r,), generator=g, device=dev)
+    rows = torch.randint(0, r, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[0] = r - 1
+    rows[torch.rand((n,), generator=g, device=dev) < pads] = -1
+    return capacity, cap_accum, rows
+
+
+# The row fetch's schedule is the exchange's (rounds of 8 on a persistent
+# grid; float4 pairs at D = 64, float4 rows at 128; the column loop at any
+# other D or off a 16-byte boundary), every entry live: a pad stores a zero
+# row and a zero accumulator.
+_FETCH_CASES = (
+    [(n, d, 0, 0.1) for n in (1, 7, 8, 9, 17, 5003)
+     for d in (5, 6, 16, 40, 64, 128)]
+    + [(5003, d, 0, 1.0) for d in (40, 64, 128)]
+    + [(5003, d, offset, 0.1) for offset in (1, 2) for d in (64, 128)]
+    + [((1 << 22) + 17, d, 0, 0.1) for d in (64, 128)])
+
+
+@pytest.mark.parametrize("n,d,offset,pads", _FETCH_CASES)
+def test_cache_fetch_kernel_bit_equal_to_plain(dev, n, d, offset, pads):
+    capacity, cap_accum, rows = _fetch_case(dev, n, d, offset,
+                                            seed=n + d + offset, pads=pads)
+    assert capacity.data_ptr() % 16 == 4 * offset
     before = cache_ops.FETCH_KERNEL.launches
     got = cache_ops.cache_fetch(capacity, cap_accum, rows)
     assert cache_ops.FETCH_KERNEL.launches == before + 1
     want = ref.cache_fetch_ref(capacity, cap_accum, rows)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert not got[0][1].any() and float(got[1][4]) == 0.0
 
 
 @pytest.mark.parametrize("chunk,d", [(1, 64), (8, 64), (16, 5), (3, 6)])
@@ -2072,14 +2171,15 @@ def test_pinned_zeros_is_exact_mapped_and_released(dev):
     assert hostmem.page_locked_bytes() == before
 
 
+@pytest.mark.parametrize("acc", ["host", "card"])
 @pytest.mark.parametrize("d", [64, 5])
 @pytest.mark.parametrize("op", ["fetch", "fetch_chunked", "commit",
                                 "exchange"])
-def test_cache_movers_over_a_page_locked_capacity_tier(dev, op, d):
+def test_cache_movers_over_a_page_locked_capacity_tier(dev, op, d, acc):
     """Each row mover with its capacity tier in page-locked host memory,
-    read and written by the kernel across PCIe: bit-equal to its plain
-    version and to the same call with the tier on the card, and one
-    launch."""
+    read and written by the kernel across PCIe (cap_accum there too, or on
+    the card): bit-equal to its plain version and to the same call with
+    the tier on the card, and one launch."""
     r, c = 300, 40
     capacity, cache, cap_accum, cache_accum = _mover_inputs(dev, r, c, d,
                                                             d + 1)
@@ -2118,6 +2218,8 @@ def test_cache_movers_over_a_page_locked_capacity_tier(dev, op, d):
               "commit": cache_ops.COMMIT_KERNEL,
               "exchange": cache_ops.KERNEL}[op]
     host_cap, host_acc = _host_tier(capacity, cap_accum)
+    if acc == "card":
+        host_acc = cap_accum.clone()
     before = kernel.launches
     on_host = call(host_cap, host_acc)
     torch.cuda.synchronize()
@@ -2130,6 +2232,59 @@ def test_cache_movers_over_a_page_locked_capacity_tier(dev, op, d):
         assert on_host[0].is_cuda            # the slab is on the card
     else:
         assert on_host[0] is host_cap        # written in place on the host
+
+
+def _pinned_copy(t, offset=0):
+    """A page-locked host copy of t, `offset` floats into its buffer."""
+    from repro_torch.core import hostmem
+    h = hostmem.pinned_zeros((t.numel() + offset,))[offset:].view(t.shape)
+    h.copy_(t)
+    return h
+
+
+@pytest.mark.parametrize("acc", ["host", "card"])
+@pytest.mark.parametrize("n,d,offset,cut", [
+    (1, 64, 0, "mixed"), (9, 64, 0, "mixed"), (17, 128, 0, "mixed"),
+    (5003, 64, 0, "mixed"), (5003, 64, 0, "writeback_only"),
+    (5003, 64, 0, "fetch_only"), (5003, 64, 0, "pads"),
+    (5003, 40, 0, "mixed"), (5003, 64, 1, "mixed"), (20011, 64, 0, "mixed")])
+@pytest.mark.parametrize("op", ["exchange", "fetch"])
+def test_exchange_and_fetch_over_a_page_locked_tier_at_the_edges(
+        dev, op, n, d, offset, cut, acc):
+    """The exchange and the row fetch over a capacity tier in page-locked
+    host memory (cap_accum there too, or on the card): worklists cut at
+    the first rounds' edges, pure writebacks, pure fetches and all pads,
+    D 40 and a tier off a 16-byte boundary (the column loop), and 20,011
+    entries, above the host grid's warps times a round (132 SMs x 4
+    blocks x 4 warps x 8 entries for the exchange, a quarter of that for
+    the fetch), so that each warp takes several rounds; each one launch,
+    bit-equal to the plain version on the card."""
+    if op == "fetch":
+        capacity, cap_accum, rows = _fetch_case(
+            dev, n, d, offset, seed=n + d,
+            pads={"pads": 1.0}.get(cut, 0.1))
+        h_cap = _pinned_copy(capacity, offset)
+        h_acc = _pinned_copy(cap_accum) if acc == "host" else cap_accum
+        before = cache_ops.FETCH_KERNEL.launches
+        got = cache_ops.cache_fetch(h_cap, h_acc, rows)
+        torch.cuda.synchronize()
+        assert cache_ops.FETCH_KERNEL.launches == before + 1
+        want = ref.cache_fetch_ref(capacity, cap_accum, rows)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        return
+    tiers, work = _exchange_case(dev, n, d, offset, seed=n + d, cut=cut)
+    h_cap = _pinned_copy(tiers[0], offset)
+    h_acc = _pinned_copy(tiers[2]) if acc == "host" else tiers[2].clone()
+    on_host = [h_cap, tiers[1].clone(), h_acc, tiers[3].clone(),
+               tiers[4].clone()]
+    before = cache_ops.KERNEL.launches
+    cache_ops.cache_exchange(*on_host, *work)
+    torch.cuda.synchronize()
+    assert cache_ops.KERNEL.launches == before + 1
+    ref.cache_exchange_ref(*tiers, *work)
+    for a, b in zip(on_host, tiers):
+        assert torch.equal(a.to(b.device), b)
 
 
 def test_cache_movers_refuse_pageable_host_capacity(dev):
