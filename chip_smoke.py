@@ -15,11 +15,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    the same function, that call; split embedding_bag's and
    dot_interaction's host µs per call into guard, allocation, stream
    handle, bare launch, wrapper and one PyTorch call; time cache_exchange
-   also from a CUDA graph of 20 launches (graph_ms), with the L2 emptied
-   before each launch (cold_device_ms) and, where
-   PARENT_KERNELS_DIR holds an earlier cache_exchange.cu and
-   cache_fetch.cu, that kernel bit-equal and timed beside it (here and in
-   5b, 11a and the flushes);
+   also from a CUDA graph of 20 launches (graph_ms) and with the L2
+   emptied before each launch (cold_device_ms);
 4. serve dlrm-m1 at full width through `repro_torch.launch.serve` (random
    weights from a seeded torch.Generator, 64 Zipf-1.05 requests), count
    each kernel's launches in that run, and recompute one batch with the
@@ -66,8 +63,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    (7c) the sync collection over a small cache with chunked transfers;
    each must evict where asked, give the launcher's losses and, once
    materialized, its table and accumulator checksums; the materialize's
-   flush (one pure-writeback cache_exchange) logs its rows and events ms,
-   and its worklist is timed again beside the parent's exchange;
+   flush (one pure-writeback cache_exchange) logs its rows and events ms;
 8. train full-width dlrm-m1 under the 8-owner table_wise placement: (8a)
    TRAIN_STEPS steps through `build_tablewise_train_step` with the plan
    hook's batches and the next batch staged, one segmented update a step
@@ -110,12 +106,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    to the launcher (losses and final checksums) with a device peak under
    HOST_PEAK_LIMIT, then hold the four row movers over it against their
    plain versions and the same call on the card, timed against their
-   bound at the measured rates, and attribute their time over PCIe: the
-   exchange's worklist cut to its fetches and to its writebacks, with
-   cap_accum on the host and on the card, the rows on the card with
-   cap_accum on the host, the rows packed into contiguous runs, the
-   writebacks in row order, each bit-equal to plain and timed beside the
-   parent's kernel (`host_mover_variants`); (11b) train the three-tier
+   bound at the measured rates, and attribute the exchange's time over
+   PCIe: its worklist cut to its fetches and to its writebacks, with
+   cap_accum on the host and on the card, each bit-equal to plain and
+   timed (`host_mover_variants`); (11b) train the three-tier
    `BulkCachedEmbeddingBagCollection` over it (a memory-mapped bulk store
    seeded cold with every row, a DRAM budget of BULK_DRAM_ROWS), sync and
    async, bit-equal to the launcher, with promotions, demotions and an
@@ -172,7 +166,22 @@ Phases, each of which makes the script exit non-zero when it fails:
    twice 14b's launches, the peak beside the reckoning plus a gradient
    sum; (14e) the smoke LM launcher's plain, resumed and chaos runs on the
    card, bit-equal;
-15. print one JSON line of per-kernel numbers, then the result line.
+15. train the paper's section-V design space (`core.design_space`) at full
+   suite width through `build_dlrm_train_step(sparse_apply="sparse")` on
+   the replicated layout, 3 steps a point, each point once: (15a) Fig.
+   10's 16 dense x sparse points at a batch of 256, (15b) the suite's
+   default point at each batch of Fig. 11 (128 to 8,192), (15c) Fig. 12's
+   hash sizes at 256, after printing `launch.analysis.recommend_placement`'s
+   pick for each (the card's memory less 8 GB a host, one host): the points
+   it says fit are trained, the rest only printed, (15d) Fig. 13's MLPs at
+   256, then the default point with the concat interaction. Each point:
+   finite losses; embedding_bag, the fused update and (dot) dot_interaction
+   launched once a step and no plain version called; step 0 held to the
+   plain versions on the card (loss, touched rows and accumulators, dense
+   parameters and state) within TOL_STEP; examples/s over steps 1-2, host
+   and device-busy ms a step, the peak, and `launch.roofline.roofline_terms`
+   on the H100 spec;
+16. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -190,6 +199,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -198,8 +208,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor FLOP/s
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16
+#: tensor-core FLOP/s from the port's roofline spec, and the fp32 FLOP/s
+#: outside the tensor cores, which the spec has no field for
+from repro_torch.launch.roofline import BF16_FLOPS, HBM_BYTES_PER_S  # noqa: E402
+
 FP32_FLOPS = 67e12
 #: the serving path's shapes at full dlrm-m1 width
 ARCH = "dlrm-m1"
@@ -247,13 +260,6 @@ PCIE_PROBE_BYTES = 1 << 30
 #: phase 11's device peak from step 0, with the capacity tier on the host
 HOST_PEAK_LIMIT = 10 * 10 ** 9
 EVICT_SEARCH_LO, EVICT_SEARCH_GRAIN = 65_536, 1_024
-#: where a copy of an earlier cache_exchange.cu and cache_fetch.cu may sit
-#: (under the ignored build/, never committed): phases 3, 5b, 11a and the
-#: flush of 11a-7a then time them beside this tree's kernels in the same
-#: call, on the same worklists
-PARENT_KERNELS_DIR = os.path.join(ROOT, "build", "parent_kernels")
-#: name -> Kernel of those copies, filled by `load_parent_movers`
-PARENT: dict = {}
 #: floats of the buffer read between launches to empty the L2 (50 MB on
 #: the H100) before an L2-cold timing: 256 MB
 L2_FLUSH_FLOATS = 64 << 20
@@ -341,8 +347,6 @@ CHAOS_ARGV = ["--arch", M2_ARCH, "--smoke", "--steps", "16", "--ckpt-every",
               "2", "--log-every", "100"]
 #: 10e: requests served under the serving tier's chaos
 CHAOS_REQUESTS = 32
-#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
-BF16_FLOPS = 989e12
 #: 9a: the kernel against its plain version at the prefill's shape (bf16
 #: and fp32), the prefill_32k length on two heads (the plain version at 32
 #: heads would need 137 GB of scores), starcoder2-3b's head dim, a ragged
@@ -417,6 +421,19 @@ TOL_FLASH_BWD_REL_L2 = 1e-2
 #: to 8.5e-2 (gradients), held at 1.5x the worst; a wrong scale, mask or
 #: tile moves the fp32 gradients by O(1)
 TOL_LM_TRAIN = {"float32": (1e-4, 1e-3), "bfloat16": (2e-3, 0.125)}
+#: phase 15: the paper's section-V design space at full suite width; each
+#: point trains SUITE_STEPS steps at SUITE_BATCH (Fig. 11's points at its
+#: batches), and Fig. 12's planner leaves SUITE_HEADROOM_BYTES of the card
+#: to everything but the tables and their accumulators
+SUITE_STEPS, SUITE_BATCH = 3, 256
+SUITE_HEADROOM_BYTES = 8 * 10 ** 9
+#: what each of phase 15's sweeps drives
+SUITE_PHASES = {
+    "15a": "Fig. 10, dense x sparse features, batch 256",
+    "15b": "Fig. 11, the default point at batches 128 to 8,192",
+    "15c": "Fig. 12, hash sizes, batch 256, the points the planner fits",
+    "15d": "Fig. 13, MLP width^layers, batch 256, then the concat "
+           "interaction"}
 
 
 def log(msg: str) -> None:
@@ -526,49 +543,6 @@ def graph_ms(torch, fn, launches: int = 20, replays: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (launches * replays)
-
-
-def load_parent_movers() -> None:
-    """Fill PARENT with the cache_exchange and cache_fetch found under
-    PARENT_KERNELS_DIR, built like the port's (the same C entry points,
-    without the placement argument); the kernels line counts none of their
-    launches."""
-    from pathlib import Path
-
-    from repro_torch.kernels import cache_ops as kc
-    from repro_torch.kernels._build import Kernel, build_all
-    for k in (kc.KERNEL, kc.FETCH_KERNEL):
-        src = Path(PARENT_KERNELS_DIR) / k.source.name
-        if src.exists():
-            PARENT[k.name] = Kernel(f"parent_{k.name}", k.symbol,
-                                    k.argtypes[:-2] + k.argtypes[-1:])
-            PARENT[k.name].source = src
-    build_all(list(PARENT.values()))
-    log(f"parent movers under {PARENT_KERNELS_DIR}: "
-        f"{sorted(PARENT) or 'none'}")
-    for k in PARENT.values():
-        log_ptxas(k, "_kernel")
-
-
-def parent_exchange(tiers, work) -> None:
-    """The parent's cache_exchange launched on the wrapper's arguments."""
-    from repro_torch.kernels._build import stream_handle
-    PARENT["cache_exchange"].launch(
-        *(t.data_ptr() for t in (*tiers, *work)), work[0].shape[0],
-        tiers[0].shape[1], stream_handle(work[0].device))
-
-
-def parent_fetch(torch, capacity, cap_accum, fetch):
-    """The parent's cache_fetch launched on the wrapper's arguments."""
-    from repro_torch.kernels._build import stream_handle
-    n, d = fetch.shape[0], capacity.shape[1]
-    shadow = fetch.new_empty((n, d), dtype=torch.float32)
-    shadow_accum = fetch.new_empty((n,), dtype=torch.float32)
-    PARENT["cache_fetch"].launch(
-        capacity.data_ptr(), cap_accum.data_ptr(), fetch.data_ptr(),
-        shadow.data_ptr(), shadow_accum.data_ptr(), n, d,
-        stream_handle(fetch.device))
-    return shadow, shadow_accum
 
 
 def device_events(prof) -> list[tuple[str, float]]:
@@ -844,24 +818,6 @@ def check_cache_exchange(torch, dev, r_rows: int, c_rows: int, d: int,
         out["cold_device_ms"] = cold_device_ms(
             torch, lambda: kc.cache_exchange(*tiers, *work), 20,
             "cache_exchange_kernel")
-    if "cache_exchange" in PARENT:
-        with clocked("the parent's kernels"):
-            restore(before)
-            parent_exchange(tiers, work)
-            torch.cuda.synchronize()
-            parent_equal = all(torch.equal(a, b)
-                               for a, b in zip(touched(), want))
-            log(f"  the parent's cache_exchange bit-equal={parent_equal}")
-            if not parent_equal:
-                raise AssertionError("the parent's cache_exchange differs")
-            out["parent_device_ms"] = device_kernel_ms(
-                torch, lambda: parent_exchange(tiers, work), 20,
-                "cache_exchange_kernel")
-            out["parent_graph_ms"] = graph_ms(
-                torch, lambda: parent_exchange(tiers, work))
-            out["parent_cold_device_ms"] = cold_device_ms(
-                torch, lambda: parent_exchange(tiers, work), 20,
-                "cache_exchange_kernel")
     row = d * 4
     out["bound_ms"], out["bound_by"] = bound_ms(
         n * 16 + n_wb * 2 * (row + 4) + n_ft * 2 * (row + 4) + n_ft * 4,
@@ -927,7 +883,6 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     full-width mega table, each against its plain version."""
     from repro_torch.kernels import embedding_bag as kb
     from repro_torch.kernels import ref
-    from repro_torch.kernels import sparse_update as ku
     from repro_torch.kernels.sparse_plan import (build_sparse_plan,
                                                  build_sparse_plan_host)
     r_rows, d = ebc.plan.total_rows, cfg.embed_dim
@@ -1034,6 +989,26 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
     # -- fused sparse backward: in place, so save the touched rows, run the
     #    kernel, restore, show nothing else moved, run the plain version
     pooled = torch.randn((b * f, d), generator=g, device=dev) * 0.01
+    upd = check_fused_update(torch, table, accum, plan, pooled, n_valid)
+    del table, accum
+    return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd,
+            "embedding_bag_train": eb}
+
+
+def check_fused_update(torch, table, accum, plan, pooled,
+                       n_valid: int) -> dict:
+    """The fused sparse backward (one plan) on `table` and `accum` against
+    its plain version, in place: the touched rows saved, the kernel run,
+    its untouched neighbour rows held bit-equal and the bit checksums of
+    both tensors equal once the touched rows are put back, then the plain
+    version from the same start within TOL_FUSED; then timed beside its
+    plain version and bound (`n_valid` lookups pooled into the plan's
+    bags). `pooled` holds the (B*F, D) bag gradients."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_update as ku
+    r_rows, d = table.shape
+    rows = plan.unique_rows[plan.unique_rows >= 0].long()
+    n_live, n_bags = rows.numel(), pooled.shape[0]
     near = torch.cat([rows - 1, rows + 1]).clamp(0, r_rows - 1)
     near = near[~torch.isin(near, rows)][:4096]
     before = (table[rows].clone(), accum[rows].clone())
@@ -1086,14 +1061,12 @@ def check_training_kernels(torch, dev, cfg, ebc) -> dict:
         "max_abs_err": max(err_t, err_a),
     }
     upd["bound_ms"], upd["bound_by"] = bound_ms(
-        n_live * 4 + (n_live + 1) * 4 + n_valid * 4 + b * f * d * 4
+        n_live * 4 + (n_live + 1) * 4 + n_valid * 4 + n_bags * d * 4
         + 2 * n_live * (d * 4 + 4),
         n_valid * d + n_live * 5 * d)
     upd.update(fused_parts_ms(torch, ku, table, accum, plan, pooled))
     log(f"  fused_bag_backward_adagrad: {upd}")
-    del table, accum
-    return {"dedup_embedding_bag": bag, "fused_bag_backward_adagrad": upd,
-            "embedding_bag_train": eb}
+    return upd
 
 
 def fused_parts_ms(torch, ku, table, accum, plan, pooled) -> dict:
@@ -1257,21 +1230,6 @@ def check_cache_movers(torch, dev, cfg, cc) -> dict:
         fetch_out["cold_device_ms"] = cold_device_ms(
             torch, lambda: kc.cache_fetch(capacity, cap_accum, fetch), 20,
             "cache_fetch_kernel")
-    if "cache_fetch" in PARENT:
-        with clocked("the parent's kernels"):
-            compare("the parent's cache_fetch",
-                    parent_fetch(torch, capacity, cap_accum, fetch), want)
-            fetch_out["parent_device_ms"] = device_kernel_ms(
-                torch,
-                lambda: parent_fetch(torch, capacity, cap_accum, fetch), 20,
-                "cache_fetch_kernel")
-            fetch_out["parent_graph_ms"] = graph_ms(
-                torch,
-                lambda: parent_fetch(torch, capacity, cap_accum, fetch))
-            fetch_out["parent_cold_device_ms"] = cold_device_ms(
-                torch,
-                lambda: parent_fetch(torch, capacity, cap_accum, fetch), 20,
-                "cache_fetch_kernel")
     shadow, shadow_accum = got
     fetch_out["host_us"] = fetch_host_us(
         torch, "cache_fetch", kc.FETCH_KERNEL,
@@ -1498,14 +1456,11 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
             raise AssertionError(f"{name} over the host tier differs")
         return err
 
-    def timed(name, fn, bound, parent=None):
+    def timed(name, fn, bound):
         res = {"ms": time_ms(torch, fn, 50),
                "device_ms": device_kernel_ms(torch, fn, 10,
                                              f"{name}_kernel"),
                "max_abs_err": errs[name]}
-        if parent is not None and name in PARENT:
-            with clocked("the parent's kernels"):
-                res["parent_ms"] = time_ms(torch, parent, 50)
         res["bound_ms"], res["bound_by"] = bound
         res["bound_rates"] = {k: rates[k] for k in ("h2d_bytes_per_s",
                                                     "d2h_bytes_per_s")}
@@ -1558,8 +1513,7 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
     in_place("cache_exchange", exchange)
     timed("cache_fetch",
           lambda: kc.cache_fetch(h_cap, h_acc, fetch),
-          host_bound_ms(rates, n_ft * row, 0, n * 4 + n * row),
-          lambda: parent_fetch(torch, h_cap, h_acc, fetch))
+          host_bound_ms(rates, n_ft * row, 0, n * 4 + n * row))
     timed("cache_fetch_chunked",
           lambda: kc.cache_fetch_chunked(h_cap, h_acc, starts, chunk),
           host_bound_ms(rates, k_live * chunk * row, 0,
@@ -1575,16 +1529,13 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
           lambda: kc.cache_exchange(h_cap, cch, h_acc, cch_acc, fq, slots,
                                     evict, ins, counts),
           host_bound_ms(rates, n_in * row, n_wb * row,
-                        n * 16 + n_wb * row + n_in * (row + 4)),
-          lambda: parent_exchange((h_cap, cch, h_acc, cch_acc, fq),
-                                  (slots, evict, ins, counts)))
+                        n * 16 + n_wb * row + n_in * (row + 4)))
     torch.cuda.synchronize()
     h_cap[wb_rows.cpu()], h_acc[wb_rows.cpu()] = saved
     with clocked("11a's attribution"):
         out["variants"] = host_mover_variants(
             torch, dev, rates, (h_cap, h_acc, c_cap, c_acc),
-            (cache, cache_accum, freq, shadow, shadow_accum),
-            (slots, evict, ins, counts, fetch))
+            (cache, cache_accum, freq), (slots, evict, ins, counts))
     log(f"  worklists: {n} entries, {n_ft} row fetches, {k_live} live "
         f"{chunk}-row blocks, {n_wb} writebacks, {n_in} installs")
     del c_cap, c_acc, cache, cache_accum, freq, shadow, shadow_accum, cch
@@ -1594,48 +1545,24 @@ def check_host_movers(torch, dev, cfg, ebc, host: dict,
 
 def host_mover_variants(torch, dev, rates: dict, tiers, device_tier,
                         work) -> dict:
-    """Phase 11a's attribution of the movers' time over PCIe. Phase 11a's
-    exchange worklist cut to its installs (fetch_only) and to its
-    writebacks (writeback_only, a flush's shape) beside the whole (mixed),
-    through cache_exchange, the writebacks also through cache_commit and
-    the row fetch through cache_fetch; each with cap_accum on the host and
+    """Phase 11a's attribution of the exchange's time over PCIe: its
+    worklist cut to its installs (fetch_only) and to its writebacks
+    (writeback_only, a flush's shape), each with cap_accum on the host and
     again on the card while the rows stay on the host (which takes the
-    4-byte accumulator traffic off PCIe). Then the two cuts again with the
-    rows on the card and cap_accum on the host (the accumulators alone over
-    PCIe), and with the same counts of rows packed into one contiguous run
-    each (the same traffic without its random addresses); the
-    writebacks in the order of their rows; and the two cuts as two
-    launches on two streams at once. Each is bit-equal
-    to its plain version on the card and timed by CUDA events over 50
-    launches, beside the parent's kernel where PARENT has it; its bound is
-    at the measured rates for its placement."""
+    4-byte accumulator traffic off PCIe). Each is bit-equal to its plain
+    version on the card and timed by CUDA events over 50 launches; its
+    bound is at the measured rates for its placement."""
     from repro_torch.kernels import cache_ops as kc
     from repro_torch.kernels import ref
     h_cap, h_acc, c_cap, c_acc = tiers
-    cache, cache_accum, freq, shadow, shadow_accum = device_tier
-    slots, evict, ins, counts, fetch = work
+    cache, cache_accum, freq = device_tier
+    slots, evict, ins, counts = work
     n, d = slots.shape[0], h_cap.shape[1]
-    live = slots >= 0
     none = torch.full_like(evict, -1)
     row = d * 4
 
-    def packed(rows, base):
-        """rows with each entry >= 0 renumbered base, base + 1, ..."""
-        out = rows.clone()
-        m = rows >= 0
-        out[m] = base + torch.arange(int(m.sum()), dtype=torch.int32,
-                                     device=dev)
-        return out
-
-    def exchange(kind, wl):
-        fn = {"kernel": kc.cache_exchange, "plain": ref.cache_exchange_ref,
-              "parent": lambda *a: parent_exchange(a[:5], a[5:])}[kind]
+    def exchange(fn, wl):
         return lambda cap, acc, t: fn(cap, t[0], acc, t[1], t[2], *wl)
-
-    def commit(kind, wl):
-        fn = {"kernel": kc.cache_commit, "plain": ref.cache_commit_ref}[kind]
-        return lambda cap, acc, t: fn(cap, t[0], acc, t[1], shadow,
-                                      shadow_accum, *wl[:3])
 
     def run(call, cap, acc, wl, timed: bool):
         """call on fresh copies of the device tier; the rows it writes back
@@ -1656,117 +1583,33 @@ def host_mover_variants(torch, dev, rates: dict, tiers, device_tier,
         cap[r_cap], acc[r_acc] = saved
         return got
 
-    def bound(op, n_rd, n_wr, cap, acc):
-        """host_bound_ms of op's bytes: a row or accumulator on the host
-        crosses PCIe, on the card it is HBM traffic."""
-        on_host = (row if cap.is_cpu else 0) + (4 if acc.is_cpu else 0)
-        on_card = row + 4 - on_host
-        if op == "cache_fetch":
-            return host_bound_ms(rates, n_rd * on_host, 0,
-                                 n * 4 + n * (row + 4) + n_rd * on_card)
-        hbm = (n * 16 + n_wr * (row + 4) + (n_wr + n_rd) * on_card
-               + (n_rd * (row + 8) if op == "cache_exchange" else 0))
-        return host_bound_ms(rates, n_rd * on_host, n_wr * on_host, hbm)
-
-    cases = []      # (key, op, worklist, cap, acc)
-    for acc_on, acc in (("host", h_acc), ("card", c_acc)):
-        for cut, ev, ft in (("mixed", evict, ins), ("fetch_only", none, ins),
-                            ("writeback_only", evict, none)):
-            wl = (slots, ev, ft, counts)
-            cases.append((f"cache_exchange {cut}, cap_accum on the {acc_on}",
-                          "cache_exchange", wl, h_cap, acc))
-            if cut == "writeback_only":
-                cases.append((f"cache_commit {cut}, cap_accum on the "
-                              f"{acc_on}", "cache_commit", wl, h_cap, acc))
-        cases.append((f"cache_fetch, cap_accum on the {acc_on}",
-                      "cache_fetch", (slots, none, fetch, counts), h_cap, acc))
-    r_rows = h_cap.shape[0]
-    for cut, ev, ft in (("fetch_only", none, packed(ins, 0)),
-                        ("writeback_only", packed(evict, r_rows // 2), none)):
-        cases.append((f"cache_exchange {cut}, rows packed, cap_accum on the "
-                      "card", "cache_exchange", (slots, ev, ft, counts),
-                      h_cap, c_acc))
-    # the writebacks in the order of their rows: neighbours in a page
-    # follow each other
-    order = torch.argsort(torch.where(live, evict, -1))
-    cases.append(("cache_exchange writeback_only, entries in row order, "
-                  "cap_accum on the card", "cache_exchange",
-                  (slots[order], evict[order], none, counts[order]), h_cap,
-                  c_acc))
-    for cut, ev, ft in (("fetch_only", none, ins),
-                        ("writeback_only", evict, none)):
-        cases.append((f"cache_exchange {cut}, rows on the card, cap_accum "
-                      "on the host", "cache_exchange",
-                      (slots, ev, ft, counts), c_cap, h_acc))
-
     out = {}
-    for key, op, wl, cap, acc in cases:
-        results = {}
-        wl_live = wl[0] >= 0
-        ft = wl[2]
-        if op == "cache_fetch":
-            want = ref.cache_fetch_ref(c_cap, c_acc, ft)
-            calls = {"ms": lambda: kc.cache_fetch(cap, acc, ft)}
-            if "cache_fetch" in PARENT:
-                calls["parent_ms"] = lambda: parent_fetch(torch, cap, acc, ft)
-            for kind, call in calls.items():
-                if not all(torch.equal(g, w) for g, w in zip(call(), want)):
-                    raise AssertionError(f"{key} ({kind}) differs from plain")
-                results[kind] = time_ms(torch, call, 50)
-            n_rd, n_wr = int((ft >= 0).sum()), 0
-        else:
-            make = exchange if op == "cache_exchange" else commit
-            want = run(make("plain", wl), c_cap, c_acc, wl, False)
-            kinds = ["kernel"] + (["parent"] if op in PARENT else [])
-            for kind in kinds:
-                got = run(make(kind, wl), cap, acc, wl, False)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise AssertionError(f"{key} ({kind}) differs from plain")
-                results["ms" if kind == "kernel" else "parent_ms"] = run(
-                    make(kind, wl), cap, acc, wl, True)
-            n_rd = int((wl_live & (ft >= 0)).sum())
-            n_wr = int((wl_live & (wl[1] >= 0)).sum())
-        res = dict(results, reads=n_rd, writebacks=n_wr)
-        res["bound_ms"], res["bound_by"] = bound(op, n_rd, n_wr, cap, acc)
-        res["share_of_bound"] = res["bound_ms"] / res["ms"]
-        log(f"  11a attribution, {key}: {json.dumps(res)}")
-        out[key] = res
-
-    # the writebacks and the installs as two launches on two streams at
-    # once, cap_accum on the host: nothing orders one after the other, so
-    # the time says whether the card's traffic to host memory overlaps
-    # them at all
-    wl_wb, wl_ft = (slots, evict, none, counts), (slots, none, ins, counts)
-    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
-    t_ft = (cache.clone(), cache_accum.clone(), freq.clone())
-
-    def both(cap, acc, t):
-        cur = torch.cuda.current_stream()
-        s1.wait_stream(cur)
-        s2.wait_stream(cur)
-        with torch.cuda.stream(s1):
-            kc.cache_exchange(cap, t[0], acc, t[1], t[2], *wl_wb)
-        with torch.cuda.stream(s2):
-            kc.cache_exchange(cap, t_ft[0], acc, t_ft[1], t_ft[2], *wl_ft)
-        cur.wait_stream(s1)
-        cur.wait_stream(s2)
-
-    key = ("cache_exchange writeback_only and fetch_only on two streams "
-           "at once, cap_accum on the host")
-    want = (run(exchange("plain", wl_wb), c_cap, c_acc, wl_wb, False)
-            + run(exchange("plain", wl_ft), c_cap, c_acc, wl_ft, False)[2:])
-    got = run(both, h_cap, h_acc, wl_wb, False) + list(t_ft)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"{key} differs from plain")
-    n_rd = int((live & (ins >= 0)).sum())
-    n_wr = int((live & (evict >= 0)).sum())
-    res = {"ms": run(both, h_cap, h_acc, wl_wb, True), "reads": n_rd,
-           "writebacks": n_wr}
-    res["bound_ms"], res["bound_by"] = bound("cache_exchange", n_rd, n_wr,
-                                             h_cap, h_acc)
-    res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    log(f"  11a attribution, {key}: {json.dumps(res)}")
-    out[key] = res
+    live = slots >= 0
+    for acc_on, acc in (("host", h_acc), ("card", c_acc)):
+        for cut, ev, ft in (("fetch_only", none, ins),
+                            ("writeback_only", evict, none)):
+            key = f"cache_exchange {cut}, cap_accum on the {acc_on}"
+            wl = (slots, ev, ft, counts)
+            want = run(exchange(ref.cache_exchange_ref, wl), c_cap, c_acc, wl,
+                       False)
+            got = run(exchange(kc.cache_exchange, wl), h_cap, acc, wl, False)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{key} differs from plain")
+            n_rd = int((live & (ft >= 0)).sum())
+            n_wr = int((live & (ev >= 0)).sum())
+            res = {"ms": run(exchange(kc.cache_exchange, wl), h_cap, acc, wl,
+                             True), "reads": n_rd, "writebacks": n_wr}
+            # a row or accumulator on the host crosses PCIe, on the card
+            # it is HBM traffic
+            on_host = row + (4 if acc.is_cpu else 0)
+            on_card = row + 4 - on_host
+            res["bound_ms"], res["bound_by"] = host_bound_ms(
+                rates, n_rd * on_host, n_wr * on_host,
+                n * 16 + n_wr * (row + 4) + (n_wr + n_rd) * on_card
+                + n_rd * (row + 8))
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            log(f"  11a attribution, {key}: {json.dumps(res)}")
+            out[key] = res
     return out
 
 
@@ -1976,8 +1819,9 @@ def check_tablewise_kernels(torch, dev, cfg, ebc) -> dict:
             "rowwise_adagrad": rw}
 
 
-def plain_logits(torch, dense, dense_x, pooled):
-    """Logits from the plain versions: MLPs, plain dot interaction."""
+def plain_logits(torch, dense, dense_x, pooled, interaction: str = "dot"):
+    """Logits from the plain versions: MLPs, then the plain dot interaction
+    or the concatenation."""
     from repro_torch.kernels import ref
     from repro_torch.nn.layers import linear
     x = dense_x
@@ -1985,8 +1829,11 @@ def plain_logits(torch, dense, dense_x, pooled):
         x = linear(p, x)
         if i < len(dense["bottom"]) - 1:
             x = torch.relu(x)
-    z = torch.cat([x[:, None, :], pooled], dim=1)
-    y = torch.cat([x, ref.dot_interaction_ref(z)], dim=-1)
+    if interaction == "cat":
+        y = torch.cat([x, pooled.reshape(pooled.shape[0], -1)], dim=-1)
+    else:
+        z = torch.cat([x[:, None, :], pooled], dim=1)
+        y = torch.cat([x, ref.dot_interaction_ref(z)], dim=-1)
     for i, p in enumerate(dense["top"]):
         y = linear(p, y)
         if i < len(dense["top"]) - 1:
@@ -2008,25 +1855,25 @@ def plain_probs(torch, engine, cfg, req_dense, req_idx):
                                       pooled)).cpu().numpy()
 
 
-def plain_train_step(torch, params, state, batch, opt):
-    """One train step from the plain versions on the card: planned lookup,
-    dense tower, autograd, dense AdaGrad, fused sparse update (in place on
-    the mega table and accumulator). Returns (loss, dense, dense_state)."""
+def plain_train_step(torch, params, state, batch, opt, plan,
+                     interaction: str = "dot"):
+    """One train step from the plain versions on the card: the lookup
+    driven by `plan` (the batch's sparse plan), dense tower, autograd,
+    dense AdaGrad, fused sparse update (in place on the mega table and
+    accumulator). Returns (loss, dense, dense_state)."""
     from repro_torch.core.dlrm import _bce
     from repro_torch.kernels import ref
-    from repro_torch.kernels.sparse_plan import plan_from_batch
     from repro_torch.nn.params import tree_leaves, tree_map
     mega = params["emb"]["mega"]
     idx = batch["idx"]
     b, f, lk = idx.shape
-    plan = plan_from_batch(batch)
     pooled = ref.dedup_embedding_bag_ref(
         mega, idx.reshape(b * f, lk), plan.unique_rows).reshape(b, f, -1)
     pooled.requires_grad_()
     dense = {"bottom": params["bottom"], "top": params["top"]}
     leaves = tree_map(lambda t: t.detach().requires_grad_(), dense)
-    loss = _bce(plain_logits(torch, leaves, batch["dense"], pooled),
-                batch["label"])
+    loss = _bce(plain_logits(torch, leaves, batch["dense"], pooled,
+                             interaction), batch["label"])
     grads = torch.autograd.grad(loss, tree_leaves(leaves) + [pooled])
     it = iter(grads[:-1])
     new_dense, new_state = opt.apply(dense, tree_map(lambda _: next(it),
@@ -2039,6 +1886,62 @@ def plain_train_step(torch, params, state, batch, opt):
     return float(loss.detach()), new_dense, new_state
 
 
+def checked_step(torch, step_fn, params, state, batch, opt,
+                 interaction: str = "dot"):
+    """Step 0 through `step_fn` (the kernels), held to the same step from
+    the same start through the plain versions on the card: the loss, the
+    touched mega rows and accumulators, the dense parameters and state
+    within TOL_STEP, and the bit checksums of the mega table and the
+    accumulator equal once the touched rows are put back (the step wrote
+    nothing else). The batch's sparse plan, or one built on the card, says
+    which rows the step touches. Returns (params, state, metrics, the
+    errors, the plan's live rows)."""
+    from repro_torch.kernels.sparse_plan import (build_sparse_plan,
+                                                 plan_from_batch)
+    from repro_torch.nn.params import tree_leaves, tree_map
+    mega, accum = params["emb"]["mega"], state["accum"]
+    plan = plan_from_batch(batch) or build_sparse_plan(batch["idx"])
+    rows = plan.unique_rows[plan.unique_rows >= 0].long()
+    saved = (mega[rows].clone(), accum[rows].clone())
+    dense0 = tree_map(torch.clone, {"bottom": params["bottom"],
+                                    "top": params["top"]})
+    state0 = {"dense": tree_map(torch.clone, state["dense"]),
+              "accum": accum}
+    sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+    params, state, metrics = step_fn(params, state, batch, 0)
+    loss = float(metrics["loss"])
+    kern = (mega[rows].clone(), accum[rows].clone())
+    mega[rows], accum[rows] = saved
+    if (bit_checksum(torch, mega), bit_checksum(torch, accum)) != sums:
+        raise AssertionError("train step wrote outside the batch's rows")
+    p_loss, p_dense, p_state = plain_train_step(
+        torch, {**dense0, "emb": {"mega": mega}}, state0, batch, opt, plan,
+        interaction)
+
+    def flat(tree):
+        return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
+
+    errs = {"loss": abs(p_loss - loss)}
+    ok = errs["loss"] <= TOL_STEP + TOL_STEP * abs(p_loss)
+    for name, a, b in (
+            ("mega rows", kern[0], mega[rows]),
+            ("accum rows", kern[1], accum[rows]),
+            ("dense", flat({"bottom": params["bottom"],
+                            "top": params["top"]}), flat(p_dense)),
+            ("dense state", flat(state["dense"]), flat(p_state))):
+        good, errs[name] = close(a, b, TOL_STEP)
+        ok = ok and good
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    log(f"step 0 vs plain recompute on the card: max_abs_err {shown} (tol "
+        f"{TOL_STEP} abs + rel); bit checksums of mega and accum equal "
+        f"after restore")
+    if not ok:
+        raise AssertionError(f"train step disagrees with the plain "
+                             f"recompute: {errs}")
+    mega[rows], accum[rows] = kern
+    return params, state, metrics, errs, rows.numel()
+
+
 def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
     """Phase 6b: TRAIN_STEPS full-width steps fed by the port's pipeline
     with the sparse-plan hook, from the launcher's seed. Step 0 is
@@ -2049,9 +1952,7 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
     from repro_torch.core.dlrm import init_dlrm_params
     from repro_torch.data.pipeline import ShardedLoader, sparse_plan_hook
     from repro_torch.data.synthetic import make_dlrm_batch
-    from repro_torch.kernels.sparse_plan import plan_from_batch
     from repro_torch.launch.train import PARAM_SEED, batch_to_device
-    from repro_torch.nn.params import tree_leaves, tree_map
     from repro_torch.optim import adagrad
     from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
 
@@ -2075,61 +1976,19 @@ def train_planned(torch, dev, cfg, ebc, want_losses) -> dict:
             batch = batch_to_device(raw, dev)    # pageable copies: blocking
             wait_s.append(t1 - t0)
             h2d_s.append(time.perf_counter() - t1)
-            if step == 0:
-                mega, accum = params["emb"]["mega"], state["accum"]
-                plan = plan_from_batch(batch)
-                rows = plan.unique_rows[plan.unique_rows >= 0].long()
-                saved = (mega[rows].clone(), accum[rows].clone())
-                dense0 = tree_map(torch.clone, {"bottom": params["bottom"],
-                                                "top": params["top"]})
-                state0 = {"dense": tree_map(torch.clone, state["dense"]),
-                          "accum": accum}
-                sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
             if step == TRAIN_STEPS - PROFILED_STEPS:
                 torch.cuda.synchronize()
                 prof = profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA])
                 prof.__enter__()
             t0 = time.perf_counter()
-            params, state, metrics = step_fn(params, state, batch, step)
+            if step == 0:                # held to the plain versions
+                params, state, metrics = checked_step(
+                    torch, step_fn, params, state, batch, opt)[:3]
+            else:
+                params, state, metrics = step_fn(params, state, batch, step)
             losses.append(float(metrics["loss"]))        # syncs the step
             host_s.append(time.perf_counter() - t0)
-            if step == 0:
-                kern = (mega[rows].clone(), accum[rows].clone())
-                mega[rows], accum[rows] = saved
-                if (bit_checksum(torch, mega),
-                        bit_checksum(torch, accum)) != sums:
-                    raise AssertionError("train step wrote outside the "
-                                         "batch's rows")
-                p_loss, p_dense, p_state = plain_train_step(
-                    torch, {**dense0, "emb": {"mega": mega}}, state0, batch,
-                    opt)
-
-                def flat(tree):
-                    return torch.cat([t.reshape(-1)
-                                      for t in tree_leaves(tree)])
-
-                errs = {"loss": abs(p_loss - losses[0])}
-                ok = errs["loss"] <= TOL_STEP + TOL_STEP * abs(p_loss)
-                for name, a, b in (
-                        ("mega rows", kern[0], mega[rows]),
-                        ("accum rows", kern[1], accum[rows]),
-                        ("dense", flat({"bottom": params["bottom"],
-                                        "top": params["top"]}),
-                         flat(p_dense)),
-                        ("dense state", flat(state["dense"]),
-                         flat(p_state))):
-                    good, errs[name] = close(a, b, TOL_STEP)
-                    ok = ok and good
-                shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                log(f"step 0 vs plain recompute on the card: max_abs_err "
-                    f"{shown} (tol {TOL_STEP} abs + rel); bit checksums "
-                    f"of mega and accum equal after restore")
-                if not ok:
-                    raise AssertionError(f"train step disagrees with the "
-                                         f"plain recompute: {errs}")
-                mega[rows], accum[rows] = kern
-                del saved, kern, dense0, state0, p_dense, p_state
             log(f"step {step:5d} loss {losses[-1]:.6f} "
                 f"host {host_s[-1] * 1e3:.3f} ms")
         torch.cuda.synchronize()
@@ -2413,30 +2272,12 @@ def exchange_spy(seen: list):
 
 
 def flush_numbers(torch, flushes: list) -> dict | None:
-    """A materialize's flush: its rows and events ms and, where PARENT has
-    the exchange, the same worklist again through this tree's kernel and
-    the parent's, 3 launches a reading, in two turns (a pure writeback of
-    rows already written back rewrites the same bytes). This tree's kernel
-    goes through its bare C entry point, as `wrapper_host_us` times it, so
-    the re-timing adds nothing to the path's launch count."""
-    from repro_torch.kernels import cache_ops as kc
-    from repro_torch.kernels._build import stream_handle
+    """A materialize's flush: its rows and events ms."""
     if not flushes:
         return None
     args, ms = flushes[-1]
     res = {"rows": int((args[6] >= 0).sum()), "ms": ms,
            "capacity_on": str(args[0].device)}
-    if "cache_exchange" in PARENT:
-        bare = (*(t.data_ptr() for t in args), args[5].shape[0],
-                args[0].shape[1], int(args[0].is_cpu),
-                stream_handle(args[5].device))
-        calls = {"again_ms": lambda: kc.KERNEL._fn(*bare),
-                 "parent_ms": lambda: parent_exchange(args[:5], args[5:])}
-        with clocked("the flushes' re-timing"):
-            for _ in range(2):
-                for key, call in calls.items():
-                    res.setdefault(key, []).append(
-                        time_ms(torch, call, 3, warmup=1))
     log(f"  flush (materialize's cache_exchange): {json.dumps(res)}")
     return res
 
@@ -4400,6 +4241,257 @@ def evict_search(torch, dev, cfg) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_version_spy(calls: dict):
+    """While open, every call of the lookups', the interaction's or the
+    update's plain version (what a wrapper runs for a CPU tensor) adds one
+    to calls[its name]; the calls themselves are unchanged."""
+    from repro_torch.kernels import ref
+    names = ("embedding_bag_ref", "dedup_embedding_bag_ref",
+             "dot_interaction_ref", "fused_bag_backward_adagrad_ref")
+    real = {n: getattr(ref, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(ref, n, spy(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ref, n, fn)
+
+
+def suite_points() -> list:
+    """Phase 15's (phase, name, config, batch) in order, each point once:
+    Fig. 10 (15a), the default point at each of Fig. 11's batches (15b),
+    Fig. 12 (15c) and Fig. 13 (15d) at SUITE_BATCH, then the default point
+    with the concat interaction (15d). A point an earlier sweep holds (the
+    default point at SUITE_BATCH, in 15b) is not trained again."""
+    from repro_torch.core import design_space as ds
+    default = ds.test_suite_config()
+    points = ([("15a", n, c, SUITE_BATCH) for n, c in ds.sweep_fig10()]
+              + [("15b", f"batch{b}", default, b)
+                 for b in ds.sweep_fig11_batch()]
+              + [("15c", n, c, SUITE_BATCH)
+                 for n, c in ds.sweep_fig12_hash()]
+              + [("15d", n, c, SUITE_BATCH)
+                 for n, c in ds.sweep_fig13_mlp()]
+              + [("15d", "cat", ds.test_suite_config(interaction="cat"),
+                  SUITE_BATCH)])
+    seen, out = set(), []
+    for phase, name, cfg, batch in points:
+        if (cfg, batch) not in seen:
+            seen.add((cfg, batch))
+            out.append((phase, name, cfg, batch))
+    return out
+
+
+def suite_placements(torch) -> dict:
+    """Phase 15c's planner: `recommend_placement` for each Fig. 12 point on
+    one host, its budget the card's memory less SUITE_HEADROOM_BYTES.
+    Returns {point: whether its rows and accumulators fit the card}."""
+    from repro_torch.core import design_space as ds
+    from repro_torch.launch.analysis import recommend_placement
+    budget = torch.cuda.mem_get_info()[1] - SUITE_HEADROOM_BYTES
+    fits = {}
+    for name, cfg in ds.sweep_fig12_hash():
+        rec = recommend_placement(cfg.hash_sizes, cfg.mean_lookups,
+                                  cfg.embed_dim, SUITE_BATCH, cfg.truncation,
+                                  1, budget)
+        fits[name] = rec["fits_one_host"]
+        log(f"  {name}: recommend_placement pick {rec['pick']}, "
+            f"fits_one_host {rec['fits_one_host']}, "
+            f"{sum(t['bytes'] for t in rec['per_table']):.0f} bytes of rows "
+            f"and accumulators, budget {budget} bytes (the card's "
+            f"{budget + SUITE_HEADROOM_BYTES} less {SUITE_HEADROOM_BYTES})")
+    return fits
+
+
+def suite_kernel_shapes(torch, dev) -> dict:
+    """Phase 15: the path's kernels against their plain versions, timed, at
+    shapes only the suite reaches: dot_interaction at F = 129 (Fig. 10's
+    128 tables, B = 256) and at Fig. 11's largest batch (8,192, F = 33),
+    embedding_bag over 128 tables of 100,000 rows, and the fused update on
+    Fig. 12's 10,000-row tables, whose hot rows make its longest runs."""
+    from repro_torch.core import design_space as ds
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels.sparse_plan import build_sparse_plan
+    wide = dict(ds.sweep_fig10())["dense64_sparse128"]
+    d, lk = wide.embed_dim, wide.truncation
+    default_f = ds.test_suite_config().n_sparse_features
+    out = {"dot_interaction": {
+        "f129": check_dot_interaction(torch, dev, SUITE_BATCH,
+                                      wide.n_sparse_features + 1, d),
+        "b8192": check_dot_interaction(torch, dev,
+                                       ds.sweep_fig11_batch()[-1],
+                                       default_f + 1, d)}}
+    rows = EmbeddingBagCollection.build(
+        wide, n_shards=1, strategy="replicated").plan.total_rows
+    out["embedding_bag"] = {"128_tables": check_embedding_bag(
+        torch, dev, rows, d, SUITE_BATCH * wide.n_sparse_features, lk)}
+    free_device(torch)
+    cfg = dict(ds.sweep_fig12_hash())["hash10000"]
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
+                                       strategy="replicated")
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    r_rows = ebc.plan.total_rows
+    table = torch.empty((r_rows, d), device=dev).normal_(generator=g)
+    accum = torch.rand((r_rows,), generator=g, device=dev)
+    raw = make_dlrm_batch(cfg, SUITE_BATCH, 0)
+    idx = torch.as_tensor(ebc.offset_indices(raw["idx"]), device=dev)
+    b, f, _ = idx.shape
+    plan = build_sparse_plan(idx)
+    pooled = torch.randn((b * f, d), generator=g, device=dev) * 0.01
+    log(f"  the fused update on {cfg.name} (R={r_rows}, batch {b})")
+    out["fused_bag_backward_adagrad"] = {"hash10000": check_fused_update(
+        torch, table, accum, plan, pooled, int((idx >= 0).sum()))}
+    del table, accum
+    return out
+
+
+def train_suite_point(torch, dev, cfg, batch_size: int) -> dict:
+    """One point of phase 15: `cfg` at full width on the replicated layout,
+    parameters from the launcher's seed, SUITE_STEPS steps of
+    `build_dlrm_train_step(sparse_apply="sparse")` on batches of
+    `make_dlrm_batch` made before the first step. Step 0 runs under
+    FlopCounterMode and torch.profiler and is held to the plain versions
+    on the card (`checked_step`); steps 1 on are timed by the host clock.
+    Every step must launch embedding_bag, the fused update and (dot)
+    dot_interaction once, no other kernel, and call no plain version; the
+    losses must be finite. Returns the point's numbers and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.analysis import (embedding_forward_traffic,
+                                             sparse_backward_traffic)
+    from repro_torch.launch.roofline import H100, roofline_terms
+    from repro_torch.launch.train import PARAM_SEED, batch_to_device
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+
+    t0 = time.perf_counter()
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
+                                       strategy="replicated")
+    batches = []
+    for step in range(SUITE_STEPS):
+        raw = make_dlrm_batch(cfg, batch_size, step)
+        batches.append(batch_to_device(
+            {**raw, "idx": ebc.offset_indices(raw["idx"])}, dev))
+    batch_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dlrm_params(cfg, ebc, PARAM_SEED, dev)
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step_fn = build_dlrm_train_step(cfg, ebc, opt, SPARSE_LR, SPARSE_EPS,
+                                    sparse_apply="sparse")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = {k.name: 0 for k in KERNELS}
+    want.update(embedding_bag=1, fused_bag_backward_adagrad=1,
+                dot_interaction=int(cfg.interaction == "dot"))
+    plain, counted, launches = {}, {}, {k.name: 0 for k in KERNELS}
+
+    def kernel_step(params, state, batch, step):
+        reset_launches(KERNELS)
+        with plain_version_spy(plain):
+            out = step_fn(params, state, batch, step)
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in KERNELS}
+        if got != want or plain:
+            raise AssertionError(f"{cfg.name} step {step}: launches {got}, "
+                                 f"want {want}; plain versions {plain}")
+        for k, v in got.items():
+            launches[k] += v
+        return out
+
+    def counted_step(*args):
+        with FlopCounterMode(display=False) as fc, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            out = kernel_step(*args)
+        counted["flops"] = fc.get_total_flops()
+        counted["device_us"] = sum(t for _, t in device_events(prof))
+        return out
+
+    params, state, metrics, errs, n_unique = checked_step(
+        torch, counted_step, params, state, batches[0], opt,
+        cfg.interaction)
+    losses, host_s = [float(metrics["loss"])], []
+    for step in range(1, SUITE_STEPS):
+        t1 = time.perf_counter()
+        params, state, metrics = kernel_step(params, state, batches[step],
+                                             step)
+        losses.append(float(metrics["loss"]))
+        host_s.append(time.perf_counter() - t1)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
+    f, lk, d = cfg.n_sparse_features, cfg.truncation, cfg.embed_dim
+    hbm = (embedding_forward_traffic(batch_size, f, lk, d,
+                                     n_unique)["legacy_bytes"]
+           + sparse_backward_traffic(batch_size, f, lk, d)["fused_bytes"])
+    flops = counted["flops"]
+    out = {"config": cfg.name, "batch": batch_size, "losses": losses,
+           "examples_per_s": batch_size * len(host_s) / sum(host_s),
+           "host_ms_per_step": sum(host_s) / len(host_s) * 1e3,
+           "device_busy_ms_step0": (counted["device_us"] / 1e3
+                                    if counted["device_us"] else None),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "unique_rows_step0": n_unique, "step0_max_abs_err": errs,
+           "flops_step0": flops,
+           "roofline": roofline_terms(flops, hbm, 0.0, 1, flops, hw=H100),
+           "batches_s": batch_s, "setup_s": setup_s,
+           "wall_s": time.perf_counter() - t0, "launches": launches}
+    out["roofline"]["bytes_hbm"] = hbm
+    return out
+
+
+def suite_phase(torch, dev) -> dict:
+    """Phases 15a-15d: every point of `suite_points` trained by
+    `train_suite_point`, but for a Fig. 12 point `recommend_placement`
+    says does not fit the card, which is only printed. Logs each point's
+    numbers and each phase's wall seconds; returns each phase's launch
+    counts, summed over its points."""
+    from repro_torch.kernels import KERNELS
+    paths, current, t_phase, fits = {}, None, 0.0, {}
+
+    def phase_done():
+        if current is not None:
+            log(f"phase {current} wall: "
+                f"{time.perf_counter() - t_phase:.1f} s")
+
+    for phase, name, cfg, batch in suite_points():
+        if phase != current:
+            phase_done()
+            current, t_phase = phase, time.perf_counter()
+            log(f"phase {phase}: {SUITE_PHASES[phase]}, {SUITE_STEPS} "
+                f"steps a point")
+            paths[f"suite_{phase}"] = {k.name: 0 for k in KERNELS}
+            if phase == "15c":
+                fits = suite_placements(torch)
+        if phase == "15c" and not fits[name]:
+            log(f"  {name}: planned only; recommend_placement says its rows "
+                f"and accumulators do not fit the card")
+            continue
+        res = train_suite_point(torch, dev, cfg, batch)
+        for k, v in res.pop("launches").items():
+            paths[f"suite_{phase}"][k] += v
+        log(f"  {phase} {name}: {json.dumps(res)}")
+        free_device(torch)
+    phase_done()
+    return paths
+
+
 def search_main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4460,7 +4552,6 @@ def main() -> int:
             if ("Function properties" in line or "registers" in line
                     or "spill" in line):
                 log(f"  {src}: {line.strip()}")
-    load_parent_movers()
 
     # 3. each kernel against its plain version at the path's shapes
     cfg = get_config(ARCH)
@@ -4856,7 +4947,17 @@ def main() -> int:
     fa["train_shape"] = {k: lm_train["bwd"]["train_4k"][k] for k in (
         "shape", "forward_ms", "forward_with_lse_ms")}
 
-    # 15. the numbers, then the result
+    # 15. the paper's section-V design space at full suite width: the
+    #     path's kernels at the shapes only the suite reaches, then every
+    #     point of Figs. 10-13 trained (15a-15d)
+    log("phase 15: dot_interaction, embedding_bag and the fused update vs "
+        "plain at the suite's shapes")
+    for name, res in suite_kernel_shapes(torch, dev).items():
+        numbers[name]["suite_shapes"] = res
+    free_device(torch)
+    paths.update(suite_phase(torch, dev))
+
+    # 16. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -4887,10 +4988,10 @@ def main() -> int:
                 "library_ms", "device_ms")},
             **{key: nums[key] for key in (
                 "device_ms_from", "device_ms_9a_profiler", "graph_ms",
-                "cold_device_ms", "parent_device_ms", "parent_graph_ms",
-                "parent_cold_device_ms",
+                "cold_device_ms",
                 "max_abs_err_vs_fp32_oracle", "train_shape",
-                "m2_train_shape", "host_us", "fp32", "dh128", "library",
+                "m2_train_shape", "suite_shapes", "host_us", "fp32",
+                "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
                 "device_ms_14a_profiler")
                 if key in nums}})

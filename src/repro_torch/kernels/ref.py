@@ -73,7 +73,10 @@ def _csr_sums(lo: torch.Tensor, hi: torch.Tensor, bag_ids: torch.Tensor,
 
     Vectorised across entries: step k adds every entry's k-th bag, over the
     entries whose slice is longer than k (a prefix once sorted by length),
-    so the loop runs as many times as the longest slice."""
+    so the loop runs as many times as the longest slice. Each step's prefix
+    length is found before the loop, so a step costs its own prefix, not
+    the plan's length (a Zipf head row of a large batch has tens of
+    thousands of bags in a plan of millions of entries)."""
     e, d = lo.numel(), pooled.shape[-1]
     lo = lo.long()
     lens = (hi.long() - lo).clamp(min=0)
@@ -81,8 +84,11 @@ def _csr_sums(lo: torch.Tensor, hi: torch.Tensor, bag_ids: torch.Tensor,
     lens_h = lens[by_len].cpu().numpy()
     lo_sorted = lo[by_len]
     gsum = torch.zeros((e, d), dtype=torch.float32, device=pooled.device)
-    for k in range(int(lens_h[0]) if e else 0):
-        m = int(np.searchsorted(-lens_h, -k, side="left"))  # lens > k
+    steps = int(lens_h[0]) if e else 0
+    # the count of slices longer than k, for every k
+    prefix = np.searchsorted(-lens_h, -np.arange(steps), side="left")
+    for k in range(steps):
+        m = int(prefix[k])
         gsum[:m] += pooled[bag_ids[lo_sorted[:m] + k].long()].float()
     out = torch.empty_like(gsum)
     out[by_len] = gsum

@@ -71,7 +71,12 @@ def test_embedding_bag_kernel_bit_equal_to_plain(dev, h, d, b, lk, mode):
     assert torch.equal(got, ref.embedding_bag_ref(table, idx, mode))
 
 
-@pytest.mark.parametrize("b,f,d", [(8, 7, 16), (16, 31, 64), (3, 2, 5)])
+# the last three are the section-V suite's: F = 129 (128 tables, 35,904 B
+# of shared memory an example, not a multiple of the 4-row tile), F = 5
+# (4 tables) and Fig. 11's largest batch at the default point's F = 33
+@pytest.mark.parametrize("b,f,d", [(8, 7, 16), (16, 31, 64), (3, 2, 5),
+                                   (256, 129, 64), (256, 5, 64),
+                                   (8192, 33, 64)])
 def test_dot_interaction_kernel_matches_plain(dev, b, f, d):
     z = torch.from_numpy(np.random.RandomState(f).randn(b, f, d)
                          .astype(np.float32)).to(dev)
@@ -568,6 +573,49 @@ def test_dot_interaction_gradient_on_the_card_matches_plain(dev):
     ref.dot_interaction_ref(zp).backward(torch.from_numpy(g).to(dev))
     assert zk.grad.abs().sum() > 0
     torch.testing.assert_close(zk.grad, zp.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("point", ["hash10000", "cat"])
+def test_suite_step_zero_on_the_card_matches_plain(dev, point):
+    """Step 0 of a section-V suite point at full width (Fig. 12's
+    10,000-row tables, whose hot rows make long CSR runs; the default point
+    with the concat interaction) through the kernels, held by
+    `chip_smoke.checked_step` to the plain versions on the card within
+    TOL_STEP: the loss, the touched rows and accumulators, the dense
+    parameters and state; one launch of each of the path's kernels."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.core import design_space as ds
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.data.synthetic import make_dlrm_batch
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    resolve_device("cuda")
+    cfg = (ds.test_suite_config(interaction="cat") if point == "cat"
+           else dict(ds.sweep_fig12_hash())[point])
+    ebc = EmbeddingBagCollection.build(cfg, n_shards=1,
+                                       strategy="replicated")
+    params = init_dlrm_params(cfg, ebc, 0, dev)
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step = build_dlrm_train_step(cfg, ebc, opt, sparse_apply="sparse")
+    raw = make_dlrm_batch(cfg, 128, 0)
+    batch = batch_to_device({**raw, "idx": ebc.offset_indices(raw["idx"])},
+                            dev)
+    before = {k.name: k.launches for k in KERNELS}
+    _, _, metrics, _, n_unique = chip_smoke.checked_step(
+        torch, step, params, state, batch, opt, cfg.interaction)
+    launched = {k.name: k.launches - before[k.name] for k in KERNELS}
+    want = {k.name: 0 for k in KERNELS}
+    want.update(embedding_bag=1, fused_bag_backward_adagrad=1,
+                dot_interaction=int(cfg.interaction == "dot"))
+    assert launched == want
+    assert np.isfinite(float(metrics["loss"])) and n_unique > 0
 
 
 @pytest.mark.parametrize("plan", [False, True])
