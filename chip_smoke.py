@@ -181,7 +181,31 @@ Phases, each of which makes the script exit non-zero when it fails:
    parameters and state) within TOL_STEP; examples/s over steps 1-2, host
    and device-busy ms a step, the peak, and `launch.roofline.roofline_terms`
    on the H100 spec;
-16. print one JSON line of per-kernel numbers, then the result line.
+16. serve the MoE, SSM and hybrid LM families at full width, bf16
+   compute, ZOO_PROMPT-token prefills of make_lm_batch and ZOO_DECODE
+   greedy decode steps, no plain version called: (16a) the kernel at
+   granite-moe-3b-a800m's prefill shape (1, 24, 8192, 64) bf16 against
+   its plain version, timed, then the model (32 layers, 40 + 8 padded
+   experts top-8), the prefill through the kernel (exactly one launch a
+   layer) and again through full_attention (attn_block_q = ZOO_PROMPT, no
+   launch), the last logits held within TOL_LM_REL_L2 / TOL_LM_ABS with
+   the same argmax;
+   (16b) mamba2-780m (48 layers, no launch), and in fp32 compute the
+   one-shot prefill's last logits against SSM_RECUR_PREFIX tokens
+   prefilled and the rest decoded one at a time, with an fp32 conv cache
+   held within TOL_SSM_RECUR (the reference's bf16 conv cache printed);
+   (16c) the kernel at jamba's prefill shape (1, 32, 8192, 128) bf16
+   against its plain version, timed, then jamba-v0.1-52b cut from 32
+   layers to one 8-layer unit, int8 KV cache, fp32 parameters: the
+   prefill through the kernel (one launch) and through full_attention,
+   held as 16a, and the attention layer's own output within
+   TOL_ZOO_ATTN_REL_L2, its decode through the int8 cache within
+   TOL_INT8_REL_L2 of a bf16 cache's; (16d) the LM launcher on
+   mamba2-780m, 8 requests over 4 slots in fp32, each request's greedy
+   tokens equal to the same request served alone by a fresh engine of as
+   many slots. Each prints its peak
+   beside `zoo_reckoning_bytes`, and its host ms;
+17. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -434,6 +458,57 @@ SUITE_PHASES = {
     "15c": "Fig. 12, hash sizes, batch 256, the points the planner fits",
     "15d": "Fig. 13, MLP width^layers, batch 256, then the concat "
            "interaction"}
+#: phase 16: the MoE, SSM and hybrid LM families served at full width,
+#: bf16 compute: a ZOO_PROMPT-token prefill of make_lm_batch at batch 1,
+#: then ZOO_DECODE greedy decode steps; caches of ZOO_MAX_LEN positions
+ZOO_PROMPT, ZOO_DECODE = 8192, 32
+ZOO_MAX_LEN = ZOO_PROMPT + ZOO_DECODE
+ZOO_PARAM_SEED = 0
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("granite-moe-3b-a800m", "mamba2-780m",
+                                   "jamba-v0.1-52b")
+#: 16c: jamba-v0.1-52b's 32 layers cut to one 8-layer unit (m m m a m m m
+#: m, MoE on the odd layers): 13.27 B fp32 parameters, 53.1 GB
+HYBRID_LAYERS = 8
+#: 16b: the recurrence against the chunked scan, fp32 compute: a prefill
+#: of SSM_RECUR_PREFIX tokens (31 chunks of 256), then the last
+#: ZOO_PROMPT - SSM_RECUR_PREFIX tokens decoded one at a time, against the
+#: one-shot prefill's last logits. With an fp32 conv cache the two are the
+#: same sums in other orders: the scan takes each decay as exp of a
+#: difference of fp32 running sums over a 256-step chunk (up to ~256 in
+#: magnitude, so ~1.5e-5 absolute in the exponent), the recurrence as a
+#: product of per-step factors, and 48 layers of random weights amplify
+#: such differences ~45-fold (a 2^-9 rounding of the conv inputs becomes
+#: 0.089). Relative L2 of the last logits: 7.7e-4 on an H100 80GB HBM3 at
+#: 700 W (the first run of this phase), 8.8e-5 on the CPU at width 256;
+#: held within TOL_SSM_RECUR, which a wrong state or decay (an O(1) change)
+#: cannot meet. With the reference's bf16 conv cache: printed, not held
+SSM_RECUR_PREFIX = 7936
+TOL_SSM_RECUR = 5e-3
+#: 16c: jamba's one attention layer on its own (its inputs and outputs
+#: recorded in the model's runs). At one unit the reference's init (its
+#: stacked in_proj and MLP weights draw with fan = n_units = 1) puts the
+#: residual stream near 3,000, where one bf16 ulp is 16, and the attention
+#: layer's output near 0.08: the logits cannot see attention, so the
+#: layer's output is held. Relative L2: the kernel prefill against
+#: full_attention's (3.9e-3 on the CPU at width 512, dh 128), and the
+#: decode through the int8 KV cache against a bf16 cache's (6.6e-3 there;
+#: int8 rounds each K and V element by up to 1/254 of its row's largest)
+TOL_ZOO_ATTN_REL_L2 = 2e-2
+TOL_INT8_REL_L2 = 3e-2
+#: 16d: the LM launcher on mamba2-780m, 8 requests over 4 slots, so every
+#: slot serves two; fp32 compute. Each request's greedy tokens must equal
+#: the same request served alone by a fresh engine of as many slots (the
+#: same product shapes, so the same bits; a state carried over from the
+#: slot's last request moves the logits by O(1))
+ZOO_SERVE_ARGV = ["--arch", SSM_ARCH, "--requests", "8", "--slots", "4",
+                  "--max-len", "96", "--new-tokens", "16", "--prompt-len",
+                  "16", "64", "--compute-dtype", "float32"]
+#: 16a and 16c: the bf16 kernel at granite-moe-3b-a800m's and jamba's
+#: prefill shapes (dh 64 at 24 heads, dh 128); (b, h, s, dh)
+FLASH_GRANITE_SHAPE = (1, 24, 8192, 64)
+FLASH_DH128_SHAPE = (1, 32, 8192, 128)
+#: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -3124,86 +3199,93 @@ def check_flash_attention(torch, dev) -> dict:
     probe at the prefill's shape, and the times of the kernel, its plain
     version and SDPA (timed only, as the yardstick). Returns the numbers by
     shape name."""
+    from repro_torch.kernels import flash_attention as kf
+    log_ptxas(kf.KERNEL, "flash_attention_kernel_sm90")
+    return {name: check_flash_shape(torch, dev, name, shape, dt)
+            for name, shape, dt in FLASH_SHAPES}
+
+
+def check_flash_shape(torch, dev, name: str, shape: tuple, dt: str) -> dict:
+    """The flash-attention kernel at one (b, h, s, dh) shape and dtype
+    against its plain version (bf16 also against the fp32 oracle), the
+    causality probe at the "stablelm" shape, and the times of the kernel,
+    its plain version and SDPA. Returns the numbers."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
-    log_ptxas(kf.KERNEL, "flash_attention_kernel_sm90")
-    out = {}
-    for name, shape, dt in FLASH_SHAPES:
-        b, h, s, dh = shape
-        g = torch.Generator(device=dev)
-        g.manual_seed(s + dh)
-        q, k, v = (torch.randn(shape, generator=g, device=dev)
-                   .to(getattr(torch, dt)) for _ in range(3))
-        got = kf.flash_attention(q, k, v)
-        rtol, atol = TOL_FLASH[dt]
+    b, h, s, dh = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(s + dh)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(getattr(torch, dt)) for _ in range(3))
+    got = kf.flash_attention(q, k, v)
+    rtol, atol = TOL_FLASH[dt]
 
-        def oracle():
-            return ref.flash_attention_ref(q, k, v)
+    def oracle():
+        return ref.flash_attention_ref(q, k, v)
 
-        def tiled():
-            return ref.flash_attention_tiled_ref(q, k, v, kf.block_k(dh))
+    def tiled():
+        return ref.flash_attention_tiled_ref(q, k, v, kf.block_k(dh))
 
-        plain = tiled if dt == "bfloat16" else oracle
-        checks = [("plain", plain, atol)]
-        if plain is tiled:
-            checks.append(("fp32 oracle", oracle, atol + TOL_FLASH_ORACLE_V
-                           * float(v.float().abs().max())))
-        errs = {}
-        for what, fn, at in checks:
-            want = fn()
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            errs[what] = float(diff.max())
-            ok = bool((diff <= at + rtol * want.float().abs()).all()
-                      and torch.isfinite(got).all())
-            log(f"  flash_attention[{name}] {shape} {dt} vs {what}: "
-                f"max_abs_err={errs[what]:.3e} (tol {at:.4g} abs + "
-                f"{rtol:.4g} rel)")
-            if not ok:
-                raise AssertionError(f"flash_attention[{name}] disagrees "
-                                     f"with its {what}: {errs[what]}")
-            del want, diff
-        err = errs["plain"]
-        if name == "stablelm":
-            p = 5000                                  # mid-tile
-            k2, v2 = k.clone(), v.clone()
-            k2[:, :, p:], v2[:, :, p:] = 7.0, -5.0
-            probe = kf.flash_attention(q, k2, v2)
-            causal = bool(torch.equal(probe[:, :, :p], got[:, :, :p]))
-            moved = not torch.equal(probe[:, :, p:], got[:, :, p:])
-            log(f"  causality: K, V past {p} perturbed -> outputs before it "
-                f"bit-equal={causal}, after it changed={moved}")
-            if not (causal and moved):
-                raise AssertionError("flash_attention is not causal")
-            del k2, v2, probe
-        flops = 4 * b * h * dh * s * (s + 1) / 2
-        t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
-        t_ops = flops / (BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS)
-        nums = {
-            "shape": list(shape), "dtype": dt, "max_abs_err": err,
-            "max_abs_err_vs_fp32_oracle": errs.get("fp32 oracle"),
-            "ms": time_ms(torch, lambda: kf.flash_attention(q, k, v), 10,
-                          warmup=2),
-            "device_ms": device_kernel_ms(
-                torch, lambda: kf.flash_attention(q, k, v), 3,
-                "flash_attention_kernel"),
-            "plain_ms": time_ms(torch, plain, 2, warmup=1),
-            "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 10, warmup=2),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops,
-            "bound_bf16_989T_ms": flops / BF16_FLOPS * 1e3,
-            "bound_fp32_67T_ms": flops / FP32_FLOPS * 1e3}
-        log(f"  flash_attention[{name}]: {json.dumps(nums)}")
-        out[name] = nums
-        del q, k, v, got
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+    plain = tiled if dt == "bfloat16" else oracle
+    checks = [("plain", plain, atol)]
+    if plain is tiled:
+        checks.append(("fp32 oracle", oracle, atol + TOL_FLASH_ORACLE_V
+                       * float(v.float().abs().max())))
+    errs = {}
+    for what, fn, at in checks:
+        want = fn()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        errs[what] = float(diff.max())
+        ok = bool((diff <= at + rtol * want.float().abs()).all()
+                  and torch.isfinite(got).all())
+        log(f"  flash_attention[{name}] {shape} {dt} vs {what}: "
+            f"max_abs_err={errs[what]:.3e} (tol {at:.4g} abs + "
+            f"{rtol:.4g} rel)")
+        if not ok:
+            raise AssertionError(f"flash_attention[{name}] disagrees "
+                                 f"with its {what}: {errs[what]}")
+        del want, diff
+    err = errs["plain"]
+    if name == "stablelm":
+        p = 5000                                  # mid-tile
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, p:], v2[:, :, p:] = 7.0, -5.0
+        probe = kf.flash_attention(q, k2, v2)
+        causal = bool(torch.equal(probe[:, :, :p], got[:, :, :p]))
+        moved = not torch.equal(probe[:, :, p:], got[:, :, p:])
+        log(f"  causality: K, V past {p} perturbed -> outputs before it "
+            f"bit-equal={causal}, after it changed={moved}")
+        if not (causal and moved):
+            raise AssertionError("flash_attention is not causal")
+        del k2, v2, probe
+    flops = 4 * b * h * dh * s * (s + 1) / 2
+    t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS)
+    nums = {
+        "shape": list(shape), "dtype": dt, "max_abs_err": err,
+        "max_abs_err_vs_fp32_oracle": errs.get("fp32 oracle"),
+        "ms": time_ms(torch, lambda: kf.flash_attention(q, k, v), 10,
+                      warmup=2),
+        "device_ms": device_kernel_ms(
+            torch, lambda: kf.flash_attention(q, k, v), 3,
+            "flash_attention_kernel"),
+        "plain_ms": time_ms(torch, plain, 2, warmup=1),
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 10, warmup=2),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops,
+        "bound_bf16_989T_ms": flops / BF16_FLOPS * 1e3,
+        "bound_fp32_67T_ms": flops / FP32_FLOPS * 1e3}
+    log(f"  flash_attention[{name}]: {json.dumps(nums)}")
+    del q, k, v, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
 
 
 def lm_prefill(torch, dev, cfg) -> dict:
@@ -4243,12 +4325,15 @@ def evict_search(torch, dev, cfg) -> dict:
 
 @contextlib.contextmanager
 def plain_version_spy(calls: dict):
-    """While open, every call of the lookups', the interaction's or the
-    update's plain version (what a wrapper runs for a CPU tensor) adds one
-    to calls[its name]; the calls themselves are unchanged."""
+    """While open, every call of the lookups', the interaction's, the
+    update's or attention's plain version (what a wrapper runs for a CPU
+    tensor) adds one to calls[its name]; the calls themselves are
+    unchanged."""
     from repro_torch.kernels import ref
     names = ("embedding_bag_ref", "dedup_embedding_bag_ref",
-             "dot_interaction_ref", "fused_bag_backward_adagrad_ref")
+             "dot_interaction_ref", "fused_bag_backward_adagrad_ref",
+             "flash_attention_ref", "flash_attention_tiled_ref",
+             "flash_attention_bwd_ref")
     real = {n: getattr(ref, n) for n in names}
 
     def spy(name):
@@ -4492,6 +4577,478 @@ def suite_phase(torch, dev) -> dict:
     return paths
 
 
+def zoo_reckoning_bytes(cfg, seq: int, plain_attention: bool = False
+                        ) -> dict:
+    """Phase 16's device memory by the reckoning (bytes): the fp32
+    parameters; the largest layer's weights cast to bf16 at use; the
+    caches; the bf16 logits of every position; the largest layer's
+    transient activations (attention: q, k, v, the repeated K/V, the
+    kernel's transposed copies and its output; a Mamba-2 mixer: in_proj's
+    output, three conv-width tensors and the chunk products' fp32 and bf16
+    (h, seq, chunk) tensors; MoE: the expert slots' inputs and three (e_pad,
+    cap, f) products, and the routing's (seq * k, e) counts; MLP: three
+    (seq, f) products); with `plain_attention`, full_attention's fp32
+    scores and softmax and bf16 probabilities."""
+    from repro_torch.models.lm import (_block_specs, _pattern_moe_flags,
+                                       lm_param_specs)
+    from repro_torch.nn.mamba2 import mamba_dims
+    from repro_torch.nn.moe import _capacity
+    from repro_torch.nn.params import param_count
+    flags = _pattern_moe_flags(cfg)
+    kinds = set(zip(cfg.pattern, flags))
+    layer = max(param_count(_block_specs(cfg, kind, moe)) for kind, moe in
+                kinds)
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    trans = []
+    caches = 0
+    n_attn = cfg.pattern.count("a") * cfg.n_units
+    if n_attn:
+        trans.append(seq * dh * 2 * (h + 2 * kv + 6 * h))
+        per = 1 + 4 / dh if cfg.kv_cache_dtype == "int8" else 2
+        caches += int(n_attn * 2 * (seq + ZOO_DECODE) * kv * dh * per)
+    if "m" in cfg.pattern:
+        m = mamba_dims(cfg)
+        chunk = min(cfg.ssm_chunk, seq)
+        trans.append(2 * seq * (m["d_in_proj"] + 3 * m["conv_dim"])
+                     + 12 * m["n_heads"] * seq * chunk)
+        caches += cfg.pattern.count("m") * cfg.n_units * (
+            2 * (m["d_conv"] - 1) * m["conv_dim"]
+            + 4 * m["n_heads"] * m["headdim"] * m["d_state"])
+    if cfg.n_experts:
+        e_pad = cfg.n_experts + cfg.expert_pad
+        cap = _capacity(seq, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+        trans.append(2 * e_pad * cap * (cfg.d_model + 3 * cfg.d_ff)
+                     + 16 * seq * cfg.top_k * cfg.n_experts)
+    if cfg.d_ff and not all(flags):
+        trans.append(6 * seq * cfg.d_ff)
+    parts = {"params_fp32": 4 * param_count(lm_param_specs(cfg)),
+             "largest_layer_bf16_casts": 2 * layer,
+             "caches": caches,
+             "logits_bf16": 2 * seq * cfg.vocab_size,
+             "largest_layer_transient": max(trans)}
+    if plain_attention:
+        parts["full_attention_scores"] = 10 * h * seq * seq
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+@contextlib.contextmanager
+def attention_spy(records: list):
+    """While open, every call of the LM's attention layer appends (mode,
+    its input, its output) to `records`; the calls are unchanged."""
+    from repro_torch.nn import layers
+    real = layers.attention
+
+    def spy(p, x, cfg, positions, **kw):
+        y, cache = real(p, x, cfg, positions, **kw)
+        records.append((kw.get("mode", "train"), x.detach(), y.detach()))
+        return y, cache
+
+    layers.attention = spy
+    try:
+        yield
+    finally:
+        layers.attention = real
+
+
+def zoo_params(torch, dev, cfg) -> dict:
+    """The arch's fp32 parameters from a torch.Generator seeded
+    ZOO_PARAM_SEED on the card, their count checked."""
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.nn.params import tree_leaves
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, ZOO_PARAM_SEED, dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {n} parameters (fp32, {4 * n / 1e9:.2f} GB) drawn "
+        f"in {time.perf_counter() - t0:.2f}s")
+    if n != cfg.param_count_estimate():
+        raise AssertionError(f"{n} parameters, want "
+                             f"{cfg.param_count_estimate()}")
+    return params
+
+
+def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
+                 want_flash: int, label: str, feed=None, conv_dtype=None,
+                 profiled: bool = False) -> dict:
+    """prefill_step on `tokens` (1, S) into fresh caches of S + n_decode
+    positions (with `conv_dtype`, each mixer's bf16 conv cache swapped for
+    zeros of that dtype), then `n_decode` decode_steps, each fed the
+    previous step's argmax (greedy) or, with `feed`, feed[i]
+    (teacher-forced). Exactly
+    `want_flash` flash_attention launches and no other kernel, no plain
+    version called, finite logits of the right shape. With `profiled`, one
+    more prefill under torch.profiler (the caches are rewritten). Returns
+    the prefill's last logits and each decode step's (fp32, on the card),
+    the tokens fed, host ms, the peak and the launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models.lm import decode_step, init_caches, prefill_step
+    s = tokens.shape[1]
+    caches = init_caches(cfg, 1, s + n_decode + 1, tokens.device)
+    if conv_dtype is not None:
+        for c in caches.values():
+            if "conv" in c:
+                c["conv"] = torch.zeros_like(c["conv"], dtype=conv_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    plain: dict = {}
+    with plain_version_spy(plain):
+        t0 = time.perf_counter()
+        last, _ = prefill_step(params, {"tokens": tokens}, caches, cfg)
+        last = last.float()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok, fed, logits, decode_ms = last.argmax(-1), [], [], []
+        for i in range(n_decode):
+            if feed is not None:
+                tok = feed[i].reshape(1)
+            t0 = time.perf_counter()
+            lg, _ = decode_step(params, tok[:, None], caches, s + i, cfg)
+            lg = lg.float()
+            fed.append(int(tok))
+            tok = lg.argmax(-1)
+            int(tok)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+    counts = read_launches(KERNELS, label,
+                           ("flash_attention",) if want_flash else ())
+    others = {n: c for n, c in counts.items()
+              if c and n != "flash_attention"}
+    if counts["flash_attention"] != want_flash or others or plain:
+        raise AssertionError(f"{label}: want {want_flash} flash_attention "
+                             f"launches and no other kernel or plain "
+                             f"version: {counts}, plain {plain}")
+    for i, lg in enumerate([last] + logits):
+        if lg.shape != (1, cfg.vocab_size) or not bool(
+                torch.isfinite(lg).all()):
+            raise AssertionError(f"{label}: logits {i} of shape "
+                                 f"{tuple(lg.shape)} not finite")
+    out = {"last": last, "logits": logits, "fed": fed,
+           "prefill_host_ms": prefill_ms, "decode_host_ms": decode_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    if profiled:
+        # one more decode step at the next position, then the prefill
+        # again (rewriting the caches), each under the profiler
+        for what, fn in (
+                ("decode", lambda: decode_step(params, tok[:, None], caches,
+                                               s + n_decode, cfg)),
+                ("prefill", lambda: prefill_step(params, {"tokens": tokens},
+                                                 caches, cfg))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            events = device_events(prof)
+            busy = sum(t for _, t in events) / 1e3
+            out[f"{what}_profiled_host_ms"] = host
+            out[f"{what}_device_busy_ms"] = busy or None
+            out[f"{what}_device_launches"] = sum(
+                e.count for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU) or None
+            out[f"{what}_top_device_events_ms"] = [
+                (n[:96], t / 1e3)
+                for n, t in sorted(events, key=lambda e: -e[1])[:6]]
+        flash = sum(t for n, t in events if "flash_attention" in n) / 1e3
+        out["prefill_flash_device_ms"] = flash if busy else None
+    del caches
+    return out
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def logits_held(got, want, label: str) -> dict:
+    """`got` against `want` (1, V): relative L2 error within TOL_LM_REL_L2,
+    largest difference within TOL_LM_ABS, the same argmax."""
+    err = float((got - want).abs().max())
+    rel = rel_l2(got, want)
+    agree = int(got.argmax()) == int(want.argmax())
+    log(f"  {label}: rel_l2_err={rel:.4g} (tol {TOL_LM_REL_L2}) "
+        f"max_abs_err={err:.4g} (tol {TOL_LM_ABS}) argmax agrees={agree} "
+        f"(max |logit| {float(want.abs().max()):.4g})")
+    if not (rel <= TOL_LM_REL_L2 and err <= TOL_LM_ABS and agree):
+        raise AssertionError(f"{label}: the two paths disagree")
+    return {"rel_l2_err": rel, "max_abs_err": err, "argmax_agrees": agree}
+
+
+def zoo_summary(run: dict) -> dict:
+    """The numbers of a `zoo_generate` run worth a log line."""
+    ms = run["decode_host_ms"]
+    out = {k: run[k] for k in ("prefill_host_ms", "peak_bytes")}
+    if ms:
+        out["decode_host_ms_per_token"] = sum(ms[1:]) / max(len(ms) - 1, 1)
+        out["decode_first_host_ms"] = ms[0]
+        out["generated"] = run["fed"]
+    for what in ("prefill", "decode"):
+        for k in ("profiled_host_ms", "device_busy_ms", "device_launches",
+                  "top_device_events_ms"):
+            if f"{what}_{k}" in run:
+                out[f"{what}_{k}"] = run[f"{what}_{k}"]
+    if "prefill_flash_device_ms" in run:
+        out["prefill_flash_device_ms"] = run["prefill_flash_device_ms"]
+    return out
+
+
+def zoo_moe(torch, dev) -> dict:
+    """Phase 16a: the bf16 kernel at granite-moe-3b-a800m's prefill shape
+    against its plain version, timed; then the model at full width, bf16:
+    the prefill through the kernel (one launch a layer) and ZOO_DECODE
+    greedy decode steps, then the same prefill through full_attention
+    (attn_block_q = ZOO_PROMPT, no launch), its last logits held to the
+    kernel's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    log(f"phase 16a: flash_attention vs plain at {MOE_ARCH}'s prefill "
+        f"shape {FLASH_GRANITE_SHAPE} bfloat16")
+    flash = check_flash_shape(torch, dev, "granite_moe", FLASH_GRANITE_SHAPE,
+                              "bfloat16")
+    cfg = get_config(MOE_ARCH)
+    log(f"phase 16a: {MOE_ARCH} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_experts} (+{cfg.expert_pad} padded) experts "
+        f"top-{cfg.top_k}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, dh "
+        f"{cfg.d_head}), bf16: prefill_step on make_lm_batch(cfg, 1, "
+        f"{ZOO_PROMPT}) through the kernel, {ZOO_DECODE} greedy "
+        f"decode_steps, then the prefill through full_attention")
+    params = zoo_params(torch, dev, cfg)
+    tokens = torch.from_numpy(
+        make_lm_batch(cfg, 1, ZOO_PROMPT)["tokens"]).to(dev)
+    run = zoo_generate(torch, cfg, params, tokens, ZOO_DECODE,
+                       want_flash=cfg.n_layers, label="16a kernel prefill",
+                       profiled=True)
+    plain = zoo_generate(torch, dataclasses.replace(
+        cfg, attn_block_q=ZOO_PROMPT), params, tokens, 0, want_flash=0,
+        label="16a full_attention prefill")
+    held = logits_held(run["last"], plain["last"],
+                       "16a kernel vs full_attention, last logits")
+    nums = {"card": CARD, **zoo_summary(run), **held,
+            "plain_prefill_host_ms": plain["prefill_host_ms"],
+            "plain_peak_bytes": plain["peak_bytes"],
+            "reckoning_bytes": zoo_reckoning_bytes(cfg, ZOO_PROMPT),
+            "plain_reckoning_bytes": zoo_reckoning_bytes(
+                cfg, ZOO_PROMPT, plain_attention=True)}
+    log(f"16a numbers: {json.dumps(nums)}")
+    return {"numbers": nums, "flash": flash, "paths": {"zoo_moe_prefill": run["launches"],
+                                       "zoo_moe_plain": plain["launches"]}}
+
+
+def zoo_ssm(torch, dev) -> dict:
+    """Phase 16b: mamba2-780m at full width, bf16: prefill and ZOO_DECODE
+    greedy decode steps, no kernel launch; then, in fp32 compute, the
+    one-shot prefill's last logits against a SSM_RECUR_PREFIX-token
+    prefill and the rest decoded one token at a time, with an fp32 conv
+    cache (held within TOL_SSM_RECUR, the same argmax) and with the
+    reference's bf16 one (printed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    cfg = get_config(SSM_ARCH)
+    log(f"phase 16b: {SSM_ARCH} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}), bf16: "
+        f"prefill_step on make_lm_batch(cfg, 1, {ZOO_PROMPT}), {ZOO_DECODE} "
+        f"greedy decode_steps; then fp32: the one-shot prefill against "
+        f"{SSM_RECUR_PREFIX} tokens prefilled and "
+        f"{ZOO_PROMPT - SSM_RECUR_PREFIX} decoded")
+    params = zoo_params(torch, dev, cfg)
+    tokens = torch.from_numpy(
+        make_lm_batch(cfg, 1, ZOO_PROMPT)["tokens"]).to(dev)
+    run = zoo_generate(torch, cfg, params, tokens, ZOO_DECODE, want_flash=0,
+                       label="16b prefill and decode", profiled=True)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    one = zoo_generate(torch, f32, params, tokens, 0, want_flash=0,
+                       label="16b one-shot fp32 prefill")
+    rest = tokens[0, SSM_RECUR_PREFIX:]
+    recur = {}
+    for name, conv in (("fp32_conv_cache", torch.float32),
+                       ("bf16_conv_cache", torch.bfloat16)):
+        t0 = time.perf_counter()
+        rec = zoo_generate(torch, f32, params, tokens[:, :SSM_RECUR_PREFIX],
+                           len(rest), want_flash=0, feed=rest,
+                           conv_dtype=conv, label=f"16b recurrence, {name}")
+        got, want = rec["logits"][-1], one["last"]
+        recur[name] = {"rel_l2_err": rel_l2(got, want),
+                       "max_abs_err": float((got - want).abs().max()),
+                       "argmax_agrees": int(got.argmax()) == int(
+                           want.argmax()),
+                       "wall_s": time.perf_counter() - t0,
+                       "decode_host_ms_per_token": sum(
+                           rec["decode_host_ms"]) / len(rest)}
+        log(f"  16b recurrence ({name}) vs one-shot, last logits: "
+            f"{json.dumps(recur[name])}")
+    held = recur["fp32_conv_cache"]
+    if not (held["rel_l2_err"] <= TOL_SSM_RECUR and held["argmax_agrees"]):
+        raise AssertionError(f"16b: the recurrence disagrees with the "
+                             f"chunked scan: {held} (tol {TOL_SSM_RECUR})")
+    nums = {"card": CARD, **zoo_summary(run), "recurrence": recur,
+            "tol_rel_l2": TOL_SSM_RECUR,
+            "fp32_one_shot_prefill_host_ms": one["prefill_host_ms"],
+            "fp32_peak_bytes": one["peak_bytes"],
+            "reckoning_bytes": zoo_reckoning_bytes(cfg, ZOO_PROMPT)}
+    log(f"16b numbers: {json.dumps(nums)}")
+    return {"numbers": nums, "paths": {"zoo_ssm": run["launches"]}}
+
+
+def zoo_hybrid(torch, dev) -> dict:
+    """Phase 16c: the bf16 kernel at jamba's prefill shape (dh 128) against
+    its plain version, timed; then jamba-v0.1-52b at full width cut to one
+    8-layer unit, bf16 compute, fp32 parameters, int8 KV cache: the
+    prefill through the kernel (one launch) and ZOO_DECODE greedy decode
+    steps through the int8 cache; the prefill through full_attention; the
+    same decode through a bf16 cache. The last logits of the two prefills
+    are held as in 16a; the attention layer's output, recorded in each
+    run, is held against the other path's: the prefill within
+    TOL_ZOO_ATTN_REL_L2, every int8 decode step within TOL_INT8_REL_L2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    log(f"phase 16c: flash_attention vs plain at jamba's prefill shape "
+        f"{FLASH_DH128_SHAPE} bfloat16")
+    flash = check_flash_shape(torch, dev, "jamba_dh128", FLASH_DH128_SHAPE,
+                              "bfloat16")
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=HYBRID_LAYERS)
+    moe_layers = [i for i in range(HYBRID_LAYERS) if cfg.is_moe_layer(i)]
+    log(f"phase 16c: {HYBRID_ARCH} at full width, depth cut from 32 layers "
+        f"to one unit of {HYBRID_LAYERS} ({' '.join(cfg.pattern)}, MoE of "
+        f"{cfg.n_experts} experts top-{cfg.top_k} on layers {moe_layers}), "
+        f"d {cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, dh "
+        f"{cfg.d_head}, {cfg.kv_cache_dtype} KV cache, bf16 compute: "
+        f"prefill_step on make_lm_batch(cfg, 1, {ZOO_PROMPT}) through the "
+        f"kernel, {ZOO_DECODE} greedy decode_steps; the prefill through "
+        f"full_attention; the decode through a bf16 cache")
+    params = zoo_params(torch, dev, cfg)
+    tokens = torch.from_numpy(
+        make_lm_batch(cfg, 1, ZOO_PROMPT)["tokens"]).to(dev)
+    rec_kernel, rec_plain, rec_bf16 = [], [], []
+    with attention_spy(rec_kernel):
+        run = zoo_generate(torch, cfg, params, tokens, ZOO_DECODE,
+                           want_flash=1, label="16c kernel prefill, int8 "
+                           "decode", profiled=True)
+    with attention_spy(rec_plain):
+        plain = zoo_generate(torch, dataclasses.replace(
+            cfg, attn_block_q=ZOO_PROMPT), params, tokens, 0, want_flash=0,
+            label="16c full_attention prefill")
+    held = logits_held(run["last"], plain["last"],
+                       "16c kernel vs full_attention, last logits")
+    layer = {"prefill_input_rel_l2": rel_l2(rec_kernel[0][1],
+                                            rec_plain[0][1]),
+             "prefill_output_rel_l2": rel_l2(rec_kernel[0][2],
+                                             rec_plain[0][2]),
+             "input_mean_abs": float(rec_kernel[0][1].float().abs()
+                                     .mean()),
+             "output_mean_abs": float(rec_kernel[0][2].float().abs().mean())}
+    with attention_spy(rec_bf16):
+        bf16 = zoo_generate(torch, dataclasses.replace(
+            cfg, kv_cache_dtype="bfloat16"), params, tokens, ZOO_DECODE,
+            want_flash=1, feed=torch.tensor(run["fed"], device=dev),
+            label="16c kernel prefill, bf16-cache decode")
+    # rec_*[0] is the prefill, [1:1 + ZOO_DECODE] the decode steps (fed
+    # the same tokens in both runs); the kernel run's profiled prefill
+    # comes last
+    steps = [rel_l2(a[2], b[2]) for a, b in zip(
+        rec_kernel[1:1 + ZOO_DECODE], rec_bf16[1:1 + ZOO_DECODE])]
+    logit_steps = [rel_l2(a, b) for a, b in zip(run["logits"],
+                                                 bf16["logits"])]
+    agree = sum(int(a.argmax()) == int(b.argmax())
+                for a, b in zip(run["logits"], bf16["logits"]))
+    layer.update(int8_decode_output_rel_l2_max=max(steps),
+                 int8_decode_output_rel_l2_median=sorted(steps)[
+                     len(steps) // 2],
+                 int8_decode_logits_rel_l2_max=max(logit_steps),
+                 int8_decode_argmax_agree=agree)
+    log(f"  16c attention layer: {json.dumps(layer)} (tol prefill "
+        f"{TOL_ZOO_ATTN_REL_L2}, int8 decode {TOL_INT8_REL_L2})")
+    if len(steps) != ZOO_DECODE or not (
+            layer["prefill_output_rel_l2"] <= TOL_ZOO_ATTN_REL_L2
+            and max(steps) <= TOL_INT8_REL_L2):
+        raise AssertionError(f"16c: the attention layer disagrees: {layer}")
+    nums = {"card": CARD, "depth_cut": f"32 -> {HYBRID_LAYERS} layers",
+            **zoo_summary(run), **held, "attention_layer": layer,
+            "plain_prefill_host_ms": plain["prefill_host_ms"],
+            "plain_peak_bytes": plain["peak_bytes"],
+            "bf16_cache_decode_host_ms_per_token": sum(
+                bf16["decode_host_ms"][1:]) / max(ZOO_DECODE - 1, 1),
+            "reckoning_bytes": zoo_reckoning_bytes(cfg, ZOO_PROMPT),
+            "plain_reckoning_bytes": zoo_reckoning_bytes(
+                cfg, ZOO_PROMPT, plain_attention=True)}
+    log(f"16c numbers: {json.dumps(nums)}")
+    del rec_kernel, rec_plain, rec_bf16
+    return {"numbers": nums, "flash": flash,
+            "paths": {"zoo_hybrid_prefill": run["launches"],
+                      "zoo_hybrid_plain": plain["launches"],
+                      "zoo_hybrid_bf16_cache": bf16["launches"]}}
+
+
+def zoo_serve(torch) -> dict:
+    """Phase 16d: the LM launcher on mamba2-780m (ZOO_SERVE_ARGV: 8
+    requests over 4 slots, fp32 compute): every request gets its budget,
+    no kernel launched; each request's greedy tokens equal the same
+    request served alone by a fresh engine of as many slots."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import Request, ServeEngine
+
+    log(f"phase 16d: python -m repro_torch.launch.serve "
+        f"{' '.join(ZOO_SERVE_ARGV)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    t0 = time.perf_counter()
+    engine, text = run_cli(serve_cli.main, ZOO_SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches(KERNELS, "16d serve", ())
+    if any(counts.values()):
+        raise AssertionError(f"the LM engine launched kernels: {counts}")
+    args = serve_cli.parse_args(ZOO_SERVE_ARGV)
+    reqs = serve_cli.lm_requests(engine.cfg, args.requests, args.prompt_len,
+                                 args.new_tokens)
+    done = engine.completed
+    if sorted(done) != [r.uid for r in reqs] or not all(
+            len(v) == args.new_tokens for v in done.values()):
+        raise AssertionError(f"not every request got {args.new_tokens} "
+                             f"tokens: { {u: len(v) for u, v in done.items()} }")
+    if args.requests <= args.slots:
+        raise AssertionError("16d must reuse its slots")
+
+    def alone(req) -> list:
+        eng = ServeEngine(engine.params, engine.cfg, batch_slots=args.slots,
+                          max_len=args.max_len)
+        eng.submit(Request(uid=req.uid, prompt=req.prompt,
+                           max_new_tokens=args.new_tokens))
+        return eng.run_until_drained()[req.uid]
+
+    t0 = time.perf_counter()
+    differ = [r.uid for r in reqs if alone(r) != done[r.uid]]
+    alone_s = time.perf_counter() - t0
+    line = text.strip().splitlines()[0]
+    tok_s = float(line.split("(")[1].split(" tok/s")[0])
+    nums = {"card": CARD, "requests": args.requests, "slots": args.slots,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "tokens": sum(len(v) for v in done.values()),
+            "launcher_tok_per_s": tok_s, "wall_s": wall,
+            "engine_steps": engine.steps_run,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "differ_from_alone": differ, "alone_s": alone_s}
+    log(f"16d numbers: {json.dumps(nums)}")
+    if differ:
+        raise AssertionError(f"16d: requests served in reused slots differ "
+                             f"from the same requests alone: {differ}")
+    del engine
+    return {"numbers": nums, "paths": {"zoo_serve": counts}}
+
+
 def search_main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4540,6 +5097,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip()
     log("gpu (nvidia-smi name, power.limit):")
     log(smi)
+    global CARD
+    CARD = smi
 
     # 2. build
     t0 = time.perf_counter()
@@ -4956,8 +5515,33 @@ def main() -> int:
         numbers[name]["suite_shapes"] = res
     free_device(torch)
     paths.update(suite_phase(torch, dev))
+    free_device(torch)
 
-    # 16. the numbers, then the result
+    # 16. the MoE, SSM and hybrid LM families served at full width:
+    #     granite-moe-3b-a800m (16a), mamba2-780m (16b), jamba-v0.1-52b cut
+    #     to one unit (16c), the LM launcher on mamba2-780m with its slots
+    #     reused (16d)
+    zoo = {}
+    for key, phase in (("16a", zoo_moe), ("16b", zoo_ssm),
+                       ("16c", zoo_hybrid)):
+        res = phase(torch, dev)
+        paths.update(res["paths"])
+        zoo[key] = res
+        log_peak(torch, f"phase {key}")
+        del res
+        free_device(torch)
+    numbers["flash_attention"]["granite_moe"] = zoo["16a"]["flash"]
+    numbers["flash_attention"]["jamba_dh128"] = zoo["16c"]["flash"]
+    per_launch = {}
+    for key, n in (("16a", get_config(MOE_ARCH).n_layers), ("16c", 1)):
+        ms = zoo[key]["numbers"].get("prefill_flash_device_ms")
+        per_launch[key] = ms / n if ms else None
+    numbers["flash_attention"]["zoo_prefill_device_ms_per_launch"] = \
+        per_launch
+    paths.update(zoo_serve(torch)["paths"])
+    free_device(torch)
+
+    # 17. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -4993,7 +5577,8 @@ def main() -> int:
                 "m2_train_shape", "suite_shapes", "host_us", "fp32",
                 "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
-                "device_ms_14a_profiler")
+                "device_ms_14a_profiler", "granite_moe", "jamba_dh128",
+                "zoo_prefill_device_ms_per_launch")
                 if key in nums}})
         rows[-1]["launches_per_rank"] = {
             name: [c[k.name] for c in nums["launches_per_rank"]]

@@ -9,8 +9,8 @@ import dataclasses
 class ModelConfig:
     """One config covers the whole LM family (dense / ssm / moe / vlm /
     audio / hybrid). Unused knobs stay at their neutral defaults. The port
-    runs the dense family; the other families' knobs are kept so the
-    configs stay equal to the reference's field for field."""
+    runs the dense, MoE, SSM and hybrid families; the frontends' knobs are
+    kept so the configs stay equal to the reference's field for field."""
     name: str
     family: str                      # dense|ssm|moe|vlm|audio|hybrid
     n_layers: int
@@ -92,7 +92,7 @@ class ModelConfig:
         return global_idx % self.moe_every == self.moe_offset
 
     def param_count_estimate(self) -> int:
-        """Analytic parameter count (dense family in the port)."""
+        """Analytic parameter count (the specs' scalars)."""
         from repro_torch.models.lm import lm_param_specs
         from repro_torch.nn.params import param_count
         return param_count(lm_param_specs(self))

@@ -1,26 +1,28 @@
-"""Config registry of the port: the dense LM architectures (one module per
-arch), the paper's production DLRMs, and their reduced smoke configs of
-the same family for CPU tests. The six other LM archs of the reference
-(MoE, SSM, hybrid, VLM, audio) are named, and raise until their slice."""
+"""Config registry of the port: the dense, MoE, SSM and hybrid LM
+architectures (one module per arch), the paper's production DLRMs, and
+their reduced smoke configs of the same family for CPU tests. The
+reference's two frontend archs (VLM, audio) are named, and raise until
+their slice."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (chatglm3_6b, qwen1_5_32b, stablelm_1_6b,
+from repro_torch.configs import (chatglm3_6b, granite_moe_1b_a400m,
+                                 granite_moe_3b_a800m, jamba_v0_1_52b,
+                                 mamba2_780m, qwen1_5_32b, stablelm_1_6b,
                                  starcoder2_3b)
 from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.configs.dlrm_prod import DLRMS
 
-_ARCH_MODULES = (starcoder2_3b, stablelm_1_6b, qwen1_5_32b, chatglm3_6b)
+_ARCH_MODULES = (starcoder2_3b, stablelm_1_6b, qwen1_5_32b, chatglm3_6b,
+                 mamba2_780m, granite_moe_1b_a400m, granite_moe_3b_a800m,
+                 jamba_v0_1_52b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
                                  for m in _ARCH_MODULES}
 
-#: the reference's other LM archs, by family: each comes with its slice
-LATER: dict[str, str] = {
-    "mamba2-780m": "ssm", "granite-moe-1b-a400m": "moe",
-    "granite-moe-3b-a800m": "moe", "internvl2-26b": "vlm",
-    "musicgen-large": "audio", "jamba-v0.1-52b": "hybrid"}
+#: the reference's frontend archs, by family: they come with their slice
+LATER: dict[str, str] = {"internvl2-26b": "vlm", "musicgen-large": "audio"}
 
 ARCH_NAMES: list[str] = list(ARCHS) + list(DLRMS)
 
@@ -70,8 +72,9 @@ def get_config(name: str) -> ModelConfig | DLRMConfig:
         return DLRMS[name]
     if name in LATER:
         raise NotImplementedError(
-            f"{name} is a {LATER[name]}-family LM; the port runs the dense "
-            "family, the rest of the LM zoo comes with a later slice")
+            f"{name} is a {LATER[name]}-family LM; the port runs the dense, "
+            "MoE, SSM and hybrid families, the vision and audio frontends "
+            "come with a later slice")
     raise KeyError(f"unknown arch {name!r}; the port knows {ARCH_NAMES}")
 
 

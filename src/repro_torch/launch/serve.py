@@ -4,12 +4,16 @@ DLRM tier, by the arch's config type.
     python -m repro_torch.launch.serve --arch stablelm-1.6b --smoke \\
         --requests 8 --device cpu
     python -m repro_torch.launch.serve --arch stablelm-1.6b
+    python -m repro_torch.launch.serve --arch mamba2-780m --requests 8 \
+        --prompt-len 16 64
     python -m repro_torch.launch.serve --arch dlrm-m1 --smoke --requests 32 \\
         --device cpu
     python -m repro_torch.launch.serve --arch dlrm-m1 --cache-rows 22727272
 
-The LM mode drives `ServeEngine` with seeded random prompts and prints the
-reference's `served N requests, T tokens in ...` line. The DLRM mode
+The LM mode (any dense, MoE, SSM or hybrid arch) drives `ServeEngine`
+with seeded random prompts, of 4 to 11 tokens as the reference's unless
+`--prompt-len` says otherwise, and prints the reference's `served N
+requests, T tokens in ...` line. The DLRM mode
 replays seeded Zipf traffic through `DLRMServeEngine` and prints the same
 parseable SLO summary as the reference (`serve[dlrm]: key=value ...`).
 `--chaos` arms a seeded `FaultInjector` on the engine's `serve.fetch`
@@ -20,6 +24,7 @@ without a card it raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -31,23 +36,39 @@ from repro_torch.configs import DLRMConfig, get_config, get_smoke_config
 PARAM_SEED = 0
 
 
+def lm_requests(cfg, n: int, prompt_len: tuple[int, int],
+                new_tokens: int) -> list:
+    """The LM mode's `n` requests: seeded random prompts of lo..hi tokens
+    (numpy seed 0, the reference launcher's draws), `new_tokens` each."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.RandomState(0)
+    lo, hi = prompt_len
+    out = []
+    for uid in range(n):
+        prompt = rng.randint(0, cfg.vocab_size,
+                             size=(rng.randint(lo, hi + 1),)).astype(np.int32)
+        out.append(Request(uid=uid, prompt=prompt,
+                           max_new_tokens=new_tokens))
+    return out
+
+
 def serve_lm(cfg, args):
     """Build the LM engine on `args.device` with seeded parameters, submit
-    `args.requests` random prompts of 4..11 tokens, drain, print the
-    summary line. Returns the engine."""
+    the `lm_requests`, drain, print the summary line. Returns the
+    engine."""
     from repro_torch.models.lm import init_lm_params
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
+    if args.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     params = init_lm_params(cfg, PARAM_SEED, resolve_device(args.device))
     engine = ServeEngine(params, cfg, batch_slots=args.slots,
                          max_len=args.max_len)
-    rng = np.random.RandomState(0)
     t0 = time.time()
-    for uid in range(args.requests):
-        prompt = rng.randint(0, cfg.vocab_size,
-                             size=(rng.randint(4, 12),)).astype(np.int32)
-        engine.submit(Request(uid=uid, prompt=prompt,
-                              max_new_tokens=args.new_tokens))
+    for req in lm_requests(cfg, args.requests, args.prompt_len,
+                           args.new_tokens):
+        engine.submit(req)
     done = engine.run_until_drained()
     dt = time.time() - t0
     total_tokens = sum(len(v) for v in done.values())
@@ -122,6 +143,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, nargs=2, default=(4, 11),
+                    metavar=("LO", "HI"),
+                    help="LM mode: prompt tokens, drawn from lo..hi")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default=None,
+                    help="LM mode: compute dtype; default the config's")
     # DLRM knobs
     ap.add_argument("--batch", type=int, default=4,
                     help="examples per DLRM request")

@@ -147,7 +147,8 @@ def _lm_job(cfg, args, device):
 
 def train(cfg, args) -> TrainRun:
     """Train `cfg` (a DLRM or a dense LM) for `args.steps` steps on
-    `args.device`."""
+    `args.device`. An MoE, SSM or hybrid LM raises `NotImplementedError`
+    before anything is built."""
     from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.fault_tolerance import (FaultInjector,
@@ -155,6 +156,9 @@ def train(cfg, args) -> TrainRun:
                                                    StragglerDetector,
                                                    run_resilient_loop)
 
+    if not isinstance(cfg, DLRMConfig):
+        from repro_torch.models.lm import check_trainable
+        check_trainable(cfg)
     device = resolve_device(args.device)
     inj = None
     if args.chaos:

@@ -1,14 +1,17 @@
-"""Causal LM of the port: the dense family of the reference's unified
-decoder (GQA attention with neox / glm / no RoPE, partial rotary, optional
-QKV bias, SwiGLU or GELU MLPs, RMSNorm or LayerNorm, tied or untied head).
+"""Causal LM of the port: the reference's unified decoder for the dense,
+MoE, SSM and hybrid families (GQA attention with neox / glm / no RoPE,
+partial rotary, optional QKV bias, SwiGLU or GELU MLPs or top-k MoE,
+Mamba-2 mixers, per-period layer patterns as Jamba's, RMSNorm or
+LayerNorm, tied or untied head).
 
-Parameters keep the reference's stacked layout: one tensor per parameter
-with a leading n_units axis, so `lm_params_from_jax` copies the reference's
-tree as it is. The reference's `scan` over units is a Python loop over
-that axis. MoE, Mamba-2, hybrid patterns and the vision and audio
-frontends raise `NotImplementedError` until their slice. `lm_loss` is the
-training objective; in train mode with autograd recording, each unit runs
-under the config's `remat` (activation checkpointing).
+Parameters keep the reference's stacked layout: one block `b{i}` per
+position of the layer pattern, each tensor with a leading n_units axis,
+so `lm_params_from_jax` copies the reference's tree as it is. The
+reference's `scan` over units is a Python loop over that axis. The vision
+and audio frontends and sinusoidal positions raise `NotImplementedError`
+until their slice. `lm_loss` is the training objective; in train mode
+with autograd recording, each unit runs under the config's `remat`
+(activation checkpointing).
 
 Caches are written IN PLACE by `prefill_step` and `decode_step` (the
 reference returns updated copies); both return the caches they were given.
@@ -25,38 +28,71 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import layers as L
+from repro_torch.nn import mamba2 as M
+from repro_torch.nn import moe as MOE
 from repro_torch.nn.params import ParamSpec, init_params, stack_specs
 
 MODES = ("train", "prefill", "decode")
 REMAT = ("none", "dots", "full")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the dense slice does not run."""
-    if cfg.pattern != ("a",) or cfg.n_experts > 0 or cfg.frontend is not None \
-            or cfg.sinusoidal_pos:
+def _check_family(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet: the frontends."""
+    if cfg.frontend is not None or cfg.sinusoidal_pos:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense LM family; "
-            "MoE, Mamba-2, hybrid and the vision / audio frontends come with "
-            "a later slice")
+            f"{cfg.name} ({cfg.family}): the port runs the dense, MoE, SSM "
+            "and hybrid LM families; the vision / audio frontends and "
+            "sinusoidal positions come with a later slice")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family whose training path is not ported yet: MoE
+    (its aux loss and backward) and Mamba-2 mixers."""
+    _check_family(cfg)
+    if cfg.n_experts > 0 or "m" in cfg.pattern:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the port serves the MoE, SSM and "
+            "hybrid families; training them comes with the training slice")
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
 
 
-def lm_param_specs(cfg: ModelConfig) -> dict:
-    """ParamSpec tree: token embedding, the stacked blocks of one unit
-    ("b0"), the final norm and, when untied, the head."""
-    _check_dense(cfg)
-    v, d = cfg.vocab_size, cfg.d_model
-    block = {"ln1": L.norm_specs(d, cfg.norm_type),
-             "attn": L.attention_specs(cfg)}
+def _block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
+    specs = {"ln1": L.norm_specs(cfg.d_model, cfg.norm_type)}
+    if kind == "a":
+        specs["attn"] = L.attention_specs(cfg)
+    elif kind == "m":
+        specs["mamba"] = M.mamba_specs(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.d_ff > 0:
-        block["ln2"] = L.norm_specs(d, cfg.norm_type)
-        block["ffn"] = L.mlp_specs(cfg)
+        specs["ln2"] = L.norm_specs(cfg.d_model, cfg.norm_type)
+        specs["ffn"] = MOE.moe_specs(cfg) if is_moe else L.mlp_specs(cfg)
+    return specs
+
+
+def _pattern_moe_flags(cfg: ModelConfig) -> tuple[bool, ...]:
+    """MoE-ness per pattern position, the same in every unit."""
+    period = len(cfg.pattern)
+    if cfg.n_experts > 0 and period % cfg.moe_every:
+        raise ValueError(f"{cfg.name}: a pattern period of {period} is not "
+                         f"a multiple of moe_every={cfg.moe_every}")
+    return tuple(cfg.is_moe_layer(i) for i in range(period))
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    """ParamSpec tree: token embedding, one stacked block per pattern
+    position ("b0", "b1", ...), the final norm and, when untied, the
+    head."""
+    _check_family(cfg)
+    v, d = cfg.vocab_size, cfg.d_model
+    flags = _pattern_moe_flags(cfg)
     p = {"embed": {"tok": ParamSpec((v, d), init="normal", scale=0.02)},
-         "blocks": {"b0": stack_specs(block, cfg.n_units)},
+         "blocks": {f"b{i}": stack_specs(_block_specs(cfg, kind, flags[i]),
+                                         cfg.n_units)
+                    for i, kind in enumerate(cfg.pattern)},
          "final_norm": L.norm_specs(d, cfg.norm_type)}
     if not cfg.tie_embeddings:
         p["head"] = {"w": ParamSpec((d, v), init="fan_in")}
@@ -106,18 +142,48 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, mode: str, cache: dict | None,
-                 cache_index) -> torch.Tensor:
+def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 is_moe: bool, positions: torch.Tensor, mode: str,
+                 cache: dict | None, cache_index
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer: norm, attention or Mamba-2 mixer, residual; then (if
+    d_ff > 0) norm, MLP or MoE, residual. Returns (x, the MoE aux loss, or
+    None without a router)."""
     dtype = _dtype(cfg)
     h = L.apply_norm(bp["ln1"], x, cfg.norm_type, dtype=dtype)
-    h, _ = L.attention(bp["attn"], h, cfg, positions, mode=mode, cache=cache,
-                       cache_index=cache_index, dtype=dtype)
+    if kind == "a":
+        h, _ = L.attention(bp["attn"], h, cfg, positions, mode=mode,
+                           cache=cache, cache_index=cache_index, dtype=dtype)
+    else:
+        h, _ = M.mamba_block(bp["mamba"], h, cfg, mode=mode, cache=cache,
+                             dtype=dtype)
     x = x + h
+    aux = None
     if cfg.d_ff > 0:
         h = L.apply_norm(bp["ln2"], x, cfg.norm_type, dtype=dtype)
-        x = x + L.mlp(bp["ffn"], h, cfg, dtype=dtype)
-    return x
+        if is_moe:
+            h, aux = MOE.moe(bp["ffn"], h, cfg, dtype=dtype)
+        else:
+            h = L.mlp(bp["ffn"], h, cfg, dtype=dtype)
+        x = x + h
+    return x, aux
+
+
+def _apply_unit(unit: dict, x: torch.Tensor, aux: torch.Tensor,
+                cfg: ModelConfig, positions: torch.Tensor, mode: str,
+                caches: dict | None, cache_index
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blocks of one unit in pattern order, the MoE blocks' aux losses
+    added to `aux`."""
+    flags = _pattern_moe_flags(cfg)
+    for i, kind in enumerate(cfg.pattern):
+        name = f"b{i}"
+        x, a = _apply_block(unit[name], x, cfg, kind, flags[i], positions,
+                            mode, None if caches is None else caches[name],
+                            cache_index)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _decode_index(cache_index, b: int, device,
@@ -131,7 +197,8 @@ def _decode_index(cache_index, b: int, device,
     vector (its scatter skips it); the port refuses both, since either
     would silently serve a token from the wrong cache row, and on the card
     an out-of-range vector entry would trip a device-side assert that ends
-    the process's CUDA context."""
+    the process's CUDA context. An attention-free model's caches hold no
+    positions, and the range is the max_len they were made for."""
     idx = cache_index if isinstance(cache_index, torch.Tensor) \
         else torch.as_tensor(np.asarray(cache_index))
     if idx.dim() != 0 and idx.shape != (b,):
@@ -183,6 +250,20 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return [{k: sub[u] for k, sub in subs.items()} for u in range(n)]
 
 
+def _window(caches: dict, cfg: ModelConfig) -> int:
+    """The caches' positions: an attention block's KV length, else the
+    max_len `init_caches` was given (an attention-free model)."""
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "a":
+            return caches[f"b{i}"]["k"].shape[2]
+    max_len = getattr(caches, "max_len", None)
+    if max_len is None:
+        raise ValueError(f"{cfg.name} has no KV cache to bound a decode "
+                         "position: pass the caches of init_caches, which "
+                         "carry their max_len")
+    return max_len
+
+
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
                mode: str = "train", caches: dict | None = None,
                cache_index=None
@@ -191,10 +272,12 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
 
     train: with autograd recording, each unit runs under `cfg.remat`
     (`_run_unit`); `lm_loss` differentiates it. prefill: writes the
-    prompt's K/V into `caches` at offset 0, in place. decode: one token per
-    sequence at `cache_index` (int or (B,)), written in place. aux_loss is
-    0: the dense family has no router."""
-    _check_dense(cfg)
+    prompt's K/V at offset 0 and each mixer's conv tail and final state
+    into `caches`, in place. decode: one token per sequence at
+    `cache_index` (int or (B,)), written in place. aux_loss: the MoE
+    layers' load-balancing losses summed over blocks in order (fp32, 0
+    without experts)."""
+    _check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if cfg.remat not in REMAT:
@@ -207,20 +290,22 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
         if cache_index is None:
             raise ValueError("decode needs a cache_index")
         b = len(batch["tokens"])
-        index = _decode_index(cache_index, b, dev,
-                              caches["b0"]["k"].shape[2])
+        index = _decode_index(cache_index, b, dev, _window(caches, cfg))
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
     x, positions = embed_input(params, batch, cfg, positions)
-    units = _unstack(params["blocks"]["b0"], cfg.n_units)
+    units = {name: _unstack(tree, cfg.n_units)
+             for name, tree in params["blocks"].items()}
     remat = cfg.remat if mode == "train" and torch.is_grad_enabled() \
         else "none"
-    for u in range(cfg.n_units):
-        unit_cache = None if caches is None else \
-            {k: t[u] for k, t in caches["b0"].items()}
-        x = _run_unit(remat, _apply_block, units[u], x, cfg, positions,
-                      mode, unit_cache, index)
     aux = torch.zeros((), device=dev)
+    for u in range(cfg.n_units):
+        unit_caches = None if caches is None else \
+            {name: {k: t[u] for k, t in caches[name].items()}
+             for name in units}
+        x, aux = _run_unit(remat, _apply_unit,
+                           {name: sub[u] for name, sub in units.items()},
+                           x, aux, cfg, positions, mode, unit_caches, index)
     return lm_logits(params, x, cfg), aux, caches
 
 
@@ -259,17 +344,37 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
+class Caches(dict):
+    """The stacked caches of `init_caches`, by block name, and the number
+    of positions they hold (`max_len`), which bounds a decode position
+    where no block has a KV cache."""
+
+    def __init__(self, blocks: dict, max_len: int):
+        super().__init__(blocks)
+        self.max_len = max_len
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device: str | torch.device | None = None) -> dict:
-    """Zeroed KV caches, stacked: {"b0": {"k", "v" (+ "k_scale", "v_scale"
-    for int8)}} of (n_units, batch, max_len, n_kv, d_head) on `device`
-    (default cuda). bf16 whatever the compute dtype, as the reference's."""
-    _check_dense(cfg)
-    unit = L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
-                           torch.bfloat16, cfg.kv_cache_dtype == "int8",
-                           resolve_device(device))
-    return {"b0": {k: t.new_zeros((cfg.n_units,) + t.shape)
-                   for k, t in unit.items()}}
+                device: str | torch.device | None = None) -> Caches:
+    """Zeroed caches, stacked along a leading n_units axis, one per pattern
+    position on `device` (default cuda): an attention block's {"k", "v"
+    (+ "k_scale", "v_scale" for int8)} of (n_units, batch, max_len, n_kv,
+    d_head), bf16 whatever the compute dtype; a mixer's {"conv" (n_units,
+    batch, k-1, conv_dim) bf16, "ssm" (n_units, batch, h, p, n) fp32}, as
+    the reference's."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    out = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "a":
+            unit = L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
+                                   torch.bfloat16,
+                                   cfg.kv_cache_dtype == "int8", dev)
+        else:
+            unit = M.init_mamba_cache(batch, cfg, dev)
+        out[f"b{i}"] = {k: t.new_zeros((cfg.n_units,) + t.shape)
+                        for k, t in unit.items()}
+    return Caches(out, max_len)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,

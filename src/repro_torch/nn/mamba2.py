@@ -1,0 +1,254 @@
+"""Mamba-2 (SSD, state-space duality) mixer, the port of the reference's
+`nn/mamba2.py` as torch ops: chunked-parallel for train and prefill, an
+O(1)-state recurrence for decode (arXiv:2405.21060's minimal SSD).
+
+Within a chunk the output is a masked (semiseparable) product; across
+chunks a loop over the chunks carries the (heads, headdim, state) tensor.
+The decay math stays in fp32. The products over the state axis are done
+once per B/C group and shared by the group's heads, where the reference
+repeats B and C to every head first: the same sums.
+
+Caches are written IN PLACE, as the port's KV caches: {"conv" (b, k-1,
+conv_dim), the last k-1 conv inputs, bf16; "ssm" (b, h, p, n) fp32}.
+Prefill stores its final scan state into the fp32 "ssm" buffer; the
+reference returns the scan's own state, which is bf16 under bf16 compute
+and then stays bf16 through its decode steps.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.nn.layers import _silu
+from repro_torch.nn.params import ParamSpec
+
+
+def mamba_dims(cfg) -> dict[str, int]:
+    """The mixer's widths: in_proj gives z (d_inner), x (d_inner), B (g*n),
+    C (g*n), dt (h); the conv runs over x, B and C (conv_dim)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_headdim
+    return {
+        "d_inner": d_inner,
+        "n_heads": n_heads,
+        "headdim": cfg.ssm_headdim,
+        "d_state": cfg.ssm_state,
+        "n_groups": cfg.ssm_ngroups,
+        "d_conv": cfg.ssm_conv,
+        "d_in_proj": 2 * d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        + n_heads,
+        "conv_dim": d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state,
+    }
+
+
+def mamba_specs(cfg) -> dict[str, ParamSpec]:
+    """ParamSpecs of one mixer (dt_bias softplus^-1(1), A_log 0, D 1)."""
+    d = cfg.d_model
+    m = mamba_dims(cfg)
+    out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "in_proj": ParamSpec((d, m["d_in_proj"]), init="fan_in"),
+        "conv_w": ParamSpec((m["d_conv"], m["conv_dim"]), init="fan_in",
+                            fan_axis=0),
+        "conv_b": ParamSpec((m["conv_dim"],), init="zeros"),
+        "dt_bias": ParamSpec((m["n_heads"],), init="constant",
+                             scale=math.log(math.e - 1)),
+        "A_log": ParamSpec((m["n_heads"],), init="constant", scale=0.0),
+        "D": ParamSpec((m["n_heads"],), init="ones"),
+        "norm_scale": ParamSpec((m["d_inner"],), init="ones"),
+        "out_proj": ParamSpec((m["d_inner"], d), init="fan_in",
+                              scale=out_scale),
+    }
+
+
+def _segsum(logdec: torch.Tensor) -> torch.Tensor:
+    """logdec (..., l) -> (..., l, l): L[i, j] = sum(logdec[j+1 .. i]) for
+    j <= i, -inf above the diagonal (exp gives exactly 0 there)."""
+    ln = logdec.shape[-1]
+    cs = logdec.cumsum(-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(ln, ln, dtype=torch.bool, device=logdec.device).tril()
+    return diff.masked_fill_(~mask, -math.inf)
+
+
+def _by_group(t: torch.Tensor, g: int) -> torch.Tensor:
+    """(..., h, x, y) -> (..., g, rep * x, y) for heads h = g * rep, head
+    j*rep + r serving group j (`jnp.repeat` order)."""
+    *lead, h, a, c = t.shape
+    return t.reshape(*lead, g, h // g * a, c)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """SSD scan. x: (b, s, h, p); dt: (b, s, h) fp32; A: (h,) fp32,
+    negative; B, C: (b, s, g, n) with h % g == 0. Returns (y (b, s, h, p)
+    in x's dtype, final state (b, h, p, n) in x's dtype).
+
+    s must be a multiple of `chunk` (ValueError otherwise, where the
+    reference asserts)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[-2], B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"a sequence of {s} does not split into chunks of "
+                         f"{chunk}")
+    nc, rep, dtype = s // chunk, h // g, x.dtype
+
+    # fold dt into x; the per-step log decay stays fp32
+    xdt = x * dt.to(dtype)[..., None]                        # (b, s, h, p)
+    logdec = dt * A                                           # (b, s, h)
+    xc = xdt.reshape(b, nc, chunk, h, p)
+    dc = logdec.reshape(b, nc, chunk, h).transpose(2, 3)      # (b, c, h, l)
+    Bg = B.reshape(b, nc, chunk, g, n).transpose(2, 3)        # (b, c, g, l, n)
+    Cg = C.reshape(b, nc, chunk, g, n).transpose(2, 3)
+
+    # 1. intra-chunk (diagonal blocks): Y = (C B^T o L) X
+    L = torch.exp(_segsum(dc))                                # (b,c,h,l,l)
+    scores = Cg @ Bg.transpose(-1, -2)                        # (b,c,g,l,m)
+    masked = (scores[:, :, :, None] * L.to(scores.dtype).unflatten(
+        2, (g, rep))).flatten(2, 3)                           # (b,c,h,l,m)
+    del L
+    y_diag = masked @ xc.permute(0, 1, 3, 2, 4)               # (b,c,h,l,p)
+    del masked
+
+    # 2. chunk final states: S_c = sum_m decay_to_end[m] B_m x_m^T
+    dcum = dc.cumsum(-1)                                      # (b, c, h, l)
+    dec_to_end = torch.exp(dcum[..., -1:] - dcum)
+    xw = xc.permute(0, 1, 3, 4, 2) * dec_to_end.to(dtype)[:, :, :, None]
+    states = (_by_group(xw, g) @ Bg).reshape(b, nc, h, p, n)  # (b,c,h,p,n)
+
+    # 3. inter-chunk recurrence, one chunk at a time
+    chunk_decay = torch.exp(dcum[..., -1])                    # (b, c, h)
+    st = x.new_zeros(b, h, p, n)
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, c, :, None, None].to(dtype) + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                    # (b,c,h,p,n)
+
+    # 4. inter-chunk output: Y_off = C_l . (decay_from_start[l] S_{c-1})
+    dec_from_start = torch.exp(dcum).to(dtype)                # (b, c, h, l)
+    y_off = (Cg @ _by_group(prev_states, g).transpose(-1, -2))  # (b,c,g,l,rp)
+    y_off = y_off.unflatten(-1, (rep, p)).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(b, nc, chunk, h, p)
+    y_off = y_off * dec_from_start.transpose(2, 3)[..., None]
+    y = y_diag.transpose(2, 3) + y_off                        # (b,c,l,h,p)
+    return y.reshape(b, s, h, p), st
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One recurrent step. state: (b, h, p, n); x_t: (b, h, p); dt_t: (b,
+    h) fp32; B_t, C_t: (b, g, n). Returns (y_t (b, h, p), new_state in
+    state's dtype)."""
+    h, g = x_t.shape[1], B_t.shape[1]
+    Bh = B_t.repeat_interleave(h // g, dim=1)                 # (b, h, n)
+    Ch = C_t.repeat_interleave(h // g, dim=1)
+    dec = torch.exp(dt_t * A)                                 # (b, h)
+    upd = (x_t * dt_t[..., None])[..., None] * Bh[:, :, None, :]
+    new_state = state * dec[..., None, None].to(state.dtype) + \
+        upd.to(state.dtype)
+    y = (new_state @ Ch.to(state.dtype)[..., None])[..., 0]
+    return y, new_state
+
+
+def _causal_conv_train(xBC, w, bias):
+    """xBC: (b, s, c); w: (k, c) depthwise causal conv, tap by tap."""
+    k, s = w.shape[0], xBC.shape[1]
+    pad = torch.nn.functional.pad(xBC, (0, 0, k - 1, 0))
+    out = torch.zeros_like(xBC)
+    for i in range(k):
+        out = out + pad[:, i:i + s] * w[i]
+    return out + bias
+
+
+def _split_in_proj(zxbcdt, m):
+    """z, xBC, dt of the in_proj output."""
+    di, cd = m["d_inner"], m["conv_dim"]
+    return zxbcdt[..., :di], zxbcdt[..., di:di + cd], zxbcdt[..., di + cd:]
+
+
+def _split_conv(xBC_c, m):
+    """x as (b, s, h, p), B and C as (b, s, g, n) of the conv output."""
+    b, s, _ = xBC_c.shape
+    di, gn = m["d_inner"], m["n_groups"] * m["d_state"]
+    xs = xBC_c[..., :di].reshape(b, s, m["n_heads"], m["headdim"])
+    Bm = xBC_c[..., di:di + gn].reshape(b, s, m["n_groups"], m["d_state"])
+    Cm = xBC_c[..., di + gn:].reshape(b, s, m["n_groups"], m["d_state"])
+    return xs, Bm, Cm
+
+
+MODES = ("train", "prefill", "decode")
+
+
+@functools.lru_cache(maxsize=None)
+def _zero(device: torch.device) -> torch.Tensor:
+    """A 0-d fp32 zero on `device`, made once: softplus's second operand."""
+    return torch.zeros((), device=device)
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
+                cache: dict | None = None,
+                dtype: torch.dtype = torch.bfloat16
+                ) -> tuple[torch.Tensor, dict | None]:
+    """Mamba-2 mixer, x: (b, s, d) -> ((b, s, d) in dtype, cache).
+
+    train: the chunked scan. prefill: the same, then the last k-1 conv
+    inputs and the final state written into `cache`. decode (s == 1): the
+    conv over the cached inputs and one recurrent step, `cache` updated.
+    Both write in place and return the cache they were given."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mamba mode {mode!r}; one of {MODES}")
+    m = mamba_dims(cfg)
+    b, s, _ = x.shape
+    zxbcdt = x.to(dtype) @ p["in_proj"].to(dtype)
+    z, xBC, dt = _split_in_proj(zxbcdt, m)
+    A = -torch.exp(p["A_log"].float())                        # (h,)
+    dt = torch.logaddexp(dt.float() + p["dt_bias"].float(),
+                         _zero(x.device))                     # softplus
+    conv_w = p["conv_w"].to(dtype)
+    conv_b = p["conv_b"].to(dtype)
+
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError("mamba decode takes one token and a cache")
+        hist = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)], 1)
+        xBC_c = _silu((hist * conv_w[None]).sum(1, keepdim=True) + conv_b)
+        cache["conv"].copy_(hist[:, 1:])
+        xs, Bm, Cm = _split_conv(xBC_c, m)
+        y_t, new_ssm = ssd_decode_step(cache["ssm"], xs[:, 0], dt[:, 0], A,
+                                       Bm[:, 0], Cm[:, 0])
+        cache["ssm"].copy_(new_ssm)
+        y = y_t[:, None]                                      # (b, 1, h, p)
+    else:
+        xBC_c = _silu(_causal_conv_train(xBC, conv_w, conv_b))
+        xs, Bm, Cm = _split_conv(xBC_c, m)
+        y, final_state = ssd_chunked(xs, dt, A, Bm, Cm,
+                                     chunk=min(cfg.ssm_chunk, s))
+        if mode == "prefill":
+            if cache is None:
+                raise ValueError("mamba prefill needs a cache")
+            k1 = m["d_conv"] - 1
+            tail = xBC[:, -k1:]
+            cache["conv"].zero_()
+            cache["conv"][:, k1 - tail.shape[1]:] = tail
+            cache["ssm"].copy_(final_state)
+
+    # skip connection D, gate, norm, out projection
+    y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(b, s, m["d_inner"])
+    y = y * _silu(z.to(y.dtype))
+    yf = y.float()
+    var = yf.square().mean(-1, keepdim=True)
+    y = (yf * torch.rsqrt(var + 1e-5) * p["norm_scale"].float()).to(dtype)
+    return y @ p["out_proj"].to(dtype), cache
+
+
+def init_mamba_cache(batch: int, cfg, device=None) -> dict:
+    """Zeroed cache of one mixer, as the reference's: the conv inputs in
+    bf16, the state in fp32. The decode path rounds each conv input to
+    the cache's dtype, whatever that is."""
+    m = mamba_dims(cfg)
+    return {"conv": torch.zeros(batch, m["d_conv"] - 1, m["conv_dim"],
+                                dtype=torch.bfloat16, device=device),
+            "ssm": torch.zeros(batch, m["n_heads"], m["headdim"],
+                               m["d_state"], device=device)}

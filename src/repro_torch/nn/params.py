@@ -1,9 +1,10 @@
 """ParamSpec trees: declare each parameter's shape and init rule once, then
 initialise the whole tree on a device from one seeded `torch.Generator`.
 
-The init rules are the reference's (`normal`, `fan_in`, `zeros`, `ones`); the random
-numbers are torch's, not `jax.random`'s, so tests that compare the two
-packages copy the reference's parameters across (`repro_torch.convert`).
+The init rules are the reference's (`normal`, `fan_in`, `zeros`, `ones`,
+`constant`); the random numbers are torch's, not `jax.random`'s, so tests
+that compare the two packages copy the reference's parameters across
+(`repro_torch.convert`).
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ class ParamSpec:
     """Declarative description of one parameter tensor."""
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "fan_in"          # fan_in | normal | zeros | ones
-    scale: float = 1.0            # stddev multiplier
+    init: str = "fan_in"          # fan_in | normal | zeros | ones | constant
+    scale: float = 1.0            # stddev multiplier / constant value
     fan_axis: int = -2            # which axis is fan-in for "fan_in" init
 
 
@@ -29,6 +30,9 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "constant":
+        return torch.full(spec.shape, spec.scale, dtype=spec.dtype,
+                          device=device)
     if spec.init == "normal":
         std = spec.scale
     elif spec.init == "fan_in":

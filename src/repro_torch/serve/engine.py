@@ -2,10 +2,16 @@
 decode slots) and batched CTR inference over the read-only cached
 embedding tier.
 
-The LM engine keeps a fixed-batch KV cache, admits queued requests into
-free slots, decodes all active slots each step, and retires sequences that
-hit EOS or their token budget, as the reference's. It runs eagerly (the
-reference jits its decode step); the KV cache is written in place.
+The LM engine keeps fixed-batch caches, admits queued requests into free
+slots, decodes all active slots each step, and retires sequences that hit
+EOS or their token budget, as the reference's. It runs eagerly (the
+reference jits its decode step); the caches are written in place.
+
+A slot's recurrent state (each Mamba-2 mixer's conv inputs and SSM state)
+is zeroed when a request takes the slot. The reference does not: a
+request admitted into a reused slot starts from the previous request's
+state, advanced by the padding tokens fed to the slot while it sat idle.
+A KV cache needs no reset: its rows are written before they are read.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dlrm import dlrm_forward_dense
-from repro_torch.models.lm import decode_step, init_caches
+from repro_torch.models.lm import Caches, decode_step, init_caches
 
 
 @dataclasses.dataclass
@@ -92,12 +98,14 @@ class ServeEngine:
             if self.slot_req[slot] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
-            # slot-local prefill: the prompt through decode steps on the
-            # slot's own cache rows, written in place, so the other slots'
-            # caches are never touched. The LAST prompt token is left to
-            # the first `step()`, which feeds it at position len-1 and
-            # samples the first generated token from its logits.
+            # a fresh recurrent state, then the slot-local prefill: the
+            # prompt through decode steps on the slot's own cache rows,
+            # written in place, so the other slots' caches are never
+            # touched. The LAST prompt token is left to the first
+            # `step()`, which feeds it at position len-1 and samples the
+            # first generated token from its logits.
             caches = _slot_caches(self.caches, slot)
+            _reset_recurrent(caches)
             for t, tok in enumerate(req.prompt[:-1]):
                 tok_arr = torch.full((1, 1), int(tok), dtype=torch.long,
                                      device=self.device)
@@ -163,13 +171,21 @@ class ServeEngine:
         return self.completed
 
 
-def _slot_caches(caches: dict, slot: int) -> dict:
+def _slot_caches(caches: Caches, slot: int) -> Caches:
     """Views of `slot`'s rows of the stacked caches (batch is axis 1): a
     decode step on them writes that slot's cache in place and nothing
     else. The reference decodes every slot and keeps `slot`'s rows of the
     result (its `_merge_slot`); here there is nothing to merge."""
-    return {name: {k: t[:, slot:slot + 1] for k, t in unit.items()}
-            for name, unit in caches.items()}
+    return Caches({name: {k: t[:, slot:slot + 1] for k, t in unit.items()}
+                   for name, unit in caches.items()}, caches.max_len)
+
+
+def _reset_recurrent(caches: dict) -> None:
+    """Zero every Mamba-2 mixer's conv inputs and SSM state in `caches`."""
+    for unit in caches.values():
+        if "ssm" in unit:
+            unit["conv"].zero_()
+            unit["ssm"].zero_()
 
 
 def dlrm_probs(dense_params: dict, cfg, cc, table: torch.Tensor,

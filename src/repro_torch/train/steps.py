@@ -62,7 +62,7 @@ from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              plan_from_batch,
                                              split_plan_by_owner,
                                              split_plan_by_ranges)
-from repro_torch.models.lm import lm_loss
+from repro_torch.models.lm import check_trainable, lm_loss
 from repro_torch.nn.params import init_params, tree_leaves, tree_map
 from repro_torch.optim.optimizers import Optimizer
 
@@ -749,7 +749,9 @@ def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
     reference does before its cross-shard reduction. The parameters are
     not marked as requiring gradients: the step differentiates detached
     views of them, and an in-place optimizer (`adamw`) updates the
-    tensors it was given."""
+    tensors it was given. MoE, SSM and hybrid configs raise
+    `NotImplementedError` (`models.lm.check_trainable`)."""
+    check_trainable(cfg)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_dtype not in ("float32", "bfloat16"):

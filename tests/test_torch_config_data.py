@@ -128,7 +128,8 @@ def test_lm_registry_and_shapes_equal():
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import LM_SHAPES, shapes_for
     assert sorted(ARCHS) == sorted(n for n, c in JARCHS.items()
-                                   if c.family == "dense")
+                                   if c.family in ("dense", "moe", "ssm",
+                                                   "hybrid"))
     assert {k: dataclasses.astuple(v) for k, v in LM_SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in JSHAPES.items()}
     for name in LM_NAMES + ["mamba2-780m", "dlrm-m1"]:

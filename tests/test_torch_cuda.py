@@ -2701,3 +2701,119 @@ def test_multihost_fill_slabs_on_the_card_equals_the_cpu(dev):
     assert torch.equal(want[2], base[2])       # a host with no entries
     with pytest.raises(NotImplementedError, match="later slice"):
         build_cached_train_step(cfg, mc, adagrad(0.01), mesh=object())
+
+
+def _zoo_cfg(name, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(name), **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_prefill_through_the_kernel_matches_plain_attention(dev, dtype):
+    """granite-moe-3b-a800m's smoke config widened to dh 64 with GQA 8/4
+    (4 real and 8 padded experts), 512 tokens: prefill_step through the
+    flash-attention kernel (one launch a layer) against the same prefill
+    with attn_block_q = 512 (full_attention, no launch), and against the
+    CPU's. Last logits: fp32 within a relative L2 error of 1e-4 (the
+    kernel's fp32 attention differs from the scores' softmax in summation
+    order only); bf16 within 5e-2, chip_smoke's 9c bound (the two paths
+    round at other places), and the same argmax."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import lm
+    cfg = _zoo_cfg("granite-moe-3b-a800m", compute_dtype=dtype, d_model=512,
+                   n_heads=8, n_kv_heads=4, d_head=64, attn_block_q=128,
+                   attn_block_k=128)
+    plain_cfg = _zoo_cfg("granite-moe-3b-a800m", compute_dtype=dtype,
+                         d_model=512, n_heads=8, n_kv_heads=4, d_head=64,
+                         attn_block_q=512, attn_block_k=512)
+    params = lm.init_lm_params(cfg, 0, device=dev)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(1, 512))).to(dev)
+    out = {}
+    for name, c, d in (("kernel", cfg, dev), ("plain", plain_cfg, dev),
+                       ("cpu", plain_cfg, torch.device("cpu"))):
+        p = params if d == dev else _tree_to(params, d)
+        caches = lm.init_caches(c, 1, 520, device=d)
+        flash_attention.KERNEL.launches = 0
+        last, _ = lm.prefill_step(p, {"tokens": toks.to(d)}, caches, c)
+        want = cfg.n_layers if name == "kernel" else 0
+        assert flash_attention.KERNEL.launches == want, name
+        out[name] = last.float().cpu()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for other in ("plain", "cpu"):
+        rel = float((out["kernel"] - out[other]).norm() / out[other].norm())
+        assert rel < tol, (other, rel)
+        assert int(out["kernel"].argmax()) == int(out[other].argmax())
+
+
+def _tree_to(tree, device):
+    from repro_torch.nn.params import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _fp32_conv(caches):
+    """`caches` with each mixer's bf16 conv cache swapped for fp32 zeros of
+    its shape (the decode rounds each conv input to the cache's dtype)."""
+    for c in caches.values():
+        if "conv" in c:
+            c["conv"] = torch.zeros_like(c["conv"], dtype=torch.float32)
+    return caches
+
+
+def test_mamba2_recurrence_matches_the_chunked_scan_on_the_card(dev):
+    """mamba2-780m's smoke config widened to d_model 256, state 64, chunk
+    64 and 8 layers, fp32 compute with an fp32 conv cache: prefill 448
+    tokens, then decode 64 one at a time; the last logits against the
+    one-shot 512-token prefill's within a relative L2 error of 1e-4 (the
+    same sums in another order; 48 layers of the bf16 conv cache would
+    move them by tenths), and the card's one-shot against the CPU's within
+    1e-4. No kernel is launched."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import lm
+    cfg = _zoo_cfg("mamba2-780m", compute_dtype="float32", d_model=256,
+                   ssm_state=64, ssm_chunk=64, n_layers=8)
+    params = lm.init_lm_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, size=(1, 512)))
+    for k in KERNELS:
+        k.launches = 0
+    one = {}
+    for d in (torch.device("cpu"), dev):
+        caches = _fp32_conv(lm.init_caches(cfg, 1, 520, device=d))
+        one[d.type], _ = lm.prefill_step(_tree_to(params, d),
+                                         {"tokens": toks.to(d)}, caches, cfg)
+    p = _tree_to(params, dev)
+    caches = _fp32_conv(lm.init_caches(cfg, 1, 520, device=dev))
+    lm.prefill_step(p, {"tokens": toks[:, :448].to(dev)}, caches, cfg)
+    for t in range(448, 512):
+        last, _ = lm.decode_step(p, toks[:, t:t + 1].to(dev), caches, t, cfg)
+    assert all(k.launches == 0 for k in KERNELS)
+    want = one["cuda"].cpu()
+    assert float((last.cpu() - want).norm() / want.norm()) < 1e-4
+    assert float((want - one["cpu"]).norm() / one["cpu"].norm()) < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-v0.1-52b"])
+def test_engine_resets_a_reused_slots_state_on_the_card(dev, arch):
+    """2 slots, 5 requests, fp32 compute on the card: every slot is reused
+    and each request's greedy tokens equal the same request served alone
+    by a fresh one-slot engine (the reset of a slot's Mamba-2 state when
+    a request takes it)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine
+    cfg = _zoo_cfg(arch, compute_dtype="float32")
+    params = lm.init_lm_params(cfg, 11, device=dev)
+    rng = np.random.RandomState(10)
+    reqs = [(rng.randint(0, 256, size=(rng.randint(3, 13),)).astype(
+        np.int32), int(rng.randint(4, 8))) for _ in range(5)]
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=32)
+    assert eng.caches["b0"]["ssm"].device.type == "cuda"
+    for uid, (prompt, new) in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    got = eng.run_until_drained(max_steps=200)
+    for uid, (prompt, new) in enumerate(reqs):
+        alone = ServeEngine(params, cfg, batch_slots=1, max_len=32)
+        alone.submit(Request(uid=0, prompt=prompt, max_new_tokens=new))
+        assert got[uid] == alone.run_until_drained(max_steps=100)[0], uid

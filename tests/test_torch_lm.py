@@ -128,9 +128,7 @@ def test_init_lm_params_draws_the_spec_scales():
             lm_params_from_jax({"w": np.zeros(2)})
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "granite-moe-1b-a400m",
-                                  "jamba-v0.1-52b", "internvl2-26b",
-                                  "musicgen-large"])
+@pytest.mark.parametrize("name", ["internvl2-26b", "musicgen-large"])
 def test_other_families_name_the_later_slice(name):
     with pytest.raises(NotImplementedError, match="later slice"):
         get_config(name)

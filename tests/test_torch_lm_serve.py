@@ -1,5 +1,6 @@
 """The port's LM slot engine (`serve.engine.ServeEngine`) and the LM mode of
-its serving launcher, at the smoke size of stablelm-1.6b on the CPU.
+its serving launcher, at the smoke size of stablelm-1.6b (and of the MoE,
+SSM and hybrid archs where named) on the CPU.
 
 The reference's five engine tests (tests/test_lm_behaviour.py) ported to
 the port, on the port's own parameters: greedy tokens through the engine
@@ -26,8 +27,12 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.models.lm import (decode_step, init_caches, init_lm_params,
                                    lm_forward)
 from repro_torch.serve import DrainTimeout, Request, ServeEngine
+from repro_torch.serve.engine import _reset_recurrent, _slot_caches
 
 ARCH = "stablelm-1.6b"
+#: the MoE, SSM and hybrid archs
+ZOO = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "mamba2-780m",
+       "jamba-v0.1-52b"]
 
 
 def _engine(seed, **kw):
@@ -188,17 +193,23 @@ def test_run_until_drained_timeout_returns_partial_work():
 
 
 @pytest.mark.parametrize("slots", [1, 3])
-def test_greedy_tokens_equal_the_reference_engine(slots):
+@pytest.mark.parametrize("arch", [ARCH] + ZOO)
+def test_greedy_tokens_equal_the_reference_engine(arch, slots):
     """Same requests, the reference's parameters, fp32 compute: the port's
-    engine samples the JAX engine's tokens, request by request."""
-    cfg = dataclasses.replace(get_smoke_config(ARCH), compute_dtype="float32")
-    jcfg = dataclasses.replace(jget_smoke(ARCH), compute_dtype="float32")
+    engine samples the JAX engine's tokens, request by request. An arch
+    with Mamba-2 mixers gets one request a slot: the reference engine
+    carries a slot's recurrent state into the next request it admits
+    there, which the port resets (`test_reused_slots_serve_as_isolated_
+    requests`), so the two agree only while no slot is reused."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    jcfg = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
     jp = jinit(jspecs(jcfg), jax.random.PRNGKey(7))
     params = lm_params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     ours = ServeEngine(params, cfg, batch_slots=slots, max_len=32)
     theirs = JEngine(jp, jcfg, batch_slots=slots, max_len=32, rules={})
     rng = np.random.RandomState(9)
-    for uid in range(5):
+    n_requests = slots if "m" in cfg.pattern else 5
+    for uid in range(n_requests):
         prompt = rng.randint(0, 256, size=(rng.randint(3, 9),)).astype(
             np.int32)
         ours.submit(Request(uid=uid, prompt=prompt.copy(),
@@ -209,6 +220,50 @@ def test_greedy_tokens_equal_the_reference_engine(slots):
     want = theirs.run_until_drained(max_steps=200)
     assert got == want
     assert ours.steps_run == theirs.steps_run
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_reused_slots_serve_as_isolated_requests(arch):
+    """2 slots, 5 requests of 3-12 prompt tokens and 4-7 new tokens, fp32:
+    every slot is reused, and each request's greedy tokens equal the same
+    request served alone by a fresh one-slot engine. Without the reset of
+    a slot's Mamba-2 state at admission, a reused slot would start from
+    the previous request's state."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = init_lm_params(cfg, 11, device="cpu")
+    rng = np.random.RandomState(10)
+    reqs = [(rng.randint(0, 256, size=(rng.randint(3, 13),)).astype(
+        np.int32), int(rng.randint(4, 8))) for _ in range(5)]
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=32)
+    for uid, (prompt, new) in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    got = eng.run_until_drained(max_steps=200)
+    for uid, (prompt, new) in enumerate(reqs):
+        alone = ServeEngine(params, cfg, batch_slots=1, max_len=32)
+        alone.submit(Request(uid=0, prompt=prompt, max_new_tokens=new))
+        assert got[uid] == alone.run_until_drained(max_steps=100)[0], uid
+        assert len(got[uid]) == new
+
+
+def test_admission_zeroes_only_its_slots_recurrent_state():
+    """Admitting into slot 1 zeroes that slot's conv inputs and SSM state
+    in every mixer before its prefill, and leaves slot 0's as they were."""
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    eng = ServeEngine(init_lm_params(cfg, 12, device="cpu"), cfg,
+                      batch_slots=2, max_len=24)
+    for unit in eng.caches.values():
+        for t in unit.values():
+            t.fill_(1)
+    slot_caches = _slot_caches(eng.caches, 1)
+    _reset_recurrent(slot_caches)
+    for name, unit in eng.caches.items():
+        for key, t in unit.items():
+            if "ssm" in unit:
+                assert not t[:, 1].any() and bool((t[:, 0] == 1).all()), \
+                    (name, key)
+            else:
+                assert bool((t == 1).all()), (name, key)
+    assert slot_caches.max_len == 24
 
 
 def test_launcher_lm_mode_on_the_cpu(capsys):
@@ -225,3 +280,20 @@ def test_launcher_lm_mode_on_the_cpu(capsys):
     assert len(out) == 5 and out[1].startswith("  req 0: [")
     assert engine.caches["b0"]["k"].device.type == "cpu"
     assert all(len(v) == 5 for v in engine.completed.values())
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_launcher_serves_the_zoo_with_reused_slots(arch, capsys):
+    from repro_torch.launch import serve
+    engine = serve.main(["--arch", arch, "--smoke", "--requests", "5",
+                         "--slots", "2", "--max-len", "48", "--new-tokens",
+                         "4", "--prompt-len", "16", "24", "--compute-dtype",
+                         "float32", "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("served 5 requests, 20 tokens in ")
+    assert engine.cfg.compute_dtype == "float32"
+    reqs = serve.lm_requests(engine.cfg, 5, (16, 24), 4)
+    assert all(16 <= len(r.prompt) <= 24 for r in reqs)
+    assert sorted(engine.completed) == list(range(5))
+    assert any("ssm" in unit for unit in engine.caches.values()) == \
+        ("m" in engine.cfg.pattern)
