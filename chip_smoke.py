@@ -205,7 +205,33 @@ Phases, each of which makes the script exit non-zero when it fails:
    tokens equal to the same request served alone by a fresh engine of as
    many slots. Each prints its peak
    beside `zoo_reckoning_bytes`, and its host ms;
-17. print one JSON line of per-kernel numbers, then the result line.
+17. train the MoE, SSM and hybrid LM families and serve and train the
+   vision and audio frontends, bf16 compute, no plain version called:
+   (17a) the forward with its log-sum-exp and the backward kernel at this
+   slice's training shapes (granite-moe-1b-a400m's (4, 16, 4096, 64),
+   musicgen-large's (2, 32, 4096, 64), internvl2-26b's (2, 48, 4096, 128),
+   jamba's (1, 32, 4096, 128)) held as 14a, timed beside SDPA's forward
+   and backward and their bounds; (17b) the launcher on full-width
+   granite-moe-1b-a400m at 4,096 x 4, 4 steps (exactly 48 forward and 24
+   backward launches a step), with the share of (token, slot) pairs
+   capacity drops; (17c) its step 0 at batch 1 through the kernels and
+   through full_attention (14c's check and tolerances), and remat "none"
+   bit-equal to "full"; (17d) the launcher on full-width mamba2-780m at
+   4,096 x 4, 4 steps (no kernel launch), step 0 twice and under remat
+   "none" bit-equal; (17e) jamba-v0.1-52b's launcher at --smoke, 256
+   positions (the kernels' branch), 8 steps with exact launches, and the
+   full-width reckoning that rules out a larger run; (17f) musicgen-large
+   at full width: the launcher at 4,096 x 2 for 3 steps, then a prefill
+   of 8,192 frames and 16 greedy decode steps of 4 codebooks held against
+   a full_attention arm (the last logits within TOL_LM_REL_L2 /
+   TOL_LM_ABS, every attention layer's output against full_attention on
+   its own input within TOL_ZOO_ATTN_REL_L2); internvl2-26b at full width
+   cut to 24 of its 48 layers served the same way over 8,192 positions
+   (256 patches), then through ServeEngine (text in and out), and cut to
+   2 layers trained by the launcher at 4,096 x 2 for 3 steps. Each
+   launcher run prints tokens/s, host and device-busy ms and its peak
+   beside `lm_reckoning_bytes`;
+18. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -507,6 +533,44 @@ ZOO_SERVE_ARGV = ["--arch", SSM_ARCH, "--requests", "8", "--slots", "4",
 #: prefill shapes (dh 64 at 24 heads, dh 128); (b, h, s, dh)
 FLASH_GRANITE_SHAPE = (1, 24, 8192, 64)
 FLASH_DH128_SHAPE = (1, 32, 8192, 128)
+#: phase 17: the LM zoo trained, and the vision and audio frontends served
+#: and trained, at full width on one card, bf16 compute; the launcher at
+#: its defaults (adamw(3e-4), clip 1.0, remat="full") on ZOO_TRAIN_SEQ
+#: positions. 17a: the two attention kernels at this slice's training
+#: shapes (granite-moe-1b-a400m, musicgen-large, internvl2-26b, jamba's
+#: dh 128); (b, h, s, dh)
+ZOO_TRAIN_SEQ = 4096
+FLASH_ZOO_TRAIN_SHAPES = (
+    ("granite_moe_1b_train", (4, 16, 4096, 64), "bfloat16"),
+    ("musicgen_train", (2, 32, 4096, 64), "bfloat16"),
+    ("internvl2_train_dh128", (2, 48, 4096, 128), "bfloat16"),
+    ("jamba_train_dh128", (1, 32, 4096, 128), "bfloat16"))
+#: 17b-17d: granite-moe-1b-a400m and mamba2-780m at 4,096 x 4 (train_4k's
+#: global batch of 256 cut to 4: about 45 and 37 GB by lm_reckoning_bytes)
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+ZOO_TRAIN_BATCH, ZOO_TRAIN_STEPS = 4, 4
+#: 17e: jamba-v0.1-52b's launcher at --smoke on the card, at a sequence
+#: past its smoke attn_block_q of 16 (the kernels' branch)
+HYBRID_SMOKE_ARGV = ["--arch", HYBRID_ARCH, "--smoke", "--seq", "256",
+                     "--batch", "4", "--steps", "8", "--log-every", "100"]
+HYBRID_SMOKE_STEPS = 8
+#: 17f: musicgen-large trained at 4,096 x 2 for FRONTEND_TRAIN_STEPS steps
+#: and served (8,192 frames, FRONTEND_DECODE greedy steps of 4 codebooks);
+#: internvl2-26b served cut to VLM_SERVE_LAYERS of its 48 layers (10.5 B
+#: fp32 parameters, 42.0 GB; all 48 take 79.4 GB) over 8,192 positions
+#: (256 patches) and trained cut to VLM_TRAIN_LAYERS at 4,096 x 2; depth
+#: is the only cut
+AUDIO_ARCH, VLM_ARCH = "musicgen-large", "internvl2-26b"
+FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 2, 3
+FRONTEND_DECODE = 16
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 24, 2
+#: 17f: the full_attention arm computes the layer's attention this many
+#: heads at a time (the heads are independent): at internvl2's 48 heads
+#: all at once its fp32 scores would take 32 GB beside 42 GB of weights
+PLAIN_HEAD_CHUNK = 8
+#: 17f: ServeEngine on the cut internvl2-26b, text in and out as the
+#: reference's engine takes the vision arch: requests, slots, max_len
+VLM_ENGINE_REQUESTS, VLM_ENGINE_SLOTS, VLM_ENGINE_MAX_LEN = 4, 2, 64
 #: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
 CARD = ""
 
@@ -3478,24 +3542,74 @@ def tree_checksums(torch, tree) -> list[int]:
     return [bit_checksum(torch, t) for t in tree_leaves(tree)]
 
 
+def layer_train_bytes(cfg, kind: str, is_moe: bool, tokens: int) -> int:
+    """One layer's activations while the backward recomputes it, saved
+    and as gradients (twice the forward's): its bf16 input and norm;
+    attention's q, k, v, the repeated K/V and the kernel's output and
+    log-sum-exp; a Mamba-2 mixer's in_proj output, three conv-width
+    tensors and the chunk products' fp32 and bf16 (heads, tokens, chunk)
+    tensors; an MLP's four (tokens, d_ff) products; an MoE layer's expert
+    slots (inputs, four (e_pad, cap, f) products, outputs) and the
+    routing's (tokens * k, e) counts."""
+    from repro_torch.nn.mamba2 import mamba_dims
+    from repro_torch.nn.moe import _capacity
+    d = cfg.d_model
+    n = 2 * tokens * d * 2
+    if kind == "a":
+        h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        n += tokens * dh * 2 * (3 * h + 2 * kv) + 4 * h * tokens
+    else:
+        m = mamba_dims(cfg)
+        chunk = min(cfg.ssm_chunk, tokens)
+        n += (2 * tokens * (m["d_in_proj"] + 3 * m["conv_dim"])
+              + 6 * m["n_heads"] * tokens * chunk)
+    if cfg.d_ff and is_moe:
+        e_pad = cfg.n_experts + cfg.expert_pad
+        cap = _capacity(tokens // max(1, cfg.moe_groups), cfg.n_experts,
+                        cfg.top_k, cfg.capacity_factor) * max(
+                            1, cfg.moe_groups)
+        n += 2 * e_pad * cap * (2 * d + 4 * cfg.d_ff) \
+            + 8 * tokens * cfg.top_k * cfg.n_experts
+    elif cfg.d_ff:
+        n += 2 * tokens * 4 * cfg.d_ff
+    return 2 * n
+
+
 def lm_reckoning_bytes(cfg, batch: int, seq: int) -> dict:
-    """The LM step's device memory by the reckoning: fp32 parameters,
-    gradients and both AdamW moments; each unit's bf16 input, which
-    remat="full" keeps; the logits in bf16 and fp32 and as much again
-    for their gradient; one unit's recompute (about 2 GB at 16,384
-    tokens, scaled by the tokens)."""
-    n = cfg.param_count_estimate()
+    """The LM step's device memory by the reckoning, part by part, and
+    their sum: fp32 parameters, gradients and both AdamW moments (every
+    leaf of `lm_param_specs`: experts with their pads, mixers, codebooks,
+    the V*K head); `clip_by_global_norm`'s scaled copy of the gradients
+    (fp32); `adamw`'s three fp32 temporaries on the largest leaf; each
+    unit's bf16 input, which remat="full" keeps; the logits in bf16 and
+    fp32 and as much again for their gradient (V*K wide for the audio
+    arch); one unit's recompute (`layer_train_bytes` over its layers).
+    The parts do not all live at once (the optimizer's run after the
+    activations are freed), so the sum bounds the peak from above."""
+    from repro_torch.models.lm import _pattern_moe_flags, lm_param_specs
+    from repro_torch.nn.params import tree_leaves
+    specs = tree_leaves(lm_param_specs(cfg))
+    n = sum(math.prod(sp.shape) for sp in specs)
+    largest = max(math.prod(sp.shape) for sp in specs)
     tokens = batch * seq
+    width = cfg.vocab_size * (cfg.n_codebooks if cfg.frontend == "audio"
+                              else 1)
+    flags = _pattern_moe_flags(cfg)
     parts = {"params_grads_moments": 4 * 4 * n,
+             "clip_scaled_copy": 4 * n,
+             "adamw_temporaries_largest_leaf": 3 * 4 * largest,
              "unit_inputs": cfg.n_units * tokens * cfg.d_model * 2,
-             "logits_and_grad": 2 * tokens * cfg.vocab_size * (2 + 4),
-             "unit_recompute": int(2e9 * tokens / 16384)}
+             "logits_and_grad": 2 * tokens * width * (2 + 4),
+             "unit_recompute": sum(
+                 layer_train_bytes(cfg, kind, flags[i], tokens)
+                 for i, kind in enumerate(cfg.pattern))}
     parts["total"] = sum(parts.values())
     return parts
 
 
-def check_flash_attention_bwd(torch, dev) -> dict:
-    """Phase 14a: at each of FLASH_BWD_SHAPES, the forward's o and
+def check_flash_attention_bwd(torch, dev, shapes=FLASH_BWD_SHAPES) -> dict:
+    """Phase 14a (and 17a at FLASH_ZOO_TRAIN_SHAPES): at each of
+    `shapes`, the forward's o and
     log-sum-exp against the plain forward's (TOL_FLASH, TOL_FLASH_LSE),
     and the backward kernel (fed the kernel's o and lse) against its plain
     version fed the plain forward's, so a fault in the forward's store
@@ -3511,7 +3625,7 @@ def check_flash_attention_bwd(torch, dev) -> dict:
     from repro_torch.kernels import ref
     log_ptxas(kf.BWD_KERNEL, "flash_bwd")
     out = {}
-    for name, shape, dt in FLASH_BWD_SHAPES:
+    for name, shape, dt in shapes:
         b, h, s, dh = shape
         dtype = getattr(torch, dt)
         g = torch.Generator(device=dev)
@@ -3605,7 +3719,13 @@ def check_flash_attention_bwd(torch, dev) -> dict:
                                   10, warmup=2),
             "forward_with_lse_ms": time_ms(
                 torch, lambda: kf.flash_attention(q, k, v, with_lse=True),
-                10, warmup=2)}
+                10, warmup=2),
+            "forward_library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 10, warmup=2),
+            "forward_bound_ms": max(
+                fwd_flops / (BF16_FLOPS if dt == "bfloat16" else FP32_FLOPS),
+                4 * q.numel() * q.element_size() / HBM_BYTES_PER_S) * 1e3}
         log(f"  flash_attention_bwd[{name}]: {json.dumps(nums)}")
         out[name] = nums
         del q, k, v, do, o, lse, got, qg, kg, vg, sdpa
@@ -3614,77 +3734,118 @@ def check_flash_attention_bwd(torch, dev) -> dict:
     return out
 
 
-def lm_train_launcher(torch, dev, cfg) -> dict:
-    """Phase 14b: the LM launcher at full width (LM_TRAIN_ARGV): finite
-    losses, exactly 48 flash_attention launches a step (24 forward, 24
-    recomputed under remat="full") and 24 flash_attention_bwd, no other
-    kernel; peak device memory beside the reckoning, host ms a step,
-    tokens/s over steps 1-3; then one more step under torch.profiler for
-    the device-busy ms a step. Returns the numbers, the launches and the
-    run (its parameters and AdamW state, for 14d)."""
+@contextlib.contextmanager
+def moe_drop_spy(shares: list):
+    """While open, every MoE routing appends the share of its (token,
+    slot) pairs that capacity drops (a 0-d tensor on the card, read after
+    the run); the routing itself is unchanged."""
+    from repro_torch.nn import moe as MOE
+    real = MOE.route
+
+    def spy(*args, **kwargs):
+        r = real(*args, **kwargs)
+        shares.append(1.0 - r["keep"].float().mean())
+        return r
+
+    MOE.route = spy
+    try:
+        yield
+    finally:
+        MOE.route = real
+
+
+def lm_train_launcher(torch, dev, cfg, argv: list[str], label: str,
+                      entry=None, profiled: bool = False) -> dict:
+    """Phases 14b and 17b-17f: the LM training launcher on `argv`
+    (`entry(cfg, args)`, the launcher's `train`, for a depth-cut cfg;
+    `main(argv)` otherwise): finite losses, exactly one forward launch a
+    attention layer a step (two under remat "full" or "dots": the
+    recompute) and one backward launch, no other kernel, no plain version
+    called; host ms a step, tokens/s over steps 1 on, the peak beside
+    `lm_reckoning_bytes`, the share of (token, slot) pairs capacity
+    dropped (MoE); with `profiled`, one more step under torch.profiler
+    for the device-busy ms a step. Returns the numbers, the launch counts
+    and the run (its parameters and AdamW state)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.kernels import KERNELS, build_all
+    from repro_torch.kernels import KERNELS
     from repro_torch.launch import train as train_cli
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_lm_train_step
 
-    log(f"phase 14b: python -m repro_torch.launch.train "
-        f"{' '.join(LM_TRAIN_ARGV)}")
+    args = train_cli.parse_args(argv)
+    cut = "" if entry is None else f" (depth cut to {cfg.n_layers} layers)"
+    log(f"phase {label}: python -m repro_torch.launch.train "
+        f"{' '.join(argv)}{cut}")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(KERNELS)
+    plain, shares = {}, []
     t0 = time.perf_counter()
-    run, _ = run_cli(train_cli.main, LM_TRAIN_ARGV)
+    with plain_version_spy(plain), moe_drop_spy(shares):
+        if entry is None:
+            run, _ = run_cli(train_cli.main, argv)
+        else:
+            run, _ = run_cli(lambda a: entry(cfg, train_cli.parse_args(a)),
+                             argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_launches(KERNELS, "lm_train",
-                           ("flash_attention", "flash_attention_bwd"))
-    others = {n: c for n, c in counts.items()
-              if c and n not in ("flash_attention", "flash_attention_bwd")}
-    want = {"flash_attention": 2 * cfg.n_layers * LM_TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * LM_TRAIN_STEPS}
-    if others or any(counts[n] != c for n, c in want.items()):
-        raise AssertionError(f"14b: want {want} launches and no other "
-                             f"kernel: {counts}")
+    n_attn = cfg.pattern.count("a") * cfg.n_units
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    want = {"flash_attention": again * n_attn * args.steps,
+            "flash_attention_bwd": n_attn * args.steps}
+    counts = read_launches(KERNELS, label, tuple(n for n, c in want.items()
+                                                 if c))
+    others = {n: c for n, c in counts.items() if c and n not in want}
     losses = run.losses
-    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"14b losses not finite: {losses}")
+    if others or plain or any(counts[n] != c for n, c in want.items()):
+        raise AssertionError(f"{label}: want {want} launches, no other "
+                             f"kernel and no plain version: {counts}, plain "
+                             f"{plain}")
+    if len(losses) != args.steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{label} losses not finite: {losses}")
     peak = torch.cuda.max_memory_allocated()
     step_ms = [t * 1e3 for t in run.times["step_s"]]
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    # one more step, profiled (the launcher's step at step LM_TRAIN_STEPS)
-    step = build_lm_train_step(cfg, adamw(3e-4))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
-        cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, 0).items()}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, m = step(run.params, run.state, batch, LM_TRAIN_STEPS)
-        float(m["loss"])
-        torch.cuda.synchronize()
-    prof_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    busy = sum(t for _, t in events) / 1e3
-    top = sorted(events, key=lambda e: -e[1])[:12]
-    nums = {"losses": losses, "wall_s_incl_init": wall,
+    tokens = args.batch * args.seq
+    drop = float(torch.stack(shares).mean()) if shares else None
+    reckon = lm_reckoning_bytes(cfg, args.batch, args.seq)
+    nums = {"card": CARD, "arch": cfg.name, "layers": cfg.n_layers,
+            "batch": args.batch, "seq": args.seq, "losses": losses,
+            "wall_s_incl_init": wall,
             "host_ms_per_step": step_ms,
-            "tokens_per_s_steps_1_3": 3 * tokens / sum(step_ms[1:4]) * 1e3,
-            "launches_per_step": {n: counts[n] // LM_TRAIN_STEPS
-                                  for n in want},
-            "peak_bytes": peak,
-            "reckoning_bytes": lm_reckoning_bytes(cfg, LM_TRAIN_BATCH,
-                                                  LM_TRAIN_SEQ),
-            "profiled_step_host_ms": prof_ms,
-            "profiled_step_device_busy_ms": busy if busy else None,
-            "profiled_step_flash_fwd_device_ms": sum(
+            "tokens_per_s_steps_1_on": (args.steps - 1) * tokens
+            / sum(step_ms[1:]) * 1e3,
+            "launches_per_step": {n: c // args.steps
+                                  for n, c in want.items()},
+            "moe_dropped_pair_share": drop,
+            "peak_bytes": peak, "reckoning_bytes": reckon,
+            "peak_over_reckoning": peak / reckon["total"]}
+    if profiled:
+        step = build_lm_train_step(cfg, adamw(args.lr))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+            cfg, args.batch, args.seq, args.steps, 0).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, m = step(run.params, run.state, batch, args.steps)
+            nums["aux_step_profiled"] = float(m["aux"])
+            torch.cuda.synchronize()
+        nums["profiled_step_host_ms"] = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = sum(t for _, t in events) / 1e3
+        top = sorted(events, key=lambda e: -e[1])[:8]
+        nums.update(
+            profiled_step_device_busy_ms=busy or None,
+            profiled_step_flash_fwd_device_ms=sum(
                 t for n, t in events if "flash_attention_kernel" in n) / 1e3,
-            "profiled_step_flash_bwd_device_ms": sum(
+            profiled_step_flash_bwd_device_ms=sum(
                 t for n, t in events if "flash_bwd" in n) / 1e3,
-            "top_device_events_ms": [(n, t / 1e3) for n, t in top]}
-    log(f"14b numbers: {json.dumps(nums)}")
+            top_device_events_ms=[(n[:96], t / 1e3) for n, t in top])
+        del batch, step, prof
+    log(f"{label} numbers: {json.dumps(nums)}")
     return {"numbers": nums, "launches": counts, "run": run}
 
 
@@ -3709,8 +3870,8 @@ def lm_grads(torch, params, batch, cfg, plain: bool):
     return float(loss.detach()), grads
 
 
-def lm_train_plain(torch, dev, cfg) -> dict:
-    """Phase 14c: step 0's loss and gradients at batch 1 through the
+def lm_train_plain(torch, dev, cfg, label: str = "14c") -> dict:
+    """Phase 14c (and 17c): step 0's loss and gradients at batch 1 through the
     kernels, twice, and through the plain attention, in the config's bf16
     compute and again in fp32 (TOL_LM_TRAIN); every unit's wq, wk and wv
     gradient non-zero; the two kernel runs bit-equal; the plain runs
@@ -3743,7 +3904,7 @@ def lm_train_plain(torch, dev, cfg) -> dict:
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         if any(k.launches != before[k.name] for k in KERNELS):
-            raise AssertionError("14c: the plain path launched a kernel")
+            raise AssertionError(f"{label}: the plain path launched a kernel")
         rel = {n: float((a.float() - b.float()).norm()
                         / b.float().norm().clamp_min(1e-30))
                for n, a, b in zip(names, grads, p_grads)}
@@ -3761,12 +3922,13 @@ def lm_train_plain(torch, dev, cfg) -> dict:
                 "kernel_runs_bit_equal": same, "kernel_host_ms": kernel_ms,
                 "plain_host_ms": plain_ms,
                 "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
-        log(f"14c [{dt}]: loss {loss} vs plain {p_loss} (rel {loss_rel:.3e},"
+        log(f"{label} [{dt}]: loss {loss} vs plain {p_loss} (rel "
+            f"{loss_rel:.3e},"
             f" tol {tol_loss}); worst gradient {worst} rel L2 "
             f"{rel[worst]:.3e} (tol {tol_grad}); {json.dumps(nums)}")
         if not (nums["finite"] and same and loss_rel <= tol_loss
                 and rel[worst] <= tol_grad and not any(unit_zero.values())):
-            raise AssertionError(f"14c [{dt}]: the kernel path and the "
+            raise AssertionError(f"{label} [{dt}]: the kernel path and the "
                                  "plain attention disagree, a kernel run "
                                  "is not repeatable, or an attention "
                                  "weight got no gradient")
@@ -3777,7 +3939,7 @@ def lm_train_plain(torch, dev, cfg) -> dict:
     want = {"flash_attention": 2 * 2 * 2 * cfg.n_layers,
             "flash_attention_bwd": 2 * 2 * cfg.n_layers}
     if any(counts[n] != c for n, c in want.items()):
-        raise AssertionError(f"14c: want {want} launches (two kernel runs "
+        raise AssertionError(f"{label}: want {want} launches (two kernel runs "
                              f"in each dtype), got {counts}")
     del params
     return {"numbers": out, "launches": counts}
@@ -3891,7 +4053,8 @@ def lm_train_phases(torch, dev, cfg) -> dict:
     log_peak(torch, "phase 14a")
     free_device(torch)
     paths = {}
-    res = lm_train_launcher(torch, dev, cfg)
+    res = lm_train_launcher(torch, dev, cfg, LM_TRAIN_ARGV, "14b",
+                            profiled=True)
     paths["lm_train"] = res["launches"]
     # 14a's per-kernel trace, late in this process, can come back partial
     # (as 9a's does): the kernels line takes 14b's profiled step, whose 24
@@ -4671,11 +4834,12 @@ def zoo_params(torch, dev, cfg) -> dict:
 def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
                  want_flash: int, label: str, feed=None, conv_dtype=None,
                  profiled: bool = False) -> dict:
-    """prefill_step on `tokens` (1, S) into fresh caches of S + n_decode
+    """prefill_step on `tokens` (1, S), or on a batch dict of S positions
+    (the frontends' embeddings), into fresh caches of S + n_decode
     positions (with `conv_dtype`, each mixer's bf16 conv cache swapped for
     zeros of that dtype), then `n_decode` decode_steps, each fed the
-    previous step's argmax (greedy) or, with `feed`, feed[i]
-    (teacher-forced). Exactly
+    previous step's argmax (greedy; the audio arch's K codebooks each
+    take their own) or, with `feed`, feed[i] (teacher-forced). Exactly
     `want_flash` flash_attention launches and no other kernel, no plain
     version called, finite logits of the right shape. With `profiled`, one
     more prefill under torch.profiler (the caches are rewritten). Returns
@@ -4686,8 +4850,12 @@ def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
 
     from repro_torch.kernels import KERNELS
     from repro_torch.models.lm import decode_step, init_caches, prefill_step
-    s = tokens.shape[1]
-    caches = init_caches(cfg, 1, s + n_decode + 1, tokens.device)
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens") if k in batch)
+    dev = next(iter(batch.values())).device
+    shape = (1, cfg.n_codebooks, cfg.vocab_size) if cfg.frontend == "audio" \
+        else (1, cfg.vocab_size)
+    caches = init_caches(cfg, 1, s + n_decode + 1, dev)
     if conv_dtype is not None:
         for c in caches.values():
             if "conv" in c:
@@ -4698,7 +4866,7 @@ def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
     plain: dict = {}
     with plain_version_spy(plain):
         t0 = time.perf_counter()
-        last, _ = prefill_step(params, {"tokens": tokens}, caches, cfg)
+        last, _ = prefill_step(params, batch, caches, cfg)
         last = last.float()
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -4709,9 +4877,9 @@ def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
             t0 = time.perf_counter()
             lg, _ = decode_step(params, tok[:, None], caches, s + i, cfg)
             lg = lg.float()
-            fed.append(int(tok))
+            fed.append(int(tok) if tok.numel() == 1 else tok[0].tolist())
             tok = lg.argmax(-1)
-            int(tok)
+            tok.tolist()
             decode_ms.append((time.perf_counter() - t0) * 1e3)
             logits.append(lg)
     counts = read_launches(KERNELS, label,
@@ -4723,7 +4891,7 @@ def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
                              f"launches and no other kernel or plain "
                              f"version: {counts}, plain {plain}")
     for i, lg in enumerate([last] + logits):
-        if lg.shape != (1, cfg.vocab_size) or not bool(
+        if lg.shape != shape or not bool(
                 torch.isfinite(lg).all()):
             raise AssertionError(f"{label}: logits {i} of shape "
                                  f"{tuple(lg.shape)} not finite")
@@ -4737,8 +4905,8 @@ def zoo_generate(torch, cfg, params, tokens, n_decode: int, *,
         for what, fn in (
                 ("decode", lambda: decode_step(params, tok[:, None], caches,
                                                s + n_decode, cfg)),
-                ("prefill", lambda: prefill_step(params, {"tokens": tokens},
-                                                 caches, cfg))):
+                ("prefill", lambda: prefill_step(params, batch, caches,
+                                                 cfg))):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
@@ -5047,6 +5215,307 @@ def zoo_serve(torch) -> dict:
                              f"from the same requests alone: {differ}")
     del engine
     return {"numbers": nums, "paths": {"zoo_serve": counts}}
+
+
+def chunked_full_attention(q, k, v, causal: bool = True):
+    """full_attention on PLAIN_HEAD_CHUNK heads at a time, the chunks
+    concatenated: the same function (the heads are independent), with a
+    fraction of its fp32 scores alive at once."""
+    import torch
+
+    from repro_torch.nn import layers as L
+    h = q.shape[2]
+    return torch.cat([L.full_attention(q[:, :, i:i + PLAIN_HEAD_CHUNK],
+                                       k[:, :, i:i + PLAIN_HEAD_CHUNK],
+                                       v[:, :, i:i + PLAIN_HEAD_CHUNK],
+                                       causal)
+                      for i in range(0, h, PLAIN_HEAD_CHUNK)], dim=2)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """While open, the layers' attention op is `chunked_full_attention`
+    (torch ops, no kernel launch) in place of the flash-attention kernel."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+    ops.flash_attention = chunked_full_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def attention_layers_held(torch, cfg, params, batch) -> dict:
+    """One more prefill_step on `batch` (fresh caches) in which every
+    attention layer's output through the kernel is held against the same
+    layer's output through `chunked_full_attention` on the same input
+    (relative L2 within TOL_ZOO_ATTN_REL_L2). Returns the worst and
+    median errors, and the layers' count."""
+    from repro_torch.models.lm import init_caches, prefill_step
+    from repro_torch.nn import layers
+    real = layers.attention
+    errs = []
+
+    def spy(p, x, c, positions, **kw):
+        y, cache = real(p, x, c, positions, **kw)
+        with plain_attention():
+            want, _ = real(p, x, c, positions, mode="train")
+        errs.append(rel_l2(y, want))
+        return y, cache
+
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens") if k in batch)
+    caches = init_caches(cfg, 1, s, next(iter(batch.values())).device)
+    layers.attention = spy
+    try:
+        prefill_step(params, batch, caches, cfg)
+    finally:
+        layers.attention = real
+    del caches
+    worst = max(errs)
+    out = {"attention_layers": len(errs), "layer_output_rel_l2_max": worst,
+           "layer_output_rel_l2_median": sorted(errs)[len(errs) // 2],
+           "tol": TOL_ZOO_ATTN_REL_L2}
+    log(f"  each attention layer, kernel vs full_attention on the same "
+        f"input: {json.dumps(out)}")
+    if len(errs) != cfg.pattern.count("a") * cfg.n_units or \
+            worst > TOL_ZOO_ATTN_REL_L2:
+        raise AssertionError(f"an attention layer disagrees: {out}")
+    return out
+
+
+def step0_bits(torch, dev, cfg, label: str, twice: bool) -> dict:
+    """Step 0's loss and every gradient at batch 1 of ZOO_TRAIN_SEQ
+    through the kernels under remat "full" (twice with `twice`) and
+    "none": every run gives the same bits. Returns the numbers and the
+    launch counts."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import init_lm_params
+    params = init_lm_params(cfg, train_cli.PARAM_SEED, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+        cfg, 1, ZOO_TRAIN_SEQ, 0, 0).items()}
+    reset_launches(KERNELS)
+    runs = [("full", "full")] + ([("full again", "full")] if twice else []) \
+        + [("none", "none")]
+    first, equal, host_ms = None, {}, {}
+    for name, remat in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = lm_grads(torch, params, batch, dataclasses.replace(
+            cfg, remat=remat), plain=False)
+        torch.cuda.synchronize()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        if first is None:
+            first = (loss, grads)
+            continue
+        equal[name] = loss == first[0] and all(
+            torch.equal(a, b) for a, b in zip(grads, first[1]))
+        del grads
+    counts = {k.name: k.launches for k in KERNELS}
+    nums = {"loss": first[0], "bit_equal_to_remat_full": equal,
+            "host_ms": host_ms,
+            "finite": all(bool(torch.isfinite(g).all()) for g in first[1])}
+    log(f"{label}: step 0 at batch 1: {json.dumps(nums)}; launches "
+        f"{counts}")
+    if not (nums["finite"] and all(equal.values())):
+        raise AssertionError(f"{label}: step 0 is not repeatable bit for "
+                             f"bit across runs and remat modes: {equal}")
+    del params, first
+    return {"numbers": nums, "launches": counts}
+
+
+def zoo_train_phases(torch, dev) -> dict:
+    """Phases 17a-17e: the attention kernels at this slice's training
+    shapes (17a); granite-moe-1b-a400m (17b, 17c) and mamba2-780m (17d)
+    trained at full width; jamba-v0.1-52b's hybrid path trained at the
+    smoke config (17e). Returns 17a's numbers and each path's launches."""
+    from repro_torch.configs import get_config, get_smoke_config
+    log("phase 17a: flash_attention and flash_attention_bwd vs plain at "
+        + ", ".join(f"{n} {shape} {dt}" for n, shape, dt in
+                    FLASH_ZOO_TRAIN_SHAPES))
+    flash = check_flash_attention_bwd(torch, dev, FLASH_ZOO_TRAIN_SHAPES)
+    free_device(torch)
+    paths = {}
+    moe = get_config(MOE_TRAIN_ARCH)
+    argv = ["--arch", MOE_TRAIN_ARCH, "--seq", str(ZOO_TRAIN_SEQ),
+            "--batch", str(ZOO_TRAIN_BATCH), "--steps",
+            str(ZOO_TRAIN_STEPS), "--log-every", "1"]
+    paths["zoo_train_moe"] = lm_train_launcher(torch, dev, moe, argv,
+                                                "17b", profiled=True)[
+                                                    "launches"]
+    log_peak(torch, "phase 17b")
+    free_device(torch)
+    log(f"phase 17c: {MOE_TRAIN_ARCH} step 0 at batch 1 through the kernels "
+        "(twice) and through full_attention, bf16 and fp32; then remat "
+        "none against full")
+    paths["zoo_train_moe_plain_check"] = lm_train_plain(
+        torch, dev, moe, label="17c")["launches"]
+    paths["zoo_train_moe_bits"] = step0_bits(torch, dev, moe, "17c",
+                                             twice=False)["launches"]
+    log_peak(torch, "phase 17c")
+    free_device(torch)
+    ssm = get_config(SSM_ARCH)
+    argv = ["--arch", SSM_ARCH, "--seq", str(ZOO_TRAIN_SEQ), "--batch",
+            str(ZOO_TRAIN_BATCH), "--steps", str(ZOO_TRAIN_STEPS),
+            "--log-every", "1"]
+    paths["zoo_train_ssm"] = lm_train_launcher(torch, dev, ssm, argv,
+                                                "17d")["launches"]
+    paths["zoo_train_ssm_bits"] = step0_bits(torch, dev, ssm, "17d",
+                                             twice=True)["launches"]
+    log_peak(torch, "phase 17d")
+    free_device(torch)
+    paths["zoo_train_hybrid_smoke"] = lm_train_launcher(
+        torch, dev, get_smoke_config(HYBRID_ARCH), HYBRID_SMOKE_ARGV,
+        "17e")["launches"]
+    full = get_config(HYBRID_ARCH)
+    unit = dataclasses.replace(full, n_layers=len(full.pattern))
+    log("17e: jamba-v0.1-52b full-width training reckoning at 4,096 x 1 "
+        "(bytes): " + json.dumps(
+            {"32_layers": lm_reckoning_bytes(full, 1, ZOO_TRAIN_SEQ),
+             "one_unit_of_8": lm_reckoning_bytes(unit, 1, ZOO_TRAIN_SEQ),
+             "card_bytes": torch.cuda.get_device_properties(0).total_memory}))
+    free_device(torch)
+    return {"flash": flash, "paths": paths}
+
+
+def frontend_serve(torch, dev, cfg, label: str, engine: bool) -> dict:
+    """`cfg` at full width (depth as given), bf16: prefill_step on
+    make_lm_batch(cfg, 1, ZOO_PROMPT)'s inputs through the kernel (one
+    launch a layer) and FRONTEND_DECODE greedy decode_steps, profiled; the
+    same prefill with the layers' attention through
+    `chunked_full_attention`, its last logits held to the kernel's
+    (`logits_held`); every attention layer held on the same input
+    (`attention_layers_held`); with `engine`, ServeEngine on the model
+    (text in and out): every request gets its tokens, and each request
+    served in a reused slot equals the same request alone in a fresh
+    engine. Returns the numbers and the launch counts."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import Request, ServeEngine
+    params = zoo_params(torch, dev, cfg)
+    raw = make_lm_batch(cfg, 1, ZOO_PROMPT)
+    batch = {k: torch.from_numpy(raw[k]).to(dev)
+             for k in ("embeds", "tokens") if k in raw}
+    run = zoo_generate(torch, cfg, params, batch, FRONTEND_DECODE,
+                       want_flash=cfg.n_layers, label=f"{label} kernel "
+                       "prefill", profiled=True)
+    with plain_attention():
+        plain = zoo_generate(torch, cfg, params, batch, 0, want_flash=0,
+                             label=f"{label} full_attention prefill")
+    held = logits_held(run["last"], plain["last"],
+                       f"{label} kernel vs full_attention, last logits")
+    layers = attention_layers_held(torch, cfg, params, batch)
+    paths = {"prefill": run["launches"], "plain": plain["launches"]}
+    nums = {"card": CARD, "arch": cfg.name, "layers": cfg.n_layers,
+            "positions": ZOO_PROMPT, **zoo_summary(run), **held,
+            "attention_layers_held": layers,
+            "plain_prefill_host_ms": plain["prefill_host_ms"],
+            "plain_peak_bytes": plain["peak_bytes"],
+            "reckoning_bytes": zoo_reckoning_bytes(cfg, ZOO_PROMPT)}
+    del run, plain
+    if engine:
+        reqs = serve_cli.lm_requests(cfg, VLM_ENGINE_REQUESTS, (16, 32),
+                                     FRONTEND_DECODE)
+        reset_launches(KERNELS)
+        t0 = time.perf_counter()
+        eng = ServeEngine(params, cfg, batch_slots=VLM_ENGINE_SLOTS,
+                          max_len=VLM_ENGINE_MAX_LEN)
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches(KERNELS, f"{label} engine", ())
+        if sorted(done) != [r.uid for r in reqs] or any(
+                len(v) != FRONTEND_DECODE for v in done.values()) or any(
+                counts.values()):
+            raise AssertionError(f"{label} engine: not every request got "
+                                 f"{FRONTEND_DECODE} tokens, or a kernel "
+                                 f"launched: {counts}")
+        differ = []
+        for r in reqs[VLM_ENGINE_SLOTS:]:
+            alone = ServeEngine(params, cfg, batch_slots=VLM_ENGINE_SLOTS,
+                                max_len=VLM_ENGINE_MAX_LEN)
+            alone.submit(Request(uid=r.uid, prompt=r.prompt,
+                                 max_new_tokens=FRONTEND_DECODE))
+            if alone.run_until_drained()[r.uid] != done[r.uid]:
+                differ.append(r.uid)
+            del alone
+        tokens = sum(len(v) for v in done.values())
+        nums["engine"] = {"requests": len(reqs), "slots": VLM_ENGINE_SLOTS,
+                          "prompt_lens": [len(r.prompt) for r in reqs],
+                          "tokens": tokens, "wall_s": wall,
+                          "tok_per_s": tokens / wall,
+                          "engine_steps": eng.steps_run,
+                          "reused_slot_requests_differ_from_alone": differ}
+        paths["engine"] = counts
+        del eng
+        if differ:
+            raise AssertionError(f"{label} engine: requests in reused slots "
+                                 f"differ from the same requests alone: "
+                                 f"{differ}")
+    log(f"{label} numbers: {json.dumps(nums)}")
+    del params
+    return {"numbers": nums, "paths": paths}
+
+
+def frontend_phases(torch, dev) -> dict:
+    """Phase 17f: musicgen-large trained at full width (the launcher,
+    4,096 x 2) and served (8,192 frames, 16 greedy decode steps of 4
+    codebooks); internvl2-26b served at full width cut to
+    VLM_SERVE_LAYERS layers (8,192 positions with 256 patches, 16 greedy
+    decodes, then the engine) and trained cut to VLM_TRAIN_LAYERS layers.
+    Returns each path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import vlm_prefix
+    from repro_torch.launch import train as train_cli
+    paths = {}
+    audio = get_config(AUDIO_ARCH)
+    argv = ["--arch", AUDIO_ARCH, "--seq", str(ZOO_TRAIN_SEQ), "--batch",
+            str(FRONTEND_TRAIN_BATCH), "--steps", str(FRONTEND_TRAIN_STEPS),
+            "--log-every", "1"]
+    paths["frontend_train_audio"] = lm_train_launcher(
+        torch, dev, audio, argv, "17f", profiled=True)["launches"]
+    log_peak(torch, "phase 17f audio training")
+    free_device(torch)
+    log(f"phase 17f: {AUDIO_ARCH} at full width ({audio.n_layers} layers, d "
+        f"{audio.d_model}, MHA {audio.n_heads}, {audio.n_codebooks} "
+        f"codebooks, sinusoidal positions), bf16: prefill_step on "
+        f"{ZOO_PROMPT} frames through the kernel, {FRONTEND_DECODE} greedy "
+        f"decode_steps, then the prefill through full_attention")
+    res = frontend_serve(torch, dev, audio, "17f audio", engine=False)
+    paths.update({f"frontend_serve_audio_{k}": v
+                  for k, v in res["paths"].items()})
+    log_peak(torch, "phase 17f audio serving")
+    del res
+    free_device(torch)
+    vlm = get_config(VLM_ARCH)
+    cut = dataclasses.replace(vlm, n_layers=VLM_SERVE_LAYERS)
+    log(f"phase 17f: {VLM_ARCH} at full width, depth cut from "
+        f"{vlm.n_layers} to {VLM_SERVE_LAYERS} layers (d {vlm.d_model}, GQA "
+        f"{vlm.n_heads}/{vlm.n_kv_heads}, dh {vlm.d_head}), bf16: "
+        f"prefill_step on {ZOO_PROMPT} positions ({vlm_prefix(ZOO_PROMPT)} "
+        f"patches) through the kernel, {FRONTEND_DECODE} greedy "
+        f"decode_steps, the prefill through full_attention, then "
+        f"ServeEngine ({VLM_ENGINE_REQUESTS} requests over "
+        f"{VLM_ENGINE_SLOTS} slots)")
+    res = frontend_serve(torch, dev, cut, "17f vision", engine=True)
+    paths.update({f"frontend_serve_vision_{k}": v
+                  for k, v in res["paths"].items()})
+    log_peak(torch, "phase 17f vision serving")
+    del res
+    free_device(torch)
+    argv = ["--arch", VLM_ARCH, "--seq", str(ZOO_TRAIN_SEQ), "--batch",
+            str(FRONTEND_TRAIN_BATCH), "--steps", str(FRONTEND_TRAIN_STEPS),
+            "--log-every", "1"]
+    paths["frontend_train_vision"] = lm_train_launcher(
+        torch, dev, dataclasses.replace(vlm, n_layers=VLM_TRAIN_LAYERS),
+        argv, "17f", entry=train_cli.train)["launches"]
+    log_peak(torch, "phase 17f vision training")
+    free_device(torch)
+    return {"paths": paths}
 
 
 def search_main() -> int:
@@ -5541,7 +6010,26 @@ def main() -> int:
     paths.update(zoo_serve(torch)["paths"])
     free_device(torch)
 
-    # 17. the numbers, then the result
+    # 17. the LM zoo trained, the frontends served and trained: the
+    #     attention kernels at this slice's training shapes (17a),
+    #     granite-moe-1b-a400m's launcher at full width (17b) and its step
+    #     0 against full_attention and across remat modes (17c),
+    #     mamba2-780m's (17d), jamba's hybrid path at --smoke (17e), the
+    #     vision and audio frontends (17f)
+    zoo_train = zoo_train_phases(torch, dev)
+    paths.update(zoo_train["paths"])
+    paths.update(frontend_phases(torch, dev)["paths"])
+    numbers["flash_attention"]["zoo_train_shapes"] = {
+        name: {k: nums[k] for k in ("shape", "forward_ms",
+                                    "forward_with_lse_ms",
+                                    "forward_library_ms", "forward_bound_ms",
+                                    "forward_o_max_abs_err")}
+        for name, nums in zoo_train["flash"].items()}
+    numbers["flash_attention_bwd"]["zoo_train_shapes"] = {
+        name: {k: v for k, v in nums.items() if not k.startswith("forward")}
+        for name, nums in zoo_train["flash"].items()}
+
+    # 18. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -5578,7 +6066,7 @@ def main() -> int:
                 "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
                 "device_ms_14a_profiler", "granite_moe", "jamba_dh128",
-                "zoo_prefill_device_ms_per_launch")
+                "zoo_prefill_device_ms_per_launch", "zoo_train_shapes")
                 if key in nums}})
         rows[-1]["launches_per_rank"] = {
             name: [c[k.name] for c in nums["launches_per_rank"]]

@@ -8,9 +8,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One config covers the whole LM family (dense / ssm / moe / vlm /
-    audio / hybrid). Unused knobs stay at their neutral defaults. The port
-    runs the dense, MoE, SSM and hybrid families; the frontends' knobs are
-    kept so the configs stay equal to the reference's field for field."""
+    audio / hybrid). Unused knobs stay at their neutral defaults."""
     name: str
     family: str                      # dense|ssm|moe|vlm|audio|hybrid
     n_layers: int

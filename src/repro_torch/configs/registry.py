@@ -1,28 +1,24 @@
-"""Config registry of the port: the dense, MoE, SSM and hybrid LM
-architectures (one module per arch), the paper's production DLRMs, and
-their reduced smoke configs of the same family for CPU tests. The
-reference's two frontend archs (VLM, audio) are named, and raise until
-their slice."""
+"""Config registry of the port: the reference's ten LM architectures
+(dense, MoE, SSM, hybrid, and the vision and audio frontends; one module
+per arch), the paper's production DLRMs, and their reduced smoke configs
+of the same family for CPU tests."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (chatglm3_6b, granite_moe_1b_a400m,
-                                 granite_moe_3b_a800m, jamba_v0_1_52b,
-                                 mamba2_780m, qwen1_5_32b, stablelm_1_6b,
-                                 starcoder2_3b)
+                                 granite_moe_3b_a800m, internvl2_26b,
+                                 jamba_v0_1_52b, mamba2_780m, musicgen_large,
+                                 qwen1_5_32b, stablelm_1_6b, starcoder2_3b)
 from repro_torch.configs.base import DLRMConfig, ModelConfig
 from repro_torch.configs.dlrm_prod import DLRMS
 
 _ARCH_MODULES = (starcoder2_3b, stablelm_1_6b, qwen1_5_32b, chatglm3_6b,
                  mamba2_780m, granite_moe_1b_a400m, granite_moe_3b_a800m,
-                 jamba_v0_1_52b)
+                 internvl2_26b, musicgen_large, jamba_v0_1_52b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
                                  for m in _ARCH_MODULES}
-
-#: the reference's frontend archs, by family: they come with their slice
-LATER: dict[str, str] = {"internvl2-26b": "vlm", "musicgen-large": "audio"}
 
 ARCH_NAMES: list[str] = list(ARCHS) + list(DLRMS)
 
@@ -70,11 +66,6 @@ def get_config(name: str) -> ModelConfig | DLRMConfig:
         return ARCHS[name]
     if name in DLRMS:
         return DLRMS[name]
-    if name in LATER:
-        raise NotImplementedError(
-            f"{name} is a {LATER[name]}-family LM; the port runs the dense, "
-            "MoE, SSM and hybrid families, the vision and audio frontends "
-            "come with a later slice")
     raise KeyError(f"unknown arch {name!r}; the port knows {ARCH_NAMES}")
 
 

@@ -78,15 +78,43 @@ def make_dlrm_batch(cfg: DLRMConfig, batch: int, step: int = 0,
     return {"dense": dense, "idx": idx, "label": label}
 
 
+def vlm_prefix(seq_len: int) -> int:
+    """The vision arch's patch-prefix length within `seq_len` positions:
+    256 patches, bounded for short smoke sequences."""
+    return min(256, max(4, seq_len // 8))
+
+
 def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, step: int = 0,
                   seed: int = 0) -> dict[str, np.ndarray]:
-    """Token batch: {tokens (B, S) i32, targets (B, S) i32 (tokens shifted
-    by one, a fresh draw last), loss_mask (B, S) f32 ones}. The vision and
-    audio frontends' embeddings come with their slice."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} batches come with the frontend slice")
+    """An LM batch of `seq_len` positions. Token archs: {tokens (B, S) i32,
+    targets (B, S) i32 (tokens shifted by one, a fresh draw last),
+    loss_mask (B, S) f32 ones}. The vision arch: {embeds (B, P, D) f32,
+    the stub frontend's patch embeddings (P = vlm_prefix(S)), tokens (B, S
+    - P), targets (B, S), loss_mask zero over the P patches}. The audio
+    arch: {embeds (B, S, D) f32 frame embeddings, targets (B, S, K) i32,
+    loss_mask ones}."""
     rng = np.random.RandomState(seed * 7_777_777 + step + 1)
+    if cfg.frontend == "vision":
+        prefix = vlm_prefix(seq_len)
+        text = seq_len - prefix
+        embeds = rng.randn(batch, prefix,
+                           cfg.d_model).astype(np.float32) * 0.02
+        tokens = rng.randint(0, cfg.vocab_size,
+                             size=(batch, text)).astype(np.int32)
+        targets = rng.randint(0, cfg.vocab_size,
+                              size=(batch, seq_len)).astype(np.int32)
+        mask = np.concatenate([np.zeros((batch, prefix), np.float32),
+                               np.ones((batch, text), np.float32)], axis=1)
+        return {"embeds": embeds, "tokens": tokens, "targets": targets,
+                "loss_mask": mask}
+    if cfg.frontend == "audio":
+        embeds = rng.randn(batch, seq_len,
+                           cfg.d_model).astype(np.float32) * 0.02
+        targets = rng.randint(
+            0, cfg.vocab_size,
+            size=(batch, seq_len, cfg.n_codebooks)).astype(np.int32)
+        return {"embeds": embeds, "targets": targets,
+                "loss_mask": np.ones((batch, seq_len), np.float32)}
     tokens = rng.randint(0, cfg.vocab_size,
                          size=(batch, seq_len)).astype(np.int32)
     targets = np.concatenate(

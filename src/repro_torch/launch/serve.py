@@ -10,7 +10,9 @@ DLRM tier, by the arch's config type.
         --device cpu
     python -m repro_torch.launch.serve --arch dlrm-m1 --cache-rows 22727272
 
-The LM mode (any dense, MoE, SSM or hybrid arch) drives `ServeEngine`
+The LM mode (any token-only arch: dense, MoE, SSM or hybrid; the
+frontend archs raise ValueError, as the reference's demo asserts) drives
+`ServeEngine`
 with seeded random prompts, of 4 to 11 tokens as the reference's unless
 `--prompt-len` says otherwise, and prints the reference's `served N
 requests, T tokens in ...` line. The DLRM mode
@@ -60,6 +62,9 @@ def serve_lm(cfg, args):
     from repro_torch.models.lm import init_lm_params
     from repro_torch.serve.engine import ServeEngine
 
+    if cfg.frontend is not None:
+        raise ValueError(f"{cfg.name}: the serve launcher drives token-only "
+                         f"archs, not the {cfg.frontend} frontend")
     if args.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     params = init_lm_params(cfg, PARAM_SEED, resolve_device(args.device))

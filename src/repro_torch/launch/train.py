@@ -17,11 +17,12 @@ modes.
 DLRM: seeded parameters (`init_dlrm_params`, seed 0) with the whole mega
 table on the device, dense `adagrad(0.01)`, `make_dlrm_batch` batches and
 `build_dlrm_train_step` with the reference launcher's defaults: the dense
-update (`--sparse-apply dense`). LM (a dense-family arch): seeded
-parameters (`init_lm_params`, seed 0), `adamw(--lr)` with its global-norm
-clip at 1.0, `make_lm_batch` batches of `--seq` tokens and
-`build_lm_train_step`. Both: synthetic batches through a prefetching
-`ShardedLoader` pipeline, an async
+update (`--sparse-apply dense`). LM (any family: dense, MoE, SSM,
+hybrid, and the vision and audio frontends, whose batches carry the stub
+frontend's embeddings): seeded parameters (`init_lm_params`, seed 0),
+`adamw(--lr)` with its global-norm clip at 1.0, `make_lm_batch` batches
+of `--seq` positions and `build_lm_train_step`. Both: synthetic batches
+through a prefetching `ShardedLoader` pipeline, an async
 CRC-verified checkpoint of {"params", "state"} every `--ckpt-every` steps
 into `<ckpt-dir>/<arch>`, `--resume` from its newest intact step, and
 `run_resilient_loop` with SIGTERM preemption and straggler flags.
@@ -146,9 +147,8 @@ def _lm_job(cfg, args, device):
 
 
 def train(cfg, args) -> TrainRun:
-    """Train `cfg` (a DLRM or a dense LM) for `args.steps` steps on
-    `args.device`. An MoE, SSM or hybrid LM raises `NotImplementedError`
-    before anything is built."""
+    """Train `cfg` (a DLRM or an LM of any family) for `args.steps` steps
+    on `args.device`."""
     from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.fault_tolerance import (FaultInjector,
@@ -156,9 +156,6 @@ def train(cfg, args) -> TrainRun:
                                                    StragglerDetector,
                                                    run_resilient_loop)
 
-    if not isinstance(cfg, DLRMConfig):
-        from repro_torch.models.lm import check_trainable
-        check_trainable(cfg)
     device = resolve_device(args.device)
     inj = None
     if args.chaos:
@@ -329,7 +326,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> TrainRun:
-    """Entry point: train the named DLRM or dense LM. Returns the run."""
+    """Entry point: train the named DLRM or LM. Returns the run."""
     args = parse_args(argv)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))

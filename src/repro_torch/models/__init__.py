@@ -1,4 +1,4 @@
-"""Models of the port: the dense LM family."""
+"""Models of the port: the LM zoo (every family of the reference)."""
 from repro_torch.models.lm import (  # noqa: F401
     decode_step,
     init_caches,

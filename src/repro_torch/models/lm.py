@@ -1,17 +1,18 @@
-"""Causal LM of the port: the reference's unified decoder for the dense,
-MoE, SSM and hybrid families (GQA attention with neox / glm / no RoPE,
-partial rotary, optional QKV bias, SwiGLU or GELU MLPs or top-k MoE,
-Mamba-2 mixers, per-period layer patterns as Jamba's, RMSNorm or
-LayerNorm, tied or untied head).
+"""Causal LM of the port: the reference's unified decoder for every LM
+family (GQA attention with neox / glm / no RoPE, partial rotary, optional
+QKV bias, SwiGLU or GELU MLPs or top-k MoE, Mamba-2 mixers, per-period
+layer patterns as Jamba's, RMSNorm or LayerNorm, tied or untied head) and
+the reference's two stub frontends: the vision arch takes precomputed
+patch embeddings as a prefix before its token embeddings, the audio arch
+takes precomputed frame embeddings, adds sinusoidal positions and
+predicts K parallel codebooks through a V*K head.
 
 Parameters keep the reference's stacked layout: one block `b{i}` per
 position of the layer pattern, each tensor with a leading n_units axis,
 so `lm_params_from_jax` copies the reference's tree as it is. The
-reference's `scan` over units is a Python loop over that axis. The vision
-and audio frontends and sinusoidal positions raise `NotImplementedError`
-until their slice. `lm_loss` is the training objective; in train mode
-with autograd recording, each unit runs under the config's `remat`
-(activation checkpointing).
+reference's `scan` over units is a Python loop over that axis. `lm_loss`
+is the training objective; in train mode with autograd recording, each
+unit runs under the config's `remat` (activation checkpointing).
 
 Caches are written IN PLACE by `prefill_step` and `decode_step` (the
 reference returns updated copies); both return the caches they were given.
@@ -35,24 +36,6 @@ from repro_torch.nn.params import ParamSpec, init_params, stack_specs
 MODES = ("train", "prefill", "decode")
 REMAT = ("none", "dots", "full")
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the frontends."""
-    if cfg.frontend is not None or cfg.sinusoidal_pos:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense, MoE, SSM "
-            "and hybrid LM families; the vision / audio frontends and "
-            "sinusoidal positions come with a later slice")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family whose training path is not ported yet: MoE
-    (its aux loss and backward) and Mamba-2 mixers."""
-    _check_family(cfg)
-    if cfg.n_experts > 0 or "m" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port serves the MoE, SSM and "
-            "hybrid families; training them comes with the training slice")
 
 # ---------------------------------------------------------------------------
 # params
@@ -83,19 +66,25 @@ def _pattern_moe_flags(cfg: ModelConfig) -> tuple[bool, ...]:
 
 
 def lm_param_specs(cfg: ModelConfig) -> dict:
-    """ParamSpec tree: token embedding, one stacked block per pattern
-    position ("b0", "b1", ...), the final norm and, when untied, the
-    head."""
-    _check_family(cfg)
+    """ParamSpec tree: the token embedding (the audio arch: K codebook
+    tables, "codebooks" (K, V, D)), one stacked block per pattern position
+    ("b0", "b1", ...), the final norm and, when untied, the head ((D, V*K)
+    for the audio arch)."""
     v, d = cfg.vocab_size, cfg.d_model
     flags = _pattern_moe_flags(cfg)
-    p = {"embed": {"tok": ParamSpec((v, d), init="normal", scale=0.02)},
+    if cfg.frontend == "audio":
+        embed = {"codebooks": ParamSpec((cfg.n_codebooks, v, d),
+                                        init="normal", scale=0.02)}
+    else:
+        embed = {"tok": ParamSpec((v, d), init="normal", scale=0.02)}
+    p = {"embed": embed,
          "blocks": {f"b{i}": stack_specs(_block_specs(cfg, kind, flags[i]),
                                          cfg.n_units)
                     for i, kind in enumerate(cfg.pattern)},
          "final_norm": L.norm_specs(d, cfg.norm_type)}
     if not cfg.tie_embeddings:
-        p["head"] = {"w": ParamSpec((d, v), init="fan_in")}
+        out = v * cfg.n_codebooks if cfg.frontend == "audio" else v
+        p["head"] = {"w": ParamSpec((d, out), init="fan_in")}
     return p
 
 
@@ -114,28 +103,55 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def _device(params: dict) -> torch.device:
+    """The device the parameters lie on."""
+    return next(iter(params["embed"].values())).device
+
+
 def embed_input(params: dict, batch: dict, cfg: ModelConfig,
                 positions: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token embeddings (B, S, D) in the compute dtype, and positions
-    (B, S): `positions` from the decode path, else arange(S)."""
-    table = params["embed"]["tok"]
-    tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    x = table[tokens.long()].to(_dtype(cfg))
+    """The input embeddings (B, S, D) in the compute dtype, and positions
+    (B, S): `positions` from the decode path, else arange(S).
+
+    Token archs look up batch["tokens"]; the vision arch puts
+    batch["embeds"] (B, P, D), the patch prefix, before its tokens'
+    embeddings; the audio arch takes batch["embeds"] (B, S, D) as they
+    are. With `sinusoidal_pos`, the fp32 positional embedding of each
+    position, cast to the compute dtype, is added."""
+    dtype = _dtype(cfg)
+    dev = _device(params)
+    if cfg.frontend == "audio":
+        x = torch.as_tensor(batch["embeds"], device=dev).to(dtype)
+    else:
+        table = params["embed"]["tok"]
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        x = table[tokens.long()].to(dtype)
+        if cfg.frontend == "vision":
+            prefix = torch.as_tensor(batch["embeds"], device=dev)
+            x = torch.cat([prefix.to(dtype), x], dim=1)
     b, s = x.shape[:2]
     if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = torch.arange(s, device=dev).expand(b, s)
+    if cfg.sinusoidal_pos:
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(dtype)
     return x, positions
 
 
 def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    """Final norm, then the tied embedding's transpose or the head."""
+    """Final norm, then the tied embedding's transpose or the head; the
+    audio arch's (B, S, V*K) reshaped to (B, S, K, V)."""
     dtype = _dtype(cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_type, dtype=dtype)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].to(dtype).T
-    return x @ params["head"]["w"].to(dtype)
+        logits = x @ params["embed"]["tok"].to(dtype).T
+    else:
+        logits = x @ params["head"]["w"].to(dtype)
+    if cfg.frontend == "audio":
+        b, s, _ = logits.shape
+        logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
+    return logits
 
 # ---------------------------------------------------------------------------
 # blocks and the forward
@@ -228,8 +244,11 @@ def _run_unit(remat: str, fn, *args):
     """fn(*args) under the reference's remat modes: "full" keeps only the
     unit's input and recomputes the rest in the backward, "dots" keeps the
     weight products' outputs as well, "none" keeps everything. The three
-    give the same bits: a recompute repeats the same operations on the
-    same inputs."""
+    give the same bits, on the card too: a recompute repeats the same
+    operations on the same inputs, and no operation adds floats in an
+    order that varies from run to run (the MoE counts its routed pairs in
+    integers, sums each token's k outputs in order and differentiates its
+    gathers as gathers)."""
     if remat == "none":
         return fn(*args)
     if remat == "dots":
@@ -268,7 +287,8 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
                mode: str = "train", caches: dict | None = None,
                cache_index=None
                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-    """Returns (logits (B, S, V), aux_loss, caches), as the reference.
+    """Returns (logits (B, S, V), or (B, S, K, V) for the audio arch,
+    aux_loss, caches), as the reference.
 
     train: with autograd recording, each unit runs under `cfg.remat`
     (`_run_unit`); `lm_loss` differentiates it. prefill: writes the
@@ -277,19 +297,18 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
     `cache_index` (int or (B,)), written in place. aux_loss: the MoE
     layers' load-balancing losses summed over blocks in order (fp32, 0
     without experts)."""
-    _check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if cfg.remat not in REMAT:
         raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT}")
     if mode != "train" and caches is None:
         raise ValueError(f"{mode} needs caches (init_caches)")
-    dev = params["embed"]["tok"].device
+    dev = _device(params)
     positions, index = None, None
     if mode == "decode":
         if cache_index is None:
             raise ValueError("decode needs a cache_index")
-        b = len(batch["tokens"])
+        b = len(next(iter(batch.values())))
         index = _decode_index(cache_index, b, dev, _window(caches, cfg))
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
@@ -362,7 +381,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     d_head), bf16 whatever the compute dtype; a mixer's {"conv" (n_units,
     batch, k-1, conv_dim) bf16, "ssm" (n_units, batch, h, p, n) fp32}, as
     the reference's."""
-    _check_family(cfg)
     dev = resolve_device(device)
     out = {}
     for i, kind in enumerate(cfg.pattern):
@@ -380,10 +398,27 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                 cache_index, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
-    """One token for every sequence: tokens (B, 1). Returns (logits (B, V)
-    of the new position, caches), the caches written in place."""
-    logits, _, caches = lm_forward(params, {"tokens": tokens}, cfg, "decode",
-                                   caches, cache_index)
+    """One token for every sequence: tokens (B, 1), or (B, 1, K) codebook
+    tokens for the audio arch, whose input is the sum of their K
+    codebook embeddings (fp32, cast to the compute dtype); the vision arch
+    decodes text with an empty patch prefix. Returns (logits (B, V), or
+    (B, K, V), of the new position, caches), the caches written in
+    place."""
+    if cfg.frontend == "audio":
+        emb = params["embed"]["codebooks"]                     # (K, V, D)
+        tokens = torch.as_tensor(tokens, device=emb.device).long()
+        x = emb[0][tokens[..., 0]]
+        for k in range(1, cfg.n_codebooks):
+            x = x + emb[k][tokens[..., k]]
+        batch = {"embeds": x.to(_dtype(cfg))}
+    elif cfg.frontend == "vision":
+        batch = {"tokens": tokens,
+                 "embeds": torch.zeros((len(tokens), 0, cfg.d_model),
+                                       device=_device(params))}
+    else:
+        batch = {"tokens": tokens}
+    logits, _, caches = lm_forward(params, batch, cfg, "decode", caches,
+                                   cache_index)
     return logits[:, -1], caches
 
 

@@ -1,6 +1,7 @@
 """Layers of the port: the dense layers of the DLRM towers, and the LM
-layer zoo's dense family (norms, RoPE, GQA attention with a bf16 or int8
-KV cache, SwiGLU / GELU MLPs). Weights keep the reference's layouts, so
+layer zoo's dense family (norms, RoPE, sinusoidal positions, GQA
+attention with a bf16 or int8 KV cache, SwiGLU / GELU MLPs). Weights keep
+the reference's layouts, so
 `y = x @ w + b` matches `repro.nn.layers.linear`, and the attention
 weights are (d, h, dh) and (h, dh, d)."""
 from __future__ import annotations
@@ -104,6 +105,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
         x1, x2 = xf[..., :half], xf[..., half:]
         out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """MusicGen's absolute position embedding, fp32: for positions (...)
+    the (..., d_model) concatenation of sin and cos of position * 10000^(-2i
+    / d_model), i < d_model / 2."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d_model, 2, dtype=torch.float32,
+                                          device=positions.device)
+                             / d_model))
+    ang = positions[..., None].float() * inv
+    return torch.cat([ang.sin(), ang.cos()], dim=-1)
 
 
 def attention_specs(cfg) -> dict[str, ParamSpec]:
@@ -319,10 +332,32 @@ def mlp_specs(cfg) -> dict[str, ParamSpec]:
             "bo": ParamSpec((d,), init="zeros")}
 
 
+class _Silu(torch.autograd.Function):
+    """x * sigmoid(x) with `jax.nn.silu`'s gradient. The forward is
+    sigmoid as 1 / (1 + exp(-x)) op by op, each rounded to x's dtype
+    (bf16 results equal XLA's bit for bit). The backward is the
+    reference's: g * (s + x * s * (1 - s)) from the saved sigmoid s, as
+    `lax.logistic` differentiates. Autograd through the ops instead would
+    multiply a zero gradient by exp(-x) = inf where x < -88 (bf16 and
+    fp32 overflow there) and give NaN, where the reference's gradient is
+    0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * (s + x * (s * (1 - s)))
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(x) as `jax.nn.silu` computes it: x / (1 + exp(-x)) op by
-    op, each rounded to x's dtype (bf16 results equal XLA's bit for bit)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """x * sigmoid(x) as `jax.nn.silu` computes it, forward and gradient
+    (`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

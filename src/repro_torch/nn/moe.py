@@ -54,8 +54,11 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
     k); "pos" (g, tg*k), the exclusive count of earlier (token, slot)
     pairs routed to the same expert in the group; "keep" (g, tg*k), pos <
     cap; "gather" (g, e_pad, cap), the token each expert slot reads (tg,
-    the sentinel, where none); "aux", the Switch load-balancing loss
-    e * sum(mean prob * routed fraction)}.
+    the sentinel, where none); "pair" (g, e_pad * cap), the (token, slot)
+    pair t * k + j each expert slot holds (tg * k where none); "slot" (g,
+    tg * k), the flat expert slot e * cap + pos of each pair (e_pad * cap
+    where dropped); "aux", the Switch load-balancing loss e * sum(mean
+    prob * routed fraction)}.
 
     top-k is a stable descending sort: on equal probabilities the lower
     expert index comes first, as `jax.lax.top_k` orders ties (torch.topk
@@ -72,9 +75,11 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
 
     t = g * tg
     me = probs.mean(dim=(0, 1))                               # (e,)
-    ce = torch.zeros(e, device=dev).index_add_(
-        0, gate_idx.reshape(-1),
-        torch.full((t * k,), 1.0 / (t * k), device=dev))
+    # the routed fraction as an integer count (no float atomics on the
+    # card); it carries no gradient, as the reference's scatter of a
+    # constant
+    ce = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
+        * (1.0 / (t * k))
     aux = e * (me * ce).sum()
 
     # the one-hot laid out (g, e, n), so that the count runs along the
@@ -86,15 +91,45 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
     pos = (onehot.cumsum(-1) - onehot).gather(1, flat_e[:, None, :])[:, 0]
     keep = pos < cap
 
-    token_ids = torch.arange(tg, device=dev).repeat_interleave(k)
-    slot_e = torch.where(keep, flat_e, e_pad)   # dropped: the spare row
-    slot_p = torch.where(keep, pos, 0)
-    table = torch.full((g, e_pad + 1, cap), tg, dtype=torch.long,
-                       device=dev)
-    grp = torch.arange(g, device=dev)[:, None]
-    table[grp, slot_e, slot_p] = token_ids.expand(g, -1)
+    # each kept pair's flat expert slot, unique within its group; a
+    # dropped pair writes the spare slot past the end, which is cut off
+    n = tg * k
+    slot = torch.where(keep, flat_e * cap + pos, e_pad * cap)
+    pair = torch.full((g, e_pad * cap + 1), n, dtype=torch.long, device=dev)
+    pair.scatter_(1, slot, torch.arange(n, device=dev).expand(g, -1))
+    pair = pair[:, :-1]
     return {"gate_vals": gate_vals, "gate_idx": gate_idx, "pos": pos,
-            "keep": keep, "gather": table[:, :e_pad], "aux": aux}
+            "keep": keep, "gather": (pair // k).view(g, e_pad, cap),
+            "pair": pair, "slot": slot, "aux": aux}
+
+
+class _GatherRows(torch.autograd.Function):
+    """out[g, i] = src[g, idx[g, i]] for src (g, m, d) and idx (g, n) in
+    [0, m], m reading a zero row. Its gradient is a gather too: d_src[g,
+    r] = sum over j of d_out[g, inv[g, r, j]] for inv (g, m, J) in [0, n],
+    n reading a zero row, the J terms added in order. The autograd of an
+    indexing gather scatters instead: every row the sentinel or a dropped
+    pair reads queues behind one row's serial sum, which took 2,032 of a
+    granite-moe-1b-a400m step's 2,678 device ms on an H100 (`PERF.md`)."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return _take(src, idx)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        inv, = ctx.saved_tensors
+        g, m, j = inv.shape
+        rows = _take(d_out, inv.reshape(g, m * j)).view(g, m, j, -1)
+        return rows.sum(2) if j > 1 else rows[:, :, 0], None, None
+
+
+def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (g, m, d) rows at idx (g, n), idx == m a zero row."""
+    g, m, d = src.shape
+    pad = torch.cat([src, src.new_zeros(g, 1, d)], dim=1)
+    return pad[torch.arange(g, device=src.device)[:, None], idx]
 
 
 def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
@@ -105,8 +140,15 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
     Each group's tokens are gathered into (e_pad, cap, d) expert slots
     (the sentinel reads a zero row), the SwiGLU experts run as batched
     products, and each kept (token, slot) adds its expert's output times
-    its gate into an fp32 sum per token (`index_add_`, in no fixed order,
-    as the reference's scatter-add)."""
+    its gate into an fp32 sum per token. A token's k pairs are consecutive
+    rows (pair t * k + j), so the combine is a sum over k in a fixed
+    order, where the reference scatter-adds: the same function. The two
+    gathers differentiate as gathers (`_GatherRows`), so neither the
+    forward nor the backward adds floats in an order that varies: a remat
+    recompute repeats the forward's bits and two steps agree bit for bit
+    on the card. The gradient reaches the router through the renormalised
+    gates and the aux loss's mean probability; the routing integers carry
+    none."""
     b, s, d = x.shape
     k = cfg.top_k
     cf = capacity_factor or cfg.capacity_factor
@@ -119,19 +161,21 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
 
     xg = x.reshape(g, tg, d).to(dtype)
     r = route(p["router"], xg, cfg, cap, dtype)
-    grp = torch.arange(g, device=x.device)
-    xpad = torch.cat([xg, xg.new_zeros(g, 1, d)], dim=1)
-    xe = xpad[grp[:, None, None], r["gather"]]               # (g,e_pad,cap,d)
-    wi, wg, wo = (p[n].to(dtype) for n in ("wi", "wg", "wo"))
+    e_pad, n = cfg.n_experts + cfg.expert_pad, tg * k
+    # dispatch: each expert slot reads its token (the sentinel a zero
+    # row); a token's gradient gathers its k slots'
+    xe = _GatherRows.apply(xg, r["gather"].view(g, -1),
+                           r["slot"].view(g, tg, k))
+    xe = xe.view(g, e_pad, cap, d)
+    wi, wg, wo = (p[name].to(dtype) for name in ("wi", "wg", "wo"))
     h = _silu(xe @ wg) * (xe @ wi)                            # (g,e_pad,cap,f)
     ye = h @ wo                                               # (g,e_pad,cap,d)
 
-    keep, n = r["keep"], tg * k
-    slot = torch.where(keep, r["gate_idx"].reshape(g, n) * cap + r["pos"], 0)
-    contrib = ye.reshape(g, -1, d)[grp[:, None], slot]        # (g, n, d)
+    # combine: each pair reads its slot's output (a dropped pair a zero
+    # row), an expert slot's gradient gathers its one pair's
+    contrib = _GatherRows.apply(ye.view(g, e_pad * cap, d), r["slot"],
+                                r["pair"][..., None])         # (g, n, d)
     contrib = contrib * (r["gate_vals"].reshape(g, n, 1)
-                         * keep[..., None]).to(dtype)
-    token_ids = torch.arange(tg, device=x.device).repeat_interleave(k)
-    y = torch.zeros(g, tg, d, device=x.device).index_add_(
-        1, token_ids, contrib.float())
+                         * r["keep"][..., None]).to(dtype)
+    y = contrib.view(g, tg, k, d).float().sum(2)
     return y.reshape(b, s, d).to(dtype), r["aux"]

@@ -56,10 +56,18 @@ class ServeEngine:
     """Slot-based continuous-batching LM engine (see module docstring).
 
     It runs where `params` lie: the caches are made on the device of the
-    token embedding (the card for `init_lm_params`' default)."""
+    token embedding (the card for `init_lm_params`' default). It drives
+    token-in, token-out archs: the vision arch decodes text (an empty
+    patch prefix, as its `decode_step` does); the audio arch, whose steps
+    take and give K codebook tokens, raises ValueError, where the
+    reference asserts."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
                  max_len: int, eos_id: int = -1):
+        if cfg.frontend not in (None, "vision"):
+            raise ValueError(f"{cfg.name}: the engine drives token-in / "
+                             f"token-out archs, not the {cfg.frontend} "
+                             "frontend")
         self.params = params
         self.cfg = cfg
         self.batch_slots = batch_slots

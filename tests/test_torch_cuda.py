@@ -2817,3 +2817,90 @@ def test_engine_resets_a_reused_slots_state_on_the_card(dev, arch):
         alone = ServeEngine(params, cfg, batch_slots=1, max_len=32)
         alone.submit(Request(uid=0, prompt=prompt, max_new_tokens=new))
         assert got[uid] == alone.run_until_drained(max_steps=100)[0], uid
+
+
+ZOO_TRAIN = ["granite-moe-1b-a400m", "mamba2-780m", "jamba-v0.1-52b",
+             "musicgen-large", "internvl2-26b"]
+
+
+def _zoo_train(arch, dev, cfg, steps: int):
+    """`steps` steps of build_lm_train_step (adamw(1e-3), clip 1.0) from
+    init_lm_params(seed 0) on make_lm_batch's batches of 2 x 256 on `dev`.
+    Returns the (loss, aux) of each step, the parameters after them and
+    the attention kernels' launches."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import build_lm_train_step
+    params = lm.init_lm_params(cfg, 0, device=dev)
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step = build_lm_train_step(cfg, opt)
+    flash_attention.KERNEL.launches = flash_attention.BWD_KERNEL.launches = 0
+    metrics = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_lm_batch(cfg, 2, 256, i, 0).items()}
+        params, state, m = step(params, state, batch, i)
+        metrics.append((float(m["loss"]), float(m["aux"])))
+    return metrics, tree_leaves(params), (flash_attention.KERNEL.launches,
+                                          flash_attention.BWD_KERNEL.launches)
+
+
+@pytest.mark.parametrize("arch", ZOO_TRAIN)
+def test_zoo_train_steps_are_bit_repeatable_on_the_card(dev, arch):
+    """The smoke config at 256 positions (past attn_block_q 128: both
+    attention kernels), bf16 compute, two adamw steps: run twice under
+    remat "full" and once under "none", the losses, aux losses and every
+    parameter after the steps are the same bits (no float atomics in the
+    MoE's count and combine, the dispatch's gradient, the SSD scan or the
+    kernels). The attention layers launch the forward kernel twice a
+    layer a step under "full" (the recompute), once under "none"."""
+    runs = {}
+    for name, remat in (("full", "full"), ("again", "full"),
+                        ("none", "none")):
+        cfg = _zoo_cfg(arch, remat=remat, attn_block_q=128,
+                       attn_block_k=128)
+        runs[name] = _zoo_train(arch, dev, cfg, 2)
+    n = cfg.pattern.count("a") * cfg.n_units
+    assert runs["full"][2] == (2 * 2 * n, 2 * n)
+    assert runs["none"][2] == (2 * n, 2 * n)
+    assert all(np.isfinite(m).all() for m in runs["full"][0])
+    for name in ("again", "none"):
+        assert runs[name][0] == runs["full"][0], name
+        for a, b in zip(runs[name][1], runs["full"][1]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("arch", ZOO_TRAIN)
+def test_zoo_step0_on_the_card_matches_the_cpu(dev, arch):
+    """fp32 compute, the smoke config at 256 positions: step 0's loss, aux
+    loss and every gradient through the kernels on the card against the
+    plain versions on the CPU, from the same parameters: the loss within
+    1e-5 and each gradient within a relative L2 error of 1e-4 (the same
+    fp32 arithmetic in other orders, as the CPU parity tests hold the
+    port to the reference)."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.nn.params import tree_leaves, tree_map
+    cfg = _zoo_cfg(arch, compute_dtype="float32", remat="full",
+                   attn_block_q=128, attn_block_k=128)
+    params = lm.init_lm_params(cfg, 0, device="cpu")
+    raw = make_lm_batch(cfg, 2, 256, 0, 0)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        leaves = tree_map(lambda t: t.to(d).requires_grad_(), params)
+        loss, parts = lm.lm_loss(leaves, {k: torch.from_numpy(v).to(d)
+                                          for k, v in raw.items()}, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                    materialize_grads=True)
+        out.append((float(loss), float(parts["aux"]),
+                    [g.cpu() for g in grads]))
+    (cpu_loss, cpu_aux, cpu_grads), (loss, aux, grads) = out
+    np.testing.assert_allclose([loss, aux], [cpu_loss, cpu_aux], rtol=1e-5,
+                               atol=1e-5)
+    for g, w in zip(grads, cpu_grads):
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        assert rel < 1e-4, rel

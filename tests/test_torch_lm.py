@@ -128,14 +128,6 @@ def test_init_lm_params_draws_the_spec_scales():
             lm_params_from_jax({"w": np.zeros(2)})
 
 
-@pytest.mark.parametrize("name", ["internvl2-26b", "musicgen-large"])
-def test_other_families_name_the_later_slice(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_config(name)
-    jcfg = jget_smoke(name)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.lm_param_specs(jcfg)
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

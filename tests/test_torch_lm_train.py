@@ -414,7 +414,7 @@ def test_lm_loss_divides_by_at_least_one_and_adds_the_aux_term():
 
 def test_lm_loss_codebook_targets_take_the_mean_over_codebooks():
     """(B, S, K) targets on (B, S, K, V) logits: the reference's audio
-    path, reachable once the audio frontend is ported."""
+    path (the whole audio arch is in tests/test_torch_lm_frontends.py)."""
     cfg = get_smoke_config("stablelm-1.6b")
     rng = np.random.RandomState(6)
     logits = torch.from_numpy(rng.randn(2, 5, 3, 11).astype(np.float32))

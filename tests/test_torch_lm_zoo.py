@@ -3,8 +3,8 @@ package, at smoke size on the CPU: configs and parameter trees, the
 forward in train mode, `prefill_step` then `decode_step` (jamba-v0.1-52b
 carries the int8 KV cache), `lm_loss` with its aux term, on the same numpy
 inputs and the reference's parameters copied across
-(`lm_params_from_jax`); the decode window of an attention-free model; and
-the training refusals.
+(`lm_params_from_jax`); and the decode window of an attention-free model.
+Their training is in tests/test_torch_lm_zoo_train.py.
 
 Tolerances. fp32 compute: logits within rtol/atol 1e-4 (the same fp32
 arithmetic in other orders), decode logits, which read the bf16 caches,
@@ -141,13 +141,6 @@ def test_init_lm_params_draws_the_zoo(name):
                                torch.zeros_like(blk["mamba"]["A_log"]))
 
 
-@pytest.mark.parametrize("name", ["internvl2-26b", "musicgen-large"])
-def test_frontends_still_raise(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_config(name)
-    with pytest.raises(NotImplementedError, match="frontends"):
-        lm.lm_param_specs(jget_smoke(name))
-
 # ---------------------------------------------------------------------------
 # the forward, prefill and decode, the loss
 # ---------------------------------------------------------------------------
@@ -259,7 +252,7 @@ def test_lm_loss_with_aux_matches_reference(name):
     assert (float(parts["aux"]) > 0) == (cfg.n_experts > 0)
 
 # ---------------------------------------------------------------------------
-# the decode window, the refusals
+# the decode window
 # ---------------------------------------------------------------------------
 
 
@@ -284,16 +277,3 @@ def test_hybrid_decode_window_comes_from_the_attention_block():
     caches = lm.init_caches(cfg, 1, 12, device="cpu")
     assert lm._window(caches, cfg) == 12
     assert lm._window({k: v for k, v in caches.items()}, cfg) == 12
-
-
-@pytest.mark.parametrize("name", ZOO)
-def test_training_the_new_families_is_refused(name):
-    from repro_torch.launch import train as train_cli
-    from repro_torch.optim import adamw
-    from repro_torch.train.steps import build_lm_train_step
-    cfg = get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_lm_train_step(cfg, adamw(1e-3))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        train_cli.main(["--arch", name, "--smoke", "--steps", "1",
-                        "--device", "cpu"])

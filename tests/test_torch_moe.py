@@ -10,7 +10,8 @@ returned and what each `vmap`-ed function was called with and returned.
 Tolerances. Integer routing results (gate indices, positions within an
 expert, the keep mask, the gather table) are equal. fp32 compute: the
 gates, the output and the aux loss within rtol/atol 1e-5 (the same fp32
-arithmetic; the combine adds in no fixed order in either package). bf16
+arithmetic; the reference's combine adds in no fixed order, the port's
+in (token, slot) order). bf16
 compute: the output within the reference's own bf16 layer tolerance,
 rtol/atol 3e-2.
 """
