@@ -231,7 +231,31 @@ Phases, each of which makes the script exit non-zero when it fails:
    2 layers trained by the launcher at 4,096 x 2 for 3 steps. Each
    launcher run prints tokens/s, host and device-busy ms and its peak
    beside `lm_reckoning_bytes`;
-18. print one JSON line of per-kernel numbers, then the result line.
+18. train the multi-host cached tier one rank a host: MULTIHOST_HOSTS
+   gloo ranks spawned on this card, each taking a CUDA IPC view of the
+   capacity rows it owns of the parent's full-width dlrm-m1 table
+   (`train.sharded.multihost_rank`, `build_cached_train_step(mesh=)`):
+   every rank plans the global batch, installs its misses from their
+   owners by copy (`Mesh.all_to_all_rows`), pools its quarter of the
+   batch on its own slab, gathers the pools (`Mesh.all_gather_rows`),
+   runs the dense tower on the global batch and updates its own rows:
+   (18a) 13a's run, (18b) 13b's (strict_sync, evicting), each with every
+   rank's losses the launcher's, the shards' checksums adding up to
+   LAUNCHER_FINAL_SUMS, CacheStats and RouteStats 13a's (13b's), exactly
+   one embedding_bag, one dot_interaction and one segmented update a rank
+   a step, no jax or reference module in a rank; (18c) the elastic re-mesh
+   on dlrm-m1 with every table cut to 1 / ELASTIC_ROW_DIV of its rows:
+   ELASTIC_SPLIT steps on 4 ranks, saved (`CheckpointManager.save(
+   shardings=)`), restored onto ELASTIC_HOSTS hosts (`restore(
+   shardings=)`, each its block) and finished there, bit-equal to the
+   uninterrupted `build_dlrm_train_step(sparse_apply="sparse")` run;
+   (18d) EASGD over the pod axis of POD_MESH, a replica of the dense tower
+   a rank, bit-equal to the stacked form on the card, a row of signed zeros
+   and a NaN payload through both row collectives bit for bit, and
+   compression (bf16, int8, error feedback) on the card bit-equal to the
+   CPU; each world's start, each rank's host and device-busy ms, the
+   collectives' calls, bytes and ms a step and the ranks' peaks printed;
+19. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -330,6 +354,23 @@ MESH_PSUM_SHAPE, MESH_HYBRID_SHAPE = (1, 4), (2, 4)
 MESH_PSUM_STEPS, MESH_HYBRID_STEPS = 2, 4
 #: steps each rank runs under torch.profiler (its last ones)
 MESH_PROFILED_STEPS = 1
+#: phase 18: 18c's elastic run cuts every dlrm-m1 table to 1 /
+#: ELASTIC_ROW_DIV of its rows (2.66M rows, 0.68 GB: a full-width save at
+#: the measured 0.7 GB/s would take ~62 s each way), saves after
+#: ELASTIC_SPLIT steps on MULTIHOST_HOSTS ranks and finishes on
+#: ELASTIC_HOSTS hosts; the second world's MULTIHOST_HOSTS ranks hold
+#: them as a (pod, data) mesh of POD_RANKS replicas of that tier (one
+#: spawn fewer), and 18d's EASGD runs over its pod axis, a replica of
+#: the dense tower a rank, through EASGD_ROUNDS (`train.sharded.
+#: easgd_rounds`)
+ELASTIC_ROW_DIV, ELASTIC_SPLIT, ELASTIC_HOSTS = 64, 4, 2
+POD_RANKS = MULTIHOST_HOSTS // ELASTIC_HOSTS
+POD_MESH = ((POD_RANKS, ELASTIC_HOSTS), ("pod", "data"))
+EASGD_ROUNDS = {"rounds": 4, "seed": 7, "lr": 0.01, "alpha": 0.3,
+                "beta": 0.3, "sync_every": 2}
+#: a rank's launches in each multi-host mesh step, and no other kernel
+MULTIHOST_RANK_STEP = {"embedding_bag": 1, "dot_interaction": 1,
+                       "fused_bag_backward_adagrad_segments": 1}
 #: seconds a world of ranks may take, from spawn to its last report,
 #: before every rank is killed and the phase fails
 MESH_TIMEOUT_S = 300
@@ -2828,16 +2869,9 @@ def mesh_run(torch, dev, name: str, job: dict, n_ranks: int,
     run no collective, apart), examples/s and the ranks' summed peaks."""
     import numpy as np
 
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.train.sharded import train_rank
-    t0 = time.perf_counter()
-    timings: dict = {}
-    res = run_ranks(train_rank, n_ranks, (job,), backend="gloo",
-                    device=rank_device(dev), timeout_s=MESH_TIMEOUT_S,
-                    timings=timings)
-    wall = time.perf_counter() - t0
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    (res,), world = rank_world(torch, dev, name, [(train_rank, job)],
+                               n_ranks)
     for r in res:
         log(f"  {name} rank {r['rank']} {r['coords']} rows {r['rows']}: "
             f"losses {r['losses']}; launches {r['launches']}; host ms "
@@ -2862,16 +2896,7 @@ def mesh_run(torch, dev, name: str, job: dict, n_ranks: int,
 
     host_ms = float(np.mean([np.mean(r["host_ms"][later]) for r in res]))
     busy = [r["device_busy_ms_per_step"] for r in res]
-    spans = {key: max(t[key] for t in timings["ranks"])
-             for key in ("started", "imported", "entered", "joined",
-                         "returned")}
-    nums = {"ranks": n_ranks, "spawn_and_run_s": wall,
-            "last_rank_started_s": spans["started"],
-            "last_rank_imported_s": spans["imported"],
-            "last_rank_entered_s": spans["entered"],
-            "last_rank_joined_s": spans["joined"],
-            "last_rank_reported_s": spans["returned"],
-            "all_exited_s": timings["all_exited_s"],
+    nums = {**world,
             "rank_setup_s": {k: float(max(r["setup"][k] for r in res))
                              for k in res[0]["setup"]},
             "host_ms_per_step": host_ms,
@@ -3517,8 +3542,9 @@ def lm_serve(torch, cfg) -> dict:
             max_new_tokens=budget))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: with the CPU's too, key_averages over
+    # these engine steps' ops took ~58 s on the card, for a device sum
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.run_until_drained()
         torch.cuda.synchronize()
     prof_steps = engine.steps_run - steps
@@ -5518,6 +5544,398 @@ def frontend_phases(torch, dev) -> dict:
     return {"paths": paths}
 
 
+def rank_world(torch, dev, name: str, calls: list, n_ranks: int
+               ) -> tuple[list, dict]:
+    """Spawn `n_ranks` gloo ranks on the card (`launch.mesh.run_ranks`)
+    running `calls` one after another in one world (`train.sharded.
+    run_calls`). Returns each call's reports in rank order and the world's
+    start: seconds from the spawn until the last rank had started, had
+    imported torch, had its arguments, had joined, had reported."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train.sharded import run_calls
+    t0 = time.perf_counter()
+    timings: dict = {}
+    res = run_ranks(run_calls, n_ranks, (calls,), backend="gloo",
+                    device=rank_device(dev), timeout_s=MESH_TIMEOUT_S,
+                    timings=timings)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    world = {"ranks": n_ranks, "spawn_and_run_s": time.perf_counter() - t0,
+             **{f"last_rank_{label}_s": max(t[key] for t in timings["ranks"])
+                for key, label in (("started", "started"),
+                                   ("imported", "imported"),
+                                   ("entered", "entered"),
+                                   ("joined", "joined"),
+                                   ("returned", "reported"))},
+             "all_exited_s": timings["all_exited_s"]}
+    log(f"  {name} world: {json.dumps(world)}")
+    return [[r[i] for r in res] for i in range(len(calls))], world
+
+
+def multihost_rank_numbers(name: str, res: list) -> dict:
+    """Phase 18's gates on one multi-host rank run (each rank's launches a
+    step exactly MULTIHOST_RANK_STEP, no jax or reference module) and its
+    numbers: host ms and device span ms a step (steps 1 on) and
+    device-busy ms a profiled step by rank, each collective's calls, bytes
+    and ms a step (means over ranks), the peaks, examples/s."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import COLLECTIVES
+    for r in res:
+        log(f"  {name} host {r['host']} rows {r['rows']}: losses "
+            f"{r['losses']}; host ms "
+            f"{[round(x, 3) for x in r['host_ms']]}; device span ms "
+            f"{[round(x, 3) for x in r['device_span_ms']]}; busy ms a "
+            f"profiled step {r['device_busy_ms_per_step']}; peak "
+            f"{r['peak_bytes']} bytes; host maps {r['host_map_bytes']} "
+            f"bytes; setup s {json.dumps(r['setup'])}")
+        for t, counts in enumerate(r["launches"]):
+            got = {k: v for k, v in counts.items() if v}
+            if got != MULTIHOST_RANK_STEP:
+                raise AssertionError(f"{name} host {r['host']} step {t}: "
+                                     f"launches {got}, want "
+                                     f"{MULTIHOST_RANK_STEP}")
+        if r["foreign_modules"]:
+            raise AssertionError(f"{name} host {r['host']} loaded "
+                                 f"{r['foreign_modules']}")
+    n = len(res[0]["host_ms"])
+    later = slice(1, n) if n > 1 else slice(0, n)
+    by_rank = [float(np.mean(r["host_ms"][later])) for r in res]
+
+    def per_step(key):
+        return float(np.mean([c[key] for r in res
+                              for c in r["collectives"][later]]))
+    totals = [{k: sum(c[k] for c in r["launches"]) for k in r["launches"][0]}
+              for r in res]
+    nums = {"host_ms_per_step": float(np.mean(by_rank)),
+            "host_ms_per_step_by_rank": by_rank,
+            "device_span_ms_per_step_by_rank": [
+                float(np.mean(r["device_span_ms"][later])) if
+                r["device_span_ms"] else None for r in res],
+            "device_busy_ms_per_step_by_rank": [
+                r["device_busy_ms_per_step"] for r in res],
+            "collectives_per_step": {
+                op: {"calls": per_step(f"{op}_calls"),
+                     "bytes": per_step(f"{op}_bytes"),
+                     "ms": per_step(f"{op}_ms")} for op in COLLECTIVES},
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in res],
+            "ranks_peak_bytes": sum(r["peak_bytes"] or 0 for r in res),
+            "rank_setup_s": {k: float(max(r["setup"][k] for r in res))
+                             for k in res[0]["setup"]},
+            "examples_per_s": TRAIN_BATCH / float(np.mean(by_rank)) * 1e3,
+            "launches": {k: sum(t[k] for t in totals) for k in totals[0]},
+            "launches_per_rank": totals}
+    log(f"  {name}: " + json.dumps({k: v for k, v in nums.items()
+                                     if k != "launches_per_rank"}))
+    return nums
+
+
+def elastic_setup(torch, dev, cfg) -> dict:
+    """Phase 18c's table and the uninterrupted run it is held to: dlrm-m1
+    with every table cut to 1 / ELASTIC_ROW_DIV of its rows on the
+    4-host cached layout, from the launcher's seed, its batches drawn
+    once; `build_dlrm_train_step(sparse_apply="sparse")` (the launcher's
+    step) trains a copy for TRAIN_STEPS steps. Returns the table and
+    accumulator the first half's ranks update through IPC views, the
+    batches, the dense parameters, the run's losses and final checksums."""
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    small = dataclasses.replace(cfg, hash_sizes=tuple(
+        max(1, h // ELASTIC_ROW_DIV) for h in cfg.hash_sizes))
+    ebc = MultiHostCachedEmbeddingBagCollection.build(
+        small, n_hosts=MULTIHOST_HOSTS).ebc
+    params = init_dlrm_params(small, ebc, PARAM_SEED, dev)
+    out = {"cfg": small, "total_rows": ebc.plan.total_rows,
+           "dense": host_dense(params),
+           "mega": params["emb"]["mega"].clone(),
+           "accum": torch.zeros((ebc.plan.total_rows,), dtype=torch.float32,
+                                device=dev),
+           "batches": mesh_batches(small, ebc, TRAIN_STEPS, "plan")}
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step = build_dlrm_train_step(small, ebc, opt, SPARSE_LR, SPARSE_EPS,
+                                 sparse_apply="sparse")
+    losses = []
+    for t, b in enumerate(out["batches"]):
+        params, state, m = step(params, state, {
+            k: torch.as_tensor(b[k]).to(dev) for k in ("dense", "idx",
+                                                       "label")}, t)
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    out["final_sums"] = (bit_checksum(torch, params["emb"]["mega"]),
+                         bit_checksum(torch, state["accum"]))
+    log(f"  18c: {ebc.plan.total_rows} rows ({sum(small.hash_sizes)} "
+        f"logical), the uninterrupted run's losses {losses}, final "
+        f"checksums {out['final_sums']}")
+    return out
+
+
+def mesh_multihost(torch, dev, cfg, want: dict, ref: dict, run: dict,
+                   extra: tuple = ()) -> tuple[dict, list]:
+    """Phases 18a-18b: `run` names the per-host cache, strict_sync,
+    fetch_chunk and whether the batches carry the plan hook's plan, as
+    13a's or 13b's. The parent draws the launcher's table on the card from
+    its seed (its initial checksum the launcher's) and MULTIHOST_HOSTS
+    ranks train TRAIN_STEPS steps of the launcher's batches over IPC views
+    of their rows (`train.sharded.multihost_rank`), the last
+    MESH_PROFILED_STEPS profiled. Gates: every rank's losses the
+    launcher's; the table's checksums and the shards' added
+    LAUNCHER_FINAL_SUMS; every rank's CacheStats and RouteStats `ref`'s
+    (the single-controller run's); MULTIHOST_RANK_STEP launches a rank a
+    step. `extra` calls run after it in the same world; returns the run's
+    numbers and their reports."""
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.train.sharded import add_checksums, multihost_rank
+    hn, name = MULTIHOST_HOSTS, run["name"]
+    mc = MultiHostCachedEmbeddingBagCollection.build(
+        cfg, n_hosts=hn, cache_rows=run["cache_rows"])
+    torch.cuda.reset_peak_memory_stats()
+    params = init_dlrm_params(cfg, mc.ebc, PARAM_SEED, dev)
+    mega = params["emb"]["mega"]
+    if bit_checksum(torch, mega) != want["init_sum"]:
+        raise AssertionError(f"{name}: the initial table differs from the "
+                             "launcher's")
+    accum = torch.zeros((mc.ebc.plan.total_rows,), dtype=torch.float32,
+                        device=dev)
+    job = {"cfg": cfg, "n_hosts": hn, "cache_rows": run["cache_rows"],
+           "strict_sync": run["strict_sync"],
+           "fetch_chunk": run["fetch_chunk"], "dense": host_dense(params),
+           "mega": mega, "accum": accum,
+           "batches": mesh_batches(cfg, mc.ebc, TRAIN_STEPS, run["hook"]),
+           "sparse_lr": SPARSE_LR, "sparse_eps": SPARSE_EPS,
+           "profile_steps": MESH_PROFILED_STEPS}
+    del params
+    log(f"  {name}: {hn} ranks x {mc.cache_rows} slots, shard_rows "
+        f"{mc.shard_rows}; the parent holds the table and accumulator "
+        f"({(mega.numel() + accum.numel()) * 4} bytes), each rank its slab "
+        f"({mc.cache_rows * cfg.embed_dim * 4} bytes)")
+    (res, *more), world = rank_world(torch, dev, name,
+                                     [(multihost_rank, job)] + list(extra),
+                                     hn)
+    del job
+    nums = multihost_rank_numbers(name, res)
+    sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
+    shard_sums = (add_checksums(r["mega_sum"] for r in res),
+                  add_checksums(r["accum_sum"] for r in res))
+    stats_keys = tuple(ref["stats"])
+    log(f"{name}: losses {res[0]['losses']} (the launcher's "
+        f"{want['losses']}); final checksums: parent {sums}, ranks added "
+        f"{shard_sums}, LAUNCHER_FINAL_SUMS {LAUNCHER_FINAL_SUMS}; route "
+        f"{json.dumps(res[0]['route'])} (single controller "
+        f"{json.dumps(ref['route'])}); examples/s "
+        f"{nums['examples_per_s']:.1f} vs the single controller's "
+        f"{TRAIN_BATCH / ref['host_ms_per_step'] * 1e3:.1f} (host ms a step "
+        f"{nums['host_ms_per_step']:.3f} vs {ref['host_ms_per_step']:.3f})")
+    for r in res:
+        if r["losses"] != want["losses"]:
+            raise AssertionError(f"{name} host {r['host']}: losses "
+                                 f"{r['losses']} differ from the launcher's")
+        if r["route"] != ref["route"] or {
+                k: r["stats"][k] for k in stats_keys} != ref["stats"]:
+            raise AssertionError(
+                f"{name} host {r['host']}: RouteStats {r['route']} / "
+                f"CacheStats {r['stats']} differ from the single "
+                f"controller's {ref['route']} / {ref['stats']}")
+    if not sums == shard_sums == LAUNCHER_FINAL_SUMS:
+        raise AssertionError(f"{name}: checksums parent {sums}, ranks "
+                             f"{shard_sums}, recorded {LAUNCHER_FINAL_SUMS}")
+    nums.update(world=world, parent_peak_bytes=torch.cuda
+                .max_memory_allocated(),
+                single_controller_host_ms_per_step=ref["host_ms_per_step"],
+                single_controller_examples_per_s=TRAIN_BATCH
+                / ref["host_ms_per_step"] * 1e3)
+    log(f"  {name} memory: parent {nums['parent_peak_bytes']}, ranks "
+        f"{nums['peak_bytes_by_rank']} (summed {nums['ranks_peak_bytes']})")
+    del mega, accum
+    release_shared(torch, dev)
+    return nums, more
+
+
+def elastic_jobs(el: dict, ckdir: str) -> tuple[dict, dict]:
+    """Phase 18c's two halves as `multihost_rank` jobs: steps
+    [0, ELASTIC_SPLIT) on MULTIHOST_HOSTS hosts over IPC views of el's
+    table, then saved; the rest from the restore on ELASTIC_HOSTS hosts
+    (each pod of POD_MESH a replica), the tier as tall as the saved
+    one."""
+    base = {"cfg": el["cfg"], "dense": el["dense"], "batches": el["batches"],
+            "sparse_lr": SPARSE_LR, "sparse_eps": SPARSE_EPS}
+    first = {**base, "n_hosts": MULTIHOST_HOSTS, "mega": el["mega"],
+             "accum": el["accum"], "steps": (0, ELASTIC_SPLIT),
+             "save": {"dir": ckdir}}
+    second = {**base, "n_hosts": ELASTIC_HOSTS, "mesh": POD_MESH,
+              "total_rows": el["total_rows"],
+              "steps": (ELASTIC_SPLIT, TRAIN_STEPS),
+              "restore": {"dir": ckdir}}
+    return first, second
+
+
+def check_elastic(el: dict, first: list, second: list) -> dict:
+    """Phase 18c's gates: the two halves' losses the uninterrupted run's;
+    the restored blocks of each pod add up to what the first half's ranks
+    saved; each pod's shards to the uninterrupted run's final checksums;
+    launches exact, no foreign module."""
+    from repro_torch.train.sharded import add_checksums
+    nums = {"first": multihost_rank_numbers("18c-4", first),
+            "second": multihost_rank_numbers("18c-2", second)}
+    saved = (add_checksums(r["mega_sum"] for r in first),
+             add_checksums(r["accum_sum"] for r in first))
+    pods = [[r for r in second if r["coords"]["pod"] == p]
+            for p in range(POD_RANKS)]
+    restored = {(add_checksums(r["restored"]["mega_sum"] for r in pod),
+                 add_checksums(r["restored"]["accum_sum"] for r in pod))
+                for pod in pods}
+    final = {(add_checksums(r["mega_sum"] for r in pod),
+              add_checksums(r["accum_sum"] for r in pod)) for pod in pods}
+    losses = first[0]["losses"] + second[0]["losses"]
+    log(f"18c: losses {losses} (uninterrupted {el['losses']}); saved "
+        f"{saved}, restored {restored}; final {final} (uninterrupted "
+        f"{el['final_sums']}); save s {first[0]['setup'].get('save_s')}")
+    if any(r["losses"] != first[0]["losses"] for r in first) \
+            or any(r["losses"] != second[0]["losses"] for r in second) \
+            or losses != el["losses"]:
+        raise AssertionError("18c: the elastic run's losses differ from the "
+                             "uninterrupted run's")
+    if restored != {saved} or final != {el["final_sums"]}:
+        raise AssertionError(f"18c: saved {saved}, restored {restored}, "
+                             f"final {final}, want {el['final_sums']}")
+    if any(r["restored"]["step"] != ELASTIC_SPLIT for r in second):
+        raise AssertionError("18c: a rank restored another step")
+    return nums
+
+
+def pod_checks(torch, dev, el: dict, pods: list) -> dict:
+    """Phase 18d's gates: each pod rank's replica and the center after the
+    elastic rounds and after the local-SGD sync bit-equal to the stacked
+    form on the card (`train.sharded.easgd_rounds`, mesh None); the probe
+    row's bits through both row collectives over the pod axis;
+    compression on the card (bf16, int8, three rounds of error feedback on
+    the dense tower's shapes) bit-equal to the CPU's."""
+    import numpy as np
+
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim import (compress_decompress,
+                                   error_feedback_compress, init_residual)
+    from repro_torch.train.sharded import easgd_rounds
+    params = tree_map(lambda x: torch.from_numpy(x).to(dev), el["dense"])
+    t0 = time.perf_counter()
+    stacked = easgd_rounds(params, POD_RANKS, **EASGD_ROUNDS)
+    stacked_ms = (time.perf_counter() - t0) * 1e3
+    for r in pods:
+        sent = np.concatenate([q["sent_bits"] for q in sorted(
+            (q for q in pods if q["coords"]["data"] == r["coords"]["data"]),
+            key=lambda q: q["coords"]["pod"])])
+        if r["foreign_modules"]:
+            raise AssertionError(f"18d pod {r['rank']} loaded "
+                                 f"{r['foreign_modules']}")
+        if not (np.array_equal(r["gathered_bits"], sent)
+                and np.array_equal(r["swapped_bits"], sent)):
+            raise AssertionError(f"18d pod {r['rank']}: the probe row's "
+                                 "bits changed in a row collective")
+        for key, st in zip(("elastic", "local"), stacked):
+            p = r["coords"]["pod"]
+            want = tree_leaves(tree_map(
+                lambda x, p=p: x[p:p + 1].cpu().numpy(),
+                st.replicas)) + [x.cpu().numpy()
+                                 for x in tree_leaves(st.center)]
+            got = tree_leaves(r[key]["replicas"]) + tree_leaves(
+                r[key]["center"])
+            if not all(np.array_equal(a, b) for a, b in zip(got, want,
+                                                             strict=True)):
+                raise AssertionError(f"18d pod {r['rank']}: {key} differs "
+                                     "from the stacked form on the card")
+    rng = np.random.RandomState(3)
+    grads = tree_map(lambda x: torch.from_numpy(
+        (rng.standard_normal(x.shape) * 1e-3).astype(np.float32)),
+        el["dense"])
+    ok = {}
+    for name, dt in (("bfloat16", torch.bfloat16), ("int8", torch.int8)):
+        ok[name] = all(torch.equal(
+            compress_decompress(g.to(dev), dt).cpu().view(torch.int32),
+            compress_decompress(g, dt).view(torch.int32))
+            for g in tree_leaves(grads))
+        card, cpu = init_residual(tree_map(lambda g: g.to(dev), grads)), \
+            init_residual(grads)
+        for k in range(3):
+            gk = tree_map(lambda g: g * (k + 1), grads)
+            cc, card = error_feedback_compress(
+                tree_map(lambda g: g.to(dev), gk), card, dt)
+            cp, cpu = error_feedback_compress(gk, cpu, dt)
+            ok[f"{name}_error_feedback"] = ok.get(
+                f"{name}_error_feedback", True) and all(
+                torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                for a, b in zip(tree_leaves(cc) + tree_leaves(card),
+                                tree_leaves(cp) + tree_leaves(cpu)))
+    nums = {"pod_collectives": pods[0]["collectives"],
+            "stacked_ms": stacked_ms,
+            "replica_floats": sum(x.numel() for x in tree_leaves(params)),
+            "compression_bit_equal": ok}
+    log(f"18d: EASGD on {POD_RANKS} pod ranks bit-equal to the stacked form "
+        f"on the card; the probe row's bits kept; {json.dumps(nums)}")
+    if not all(ok.values()):
+        raise AssertionError(f"18d: compression on the card differs from "
+                             f"the CPU: {ok}")
+    return nums
+
+
+def multihost_mesh_phases(torch, dev, cfg, want: dict, ref: dict) -> dict:
+    """Phase 18 (see the module docstring): 18a in one world of
+    MULTIHOST_HOSTS ranks; 18b, 18c's halves and 18d in a second (18c's
+    second half and 18d on POD_MESH). `ref` holds 13a's and 13b's
+    numbers. Returns each part's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.train.sharded import multihost_rank, pod_rank
+    t_phase = time.perf_counter()
+    runs = {"18a": {"name": "18a", "cache_rows": None, "hook": "plan",
+                    "strict_sync": False, "fetch_chunk": None},
+            "18b": {"name": "18b", "cache_rows": MULTIHOST_EVICT_CACHE_ROWS,
+                    "hook": "offset", "strict_sync": True,
+                    "fetch_chunk": EVICT_CHUNK}}
+    out = {}
+    log(f"phase 18a: {MULTIHOST_HOSTS} gloo ranks on this card, "
+        f"build_cached_train_step(mesh=make_host_mesh({MULTIHOST_HOSTS})), "
+        f"13a's cache and batches, {TRAIN_STEPS} steps")
+    out["18a"], _ = mesh_multihost(torch, dev, cfg, want, ref["13a"],
+                                   runs["18a"])
+    free_device(torch)
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_",
+                             dir=os.path.join(ROOT, "runs"))
+    try:
+        log(f"phase 18c: dlrm-m1 with each table cut to 1/{ELASTIC_ROW_DIV} "
+            f"of its rows: the uninterrupted run")
+        el = elastic_setup(torch, dev, cfg)
+        first, second = elastic_jobs(el, ckdir)
+        log(f"phase 18b: 13b's run on {MULTIHOST_HOSTS} ranks (strict_sync, "
+            f"{MULTIHOST_EVICT_CACHE_ROWS} slots, fetch_chunk {EVICT_CHUNK}),"
+            f" then in the same world 18c's first {ELASTIC_SPLIT} steps, "
+            f"saved, restored onto {ELASTIC_HOSTS} hosts (restore("
+            f"shardings=), {POD_RANKS} pods of the mesh {POD_MESH}) and "
+            f"finished; 18d's EASGD {json.dumps(EASGD_ROUNDS)} over its pod "
+            f"axis")
+        out["18b"], (first_res, second_res, pods) = mesh_multihost(
+            torch, dev, cfg, want, ref["13b"], runs["18b"],
+            extra=((multihost_rank, first), (multihost_rank, second),
+                   (pod_rank, {"params": el["dense"], "mesh": POD_MESH,
+                               **EASGD_ROUNDS})))
+        out["18c"] = check_elastic(el, first_res, second_res)
+        out["18d"] = pod_checks(torch, dev, el, pods)
+        del el, first, second
+        release_shared(torch, dev)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    free_device(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
 def search_main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5942,6 +6360,7 @@ def main() -> int:
     # 13. the multi-host cached tier: 4 hosts' caches over one row-sharded
     #     capacity tier, at the plan's cache (13a) and at a cache that
     #     evicts, strict and without hook plans (13b)
+    multihost = {}
     for r in (
             {"name": "13a", "path": "train_multihost", "cache_rows": None,
              "hook": "plan", "strict_sync": False, "fetch_chunk": None,
@@ -5959,6 +6378,7 @@ def main() -> int:
         res = train_multihost(torch, dev, cfg, r, want)
         paths[r["path"]] = res.pop("launches")
         log(f"{r['name']} numbers: {json.dumps(res)}")
+        multihost[r["name"]] = res
         free_device(torch)
 
     # 14. LM training on full-width stablelm-1.6b: the backward kernel
@@ -6029,7 +6449,21 @@ def main() -> int:
         name: {k: v for k, v in nums.items() if not k.startswith("forward")}
         for name, nums in zoo_train["flash"].items()}
 
-    # 18. the numbers, then the result
+    # 18. the multi-host cached tier one rank a host: 13a's run (18a) and
+    #     13b's (18b) on MULTIHOST_HOSTS gloo ranks, the elastic re-mesh
+    #     from 4 ranks to 2 (18c), EASGD over a pod axis and compression
+    #     (18d)
+    ranks = multihost_mesh_phases(torch, dev, cfg, want, multihost)
+    for name, nums in (("18a", ranks["18a"]), ("18b", ranks["18b"]),
+                       ("18c-4", ranks["18c"]["first"]),
+                       ("18c-2", ranks["18c"]["second"])):
+        mesh[name] = nums
+        paths[f"mesh_{name}"] = nums["launches"]
+        log(f"{name} numbers: " + json.dumps(
+            {k: v for k, v in nums.items() if k != "launches_per_rank"}))
+    log(f"18d numbers: {json.dumps(ranks['18d'])}")
+
+    # 19. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",

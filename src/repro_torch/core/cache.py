@@ -231,6 +231,20 @@ def capacity_fence(state) -> None:
         state.capacity_event = None
 
 
+def _rows_padded(t: torch.Tensor, lo: int, hi: int, dtype,
+                 dev: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of `t` as `dtype` on `dev`'s device type: `t` itself
+    or a view of it when it holds them all, else a new tensor, zeros past
+    t's end."""
+    if t.shape[0] >= hi and t.dtype == dtype and t.device.type == dev.type:
+        return t if (lo, hi) == (0, t.shape[0]) else t[lo:hi]
+    out = torch.zeros((hi - lo,) + tuple(t.shape[1:]), dtype=dtype,
+                      device=dev)
+    n = max(0, min(hi, t.shape[0]) - lo)
+    out[:n] = t[lo:lo + n]
+    return out
+
+
 def _host(x) -> np.ndarray:
     """A numpy view of a host array or a (device) tensor."""
     if isinstance(x, torch.Tensor):
@@ -1246,11 +1260,29 @@ class MultiHostCacheState:
     tick: int                  # EMA clock: one tick per planned batch
     stats: CacheStats          # aggregate over hosts
     route: RouteStats
+    # under a host mesh (`init_state(capacity_sharding=)`): this rank holds
+    # host `mesh.coords[host_axis]`'s slab alone (caches (1, C, d)) and the
+    # capacity rows [row_base, row_base + len(capacity)); the host maps
+    # stay every host's, planned alike on every rank
+    mesh: Any = None
+    host_axis: str = "data"
+    row_base: int = 0
 
     @property
     def n_hosts(self) -> int:
         """Host count H (one hot cache each)."""
-        return int(self.caches.shape[0])
+        return int(self.freq.shape[0])
+
+    @property
+    def host(self) -> int | None:
+        """This rank's host under a mesh; None on a single controller."""
+        return None if self.mesh is None else self.mesh.coords[self.host_axis]
+
+    @property
+    def rows(self) -> tuple[int, int]:
+        """The global capacity rows this state holds: all of them on a
+        single controller, the owner's shard under a mesh."""
+        return self.row_base, self.row_base + int(self.capacity.shape[0])
 
     @property
     def cache_rows(self) -> int:
@@ -1287,11 +1319,16 @@ class MultiHostCachedEmbeddingBagCollection:
     runs in flat-batch order, so the tier is bit-equal to the uncached
     step (`build_dlrm_train_step(sparse_apply="sparse")`).
 
-    Single-controller: one process drives every host's cache, all on the
-    capacity tier's device. The host maps (`freq`, `slot_row`, `row_slot`,
-    `ema`, `ema_tick`) are host numpy with the reference's integers and
-    fp32 arithmetic; slab installs are `index_select` / `index_copy_` on the
-    device (`install`)."""
+    Single controller: one process drives every host's cache, all on the
+    capacity tier's device. Under a host mesh (`init_state(
+    capacity_sharding=)`), one rank a host: rank h keeps its slab and the
+    capacity rows it owns, plans every batch exactly as the single
+    controller does (so every rank holds every host's maps and counters,
+    with the same integers), and installs its misses and working set from
+    the owners by copy (`install_worklist`, `Mesh.all_to_all_rows`). The
+    host maps (`freq`, `slot_row`, `row_slot`, `ema`, `ema_tick`) are host
+    numpy with the reference's integers and fp32 arithmetic; slab installs
+    are `index_select` / `index_copy_` on the device (`install`)."""
     ebc: EmbeddingBagCollection
     n_hosts: int
     cache_rows: int
@@ -1315,14 +1352,26 @@ class MultiHostCachedEmbeddingBagCollection:
     @classmethod
     def build(cls, cfg: DLRMConfig, n_hosts: int,
               cache_rows: int | None = None, decay: float = 0.98,
-              fetch_chunk: int = 1
+              fetch_chunk: int = 1, total_rows: int | None = None
               ) -> MultiHostCachedEmbeddingBagCollection:
         """Build over a fresh `cached_host` collection whose capacity tier
         is row-sharded over `n_hosts`; `cache_rows` (per host) defaults to
-        the plan's."""
+        the plan's. `total_rows` (at least the plan's, a multiple of
+        n_hosts) pads the capacity tier further: a mesh of another size
+        saved it that tall (the layout pads to 8 * n_hosts rows), and an
+        elastic restore re-shards the saved rows as they are. Pad rows are
+        never reached."""
         ebc = EmbeddingBagCollection.build(cfg, n_shards=n_hosts,
                                            strategy="cached_host",
                                            capacity_shards=n_hosts)
+        if total_rows is not None:
+            if total_rows < ebc.plan.total_rows or total_rows % n_hosts:
+                raise ValueError(
+                    f"total_rows {total_rows}: want at least the plan's "
+                    f"{ebc.plan.total_rows} and a multiple of {n_hosts}")
+            ebc = dataclasses.replace(ebc, plan=dataclasses.replace(
+                ebc.plan, total_rows=int(total_rows),
+                shard_rows=int(total_rows) // n_hosts))
         rows = cache_rows if cache_rows is not None else ebc.plan.cache_rows
         return cls(ebc, int(n_hosts), int(rows), decay, int(fetch_chunk))
 
@@ -1333,9 +1382,9 @@ class MultiHostCachedEmbeddingBagCollection:
 
     # -- state ---------------------------------------------------------------
 
-    def init_state(self, mega: torch.Tensor,
-                   accum: torch.Tensor | None = None,
-                   device=None) -> MultiHostCacheState:
+    def init_state(self, mega: torch.Tensor | None,
+                   accum: torch.Tensor | None = None, device=None,
+                   capacity_sharding=None) -> MultiHostCacheState:
         """mega: (rows, d) capacity table, rows <= total_rows; accum:
         optional (rows,) fp32 AdaGrad accumulator; device: the caches'
         device (default mega's), which must be the capacity tier's.
@@ -1346,9 +1395,22 @@ class MultiHostCachedEmbeddingBagCollection:
         second 43.6 GB capacity does not fit beside the caches). A shorter
         one (a single-host layout, whose tail padding is 8-aligned rather
         than H*8-aligned) is zero-padded into a new tensor, as the
-        reference does; pad rows are unreachable."""
-        r, d = mega.shape
+        reference does; pad rows are unreachable.
+
+        `capacity_sharding` (an `nn.sharding.NamedSharding` over a host
+        mesh, spec `ebc.plan.pspec`: one axis of n_hosts ranks on the
+        rows) makes this the state of one rank: it keeps the rows its
+        coordinate owns, [h*shard_rows, (h+1)*shard_rows), of mega and
+        accum (a view of a full-height table: a CUDA IPC view of a
+        parent's table stays the parent's memory and is updated there),
+        its own (1, C, d) slab, and every host's maps. With mega None its
+        rows start as zeros on `device`, for `CheckpointManager.restore(
+        shardings=)` to fill in place."""
         total = self.ebc.plan.total_rows
+        if capacity_sharding is not None:
+            return self._init_rank_state(mega, accum, device,
+                                         capacity_sharding)
+        r, d = mega.shape
         if r > total:
             raise ValueError(f"mega has {r} rows, the plan {total}")
         dev = mega.device if device is None else torch.device(device)
@@ -1359,24 +1421,52 @@ class MultiHostCachedEmbeddingBagCollection:
                 f"device ({dev}); got mega on {mega.device}")
         if accum is None:
             accum = torch.zeros((r,), dtype=torch.float32, device=dev)
-        accum = accum.to(torch.float32)
-        capacity, cap_accum = mega, accum
-        if r < total:
-            capacity = torch.zeros((total, d), dtype=mega.dtype, device=dev)
-            capacity[:r] = mega
-            cap_accum = torch.zeros((total,), dtype=torch.float32,
-                                    device=dev)
-            cap_accum[:r] = accum
-        h, c = self.n_hosts, self.cache_rows
+        capacity = _rows_padded(mega, 0, total, mega.dtype, dev)
+        cap_accum = _rows_padded(accum, 0, total, torch.float32, dev)
+        return self._state(capacity, cap_accum, self.n_hosts, dev)
+
+    def _state(self, capacity, cap_accum, slabs: int, dev, **kw
+               ) -> MultiHostCacheState:
+        h, c, total = self.n_hosts, self.cache_rows, self.ebc.plan.total_rows
         return MultiHostCacheState(
             capacity=capacity, cap_accum=cap_accum,
-            caches=torch.zeros((h, c, d), dtype=mega.dtype, device=dev),
+            caches=torch.zeros((slabs, c, capacity.shape[1]),
+                               dtype=capacity.dtype, device=dev),
             freq=np.zeros((h, c), np.float32),
             slot_row=np.full((h, c), -1, np.int64),
             row_slot=np.full((h, total), -1, np.int32),
             ema=np.zeros((total,), np.float32),
             ema_tick=np.zeros((total,), np.int64),
-            tick=0, stats=CacheStats(), route=RouteStats())
+            tick=0, stats=CacheStats(), route=RouteStats(), **kw)
+
+    def _init_rank_state(self, mega, accum, device, sharding
+                         ) -> MultiHostCacheState:
+        """`init_state` under a host mesh (see there)."""
+        axis = sharding.spec[0] if sharding.spec else None
+        if not isinstance(axis, str) or \
+                sharding.mesh.shape[axis] != self.n_hosts:
+            raise ValueError(
+                f"capacity_sharding {sharding} does not row-shard over "
+                f"{self.n_hosts} hosts: want the spec (host_axis, None) "
+                f"on a mesh whose host_axis has {self.n_hosts} ranks")
+        total, d = self.ebc.plan.total_rows, self.ebc.cfg.embed_dim
+        lo = sharding.mesh.coords[axis] * self.shard_rows
+        hi = lo + self.shard_rows
+        if mega is None:
+            dev = torch.device(device if device is not None else "cuda")
+            capacity = torch.zeros((self.shard_rows, d), dtype=torch.float32,
+                                   device=dev)
+        else:
+            if mega.shape[0] > total:
+                raise ValueError(f"mega has {mega.shape[0]} rows, the plan "
+                                 f"{total}")
+            dev = mega.device if device is None else torch.device(device)
+            capacity = _rows_padded(mega, lo, hi, mega.dtype, dev)
+        cap_accum = (torch.zeros((self.shard_rows,), dtype=torch.float32,
+                                 device=dev) if accum is None
+                     else _rows_padded(accum, lo, hi, torch.float32, dev))
+        return self._state(capacity, cap_accum, 1, dev, mesh=sharding.mesh,
+                           host_axis=axis, row_base=lo)
 
     # -- per-host admission --------------------------------------------------
 
@@ -1559,6 +1649,34 @@ class MultiHostCachedEmbeddingBagCollection:
                                       source.index_select(0, rows))
         return caches
 
+    def install_worklist(self, state: MultiHostCacheState,
+                         worklist: list[np.ndarray]) -> None:
+        """Install `live_worklist`'s list (each host's rows, ascending, and
+        their slots) from the capacity tier. On a single controller every
+        host's slab, from the one capacity tensor. Under a host mesh, a
+        collective every rank calls with the same list: each owner sends
+        every host the rows of its list it owns (`Mesh.all_to_all_rows`,
+        copies), and this rank writes what it got into its slab."""
+        if state.mesh is None:
+            self.install(state.caches, state.capacity,
+                         hostmem.upload(worklist, state.caches.device))
+            return
+        me, sr = state.host, self.shard_rows
+        rows = worklist[0::2]
+        owners = rows[me] // sr
+        if np.any(np.diff(owners) < 0):
+            raise ValueError("install_worklist wants each host's rows "
+                             "grouped by owner (ascending)")
+        asked = [(r[r // sr == me] - me * sr).astype(np.int32) for r in rows]
+        *asked, slots = hostmem.upload(asked + [worklist[2 * me + 1]],
+                                       state.caches.device)
+        got = state.mesh.all_to_all_rows(
+            [state.capacity.index_select(0, a) for a in asked],
+            np.bincount(owners, minlength=self.n_hosts).tolist(),
+            state.host_axis)
+        if slots.numel():
+            state.caches[0].index_copy_(0, slots.long(), torch.cat(got))
+
     def fill_slabs(self, caches: torch.Tensor, source: torch.Tensor,
                    rows, slots) -> torch.Tensor:
         """Install `rows` gathered from `source` into each host's slab at
@@ -1573,19 +1691,25 @@ class MultiHostCachedEmbeddingBagCollection:
     def install_misses(self, state: MultiHostCacheState,
                        splan: MultiHostStepPlan) -> None:
         """Resolve the planned misses eagerly: gather each host's missing
-        rows from the owning shards into its slab."""
-        self.fill_slabs(state.caches, state.capacity, splan.miss_rows,
-                        splan.miss_slots)
+        rows from the owning shards into its slab (under a mesh, this
+        rank's slab)."""
+        self.install_worklist(state, self.live_worklist(splan.miss_rows,
+                                                        splan.miss_slots))
 
     def lookup(self, state: MultiHostCacheState, idx, host_plans=None,
                global_plan=None) -> torch.Tensor:
         """plan + fetch + per-host pooled lookup, concatenated back to the
         global batch: equal to the uncached collection's lookup on the same
-        indices. Eval path (no update legs)."""
+        indices. Eval path (no update legs). Under a mesh each rank pools
+        its examples and the pools are gathered by copy."""
         splan = self.plan_step(state, idx, host_plans, global_plan,
                                train=False)
         self.install_misses(state, splan)
         local = torch.from_numpy(splan.local_idx).to(state.caches.device)
+        if state.mesh is not None:
+            return state.mesh.all_gather_rows(
+                self.ebc.lookup({"mega": state.caches[0]},
+                                local[state.host]), state.host_axis)
         return torch.cat([self.ebc.lookup({"mega": state.caches[h]},
                                           local[h])
                           for h in range(self.n_hosts)])
@@ -1634,8 +1758,7 @@ class MultiHostCachedEmbeddingBagCollection:
             state.route.fetch_local += int((owner == h).sum())
             total += len(missing)
         if total:
-            self.install(state.caches, state.capacity,
-                         hostmem.upload(worklist, state.caches.device))
+            self.install_worklist(state, worklist)
         state.stats.prefetched += total
         return total
 
@@ -1649,7 +1772,8 @@ class MultiHostCachedEmbeddingBagCollection:
 
     def materialize(self, state: MultiHostCacheState
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The up-to-date (mega, accum) capacity tensors. Nothing to flush:
+        """The up-to-date (mega, accum) capacity tensors; under a mesh this
+        rank's shard, the global rows `state.rows`. Nothing to flush:
         every update already lives at its owner."""
         return state.capacity, state.cap_accum
 

@@ -8,7 +8,12 @@ row-major order over the same axes (rank r sits at
 `np.unravel_index(r, shape)`, as the reference's devices do in
 `np.array(devices).reshape(shape)`) and holds one process group per axis:
 the ranks that differ from this one only along that axis. A `psum` over an
-axis is `Mesh.all_reduce(t, axis)`.
+axis is `Mesh.all_reduce(t, axis)`; rows move between the ranks of an
+axis by copy, never by a sum: `all_gather_rows` (every rank's rows, in
+coordinate order) and `all_to_all_rows` (each rank its own list from
+each other rank, the lengths known to every rank in advance). Under gloo
+a CUDA tensor is staged through page-locked host memory for these two:
+the copies keep every bit (-0.0 included).
 
 The constructors are functions, and touch no distributed state until they
 are called: they need an initialized default group (`run_ranks` makes
@@ -43,6 +48,10 @@ import torch
 import torch.distributed as dist
 
 
+#: the collectives a Mesh counts in `stats`
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all")
+
+
 class MeshAxis:
     """One axis of a mesh as seen from this rank (DeviceMesh's
     `mesh["model"]` idiom): its size and the process group of the ranks
@@ -63,11 +72,12 @@ class Mesh:
     process group per axis and a count of the sums it ran.
 
     `shape` maps each axis to its size (as `jax.sharding.Mesh.shape`),
-    `coords` this rank's coordinate on each. `stats` counts, per process,
-    the `all_reduce` calls, the bytes they were handed, their host ms (the
-    device synchronized first, so a call's ms is the collective's own:
-    staging, the reduction and the wait for the slowest rank), and the
-    calls over a one-rank axis, which reduce nothing and are skipped."""
+    `coords` this rank's coordinate on each. `stats` counts, per process
+    and per collective (`all_reduce`, `all_gather`, `all_to_all`), the
+    calls, the bytes this rank handed over, and their host ms (the device
+    synchronized first, so a call's ms is the collective's own: staging,
+    the transfer and the wait for the slowest rank); and the calls over a
+    one-rank axis, which move nothing and are skipped."""
 
     def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...]):
         if len(shape) != len(axis_names):
@@ -105,34 +115,100 @@ class Mesh:
         return self.shape[axis]
 
     def reset_stats(self) -> None:
-        self.stats = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
-                      "all_reduce_ms": 0.0, "skipped_calls": 0,
-                      "skipped_bytes": 0}
+        self.stats = {"skipped_calls": 0, "skipped_bytes": 0}
+        for op in COLLECTIVES:
+            self.stats.update({f"{op}_calls": 0, f"{op}_bytes": 0,
+                               f"{op}_ms": 0.0})
+
+    def _skip(self, axis: str, nbytes: int) -> bool:
+        """Book a call over a one-rank axis as skipped; True if it was."""
+        if self.shape[axis] > 1:
+            return False
+        self.stats["skipped_calls"] += 1
+        self.stats["skipped_bytes"] += nbytes
+        return True
+
+    def _book(self, op: str, nbytes: int, t0: float) -> None:
+        self.stats[f"{op}_ms"] += (time.perf_counter() - t0) * 1e3
+        self.stats[f"{op}_calls"] += 1
+        self.stats[f"{op}_bytes"] += nbytes
+
+    def _staged(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """`t` as the axis's backend takes it: a page-locked host copy of a
+        CUDA tensor under gloo, else `t`."""
+        if t.is_cuda and dist.get_backend(self._axes[axis].get_group()) \
+                == "gloo":
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+        return t
 
     def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum `t` IN PLACE over the ranks along `axis` (the reference's
         `jax.lax.psum`); returns `t`. Over a one-rank axis the sum is `t`
         itself, and no collective runs."""
         nbytes = t.numel() * t.element_size()
-        if self.shape[axis] == 1:
-            self.stats["skipped_calls"] += 1
-            self.stats["skipped_bytes"] += nbytes
+        if self._skip(axis, nbytes):
             return t
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
         dist.all_reduce(t, op=dist.ReduceOp.SUM,
                         group=self._axes[axis].get_group())
-        self.stats["all_reduce_ms"] += (time.perf_counter() - t0) * 1e3
-        self.stats["all_reduce_calls"] += 1
-        self.stats["all_reduce_bytes"] += nbytes
+        self._book("all_reduce", nbytes, t0)
         return t
+
+    def all_gather_rows(self, local: torch.Tensor, axis: str
+                        ) -> torch.Tensor:
+        """Every rank's `local` along `axis` stacked on dim 0 in coordinate
+        order, by copy (all ranks' `local` of one shape); a new tensor on
+        local's device."""
+        nbytes = local.numel() * local.element_size()
+        if self._skip(axis, nbytes):
+            return local.clone()
+        if local.is_cuda:
+            torch.cuda.synchronize(local.device)
+        t0 = time.perf_counter()
+        src = self._staged(local.contiguous(), axis)
+        parts = [torch.empty_like(src) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, src, group=self._axes[axis].get_group())
+        out = torch.cat(parts).to(local.device)
+        self._book("all_gather", nbytes, t0)
+        return out
+
+    def all_to_all_rows(self, send: list[torch.Tensor], recv_rows: list[int],
+                        axis: str) -> list[torch.Tensor]:
+        """Personalized exchange along `axis`, by copy: send[j] (rows of one
+        trailing shape and dtype) goes to the rank at coordinate j, and the
+        result's entry j is what that rank sent here, recv_rows[j] rows of
+        it (every rank knows every length in advance: both sides compute
+        them from the same plan). Tensors on send's device."""
+        n = self.shape[axis]
+        if len(send) != n or len(recv_rows) != n:
+            raise ValueError(f"all_to_all_rows over {axis!r} ({n} ranks) "
+                             f"takes {n} send blocks and {n} lengths")
+        flat = torch.cat(send)
+        nbytes = flat.numel() * flat.element_size()
+        if self._skip(axis, nbytes):
+            return [flat]
+        dev = flat.device
+        if flat.is_cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        src = self._staged(flat.contiguous(), axis)
+        out = src.new_empty((sum(recv_rows),) + tuple(flat.shape[1:]))
+        dist.all_to_all_single(out, src, [int(r) for r in recv_rows],
+                               [int(t.shape[0]) for t in send],
+                               group=self._axes[axis].get_group())
+        out = out.to(dev)
+        self._book("all_to_all", nbytes, t0)
+        return list(out.split([int(r) for r in recv_rows]))
 
     def gather_rows(self, local: torch.Tensor, axis: str) -> torch.Tensor:
         """The rows of every rank along `axis` stacked in coordinate order:
         a zero buffer of size(axis) * len(local) rows with this rank's rows
-        at its coordinate, summed over the axis. Adding zeros is exact, so
-        every rank gets the same bits."""
+        at its coordinate, summed over the axis. Adding zeros is exact but
+        for the sign of a zero (-0.0 + 0.0 is +0.0), so every rank gets the
+        same bits; `all_gather_rows` moves rows by copy."""
         n = self.shape[axis]
         if n == 1:
             return local

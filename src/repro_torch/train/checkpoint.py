@@ -31,9 +31,18 @@ numpy scalars. Save copies each tensor to the host synchronously before
 the write starts, since the train step updates the table and its
 accumulator in place; restore copies each leaf into the example tree's
 tensor of that path, on its device, reading the file through a memory
-map in row chunks, so the host never holds a table twice. There is no
-`shardings`: restoring a mesh's checkpoint onto another mesh shape comes
-with a later multi-device slice (the multi-host cached tier's).
+map in row chunks, so the host never holds a table twice.
+
+Under a mesh (`shardings=`: a tree matching the saved one, or a prefix of
+it, with an `nn.sharding.NamedSharding` or None at each leaf) every rank
+of the world calls save and restore with its own blocks. The files stay
+whole leaves, the reference's format: save gathers each sharded leaf to
+every rank by copy (`NamedSharding.gather`), world rank 0 alone writes,
+and every rank waits at a barrier until the step is published (so a mesh
+save is synchronous, and each leaf must fit a rank's memory whole).
+Restore verifies each stored leaf's CRC over the whole leaf on every rank
+and loads only the rank's block of it, so a checkpoint saved on one mesh
+restores onto a mesh of another size (the elastic restore).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class CheckpointCorruptionError(RuntimeError):
@@ -145,11 +155,25 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, async_: bool = False) -> None:
+    def save(self, step: int, tree: Any, async_: bool = False,
+             shardings: Any | None = None) -> None:
         """Checkpoint `tree` at `step`. Every leaf is copied to the host
-        before this returns; `async_=True` leaves the write to a thread."""
+        before this returns; `async_=True` leaves the write to a thread.
+        With `shardings` (see the module docstring) every rank of the world
+        calls this with its blocks; the sharded leaves are gathered whole,
+        rank 0 writes them, and all return once the step is published."""
         self.wait()                 # re-raises a failed previous async save
         paths, leaves = flatten_with_paths(tree)
+        if shardings is not None:
+            if async_:
+                raise ValueError("a mesh save (shardings=) is synchronous; "
+                                 "async_ must be False")
+            leaves = [x if sh is None else sh.gather(x) for x, sh in
+                      zip(leaves, _sharding_leaves(shardings, tree))]
+            if dist.get_rank() == 0:
+                self._write(step, paths, [_to_host(x) for x in leaves])
+            dist.barrier()
+            return
         host = [_to_host(x) for x in leaves]
         if async_:
             self._thread = threading.Thread(
@@ -257,7 +281,12 @@ class CheckpointManager:
                 shardings: Any | None = None) -> Any:
         """Restore into `example_tree`'s structure: each tensor leaf is
         overwritten IN PLACE (same shape and dtype, on its device) and
-        returned; a numpy leaf comes back as an owned array.
+        returned; a numpy leaf comes back as an owned array. With
+        `shardings` (a NamedSharding or None at each leaf, or at a node
+        for every leaf under it) a sharded leaf of the example holds this
+        rank's block (`NamedSharding.local_shape` of the stored shape) and
+        gets that block of the stored leaf, whose CRC is still checked
+        over the whole leaf.
 
         With `step=None` the saved steps are tried newest first, and one
         whose leaves fail their CRC (or whose files cannot be read) is
@@ -266,12 +295,10 @@ class CheckpointManager:
         the example's tensors may hold part of it until an older step
         overwrites them. An explicit `step` is strict. A structure
         mismatch always raises ValueError."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-places leaves on a new mesh; it "
-                "comes with a later multi-device slice of the port")
+        shard = (None if shardings is None
+                 else _sharding_leaves(shardings, example_tree))
         if step is not None:
-            tree = self._restore_step(step, example_tree)
+            tree = self._restore_step(step, example_tree, shard)
             self.last_restored_step = step
             return tree
         candidates = self.saved_steps()[::-1]
@@ -280,7 +307,7 @@ class CheckpointManager:
         errors: list[tuple[int, Exception]] = []
         for cand in candidates:
             try:
-                tree = self._restore_step(cand, example_tree)
+                tree = self._restore_step(cand, example_tree, shard)
             except (CheckpointCorruptionError, OSError,
                     json.JSONDecodeError) as e:
                 errors.append((cand, e))
@@ -291,7 +318,8 @@ class CheckpointManager:
             f"no intact checkpoint in {self.directory}: " +
             "; ".join(f"step {s}: {e}" for s, e in errors))
 
-    def _restore_step(self, step: int, example_tree: Any) -> Any:
+    def _restore_step(self, step: int, example_tree: Any,
+                      shard: list | None = None) -> Any:
         d = os.path.join(self.directory, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -307,45 +335,93 @@ class CheckpointManager:
                 f"{extra or 'none'} (did the model/optimizer/cache layout "
                 "change between save and restore?)")
         values = {}
-        for path, leaf in zip(paths, leaves):
+        for i, (path, leaf) in enumerate(zip(paths, leaves)):
             entry = by_path[path]
             arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")
-            values[path] = _load_leaf(arr, entry, leaf, step)
+            values[path] = _load_leaf(arr, entry, leaf, step,
+                                      None if shard is None else shard[i])
         return _unflatten(example_tree, values)
 
 
-def _load_leaf(arr: np.ndarray, entry: dict, leaf, step: int):
-    """Verify one stored leaf's CRC and load it: into `leaf` in place when
-    it is a tensor, else as an owned numpy array."""
+def _sharding_leaves(shardings: Any, tree: Any) -> list:
+    """One NamedSharding or None per leaf of `tree`, in flatten order:
+    `shardings` matches the tree, or is a prefix of it (a NamedSharding or
+    None at a node covers every leaf under it)."""
+    if not isinstance(shardings, (dict, list, tuple)):
+        return [shardings] * len(flatten_with_paths(tree)[1])
+    if isinstance(tree, dict) and isinstance(shardings, dict) \
+            and set(tree) == set(shardings):
+        return [x for k in sorted(tree)
+                for x in _sharding_leaves(shardings[k], tree[k])]
+    if isinstance(tree, (list, tuple)) and isinstance(
+            shardings, (list, tuple)) and len(tree) == len(shardings):
+        return [x for t, sh in zip(tree, shardings)
+                for x in _sharding_leaves(sh, t)]
+    raise ValueError("restore/save: the shardings tree does not match the "
+                     "example tree's structure")
+
+
+def _copy_into(leaf: torch.Tensor, src: np.ndarray, logical: str) -> None:
+    """Copy the host array `src` (leaf's shape) into `leaf`, a chunk of
+    leading rows at a time, through the stored carriers' bits."""
+    dst = leaf.view(1) if src.ndim == 0 else leaf
+    src = src.reshape(1) if src.ndim == 0 else src
+    per = max(1, _CHUNK_BYTES // max(src[:1].nbytes, 1))
+    with torch.no_grad():
+        for lo in range(0, src.shape[0], per):
+            part = np.array(src[lo:lo + per])      # owned, writable
+            t = torch.from_numpy(part.view(_CARRIER[part.dtype.type][0])
+                                 if logical in _BITCAST else part)
+            dst[lo:lo + per].copy_(t.view(leaf.dtype))
+
+
+def _load_leaf(arr: np.ndarray, entry: dict, leaf, step: int,
+               sharding=None):
+    """Verify one stored leaf's CRC and load it (this rank's block of it
+    under `sharding`): into `leaf` in place when it is a tensor, else as
+    an owned numpy array."""
     logical = entry["dtype"]
     want_crc = entry.get("crc32")
+    block = (slice(None),) if sharding is None \
+        else sharding.local_slice(arr.shape)
     if isinstance(leaf, torch.Tensor):
         tdtype = (_BITCAST[logical][0] if logical in _BITCAST
                   else getattr(torch, logical, None))
-        if tuple(leaf.shape) != tuple(arr.shape) or leaf.dtype != tdtype:
+        shape = tuple(arr.shape) if sharding is None \
+            else sharding.local_shape(arr.shape)
+        if tuple(leaf.shape) != shape or leaf.dtype != tdtype:
             raise ValueError(
                 f"step {step} leaf {entry['path']!r} is {logical} "
-                f"{tuple(arr.shape)}; the example tree's is {leaf.dtype} "
-                f"{tuple(leaf.shape)}")
-        flat = np.ascontiguousarray(arr).reshape(-1)
-        dst = leaf.view(-1)
-        per = max(1, _CHUNK_BYTES // max(flat.itemsize, 1))
-        crc = 0
-        with torch.no_grad():
-            for lo in range(0, flat.size, per):
-                part = np.array(flat[lo:lo + per])
-                crc = zlib.crc32(part.view(np.uint8), crc)
-                src = torch.from_numpy(
-                    part.view(_CARRIER[part.dtype.type][0])
-                    if logical in _BITCAST else part)
-                dst[lo:lo + per].copy_(src.view(leaf.dtype))
-        got = crc & 0xFFFFFFFF
-        out = leaf
+                f"{tuple(arr.shape)} (this rank's block {shape}); the "
+                f"example tree's is {leaf.dtype} {tuple(leaf.shape)}")
+        if sharding is not None:
+            got = _crc32(arr)
+            _copy_into(leaf, arr[block], logical)
+            out = leaf
+        else:
+            got, out = _load_whole(arr, leaf, logical), leaf
     else:
-        out = np.array(arr)
-        got = _crc32(out)
+        out = np.array(arr[block] if arr.ndim else arr)
+        got = _crc32(arr)
     if want_crc is not None and got != want_crc:
         raise CheckpointCorruptionError(
             f"step {step} leaf {entry['path']!r} ({entry['file']}) failed "
             "CRC verification — torn write or bit rot")
     return out
+
+
+def _load_whole(arr: np.ndarray, leaf: torch.Tensor, logical: str) -> int:
+    """Copy a whole stored leaf into `leaf` chunk by chunk, computing its
+    CRC on the way (one read of the file); returns the CRC."""
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    dst = leaf.view(-1)
+    per = max(1, _CHUNK_BYTES // max(flat.itemsize, 1))
+    crc = 0
+    with torch.no_grad():
+        for lo in range(0, flat.size, per):
+            part = np.array(flat[lo:lo + per])
+            crc = zlib.crc32(part.view(np.uint8), crc)
+            src = torch.from_numpy(part.view(_CARRIER[part.dtype.type][0])
+                                   if logical in _BITCAST else part)
+            dst[lo:lo + per].copy_(src.view(leaf.dtype))
+    return crc & 0xFFFFFFFF

@@ -1,5 +1,11 @@
 """What one rank runs when the sharded DLRM steps train over a mesh.
 
+`multihost_rank` runs the multi-host cached tier one rank a host
+(`build_cached_train_step(mesh=)`, optionally restoring from or saving to
+a checkpoint under `shardings=`), `pod_rank` the EASGD pod form
+(`easgd_rounds`) and reports where `nn.sharding.NamedSharding` puts a
+rank's blocks; the rest of this docstring is `train_rank`'s.
+
 `train_rank(device, job)` is the callable `launch.mesh.run_ranks` spawns
 for the table-wise step and the psum dense update (`train.steps`), on the
 CPU (the parity tests, gloo) or on a card (`chip_smoke.py` phases
@@ -19,6 +25,7 @@ compares its rows with replica 0's, bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -233,15 +240,7 @@ def train_rank(device: torch.device, job: dict) -> dict:
             metrics0 = {k: float(v) for k, v in m.items()
                         if k.startswith("exchange_")}
     setup["loop_s"] = time.perf_counter() - t_loop
-    device_busy_ms = None
-    if prof is not None:
-        torch.cuda.synchronize(device)
-        prof.__exit__(None, None, None)
-        from torch.autograd import DeviceType
-        busy = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU)
-        device_busy_ms = busy / 1e3 / n_prof if busy else None
+    device_busy_ms = _profiled_busy_ms(prof, device, n_prof)
     launches = {k.name: k.launches for k in KERNELS}
     mega, accum = params["emb"]["mega"], state["accum"]
     if cuda:
@@ -266,9 +265,7 @@ def train_rank(device: torch.device, job: dict) -> dict:
            "all_reduce": reduces,
            "peak_bytes": (torch.cuda.max_memory_allocated(device)
                           if cuda else None),
-           "foreign_modules": sorted(
-               m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "repro"))}
+           "foreign_modules": _foreign_modules()}
     if job["report_arrays"]:
         out["mega"] = mega.cpu().numpy()
         out["accum"] = accum.cpu().numpy()
@@ -315,3 +312,260 @@ def run_calls(device: torch.device, calls: list) -> list:
     """Several rank callables, one after another, in one spawned world:
     [fn(device, job) for fn, job in calls] (each builds its own mesh)."""
     return [fn(device, job) for fn, job in calls]
+
+
+# ---------------------------------------------------------------------------
+# the multi-host cached tier, one rank a host
+# ---------------------------------------------------------------------------
+
+#: the job keys `multihost_rank` reads, with their defaults where optional
+MULTIHOST_DEFAULTS = {"mesh": None, "cache_rows": None,
+                      "strict_sync": False, "fetch_chunk": None, "accum": None, "mega": None,
+                      "steps": None, "total_rows": None, "save": None,
+                      "restore": None, "dense_lr": 0.01, "sparse_lr": 0.05,
+                      "sparse_eps": 1e-8, "profile_steps": 0,
+                      "report_arrays": False}
+
+
+def multihost_rank(device: torch.device, job: dict) -> dict:
+    """One host of the multi-host cached tier over the host axis "data" of
+    a mesh of the whole world: job["mesh"] (shape, axis names), by default
+    the 1-D host mesh (`launch.mesh.make_host_mesh`); on a larger mesh
+    each coordinate of the other axes runs a replica of the tier. job:
+      cfg, n_hosts, cache_rows (per host; None: the plan's), strict_sync,
+      fetch_chunk (None: the tier's), total_rows (the tier's capacity
+      height, `MultiHostCachedEmbeddingBagCollection.build`)
+      dense         {"bottom", "top"} parameters, numpy or tensors
+      mega, accum   the whole table and accumulator (accum None: zeros):
+                    numpy, or tensors on the rank's device (CUDA IPC views
+                    of the caller's: this rank's rows update them in place)
+      batches       the global batches (host arrays, offset rows, plans
+                    optional), the same list on every rank
+      steps         (start, stop): the steps run (default all batches)
+      restore       {"dir"}: start from the newest step there
+                    (`CheckpointManager.restore(shardings=)`: this rank's
+                    capacity rows, the dense parameters and their
+                    optimizer state), mega unused
+      save          {"dir"}: save the same tree after the last step
+      dense_lr, sparse_lr, sparse_eps, profile_steps (the last steps under
+      torch.profiler, on a card), report_arrays (the shard, numpy).
+    Returns plain values: the losses, the shard's rows and bit checksums,
+    the dense parameters' checksums, CacheStats and RouteStats, the kernel
+    launches of each step, host ms and device span ms a step, device-busy
+    ms a profiled step, `Mesh.stats` of each step, the peak, and the
+    modules of jax or the reference this process loaded."""
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn.sharding import NamedSharding
+    from repro_torch.optim import adagrad
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.steps import build_cached_train_step
+    t_in = time.perf_counter()
+    job = {**MULTIHOST_DEFAULTS, **job}
+    cfg = job["cfg"]
+    mesh = Mesh(*(job["mesh"] or ((job["n_hosts"],), ("data",))))
+    mc = MultiHostCachedEmbeddingBagCollection.build(
+        cfg, n_hosts=job["n_hosts"], cache_rows=job["cache_rows"],
+        total_rows=job["total_rows"])
+    rows_sh = NamedSharding(mesh, mc.ebc.plan.pspec)
+    setup = {"mesh_s": time.perf_counter() - t_in}
+    opt = adagrad(job["dense_lr"])
+    dense = _tree_to(job["dense"], device)
+    state = {"dense": opt.init(dense)}
+    restored = None
+    if job["restore"] is not None:
+        ms = mc.init_state(None, device=device, capacity_sharding=rows_sh)
+        tree = {"capacity": ms.capacity, "cap_accum": ms.cap_accum,
+                "dense": dense, "opt": state["dense"]}
+        mgr = CheckpointManager(job["restore"]["dir"])
+        tree = mgr.restore(tree, shardings=_ckpt_shardings(mesh, rows_sh))
+        dense, state["dense"] = tree["dense"], tree["opt"]
+        restored = {"step": mgr.last_restored_step,
+                    "mega_sum": bit_checksum(ms.capacity),
+                    "accum_sum": bit_checksum(ms.cap_accum)}
+    else:
+        def on_device(x):            # a copy of a host array: the update
+            return x if x is None or isinstance(x, torch.Tensor) \
+                else torch.from_numpy(np.array(x)).to(device)  # is in place
+        ms = mc.init_state(on_device(job["mega"]), on_device(job["accum"]),
+                           device=device, capacity_sharding=rows_sh)
+    step_fn = build_cached_train_step(
+        cfg, mc, opt, job["sparse_lr"], job["sparse_eps"],
+        strict_sync=job["strict_sync"], mesh=mesh,
+        fetch_chunk=job["fetch_chunk"])
+    setup["state_s"] = time.perf_counter() - t_in - setup["mesh_s"]
+    batches = job["batches"]
+    start, stop = job["steps"] or (0, len(batches))
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, host_ms, span_ms, coll, launches = [], [], [], [], []
+    prof, n_prof = None, job["profile_steps"]
+    t_loop = time.perf_counter()
+    for t in range(start, stop):
+        nxt = batches[t + 1] if t + 1 < stop else None
+        if cuda and n_prof and t == stop - n_prof:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize(device)
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        mesh.reset_stats()
+        before = {k.name: k.launches for k in KERNELS}
+        if cuda:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        t0 = time.perf_counter()
+        dense, state, m = step_fn(dense, state, ms, batches[t], t,
+                                  next_batch=nxt)
+        losses.append(float(m["loss"]))            # syncs the step
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            ev1.record()
+            ev1.synchronize()
+            span_ms.append(ev0.elapsed_time(ev1))
+        launches.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS})
+        coll.append(dict(mesh.stats))
+    setup["loop_s"] = time.perf_counter() - t_loop
+    busy = _profiled_busy_ms(prof, device, n_prof)
+    if job["save"] is not None:
+        t0 = time.perf_counter()
+        CheckpointManager(job["save"]["dir"]).save(
+            stop, {"capacity": ms.capacity, "cap_accum": ms.cap_accum,
+                   "dense": dense, "opt": state["dense"]},
+            shardings=_ckpt_shardings(mesh, rows_sh))
+        setup["save_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize(device)
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords), "host": ms.host,
+           "rows": ms.rows,
+           "restored": restored, "losses": losses, "mega_sum": bit_checksum(ms.capacity),
+           "accum_sum": bit_checksum(ms.cap_accum),
+           "dense_sums": [bit_checksum(x) for x in _leaves(dense)],
+           "stats": dataclasses.asdict(ms.stats),
+           "route": dataclasses.asdict(ms.route), "launches": launches,
+           "host_ms": host_ms, "device_span_ms": span_ms, "setup": setup,
+           "device_busy_ms_per_step": busy, "collectives": coll,
+           "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                          if cuda else None),
+           "host_map_bytes": sum(getattr(ms, k).nbytes for k in (
+               "freq", "slot_row", "row_slot", "ema", "ema_tick")),
+           "foreign_modules": _foreign_modules()}
+    if job["report_arrays"]:
+        out["mega"] = ms.capacity.cpu().numpy()
+        out["accum"] = ms.cap_accum.cpu().numpy()
+        out["dense"] = _tree_numpy(dense)
+    del ms, dense, state
+    return out
+
+
+def _ckpt_shardings(mesh, rows_sh) -> dict:
+    """The shardings of `multihost_rank`'s checkpoint tree: the capacity
+    and its accumulator by rows over the host axis, the rest whole."""
+    from repro_torch.nn.sharding import NamedSharding
+    return {"capacity": rows_sh,
+            "cap_accum": NamedSharding(mesh, rows_sh.spec[:1]),
+            "dense": None, "opt": None}
+
+
+def _profiled_busy_ms(prof, device, n_prof: int) -> float | None:
+    """Device-busy ms a profiled step, from an open profiler (None: none,
+    or a trace without device time)."""
+    if prof is None:
+        return None
+    torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    from torch.autograd import DeviceType
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU)
+    return busy / 1e3 / n_prof if busy else None
+
+
+def _foreign_modules() -> list[str]:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+# ---------------------------------------------------------------------------
+# EASGD over the pod axis, and where NamedSharding puts a rank's blocks
+# ---------------------------------------------------------------------------
+
+
+def easgd_rounds(params, n_replicas: int, rounds: int, seed: int,
+                 lr: float, alpha: float, beta: float, sync_every: int = 2,
+                 mesh=None, axis: str = "pod"):
+    """The schedule both EASGD forms run: `rounds` `replica_step`s on
+    gradients drawn from numpy (round r: RandomState(seed + r), one
+    standard normal (R, ...) array a leaf in tree order), an `easgd_sync`
+    every `sync_every` rounds, then one `local_sgd_sync`. Stacked with
+    mesh None; under `mesh`, this rank's replica over `axis` (its block of
+    the same stacked gradients). Returns (the state after the last elastic
+    round, the state after the local-SGD sync)."""
+    from repro_torch.nn.params import tree_map
+    from repro_torch.nn.sharding import NamedSharding
+    from repro_torch.optim import (easgd_init, easgd_sync, local_sgd_sync,
+                                   replica_step)
+    sh = None if mesh is None else NamedSharding(mesh, (axis,))
+    state = easgd_init(params, n_replicas, sharding=sh)
+    for r in range(rounds):
+        rng = np.random.RandomState(seed + r)
+
+        def draw(p, rng=rng):
+            g = torch.from_numpy(rng.standard_normal(
+                (n_replicas,) + tuple(p.shape)).astype(np.float32))
+            return (g if sh is None else sh.shard(g)).to(p.device)
+        state = replica_step(state, tree_map(draw, params), lr)
+        if r % sync_every == sync_every - 1:
+            state = easgd_sync(state, alpha, beta, mesh=mesh, axis=axis)
+    return state, local_sgd_sync(state, mesh=mesh, axis=axis)
+
+
+def pod_rank(device: torch.device, job: dict) -> dict:
+    """The EASGD pod form over the "pod" axis of job["mesh"] ((shape, axis
+    names); by default a 1-D ("pod",) mesh of the whole world): job
+    {"params" (a numpy tree), "rounds", "seed", "lr", "alpha", "beta",
+    "sync_every"}, R = the pod axis's size. Also, for each entry of
+    job["slices"] ((mesh shape, axis names, spec, global shape)), the
+    block `NamedSharding.local_slice` gives this rank, as (start, stop)
+    pairs. Returns numpy trees of this rank's replica and the center after
+    the last elastic round and after the local-SGD sync, `Mesh.stats`,
+    the bits a row of signed zeros and NaN payloads keeps through
+    `Mesh.all_gather_rows` and `Mesh.all_to_all_rows` over the pod axis
+    (each rank sends every rank its row, its world rank in the last
+    element), and
+    the modules of jax or the reference this process loaded."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn.sharding import NamedSharding
+    mesh = Mesh(*(job.get("mesh") or ((dist.get_world_size(),), ("pod",))))
+    pods = mesh.size("pod")
+    params = _tree_to(job["params"], device)
+    elastic, local = easgd_rounds(
+        params, pods, job["rounds"], job["seed"], job["lr"], job["alpha"],
+        job["beta"], job.get("sync_every", 2), mesh=mesh)
+    slices = []
+    for shape, names, spec, gshape in job.get("slices", ()):
+        sl = NamedSharding(Mesh(shape, names), spec).local_slice(gshape)
+        slices.append([(s.start, s.stop) for s in sl])
+    row = torch.tensor([-0.0, 0.0, -0.0, float(mesh.rank)], device=device)
+    row = row.view(torch.int32).clone()
+    row[1] = -0x3FFFFF                   # 0xFFC00001: a NaN with a payload
+    row = row.view(torch.float32).reshape(1, 4)
+    gathered = mesh.all_gather_rows(row, "pod")
+    swapped = torch.cat(mesh.all_to_all_rows([row] * pods, [1] * pods,
+                                             "pod"))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "sent_bits": row.view(torch.int32).cpu().numpy(),
+            "gathered_bits": gathered.view(torch.int32).cpu().numpy(),
+            "swapped_bits": swapped.view(torch.int32).cpu().numpy(),
+            "elastic": _tree_numpy({"replicas": elastic.replicas,
+                                    "center": elastic.center}),
+            "local": _tree_numpy({"replicas": local.replicas,
+                                  "center": local.center}),
+            "slices": slices, "collectives": dict(mesh.stats),
+            "foreign_modules": _foreign_modules()}

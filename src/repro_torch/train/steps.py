@@ -36,9 +36,9 @@ GLOBAL batch on every rank, as the reference's pjit steps take global
 arrays: each rank looks up and differentiates its `data` slice, and
 params["emb"]["mega"] / state["accum"] are its `model` shard of the rows
 (`EmbeddingBagCollection.shard_range`). The multi-host cached step runs
-single-controller (one process drives every host's cache); its `mesh=`
-form comes with a later slice. The LM step runs on one device and takes
-no sharding `rules`: those come with `nn/sharding.py`.
+single-controller (one process drives every host's cache) or, with
+`mesh=`, one rank a host over a host mesh. The LM step runs on one device
+and takes no sharding `rules` yet (`nn/sharding.py` has the tables).
 """
 from __future__ import annotations
 
@@ -506,10 +506,90 @@ def _build_multihost_cached_step(cfg: DLRMConfig,
     return step
 
 
+def _build_multihost_mesh_step(cfg: DLRMConfig,
+                               mc: MultiHostCachedEmbeddingBagCollection,
+                               dense_opt: Optimizer, sparse_lr: float,
+                               sparse_eps: float, strict_sync: bool, mesh,
+                               host_axis: str) -> Callable:
+    """The routed schedule with one rank a host (`mesh`, a `launch.mesh.
+    Mesh` whose `host_axis` has n_hosts ranks; the state from `mc.
+    init_state(..., capacity_sharding=NamedSharding(mesh, plan.pspec))`:
+    this rank's slab and owned capacity rows). Every rank takes the
+    GLOBAL batch. Rank h, per step, in order:
+      * `mc.plan_step` on the global batch, as every rank (every host's
+        maps, CacheStats and RouteStats, the same integers on all);
+      * its misses installed from their owners (`mc.install_worklist`:
+        each owner sends the rows it holds, by copy);
+      * the pooled lookup of examples [h*B/H, (h+1)*B/H) on its slab (the
+        `embedding_bag` kernel), the pools gathered over `host_axis` by
+        copy (`Mesh.all_gather_rows`) into the global batch's;
+      * the dense tower, BCE and `dense_opt` on the GLOBAL batch (the
+        reference's dense half is not sharded; data-parallel sums of the
+        dense gradients would change the bits);
+      * the owner update of its own segment on its own shard (one
+        segmented fused update, S = 1, row base 0), from the replicated
+        plan and pooled gradients;
+      * its working set refreshed from the owners' post-update rows;
+      * unless `strict_sync`, `mc.prefetch` of next_batch (its rows too
+        from their owners).
+    The losses, dense parameters and every capacity and accumulator shard
+    are bit-equal to the single-controller step's. Same signature and
+    metrics as `_build_multihost_cached_step`."""
+    if mesh.size(host_axis) != mc.n_hosts:
+        raise ValueError(f"the host mesh's {host_axis!r} axis has "
+                         f"{mesh.size(host_axis)} ranks; the tier "
+                         f"{mc.n_hosts} hosts")
+    ebc = mc.ebc
+
+    def step(params, state, mstate, batch, step_idx, next_batch=None):
+        if mstate.mesh is not mesh or mstate.host_axis != host_axis:
+            raise ValueError("the tier state was not made on this step's "
+                             "mesh: init_state(capacity_sharding="
+                             "NamedSharding(mesh, plan.pspec))")
+        splan = mc.plan_step(mstate, batch["idx"],
+                             host_plans=host_plans_from_batch(batch),
+                             global_plan=host_plan_from_batch(batch),
+                             train=True)
+        me = mstate.host
+        dense_x, label, local_idx, seg_rows, seg_offs, bag_ids = \
+            hostmem.upload([np.asarray(batch["dense"], np.float32),
+                            np.asarray(batch["label"], np.float32),
+                            splan.local_idx[me], splan.seg_rows[me:me + 1],
+                            splan.seg_offsets[me:me + 1], splan.bag_ids],
+                           mstate.caches.device)
+        with torch.no_grad():
+            mc.install_worklist(mstate, mc.live_worklist(splan.miss_rows,
+                                                         splan.miss_slots))
+            pooled = mesh.all_gather_rows(
+                ebc.lookup({"mega": mstate.caches[0]}, local_idx), host_axis)
+        loss, g_dense, g_pooled = dense_grads(
+            params, {"dense": dense_x, "label": label}, pooled, cfg)
+        new_dense, new_dense_state = dense_opt.apply(
+            {"bottom": params["bottom"], "top": params["top"]}, g_dense,
+            state["dense"], step_idx)
+        with torch.no_grad():
+            ops.fused_sparse_backward_segments(
+                mstate.capacity, mstate.cap_accum, seg_rows, seg_offs,
+                bag_ids, g_pooled, sparse_lr, eps=sparse_eps)
+            mc.install_worklist(mstate, mc.live_worklist(splan.ws_rows,
+                                                         splan.ws_slots))
+        metrics = {"loss": loss,
+                   "lookups": float(np.count_nonzero(splan.local_idx >= 0)),
+                   **mc.stats(mstate).snapshot(), **mstate.route.snapshot()}
+        if not strict_sync and next_batch is not None:
+            mc.prefetch(mstate, next_batch["idx"],
+                        host_plans=host_plans_from_batch(next_batch),
+                        global_plan=host_plan_from_batch(next_batch))
+        return new_dense, {"dense": new_dense_state}, metrics
+
+    return step
+
+
 def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
                             sparse_lr: float = 0.05,
                             sparse_eps: float = 1e-8,
                             strict_sync: bool = False, mesh=None,
+                            host_axis: str = "data",
                             fetch_chunk: int | None = None) -> Callable:
     """One train-step factory for every cached tier, dispatching on the
     tier's type (all of them consume the tier through the `EmbeddingTier`
@@ -529,15 +609,10 @@ def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
                                       next-batch prefetch, bit for bit).
 
     `fetch_chunk` (> 1) replaces the tier's transfer granularity; None
-    keeps the collection's own. `mesh` (the multi-host tier's owner update
-    under a host mesh) is not ported yet and raises NotImplementedError.
-    See the builders for the step signatures. Any other tier raises
-    TypeError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_cached_train_step(mesh=...) runs the multi-host tier's "
-            "owner update over a host mesh; it comes with a later slice of "
-            "the port (the single-controller step, mesh=None, is ported)")
+    keeps the collection's own. `mesh` runs the multi-host tier one rank a
+    host over the mesh's `host_axis` (`_build_multihost_mesh_step`); the
+    sync and async tiers ignore it, as the reference's do. See the
+    builders for the step signatures. Any other tier raises TypeError."""
     if fetch_chunk is not None and isinstance(tier, AsyncCachedTier):
         tier = AsyncCachedTier(dataclasses.replace(tier.cc,
                                                    fetch_chunk=fetch_chunk))
@@ -549,6 +624,10 @@ def build_cached_train_step(cfg: DLRMConfig, tier, dense_opt: Optimizer,
         return _build_async_cached_step(cfg, tier, dense_opt, sparse_lr,
                                         sparse_eps, strict_sync)
     if isinstance(tier, MultiHostCachedEmbeddingBagCollection):
+        if mesh is not None:
+            return _build_multihost_mesh_step(cfg, tier, dense_opt,
+                                              sparse_lr, sparse_eps,
+                                              strict_sync, mesh, host_axis)
         return _build_multihost_cached_step(cfg, tier, dense_opt, sparse_lr,
                                             sparse_eps, strict_sync)
     if isinstance(tier, CachedEmbeddingBagCollection):

@@ -170,7 +170,14 @@ def test_structure_shape_and_dtype_mismatches_raise(tmp_path):
     bad["b"]["c"] = torch.zeros(7)
     with pytest.raises(ValueError, match="bfloat16"):
         mgr.restore(bad)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # shardings of None (a whole leaf, at a leaf or at a node) restore what
+    # no shardings restore; a shardings tree of another structure raises
+    _assert_equal(mgr.restore(_zeros_like(tree),
+                              shardings={"a": None, "b": {"c": None,
+                                                          "d": None}}), tree)
+    _assert_equal(mgr.restore(_zeros_like(tree),
+                              shardings={"a": None, "b": None}), tree)
+    with pytest.raises(ValueError, match="shardings tree"):
         mgr.restore(_zeros_like(tree), shardings={"a": None})
 
 

@@ -2677,11 +2677,9 @@ def test_multihost_step_on_the_card(dev, monkeypatch, cache_rows, hook):
 def test_multihost_fill_slabs_on_the_card_equals_the_cpu(dev):
     """`fill_slabs` on the card (one pinned upload of the live entries,
     index_select / index_copy_ on each host's slab) equals its CPU
-    result bit for bit; -1 slots are dropped; the mesh form raises."""
+    result bit for bit; -1 slots are dropped."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
-    from repro_torch.optim import adagrad
-    from repro_torch.train.steps import build_cached_train_step
     resolve_device("cuda")
     cfg = get_smoke_config("dlrm-m1")
     mc = MultiHostCachedEmbeddingBagCollection.build(cfg, n_hosts=4,
@@ -2699,8 +2697,64 @@ def test_multihost_fill_slabs_on_the_card_equals_the_cpu(dev):
     got = mc.fill_slabs(base.to(dev), source.to(dev), rows, slots)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(want[2], base[2])       # a host with no entries
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_cached_train_step(cfg, mc, adagrad(0.01), mesh=object())
+
+
+@pytest.mark.parametrize("strict_sync", [False, True])
+def test_multihost_mesh_step_on_the_card_equals_one_process(dev,
+                                                            strict_sync):
+    """The multi-host tier one rank a host: 2 gloo ranks on the card, each
+    taking a CUDA IPC view of its capacity rows of the test's table (the
+    update lands there) and running `build_cached_train_step(mesh=)`:
+    losses, the table and the accumulator bit-equal to the
+    single-controller step on the card, CacheStats and RouteStats equal,
+    exactly one embedding_bag, one dot_interaction and one segmented
+    update a rank a step, no jax in the ranks."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import adagrad
+    from repro_torch.train.sharded import multihost_rank, pipeline_batches
+    from repro_torch.train.steps import (build_cached_train_step,
+                                         cached_dlrm_init_state)
+    cfg = get_smoke_config("dlrm-m1")
+    mc = MultiHostCachedEmbeddingBagCollection.build(cfg, n_hosts=2,
+                                                     cache_rows=512)
+    batches = pipeline_batches(cfg, mc.ebc, 4, 16, "offset")
+    params = init_dlrm_params(cfg, mc.ebc, 0, dev)
+    dense = {k: [{n: t.cpu().numpy() for n, t in layer.items()}
+                 for layer in params[k]] for k in ("bottom", "top")}
+    table = params["emb"]["mega"].clone()
+    accum = torch.zeros((table.shape[0],), dtype=torch.float32, device=dev)
+    opt = adagrad(0.01)
+    state = cached_dlrm_init_state(mc, opt, params)
+    ms = mc.init_state(params["emb"]["mega"])
+    step = build_cached_train_step(cfg, mc, opt, strict_sync=strict_sync)
+    d = {"bottom": params["bottom"], "top": params["top"]}
+    losses = []
+    for t, b in enumerate(batches):
+        nxt = batches[t + 1] if t + 1 < len(batches) else None
+        d, state, m = step(d, state, ms, b, t, next_batch=nxt)
+        losses.append(float(m["loss"]))
+    job = {"cfg": cfg, "n_hosts": 2, "cache_rows": 512,
+           "strict_sync": strict_sync, "dense": dense, "mega": table,
+           "accum": accum, "batches": batches}
+    res = run_ranks(multihost_rank, 2, (job,), backend="gloo",
+                    device=f"cuda:{torch.cuda.current_device()}",
+                    timeout_s=240)
+    torch.cuda.synchronize()
+    assert torch.equal(table, ms.capacity) and torch.equal(accum,
+                                                           ms.cap_accum)
+    for r in res:
+        assert r["losses"] == losses and r["foreign_modules"] == []
+        assert r["route"] == dataclasses.asdict(ms.route)
+        assert r["stats"] == dataclasses.asdict(ms.stats)
+        for counts in r["launches"]:
+            assert {k: v for k, v in counts.items() if v} == {
+                "embedding_bag": 1, "dot_interaction": 1,
+                "fused_bag_backward_adagrad_segments": 1}
 
 
 def _zoo_cfg(name, **kw):

@@ -19,9 +19,9 @@ Tolerances, each with its reason:
   * inside the port (against `build_dlrm_train_step(sparse_apply=
     "sparse")`, the sync cached step at one host, strict_sync against the
     prefetch, hook plans against none): bit-equal.
-The reference's 8-device mesh test and its split-by-owner and segment
-tests are not here: the mesh form is not ported, and
-tests/test_torch_tablewise.py holds the others.
+The reference's 8-device mesh test is tests/test_torch_multihost_mesh.py's
+gloo-rank cases; its split-by-owner and segment tests are in
+tests/test_torch_tablewise.py.
 """
 import dataclasses
 
@@ -626,11 +626,29 @@ def test_fetch_faults_leave_the_step_replayable(setup):
 
 
 def test_mesh_form_raises_not_implemented(setup):
+    """The mesh form is ported (tests/test_torch_multihost_mesh.py runs it
+    on gloo ranks): given a host mesh whose axis holds n_hosts ranks the
+    builder returns the step, on any host axis name; a mesh of another
+    size raises ValueError; the sync tier ignores `mesh`, as the
+    reference's does."""
+    from types import SimpleNamespace
     cfg = setup[0]
     mc = MultiHostCachedEmbeddingBagCollection.build(cfg, n_hosts=2,
                                                      cache_rows=64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        steps.build_cached_train_step(cfg, mc, adagrad(0.01), mesh=object())
+
+    def host_mesh(axis, n):
+        return SimpleNamespace(axis_names=(axis,), shape={axis: n},
+                               size=lambda a: {axis: n}[a])
+    for axis in ("data", "pod"):
+        step = steps.build_cached_train_step(
+            cfg, mc, adagrad(0.01), mesh=host_mesh(axis, 2), host_axis=axis)
+        assert callable(step)
+    with pytest.raises(ValueError, match="2 hosts"):
+        steps.build_cached_train_step(cfg, mc, adagrad(0.01),
+                                      mesh=host_mesh("data", 4))
+    cc = CachedEmbeddingBagCollection.build(cfg, cache_rows=64)
+    assert callable(steps.build_cached_train_step(
+        cfg, cc, adagrad(0.01), mesh=host_mesh("data", 4)))
     step = steps.build_cached_train_step(cfg, mc, adagrad(0.01),
                                          fetch_chunk=8)
     assert callable(step)
