@@ -111,8 +111,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    cap_accum on the host and on the card, each bit-equal to plain and
    timed (`host_mover_variants`); (11b) train the three-tier
    `BulkCachedEmbeddingBagCollection` over it (a memory-mapped bulk store
-   seeded cold with every row, a DRAM budget of BULK_DRAM_ROWS), sync and
-   async, bit-equal to the launcher, with promotions, demotions and an
+   seeded cold with every row, a DRAM budget of BULK_DRAM_ROWS) with every
+   table cut to 1 / BULK_ROW_DIV of its rows, sync and async, bit-equal to
+   the launcher's step at that size, with promotions, demotions and an
    exclusive residency; dlrm-m3's 118.3 GB of rows do not fit the host
    memory of the card's machine, so no phase 11c;
 12. run the sharded executors on `torch.distributed`, every rank a process
@@ -201,7 +202,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    held as 16a, and the attention layer's own output within
    TOL_ZOO_ATTN_REL_L2, its decode through the int8 cache within
    TOL_INT8_REL_L2 of a bf16 cache's; (16d) the LM launcher on
-   mamba2-780m, 8 requests over 4 slots in fp32, each request's greedy
+   mamba2-780m, 4 requests over 2 slots in fp32, each request's greedy
    tokens equal to the same request served alone by a fresh engine of as
    many slots. Each prints its peak
    beside `zoo_reckoning_bytes`, and its host ms;
@@ -226,7 +227,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    a full_attention arm (the last logits within TOL_LM_REL_L2 /
    TOL_LM_ABS, every attention layer's output against full_attention on
    its own input within TOL_ZOO_ATTN_REL_L2); internvl2-26b at full width
-   cut to 24 of its 48 layers served the same way over 8,192 positions
+   cut to 12 of its 48 layers served the same way over 8,192 positions
    (256 patches), then through ServeEngine (text in and out), and cut to
    2 layers trained by the launcher at 4,096 x 2 for 3 steps. Each
    launcher run prints tokens/s, host and device-busy ms and its peak
@@ -255,7 +256,31 @@ Phases, each of which makes the script exit non-zero when it fails:
    compression (bf16, int8, error feedback) on the card bit-equal to the
    CPU; each world's start, each rank's host and device-busy ms, the
    collectives' calls, bytes and ms a step and the ranks' peaks printed;
-19. print one JSON line of per-kernel numbers, then the result line.
+19. train the LM over a (data 2, model 2) mesh: 4 gloo ranks on this
+   card in one world (`train.sharded.lm_rank`, `build_lm_train_step(
+   rules=, mesh=)`), each holding only its `resolve_sized` blocks of the
+   parameters and AdamW moments (copied from CUDA IPC views of the
+   parent's) and its rows of each batch: (19a) full-width stablelm-1.6b
+   under FSDP_RULES and (19b) under ZERO_DP_RULES, LM_MESH_STEPS steps
+   of 14b's batches from 14b's initial parameters, each loss within
+   TOL_LM_MESH_LOSS of 14b's; (19c) under TRAIN_RULES cut to
+   LM_MESH_TRAIN_LAYERS layers, as many steps, against the one-device
+   run at that depth; (19d) LM_MESH_GRAD_STEPS steps at
+   LM_MESH_GRAD_LAYERS layers and fp32 under each table, step 0's loss
+   and every gradient within TOL_LM_TRAIN["float32"] of the one-device
+   step's; 19a-19d's final parameters, a leaf, within TOL_LM_MESH_PARAMS
+   of the one-device run's last update from that run's; (19e) one unit of
+   granite-moe-1b-a400m and of mamba2-780m at full width under FSDP_RULES,
+   bf16 and fp32, against their one-device steps. Gates on every run:
+   finite losses, each rank's flash-attention launches a step (14b's 48
+   and 24 at full depth), each
+   step's `Mesh.stats` calls of every collective on every axis equal to
+   `train.steps.lm_step_collectives`, each rank's peak under its
+   reckoning from `NamedSharding.local_shape`, no jax or reference module
+   in a rank; the attention kernels timed at a rank's shapes; tokens/s,
+   collective ms and device-busy ms a step printed (gloo, four ranks
+   time-sliced on one card: no four-card number);
+20. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -325,10 +350,15 @@ EVICT_CACHE_ROWS, EVICT_CHUNK = 88_064, 8
 MULTIHOST_HOSTS = 4
 MULTIHOST_EVICT_CACHE_ROWS = 17_816
 #: phase 11b's three tiers: the reference's bulk block and latency, and a
-#: DRAM budget that TRAIN_STEPS steps overflow (a quarter of the table,
-#: 42.6M rows, never fills in 8 steps, which evict ~1e5 rows, so no
-#: demotion would run)
+#: DRAM budget that TRAIN_STEPS steps overflow (a quarter of the table
+#: never fills in 8 steps, which evict ~1e5 rows, so no demotion would
+#: run)
 BULK_DRAM_ROWS, BULK_CHUNK, BULK_LATENCY_US = 32_768, 32, 50.0
+#: 11b cuts every dlrm-m1 table to 1 / BULK_ROW_DIV of its rows (2.66M
+#: rows, a 0.69 GB bulk store): each run seeds its store on disk with
+#: every row before its first step, which took 55 s a run at full size
+#: (43.6 GB) on the card's machine
+BULK_ROW_DIV = 64
 #: bytes of each timed copy between the page-locked tier and the card
 PCIE_PROBE_BYTES = 1 << 30
 #: phase 11's device peak from step 0, with the capacity tier on the host
@@ -562,12 +592,13 @@ TOL_SSM_RECUR = 5e-3
 #: int8 rounds each K and V element by up to 1/254 of its row's largest)
 TOL_ZOO_ATTN_REL_L2 = 2e-2
 TOL_INT8_REL_L2 = 3e-2
-#: 16d: the LM launcher on mamba2-780m, 8 requests over 4 slots, so every
-#: slot serves two; fp32 compute. Each request's greedy tokens must equal
+#: 16d: the LM launcher on mamba2-780m, 4 requests over 2 slots (8 over 4
+#: before the run's length was cut), so every slot serves two;
+#: fp32 compute. Each request's greedy tokens must equal
 #: the same request served alone by a fresh engine of as many slots (the
 #: same product shapes, so the same bits; a state carried over from the
 #: slot's last request moves the logits by O(1))
-ZOO_SERVE_ARGV = ["--arch", SSM_ARCH, "--requests", "8", "--slots", "4",
+ZOO_SERVE_ARGV = ["--arch", SSM_ARCH, "--requests", "4", "--slots", "2",
                   "--max-len", "96", "--new-tokens", "16", "--prompt-len",
                   "16", "64", "--compute-dtype", "float32"]
 #: 16a and 16c: the bf16 kernel at granite-moe-3b-a800m's and jamba's
@@ -597,14 +628,15 @@ HYBRID_SMOKE_ARGV = ["--arch", HYBRID_ARCH, "--smoke", "--seq", "256",
 HYBRID_SMOKE_STEPS = 8
 #: 17f: musicgen-large trained at 4,096 x 2 for FRONTEND_TRAIN_STEPS steps
 #: and served (8,192 frames, FRONTEND_DECODE greedy steps of 4 codebooks);
-#: internvl2-26b served cut to VLM_SERVE_LAYERS of its 48 layers (10.5 B
-#: fp32 parameters, 42.0 GB; all 48 take 79.4 GB) over 8,192 positions
+#: internvl2-26b served cut to VLM_SERVE_LAYERS of its 48 layers (24
+#: before the run's length was cut: 10.5 B fp32 parameters, 42.0
+#: GB; all 48 take 79.4 GB) over 8,192 positions
 #: (256 patches) and trained cut to VLM_TRAIN_LAYERS at 4,096 x 2; depth
 #: is the only cut
 AUDIO_ARCH, VLM_ARCH = "musicgen-large", "internvl2-26b"
 FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 2, 3
 FRONTEND_DECODE = 16
-VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 24, 2
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 12, 2
 #: 17f: the full_attention arm computes the layer's attention this many
 #: heads at a time (the heads are independent): at internvl2's 48 heads
 #: all at once its fp32 scores would take 32 GB beside 42 GB of weights
@@ -612,6 +644,50 @@ PLAIN_HEAD_CHUNK = 8
 #: 17f: ServeEngine on the cut internvl2-26b, text in and out as the
 #: reference's engine takes the vision arch: requests, slots, max_len
 VLM_ENGINE_REQUESTS, VLM_ENGINE_SLOTS, VLM_ENGINE_MAX_LEN = 4, 2, 64
+#: phase 19: the LM step over a (data 2, model 2) mesh of gloo ranks on
+#: the card (`train.sharded.lm_rank`), from 14b's initial parameters
+#: (LM_PARAM_SEED) and batches (LM_TRAIN_BATCH x LM_TRAIN_SEQ, so 2
+#: sequences a data rank, 1 a rank under ZERO_DP); 19a and 19b train
+#: LM_MESH_STEPS steps at full depth, 19c as many with stablelm-1.6b cut
+#: to LM_MESH_TRAIN_LAYERS of its 24 layers (TRAIN_RULES replicate the
+#: weights over `data`: at full depth 13.2 GB of state a rank, beside
+#: three other ranks); 19d trains LM_MESH_GRAD_STEPS steps at
+#: LM_MESH_GRAD_LAYERS layers, LM_MESH_GRAD_SEQ positions and fp32
+#: compute under each table, holding step 0's loss and every gradient to
+#: the one-device step's within TOL_LM_TRAIN["float32"]; 19e does so for
+#: one unit of granite-moe-1b-a400m and mamba2-780m at full width under
+#: FSDP_RULES, in bf16 and fp32
+LM_MESH = ((2, 2), ("data", "model"))
+LM_MESH_STEPS, LM_MESH_GRAD_STEPS = 3, 2
+LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_GRAD_LAYERS, LM_MESH_GRAD_SEQ = 2, 1024
+LM_MESH_TABLES = ("FSDP_RULES", "ZERO_DP_RULES", "TRAIN_RULES")
+LM_MESH_TIMEOUT_S = 900
+#: 19e: the MoE groups split over the batch's ranks (2 under FSDP), as
+#: the sharded MoE requires; the one-device step runs the same config;
+#: LM_TRAIN_BATCH sequences of LM_MESH_ZOO_SEQ positions
+LM_MESH_MOE_GROUPS = 4
+LM_MESH_ZOO_SEQ = 1024
+#: 19e's fp32 bound on a gradient the batch's split moves (see
+#: `lm_mesh_phase`): this many times the one-device split's own distance
+LM_MESH_SPLIT_FACTOR = 4
+#: 19a / 19b: each step's loss against 14b's at the same step (the same
+#: parameters and batches, one card), relative: both are bf16 runs whose
+#: partial sums round in other places (a rank's heads and rows, sums over
+#: ranks in bf16), the tolerance of 14c's bf16 loss (kernels against the
+#: plain attention); 19c against the one-device step at its cut depth
+TOL_LM_MESH_LOSS = 2e-3
+#: 19a-19d's parameters after the last step against the one-device
+#: run's: their distance, put together from every rank's blocks, over the
+#: one-device run's last update (a skipped last update reads 1).
+#: fp32 (19d) holds each leaf: the runs differ by summation order only
+#: (farthest leaf 1.2e-4 on an H100 80GB HBM3 at 700 W, 7e-5 on the CPU).
+#: bf16 (19a-19c) holds the whole tree (0.28 / 0.13 / 0.08 on that card):
+#: where rounding flips the sign of a gradient larger than sqrt(eps),
+#: Adam's first steps move the element by a whole lr either way, so a
+#: small leaf (a norm's bias) reads up to 0.55 of its update from that
+#: alone
+TOL_LM_MESH_PARAMS = {"float32": 1e-2, "bfloat16": 0.5}
 #: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
 CARD = ""
 
@@ -4082,6 +4158,7 @@ def lm_train_phases(torch, dev, cfg) -> dict:
     res = lm_train_launcher(torch, dev, cfg, LM_TRAIN_ARGV, "14b",
                             profiled=True)
     paths["lm_train"] = res["launches"]
+    losses_14b = res["numbers"]["losses"]
     # 14a's per-kernel trace, late in this process, can come back partial
     # (as 9a's does): the kernels line takes 14b's profiled step, whose 24
     # launches run at 14a's bf16 shape, and keeps 14a's beside it
@@ -4111,7 +4188,7 @@ def lm_train_phases(torch, dev, cfg) -> dict:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     free_device(torch)
-    return {"bwd": bwd, "paths": paths}
+    return {"bwd": bwd, "paths": paths, "losses_14b": losses_14b}
 
 
 class Tee:
@@ -5544,8 +5621,8 @@ def frontend_phases(torch, dev) -> dict:
     return {"paths": paths}
 
 
-def rank_world(torch, dev, name: str, calls: list, n_ranks: int
-               ) -> tuple[list, dict]:
+def rank_world(torch, dev, name: str, calls: list, n_ranks: int,
+               timeout_s: float = MESH_TIMEOUT_S) -> tuple[list, dict]:
     """Spawn `n_ranks` gloo ranks on the card (`launch.mesh.run_ranks`)
     running `calls` one after another in one world (`train.sharded.
     run_calls`). Returns each call's reports in rank order and the world's
@@ -5556,7 +5633,7 @@ def rank_world(torch, dev, name: str, calls: list, n_ranks: int
     t0 = time.perf_counter()
     timings: dict = {}
     res = run_ranks(run_calls, n_ranks, (calls,), backend="gloo",
-                    device=rank_device(dev), timeout_s=MESH_TIMEOUT_S,
+                    device=rank_device(dev), timeout_s=timeout_s,
                     timings=timings)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -5628,6 +5705,47 @@ def multihost_rank_numbers(name: str, res: list) -> dict:
     log(f"  {name}: " + json.dumps({k: v for k, v in nums.items()
                                      if k != "launches_per_rank"}))
     return nums
+
+
+def bulk_oracle(torch, dev, cfg) -> tuple:
+    """Phase 11b's run to hold to: dlrm-m1 with every table cut to 1 /
+    BULK_ROW_DIV of its rows, from the launcher's seed, trained
+    TRAIN_STEPS steps on the launcher's batches by the launcher's step
+    (`build_dlrm_train_step(sparse_apply="sparse")`). Returns the cut
+    config and `train_cached`'s `want`: the losses, the initial and final
+    checksums, and the rows."""
+    from repro_torch.core.dlrm import init_dlrm_params
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    from repro_torch.launch.train import PARAM_SEED
+    from repro_torch.optim import adagrad
+    from repro_torch.train.steps import build_dlrm_train_step, dlrm_init_state
+    small = dataclasses.replace(cfg, hash_sizes=tuple(
+        max(1, h // BULK_ROW_DIV) for h in cfg.hash_sizes))
+    ebc = EmbeddingBagCollection.build(small, n_shards=1,
+                                       strategy="replicated")
+    log(f"phase 11b: dlrm-m1 with each table cut to 1/{BULK_ROW_DIV} of its "
+        f"rows ({ebc.plan.total_rows}): build_dlrm_train_step("
+        f"sparse_apply='sparse'), {TRAIN_STEPS} steps from the launcher's "
+        f"seed")
+    params = init_dlrm_params(small, ebc, PARAM_SEED, dev)
+    want = {"rows": ebc.plan.total_rows,
+            "init_sum": bit_checksum(torch, params["emb"]["mega"])}
+    opt = adagrad(0.01)
+    state = dlrm_init_state(ebc, opt, params)
+    step = build_dlrm_train_step(small, ebc, opt, SPARSE_LR, SPARSE_EPS,
+                                 sparse_apply="sparse")
+    losses = []
+    for t, b in enumerate(mesh_batches(small, ebc, TRAIN_STEPS, "plan")):
+        params, state, m = step(params, state, {
+            k: torch.as_tensor(b[k]).to(dev) for k in ("dense", "idx",
+                                                       "label")}, t)
+        losses.append(float(m["loss"]))
+    want["losses"] = losses
+    want["final_sums"] = (bit_checksum(torch, params["emb"]["mega"]),
+                          bit_checksum(torch, state["accum"]))
+    log(f"  11b's uncached run: losses {losses}, checksums initial "
+        f"{want['init_sum']}, final {want['final_sums']}")
+    return small, want
 
 
 def elastic_setup(torch, dev, cfg) -> dict:
@@ -5933,6 +6051,483 @@ def multihost_mesh_phases(torch, dev, cfg, want: dict, ref: dict) -> dict:
     free_device(torch)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
+def lm_mesh_reckoning(cfg, rules: dict, batch: int, seq: int) -> dict:
+    """A rank's step memory on LM_MESH by the reckoning, part by part: its
+    fp32 parameter blocks (`NamedSharding.local_shape` of each leaf's
+    `resolve_sized` spec), gradients and AdamW moments, the clip's scaled
+    copy and adamw's temporaries on its largest block; its rows' unit
+    inputs (remat "full"), its logits (its vocabulary block) in bf16 and
+    fp32 and as much again for their gradient, one unit's recompute
+    (`layer_train_bytes` on its rows, heads and ff whole: an upper
+    bound); the loss's fp32 temporary of the same width (exp of the
+    shifted logits); and what a use gathers: one unit's weights whole in
+    bf16 with their gradient, the token table's vocabulary block in fp32
+    with its gradient. The parts do not all live at once."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.lm import (_pattern_moe_flags, _vocab_axes,
+                                       lm_param_specs)
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.nn.sharding import (NamedSharding, batch_axes,
+                                         resolve_sized)
+    shape, names = LM_MESH
+    mesh = SimpleNamespace(axis_names=names, shape=dict(zip(names, shape)),
+                           coords={a: 0 for a in names})
+    specs = tree_leaves(lm_param_specs(cfg))
+    local = [math.prod(NamedSharding(mesh, resolve_sized(
+        s.logical_axes, rules, mesh, s.shape)).local_shape(s.shape))
+        for s in specs]
+    n = sum(local)
+    rows = batch // math.prod(mesh.shape[a] for a in batch_axes(rules, mesh))
+    tokens = rows * seq
+    v_loc = cfg.vocab_size // math.prod(
+        mesh.shape[a] for a in _vocab_axes(cfg, rules, mesh))
+    unit = sum(math.prod(s.shape) for s in specs
+               if s.logical_axes[:1] == ("layer",)) // cfg.n_units
+    flags = _pattern_moe_flags(cfg)
+    parts = {"params_grads_moments": 16 * n,
+             "clip_scaled_copy": 4 * n,
+             "adamw_temporaries_largest_block": 12 * max(local),
+             "unit_inputs": cfg.n_units * tokens * cfg.d_model * 2,
+             "logits_and_grad": 2 * tokens * v_loc * (2 + 4),
+             "loss_temporary": 4 * tokens * v_loc,
+             "unit_recompute": sum(
+                 layer_train_bytes(cfg, kind, flags[i], tokens)
+                 for i, kind in enumerate(cfg.pattern)),
+             "gathered": 2 * 2 * unit + 2 * 4 * v_loc * cfg.d_model}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def cut_units(params: dict, n_units: int) -> dict:
+    """The parameter tree of the first `n_units` units: views of the
+    stacked blocks, the embedding, final norm and head as they are."""
+    from repro_torch.nn.params import tree_map
+    return {**params, "blocks": tree_map(lambda t: t[:n_units],
+                                         params["blocks"])}
+
+
+def lm_mesh_run(name: str, res: list, cfg, rules_name: str, seq: int,
+                want_losses, tol: float) -> dict:
+    """Phase 19's gates on one `lm_rank` run of LM_TRAIN_BATCH x `seq`
+    batches (19a-19c, and 19d's and 19e's step 0): every
+    rank's losses finite and equal, each within `tol` (relative) of
+    `want_losses` where given; each rank's flash-attention launches a step
+    (two forward launches an attention layer under remat "full", one
+    backward) and no other kernel; each step's `Mesh.stats` calls equal to
+    `lm_step_collectives`; each rank's peak under `lm_mesh_reckoning`; no
+    jax or reference module. Returns its numbers: tokens/s over steps 1 on
+    (the slowest rank's host ms a step), host, collective, device span and
+    device-busy ms a step by rank, each collective's calls, bytes and ms a
+    step, the peaks beside the reckoning, the launches."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.nn import sharding
+    from repro_torch.train.steps import lm_step_collectives
+    rules = getattr(sharding, rules_name)
+    shape, names = LM_MESH
+    mesh = SimpleNamespace(axis_names=names, shape=dict(zip(names, shape)))
+    want_calls = lm_step_collectives(cfg, rules, mesh)
+    n_attn = cfg.pattern.count("a") * cfg.n_units
+    again = 2 if cfg.remat == "full" else 1
+    want_launch = {"flash_attention": again * n_attn,
+                   "flash_attention_bwd": n_attn}
+    reckon = lm_mesh_reckoning(cfg, rules, LM_TRAIN_BATCH, seq)
+    losses = res[0]["losses"]
+    for r in res:
+        if r["losses"] != losses or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: rank {r['rank']} losses "
+                                 f"{r['losses']} against rank 0's {losses}")
+        for t, counts in enumerate(r["launches"]):
+            got = {k: v for k, v in counts.items() if v}
+            if got != {k: v for k, v in want_launch.items() if v}:
+                raise AssertionError(f"{name} rank {r['rank']} step {t}: "
+                                     f"launches {got}, want {want_launch}")
+        for t, st in enumerate(r["collectives"]):
+            got = {k[:-len("_calls")]: v for k, v in st.items()
+                   if "@" in k and k.endswith("_calls") and v}
+            if got != want_calls:
+                raise AssertionError(f"{name} rank {r['rank']} step {t}: "
+                                     f"collectives {got}, want {want_calls}")
+        if r["peak_bytes"] is None or r["peak_bytes"] > reckon["total"]:
+            raise AssertionError(f"{name} rank {r['rank']}: peak "
+                                 f"{r['peak_bytes']} over the reckoning "
+                                 f"{reckon}")
+        if r["foreign_modules"]:
+            raise AssertionError(f"{name} rank {r['rank']} loaded "
+                                 f"{r['foreign_modules']}")
+    rel = None
+    if want_losses is not None:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+        if max(rel) > tol:
+            raise AssertionError(f"{name}: losses {losses} against "
+                                 f"{want_losses[:len(losses)]}: relative "
+                                 f"{rel}, tolerance {tol}")
+    n = len(losses)
+    later = slice(1, n) if n > 1 else slice(0, n)
+    slowest = [max(r["host_ms"][t] for r in res) for t in range(n)]
+    tokens = LM_TRAIN_BATCH * seq
+
+    def per_step(key):
+        return float(np.mean([c[key] for r in res
+                              for c in r["collectives"][later]]))
+    nums = {"card": CARD, "rules": rules_name, "layers": cfg.n_layers,
+            "compute_dtype": cfg.compute_dtype, "losses": losses,
+            "want_losses": want_losses, "loss_rel_err": rel,
+            "tokens_per_s_steps_1_on": tokens * len(slowest[later])
+            / sum(slowest[later]) * 1e3,
+            "host_ms_per_step_by_rank": [r["host_ms"] for r in res],
+            "device_span_ms_per_step_by_rank": [r["device_span_ms"]
+                                                for r in res],
+            "device_busy_ms_per_step_by_rank": [
+                r["device_busy_ms_per_step"] for r in res],
+            "collective_ms_per_step": per_step("all_reduce_ms")
+            + per_step("all_gather_ms") + per_step("reduce_scatter_ms"),
+            "collectives_per_step": {
+                op: {"calls": per_step(f"{op}_calls"),
+                     "bytes": per_step(f"{op}_bytes"),
+                     "ms": per_step(f"{op}_ms")} for op in COLLECTIVES},
+            "calls_by_axis_per_step": want_calls,
+            "param_block_bytes_by_rank": [r["param_bytes"] for r in res],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in res],
+            "reckoning_bytes": reckon,
+            "launches_per_step": want_launch,
+            "launches": {k: sum(c[k] for r in res for c in r["launches"])
+                         for k in res[0]["launches"][0]},
+            "launches_per_rank": [{k: sum(c[k] for c in r["launches"])
+                                   for k in r["launches"][0]} for r in res]}
+    log(f"  {name} ({rules_name}): " + json.dumps(
+        {k: v for k, v in nums.items() if k != "launches_per_rank"}))
+    return nums
+
+
+def lm_mesh_grads(name: str, res: list, want_loss: float, loss_tol: float,
+                  paths: list[str], limits: list[float],
+                  faults: dict | None = None) -> dict:
+    """19d's and 19e's gradient gate: step 0's loss on every rank within
+    loss_tol (relative) of the one-device step's, and each leaf's
+    gradient, put together from every rank's blocks (each block once,
+    from its first holder), within limits[i] relative L2 of the gradient
+    the ranks were given (the one-device step's; for a bf16 arm the fp32
+    one's). `faults` holds, by name, what a fault reads on each leaf (the
+    one-device step's own): printed beside the limits, the farthest leaf
+    over its limit. Returns the errors and those readings."""
+    import numpy as np
+    losses = [r["losses"][0] for r in res]
+    loss_rel = max(abs(x - want_loss) / abs(want_loss) for x in losses)
+    err, ref = np.zeros(len(paths)), np.zeros(len(paths))
+    for r in res:
+        for i, e in enumerate(r["grad_errors"]):
+            if e["owner"]:
+                err[i] += e["err_sq"]
+                ref[i] += e["ref_sq"]
+    rel = np.sqrt(err) / np.maximum(np.sqrt(ref), 1e-30)
+    over = rel / np.asarray(limits)
+    worst = int(np.argmax(over))
+    nums = {"loss": losses[0], "want_loss": want_loss,
+            "loss_rel_err": loss_rel, "grad_rel_l2_worst": float(rel[worst]),
+            "worst_leaf": paths[worst], "worst_leaf_limit": limits[worst],
+            "grad_rel_l2": {p: float(x) for p, x in zip(paths, rel)},
+            "loss_tolerance": loss_tol, "faults": {}}
+    for fault, reading in (faults or {}).items():
+        ratio = np.asarray(reading) / np.asarray(limits)
+        k = int(np.argmax(ratio))
+        nums["faults"][fault] = {"leaf": paths[k], "reading": reading[k],
+                                 "over_limit": float(ratio[k]),
+                                 "least_over_limit": float(ratio.min())}
+        log(f"  {name}: {fault} would read {reading[k]:.3e} on {paths[k]}, "
+            f"{ratio[k]:.3g} times its limit {limits[k]:.3e} (the farthest "
+            f"leaf); the sound run's farthest, {rel[worst]:.3e}, "
+            f"{over[worst]:.3g} times")
+    log(f"  {name}: loss {losses[0]} vs one-device {want_loss} (rel "
+        f"{loss_rel:.3e}, tolerance {loss_tol}); gradient {paths[worst]} "
+        f"rel L2 {rel[worst]:.3e} against its limit {limits[worst]:.3e}, "
+        f"the nearest any leaf comes")
+    if not (np.isfinite(losses).all() and loss_rel <= loss_tol
+            and over[worst] <= 1.0):
+        raise AssertionError(f"{name}: the sharded step's loss or a "
+                             f"gradient is off the one-device step's: "
+                             f"{json.dumps(nums)}")
+    return nums
+
+
+def lm_mesh_params(name: str, res: list, cfg, want: dict) -> dict:
+    """19a-19d's parameter gate: the final parameters, put together from
+    every rank's blocks (each block once, from its first holder), no
+    farther from the one-device run's (`want`, `lm_mesh_phase`'s oracle)
+    than TOL_LM_MESH_PARAMS of the compute dtype times that run's last
+    update: each leaf's in fp32, the whole tree's in bf16. Returns the
+    readings: each leaf's distance over its last update, and the whole
+    tree's."""
+    import numpy as np
+
+    from repro_torch.models.lm import lm_param_specs
+    paths = ["/".join(p) for p in leaf_paths(lm_param_specs(cfg))]
+    tol = TOL_LM_MESH_PARAMS[cfg.compute_dtype]
+    err = np.zeros(len(paths))
+    for r in res:
+        for i, e in enumerate(r["param_errors"]):
+            if e["owner"]:
+                err[i] += e["err_sq"]
+    err, last = np.sqrt(err), np.asarray(want["last_update"])
+    share = np.where(last > 0, err / np.maximum(last, 1e-30),
+                     np.where(err > 0, np.inf, 0.0))
+    worst = int(np.argmax(share))
+    nums = {"worst_leaf": paths[worst],
+            "dist_over_last_update_worst": float(share[worst]),
+            "dist_over_last_update_tree": float(
+                np.linalg.norm(err) / np.linalg.norm(last)),
+            "tolerance": tol,
+            "dist_over_last_update": {p: float(x)
+                                      for p, x in zip(paths, share)}}
+    held = ("leaf" if cfg.compute_dtype == "float32" else "tree")
+    nums["held"] = held
+    reading = (share[worst] if held == "leaf"
+               else nums["dist_over_last_update_tree"])
+    log(f"  {name} parameters after {len(want['losses'])} steps vs one "
+        f"device: {paths[worst]} at {share[worst]:.3e} of its last update, "
+        f"the farthest leaf; the whole tree at "
+        f"{nums['dist_over_last_update_tree']:.3e} (the {held} held to "
+        f"{tol})")
+    if not reading <= tol:
+        raise AssertionError(f"{name}: the sharded run's parameters are "
+                             f"off the one-device run's: {json.dumps(nums)}")
+    return nums
+
+
+def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
+    """Phase 19 (the module docstring): the attention kernels at a rank's
+    shapes; the one-device oracles (19a-19d's runs, their final parameters
+    in files the ranks read; 19d's and 19e's step-0 gradients); one 4-rank
+    world running 19a-19e in turn over CUDA IPC views of the parent's
+    parameters and oracle gradients. Returns each run's numbers and the
+    flash numbers."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import init_lm_params, lm_param_specs
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.sharded import lm_rank, save_flat_params
+    from repro_torch.train.steps import build_lm_train_step
+    t_phase = time.perf_counter()
+    out = {}
+    shapes = (("rank_19a_19c", (LM_TRAIN_BATCH // 2, cfg.n_heads // 2,
+                                 LM_TRAIN_SEQ, cfg.d_head), "bfloat16"),
+              ("rank_19b", (LM_TRAIN_BATCH // 4, cfg.n_heads, LM_TRAIN_SEQ,
+                            cfg.d_head), "bfloat16"))
+    log("phase 19: flash_attention and flash_attention_bwd vs plain at a "
+        "rank's shapes: " + ", ".join(f"{n} {s}" for n, s, _ in shapes))
+    out["flash"] = check_flash_attention_bwd(torch, dev, shapes=shapes)
+    free_device(torch)
+
+    def on_dev(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def one_device(c, params, batch):
+        """The one-device step's (loss, gradients) at step 0."""
+        step = build_lm_train_step(c, adamw(3e-4))
+        loss, _, grads = step.value_and_grads(params, on_dev(batch))
+        return float(loss), grads
+
+    def oracle(c, params, batches, name):
+        """The one-device run of `batches` from `params` (updated in
+        place): its losses, its final parameters written to a file under
+        runs/ (`save_flat_params`: the ranks read their blocks) and, a
+        leaf in `lm_param_specs` order, the norm of its last update."""
+        opt = adamw(3e-4)
+        state, step = opt.init(params), build_lm_train_step(c, opt)
+        losses, prev = [], None
+        for t, b in enumerate(batches):
+            if t == len(batches) - 1:
+                prev = tree_map(lambda x: x.clone(), params)
+            params, state, m = step(params, state, on_dev(b), t)
+            losses.append(float(m["loss"]))
+        specs = lm_param_specs(c)
+        last = [float((x - y).norm()) for x, y in zip(
+            tree_leaves(tree_map(lambda s, x: x, specs, params)),
+            tree_leaves(tree_map(lambda s, x: x, specs, prev)))]
+        path = os.path.join(flat_dir, f"{name}.f32")
+        save_flat_params(params, c, path)
+        del params, state, step, m, prev
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"losses": losses, "last_update": last, "path": path}
+
+    # the ranks draw 14b's parameters themselves (`lm_rank`'s seed): the
+    # parent holds only what 19d and 19e compare against while they train
+    full = init_lm_params(cfg, train_cli.PARAM_SEED, dev)
+    batches = [make_lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, t, 0)
+               for t in range(LM_MESH_STEPS)]
+    cut = dataclasses.replace(cfg, n_layers=LM_MESH_TRAIN_LAYERS)
+    grad_cfg = dataclasses.replace(cfg, n_layers=LM_MESH_GRAD_LAYERS,
+                                   compute_dtype="float32")
+    grad_params = tree_map(lambda t: t.clone(),
+                           cut_units(full, grad_cfg.n_units))
+    grad_batches = [make_lm_batch(grad_cfg, LM_TRAIN_BATCH,
+                                  LM_MESH_GRAD_SEQ, t, 0)
+                    for t in range(LM_MESH_GRAD_STEPS)]
+    # the oracles the ranks' final parameters are held to: 19c's at the
+    # cut depth and 19d's on copies, then 19a's and 19b's on `full`
+    log(f"phase 19's oracles: build_lm_train_step on one device, "
+        f"{cfg.name} at {cfg.n_layers} and {cut.n_layers} layers "
+        f"({LM_MESH_STEPS} steps), at {grad_cfg.n_layers} in fp32 "
+        f"({LM_MESH_GRAD_STEPS} steps)")
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    flat_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_",
+                                dir=os.path.join(ROOT, "runs"))
+    want = {"19c": oracle(cut, tree_map(lambda t: t.clone(), cut_units(
+                full, cut.n_units)), batches, "19c"),
+            "19d": oracle(grad_cfg, tree_map(lambda t: t.clone(),
+                                             grad_params),
+                          grad_batches, "19d"),
+            "19a": oracle(cfg, full, batches, "19a")}
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses_c = want["19c"]["losses"]
+    # 19d's and 19e's gradient oracles: step 0's loss and gradients
+    grad_loss, grad_want = one_device(grad_cfg, grad_params,
+                                      grad_batches[0])
+    # 19e: the fp32 arm is held to the one-device fp32 step, each gradient
+    # within TOL_LM_TRAIN["float32"] or LM_MESH_SPLIT_FACTOR times the
+    # one-device step's own distance from the mean of its two batch
+    # halves' gradients (what the data ranks sum), whichever is larger: on
+    # the card a half batch's products round otherwise, and mamba2's
+    # A_log gradient, a sum that cancels to 1e-3 of its terms, moves by
+    # 1e-3 with them; the bf16 arm's loss to the one-device bf16 loss and
+    # its gradients to the fp32 ones, no farther than the one-device bf16
+    # gradients are, x1.5 + 0.01 (the CPU tests' bf16 bound: at init a
+    # unit's bf16 gradients sit ~20% from fp32)
+    zoo = []
+    for arch in (MOE_TRAIN_ARCH, SSM_ARCH):
+        base = get_config(arch)
+        c = dataclasses.replace(base, n_layers=len(base.pattern),
+                                moe_groups=LM_MESH_MOE_GROUPS)
+        p = init_lm_params(c, ZOO_PARAM_SEED, dev)
+        b = make_lm_batch(c, LM_TRAIN_BATCH, LM_MESH_ZOO_SEQ, 0, 0)
+        c16, c32 = (dataclasses.replace(c, compute_dtype=dt)
+                    for dt in ("bfloat16", "float32"))
+        loss16, g16 = one_device(c16, p, b)
+        loss32, g32 = one_device(c32, p, b)
+        base16 = [rel_l2(a.float(), w) for a, w in zip(tree_leaves(g16),
+                                                       tree_leaves(g32))]
+        half = LM_TRAIN_BATCH // 2
+        # the split's rounding alone: without the aux loss, whose means over
+        # half a batch are another function, and each half with half the
+        # MoE groups, the same groups as the whole batch's
+        c0 = dataclasses.replace(c32, aux_loss_coef=0.0)
+        ch = dataclasses.replace(c0, moe_groups=max(1, c0.moe_groups // 2))
+        _, g0 = one_device(c0, p, b)
+        _, h0 = one_device(ch, p, {k: v[:half] for k, v in b.items()})
+        _, h1 = one_device(ch, p, {k: v[half:] for k, v in b.items()})
+        split = [rel_l2((x + y) / 2, w) for x, y, w in zip(
+            tree_leaves(h0), tree_leaves(h1), tree_leaves(g0))]
+        # what a fault reads against the limits: one data rank's half
+        # alone (a lost sum over `data`), and bf16 compute for fp32
+        lost = [rel_l2(x, w) for x, w in zip(tree_leaves(h0),
+                                             tree_leaves(g0))]
+        del g16, g0, h0, h1
+        zoo.append((f"19e {arch} bfloat16", c16, p, b, loss16, g32,
+                    TOL_LM_TRAIN["bfloat16"][0],
+                    [1.5 * x + 0.01 for x in base16],
+                    {"lost_data_sum": lost}))
+        zoo.append((f"19e {arch} float32", c32, p, b, loss32, g32,
+                    TOL_LM_TRAIN["float32"][0],
+                    [max(TOL_LM_TRAIN["float32"][1],
+                         LM_MESH_SPLIT_FACTOR * x) for x in split],
+                    {"lost_data_sum": lost, "bf16_compute": base16}))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()         # the oracles' cached blocks
+    log(f"  oracles: 19c losses {losses_c}; 19d loss {grad_loss}; 19e "
+        + ", ".join(f"{z[0]} {z[4]}" for z in zoo)
+        + f"; parent allocated {torch.cuda.memory_allocated()} bytes, "
+        f"reserved {torch.cuda.memory_reserved()}")
+    # one world: 19a-19d train and are held to their oracles' final
+    # parameters, 19d and 19e to step 0's gradients
+    seed = {"seed": train_cli.PARAM_SEED, "init_cfg": cfg,
+            "log_steps": True}
+    calls = [(lm_rank, {"cfg": cfg, "rules": r, "batches": batches,
+                        "profile_steps": 1,
+                        "want_params": want["19a"]["path"], **seed})
+             for r in ("FSDP_RULES", "ZERO_DP_RULES")]
+    calls += [(lm_rank, {"cfg": cut, "rules": "TRAIN_RULES",
+                         "batches": batches,
+                         "want_params": want["19c"]["path"], **seed})]
+    calls += [(lm_rank, {"cfg": grad_cfg, "rules": r, "params": grad_params,
+                         "batches": grad_batches, "want_grads": grad_want,
+                         "want_params": want["19d"]["path"]})
+              for r in LM_MESH_TABLES]
+    calls += [(lm_rank, {"cfg": cd, "rules": "FSDP_RULES", "params": p,
+                         "batches": [b], "want_grads": grads})
+              for _, cd, p, b, _, grads, _, _, _ in zoo]
+    log(f"phase 19a-19e: 4 gloo ranks on this card, mesh {LM_MESH}: "
+        f"19a FSDP_RULES and 19b ZERO_DP_RULES at full depth, 19c "
+        f"TRAIN_RULES at {cut.n_layers} layers ({LM_MESH_STEPS} steps of "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}); 19d at "
+        f"{LM_MESH_GRAD_LAYERS} layers, {LM_MESH_GRAD_SEQ} positions, fp32, "
+        f"{LM_MESH_GRAD_STEPS} steps under {LM_MESH_TABLES}; 19e "
+        f"{MOE_TRAIN_ARCH} and {SSM_ARCH} at one unit under FSDP_RULES, "
+        f"bf16 and fp32")
+    # four ranks' allocators share the card: expandable segments keep
+    # what one rank freed usable by another's larger blocks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        res, out["world"] = rank_world(torch, dev, "phase 19", calls, 4,
+                                       timeout_s=LM_MESH_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        shutil.rmtree(flat_dir, ignore_errors=True)
+    log(f"  19a's oracle (one device, full depth) losses "
+        f"{want['19a']['losses']} against 14b's {losses_14b}")
+    runs = (("19a", cfg, "FSDP_RULES", LM_TRAIN_SEQ, losses_14b),
+            ("19b", cfg, "ZERO_DP_RULES", LM_TRAIN_SEQ, losses_14b),
+            ("19c", cut, "TRAIN_RULES", LM_TRAIN_SEQ, losses_c))
+    for i, (name, c, rules_name, seq, want_losses) in enumerate(runs):
+        out[name] = lm_mesh_run(name, res[i], c, rules_name, seq,
+                                want_losses, TOL_LM_MESH_LOSS)
+        out[name]["params"] = lm_mesh_params(
+            name, res[i], c, want["19c" if name == "19c" else "19a"])
+    paths = ["/".join(p) for p in leaf_paths(grad_want)]
+    for i, r in enumerate(LM_MESH_TABLES):
+        out[f"19d {r}"] = lm_mesh_grads(
+            f"19d {r}", res[3 + i], grad_loss, TOL_LM_TRAIN["float32"][0],
+            paths, [TOL_LM_TRAIN["float32"][1]] * len(paths))
+        out[f"19d {r}"]["run"] = lm_mesh_run(
+            "19d", res[3 + i], grad_cfg, r, LM_MESH_GRAD_SEQ,
+            want["19d"]["losses"], TOL_LM_TRAIN["float32"][0])
+        out[f"19d {r}"]["params"] = lm_mesh_params(
+            f"19d {r}", res[3 + i], grad_cfg, want["19d"])
+    for i, (name, cd, p, _, loss, grads, loss_tol, limits,
+            faults) in enumerate(zoo):
+        res_e = res[3 + len(LM_MESH_TABLES) + i]
+        out[name] = lm_mesh_grads(name, res_e, loss, loss_tol,
+                                  ["/".join(q) for q in leaf_paths(grads)],
+                                  limits, faults)
+        out[name]["run"] = lm_mesh_run("19e", res_e, cd, "FSDP_RULES",
+                                       LM_MESH_ZOO_SEQ,
+                                       None, 0.0)
+    del grad_params, grad_want, zoo, calls, res
+    release_shared(torch, dev)
+    free_device(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -6305,6 +6900,10 @@ def main() -> int:
         f"the card (R={r_rows}, C={EVICT_CACHE_ROWS}, D={d})")
     host_movers = check_host_movers(torch, dev, cfg, ebc, host, rates)
     free_device(torch)
+    small, bulk_want = bulk_oracle(torch, dev, cfg)
+    free_device(torch)
+    r_small = bulk_want["rows"]
+    bulk_host = {k: v[:r_small] for k, v in host.items()}
     bulk_dir = tempfile.mkdtemp(prefix="chip_smoke_bulk_",
                                 dir=os.path.join(ROOT, "runs"))
     try:
@@ -6321,8 +6920,9 @@ def main() -> int:
                   "needs": step_kernels + ("embedding_bag", "cache_fetch",
                                            "cache_fetch_chunked")}
             log(f"phase {br['name']}: BulkCachedEmbeddingBagCollection "
-                f"over the host tier, {TRAIN_STEPS} steps: {br['bulk']}")
-            res = train_cached(torch, dev, cfg, br, want, host)
+                f"over the host tier, every table cut to 1/{BULK_ROW_DIV} "
+                f"({r_small} rows), {TRAIN_STEPS} steps: {br['bulk']}")
+            res = train_cached(torch, dev, small, br, bulk_want, bulk_host)
             paths[br["path"]] = read_launches(KERNELS, br["path"],
                                               br["needs"])
             log(f"{br['name']} numbers: {json.dumps(res)}")
@@ -6331,6 +6931,7 @@ def main() -> int:
                 os.remove(os.path.join(bulk_dir, f))
     finally:
         shutil.rmtree(bulk_dir, ignore_errors=True)
+    del bulk_host
     t0 = time.perf_counter()
     del host
     gc.collect()
@@ -6463,7 +7064,29 @@ def main() -> int:
             {k: v for k, v in nums.items() if k != "launches_per_rank"}))
     log(f"18d numbers: {json.dumps(ranks['18d'])}")
 
-    # 19. the numbers, then the result
+    # 19. the LM step over a (data 2, model 2) mesh of gloo ranks: FSDP
+    #     (19a) and ZERO_DP (19b) at full width and depth, TRAIN cut in
+    #     depth (19c), step 0's gradients under each table (19d), one unit
+    #     of the MoE and SSM families (19e)
+    lm_mesh = lm_mesh_phase(torch, dev, lm_cfg, lm_train["losses_14b"])
+    for name in ("19a", "19b", "19c"):
+        mesh[name] = lm_mesh[name]
+        paths[f"mesh_{name}"] = lm_mesh[name]["launches"]
+    for name, nums in lm_mesh.items():
+        if name.startswith(("19d", "19e")):
+            paths[f"mesh_{name}"] = nums["run"]["launches"]
+    for name in ("rank_19a_19c", "rank_19b"):
+        fl = lm_mesh["flash"][name]
+        numbers["flash_attention"].setdefault("mesh_rank_shapes", {})[
+            name] = {k: fl[k] for k in ("shape", "forward_ms",
+                                        "forward_with_lse_ms",
+                                        "forward_library_ms",
+                                        "forward_bound_ms")}
+        numbers["flash_attention_bwd"].setdefault("mesh_rank_shapes", {})[
+            name] = {k: v for k, v in fl.items()
+                     if not k.startswith("forward")}
+
+    # 20. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -6500,7 +7123,8 @@ def main() -> int:
                 "dh128", "library",
                 "max_err_share_of_max_plain", "rel_l2_err",
                 "device_ms_14a_profiler", "granite_moe", "jamba_dh128",
-                "zoo_prefill_device_ms_per_launch", "zoo_train_shapes")
+                "zoo_prefill_device_ms_per_launch", "zoo_train_shapes",
+                "mesh_rank_shapes")
                 if key in nums}})
         rows[-1]["launches_per_rank"] = {
             name: [c[k.name] for c in nums["launches_per_rank"]]

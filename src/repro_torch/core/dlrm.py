@@ -24,10 +24,13 @@ from repro_torch.nn.layers import linear, linear_specs
 from repro_torch.nn.params import init_params, tree_leaves, tree_map
 
 
-def _mlp_specs(dims, in_dim: int):
+def _mlp_specs(dims, in_dim: int, in_ax: str | None, out_ax: str | None):
     specs, d = [], in_dim
-    for width in dims:
-        specs.append(linear_specs(d, width, bias=True))
+    for i, width in enumerate(dims):
+        # the reference alternates the logical axes, so consecutive layers
+        # shard on opposite sides (Megatron's f / g pairing)
+        a_in, a_out = (in_ax, out_ax) if i % 2 == 0 else (out_ax, in_ax)
+        specs.append(linear_specs(d, width, a_in, a_out, bias=True))
         d = width
     return specs, d
 
@@ -35,13 +38,14 @@ def _mlp_specs(dims, in_dim: int):
 def dlrm_param_specs(cfg: DLRMConfig, ebc: EmbeddingBagCollection) -> dict:
     """ParamSpec tree for the full DLRM — the reference's layout: bottom /
     top MLP layer lists of {w (in, out), b} + the collection's mega table."""
-    bottom, bot_out = _mlp_specs(cfg.bottom_mlp, cfg.n_dense_features)
+    bottom, bot_out = _mlp_specs(cfg.bottom_mlp, cfg.n_dense_features,
+                                 None, "dense_ff")
     if bot_out != cfg.embed_dim:
         raise ValueError(f"bottom MLP must end at embed_dim: {bot_out} != "
                          f"{cfg.embed_dim}")
     top_in = interaction_dim(cfg.n_sparse_features, cfg.embed_dim,
                              cfg.interaction)
-    top, top_out = _mlp_specs(cfg.top_mlp, top_in)
+    top, top_out = _mlp_specs(cfg.top_mlp, top_in, None, "dense_ff")
     if top_out != 1:
         raise ValueError(f"top MLP must end at 1, got {top_out}")
     return {"bottom": bottom, "top": top, "emb": ebc.param_specs()}

@@ -57,7 +57,8 @@ class EmbeddingBagCollection:
         dt = torch.float32 if self.cfg.param_dtype == "float32" \
             else torch.bfloat16
         return {"mega": ParamSpec((self.plan.total_rows, self.cfg.embed_dim),
-                                  dtype=dt, init="normal",
+                                  ("hash", "table_dim"), dtype=dt,
+                                  init="normal",
                                   scale=1.0 / np.sqrt(self.cfg.embed_dim))}
 
     def offset_indices(self, raw):
@@ -75,7 +76,7 @@ class EmbeddingBagCollection:
 
     def optimizer_specs(self) -> dict:
         """Row-wise AdaGrad second-moment accumulator, one fp32 per row."""
-        return {"accum": ParamSpec((self.plan.total_rows,),
+        return {"accum": ParamSpec((self.plan.total_rows,), ("hash",),
                                    dtype=torch.float32, init="zeros")}
 
     def lookup(self, params: dict, idx: torch.Tensor,

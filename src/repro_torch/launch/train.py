@@ -130,11 +130,13 @@ def _lm_job(cfg, args, device):
     """(fresh, gen, step_fn) of the LM mode."""
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.models.lm import init_lm_params
+    from repro_torch.nn.sharding import TRAIN_RULES
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_lm_train_step
 
     opt = adamw(args.lr)
-    step_fn = build_lm_train_step(cfg, opt)
+    # the reference launcher's rules; with no mesh they change no bit
+    step_fn = build_lm_train_step(cfg, opt, TRAIN_RULES)
 
     def fresh():
         params = init_lm_params(cfg, PARAM_SEED, device)

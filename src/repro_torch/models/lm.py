@@ -16,6 +16,18 @@ unit runs under the config's `remat` (activation checkpointing).
 
 Caches are written IN PLACE by `prefill_step` and `decode_step` (the
 reference returns updated copies); both return the caches they were given.
+
+Training over a mesh (`rules`, `mesh`: the step passes them, a
+`launch.mesh.Mesh` and one of `nn.sharding`'s tables): each parameter is
+this rank's `resolve_sized` block and the batch this rank's rows (the
+block of ("batch", None, ...)); the layers run as `nn.layers`, `nn.moe`
+and `nn.mamba2` say. The token embedding is vocab-parallel (out-of-block
+ids masked, a local take, one all_reduce over the vocab's axes), as are
+the logits and the loss: the row max, the sum of exponentials and the
+target's logit are all-reduced over the vocab's axes, never the (B, S, V)
+logits, and the masked nll sum and mask count over the batch's axes, so
+every rank's loss is the global masked mean. Without a mesh, the
+one-device model, bit for bit.
 """
 from __future__ import annotations
 
@@ -28,10 +40,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as MESH
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2 as M
 from repro_torch.nn import moe as MOE
-from repro_torch.nn.params import ParamSpec, init_params, stack_specs
+from repro_torch.nn.params import (ParamSpec, init_params, specs_to_shardings,
+                                   stack_specs, tree_map)
+from repro_torch.nn.sharding import (TRAIN_RULES, LogicalRules, batch_axes,
+                                     block_range, gather_weight,
+                                     replicate_weight, shard_activation,
+                                     tp_axes)
 
 MODES = ("train", "prefill", "decode")
 REMAT = ("none", "dots", "full")
@@ -74,9 +92,11 @@ def lm_param_specs(cfg: ModelConfig) -> dict:
     flags = _pattern_moe_flags(cfg)
     if cfg.frontend == "audio":
         embed = {"codebooks": ParamSpec((cfg.n_codebooks, v, d),
+                                        (None, "vocab", "embed"),
                                         init="normal", scale=0.02)}
     else:
-        embed = {"tok": ParamSpec((v, d), init="normal", scale=0.02)}
+        embed = {"tok": ParamSpec((v, d), ("vocab", "embed"), init="normal",
+                                  scale=0.02)}
     p = {"embed": embed,
          "blocks": {f"b{i}": stack_specs(_block_specs(cfg, kind, flags[i]),
                                          cfg.n_units)
@@ -84,8 +104,23 @@ def lm_param_specs(cfg: ModelConfig) -> dict:
          "final_norm": L.norm_specs(d, cfg.norm_type)}
     if not cfg.tie_embeddings:
         out = v * cfg.n_codebooks if cfg.frontend == "audio" else v
-        p["head"] = {"w": ParamSpec((d, out), init="fan_in")}
+        p["head"] = {"w": ParamSpec((d, out), ("embed", "vocab"),
+                                    init="fan_in")}
     return p
+
+
+def lm_param_shardings(cfg: ModelConfig, rules: LogicalRules, mesh) -> dict:
+    """A `nn.sharding.NamedSharding` a parameter: where each rank's
+    `resolve_sized` block of it lies on `mesh` under `rules`."""
+    return specs_to_shardings(lm_param_specs(cfg), rules, mesh)
+
+
+def shard_lm_params(params: dict, cfg: ModelConfig, rules: LogicalRules,
+                    mesh) -> dict:
+    """This rank's blocks of whole parameters (copies, so the whole tree
+    can go)."""
+    return tree_map(lambda sh, t: sh.shard(t).clone(),
+                    lm_param_shardings(cfg, rules, mesh), params)
 
 
 def init_lm_params(cfg: ModelConfig, seed: int,
@@ -108,8 +143,18 @@ def _device(params: dict) -> torch.device:
     return next(iter(params["embed"].values())).device
 
 
+def _vocab_axes(cfg: ModelConfig, rules: LogicalRules, mesh) -> tuple:
+    """The mesh axes the vocabulary splits over on the logits (none for
+    the audio arch, whose K codebooks' columns an even split would cut
+    across: its head is gathered and its logits computed whole)."""
+    if cfg.frontend == "audio":
+        return ()
+    return tp_axes("vocab", cfg.vocab_size, rules, mesh)
+
+
 def embed_input(params: dict, batch: dict, cfg: ModelConfig,
-                positions: torch.Tensor | None = None
+                positions: torch.Tensor | None = None,
+                rules: LogicalRules = TRAIN_RULES, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The input embeddings (B, S, D) in the compute dtype, and positions
     (B, S): `positions` from the decode path, else arange(S).
@@ -124,9 +169,20 @@ def embed_input(params: dict, batch: dict, cfg: ModelConfig,
     if cfg.frontend == "audio":
         x = torch.as_tensor(batch["embeds"], device=dev).to(dtype)
     else:
-        table = params["embed"]["tok"]
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        x = table[tokens.long()].to(dtype)
+        table = gather_weight(params["embed"]["tok"], ("vocab", "embed"),
+                              rules, mesh, (cfg.vocab_size, cfg.d_model))
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        tv = _vocab_axes(cfg, rules, mesh)
+        if tv:
+            lo, hi = block_range(cfg.vocab_size, tv, mesh)
+            inside = (tokens >= lo) & (tokens < hi)
+            x = table[(tokens - lo).clamp(0, hi - lo - 1)]
+            x = torch.where(inside[..., None], x, 0.0).to(dtype)
+            x = shard_activation(x, L.ACT, rules, mesh,
+                                 L.act_spec(rules, mesh), partial=tv)
+        else:
+            x = table[tokens].to(dtype)
+    if cfg.frontend != "audio":
         if cfg.frontend == "vision":
             prefix = torch.as_tensor(batch["embeds"], device=dev)
             x = torch.cat([prefix.to(dtype), x], dim=1)
@@ -138,16 +194,29 @@ def embed_input(params: dict, batch: dict, cfg: ModelConfig,
     return x, positions
 
 
-def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              rules: LogicalRules = TRAIN_RULES, mesh=None) -> torch.Tensor:
     """Final norm, then the tied embedding's transpose or the head; the
-    audio arch's (B, S, V*K) reshaped to (B, S, K, V)."""
+    audio arch's (B, S, V*K) reshaped to (B, S, K, V). With a mesh, this
+    rank's rows and its block of the vocabulary (`_vocab_axes`)."""
     dtype = _dtype(cfg)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_type, dtype=dtype)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_type, dtype=dtype,
+                     rules=rules, mesh=mesh)
+    v, d = cfg.vocab_size, cfg.d_model
+    tv = _vocab_axes(cfg, rules, mesh)
+    if tv:
+        x = MESH.copy_to(x, mesh, tv)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["tok"].to(dtype).T
+        logits = x @ gather_weight(params["embed"]["tok"].to(dtype),
+                                   ("vocab", "embed"), rules, mesh,
+                                   (v, d)).T
+    elif cfg.frontend == "audio":
+        logits = x @ replicate_weight(params["head"]["w"].to(dtype),
+                                      ("embed", "vocab"), rules, mesh,
+                                      (d, v * cfg.n_codebooks))
     else:
-        logits = x @ params["head"]["w"].to(dtype)
+        logits = x @ gather_weight(params["head"]["w"].to(dtype),
+                                   ("embed", "vocab"), rules, mesh, (d, v))
     if cfg.frontend == "audio":
         b, s, _ = logits.shape
         logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
@@ -160,34 +229,38 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
 
 def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  is_moe: bool, positions: torch.Tensor, mode: str,
-                 cache: dict | None, cache_index
+                 cache: dict | None, cache_index,
+                 rules: LogicalRules = TRAIN_RULES, mesh=None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: norm, attention or Mamba-2 mixer, residual; then (if
     d_ff > 0) norm, MLP or MoE, residual. Returns (x, the MoE aux loss, or
     None without a router)."""
     dtype = _dtype(cfg)
-    h = L.apply_norm(bp["ln1"], x, cfg.norm_type, dtype=dtype)
+    sh = {"rules": rules, "mesh": mesh}
+    h = L.apply_norm(bp["ln1"], x, cfg.norm_type, dtype=dtype, **sh)
     if kind == "a":
         h, _ = L.attention(bp["attn"], h, cfg, positions, mode=mode,
-                           cache=cache, cache_index=cache_index, dtype=dtype)
+                           cache=cache, cache_index=cache_index, dtype=dtype,
+                           **sh)
     else:
         h, _ = M.mamba_block(bp["mamba"], h, cfg, mode=mode, cache=cache,
-                             dtype=dtype)
+                             dtype=dtype, **sh)
     x = x + h
     aux = None
     if cfg.d_ff > 0:
-        h = L.apply_norm(bp["ln2"], x, cfg.norm_type, dtype=dtype)
+        h = L.apply_norm(bp["ln2"], x, cfg.norm_type, dtype=dtype, **sh)
         if is_moe:
-            h, aux = MOE.moe(bp["ffn"], h, cfg, dtype=dtype)
+            h, aux = MOE.moe(bp["ffn"], h, cfg, dtype=dtype, **sh)
         else:
-            h = L.mlp(bp["ffn"], h, cfg, dtype=dtype)
+            h = L.mlp(bp["ffn"], h, cfg, dtype=dtype, **sh)
         x = x + h
     return x, aux
 
 
 def _apply_unit(unit: dict, x: torch.Tensor, aux: torch.Tensor,
                 cfg: ModelConfig, positions: torch.Tensor, mode: str,
-                caches: dict | None, cache_index
+                caches: dict | None, cache_index,
+                rules: LogicalRules = TRAIN_RULES, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The blocks of one unit in pattern order, the MoE blocks' aux losses
     added to `aux`."""
@@ -196,7 +269,7 @@ def _apply_unit(unit: dict, x: torch.Tensor, aux: torch.Tensor,
         name = f"b{i}"
         x, a = _apply_block(unit[name], x, cfg, kind, flags[i], positions,
                             mode, None if caches is None else caches[name],
-                            cache_index)
+                            cache_index, rules, mesh)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -285,7 +358,8 @@ def _window(caches: dict, cfg: ModelConfig) -> int:
 
 def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
                mode: str = "train", caches: dict | None = None,
-               cache_index=None
+               cache_index=None, rules: LogicalRules = TRAIN_RULES,
+               mesh=None
                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
     """Returns (logits (B, S, V), or (B, S, K, V) for the audio arch,
     aux_loss, caches), as the reference.
@@ -296,9 +370,12 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
     into `caches`, in place. decode: one token per sequence at
     `cache_index` (int or (B,)), written in place. aux_loss: the MoE
     layers' load-balancing losses summed over blocks in order (fp32, 0
-    without experts)."""
+    without experts). A `mesh` takes train mode only (the module
+    docstring)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    if mesh is not None and mode != "train":
+        raise ValueError(f"a mesh takes train mode, not {mode!r}")
     if cfg.remat not in REMAT:
         raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT}")
     if mode != "train" and caches is None:
@@ -312,7 +389,7 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
         index = _decode_index(cache_index, b, dev, _window(caches, cfg))
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
-    x, positions = embed_input(params, batch, cfg, positions)
+    x, positions = embed_input(params, batch, cfg, positions, rules, mesh)
     units = {name: _unstack(tree, cfg.n_units)
              for name, tree in params["blocks"].items()}
     remat = cfg.remat if mode == "train" and torch.is_grad_enabled() \
@@ -324,11 +401,13 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
              for name in units}
         x, aux = _run_unit(remat, _apply_unit,
                            {name: sub[u] for name, sub in units.items()},
-                           x, aux, cfg, positions, mode, unit_caches, index)
-    return lm_logits(params, x, cfg), aux, caches
+                           x, aux, cfg, positions, mode, unit_caches, index,
+                           rules, mesh)
+    return lm_logits(params, x, cfg, rules, mesh), aux, caches
 
 
-def lm_loss(params: dict, batch: dict, cfg: ModelConfig
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
+            rules: LogicalRules = TRAIN_RULES, mesh=None
             ) -> tuple[torch.Tensor, dict]:
     """The reference's training objective: the train-mode forward, then
     per position the fp32 logsumexp of the logits minus the target's
@@ -341,22 +420,59 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig
     its model-sharded vocab axis). For finite logits both give the same
     bits, as every other term of the contraction is +-0, and the one-hot
     would be another (B, S, V) fp32 tensor: 6.6 GB at stablelm-1.6b's
-    train_4k cut to batch 4."""
-    logits, aux, _ = lm_forward(params, batch, cfg, "train")
+    train_4k cut to batch 4.
+
+    With a mesh, `batch` is this rank's rows and the loss the global
+    masked mean (the module docstring): the same value on every rank."""
+    logits, aux, _ = lm_forward(params, batch, cfg, "train", rules=rules,
+                                mesh=mesh)
     dev = logits.device
     targets = torch.as_tensor(batch["targets"], device=dev).long()
     mask = torch.as_tensor(batch["loss_mask"], device=dev,
                            dtype=torch.float32)
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = torch.take_along_dim(lf, targets[..., None], dim=-1)[..., 0]
-    nll = lse - tgt                                   # (B,S) or (B,S,K)
+    del logits                       # the compute-dtype copy is not needed
+    tv = _vocab_axes(cfg, rules, mesh)
+    if tv:
+        nll = _vocab_parallel_nll(lf, targets, cfg.vocab_size, tv, mesh)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.take_along_dim(lf, targets[..., None], dim=-1)[..., 0]
+        nll = lse - tgt                               # (B,S) or (B,S,K)
     if nll.dim() == 3:                                # audio codebooks
         nll = nll.mean(dim=-1)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = (nll * mask).sum() / denom
+    ba = batch_axes(rules, mesh)
+    if ba:
+        sums = MESH.reduce_from(torch.stack([(nll * mask).sum(),
+                                             mask.sum()]), mesh, ba)
+        ce = sums[0] / torch.clamp(sums[1], min=1.0)
+    else:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
     total = ce + cfg.aux_loss_coef * aux
     return total, {"ce": ce, "aux": aux}
+
+
+def _vocab_parallel_nll(lf: torch.Tensor, targets: torch.Tensor, v: int,
+                        axes: tuple, mesh) -> torch.Tensor:
+    """logsumexp minus the target's logit from this rank's vocabulary
+    block `lf` (fp32): the row max all-reduced (max) over `axes`, then the
+    block's sums of exp(x - max) and its target logit (0 where the target
+    lies in another block) in one (..., 2) all_reduce, whose cotangent
+    comes back whole (`launch.mesh.reduce_from`)."""
+    mx = lf.detach().amax(-1).contiguous()
+    for a in axes:
+        mesh.all_reduce(mx, a, op="max")
+    lo, hi = block_range(v, axes, mesh)
+    inside = (targets >= lo) & (targets < hi)
+    tgt = torch.take_along_dim(
+        lf, (targets - lo).clamp(0, hi - lo - 1)[..., None], dim=-1)[..., 0]
+    # exp in place on the difference's fresh tensor: one (..., V) fp32
+    # temporary fewer, the same bits and gradient
+    parts = torch.stack([(lf - mx[..., None]).exp_().sum(-1),
+                         torch.where(inside, tgt, 0.0)], dim=-1)
+    se, tgt = MESH.reduce_from(parts, mesh, axes).unbind(-1)
+    return se.log() + mx - tgt
 
 # ---------------------------------------------------------------------------
 # caches and the serving steps

@@ -3,7 +3,15 @@ layer zoo's dense family (norms, RoPE, sinusoidal positions, GQA
 attention with a bf16 or int8 KV cache, SwiGLU / GELU MLPs). Weights keep
 the reference's layouts, so
 `y = x @ w + b` matches `repro.nn.layers.linear`, and the attention
-weights are (d, h, dh) and (h, dh, d)."""
+weights are (d, h, dh) and (h, dh, d).
+
+With a `mesh` (training), each weight arrives as the block its rules
+store (`nn.sharding.resolve_sized`) and the activations as this rank's
+rows: `gather_weight` puts FSDP's sharded weights together at each use,
+and attention and the MLP run Megatron's tensor parallelism over the
+axes their heads and ff dims shard on (wq, wk, wv, wi, wg column-parallel,
+wo row-parallel with one all_reduce; `launch.mesh.copy_to` at the
+input). Without a mesh they are the one-device layers, bit for bit."""
 from __future__ import annotations
 
 import math
@@ -11,16 +19,34 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
 from repro_torch.nn.params import ParamSpec
+from repro_torch.nn.sharding import (LogicalRules, batch_axes, block_range,
+                                     gather_weight, shard_activation,
+                                     tp_axes)
+
+#: the residual stream's logical axes
+ACT = ("act_batch", "act_seq", "act_embed")
 
 
-def linear_specs(d_in: int, d_out: int, bias: bool = False,
+def act_spec(rules: LogicalRules, mesh) -> tuple:
+    """The spec of an activation of this rank's rows: the batch dim over
+    the batch's mesh axes (as the step splits its batch)."""
+    axes = batch_axes(rules, mesh)
+    if not axes:
+        return ()
+    return (axes if len(axes) > 1 else axes[0],)
+
+
+def linear_specs(d_in: int, d_out: int, in_ax: str | None,
+                 out_ax: str | None, bias: bool = False,
                  scale: float = 1.0) -> dict[str, ParamSpec]:
-    """ParamSpecs of one (d_in, d_out) linear layer (+ zero bias)."""
-    specs = {"w": ParamSpec((d_in, d_out), init="fan_in", scale=scale,
-                            fan_axis=-2)}
+    """ParamSpecs of one (d_in, d_out) linear layer (+ zero bias), its
+    dimensions named in_ax and out_ax."""
+    specs = {"w": ParamSpec((d_in, d_out), (in_ax, out_ax), init="fan_in",
+                            scale=scale, fan_axis=-2)}
     if bias:
-        specs["b"] = ParamSpec((d_out,), init="zeros")
+        specs["b"] = ParamSpec((d_out,), (out_ax,), init="zeros")
     return specs
 
 
@@ -42,17 +68,20 @@ def linear(p: dict[str, torch.Tensor], x: torch.Tensor,
 
 def norm_specs(d: int, kind: str = "rmsnorm") -> dict[str, ParamSpec]:
     """ParamSpecs of an RMSNorm (scale) or LayerNorm (scale, bias)."""
-    specs = {"scale": ParamSpec((d,), init="ones")}
+    specs = {"scale": ParamSpec((d,), ("embed",), init="ones")}
     if kind == "layernorm":
-        specs["bias"] = ParamSpec((d,), init="zeros")
+        specs["bias"] = ParamSpec((d,), ("embed",), init="zeros")
     return specs
 
 
 def apply_norm(p: dict[str, torch.Tensor], x: torch.Tensor,
                kind: str = "rmsnorm", eps: float = 1e-5,
-               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+               dtype: torch.dtype = torch.bfloat16,
+               rules: LogicalRules | None = None, mesh=None
+               ) -> torch.Tensor:
     """RMSNorm or LayerNorm over the last axis, in fp32, cast to dtype.
-    LayerNorm's variance is the biased one, as `jnp.var`'s."""
+    LayerNorm's variance is the biased one, as `jnp.var`'s. The scale and
+    bias go through `gather_weight`."""
     xf = x.float()
     if kind == "rmsnorm":
         var = xf.square().mean(-1, keepdim=True)
@@ -63,9 +92,11 @@ def apply_norm(p: dict[str, torch.Tensor], x: torch.Tensor,
         y = (xf - mu) * torch.rsqrt(var + eps)
     else:
         raise ValueError(f"unknown norm {kind!r}")
-    y = y * p["scale"].float()
+    d = x.shape[-1]
+    y = y * gather_weight(p["scale"].float(), ("embed",), rules, mesh, (d,))
     if "bias" in p:
-        y = y + p["bias"].float()
+        y = y + gather_weight(p["bias"].float(), ("embed",), rules, mesh,
+                              (d,))
     return y.to(dtype)
 
 
@@ -123,16 +154,23 @@ def attention_specs(cfg) -> dict[str, ParamSpec]:
     """ParamSpecs of one GQA attention layer (+ QKV biases)."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     specs = {
-        "wq": ParamSpec((d, h, dh), init="fan_in", fan_axis=0),
-        "wk": ParamSpec((d, kv, dh), init="fan_in", fan_axis=0),
-        "wv": ParamSpec((d, kv, dh), init="fan_in", fan_axis=0),
-        "wo": ParamSpec((h, dh, d), init="fan_in", fan_axis=1,
+        "wq": ParamSpec((d, h, dh), ("embed", "heads", "head_dim"),
+                        init="fan_in", fan_axis=0),
+        "wk": ParamSpec((d, kv, dh), ("embed", "kv_heads", "head_dim"),
+                        init="fan_in", fan_axis=0),
+        "wv": ParamSpec((d, kv, dh), ("embed", "kv_heads", "head_dim"),
+                        init="fan_in", fan_axis=0),
+        "wo": ParamSpec((h, dh, d), ("heads", "head_dim", "embed"),
+                        init="fan_in", fan_axis=1,
                         scale=1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((h, dh), init="zeros")
-        specs["bk"] = ParamSpec((kv, dh), init="zeros")
-        specs["bv"] = ParamSpec((kv, dh), init="zeros")
+        specs["bq"] = ParamSpec((h, dh), ("heads", "head_dim"),
+                                init="zeros")
+        specs["bk"] = ParamSpec((kv, dh), ("kv_heads", "head_dim"),
+                                init="zeros")
+        specs["bv"] = ParamSpec((kv, dh), ("kv_heads", "head_dim"),
+                                init="zeros")
     return specs
 
 
@@ -142,10 +180,33 @@ def _project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     return (x @ w.to(dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
 
 
-def _qkv(p, x, cfg, positions, dtype):
-    q = _project(x, p["wq"], dtype)
-    k = _project(x, p["wk"], dtype)
-    v = _project(x, p["wv"], dtype)
+def _attn_weights(p, cfg, dtype, rules, mesh, names) -> dict:
+    """The weights `names` of wq, wk, wv, wo in the compute dtype, each
+    gathered for use."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    axes = {"wq": (("embed", "heads", "head_dim"), (d, h, dh)),
+            "wk": (("embed", "kv_heads", "head_dim"), (d, kv, dh)),
+            "wv": (("embed", "kv_heads", "head_dim"), (d, kv, dh)),
+            "wo": (("heads", "head_dim", "embed"), (h, dh, d))}
+    return {k: gather_weight(p[k].to(dtype), axes[k][0], rules, mesh,
+                             axes[k][1]) for k in names}
+
+
+def _qkv(p, x, cfg, positions, dtype, rules=None, mesh=None):
+    """q, k, v with RoPE. With a mesh whose `model`-like axes split the
+    heads, q (and k, v when the kv heads split too) are this rank's heads
+    of the column-parallel projections, k and v (b, s, kv, dh) else; the
+    input enters through `launch.mesh.copy_to`."""
+    w = _attn_weights(p, cfg, dtype, rules, mesh, ("wq", "wk", "wv"))
+    tq = tp_axes("heads", cfg.n_heads, rules, mesh)
+    tkv = tp_axes("kv_heads", cfg.n_kv_heads, rules, mesh)
+    if tkv and tkv != tq:
+        raise ValueError(f"kv heads shard over {tkv}, heads over {tq}")
+    xq = M.copy_to(x, mesh, tq) if tq else x
+    xk = xq if tkv else x
+    q = _project(xq, w["wq"], dtype)
+    k = _project(xk, w["wk"], dtype)
+    v = _project(xk, w["wv"], dtype)
     if "bq" in p:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -191,7 +252,8 @@ def full_attention(q, k, v, causal: bool = True,
 def attention(p, x, cfg, positions, *, mode: str = "train",
               cache: dict[str, torch.Tensor] | None = None,
               cache_index=None,
-              dtype: torch.dtype = torch.bfloat16
+              dtype: torch.dtype = torch.bfloat16,
+              rules: LogicalRules | None = None, mesh=None
               ) -> tuple[torch.Tensor, dict | None]:
     """GQA attention. mode: train | prefill | decode.
 
@@ -205,8 +267,25 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
     (`kernels.ops.flash_attention`), where the reference runs its blockwise
     attention; the reference's block condition and its assertion that the
     length is a multiple of `attn_block_k` are kept. Shorter or ragged
-    prompts take `full_attention`."""
-    q, k, v = _qkv(p, x.to(dtype), cfg, positions, dtype)
+    prompts take `full_attention`.
+
+    With a `mesh` (train mode only): each rank runs the heads its wq block
+    holds (all of them where the heads do not split), on its rows; where
+    the kv heads do not split but the heads do, k and v are computed whole
+    and this rank's heads taken after the GQA repeat, their cotangent
+    summed over the heads' axes (`copy_to`), so wk and wv get whole
+    gradients. wo is row-parallel: one all_reduce of the (b, s, d) partial
+    sums over the heads' axes (`shard_activation`)."""
+    if mesh is not None and mode != "train":
+        raise ValueError(f"a mesh takes train mode, not {mode!r}")
+    q, k, v = _qkv(p, x.to(dtype), cfg, positions, dtype, rules, mesh)
+    tq = tp_axes("heads", cfg.n_heads, rules, mesh)
+    if tq and k.shape[-2] == cfg.n_kv_heads:
+        # the kv heads are whole: this rank's query heads' share of them
+        k = M.copy_to(_repeat_kv(k, cfg.n_heads), mesh, tq)
+        v = M.copy_to(_repeat_kv(v, cfg.n_heads), mesh, tq)
+        lo, hi = block_range(cfg.n_heads, tq, mesh)
+        k, v = k[..., lo:hi, :], v[..., lo:hi, :]
     if mode == "decode":
         if cache is None or cache_index is None:
             raise ValueError("decode needs a cache and a cache_index")
@@ -221,8 +300,8 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
             if cache is None:
                 raise ValueError("prefill needs a cache")
             write_kv_prefix(cache, k, v)
-        k = _repeat_kv(k, cfg.n_heads)
-        v = _repeat_kv(v, cfg.n_heads)
+        k = _repeat_kv(k, q.shape[-2])
+        v = _repeat_kv(v, q.shape[-2])
         s = x.shape[1]
         if s > cfg.attn_block_q and s % cfg.attn_block_q == 0:
             if s % cfg.attn_block_k:
@@ -236,9 +315,12 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
             out = full_attention(q, k, v)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
-    wo = p["wo"].to(dtype)
+    wo = _attn_weights(p, cfg, dtype, rules, mesh, ("wo",))["wo"]
     h, dh, d = wo.shape
     y = out.reshape(*out.shape[:2], h * dh) @ wo.reshape(h * dh, d)
+    if tq:
+        y = shard_activation(y, ACT, rules, mesh, act_spec(rules, mesh),
+                             partial=tq)
     return y, cache
 
 # ---------------------------------------------------------------------------
@@ -323,13 +405,15 @@ def mlp_specs(cfg) -> dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
     if cfg.mlp_type == "swiglu":
-        return {"wi": ParamSpec((d, f), init="fan_in"),
-                "wg": ParamSpec((d, f), init="fan_in"),
-                "wo": ParamSpec((f, d), init="fan_in", scale=out_scale)}
-    return {"wi": ParamSpec((d, f), init="fan_in"),
-            "bi": ParamSpec((f,), init="zeros"),
-            "wo": ParamSpec((f, d), init="fan_in", scale=out_scale),
-            "bo": ParamSpec((d,), init="zeros")}
+        return {"wi": ParamSpec((d, f), ("embed", "ff"), init="fan_in"),
+                "wg": ParamSpec((d, f), ("embed", "ff"), init="fan_in"),
+                "wo": ParamSpec((f, d), ("ff", "embed"), init="fan_in",
+                                scale=out_scale)}
+    return {"wi": ParamSpec((d, f), ("embed", "ff"), init="fan_in"),
+            "bi": ParamSpec((f,), ("ff",), init="zeros"),
+            "wo": ParamSpec((f, d), ("ff", "embed"), init="fan_in",
+                            scale=out_scale),
+            "bo": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 class _Silu(torch.autograd.Function):
@@ -370,11 +454,27 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor, cfg,
-        dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        dtype: torch.dtype = torch.bfloat16,
+        rules: LogicalRules | None = None, mesh=None) -> torch.Tensor:
     """SwiGLU: silu(x wg) * (x wi) wo; GELU: gelu(x wi + bi) wo + bo, in
-    the compute dtype."""
+    the compute dtype. With a mesh, wi and wg (and bi) are column-parallel
+    over the axes ff shards on, wo row-parallel: one all_reduce of the
+    partial sums, bo added after it."""
     x = x.to(dtype)
-    w = {k: t.to(dtype) for k, t in p.items()}
+    d, f = cfg.d_model, cfg.d_ff
+    axes = {"wi": ("embed", "ff"), "wg": ("embed", "ff"),
+            "wo": ("ff", "embed"), "bi": ("ff",), "bo": ("embed",)}
+    shapes = {"wi": (d, f), "wg": (d, f), "wo": (f, d), "bi": (f,),
+              "bo": (d,)}
+    w = {k: gather_weight(t.to(dtype), axes[k], rules, mesh, shapes[k])
+         for k, t in p.items()}
+    tf = tp_axes("ff", f, rules, mesh)
+    xin = M.copy_to(x, mesh, tf) if tf else x
     if cfg.mlp_type == "swiglu":
-        return (_silu(x @ w["wg"]) * (x @ w["wi"])) @ w["wo"]
-    return _gelu_tanh(x @ w["wi"] + w["bi"]) @ w["wo"] + w["bo"]
+        y = (_silu(xin @ w["wg"]) * (xin @ w["wi"])) @ w["wo"]
+    else:
+        y = _gelu_tanh(xin @ w["wi"] + w["bi"]) @ w["wo"]
+    if tf:
+        y = shard_activation(y, ACT, rules, mesh, act_spec(rules, mesh),
+                             partial=tf)
+    return y if cfg.mlp_type == "swiglu" else y + w["bo"]

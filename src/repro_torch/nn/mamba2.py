@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.nn.layers import _silu
 from repro_torch.nn.params import ParamSpec
+from repro_torch.nn.sharding import replicate_weight
 
 
 def mamba_dims(cfg) -> dict[str, int]:
@@ -49,17 +50,20 @@ def mamba_specs(cfg) -> dict[str, ParamSpec]:
     m = mamba_dims(cfg)
     out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "in_proj": ParamSpec((d, m["d_in_proj"]), init="fan_in"),
-        "conv_w": ParamSpec((m["d_conv"], m["conv_dim"]), init="fan_in",
-                            fan_axis=0),
-        "conv_b": ParamSpec((m["conv_dim"],), init="zeros"),
-        "dt_bias": ParamSpec((m["n_heads"],), init="constant",
-                             scale=math.log(math.e - 1)),
-        "A_log": ParamSpec((m["n_heads"],), init="constant", scale=0.0),
-        "D": ParamSpec((m["n_heads"],), init="ones"),
-        "norm_scale": ParamSpec((m["d_inner"],), init="ones"),
-        "out_proj": ParamSpec((m["d_inner"], d), init="fan_in",
-                              scale=out_scale),
+        "in_proj": ParamSpec((d, m["d_in_proj"]), ("embed", "ssm_inner"),
+                             init="fan_in"),
+        "conv_w": ParamSpec((m["d_conv"], m["conv_dim"]),
+                            (None, "conv_dim"), init="fan_in", fan_axis=0),
+        "conv_b": ParamSpec((m["conv_dim"],), ("conv_dim",), init="zeros"),
+        "dt_bias": ParamSpec((m["n_heads"],), ("ssm_heads",),
+                             init="constant", scale=math.log(math.e - 1)),
+        "A_log": ParamSpec((m["n_heads"],), ("ssm_heads",),
+                           init="constant", scale=0.0),
+        "D": ParamSpec((m["n_heads"],), ("ssm_heads",), init="ones"),
+        "norm_scale": ParamSpec((m["d_inner"],), ("ssm_inner",),
+                                init="ones"),
+        "out_proj": ParamSpec((m["d_inner"], d), ("ssm_inner", "embed"),
+                              init="fan_in", scale=out_scale),
     }
 
 
@@ -186,18 +190,49 @@ def _zero(device: torch.device) -> torch.Tensor:
     return torch.zeros((), device=device)
 
 
+def _whole(p: dict, cfg, dtype, rules, mesh) -> dict:
+    """The mixer's parameters whole on every rank of the mesh (in_proj,
+    out_proj and conv_w in the compute dtype): each stored block gathered
+    over every axis it shards on (`nn.sharding.replicate_weight`). in_proj
+    packs z, x, B, C and dt along its `ssm_inner` dim, and an even split
+    of that dim over `model` does not fall on the parts' edges, so the
+    block is computed whole on each rank of a `model` line: the gradient
+    is reduce-scattered over the batch's axes and sliced over `model`."""
+    d, m = cfg.d_model, mamba_dims(cfg)
+    layout = {"in_proj": (("embed", "ssm_inner"), (d, m["d_in_proj"])),
+              "conv_w": ((None, "conv_dim"), (m["d_conv"], m["conv_dim"])),
+              "conv_b": (("conv_dim",), (m["conv_dim"],)),
+              "dt_bias": (("ssm_heads",), (m["n_heads"],)),
+              "A_log": (("ssm_heads",), (m["n_heads"],)),
+              "D": (("ssm_heads",), (m["n_heads"],)),
+              "norm_scale": (("ssm_inner",), (m["d_inner"],)),
+              "out_proj": (("ssm_inner", "embed"), (m["d_inner"], d))}
+    cast = ("in_proj", "out_proj", "conv_w", "conv_b")
+    return {k: replicate_weight(t.to(dtype) if k in cast else t,
+                                layout[k][0], rules, mesh, layout[k][1])
+            for k, t in p.items()}
+
+
 def mamba_block(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
                 cache: dict | None = None,
-                dtype: torch.dtype = torch.bfloat16
+                dtype: torch.dtype = torch.bfloat16,
+                rules=None, mesh=None
                 ) -> tuple[torch.Tensor, dict | None]:
     """Mamba-2 mixer, x: (b, s, d) -> ((b, s, d) in dtype, cache).
 
     train: the chunked scan. prefill: the same, then the last k-1 conv
     inputs and the final state written into `cache`. decode (s == 1): the
     conv over the cached inputs and one recurrent step, `cache` updated.
-    Both write in place and return the cache they were given."""
+    Both write in place and return the cache they were given.
+
+    With a mesh (train mode only), `x` is this rank's rows and the
+    parameters come whole (`_whole`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mamba mode {mode!r}; one of {MODES}")
+    if mesh is not None:
+        if mode != "train":
+            raise ValueError(f"a mesh takes train mode, not {mode!r}")
+        p = _whole(p, cfg, dtype, rules, mesh)
     m = mamba_dims(cfg)
     b, s, _ = x.shape
     zxbcdt = x.to(dtype) @ p["in_proj"].to(dtype)

@@ -8,10 +8,22 @@ group-local. Experts are embedding tables in the paper's terms: the router
 is a multi-hot lookup, and the per-group capacity is the truncation bound
 on lookups. Whatever passes capacity is dropped.
 
+With a mesh (training), the groups split over the batch's mesh axes (a
+rank's groups are the global reshape's: with its rows, group i is tokens
+[i tg, (i + 1) tg) of the flattened (b, s)), so moe_groups must split
+over them. Under tables that shard the experts at compute (TRAIN, FSDP:
+`expert` on `model`), every rank of a `model` line routes its groups the
+same way, dispatches to and runs only its own experts, and one all_reduce
+over `model` adds the partial combines; under ZERO_DP the experts are
+gathered and the dispatch is the rank's own. The Switch aux loss is taken
+from the global means: the sums of the router's probabilities and of the
+routed counts are all-reduced over the batch's axes first.
+
 Expert padding: `cfg.expert_pad` dummy experts (granite-moe-3b's 40 pad to
 48) have weights and are computed over their all-sentinel rows, but the
 router scores only the real experts, so they are never routed. The
-reference's sharding constraints are mesh-only and left out.
+reference's sharding constraints become the explicit moves above under
+a mesh.
 """
 from __future__ import annotations
 
@@ -19,8 +31,11 @@ import math
 
 import torch
 
-from repro_torch.nn.layers import _silu
+from repro_torch.launch import mesh as M
+from repro_torch.nn.layers import ACT, _silu, act_spec
 from repro_torch.nn.params import ParamSpec
+from repro_torch.nn.sharding import (batch_axes, block_range, gather_weight,
+                                     shard_activation, tp_axes)
 
 
 def moe_specs(cfg) -> dict[str, ParamSpec]:
@@ -29,11 +44,14 @@ def moe_specs(cfg) -> dict[str, ParamSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts + cfg.expert_pad
     out_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
     return {
-        "router": ParamSpec((d, cfg.n_experts), init="fan_in"),
-        "wi": ParamSpec((e, d, f), init="fan_in", fan_axis=1),
-        "wg": ParamSpec((e, d, f), init="fan_in", fan_axis=1),
-        "wo": ParamSpec((e, f, d), init="fan_in", fan_axis=1,
-                        scale=out_scale),
+        "router": ParamSpec((d, cfg.n_experts), ("embed", None),
+                            init="fan_in"),
+        "wi": ParamSpec((e, d, f), ("expert", "embed", "ff"),
+                        init="fan_in", fan_axis=1),
+        "wg": ParamSpec((e, d, f), ("expert", "embed", "ff"),
+                        init="fan_in", fan_axis=1),
+        "wo": ParamSpec((e, f, d), ("expert", "ff", "embed"),
+                        init="fan_in", fan_axis=1, scale=out_scale),
     }
 
 
@@ -47,7 +65,8 @@ def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
-          dtype: torch.dtype) -> dict[str, torch.Tensor]:
+          dtype: torch.dtype, mesh=None, axes: tuple = ()
+          ) -> dict[str, torch.Tensor]:
     """The router and the dispatch plan of xg (g, tg, d).
 
     Returns {"gate_vals" (g, tg, k) fp32, renormalised; "gate_idx" (g, tg,
@@ -62,7 +81,11 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
 
     top-k is a stable descending sort: on equal probabilities the lower
     expert index comes first, as `jax.lax.top_k` orders ties (torch.topk
-    promises no order)."""
+    promises no order).
+
+    With a mesh, the aux loss's means are over every rank's groups along
+    `axes` (the batch's): the probability sums and routed counts are
+    all-reduced there before the product."""
     g, tg, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     e_pad = e + cfg.expert_pad
@@ -74,12 +97,20 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     t = g * tg
-    me = probs.mean(dim=(0, 1))                               # (e,)
     # the routed fraction as an integer count (no float atomics on the
     # card); it carries no gradient, as the reference's scatter of a
     # constant
-    ce = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
-        * (1.0 / (t * k))
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
+    if axes:
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        t = t * n
+        me = M.reduce_from(probs.sum(dim=(0, 1)), mesh, axes) / t
+        counts = M.reduce_from(counts.float(), mesh, axes)
+    else:
+        me = probs.mean(dim=(0, 1))                           # (e,)
+    ce = counts.float() * (1.0 / (t * k))
     aux = e * (me * ce).sum()
 
     # the one-hot laid out (g, e, n), so that the count runs along the
@@ -133,7 +164,7 @@ def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
-        capacity_factor: float | None = None
+        capacity_factor: float | None = None, rules=None, mesh=None
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (y (b, s, d) in dtype, aux_loss fp32 scalar).
 
@@ -148,34 +179,59 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
     recompute repeats the forward's bits and two steps agree bit for bit
     on the card. The gradient reaches the router through the renormalised
     gates and the aux loss's mean probability; the routing integers carry
-    none."""
+    none.
+
+    With a mesh, `x` is this rank's rows (see the module docstring). Where
+    the experts split over `model`, the gates enter the combine through
+    `launch.mesh.copy_to` (each rank's combine covers its experts' pairs
+    only, so their cotangents are summed there), as does the dispatch's
+    input; the router sees the input as it is."""
     b, s, d = x.shape
-    k = cfg.top_k
+    k, f = cfg.top_k, cfg.d_ff
+    e, e_pad = cfg.n_experts, cfg.n_experts + cfg.expert_pad
     cf = capacity_factor or cfg.capacity_factor
-    t = b * s
+    ba = batch_axes(rules, mesh)
+    nb = 1
+    for a in ba:
+        nb *= mesh.shape[a]
     g = max(1, cfg.moe_groups)
-    if t % g:
-        raise ValueError(f"{t} tokens do not split into {g} MoE groups")
-    tg = t // g
-    cap = _capacity(tg, cfg.n_experts, k, cf)
+    if g % nb or (b * s * nb) % g:
+        raise ValueError(f"{g} MoE groups of {b * s * nb} tokens do not "
+                         f"split over the batch's {nb} ranks {ba}")
+    g_loc = g // nb
+    tg = b * s // g_loc
+    cap = _capacity(tg, e, k, cf)
 
-    xg = x.reshape(g, tg, d).to(dtype)
-    r = route(p["router"], xg, cfg, cap, dtype)
-    e_pad, n = cfg.n_experts + cfg.expert_pad, tg * k
-    # dispatch: each expert slot reads its token (the sentinel a zero
-    # row); a token's gradient gathers its k slots'
-    xe = _GatherRows.apply(xg, r["gather"].view(g, -1),
-                           r["slot"].view(g, tg, k))
-    xe = xe.view(g, e_pad, cap, d)
-    wi, wg, wo = (p[name].to(dtype) for name in ("wi", "wg", "wo"))
-    h = _silu(xe @ wg) * (xe @ wi)                            # (g,e_pad,cap,f)
-    ye = h @ wo                                               # (g,e_pad,cap,d)
-
-    # combine: each pair reads its slot's output (a dropped pair a zero
-    # row), an expert slot's gradient gathers its one pair's
-    contrib = _GatherRows.apply(ye.view(g, e_pad * cap, d), r["slot"],
-                                r["pair"][..., None])         # (g, n, d)
-    contrib = contrib * (r["gate_vals"].reshape(g, n, 1)
-                         * r["keep"][..., None]).to(dtype)
-    y = contrib.view(g, tg, k, d).float().sum(2)
-    return y.reshape(b, s, d).to(dtype), r["aux"]
+    xg = x.reshape(g_loc, tg, d).to(dtype)
+    router = gather_weight(p["router"].to(dtype), ("embed", None), rules,
+                           mesh, (d, e))
+    r = route(router, xg, cfg, cap, dtype, mesh, ba)
+    n = tg * k
+    w = {name: gather_weight(p[name].to(dtype), axes, rules, mesh, shape)
+         for name, axes, shape in (
+             ("wi", ("expert", "embed", "ff"), (e_pad, d, f)),
+             ("wg", ("expert", "embed", "ff"), (e_pad, d, f)),
+             ("wo", ("expert", "ff", "embed"), (e_pad, f, d)))}
+    e_loc = w["wi"].shape[0]
+    te = tp_axes("expert", e_pad, rules, mesh) if e_loc < e_pad else ()
+    lo, hi = block_range(e_pad * cap, te, mesh)
+    mine = (r["slot"] >= lo) & (r["slot"] < hi)
+    # this rank's expert slots: the tokens they read, and each pair's slot
+    # among them (e_loc * cap, a zero row, where another rank's or none)
+    slot = torch.where(mine, r["slot"] - lo, hi - lo)
+    pair = r["pair"][:, lo:hi]
+    xin = M.copy_to(xg, mesh, te) if te else xg
+    xe = _GatherRows.apply(xin, pair // k, slot.view(g_loc, tg, k))
+    xe = xe.view(g_loc, e_loc, cap, d)
+    h = _silu(xe @ w["wg"]) * (xe @ w["wi"])
+    ye = h @ w["wo"]
+    contrib = _GatherRows.apply(ye.view(g_loc, e_loc * cap, d), slot,
+                                pair[..., None])
+    gates = M.copy_to(r["gate_vals"], mesh, te) if te else r["gate_vals"]
+    contrib = contrib * (gates.reshape(g_loc, n, 1)
+                         * mine[..., None]).to(dtype)
+    y = contrib.view(g_loc, tg, k, d).float().sum(2).reshape(b, s, d)
+    if te:
+        y = shard_activation(y, ACT, rules, mesh, act_spec(rules, mesh),
+                             partial=te)
+    return y.to(dtype), r["aux"]

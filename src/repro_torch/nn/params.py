@@ -1,5 +1,8 @@
-"""ParamSpec trees: declare each parameter's shape and init rule once, then
-initialise the whole tree on a device from one seeded `torch.Generator`.
+"""ParamSpec trees: declare each parameter's shape, logical axes and init
+rule once, then initialise the whole tree on a device from one seeded
+`torch.Generator`, place it on a mesh by a rule table
+(`specs_to_pspecs`, `specs_to_shardings`), or lay it out on the meta
+device without memory (`abstract_params`).
 
 The init rules are the reference's (`normal`, `fan_in`, `zeros`, `ones`,
 `constant`); the random numbers are torch's, not `jax.random`'s, so tests
@@ -16,12 +19,19 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Declarative description of one parameter tensor."""
+    """Declarative description of one parameter tensor: one logical axis
+    name (or None) a dimension, as the reference's."""
     shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
     dtype: torch.dtype = torch.float32
     init: str = "fan_in"          # fan_in | normal | zeros | ones | constant
     scale: float = 1.0            # stddev multiplier / constant value
     fan_axis: int = -2            # which axis is fan-in for "fan_in" init
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(f"shape {self.shape} vs axes "
+                             f"{self.logical_axes}")
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator,
@@ -83,19 +93,62 @@ def init_params(specs, seed: int, device: torch.device):
     return walk(specs)
 
 
-def stack_specs(specs, n: int):
-    """Prepend a stacked-layer axis of size n to every spec (the layers of
-    a model are one tensor per parameter, sliced per unit). fan_axis moves
-    as the reference's `stack_specs` moves it: a non-negative axis shifts
-    up by one, and a negative one down by one, so a default fan_axis of -2
-    then names the axis before it (the reference's init, kept as it is)."""
+def abstract_params(specs):
+    """The tree's tensors on the meta device: shapes and dtypes, no
+    memory (the counterpart of the reference's ShapeDtypeStruct tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def specs_to_pspecs(specs, rules, mesh_axis_names=None, mesh=None):
+    """Spec tuples for a ParamSpec tree (`nn.sharding`'s form). With
+    `mesh` (anything with `axis_names` and a `shape` mapping) the
+    resolution is size-aware: mesh axes that do not divide their dimension
+    drop out (`resolve_sized`); else `mesh_axis_names` filters the rules."""
+    from repro_torch.nn.sharding import _resolve, resolve_sized
+    if mesh is not None:
+        return tree_map(lambda s: resolve_sized(s.logical_axes, rules, mesh,
+                                                s.shape), specs)
+    return tree_map(lambda s: _resolve(s.logical_axes, rules,
+                                       tuple(mesh_axis_names or ())), specs)
+
+
+def specs_to_shardings(specs, rules, mesh):
+    """A `nn.sharding.NamedSharding` a leaf: where each rank's block of
+    each parameter lies on `mesh` (a `launch.mesh.Mesh`)."""
+    from repro_torch.nn.sharding import NamedSharding, resolve_sized
+    return tree_map(lambda s: NamedSharding(
+        mesh, resolve_sized(s.logical_axes, rules, mesh, s.shape)), specs)
+
+
+def stack_specs(specs, n: int, axis_name: str = "layer"):
+    """Prepend a stacked-layer axis of size n, named `axis_name`, to every
+    spec (the layers of a model are one tensor per parameter, sliced per
+    unit). fan_axis moves as the reference's `stack_specs` moves it: a
+    non-negative axis shifts up by one, and a negative one down by one, so
+    a default fan_axis of -2 then names the axis before it (the
+    reference's init, kept as it is)."""
     return tree_map(
         lambda s: dataclasses.replace(
             s, shape=(n,) + s.shape,
+            logical_axes=(axis_name,) + tuple(s.logical_axes),
             fan_axis=s.fan_axis - 1 if s.fan_axis < 0 else s.fan_axis + 1),
         specs)
+
+
+def cast_specs(specs, dtype: torch.dtype):
+    """The tree with every floating-point spec's dtype replaced by
+    `dtype` (bf16 serving weights); other specs as they are."""
+    return tree_map(lambda s: dataclasses.replace(s, dtype=dtype)
+                    if s.dtype.is_floating_point else s, specs)
 
 
 def param_count(specs) -> int:
     """Number of scalars in a ParamSpec tree."""
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def param_bytes(specs) -> int:
+    """Bytes of a ParamSpec tree's tensors at their dtypes."""
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in tree_leaves(specs))

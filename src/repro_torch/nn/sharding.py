@@ -273,3 +273,189 @@ class NamedSharding:
     def __repr__(self) -> str:
         return (f"NamedSharding({dict(self.mesh.shape)}, spec={self.spec})")
 
+
+
+# ---------------------------------------------------------------------------
+# moving a rank's block between layouts, with gradients (the reference's
+# with_sharding_constraint; here every move is an explicit collective of
+# `launch.mesh`, booked in `Mesh.stats`)
+# ---------------------------------------------------------------------------
+
+#: weight logical axes that FSDP shards at rest and gathers at compute
+#: (rules["_gather_axes"] overrides; ZERO_DP adds "expert")
+GATHERED_AXES = ("embed",)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: Sequence) -> dict[str, int]:
+    """Each mesh axis a spec names, with the dimension it shards."""
+    return {a: i for i, e in enumerate(spec) for a in _entry_axes(e)}
+
+
+def batch_axes(rules: LogicalRules, mesh) -> tuple[str, ...]:
+    """The mesh axes the batch dimension splits over under `rules`: along
+    these each rank differentiates its own rows, so a replicated weight's
+    cotangent there is a partial sum."""
+    if mesh is None or not rules:
+        return ()
+    spec = _resolve(("batch",), rules, mesh.axis_names)
+    return _entry_axes(spec[0]) if spec else ()
+
+
+def global_shape(local_shape: Sequence[int], spec: Sequence, mesh
+                 ) -> tuple[int, ...]:
+    """The global shape whose block under `spec` has `local_shape`."""
+    out = list(local_shape)
+    for i, e in enumerate(spec):
+        for a in _entry_axes(e):
+            out[i] *= mesh.shape[a]
+    return tuple(out)
+
+
+def relayout(x: torch.Tensor, mesh, src: Sequence, dst: Sequence,
+             partial: Sequence[str] = (),
+             partial_grad: Sequence[str] = ()) -> torch.Tensor:
+    """Move this rank's block `x` from layout `src` (a spec, plus the mesh
+    axes over which x holds partial sums) to the spec `dst`, axis by axis:
+
+      partial -> replicated    all_reduce (backward: identity)
+      partial -> sharded       reduce_scatter (backward: all_gather)
+      sharded -> replicated    all_gather (backward: reduce_scatter over
+                               the axes in `partial_grad`, where the
+                               result's cotangent is a partial sum; the
+                               rank's slice over the others)
+      replicated -> sharded    the rank's block (backward: all_gather)
+
+    An axis that moves from one dimension to another is gathered, then
+    taken. Gathers run before reductions, reductions before takes; over
+    a dimension's several axes a gather runs minor axis first, a scatter
+    or a take major axis first, as blocks are numbered."""
+    from repro_torch.launch import mesh as M
+    src_ax, dst_ax = spec_axes(src), spec_axes(dst)
+    partial = tuple(partial)
+    for a in partial:
+        if a in src_ax:
+            raise ValueError(f"axis {a!r} both shards and sums {src}")
+    gathers = []
+    for i, e in enumerate(src):
+        axs = _entry_axes(e)
+        kept = [a for a in axs if dst_ax.get(a) == i]
+        if tuple(kept) != axs[:len(kept)]:
+            raise ValueError(f"dimension {i}: {src} -> {dst} keeps a minor "
+                             "axis and drops a major one")
+        gathers += [(a, i) for a in axs[len(kept):]]
+    for a, i in reversed(gathers):
+        x = M.all_gather(x, mesh, (a,), i, partial_grad=a in partial_grad)
+    for a in partial:
+        if a not in dst_ax:
+            x = M.reduce_from(x, mesh, (a,))
+    for i, e in enumerate(dst):
+        for a in _entry_axes(e):
+            if a in partial:
+                x = M.reduce_scatter(x, mesh, (a,), i)
+            elif src_ax.get(a) != i:
+                x = M.take_block(x, mesh, (a,), i)
+    return x
+
+
+def shard_activation(x: torch.Tensor, axes: Sequence[str | None],
+                     rules: LogicalRules, mesh=None, src: Sequence = (),
+                     partial: Sequence[str] = ()) -> torch.Tensor:
+    """The reference's sharding constraint by logical axis names, as an
+    explicit move: this rank's block `x`, laid out as `src` (a spec, plus
+    the mesh axes in `partial` over which it holds partial sums), goes to
+    the spec `resolve_sized(axes, rules, mesh, global shape)` gives (axes
+    that do not divide their dimension drop out) by `relayout`'s
+    collectives. Without a mesh, or with an empty table ("unmanaged", not
+    "replicate everything"), `x` as it is."""
+    if not rules or mesh is None:
+        return x
+    dst = resolve_sized(axes, rules, mesh, global_shape(x.shape, src, mesh))
+    return relayout(x, mesh, src, dst, partial)
+
+
+def gather_weight(w: torch.Tensor, axes: Sequence[str | None],
+                  rules: LogicalRules, mesh=None,
+                  shape: Sequence[int] | None = None) -> torch.Tensor:
+    """Manual FSDP, the reference's `gather_weight`: a (compute-dtype)
+    weight block, stored as `resolve_sized(axes, rules, mesh, shape)` lays
+    it out (`shape` the global shape; by default the block's times every
+    mesh axis its axes resolve to, which is right whenever they divide),
+    goes to the spec with rules.get("_gather_axes", GATHERED_AXES)
+    dropped: one all_gather a sharded mesh axis at each use (forward, and
+    again in a rematted backward). Its backward reduce-scatters the
+    gradient over the axes the batch splits over (`batch_axes`: each
+    rank's cotangent is its rows' share) and slices it over any other.
+    Enabled by rules["_gather_weights"]; a no-op otherwise, and without a
+    mesh."""
+    if not rules or not rules.get("_gather_weights") or mesh is None:
+        return w
+    gathered = rules.get("_gather_axes", GATHERED_AXES)
+    g_axes = tuple(None if a in gathered else a for a in axes)
+    return replicate_weight(w, axes, rules, mesh, shape, keep=g_axes)
+
+
+def storage_spec(w: torch.Tensor, axes: Sequence[str | None],
+                 rules: LogicalRules, mesh,
+                 shape: Sequence[int] | None = None
+                 ) -> tuple[tuple, tuple[int, ...]]:
+    """(spec, global shape) of a stored weight block `w`: `shape` given,
+    or the block's shape times every mesh axis its axes resolve to."""
+    if shape is None:
+        shape = global_shape(w.shape, _resolve(axes, rules,
+                                               mesh.axis_names), mesh)
+    spec = resolve_sized(axes, rules, mesh, shape)
+    want = NamedSharding(mesh, spec).local_shape(shape)
+    if tuple(w.shape) != want:
+        raise ValueError(f"a block of {tuple(w.shape)} is not the {spec} "
+                         f"block {want} of {tuple(shape)}")
+    return spec, tuple(shape)
+
+
+def replicate_weight(w: torch.Tensor, axes: Sequence[str | None],
+                     rules: LogicalRules, mesh,
+                     shape: Sequence[int] | None = None,
+                     keep: Sequence[str | None] | None = None
+                     ) -> torch.Tensor:
+    """A weight block stored under `resolve_sized(axes)` (see
+    `storage_spec`), moved to the spec of the logical axes `keep`
+    (default none: the whole weight on every rank). The gradient is
+    reduce-scattered over the batch's axes and sliced over the rest, as
+    `gather_weight`'s."""
+    if mesh is None:
+        return w
+    src, shape = storage_spec(w, axes, rules, mesh, shape)
+    dst = () if keep is None else resolve_sized(keep, rules, mesh, shape)
+    return relayout(w, mesh, src, dst, partial_grad=batch_axes(rules, mesh))
+
+
+def tp_axes(name: str, size: int, rules: LogicalRules, mesh
+            ) -> tuple[str, ...]:
+    """The mesh axes a dimension of `size` named `name` shards over (none
+    without a mesh, or where they do not divide it): a tensor-parallel
+    layer splits its work over these. Refuses axes the batch splits over
+    too: a rank would then hold neither whole rows nor a whole sum."""
+    if mesh is None or not rules:
+        return ()
+    spec = resolve_sized((name,), rules, mesh, (size,))
+    out = _entry_axes(spec[0]) if spec else ()
+    clash = set(out) & set(batch_axes(rules, mesh))
+    if clash:
+        raise ValueError(f"{name!r} and the batch both shard over "
+                         f"{sorted(clash)}")
+    return out
+
+
+def block_range(size: int, axes: Sequence[str], mesh) -> tuple[int, int]:
+    """[lo, hi) of this rank's block of a dimension of `size` split over
+    `axes` (whole without axes)."""
+    n, k = 1, 0
+    for a in axes:
+        n, k = n * mesh.shape[a], k * mesh.shape[a] + mesh.coords[a]
+    step = size // n
+    return k * step, (k + 1) * step

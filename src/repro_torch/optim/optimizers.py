@@ -28,14 +28,18 @@ class Optimizer:
     name: str = "opt"
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq_sum=None):
     """Returns (clipped_grads, pre_clip_norm): every gradient times
     min(1, max_norm / max(norm, 1e-12)), where norm is the fp32 L2 norm over
     all leaves (the leaves' sums of squares added in tree order, as the
-    reference's `sum`). The product is taken in fp32 and cast back to each
+    reference's `sum`; or `sq_sum(grads)`, a sharded step's sum over every
+    rank's blocks). The product is taken in fp32 and cast back to each
     gradient's dtype, as the reference's promotion does."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+    if sq_sum is not None:
+        norm = torch.sqrt(sq_sum(grads))
+    else:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -48,8 +52,8 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
         return tree_map(torch.zeros_like, params)
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        del step
+    def apply(params, grads, state, step, sq_sum=None):
+        del step, sq_sum                  # no clipping: nothing to sum
         if momentum == 0.0:
             return tree_map(lambda p, g: p - lr * g.to(p.dtype),
                             params, grads), state
@@ -69,8 +73,8 @@ def adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
                                               device=p.device), params)
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
-        del step
+    def apply(params, grads, state, step, sq_sum=None):
+        del step, sq_sum                  # no clipping: nothing to sum
         new_state = tree_map(lambda s, g: s + torch.square(g.float()),
                              state, grads)
         new = tree_map(
@@ -96,7 +100,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     decays the parameter before the step. `apply` updates the parameters
     and both moments IN PLACE and returns the same trees (the reference
     returns new ones): at full width a second copy of each would not fit
-    the card. Clipped gradients are new tensors; the caller's are left."""
+    the card. Clipped gradients are new tensors; the caller's are left.
+    A sharded step passes `sq_sum` (see `clip_by_global_norm`)."""
     def init(params):
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -107,9 +112,9 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return float(1.0 - torch.pow(torch.tensor(b, dtype=torch.float32), t))
 
     @torch.no_grad()
-    def apply(params, grads, state, step):
+    def apply(params, grads, state, step, sq_sum=None):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, sq_sum)
         t = torch.tensor(float(step), dtype=torch.float32) + 1.0
         c1, c2 = bias_correction(b1, t), bias_correction(b2, t)
 

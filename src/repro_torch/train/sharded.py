@@ -26,6 +26,7 @@ compares its rows with replica 0's, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import sys
 import time
 
@@ -569,3 +570,254 @@ def pod_rank(device: torch.device, job: dict) -> dict:
                                   "center": local.center}),
             "slices": slices, "collectives": dict(mesh.stats),
             "foreign_modules": _foreign_modules()}
+
+# ---------------------------------------------------------------------------
+# the LM's sharded step
+# ---------------------------------------------------------------------------
+
+#: the job keys `lm_rank` reads, with their defaults where optional
+LM_DEFAULTS = {"mesh": ((2, 2), ("data", "model")), "params": None,
+               "seed": None, "init_cfg": None, "lr": 3e-4,
+               "accum": 1, "grad_dtype": "float32", "steps": None,
+               "want_grads": None, "want_params": None,
+               "report_grads": False,
+               "report_params": False, "profile_steps": 0,
+               "log_steps": False}
+
+
+def save_flat_params(params: dict, cfg, path: str) -> None:
+    """Write a whole LM parameter tree to `path` as one flat fp32 array,
+    its leaves in `lm_param_specs(cfg)` order."""
+    from repro_torch.models.lm import lm_param_specs
+    from repro_torch.nn.params import tree_leaves, tree_map
+    with open(path, "wb") as f:
+        for t in tree_leaves(tree_map(lambda s, w: w, lm_param_specs(cfg),
+                                      params)):
+            t.detach().float().cpu().numpy().tofile(f)
+
+
+def load_flat_params(path: str, cfg) -> dict:
+    """`save_flat_params`' tree, memory-mapped copy-on-write: a rank that
+    takes its blocks reads only their pages."""
+    from repro_torch.models.lm import lm_param_specs
+    from repro_torch.nn.params import tree_map
+    flat, off = np.memmap(path, np.float32, "c"), 0
+
+    def view(spec):
+        nonlocal off
+        n = int(np.prod(spec.shape))
+        off += n
+        return flat[off - n:off].reshape(spec.shape)
+    return tree_map(view, lm_param_specs(cfg))
+
+
+def _owns(sh) -> bool:
+    """Whether this rank is the first holder of its block: coordinate 0
+    on every axis the spec does not shard (its replicas count once)."""
+    from repro_torch.nn.sharding import spec_axes
+    named = spec_axes(sh.spec)
+    return all(c == 0 for a, c in sh.mesh.coords.items() if a not in named)
+
+
+def lm_rank(device: torch.device, job: dict) -> dict:
+    """One rank of `build_lm_train_step(cfg, adamw(lr), rules, accum,
+    grad_dtype, mesh=)` over job["mesh"] ((shape, axis names), default
+    (data 2, model 2)). job:
+      cfg           the ModelConfig (its moe_groups must split over the
+                    batch's axes)
+      rules         the name of an `nn.sharding` table ("FSDP_RULES", ...)
+      params        the whole initial parameters: numpy, or tensors on the
+                    rank's device (CUDA IPC views of the caller's); the
+                    rank copies its blocks (`models.lm.shard_lm_params`)
+      seed          instead of params: the rank draws the whole tree of
+                    init_cfg (default cfg) on its device
+                    (`init_lm_params`, the caller's bits on the same kind
+                    of device), keeps cfg's first units and copies its
+                    blocks
+      batches       the GLOBAL batches (numpy dicts), one a step
+      steps         how many to run (default all); 0 runs none
+      want_grads    whole gradients (numpy or tensors on the device) to
+                    hold step 0's against (the gradients its optimizer
+                    got): the rank reports, a leaf, the squared error and
+                    squared norm of its block, and whether it is the
+                    block's first holder (`_owns`)
+      want_params   whole parameters to hold the final ones against, as
+                    want_grads, or the path of `save_flat_params`' file
+      lr, accum, grad_dtype, profile_steps (the last steps under
+      torch.profiler, on a card), report_grads (each step's gradient
+      blocks as the optimizer gets them, numpy), report_params (the final
+      blocks, numpy), log_steps (rank 0 prints a line a step).
+    Returns plain values: coordinates, the losses, ce and aux of each
+    step, host ms and device span ms a step, `Mesh.stats` of each step,
+    the kernel launches of each step, the peak, device-busy ms a
+    profiled step, this rank's parameter bytes, and the modules of jax or
+    the reference this process loaded."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import COLLECTIVES, Mesh
+    from repro_torch.models.lm import init_lm_params, lm_param_shardings
+    from repro_torch.nn import sharding
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.train.steps import build_lm_train_step
+    job = {**LM_DEFAULTS, **job}
+    if device.type == "cpu":
+        # the ranks share the host's cores: one thread each, where torch's
+        # default (every core, a rank) would oversubscribe them
+        torch.set_num_threads(1)
+    cfg, rules = job["cfg"], getattr(sharding, job["rules"])
+    mesh = Mesh(*job["mesh"])
+    shardings = lm_param_shardings(cfg, rules, mesh)
+    whole = job["params"]
+    if whole is None:
+        whole = init_lm_params(job["init_cfg"] or cfg, job["seed"], device)
+        whole["blocks"] = tree_map(lambda t: t[:cfg.n_units],
+                                   whole["blocks"])
+    elif not isinstance(tree_leaves(whole)[0], torch.Tensor):
+        whole = tree_map(torch.from_numpy, whole)
+    # mapped over the shardings: the blocks keep the specs' leaf order
+    params = tree_map(lambda sh, t: sh.shard(t).to(device, copy=True),
+                      shardings, whole)
+    del whole
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    opt = adamw(job["lr"])
+    seen = []
+
+    def apply(p, g, s, t, **kw):
+        seen.append(g)
+        return opt.apply(p, g, s, t, **kw)
+    spy = Optimizer(opt.init, apply, opt.name)
+    state = spy.init(params)
+    step = build_lm_train_step(cfg, spy, rules, job["accum"],
+                               job["grad_dtype"], mesh=mesh)
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(device)
+                for k, v in b.items()} for b in job["batches"]]
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params))}
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    n_steps = len(batches) if job["steps"] is None else job["steps"]
+    losses, parts, host_ms, span_ms, coll, launches = [], [], [], [], [], []
+    prof, n_prof = None, job["profile_steps"]
+    step0_grads = None
+    for t in range(n_steps):
+        if cuda and n_prof and t == n_steps - n_prof:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize(device)
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        mesh.reset_stats()
+        before = {k.name: k.launches for k in KERNELS}
+        if cuda:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[t], t)
+        losses.append(float(m["loss"]))            # syncs the step
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            ev1.record()
+            ev1.synchronize()
+            span_ms.append(ev0.elapsed_time(ev1))
+        parts.append({k: float(m[k]) for k in ("ce", "aux")})
+        if job["log_steps"] and mesh.rank == 0:
+            print(f"  lm_rank {job['rules']} step {t}: loss {losses[-1]}, "
+                  f"{host_ms[-1]:.1f} host ms, collectives "
+                  f"{sum(mesh.stats[f'{op}_ms'] for op in COLLECTIVES):.1f}"
+                  " ms", flush=True)
+        launches.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS})
+        coll.append(dict(mesh.stats))
+        if t == 0:
+            step0_grads = seen[0]
+        if not job["report_grads"]:
+            seen.clear()
+    busy = _profiled_busy_ms(prof, device, n_prof)
+
+    def block_errors(got, whole):
+        """A leaf each: the squared error of this rank's block of `got`
+        against its block of `whole`, the block's squared norm there, and
+        whether this rank is its first holder."""
+        want = tree_map(lambda sh, w: w, shardings, whole)
+        errs = []
+        for g, w, sh in zip(tree_leaves(got), tree_leaves(want),
+                            tree_leaves(shardings)):
+            w = sh.shard(torch.as_tensor(w)).to(device, torch.float32)
+            errs.append({"err_sq": float((g.float() - w).square().sum()),
+                         "ref_sq": float(w.square().sum()),
+                         "owner": _owns(sh)})
+        return errs
+    if job["want_grads"] is not None:
+        if step0_grads is None:
+            raise ValueError("want_grads needs at least one step")
+        out["grad_errors"] = block_errors(step0_grads, job["want_grads"])
+    if job["want_params"] is not None:
+        whole = job["want_params"]
+        if isinstance(whole, str):
+            whole = load_flat_params(whole, cfg)
+        out["param_errors"] = block_errors(params, whole)
+    out.update(losses=losses, parts=parts, host_ms=host_ms,
+               device_span_ms=span_ms, collectives=coll, launches=launches,
+               device_busy_ms_per_step=busy,
+               peak_bytes=(torch.cuda.max_memory_allocated(device)
+                           if cuda else None),
+               foreign_modules=_foreign_modules())
+    if job["report_grads"]:
+        out["grads"] = [_tree_numpy(tree_map(lambda g: g.float(), g))
+                        for g in seen]
+    if job["report_params"]:
+        out["params"] = _tree_numpy(params)
+    del params, state, seen, batches, step0_grads
+    if cuda:
+        # the next call in this world starts from an empty cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharding_rank(device: torch.device, job: dict) -> dict:
+    """`nn.sharding`'s moves on this rank of job["mesh"] ((shape, axis
+    names)), forward and backward. Each of job["cases"]:
+      {"kind": "gather" | "replicate", "rules", "axes", "x"}: this rank's
+          storage block of the whole weight x (numpy) through
+          `gather_weight` or `replicate_weight`;
+      {"kind": "activation", "rules", "axes", "src", "partial", "x"}:
+          x[rank] (numpy, this rank's block) through `shard_activation`.
+    The output's cotangent is a standard normal draw of
+    RandomState(job["seed"] + rank). Returns, a case, the output, the
+    cotangent and the input's gradient (numpy), with this rank's
+    coordinates and `Mesh.stats`."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.nn import sharding as S
+    mesh = Mesh(*job["mesh"])
+    out = []
+    for case in job["cases"]:
+        rules = getattr(S, case["rules"])
+        mesh.reset_stats()
+        if case["kind"] == "activation":
+            x = torch.from_numpy(np.array(case["x"][mesh.rank])).to(device)
+            x.requires_grad_()
+            y = S.shard_activation(x, case["axes"], rules, mesh,
+                                   case["src"], case["partial"])
+        else:
+            whole = torch.from_numpy(np.array(case["x"])).to(device)
+            spec = S.resolve_sized(case["axes"], rules, mesh, whole.shape)
+            x = S.NamedSharding(mesh, spec).shard(whole).clone()
+            x.requires_grad_()
+            fn = S.gather_weight if case["kind"] == "gather" \
+                else S.replicate_weight
+            y = fn(x, case["axes"], rules, mesh, tuple(whole.shape))
+        cot = torch.from_numpy(np.random.RandomState(
+            job["seed"] + mesh.rank).standard_normal(tuple(y.shape)).astype(
+                np.float32)).to(device)
+        (y * cot).sum().backward()
+        out.append({"y": y.detach().cpu().numpy(),
+                    "cot": cot.cpu().numpy(),
+                    "grad": x.grad.cpu().numpy(),
+                    "coords": dict(mesh.coords), "stats": dict(mesh.stats)})
+    return {"cases": out, "foreign_modules": _foreign_modules()}

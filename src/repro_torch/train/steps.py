@@ -37,8 +37,10 @@ arrays: each rank looks up and differentiates its `data` slice, and
 params["emb"]["mega"] / state["accum"] are its `model` shard of the rows
 (`EmbeddingBagCollection.shard_range`). The multi-host cached step runs
 single-controller (one process drives every host's cache) or, with
-`mesh=`, one rank a host over a host mesh. The LM step runs on one device
-and takes no sharding `rules` yet (`nn/sharding.py` has the tables).
+`mesh=`, one rank a host over a host mesh. The LM step runs on one device,
+or with `mesh=` on each rank of a (data, model) mesh under one of
+`nn.sharding`'s training tables (`rules`): parameters, AdamW moments and
+gradients are this rank's `resolve_sized` blocks.
 """
 from __future__ import annotations
 
@@ -62,8 +64,11 @@ from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              plan_from_batch,
                                              split_plan_by_owner,
                                              split_plan_by_ranges)
-from repro_torch.models.lm import lm_loss
+from repro_torch.models.lm import (lm_loss, lm_param_shardings,
+                                   lm_param_specs)
 from repro_torch.nn.params import init_params, tree_leaves, tree_map
+from repro_torch.nn.sharding import (TRAIN_RULES, LogicalRules, NamedSharding,
+                                     batch_axes, resolve_sized, spec_axes)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -810,9 +815,47 @@ def _chunk(x, i: int, n: int):
     return x[i * size:(i + 1) * size]
 
 
+def lm_batch_block(batch: dict, rules: LogicalRules, mesh) -> dict:
+    """This rank's block of each batch leaf: the rows of ("batch", None,
+    ...) under `rules`, as the reference's dry-run shards a batch. Refuses
+    a batch the batch's mesh axes do not divide (a replicated batch would
+    count its rows more than once)."""
+    ba = batch_axes(rules, mesh)
+    out = {}
+    for k, v in batch.items():
+        spec = resolve_sized(("batch",) + (None,) * (v.dim() - 1), rules,
+                             mesh, tuple(v.shape))
+        if set(spec_axes(spec)) != set(ba):
+            raise ValueError(f"batch leaf {k!r} of {tuple(v.shape)} does "
+                             f"not split over the batch's axes {ba}")
+        out[k] = NamedSharding(mesh, spec).shard(v)
+    return out
+
+
+def lm_grad_sq_sum(grads, shardings, mesh) -> torch.Tensor:
+    """The fp32 sum of squares of every rank's gradient blocks, each
+    distinct block once: the leaves' local sums grouped by the mesh axes
+    they shard on, each group all-reduced over those axes only (replicas
+    count once), the groups added in first-seen leaf order."""
+    groups: dict[tuple, torch.Tensor] = {}
+    for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)):
+        key = tuple(a for a in mesh.axis_names if a in spec_axes(sh.spec))
+        sq = torch.sum(torch.square(g.float()))
+        groups[key] = groups[key] + sq if key in groups else sq
+    total = None
+    for key, sq in groups.items():
+        sq = sq.clone()
+        for a in key:
+            mesh.all_reduce(sq, a)
+        total = sq if total is None else total + sq
+    return total
+
+
 def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
+                        rules: LogicalRules = TRAIN_RULES,
                         accum_steps: int = 1,
-                        grad_dtype: str = "float32") -> Callable:
+                        grad_dtype: str = "float32",
+                        mesh=None) -> Callable:
     """Returns step(params, opt_state, batch, step_idx) -> (params,
     opt_state, metrics), the reference's LM step: `lm_loss` and its
     gradient with respect to every parameter (autograd through the
@@ -830,19 +873,50 @@ def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
     views of them, and an in-place optimizer (`adamw`) updates the
     tensors it was given. Every LM family trains: the MoE layers' aux
     loss enters the loss as `lm_loss` adds it, and the audio arch's
-    targets are (B, S, K)."""
+    targets are (B, S, K).
+
+    With `mesh` (a `launch.mesh.Mesh`), every rank calls the step with
+    the GLOBAL batch and its own blocks of the parameters and moments
+    (`models.lm.shard_lm_params`; refused otherwise). The step takes its
+    rows (`lm_batch_block`; with accum_steps > 1, of each chunk of the
+    global batch), runs the sharded model (`models.lm`), whose loss is the
+    global masked mean and whose weight gathers reduce-scatter their
+    gradients over the batch's axes; then a leaf replicated on an axis
+    the batch splits over has its gradient all-reduced there (after the
+    bfloat16 cast, when grad_dtype asks for it), and the optimizer clips
+    by the norm of every distinct block (`lm_grad_sq_sum`). Without a
+    mesh, `rules` changes nothing: the one-device step, bit for bit."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if grad_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"grad_dtype must be float32 or bfloat16, got "
                          f"{grad_dtype!r}")
 
+    shardings = blocks = None
+    if mesh is not None:
+        shardings = lm_param_shardings(cfg, rules, mesh)
+        blocks = [sh.local_shape(s.shape) for sh, s in zip(
+            tree_leaves(shardings), tree_leaves(lm_param_specs(cfg)))]
+
+    def check_blocks(params):
+        got = [tuple(t.shape) for t in tree_leaves(params)]
+        if got != blocks:
+            raise ValueError(f"the parameters are not this rank's blocks "
+                             f"under the rules: {got} vs {blocks}")
+
+    def block(batch):
+        return batch if mesh is None else lm_batch_block(batch, rules, mesh)
+
     def grads_of(params, batch):
         """(loss, parts, grads) of one batch, all detached."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         with torch.enable_grad():
-            loss, parts = lm_loss(leaves, batch, cfg)
+            if mesh is None:
+                loss, parts = lm_loss(leaves, batch, cfg)
+            else:
+                loss, parts = lm_loss(leaves, block(batch), cfg, rules,
+                                      mesh)
             grads = iter(torch.autograd.grad(loss, flat,
                                                materialize_grads=True))
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
@@ -870,14 +944,226 @@ def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
         return (loss_sum * inv, {k: v * inv for k, v in parts_sum.items()},
                 grads_sum)
 
-    def step(params, opt_state, batch, step_idx):
+    def sync(grads):
+        """All-reduce each gradient over the batch's axes its leaf does
+        not shard on, in place, leaf by leaf in tree order."""
+        ba = batch_axes(rules, mesh)
+        for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)):
+            for a in ba:
+                if a not in spec_axes(sh.spec):
+                    mesh.all_reduce(g, a, staged=True)
+        return grads
+
+    def value_and_grads(params, batch):
+        """(loss, parts, grads) as the optimizer receives them: cast to
+        grad_dtype and, under a mesh, synced."""
+        if mesh is not None:
+            check_blocks(params)
         if accum_steps > 1:
             loss, parts, grads = accumulated(params, batch)
         else:
             loss, parts, grads = grads_of(params, batch)
         if grad_dtype == "bfloat16":
             grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
-        params, opt_state = opt.apply(params, grads, opt_state, step_idx)
+        if mesh is not None:
+            grads = sync(grads)
+        return loss, parts, grads
+
+    def step(params, opt_state, batch, step_idx):
+        loss, parts, grads = value_and_grads(params, batch)
+        if mesh is None:
+            params, opt_state = opt.apply(params, grads, opt_state, step_idx)
+        else:
+            params, opt_state = opt.apply(
+                params, grads, opt_state, step_idx,
+                sq_sum=lambda gs: lm_grad_sq_sum(gs, shardings, mesh))
         return params, opt_state, {"loss": loss, **parts}
 
+    step.value_and_grads = value_and_grads
     return step
+
+
+def lm_step_collectives(cfg: ModelConfig, rules: LogicalRules, mesh,
+                        accum_steps: int = 1, clip: bool = True
+                        ) -> dict[str, int]:
+    """The collectives one `build_lm_train_step(mesh=)` step issues on a
+    rank, by f"{op}@{axis}" (`Mesh.stats`' keys, "_calls" left off),
+    worked out from the specs, the rules and the remat mode; a one-rank
+    axis issues none. Per microbatch:
+      * each weight use (`gather_weight`, `replicate_weight`): an
+        all_gather per mesh axis it drops, forward; backward a
+        reduce_scatter per such axis the batch splits over;
+      * attention over split heads: an all_reduce (wo's partial sums)
+        forward, one backward (the input's cotangent; three where the kv
+        heads are whole: q's, k's and v's); the MLP over split ff: one and
+        one; a MoE layer: two forward over the batch's axes (the aux
+        loss's sums), and over split experts one forward (the combine)
+        and two backward (the dispatch's input and the gates);
+      * the vocabulary split: the embedding's all_reduce, the logits'
+        input cotangent, the loss's max and sums; the loss's nll sum and
+        mask count over the batch's axes;
+      * remat "full": each unit's forward again in the backward, but for
+        its trailing partial-sum all_reduce (the recompute stops at the
+        last tensor the backward saved).
+    Per step: each leaf's gradient all_reduce over the batch's axes it
+    does not shard on, and (with clipping) one all_reduce per axis of
+    each distinct set of axes the leaves shard on."""
+    from repro_torch.models.lm import _pattern_moe_flags, _vocab_axes
+    from repro_torch.nn import mamba2 as M
+    from repro_torch.nn.sharding import GATHERED_AXES, tp_axes
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"counted for remat none and full, not "
+                         f"{cfg.remat!r}")
+    live = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
+    ba = tuple(a for a in batch_axes(rules, mesh) if a in live)
+    out: dict[str, int] = {}
+
+    def add(op, axes, n=1, into=None):
+        into = out if into is None else into
+        for a in axes:
+            if a in live:
+                into[f"{op}@{a}"] = into.get(f"{op}@{a}", 0) + n
+
+    def dropped(axes, shape, keep):
+        src = spec_axes(resolve_sized(axes, rules, mesh, shape))
+        dst = spec_axes(() if keep is None else
+                        resolve_sized(keep, rules, mesh, shape))
+        return tuple(a for a, i in src.items() if dst.get(a) != i)
+
+    def use(fwd, bwd, axes, shape, gather=True):
+        """A weight use: gather_weight's (or replicate_weight's)."""
+        if gather:
+            if not rules.get("_gather_weights"):
+                return
+            g = rules.get("_gather_axes", GATHERED_AXES)
+            keep = tuple(None if a in g else a for a in axes)
+        else:
+            keep = None
+        for a in dropped(axes, shape, keep):
+            add("all_gather", (a,), into=fwd)
+            if a in ba:
+                add("reduce_scatter", (a,), into=bwd)
+
+    d = cfg.d_model
+
+    def block(kind, is_moe, fwd, bwd) -> dict:
+        """Adds one layer's events; returns its trailing forward ones."""
+        norm = ["scale"] + (["bias"] if cfg.norm_type == "layernorm" else [])
+        trail: dict[str, int] = {}
+        for _ in norm:
+            use(fwd, bwd, ("embed",), (d,))
+        if kind == "a":
+            h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+            for axes, shape in ((("embed", "heads", "head_dim"), (d, h, dh)),
+                                (("embed", "kv_heads", "head_dim"),
+                                 (d, kv, dh)),
+                                (("embed", "kv_heads", "head_dim"),
+                                 (d, kv, dh)),
+                                (("heads", "head_dim", "embed"), (h, dh, d))):
+                use(fwd, bwd, axes, shape)
+            tq = tp_axes("heads", h, rules, mesh)
+            tkv = tp_axes("kv_heads", kv, rules, mesh)
+            add("all_reduce", tq, into=fwd)
+            add("all_reduce", tq, 1 if tkv else 3, into=bwd)
+            trail = {}
+            add("all_reduce", tq, into=trail)
+        else:
+            m = M.mamba_dims(cfg)
+            for axes, shape in (
+                    (("embed", "ssm_inner"), (d, m["d_in_proj"])),
+                    ((None, "conv_dim"), (m["d_conv"], m["conv_dim"])),
+                    (("conv_dim",), (m["conv_dim"],)),
+                    (("ssm_heads",), (m["n_heads"],)),
+                    (("ssm_heads",), (m["n_heads"],)),
+                    (("ssm_heads",), (m["n_heads"],)),
+                    (("ssm_inner",), (m["d_inner"],)),
+                    (("ssm_inner", "embed"), (m["d_inner"], d))):
+                use(fwd, bwd, axes, shape, gather=False)
+            trail = {}
+        if cfg.d_ff <= 0:
+            return trail
+        for _ in norm:
+            use(fwd, bwd, ("embed",), (d,))
+        f = cfg.d_ff
+        trail = {}
+        if is_moe:
+            e_pad = cfg.n_experts + cfg.expert_pad
+            use(fwd, bwd, ("embed", None), (d, cfg.n_experts))
+            for axes, shape in ((("expert", "embed", "ff"), (e_pad, d, f)),
+                                (("expert", "embed", "ff"), (e_pad, d, f)),
+                                (("expert", "ff", "embed"), (e_pad, f, d))):
+                use(fwd, bwd, axes, shape)
+            add("all_reduce", ba, 2, into=fwd)
+            g = rules.get("_gather_axes", GATHERED_AXES) \
+                if rules.get("_gather_weights") else ()
+            te = () if "expert" in g else tp_axes("expert", e_pad, rules,
+                                                  mesh)
+            add("all_reduce", te, into=fwd)
+            add("all_reduce", te, 2, into=bwd)
+            add("all_reduce", te, into=trail)
+        else:
+            names = (("wi", "wg", "wo") if cfg.mlp_type == "swiglu"
+                     else ("wi", "bi", "wo", "bo"))
+            layout = {"wi": (("embed", "ff"), (d, f)),
+                      "wg": (("embed", "ff"), (d, f)),
+                      "wo": (("ff", "embed"), (f, d)),
+                      "bi": (("ff",), (f,)), "bo": (("embed",), (d,))}
+            for n in names:
+                use(fwd, bwd, *layout[n])
+            tf = tp_axes("ff", f, rules, mesh)
+            add("all_reduce", tf, into=fwd)
+            add("all_reduce", tf, into=bwd)
+            add("all_reduce", tf, into=trail)
+        return trail
+
+    micro: dict[str, int] = {}
+    flags = _pattern_moe_flags(cfg)
+    for _ in range(cfg.n_units):
+        fwd: dict[str, int] = {}
+        bwd: dict[str, int] = {}
+        trail: dict[str, int] = {}
+        for i, kind in enumerate(cfg.pattern):
+            trail = block(kind, flags[i], fwd, bwd)
+        for src in (fwd, bwd):
+            for k, n in src.items():
+                micro[k] = micro.get(k, 0) + n
+        if cfg.remat == "full":
+            for k, n in fwd.items():
+                micro[k] = micro.get(k, 0) + n - trail.get(k, 0)
+    v = cfg.vocab_size
+    tv = _vocab_axes(cfg, rules, mesh)
+    end_f: dict[str, int] = {}
+    end_b: dict[str, int] = {}
+    if cfg.frontend != "audio":
+        use(end_f, end_b, ("vocab", "embed"), (v, d))
+        add("all_reduce", tv, into=end_f)
+    for _ in ["scale"] + (["bias"] if cfg.norm_type == "layernorm" else []):
+        use(end_f, end_b, ("embed",), (d,))
+    if cfg.tie_embeddings:
+        use(end_f, end_b, ("vocab", "embed"), (v, d))
+    elif cfg.frontend == "audio":
+        use(end_f, end_b, ("embed", "vocab"), (d, v * cfg.n_codebooks),
+            gather=False)
+    else:
+        use(end_f, end_b, ("embed", "vocab"), (d, v))
+    add("all_reduce", tv, into=end_b)
+    add("all_reduce", tv, 2, into=end_f)
+    add("all_reduce", ba, into=end_f)
+    for src in (end_f, end_b):
+        for k, n in src.items():
+            micro[k] = micro.get(k, 0) + n
+    for k, n in micro.items():
+        out[k] = n * accum_steps
+    from repro_torch.models.lm import lm_param_specs
+    groups = []
+    for s in tree_leaves(lm_param_specs(cfg)):
+        spec = spec_axes(resolve_sized(s.logical_axes, rules, mesh,
+                                       s.shape))
+        add("all_reduce", tuple(a for a in ba if a not in spec))
+        key = tuple(a for a in mesh.axis_names if a in spec)
+        if key not in groups:
+            groups.append(key)
+    if clip:
+        for key in groups:
+            add("all_reduce", key)
+    return out

@@ -2958,3 +2958,47 @@ def test_zoo_step0_on_the_card_matches_the_cpu(dev, arch):
     for g, w in zip(grads, cpu_grads):
         rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
         assert rel < 1e-4, rel
+
+
+def test_lm_mesh_step0_on_the_card_matches_one_device(dev):
+    """chip_smoke.py 19d's smallest arm: stablelm-1.6b at full width cut
+    to 2 layers, 4 x 1,024 positions, fp32 compute, under ZERO_DP_RULES
+    (one sequence a rank) on a (data 2, model 2) mesh of 4 gloo ranks on
+    the card, each copying its blocks of the test's parameters from CUDA
+    IPC views: step 0's loss within 1e-4 and every gradient, put together
+    from the ranks' blocks, within 1e-3 relative L2 of the one-device
+    step's on the card (TOL_LM_TRAIN["float32"]: the same fp32 sums in
+    other orders, the flash kernels on each rank's rows); no jax in a
+    rank."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.sharded import lm_rank
+    from repro_torch.train.steps import build_lm_train_step
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2,
+                              compute_dtype="float32")
+    params = init_lm_params(cfg, 0, dev)
+    raw = make_lm_batch(cfg, 4, 1024, 0, 0)
+    step = build_lm_train_step(cfg, adamw(3e-4))
+    loss, _, want = step.value_and_grads(
+        params, {k: torch.from_numpy(v).to(dev) for k, v in raw.items()})
+    job = {"cfg": cfg, "rules": "ZERO_DP_RULES", "params": params,
+           "batches": [raw], "want_grads": want}
+    res = run_ranks(lm_rank, 4, (job,), backend="gloo",
+                    device=f"cuda:{torch.cuda.current_device()}",
+                    timeout_s=300)
+    torch.cuda.synchronize()
+    n = len(res[0]["grad_errors"])
+    for r in res:
+        assert abs(r["losses"][0] - float(loss)) <= 1e-4 * abs(float(loss))
+        assert r["foreign_modules"] == []
+    for i in range(n):
+        err = sum(r["grad_errors"][i]["err_sq"] for r in res
+                  if r["grad_errors"][i]["owner"])
+        ref_sq = sum(r["grad_errors"][i]["ref_sq"] for r in res
+                     if r["grad_errors"][i]["owner"])
+        assert (err / max(ref_sq, 1e-60)) ** 0.5 <= 1e-3, i
