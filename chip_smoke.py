@@ -81,7 +81,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernel's ptxas registers and spills, probe its causality, and time it
    beside its plain version and SDPA (timed only); (9b) `prefill_step` on 8,192 tokens of
    `make_lm_batch` (exactly one kernel launch a layer), 16 greedy
-   `decode_step`s, one profiled prefill; (9c) the same last position
+   `decode_step`s (the first 8 phase 20a's and 20b's oracle), one
+   profiled prefill; (9c) the same last position
    through an 8,191-token prefill (full attention, no kernel) and one
    decode step, held to 9b's logits; (9d) the LM launcher at the
    reference's defaults (8 requests, 4 slots, max_len 128, 16 new
@@ -117,8 +118,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    exclusive residency; dlrm-m3's 118.3 GB of rows do not fit the host
    memory of the card's machine, so no phase 11c;
 12. run the sharded executors on `torch.distributed`, every rank a process
-   spawned on this card (`launch.mesh.run_ranks`, gloo: NCCL refuses two
-   ranks on one device) that loads the kernels built in phase 2 and takes
+   spawned on this card (a `launch.mesh.RankWorld`: 12a and 12c share
+   one world of 8, 12b's two runs one of 4 spawned before 12c's oracle;
+   gloo: NCCL refuses two ranks on one device) that loads the kernels built in phase 2 and takes
    CUDA IPC views of the parent's table: (12a) 8a's run on a (1, 8) mesh,
    one rank per owner (the psum lookup, each owner's segmented update on
    its own shard), every rank's losses equal to 8a's and the shards'
@@ -191,10 +193,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    layer) and again through full_attention (attn_block_q = ZOO_PROMPT, no
    launch), the last logits held within TOL_LM_REL_L2 / TOL_LM_ABS with
    the same argmax;
-   (16b) mamba2-780m (48 layers, no launch), and in fp32 compute the
-   one-shot prefill's last logits against SSM_RECUR_PREFIX tokens
-   prefilled and the rest decoded one at a time, with an fp32 conv cache
-   held within TOL_SSM_RECUR (the reference's bf16 conv cache printed);
+   (16b) mamba2-780m (48 layers, no launch), in fp32 compute the same
+   prefill and LM_SERVE_MESH_DECODE steps fed its tokens (phase 20d's
+   oracle) and again on weights perturbed by SSM_PERTURB (20d's witness,
+   printed), and at SSM_RECUR_LAYERS layers the fp32 one-shot prefill's
+   last logits against SSM_RECUR_PREFIX tokens prefilled and the rest
+   decoded one at a time, with an fp32 conv cache held within
+   TOL_SSM_RECUR (the reference's bf16 conv cache printed);
    (16c) the kernel at jamba's prefill shape (1, 32, 8192, 128) bf16
    against its plain version, timed, then jamba-v0.1-52b cut from 32
    layers to one 8-layer unit, int8 KV cache, fp32 parameters: the
@@ -233,7 +238,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    launcher run prints tokens/s, host and device-busy ms and its peak
    beside `lm_reckoning_bytes`;
 18. train the multi-host cached tier one rank a host: MULTIHOST_HOSTS
-   gloo ranks spawned on this card, each taking a CUDA IPC view of the
+   gloo ranks spawned on this card (one world for 18a-18d), each taking a CUDA IPC view of the
    capacity rows it owns of the parent's full-width dlrm-m1 table
    (`train.sharded.multihost_rank`, `build_cached_train_step(mesh=)`):
    every rank plans the global batch, installs its misses from their
@@ -260,27 +265,45 @@ Phases, each of which makes the script exit non-zero when it fails:
    card in one world (`train.sharded.lm_rank`, `build_lm_train_step(
    rules=, mesh=)`), each holding only its `resolve_sized` blocks of the
    parameters and AdamW moments (copied from CUDA IPC views of the
-   parent's) and its rows of each batch: (19a) full-width stablelm-1.6b
-   under FSDP_RULES and (19b) under ZERO_DP_RULES, LM_MESH_STEPS steps
-   of 14b's batches from 14b's initial parameters, each loss within
-   TOL_LM_MESH_LOSS of 14b's; (19c) under TRAIN_RULES cut to
-   LM_MESH_TRAIN_LAYERS layers, as many steps, against the one-device
-   run at that depth; (19d) LM_MESH_GRAD_STEPS steps at
+   parent's) and its rows of each batch: full-width stablelm-1.6b cut to
+   LM_MESH_LAYERS layers under (19a) FSDP_RULES, (19b) ZERO_DP_RULES and
+   (19c) TRAIN_RULES, LM_MESH_STEPS steps of 14b's batches from 14b's
+   initial parameters, each loss within TOL_LM_MESH_LOSS of the
+   one-device run's at that depth; (19d) LM_MESH_GRAD_STEPS steps at
    LM_MESH_GRAD_LAYERS layers and fp32 under each table, step 0's loss
    and every gradient within TOL_LM_TRAIN["float32"] of the one-device
    step's; 19a-19d's final parameters, a leaf, within TOL_LM_MESH_PARAMS
    of the one-device run's last update from that run's; (19e) one unit of
    granite-moe-1b-a400m and of mamba2-780m at full width under FSDP_RULES,
    bf16 and fp32, against their one-device steps. Gates on every run:
-   finite losses, each rank's flash-attention launches a step (14b's 48
-   and 24 at full depth), each
+   finite losses, each rank's flash-attention launches a step (two
+   forward and one backward an attention layer), each
    step's `Mesh.stats` calls of every collective on every axis equal to
    `train.steps.lm_step_collectives`, each rank's peak under its
    reckoning from `NamedSharding.local_shape`, no jax or reference module
    in a rank; the attention kernels timed at a rank's shapes; tokens/s,
    collective ms and device-busy ms a step printed (gloo, four ranks
    time-sliced on one card: no four-card number);
-20. print one JSON line of per-kernel numbers, then the result line.
+20. serve the LM over a mesh in phase 19's world (`train.sharded.
+   lm_serve_rank`: `prefill_step` / `decode_step(rules=, mesh=)`, each
+   rank drawing the seeded parameters on the card in turn and keeping its
+   `resolve_sized` blocks and its blocks of the caches): (20a)
+   stablelm-1.6b under SERVE_RULES and (20b) under LONG_SERVE_RULES (the
+   cache split by positions, flash-decoding), (20c) granite-moe-3b-a800m
+   and (20d) mamba2-780m under SERVE_RULES, each on (data 1, model 4) at
+   full width and depth, bf16 (20d fp32), 9b's / 16a's / 16b's prompt
+   and LM_SERVE_MESH_DECODE decode steps fed that run's tokens, each
+   step's logits within
+   TOL_LM_SERVE_MESH_REL_L2 of that run's, exactly one flash-attention
+   launch a layer in the prefill on each rank, each step's `Mesh.stats`
+   calls equal to `serve.sharded.lm_serve_collectives`, each rank's
+   parameter and cache bytes exactly its blocks and its peak under
+   `lm_serve_reckoning`; (20e) mamba2-780m's `ServeEngine(rules=
+   SERVE_RULES, mesh=)` on (data 2, model 2), cut to
+   LM_SERVE_ENGINE_LAYERS layers, with 16d's requests over 2 slots, each
+   request's tokens equal to the same request served alone on the mesh;
+   the kernel timed at a rank's prefill shape beside SDPA;
+21. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -578,9 +601,17 @@ HYBRID_LAYERS = 8
 #: 0.089). Relative L2 of the last logits: 7.7e-4 on an H100 80GB HBM3 at
 #: 700 W (the first run of this phase), 8.8e-5 on the CPU at width 256;
 #: held within TOL_SSM_RECUR, which a wrong state or decay (an O(1) change)
-#: cannot meet. With the reference's bf16 conv cache: printed, not held
+#: cannot meet. With the reference's bf16 conv cache: printed, not held.
+#: Both arms and their one-shot prefill run mamba2-780m cut to
+#: SSM_RECUR_LAYERS of its 48 layers, for the run's length (the 512
+#: one-token steps took ~35 s at full depth)
 SSM_RECUR_PREFIX = 7936
+SSM_RECUR_LAYERS = 6
 TOL_SSM_RECUR = 5e-3
+#: 16b: the fp32 run again on weights times (1 + SSM_PERTURB x N(0, 1)),
+#: drawn from SSM_PERTURB_SEED, its distance a step printed beside 20d's
+#: (what a rounding-sized change of the weights alone does to the logits)
+SSM_PERTURB, SSM_PERTURB_SEED = 1e-7, 7
 #: 16c: jamba's one attention layer on its own (its inputs and outputs
 #: recorded in the model's runs). At one unit the reference's init (its
 #: stacked in_proj and MLP weights draw with fan = n_units = 1) puts the
@@ -628,15 +659,15 @@ HYBRID_SMOKE_ARGV = ["--arch", HYBRID_ARCH, "--smoke", "--seq", "256",
 HYBRID_SMOKE_STEPS = 8
 #: 17f: musicgen-large trained at 4,096 x 2 for FRONTEND_TRAIN_STEPS steps
 #: and served (8,192 frames, FRONTEND_DECODE greedy steps of 4 codebooks);
-#: internvl2-26b served cut to VLM_SERVE_LAYERS of its 48 layers (24
-#: before the run's length was cut: 10.5 B fp32 parameters, 42.0
-#: GB; all 48 take 79.4 GB) over 8,192 positions
+#: internvl2-26b served cut to VLM_SERVE_LAYERS of its 48 layers (24,
+#: then 12, before the run's length was cut; 24 layers are 10.5 B fp32
+#: parameters, 42.0 GB; all 48 take 79.4 GB) over 8,192 positions
 #: (256 patches) and trained cut to VLM_TRAIN_LAYERS at 4,096 x 2; depth
 #: is the only cut
 AUDIO_ARCH, VLM_ARCH = "musicgen-large", "internvl2-26b"
 FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_STEPS = 2, 3
 FRONTEND_DECODE = 16
-VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 12, 2
+VLM_SERVE_LAYERS, VLM_TRAIN_LAYERS = 6, 2
 #: 17f: the full_attention arm computes the layer's attention this many
 #: heads at a time (the heads are independent): at internvl2's 48 heads
 #: all at once its fp32 scores would take 32 GB beside 42 GB of weights
@@ -647,19 +678,20 @@ VLM_ENGINE_REQUESTS, VLM_ENGINE_SLOTS, VLM_ENGINE_MAX_LEN = 4, 2, 64
 #: phase 19: the LM step over a (data 2, model 2) mesh of gloo ranks on
 #: the card (`train.sharded.lm_rank`), from 14b's initial parameters
 #: (LM_PARAM_SEED) and batches (LM_TRAIN_BATCH x LM_TRAIN_SEQ, so 2
-#: sequences a data rank, 1 a rank under ZERO_DP); 19a and 19b train
-#: LM_MESH_STEPS steps at full depth, 19c as many with stablelm-1.6b cut
-#: to LM_MESH_TRAIN_LAYERS of its 24 layers (TRAIN_RULES replicate the
-#: weights over `data`: at full depth 13.2 GB of state a rank, beside
-#: three other ranks); 19d trains LM_MESH_GRAD_STEPS steps at
-#: LM_MESH_GRAD_LAYERS layers, LM_MESH_GRAD_SEQ positions and fp32
-#: compute under each table, holding step 0's loss and every gradient to
-#: the one-device step's within TOL_LM_TRAIN["float32"]; 19e does so for
-#: one unit of granite-moe-1b-a400m and mamba2-780m at full width under
-#: FSDP_RULES, in bf16 and fp32
+#: sequences a data rank, 1 a rank under ZERO_DP); 19a, 19b and 19c
+#: train LM_MESH_STEPS steps with stablelm-1.6b cut to LM_MESH_LAYERS of
+#: its 24 layers, for the run's length (TRAIN_RULES replicate the weights
+#: over `data`: at full depth 13.2 GB of state a rank, beside three other
+#: ranks), against one one-device run at that depth; 19d trains
+#: LM_MESH_GRAD_STEPS steps at LM_MESH_GRAD_LAYERS layers,
+#: LM_MESH_GRAD_SEQ positions and fp32 compute under each table, holding
+#: step 0's loss and every gradient to the one-device step's within
+#: TOL_LM_TRAIN["float32"]; 19e does so for one unit of
+#: granite-moe-1b-a400m and mamba2-780m at full width under FSDP_RULES,
+#: in bf16 and fp32
 LM_MESH = ((2, 2), ("data", "model"))
-LM_MESH_STEPS, LM_MESH_GRAD_STEPS = 3, 2
-LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_STEPS, LM_MESH_GRAD_STEPS = 2, 1
+LM_MESH_LAYERS = 4
 LM_MESH_GRAD_LAYERS, LM_MESH_GRAD_SEQ = 2, 1024
 LM_MESH_TABLES = ("FSDP_RULES", "ZERO_DP_RULES", "TRAIN_RULES")
 LM_MESH_TIMEOUT_S = 900
@@ -671,11 +703,11 @@ LM_MESH_ZOO_SEQ = 1024
 #: 19e's fp32 bound on a gradient the batch's split moves (see
 #: `lm_mesh_phase`): this many times the one-device split's own distance
 LM_MESH_SPLIT_FACTOR = 4
-#: 19a / 19b: each step's loss against 14b's at the same step (the same
-#: parameters and batches, one card), relative: both are bf16 runs whose
-#: partial sums round in other places (a rank's heads and rows, sums over
-#: ranks in bf16), the tolerance of 14c's bf16 loss (kernels against the
-#: plain attention); 19c against the one-device step at its cut depth
+#: 19a-19c: each step's loss against the one-device run's at the cut
+#: depth (the same parameters and batches, one card), relative: both are
+#: bf16 runs whose partial sums round in other places (a rank's heads and
+#: rows, sums over ranks in bf16), the tolerance of 14c's bf16 loss
+#: (kernels against the plain attention)
 TOL_LM_MESH_LOSS = 2e-3
 #: 19a-19d's parameters after the last step against the one-device
 #: run's: their distance, put together from every rank's blocks, over the
@@ -688,6 +720,46 @@ TOL_LM_MESH_LOSS = 2e-3
 #: small leaf (a norm's bias) reads up to 0.55 of its update from that
 #: alone
 TOL_LM_MESH_PARAMS = {"float32": 1e-2, "bfloat16": 0.5}
+#: phase 20: LM serving over a mesh of 4 gloo ranks on the card, in
+#: phase 19's world (no second spawn; `train.sharded.lm_serve_rank`), each
+#: rank drawing the seeded parameters on the card in turn and keeping its
+#: `resolve_sized` blocks, its blocks of the caches by `init_caches(rules=,
+#: mesh=)`: (20a-20d) at full width and depth, batch 1, the
+#: LM_PROMPT-token prompt of 9b / 16a / 16b, then LM_SERVE_MESH_DECODE
+#: decode steps teacher-forced on that one-device run's greedy tokens,
+#: into caches of LM_SERVE_MESH_MAX_LEN positions (a multiple of `model`,
+#: as LONG_SERVE_RULES' position blocks need): (name, arch, rules, the
+#: oracle's phase, its parameter seed, compute dtype). The decode steps
+#: are cut from 32 to 8 for the run's length: four ranks time-slicing one
+#: card wait ~8 ms on each collective (PERF.md section 5), 0.52-0.91 s a
+#: decode step at stablelm's 49 and granite's 64 a step. 20d computes in
+#: fp32 against 16b's fp32 run: at bf16, mamba2-780m's 48 layers carry
+#: the ranks' other rounding of partial sums to 0.20-0.30 relative L2,
+#: as far as 16b's own bf16 run lies from its fp32 one
+LM_SERVE_MESH = ((1, 4), ("data", "model"))
+LM_SERVE_MESH_DECODE = 8
+LM_SERVE_MESH_MAX_LEN = LM_PROMPT + LM_DECODE
+LM_SERVE_RUNS = (
+    ("20a", LM_ARCH, "SERVE_RULES", "9b", LM_PARAM_SEED, "bfloat16"),
+    ("20b", LM_ARCH, "LONG_SERVE_RULES", "9b", LM_PARAM_SEED, "bfloat16"),
+    ("20c", MOE_ARCH, "SERVE_RULES", "16a", ZOO_PARAM_SEED, "bfloat16"),
+    ("20d", SSM_ARCH, "SERVE_RULES", "16b_fp32", ZOO_PARAM_SEED,
+     "float32"))
+#: 20e: mamba2-780m's ServeEngine on (data 2, model 2), 16d's requests
+#: (ZOO_SERVE_ARGV) over 2 slots, held to each request served alone on the
+#: mesh; cut to LM_SERVE_ENGINE_LAYERS of its 48 layers for the run's
+#: length (at full depth 20e took ~150 s of 4 ranks' collectives)
+LM_SERVE_ENGINE_MESH = ((2, 2), ("data", "model"))
+LM_SERVE_ENGINE_LAYERS = 2
+#: 20a-20d: each step's logits against the one-device run's, relative L2
+#: (the ranks round their partial sums to bf16 before the sum over ranks,
+#: and LONG_SERVE_RULES' flash-decoding merge keeps fp32 where the one-
+#: device decode rounds its probabilities to bf16; no looser than
+#: TOL_LM_REL_L2); where the one-device top-2 margin exceeds twice the
+#: step's largest logit difference, the argmax must agree
+TOL_LM_SERVE_MESH_REL_L2 = TOL_LM_REL_L2
+#: 20a: a rank's prefill attention shape, (b, h, s, dh) bf16
+FLASH_SERVE_RANK_SHAPE = (1, 8, LM_PROMPT, 64)
 #: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
 CARD = ""
 
@@ -2934,11 +3006,12 @@ def host_dense(params) -> dict:
 
 
 def mesh_run(torch, dev, name: str, job: dict, n_ranks: int,
-             per_rank: dict) -> tuple[list, dict]:
-    """Spawn `n_ranks` ranks of `train.sharded.train_rank` on the card
-    (gloo: NCCL refuses two ranks on one device), each loading the kernels
-    the parent built; hold every rank's launches to `per_rank` (kernel ->
-    exact count) and its modules clear of jax and the reference. Returns
+             per_rank: dict, world=None) -> tuple[list, dict]:
+    """Run `train.sharded.train_rank` on `n_ranks` gloo ranks on the card
+    (NCCL refuses two ranks on one device): `world`'s, or a world spawned
+    for it; each rank loads the kernels the parent built; hold every
+    rank's launches to `per_rank` (kernel -> exact count) and its modules
+    clear of jax and the reference. Returns
     the ranks' reports and the phase's numbers: host ms a step (steps 1
     on), each rank's device span and busy ms a step, the all_reduce calls,
     bytes and ms a step (the bytes of calls over a one-rank axis, which
@@ -2947,7 +3020,7 @@ def mesh_run(torch, dev, name: str, job: dict, n_ranks: int,
 
     from repro_torch.train.sharded import train_rank
     (res,), world = rank_world(torch, dev, name, [(train_rank, job)],
-                               n_ranks)
+                               n_ranks, world=world)
     for r in res:
         log(f"  {name} rank {r['rank']} {r['coords']} rows {r['rows']}: "
             f"losses {r['losses']}; launches {r['launches']}; host ms "
@@ -3029,7 +3102,7 @@ def mesh_reckoning(name: str, table_bytes: int, extra_bytes: int,
         f"parent {parent_peak}, ranks summed {nums['ranks_peak_bytes']}")
 
 
-def mesh_tablewise_m1(torch, dev, cfg, ebc, want: dict) -> dict:
+def mesh_tablewise_m1(torch, dev, cfg, ebc, want: dict, world=None) -> dict:
     """Phase 12a: 8a's run on a (1, 8) mesh, one rank per owner: each rank
     views its owner's 25.7M rows of the parent's table (CUDA IPC), draws
     8a's batches from the same pipeline, stages the next one, pools with
@@ -3062,7 +3135,8 @@ def mesh_tablewise_m1(torch, dev, cfg, ebc, want: dict) -> dict:
                 "fused_bag_backward_adagrad_segments": TRAIN_STEPS,
                 "fused_bag_backward_adagrad": 0,
                 "dedup_embedding_bag": 0}
-    res, nums = mesh_run(torch, dev, "12a", job, TABLEWISE_OWNERS, per_rank)
+    res, nums = mesh_run(torch, dev, "12a", job, TABLEWISE_OWNERS, per_rank,
+                         world)
     del job
     sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
     shard_sums = (add_checksums(r["mega_sum"] for r in res),
@@ -3156,7 +3230,7 @@ def close_dense(got: dict, want: dict, rtol: float, atol: float
     return ok, worst
 
 
-def mesh_psum_m2(torch, dev, m2) -> dict:
+def mesh_psum_m2(torch, dev, m2, world=None) -> dict:
     """Phase 12b: the psum dense update on full-width dlrm-m2 under
     row_wise, mesh (1, 4): the single-device dense step first (the
     oracle, same layout, seed and batches), then MESH_PSUM_STEPS steps on
@@ -3205,7 +3279,7 @@ def mesh_psum_m2(torch, dev, m2) -> dict:
                "report_dense": True,
                "profile_steps": MESH_PROFILED_STEPS}
         res, nums = mesh_run(torch, dev, name, job, MESH_PSUM_SHAPE[1],
-                             per_rank)
+                             per_rank, world)
         del job
         buf = rows_local * d * (4 if dtype == "float32" else 2)
         mesh_reckoning(name, (mega.numel() + accum.numel()) * 4,
@@ -3259,7 +3333,7 @@ def mesh_psum_m2(torch, dev, m2) -> dict:
     return out
 
 
-def mesh_hybrid_m2(torch, dev, m2) -> dict:
+def mesh_hybrid_m2(torch, dev, m2, world=None) -> dict:
     """Phase 12c: the hybrid table-wise step on full-width dlrm-m2, 4
     owners on a (2, 4) mesh: data replica 0 of each owner views the
     parent's rows (CUDA IPC), replica 1 trains its own copy; the oracle,
@@ -3301,7 +3375,8 @@ def mesh_hybrid_m2(torch, dev, m2) -> dict:
                 "dot_interaction": MESH_HYBRID_STEPS,
                 "fused_bag_backward_adagrad_segments": MESH_HYBRID_STEPS,
                 "fused_bag_backward_adagrad": 0}
-    res, nums = mesh_run(torch, dev, "12c", job, data * owners, per_rank)
+    res, nums = mesh_run(torch, dev, "12c", job, data * owners, per_rank,
+                         world)
     del job
     mesh_reckoning("12c", (mega.numel() + accum.numel()) * 4,
                    (data - 1) * (mega.numel() + accum.numel()) * 4,
@@ -3457,7 +3532,9 @@ def lm_prefill(torch, dev, cfg) -> dict:
     """Phase 9b: prefill_step on LM_PROMPT tokens of make_lm_batch at full
     width, then LM_DECODE greedy decode steps; one more prefill under
     torch.profiler. Returns the numbers, the prefill's last logits (fp32,
-    host), the parameters and the tokens (9c reuses both)."""
+    host), the parameters and the tokens (9c reuses both), and phase
+    20's oracle: the last logits, each decode step's and the tokens fed
+    (host)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_lm_batch
@@ -3487,9 +3564,10 @@ def lm_prefill(torch, dev, cfg) -> dict:
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = last.argmax(-1)
-    generated, decode_ms = [], []
+    generated, decode_ms, fed, step_logits = [], [], [], []
     for i in range(LM_DECODE):
         t0 = time.perf_counter()
+        fed.append(int(tok))
         logits, caches = decode_step(params, tok[:, None], caches,
                                      LM_PROMPT + i, cfg)
         if not bool(torch.isfinite(logits).all()):
@@ -3497,6 +3575,7 @@ def lm_prefill(torch, dev, cfg) -> dict:
         tok = logits.float().argmax(-1)
         generated.append(int(tok))
         decode_ms.append((time.perf_counter() - t0) * 1e3)
+        step_logits.append(logits.float().cpu())
     counts = read_launches(KERNELS, "lm_prefill", ("flash_attention",))
     others = {n: c for n, c in counts.items()
               if c and n != "flash_attention"}
@@ -3532,7 +3611,9 @@ def lm_prefill(torch, dev, cfg) -> dict:
     log(f"9b numbers: {json.dumps(nums)}")
     del caches
     return {"numbers": nums, "last": last.cpu(), "params": params,
-            "tokens": tokens, "launches": counts}
+            "tokens": tokens, "launches": counts,
+            "oracle": {"last": last.cpu(), "logits": step_logits,
+                       "fed": fed}}
 
 
 def lm_prefill_plain(torch, cfg, run: dict) -> dict:
@@ -3582,7 +3663,8 @@ def lm_prefill_plain(torch, cfg, run: dict) -> dict:
 def lm_serve(torch, cfg) -> dict:
     """Phase 9d: the LM launcher at full width (LM_SERVE_ARGV): every
     request served within its budget, no kernel launched (the engine only
-    decodes); then four more requests under torch.profiler."""
+    decodes); then four more requests of half the budget under
+    torch.profiler."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3612,10 +3694,12 @@ def lm_serve(torch, cfg) -> dict:
     steps = engine.steps_run
     peak = torch.cuda.max_memory_allocated()
     rng = np.random.RandomState(1)
+    # half the budget under the profiler, for the run's length: its
+    # trace's key_averages cost ~1 s a profiled step
     for uid in range(n_req, n_req + engine.batch_slots):
         engine.submit(Request(uid=uid, prompt=rng.randint(
             0, cfg.vocab_size, size=(8,)).astype(np.int32),
-            max_new_tokens=budget))
+            max_new_tokens=budget // 2))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # the device's activity alone: with the CPU's too, key_averages over
@@ -5109,13 +5193,26 @@ def zoo_moe(torch, dev) -> dict:
             "plain_reckoning_bytes": zoo_reckoning_bytes(
                 cfg, ZOO_PROMPT, plain_attention=True)}
     log(f"16a numbers: {json.dumps(nums)}")
-    return {"numbers": nums, "flash": flash, "paths": {"zoo_moe_prefill": run["launches"],
-                                       "zoo_moe_plain": plain["launches"]}}
+    return {"numbers": nums, "flash": flash, "oracle": zoo_oracle(run),
+            "paths": {"zoo_moe_prefill": run["launches"],
+                      "zoo_moe_plain": plain["launches"]}}
+
+
+def zoo_oracle(run: dict) -> dict:
+    """Phase 20's oracle from a `zoo_generate` run: the prefill's last
+    logits, each decode step's and the tokens fed, on the host."""
+    return {"last": run["last"].cpu(),
+            "logits": [lg.cpu() for lg in run["logits"]],
+            "fed": list(run["fed"])}
 
 
 def zoo_ssm(torch, dev) -> dict:
     """Phase 16b: mamba2-780m at full width, bf16: prefill and ZOO_DECODE
     greedy decode steps, no kernel launch; then, in fp32 compute, the
+    prefill and LM_SERVE_MESH_DECODE decode steps fed the bf16 run's
+    tokens (phase 20d's oracle, returned), and the same on weights
+    perturbed by SSM_PERTURB (its distance a step printed: 20d's
+    witness); at SSM_RECUR_LAYERS layers the
     one-shot prefill's last logits against a SSM_RECUR_PREFIX-token
     prefill and the rest decoded one token at a time, with an fp32 conv
     cache (held within TOL_SSM_RECUR, the same argmax) and with the
@@ -5124,11 +5221,14 @@ def zoo_ssm(torch, dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.nn.params import tree_map
     cfg = get_config(SSM_ARCH)
     log(f"phase 16b: {SSM_ARCH} at full width ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}), bf16: "
         f"prefill_step on make_lm_batch(cfg, 1, {ZOO_PROMPT}), {ZOO_DECODE} "
-        f"greedy decode_steps; then fp32: the one-shot prefill against "
+        f"greedy decode_steps; then fp32: the prefill and "
+        f"{LM_SERVE_MESH_DECODE} decode steps fed the same tokens; at "
+        f"{SSM_RECUR_LAYERS} layers the one-shot prefill against "
         f"{SSM_RECUR_PREFIX} tokens prefilled and "
         f"{ZOO_PROMPT - SSM_RECUR_PREFIX} decoded")
     params = zoo_params(torch, dev, cfg)
@@ -5137,17 +5237,48 @@ def zoo_ssm(torch, dev) -> dict:
     run = zoo_generate(torch, cfg, params, tokens, ZOO_DECODE, want_flash=0,
                        label="16b prefill and decode", profiled=True)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    one = zoo_generate(torch, f32, params, tokens, 0, want_flash=0,
+    # the fp32 prefill, then LM_SERVE_MESH_DECODE steps fed the bf16 run's
+    # tokens: phase 20d's oracle
+    one = zoo_generate(torch, f32, params, tokens, LM_SERVE_MESH_DECODE,
+                       want_flash=0, feed=torch.tensor(
+                           run["fed"][:LM_SERVE_MESH_DECODE], device=dev),
                        label="16b one-shot fp32 prefill")
+    bf16_vs_fp32 = [rel_l2(a, b) for a, b in zip(
+        [run["last"]] + run["logits"], [one["last"]] + one["logits"])]
+    log(f"  16b: the bf16 run's logits against the fp32 run's, relative "
+        f"L2 a step: {[float('%.4g' % x) for x in bf16_vs_fp32]}")
+    # the witness for 20d's distance: the same fp32 run on weights moved
+    # by SSM_PERTURB relative noise (seeded), against the fp32 run
+    gen = torch.Generator(device=dev).manual_seed(SSM_PERTURB_SEED)
+    moved = tree_map(lambda t: t * (1 + SSM_PERTURB * torch.randn(
+        t.shape, generator=gen, device=dev)) if t.is_floating_point()
+        else t, params)
+    nudged = zoo_generate(torch, f32, moved, tokens, LM_SERVE_MESH_DECODE,
+                          want_flash=0, feed=torch.tensor(
+                              run["fed"][:LM_SERVE_MESH_DECODE], device=dev),
+                          label="16b fp32 prefill, weights perturbed")
+    del moved
+    perturbed = [rel_l2(a, b) for a, b in zip(
+        [nudged["last"]] + nudged["logits"], [one["last"]] + one["logits"])]
+    del nudged
+    log(f"  16b: the fp32 run on weights perturbed by {SSM_PERTURB} "
+        f"(relative) against the fp32 run, relative L2 a step (20d's "
+        f"witness): {[float('%.4g' % x) for x in perturbed]}")
     rest = tokens[0, SSM_RECUR_PREFIX:]
     recur = {}
+    cut = dataclasses.replace(f32, n_layers=SSM_RECUR_LAYERS)
+    cut_params = cut_units(params, cut.n_units)
+    shot = zoo_generate(torch, cut, cut_params, tokens, 0, want_flash=0,
+                        label=f"16b one-shot fp32 prefill at {cut.n_layers} "
+                        "layers")
     for name, conv in (("fp32_conv_cache", torch.float32),
                        ("bf16_conv_cache", torch.bfloat16)):
         t0 = time.perf_counter()
-        rec = zoo_generate(torch, f32, params, tokens[:, :SSM_RECUR_PREFIX],
-                           len(rest), want_flash=0, feed=rest,
-                           conv_dtype=conv, label=f"16b recurrence, {name}")
-        got, want = rec["logits"][-1], one["last"]
+        rec = zoo_generate(torch, cut, cut_params,
+                           tokens[:, :SSM_RECUR_PREFIX], len(rest),
+                           want_flash=0, feed=rest, conv_dtype=conv,
+                           label=f"16b recurrence, {name}")
+        got, want = rec["logits"][-1], shot["last"]
         recur[name] = {"rel_l2_err": rel_l2(got, want),
                        "max_abs_err": float((got - want).abs().max()),
                        "argmax_agrees": int(got.argmax()) == int(
@@ -5163,11 +5294,15 @@ def zoo_ssm(torch, dev) -> dict:
                              f"chunked scan: {held} (tol {TOL_SSM_RECUR})")
     nums = {"card": CARD, **zoo_summary(run), "recurrence": recur,
             "tol_rel_l2": TOL_SSM_RECUR,
+            "bf16_vs_fp32_rel_l2_by_step": bf16_vs_fp32,
+            "fp32_perturbed_rel_l2_by_step": perturbed,
+            "perturbation": SSM_PERTURB,
             "fp32_one_shot_prefill_host_ms": one["prefill_host_ms"],
             "fp32_peak_bytes": one["peak_bytes"],
             "reckoning_bytes": zoo_reckoning_bytes(cfg, ZOO_PROMPT)}
     log(f"16b numbers: {json.dumps(nums)}")
-    return {"numbers": nums, "paths": {"zoo_ssm": run["launches"]}}
+    return {"numbers": nums, "oracle": zoo_oracle(one),
+            "paths": {"zoo_ssm": run["launches"]}}
 
 
 def zoo_hybrid(torch, dev) -> dict:
@@ -5621,32 +5756,64 @@ def frontend_phases(torch, dev) -> dict:
     return {"paths": paths}
 
 
+def spawn_world(dev, n_ranks: int, timeout_s: float = MESH_TIMEOUT_S,
+                alloc_conf: str | None = None):
+    """A `launch.mesh.RankWorld` of `n_ranks` gloo ranks on the card,
+    spawned now, so the ranks import torch while the parent prepares
+    their first call; with `alloc_conf`, the ranks' (not the parent's)
+    PYTORCH_CUDA_ALLOC_CONF. Close it (a `with` block) to stop them."""
+    from repro_torch.launch.mesh import RankWorld
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if alloc_conf is not None:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    try:
+        return RankWorld(n_ranks, backend="gloo", device=rank_device(dev),
+                         timeout_s=timeout_s)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+
 def rank_world(torch, dev, name: str, calls: list, n_ranks: int,
-               timeout_s: float = MESH_TIMEOUT_S) -> tuple[list, dict]:
-    """Spawn `n_ranks` gloo ranks on the card (`launch.mesh.run_ranks`)
-    running `calls` one after another in one world (`train.sharded.
-    run_calls`). Returns each call's reports in rank order and the world's
-    start: seconds from the spawn until the last rank had started, had
-    imported torch, had its arguments, had joined, had reported."""
-    from repro_torch.launch.mesh import run_ranks
+               timeout_s: float = MESH_TIMEOUT_S,
+               world=None) -> tuple[list, dict]:
+    """Run `calls` one after another (`train.sharded.run_calls`) on the
+    `n_ranks` gloo ranks of `world` (`spawn_world`), or of a world spawned
+    for them alone. Returns each call's reports in rank order and the
+    call's start: seconds from the call (from the spawn, for a world's
+    first call) until the last rank had started, had imported torch, had
+    its arguments, had joined, had reported (a rank of an earlier call
+    started and imported before the call: negative)."""
     from repro_torch.train.sharded import run_calls
     t0 = time.perf_counter()
     timings: dict = {}
-    res = run_ranks(run_calls, n_ranks, (calls,), backend="gloo",
-                    device=rank_device(dev), timeout_s=timeout_s,
-                    timings=timings)
+    own = world is None
+    if own:
+        world = spawn_world(dev, n_ranks, timeout_s)
+    try:
+        if world.n != n_ranks:
+            raise ValueError(f"{name} wants {n_ranks} ranks, the world has "
+                             f"{world.n}")
+        res = world.run(run_calls, (calls,), timeout_s=timeout_s,
+                        timings=timings)
+    finally:
+        if own:
+            world.close()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    world = {"ranks": n_ranks, "spawn_and_run_s": time.perf_counter() - t0,
-             **{f"last_rank_{label}_s": max(t[key] for t in timings["ranks"])
-                for key, label in (("started", "started"),
-                                   ("imported", "imported"),
-                                   ("entered", "entered"),
-                                   ("joined", "joined"),
-                                   ("returned", "reported"))},
-             "all_exited_s": timings["all_exited_s"]}
-    log(f"  {name} world: {json.dumps(world)}")
-    return [[r[i] for r in res] for i in range(len(calls))], world
+    out = {"ranks": n_ranks, "world_call": world.calls,
+           "spawn_and_run_s": time.perf_counter() - t0,
+           **{f"last_rank_{label}_s": max(t[key] for t in timings["ranks"])
+              for key, label in (("started", "started"),
+                                 ("imported", "imported"),
+                                 ("entered", "entered"),
+                                 ("joined", "joined"),
+                                 ("returned", "reported"))},
+           "all_reported_s": timings["all_reported_s"]}
+    log(f"  {name} world: {json.dumps(out)}")
+    return [[r[i] for r in res] for i in range(len(calls))], out
 
 
 def multihost_rank_numbers(name: str, res: list) -> dict:
@@ -5792,7 +5959,7 @@ def elastic_setup(torch, dev, cfg) -> dict:
 
 
 def mesh_multihost(torch, dev, cfg, want: dict, ref: dict, run: dict,
-                   extra: tuple = ()) -> tuple[dict, list]:
+                   extra: tuple = (), world=None) -> tuple[dict, list]:
     """Phases 18a-18b: `run` names the per-host cache, strict_sync,
     fetch_chunk and whether the batches carry the plan hook's plan, as
     13a's or 13b's. The parent draws the launcher's table on the card from
@@ -5803,8 +5970,8 @@ def mesh_multihost(torch, dev, cfg, want: dict, ref: dict, run: dict,
     launcher's; the table's checksums and the shards' added
     LAUNCHER_FINAL_SUMS; every rank's CacheStats and RouteStats `ref`'s
     (the single-controller run's); MULTIHOST_RANK_STEP launches a rank a
-    step. `extra` calls run after it in the same world; returns the run's
-    numbers and their reports."""
+    step. `extra` calls run after it in the same call of `world` (a world
+    of its own without); returns the run's numbers and their reports."""
     from repro_torch.core.cache import MultiHostCachedEmbeddingBagCollection
     from repro_torch.core.dlrm import init_dlrm_params
     from repro_torch.launch.train import PARAM_SEED
@@ -5834,7 +6001,7 @@ def mesh_multihost(torch, dev, cfg, want: dict, ref: dict, run: dict,
         f"({mc.cache_rows * cfg.embed_dim * 4} bytes)")
     (res, *more), world = rank_world(torch, dev, name,
                                      [(multihost_rank, job)] + list(extra),
-                                     hn)
+                                     hn, world=world)
     del job
     nums = multihost_rank_numbers(name, res)
     sums = (bit_checksum(torch, mega), bit_checksum(torch, accum))
@@ -6001,9 +6168,9 @@ def pod_checks(torch, dev, el: dict, pods: list) -> dict:
 
 
 def multihost_mesh_phases(torch, dev, cfg, want: dict, ref: dict) -> dict:
-    """Phase 18 (see the module docstring): 18a in one world of
-    MULTIHOST_HOSTS ranks; 18b, 18c's halves and 18d in a second (18c's
-    second half and 18d on POD_MESH). `ref` holds 13a's and 13b's
+    """Phase 18 (see the module docstring): one world of MULTIHOST_HOSTS
+    ranks runs 18a, then in a second call 18b, 18c's halves and 18d
+    (18c's second half and 18d on POD_MESH). `ref` holds 13a's and 13b's
     numbers. Returns each part's numbers."""
     import shutil
     import tempfile
@@ -6016,39 +6183,42 @@ def multihost_mesh_phases(torch, dev, cfg, want: dict, ref: dict) -> dict:
                     "hook": "offset", "strict_sync": True,
                     "fetch_chunk": EVICT_CHUNK}}
     out = {}
-    log(f"phase 18a: {MULTIHOST_HOSTS} gloo ranks on this card, "
-        f"build_cached_train_step(mesh=make_host_mesh({MULTIHOST_HOSTS})), "
-        f"13a's cache and batches, {TRAIN_STEPS} steps")
-    out["18a"], _ = mesh_multihost(torch, dev, cfg, want, ref["13a"],
-                                   runs["18a"])
-    free_device(torch)
-    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
-    ckdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_",
-                             dir=os.path.join(ROOT, "runs"))
-    try:
-        log(f"phase 18c: dlrm-m1 with each table cut to 1/{ELASTIC_ROW_DIV} "
-            f"of its rows: the uninterrupted run")
-        el = elastic_setup(torch, dev, cfg)
-        first, second = elastic_jobs(el, ckdir)
-        log(f"phase 18b: 13b's run on {MULTIHOST_HOSTS} ranks (strict_sync, "
-            f"{MULTIHOST_EVICT_CACHE_ROWS} slots, fetch_chunk {EVICT_CHUNK}),"
-            f" then in the same world 18c's first {ELASTIC_SPLIT} steps, "
-            f"saved, restored onto {ELASTIC_HOSTS} hosts (restore("
-            f"shardings=), {POD_RANKS} pods of the mesh {POD_MESH}) and "
-            f"finished; 18d's EASGD {json.dumps(EASGD_ROUNDS)} over its pod "
-            f"axis")
-        out["18b"], (first_res, second_res, pods) = mesh_multihost(
-            torch, dev, cfg, want, ref["13b"], runs["18b"],
-            extra=((multihost_rank, first), (multihost_rank, second),
-                   (pod_rank, {"params": el["dense"], "mesh": POD_MESH,
-                               **EASGD_ROUNDS})))
-        out["18c"] = check_elastic(el, first_res, second_res)
-        out["18d"] = pod_checks(torch, dev, el, pods)
-        del el, first, second
-        release_shared(torch, dev)
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    free_device(torch)
+    with spawn_world(dev, MULTIHOST_HOSTS) as world:
+        log(f"phase 18a: {MULTIHOST_HOSTS} gloo ranks on this card, "
+            f"build_cached_train_step(mesh=make_host_mesh("
+            f"{MULTIHOST_HOSTS})), 13a's cache and batches, {TRAIN_STEPS} "
+            f"steps")
+        out["18a"], _ = mesh_multihost(torch, dev, cfg, want, ref["13a"],
+                                       runs["18a"], world=world)
+        free_device(torch)
+        os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_",
+                                 dir=os.path.join(ROOT, "runs"))
+        try:
+            log(f"phase 18c: dlrm-m1 with each table cut to "
+                f"1/{ELASTIC_ROW_DIV} of its rows: the uninterrupted run")
+            el = elastic_setup(torch, dev, cfg)
+            first, second = elastic_jobs(el, ckdir)
+            log(f"phase 18b: 13b's run on {MULTIHOST_HOSTS} ranks "
+                f"(strict_sync, {MULTIHOST_EVICT_CACHE_ROWS} slots, "
+                f"fetch_chunk {EVICT_CHUNK}), then in the same call 18c's "
+                f"first {ELASTIC_SPLIT} steps, saved, restored onto "
+                f"{ELASTIC_HOSTS} hosts (restore(shardings=), {POD_RANKS} "
+                f"pods of the mesh {POD_MESH}) and finished; 18d's EASGD "
+                f"{json.dumps(EASGD_ROUNDS)} over its pod axis")
+            out["18b"], (first_res, second_res, pods) = mesh_multihost(
+                torch, dev, cfg, want, ref["13b"], runs["18b"],
+                extra=((multihost_rank, first), (multihost_rank, second),
+                       (pod_rank, {"params": el["dense"], "mesh": POD_MESH,
+                                   **EASGD_ROUNDS})),
+                world=world)
+            out["18c"] = check_elastic(el, first_res, second_res)
+            out["18d"] = pod_checks(torch, dev, el, pods)
+            del el, first, second
+            release_shared(torch, dev)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        free_device(torch)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 18 took {out['phase_s']:.1f} s")
     return out
@@ -6300,13 +6470,17 @@ def lm_mesh_params(name: str, res: list, cfg, want: dict) -> dict:
     return nums
 
 
-def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
+def lm_mesh_phase(torch, dev, cfg, losses_14b: list, world,
+                  serve: dict | None = None) -> dict:
     """Phase 19 (the module docstring): the attention kernels at a rank's
     shapes; the one-device oracles (19a-19d's runs, their final parameters
-    in files the ranks read; 19d's and 19e's step-0 gradients); one 4-rank
-    world running 19a-19e in turn over CUDA IPC views of the parent's
-    parameters and oracle gradients. Returns each run's numbers and the
-    flash numbers."""
+    in files the ranks read; 19d's and 19e's step-0 gradients); `world`'s
+    4 ranks (`spawn_world`, spawned before this phase, so they import
+    while it checks the kernels and runs the oracles) running 19a-19e in
+    one call over CUDA IPC views of the parent's parameters and oracle
+    gradients, then, with `serve` (phase 20's one-device oracles by phase:
+    "9b", "16a", "16b"), phase 20's runs in the same call. Returns each
+    run's numbers and the flash numbers."""
     import dataclasses
     import shutil
     import tempfile
@@ -6331,6 +6505,12 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
         "rank's shapes: " + ", ".join(f"{n} {s}" for n, s, _ in shapes))
     out["flash"] = check_flash_attention_bwd(torch, dev, shapes=shapes)
     free_device(torch)
+    if serve is not None:
+        log(f"phase 20: flash_attention vs plain at a serving rank's prefill "
+            f"shape {FLASH_SERVE_RANK_SHAPE} bfloat16")
+        out["flash_serve"] = check_flash_shape(
+            torch, dev, "rank_20a", FLASH_SERVE_RANK_SHAPE, "bfloat16")
+        free_device(torch)
 
     def on_dev(batch):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -6370,7 +6550,7 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
     full = init_lm_params(cfg, train_cli.PARAM_SEED, dev)
     batches = [make_lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, t, 0)
                for t in range(LM_MESH_STEPS)]
-    cut = dataclasses.replace(cfg, n_layers=LM_MESH_TRAIN_LAYERS)
+    cut = dataclasses.replace(cfg, n_layers=LM_MESH_LAYERS)
     grad_cfg = dataclasses.replace(cfg, n_layers=LM_MESH_GRAD_LAYERS,
                                    compute_dtype="float32")
     grad_params = tree_map(lambda t: t.clone(),
@@ -6378,25 +6558,23 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
     grad_batches = [make_lm_batch(grad_cfg, LM_TRAIN_BATCH,
                                   LM_MESH_GRAD_SEQ, t, 0)
                     for t in range(LM_MESH_GRAD_STEPS)]
-    # the oracles the ranks' final parameters are held to: 19c's at the
-    # cut depth and 19d's on copies, then 19a's and 19b's on `full`
+    # the oracles the ranks' final parameters are held to: 19a-19c's at
+    # the cut depth and 19d's, each on copies
     log(f"phase 19's oracles: build_lm_train_step on one device, "
-        f"{cfg.name} at {cfg.n_layers} and {cut.n_layers} layers "
-        f"({LM_MESH_STEPS} steps), at {grad_cfg.n_layers} in fp32 "
-        f"({LM_MESH_GRAD_STEPS} steps)")
+        f"{cfg.name} at {cut.n_layers} layers ({LM_MESH_STEPS} steps), at "
+        f"{grad_cfg.n_layers} in fp32 ({LM_MESH_GRAD_STEPS} steps)")
     os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
     flat_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_",
                                 dir=os.path.join(ROOT, "runs"))
-    want = {"19c": oracle(cut, tree_map(lambda t: t.clone(), cut_units(
-                full, cut.n_units)), batches, "19c"),
+    want = {"cut": oracle(cut, tree_map(lambda t: t.clone(), cut_units(
+                full, cut.n_units)), batches, "cut"),
             "19d": oracle(grad_cfg, tree_map(lambda t: t.clone(),
                                              grad_params),
-                          grad_batches, "19d"),
-            "19a": oracle(cfg, full, batches, "19a")}
+                          grad_batches, "19d")}
     del full
     gc.collect()
     torch.cuda.empty_cache()
-    losses_c = want["19c"]["losses"]
+    losses_c = want["cut"]["losses"]
     # 19d's and 19e's gradient oracles: step 0's loss and gradients
     grad_loss, grad_want = one_device(grad_cfg, grad_params,
                                       grad_batches[0])
@@ -6451,7 +6629,7 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()         # the oracles' cached blocks
-    log(f"  oracles: 19c losses {losses_c}; 19d loss {grad_loss}; 19e "
+    log(f"  oracles: 19a-19c losses {losses_c}; 19d loss {grad_loss}; 19e "
         + ", ".join(f"{z[0]} {z[4]}" for z in zoo)
         + f"; parent allocated {torch.cuda.memory_allocated()} bytes, "
         f"reserved {torch.cuda.memory_reserved()}")
@@ -6459,13 +6637,10 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
     # parameters, 19d and 19e to step 0's gradients
     seed = {"seed": train_cli.PARAM_SEED, "init_cfg": cfg,
             "log_steps": True}
-    calls = [(lm_rank, {"cfg": cfg, "rules": r, "batches": batches,
-                        "profile_steps": 1,
-                        "want_params": want["19a"]["path"], **seed})
-             for r in ("FSDP_RULES", "ZERO_DP_RULES")]
-    calls += [(lm_rank, {"cfg": cut, "rules": "TRAIN_RULES",
-                         "batches": batches,
-                         "want_params": want["19c"]["path"], **seed})]
+    calls = [(lm_rank, {"cfg": cut, "rules": r, "batches": batches,
+                        "profile_steps": int(r != "TRAIN_RULES"),
+                        "want_params": want["cut"]["path"], **seed})
+             for r in LM_MESH_TABLES]
     calls += [(lm_rank, {"cfg": grad_cfg, "rules": r, "params": grad_params,
                          "batches": grad_batches, "want_grads": grad_want,
                          "want_params": want["19d"]["path"]})
@@ -6473,37 +6648,30 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
     calls += [(lm_rank, {"cfg": cd, "rules": "FSDP_RULES", "params": p,
                          "batches": [b], "want_grads": grads})
               for _, cd, p, b, _, grads, _, _, _ in zoo]
+    n19 = len(calls)
+    if serve is not None:
+        calls += lm_serve_calls(serve)
     log(f"phase 19a-19e: 4 gloo ranks on this card, mesh {LM_MESH}: "
-        f"19a FSDP_RULES and 19b ZERO_DP_RULES at full depth, 19c "
-        f"TRAIN_RULES at {cut.n_layers} layers ({LM_MESH_STEPS} steps of "
+        f"19a FSDP_RULES, 19b ZERO_DP_RULES and 19c TRAIN_RULES at "
+        f"{cut.n_layers} layers ({LM_MESH_STEPS} steps of "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}); 19d at "
         f"{LM_MESH_GRAD_LAYERS} layers, {LM_MESH_GRAD_SEQ} positions, fp32, "
         f"{LM_MESH_GRAD_STEPS} steps under {LM_MESH_TABLES}; 19e "
         f"{MOE_TRAIN_ARCH} and {SSM_ARCH} at one unit under FSDP_RULES, "
-        f"bf16 and fp32")
-    # four ranks' allocators share the card: expandable segments keep
-    # what one rank freed usable by another's larger blocks
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        f"bf16 and fp32" + ("" if serve is None else
+                            "; then phase 20 in the same world"))
     try:
         res, out["world"] = rank_world(torch, dev, "phase 19", calls, 4,
-                                       timeout_s=LM_MESH_TIMEOUT_S)
+                                       timeout_s=LM_MESH_TIMEOUT_S,
+                                       world=world)
     finally:
-        if alloc is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         shutil.rmtree(flat_dir, ignore_errors=True)
-    log(f"  19a's oracle (one device, full depth) losses "
-        f"{want['19a']['losses']} against 14b's {losses_14b}")
-    runs = (("19a", cfg, "FSDP_RULES", LM_TRAIN_SEQ, losses_14b),
-            ("19b", cfg, "ZERO_DP_RULES", LM_TRAIN_SEQ, losses_14b),
-            ("19c", cut, "TRAIN_RULES", LM_TRAIN_SEQ, losses_c))
-    for i, (name, c, rules_name, seq, want_losses) in enumerate(runs):
-        out[name] = lm_mesh_run(name, res[i], c, rules_name, seq,
-                                want_losses, TOL_LM_MESH_LOSS)
-        out[name]["params"] = lm_mesh_params(
-            name, res[i], c, want["19c" if name == "19c" else "19a"])
+    log(f"  19a-19c's oracle (one device, {cut.n_layers} layers) losses "
+        f"{losses_c}; 14b's at full depth {losses_14b}")
+    for i, name in enumerate(("19a", "19b", "19c")):
+        out[name] = lm_mesh_run(name, res[i], cut, LM_MESH_TABLES[i],
+                                LM_TRAIN_SEQ, losses_c, TOL_LM_MESH_LOSS)
+        out[name]["params"] = lm_mesh_params(name, res[i], cut, want["cut"])
     paths = ["/".join(p) for p in leaf_paths(grad_want)]
     for i, r in enumerate(LM_MESH_TABLES):
         out[f"19d {r}"] = lm_mesh_grads(
@@ -6523,12 +6691,317 @@ def lm_mesh_phase(torch, dev, cfg, losses_14b: list) -> dict:
         out[name]["run"] = lm_mesh_run("19e", res_e, cd, "FSDP_RULES",
                                        LM_MESH_ZOO_SEQ,
                                        None, 0.0)
+    if serve is not None:
+        out.update(lm_serve_results(res[n19:], serve))
     del grad_params, grad_want, zoo, calls, res
     release_shared(torch, dev)
     free_device(torch)
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 19 took {out['phase_s']:.1f} s")
+    log(f"phases 19 and 20 took {out['phase_s']:.1f} s")
     return out
+
+
+def lm_serve_reckoning(cfg, rules: dict, mesh_spec, batch: int, seq: int,
+                       max_len: int) -> dict:
+    """A serving rank's device memory by the reckoning (bytes): its fp32
+    parameter blocks (`NamedSharding.local_shape` of each leaf's
+    `resolve_sized` spec), its blocks of the caches (`init_caches(rules=,
+    mesh=)` on the meta device, `cache_pspecs`' blocks but a mixer's conv
+    tail), the one-device path's transients at batch x seq tokens
+    (`zoo_reckoning_bytes`' largest layer's bf16 casts, logits and
+    largest layer transient, each an upper bound for a rank's share), and
+    the collectives' device buffers: four (tokens, d) partial-sum copies
+    and, where the cache splits by positions, the prompt's K and V
+    gathered whole twice over."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.lm import init_caches, lm_param_specs
+    from repro_torch.nn.layers import kv_cache_spec
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.nn.sharding import NamedSharding, dim_axes, resolve_sized
+    shape, names = mesh_spec
+    mesh = SimpleNamespace(axis_names=names, shape=dict(zip(names, shape)),
+                           coords={a: 0 for a in names})
+    blocks = sum(4 * math.prod(NamedSharding(mesh, resolve_sized(
+        s.logical_axes, rules, mesh, s.shape)).local_shape(s.shape))
+        for s in tree_leaves(lm_param_specs(cfg)))
+    caches = init_caches(cfg, batch, max_len, "meta", rules, mesh)
+    tokens = batch * seq
+    one = zoo_reckoning_bytes(cfg, tokens)
+    coll = 4 * tokens * cfg.d_model * 2
+    if "a" in cfg.pattern and dim_axes(kv_cache_spec(
+            rules, mesh, batch, max_len, cfg.n_kv_heads, cfg.d_head), 1):
+        coll += 4 * tokens * cfg.n_kv_heads * cfg.d_head * 2
+    parts = {"param_blocks_fp32": blocks,
+             "cache_blocks": sum(t.numel() * t.element_size()
+                                 for c in caches.values()
+                                 for t in c.values()),
+             **{k: one[k] for k in ("largest_layer_bf16_casts",
+                                    "logits_bf16",
+                                    "largest_layer_transient")},
+             "collective_buffers": coll}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def lm_serve_calls(oracles: dict) -> list:
+    """Phase 20's `lm_serve_rank` jobs: 20a-20d (LM_SERVE_RUNS) fed the
+    one-device run's tokens, then 20e's engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.train.sharded import lm_serve_rank
+    calls = []
+    for name, arch, rules, phase, seed, dtype in LM_SERVE_RUNS:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype=dtype)
+        calls.append((lm_serve_rank, {
+            "cfg": cfg, "rules": rules, "mesh": LM_SERVE_MESH,
+            "seed": seed, "prompt": make_lm_batch(cfg, 1, LM_PROMPT)[
+                "tokens"],
+            "max_len": LM_SERVE_MESH_MAX_LEN,
+            "decode": LM_SERVE_MESH_DECODE,
+            "feed": [[t] for t in
+                     oracles[phase]["fed"][:LM_SERVE_MESH_DECODE]],
+            "report_logits": "first"}))
+    cfg, reqs, slots, max_len = lm_serve_engine_setup()
+    calls.append((lm_serve_rank, {
+        "cfg": cfg, "rules": "SERVE_RULES", "mesh": LM_SERVE_ENGINE_MESH,
+        "seed": serve_cli.PARAM_SEED, "init_cfg": get_config(SSM_ARCH),
+        "report_logits": False,
+        "engine": {"slots": slots, "max_len": max_len, "alone": True,
+                   "requests": reqs}}))
+    return calls
+
+
+def lm_serve_engine_setup():
+    """20e's config (fp32 compute, LM_SERVE_ENGINE_LAYERS layers),
+    requests (uid, prompt, budget), slots and max_len: ZOO_SERVE_ARGV's,
+    as 16d serves them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    argv = ZOO_SERVE_ARGV
+
+    def arg(flag, n=1):
+        i = argv.index(flag)
+        vals = [int(v) if v.isdigit() else v for v in argv[i + 1:i + 1 + n]]
+        return vals if n > 1 else vals[0]
+    cfg = dataclasses.replace(get_config(arg("--arch")),
+                              compute_dtype=arg("--compute-dtype"),
+                              n_layers=LM_SERVE_ENGINE_LAYERS)
+    reqs = [(r.uid, r.prompt, r.max_new_tokens) for r in
+            serve_cli.lm_requests(cfg, arg("--requests"),
+                                  tuple(arg("--prompt-len", 2)),
+                                  arg("--new-tokens"))]
+    return cfg, reqs, arg("--slots"), arg("--max-len")
+
+
+def lm_serve_results(res: list, oracles: dict) -> dict:
+    """Phase 20's gates and numbers on the world's reports (the module
+    docstring): 20a-20d by `lm_serve_mesh_run`, 20e by
+    `lm_serve_engine_run`."""
+    from repro_torch.configs import get_config
+    out = {}
+    for i, (name, arch, rules, phase, _, dtype) in enumerate(LM_SERVE_RUNS):
+        out[name] = lm_serve_mesh_run(
+            name, res[i], dataclasses.replace(get_config(arch),
+                                              compute_dtype=dtype),
+            rules, oracles[phase])
+    out["20e"] = lm_serve_engine_run(res[len(LM_SERVE_RUNS)])
+    return out
+
+
+def _launch_totals(res: list) -> tuple[dict, list]:
+    """Each kernel's launches over every rank and step, and by rank."""
+    per_rank = [{k: sum(c[k] for c in r["launches"]) for k in
+                 r["launches"][0]} for r in res]
+    return {k: sum(p[k] for p in per_rank) for k in per_rank[0]}, per_rank
+
+
+def blocks_held(name: str, r: dict, reckon: dict) -> None:
+    """A serving rank holds its blocks and nothing more: its parameter
+    bytes exactly the reckoning's fp32 parameter blocks, its cache bytes
+    exactly the reckoning's cache blocks (`lm_serve_reckoning`, from the
+    same specs)."""
+    got = {"param_blocks_fp32": r["param_bytes"],
+           "cache_blocks": r["cache_bytes"]}
+    want = {k: reckon[k] for k in got}
+    if got != want:
+        raise AssertionError(f"{name} rank {r['rank']} holds {got} bytes, "
+                             f"its blocks {want}")
+
+
+def lm_serve_mesh_run(name: str, res: list, cfg, rules_name: str,
+                      oracle: dict) -> dict:
+    """Phase 20's gates on one serving run (20a-20d): every rank's logits
+    bit-equal to rank 0's; rank 0's, each step, within
+    TOL_LM_SERVE_MESH_REL_L2 of the one-device run's (relative L2,
+    printed), and its argmax the oracle's wherever the oracle's top-2
+    margin exceeds twice the step's largest difference; each rank's
+    flash-attention launches exactly one a layer in the prefill and none
+    in decode, no other kernel; each step's `Mesh.stats` calls equal to
+    `serve.sharded.lm_serve_collectives`; each rank's parameter and cache
+    bytes exactly its blocks (`blocks_held`) and its peak under
+    `lm_serve_reckoning`; no jax or reference module. Returns its
+    numbers."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+
+    from repro_torch.launch.mesh import COLLECTIVES
+    from repro_torch.nn import sharding
+    from repro_torch.serve.sharded import lm_serve_collectives
+    rules = getattr(sharding, rules_name)
+    shape, names = LM_SERVE_MESH
+    mesh = SimpleNamespace(axis_names=names, shape=dict(zip(names, shape)))
+    n_attn = cfg.pattern.count("a") * cfg.n_units
+    reckon = lm_serve_reckoning(cfg, rules, LM_SERVE_MESH, 1, LM_PROMPT,
+                                LM_SERVE_MESH_MAX_LEN)
+    first = next(r for r in res if r["rank"] == 0)
+    want_calls = {mode: lm_serve_collectives(cfg, rules, mesh, mode,
+                                             LM_SERVE_MESH_MAX_LEN)
+                  for mode in ("prefill", "decode")}
+    for r in res:
+        if r["logits_bits"] != first["logits_bits"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s logits differ "
+                                 "from rank 0's")
+        for t, counts in enumerate(r["launches"]):
+            got = {k: v for k, v in counts.items() if v}
+            want = {"flash_attention": n_attn} if t == 0 and n_attn else {}
+            if got != want:
+                raise AssertionError(f"{name} rank {r['rank']} step {t}: "
+                                     f"launches {got}, want {want}")
+        for t, st in enumerate(r["collectives"]):
+            got = {k[:-len("_calls")]: v for k, v in st.items()
+                   if "@" in k and k.endswith("_calls") and v}
+            want = want_calls["prefill" if t == 0 else "decode"]
+            if got != want:
+                raise AssertionError(f"{name} rank {r['rank']} step {t}: "
+                                     f"collectives {got}, want {want}")
+        blocks_held(name, r, reckon)
+        if r["peak_bytes"] is None or r["peak_bytes"] > reckon["total"]:
+            raise AssertionError(f"{name} rank {r['rank']}: peak "
+                                 f"{r['peak_bytes']} over the reckoning "
+                                 f"{reckon}")
+        if r["foreign_modules"]:
+            raise AssertionError(f"{name} rank {r['rank']} loaded "
+                                 f"{r['foreign_modules']}")
+    want_logits = [oracle["last"]] + list(
+        oracle["logits"][:LM_SERVE_MESH_DECODE])
+    rel, err, margins = [], [], []
+    for t, (g, w) in enumerate(zip(first["logits"], want_logits)):
+        g, w = torch.from_numpy(g).float(), w.float()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} step {t}: logits {tuple(g.shape)} "
+                                 f"not finite or not {tuple(w.shape)}")
+        rel.append(rel_l2(g, w))
+        err.append(float((g - w).abs().max()))
+        top = w.topk(2, dim=-1).values
+        margin = float((top[..., 0] - top[..., 1]).min())
+        margins.append(margin)
+        if margin > 2 * err[-1] and not torch.equal(g.argmax(-1),
+                                                    w.argmax(-1)):
+            raise AssertionError(f"{name} step {t}: argmax "
+                                 f"{g.argmax(-1).tolist()} against "
+                                 f"{w.argmax(-1).tolist()} at a margin of "
+                                 f"{margin} > 2 x {err[-1]}")
+    log(f"  {name}: each step's logits against the one-device run's, "
+        f"relative L2 (tol {TOL_LM_SERVE_MESH_REL_L2}): "
+        f"{[float('%.4g' % x) for x in rel]}")
+    if len(rel) != LM_SERVE_MESH_DECODE + 1 or \
+            max(rel) > TOL_LM_SERVE_MESH_REL_L2:
+        raise AssertionError(f"{name}: the mesh's logits disagree with the "
+                             f"one-device run's: {rel}")
+    launches, per_rank = _launch_totals(res)
+
+    def mean(key, steps):
+        return float(np.mean([r["collectives"][t][key] for r in res
+                              for t in steps]))
+    dec = range(1, LM_SERVE_MESH_DECODE + 1)
+    nums = {"card": CARD, "rules": rules_name, "mesh": LM_SERVE_MESH[0],
+            "layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+            "prompt": LM_PROMPT, "decode_steps": LM_SERVE_MESH_DECODE,
+            "max_len": LM_SERVE_MESH_MAX_LEN,
+            "rel_l2_by_step": rel, "max_abs_err_by_step": err,
+            "oracle_top2_margin_by_step": margins,
+            "argmax_agrees_by_step": [
+                int(np.argmax(g)) == int(w.argmax())
+                for g, w in zip(first["logits"], want_logits)],
+            "prefill_host_ms_by_rank": [r["host_ms"][0] for r in res],
+            "decode_host_ms_per_token_slowest_rank": float(np.mean(
+                [max(r["host_ms"][t] for r in res) for t in dec])),
+            "prefill_collectives": {op: {
+                "calls": mean(f"{op}_calls", [0]),
+                "bytes": mean(f"{op}_bytes", [0]),
+                "ms": mean(f"{op}_ms", [0])} for op in COLLECTIVES},
+            "decode_collectives_per_step": {op: {
+                "calls": mean(f"{op}_calls", dec),
+                "bytes": mean(f"{op}_bytes", dec),
+                "ms": mean(f"{op}_ms", dec)} for op in COLLECTIVES},
+            "calls_by_axis": want_calls,
+            "param_block_bytes_by_rank": [r["param_bytes"] for r in res],
+            "cache_block_bytes_by_rank": [r["cache_bytes"] for r in res],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in res],
+            "reckoning_bytes": reckon, "launches": launches,
+            "launches_per_rank": per_rank}
+    log(f"  {name} numbers: " + json.dumps(
+        {k: v for k, v in nums.items() if k not in (
+            "launches_per_rank", "max_abs_err_by_step",
+            "oracle_top2_margin_by_step", "argmax_agrees_by_step")}))
+    return nums
+
+
+def lm_serve_engine_run(res: list) -> dict:
+    """Phase 20e's gates: every rank completes every request with its
+    full budget, rank 0's tokens on every rank, each request's tokens
+    those of the same request served alone by a fresh engine on the mesh
+    (the same product shapes, so the same bits; a state carried over from
+    a slot's last request moves them), no kernel launched, each rank's
+    parameter and cache bytes exactly its blocks (`blocks_held`: the
+    caches of its slots' rows) and its peak under `lm_serve_reckoning`,
+    no jax or reference module."""
+    from repro_torch.nn import sharding
+    cfg, reqs, slots, max_len = lm_serve_engine_setup()
+    reckon = lm_serve_reckoning(cfg, sharding.SERVE_RULES,
+                                LM_SERVE_ENGINE_MESH, slots, max_len,
+                                max_len)
+    first = next(r for r in res if r["rank"] == 0)["engine"]
+    done = first["completed"]
+    budget = {uid: min(b, max_len - len(p)) for uid, p, b in reqs}
+    if sorted(done) != sorted(budget) or any(
+            len(done[u]) != budget[u] for u in budget):
+        raise AssertionError(f"20e: not every request got its tokens: "
+                             f"{ {u: len(v) for u, v in done.items()} }")
+    for r in res:
+        e = r["engine"]
+        if e["completed"] != done or e["alone"] != done:
+            raise AssertionError(f"20e rank {r['rank']}: tokens differ "
+                                 f"from rank 0's or from the requests "
+                                 f"served alone: {e}")
+        blocks_held("20e", r, reckon)
+        if r["peak_bytes"] is None or r["peak_bytes"] > reckon["total"]:
+            raise AssertionError(f"20e rank {r['rank']}: peak "
+                                 f"{r['peak_bytes']} over {reckon}")
+        if r["foreign_modules"]:
+            raise AssertionError(f"20e rank {r['rank']} loaded "
+                                 f"{r['foreign_modules']}")
+    launches, per_rank = _launch_totals(res)
+    if any(launches.values()):
+        raise AssertionError(f"20e launched kernels: {launches}")
+    tokens = sum(len(v) for v in done.values())
+    nums = {"card": CARD, "mesh": LM_SERVE_ENGINE_MESH[0], "slots": slots,
+            "requests": len(reqs), "tokens": tokens,
+            "engine_steps": first["steps"], "host_s": first["host_s"],
+            "tok_per_s": tokens / first["host_s"],
+            "param_block_bytes_by_rank": [r["param_bytes"] for r in res],
+            "cache_block_bytes_by_rank": [r["cache_bytes"] for r in res],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in res],
+            "reckoning_bytes": reckon, "launches": launches,
+            "launches_per_rank": per_rank, "generated": done}
+    log("  20e numbers: " + json.dumps(
+        {k: v for k, v in nums.items() if k != "launches_per_rank"}))
+    return nums
 
 
 def search_main() -> int:
@@ -6802,6 +7275,8 @@ def main() -> int:
         f"attention), decode_step on token {LM_PROMPT - 1}")
     paths["lm_prefill_plain"] = lm_prefill_plain(torch, lm_cfg, run)[
         "launches"]
+    # phase 20's oracles, kept on the host: 9b's, 16a's and 16b's logits
+    serve_oracles = {"9b": run["oracle"]}
     del run
     free_device(torch)
     paths["lm_serve"] = lm_serve(torch, lm_cfg)["launches"]
@@ -6948,10 +7423,16 @@ def main() -> int:
         f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r})")
     log(f"phase 12a: build_tablewise_train_step(mesh=(1, "
         f"{TABLEWISE_OWNERS})), 8a's seed and batches, next batch staged")
-    mesh = {"12a": mesh_tablewise_m1(torch, dev, cfg, ebc_tw, tw)}
-    free_device(torch)
-    mesh.update(mesh_psum_m2(torch, dev, m2))
-    mesh["12c"] = mesh_hybrid_m2(torch, dev, m2)
+    # 12a and 12c share one world of 8 ranks; 12b's 4 ranks are spawned
+    # before 12c's oracle and import meanwhile
+    with spawn_world(dev, TABLEWISE_OWNERS) as w8:
+        mesh = {"12a": mesh_tablewise_m1(torch, dev, cfg, ebc_tw, tw, w8)}
+        free_device(torch)
+        with spawn_world(dev, MESH_PSUM_SHAPE[1]) as w4:
+            mesh["12c"] = mesh_hybrid_m2(torch, dev, m2, w8)
+            w8.close()
+            free_device(torch)
+            mesh.update(mesh_psum_m2(torch, dev, m2, w4))
     free_device(torch)
     for name, nums in mesh.items():
         paths[f"mesh_{name}"] = nums["launches"]
@@ -7020,6 +7501,8 @@ def main() -> int:
         log_peak(torch, f"phase {key}")
         del res
         free_device(torch)
+    serve_oracles.update({"16a": zoo["16a"].pop("oracle"),
+                          "16b_fp32": zoo["16b"].pop("oracle")})
     numbers["flash_attention"]["granite_moe"] = zoo["16a"]["flash"]
     numbers["flash_attention"]["jamba_dh128"] = zoo["16c"]["flash"]
     per_launch = {}
@@ -7065,13 +7548,28 @@ def main() -> int:
     log(f"18d numbers: {json.dumps(ranks['18d'])}")
 
     # 19. the LM step over a (data 2, model 2) mesh of gloo ranks: FSDP
-    #     (19a) and ZERO_DP (19b) at full width and depth, TRAIN cut in
-    #     depth (19c), step 0's gradients under each table (19d), one unit
-    #     of the MoE and SSM families (19e)
-    lm_mesh = lm_mesh_phase(torch, dev, lm_cfg, lm_train["losses_14b"])
-    for name in ("19a", "19b", "19c"):
+    #     (19a), ZERO_DP (19b) and TRAIN (19c) at full width cut in depth,
+    #     step 0's gradients under each table (19d), one unit of the MoE
+    #     and SSM families (19e)
+    # 20. LM serving over a mesh, in phase 19's world: stablelm-1.6b under
+    #     SERVE_RULES (20a) and LONG_SERVE_RULES (20b), granite-moe-3b-a800m
+    #     (20c) and mamba2-780m (20d) on (1, 4), mamba2-780m's engine on
+    #     (2, 2) (20e)
+    # four ranks' allocators share the card: expandable segments keep
+    # what one rank freed usable by another's larger blocks
+    with spawn_world(dev, 4, LM_MESH_TIMEOUT_S,
+                     alloc_conf="expandable_segments:True") as world:
+        lm_mesh = lm_mesh_phase(torch, dev, lm_cfg, lm_train["losses_14b"],
+                                world, serve_oracles)
+    del serve_oracles
+    for name in ("19a", "19b", "19c", "20a", "20b", "20c", "20d", "20e"):
         mesh[name] = lm_mesh[name]
         paths[f"mesh_{name}"] = lm_mesh[name]["launches"]
+    fl = lm_mesh["flash_serve"]
+    numbers["flash_attention"].setdefault("mesh_rank_shapes", {})[
+        "rank_20a"] = {k: fl[k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
     for name, nums in lm_mesh.items():
         if name.startswith(("19d", "19e")):
             paths[f"mesh_{name}"] = nums["run"]["launches"]
@@ -7086,7 +7584,7 @@ def main() -> int:
             name] = {k: v for k, v in fl.items()
                      if not k.startswith("forward")}
 
-    # 20. the numbers, then the result
+    # 21. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",

@@ -45,8 +45,10 @@ through a `FileStore` under a fresh temporary directory (no TCP port, so
 concurrent test workers never collide), runs `fn(device, *args)` on each
 and returns their results in rank order. A rank that raises, or a run that
 outlasts its timeout, kills every rank and raises: a hung collective never
-hangs the caller. `fn` must be importable by module path (the children
-unpickle it), so it lives in this package, never in a test file.
+hangs the caller. A `RankWorld` keeps such a world for several calls, one
+after another, and `run_ranks` is one of one call. `fn` must be
+importable by module path (the children unpickle it), so it lives in this
+package, never in a test file.
 """
 from __future__ import annotations
 
@@ -498,29 +500,38 @@ IMPORTED_AT = time.time()
 
 def _rank_main(rank: int, world: int, store_path: str, backend: str,
                device: str, pg_timeout_s: float, inbox, results) -> None:
-    stamps = {"started": _process_started(), "imported": IMPORTED_AT}
+    first = {"started": _process_started(), "imported": IMPORTED_AT}
+    dev = torch.device(device)
+    stamps = dict(first)
     try:
-        # the callable and its arguments come through the inbox once every
-        # rank has started, so no rank waits on another's imports; they
-        # die when fn returns: a CUDA IPC view releases the caller's block
-        # only when its last reference here goes
-        fn, args = inbox.get()
-        stamps["entered"] = time.time()
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            from repro_torch import resolve_device
-            torch.cuda.set_device(resolve_device(dev))
-        dist.init_process_group(
-            backend, store=dist.FileStore(store_path, world), rank=rank,
-            world_size=world, timeout=timedelta(seconds=pg_timeout_s))
-        stamps["joined"] = time.time()
-        out = fn(dev, *args)
-        del args
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stamps["returned"] = time.time()
-        results.put((rank, True, out, stamps))
+        # each call's callable and arguments come through the inbox (the
+        # first once every rank has started, so no rank waits on another's
+        # imports); None ends the rank. A CUDA IPC view releases the
+        # caller's block only when its last reference here goes, so every
+        # call's arguments and results are dropped before its report
+        while (item := inbox.get()) is not None:
+            fn, args = item
+            del item
+            stamps["entered"] = time.time()
+            if not dist.is_initialized():
+                if dev.type == "cuda":
+                    from repro_torch import resolve_device
+                    torch.cuda.set_device(resolve_device(dev))
+                dist.init_process_group(
+                    backend, store=dist.FileStore(store_path, world),
+                    rank=rank, world_size=world,
+                    timeout=timedelta(seconds=pg_timeout_s))
+            stamps["joined"] = time.time()
+            out = fn(dev, *args)
+            del fn, args
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+            stamps["returned"] = time.time()
+            results.put((rank, True, out, stamps))
+            del out
+            stamps = dict(first)
     except Exception:
         results.put((rank, False, traceback.format_exc(), stamps))
     finally:
@@ -528,82 +539,146 @@ def _rank_main(rank: int, world: int, store_path: str, backend: str,
             dist.destroy_process_group()
 
 
+class RankWorld:
+    """`n` spawned ranks of one `torch.distributed` world (`backend` "gloo"
+    or "nccl", rendezvous through a FileStore in a fresh temporary
+    directory) that run calls one after another: `run(fn, args)` runs
+    `fn(torch.device(device), *args)` on every rank and returns the n
+    results in rank order. Between calls the ranks wait, keeping their
+    imports, device and process group, so one spawn serves several calls,
+    and a world made before the caller's own work imports meanwhile.
+    CUDA tensors in `args` reach the ranks as CUDA IPC views of the
+    caller's memory (torch.multiprocessing): the caller keeps them alive
+    and reads them only after `run` returns; each rank drops them, and
+    empties its allocator's cache, before it reports.
+
+    `run` raises RuntimeError with the failing ranks' tracebacks if any
+    rank raises, and TimeoutError if the ranks have not all reported
+    within `timeout_s`; either way the world ends, every rank killed.
+    `close()` (or leaving a `with` block) ends it: each rank's loop
+    returns, and a rank still alive after 30 s is killed."""
+
+    def __init__(self, n: int, *, backend: str, device: str,
+                 timeout_s: float = 300.0):
+        import torch.multiprocessing as tmp
+        if n < 1:
+            raise ValueError(f"a rank world needs at least one rank, got {n}")
+        self.n, self.timeout_s, self.calls = n, timeout_s, 0
+        ctx = tmp.get_context("spawn")
+        self._results = ctx.Queue()
+        self._tmpdir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+        store = os.path.join(self._tmpdir, "store")
+        self._inboxes = [ctx.Queue() for _ in range(n)]
+        self._procs = [ctx.Process(target=_rank_main, daemon=True,
+                                   args=(r, n, store, backend, device,
+                                         timeout_s, self._inboxes[r],
+                                         self._results))
+                       for r in range(n)]
+        self.t_spawn = time.time()
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self.close()
+            raise
+
+    def __enter__(self) -> "RankWorld":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def run(self, fn, args: tuple = (), *, timeout_s: float | None = None,
+            timings: dict | None = None) -> list:
+        """The n results of `fn(device, *args)`, one a rank. A `timings`
+        dict receives each rank's seconds from the call's start (the
+        spawn, for the first call) to its process's start, to this
+        module's import (torch's), to receiving its arguments, to joining
+        the world and to its report, and the seconds until every rank had
+        reported."""
+        if self._procs is None:
+            raise RuntimeError("this rank world has ended")
+        t_call = self.t_spawn if self.calls == 0 else time.time()
+        self.calls += 1
+        n, got, failed, stamps = self.n, {}, {}, {}
+        try:
+            for q in self._inboxes:
+                q.put((fn, args))      # pickled by the queue's own thread
+            deadline = time.monotonic() + (timeout_s or self.timeout_s)
+            while len(got) + len(failed) < n:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"run_ranks: {n - len(got) - len(failed)} of {n} "
+                        f"ranks did not report within "
+                        f"{timeout_s or self.timeout_s:.0f} s (reported: "
+                        f"{sorted(got)}; failed: {sorted(failed)})")
+                try:
+                    rank, ok, out, stamps[rank] = self._results.get(
+                        timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self._procs)
+                            if r not in got and r not in failed
+                            and p.exitcode is not None and p.exitcode != 0]
+                    failed.update({r: f"rank {r} exited with code "
+                                      f"{self._procs[r].exitcode} without "
+                                      "a report" for r in dead})
+                    continue
+                (got if ok else failed)[rank] = out
+                if failed:
+                    break
+            if failed:
+                raise RuntimeError("run_ranks: rank(s) failed:\n" + "\n".join(
+                    f"--- rank {r} ---\n{tb}"
+                    for r, tb in sorted(failed.items())))
+        except BaseException:
+            self.close(kill=True)
+            raise
+        if timings is not None:
+            timings["ranks"] = [{k: v - t_call for k, v in stamps[r].items()}
+                                for r in range(n)]
+            timings["all_reported_s"] = time.time() - t_call
+        return [got[r] for r in range(n)]
+
+    def close(self, kill: bool = False) -> None:
+        """End the world: each rank's loop returns (at once with `kill`),
+        a rank alive 30 s later is killed; the queues and the store go."""
+        if self._procs is None:
+            return
+        procs, self._procs = self._procs, None
+        try:
+            if not kill:
+                for q, p in zip(self._inboxes, procs):
+                    if p.is_alive():
+                        q.put(None)
+                for p in procs:
+                    p.join(timeout=30)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                if p.pid is not None:
+                    p.join(timeout=10)
+            for q in self._inboxes + [self._results]:
+                q.cancel_join_thread()    # a dead rank never drains its inbox
+                q.close()
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+
+
 def run_ranks(fn, n: int, args: tuple = (), *, backend: str, device: str,
               timeout_s: float = 300.0, timings: dict | None = None) -> list:
     """Run `fn(torch.device(device), *args)` on `n` spawned ranks of one
-    `torch.distributed` world (`backend` "gloo" or "nccl", rendezvous
-    through a FileStore in a fresh temporary directory) and return the n
-    results in rank order. CUDA tensors in `args` reach the ranks as CUDA
-    IPC views of the caller's memory (torch.multiprocessing), so the
-    caller keeps them alive and reads them only after this returns.
-
-    Raises RuntimeError with the failing ranks' tracebacks if any rank
-    raises, and TimeoutError if the ranks have not all reported within
-    `timeout_s`; either way every rank is killed first. A `timings` dict
-    receives each rank's seconds from the spawn to its process's start, to
-    this module's import (torch's), to receiving its arguments, to joining
-    the world and to its report, and the seconds until every rank has
-    exited."""
-    import torch.multiprocessing as tmp
-    if n < 1:
-        raise ValueError(f"run_ranks needs at least one rank, got {n}")
-    ctx = tmp.get_context("spawn")
-    results = ctx.Queue()
-    tmpdir = tempfile.mkdtemp(prefix="repro_torch_ranks_")
-    store = os.path.join(tmpdir, "store")
-    inboxes = [ctx.Queue() for _ in range(n)]
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, n, store, backend, device, timeout_s,
-                               inboxes[r], results))
-             for r in range(n)]
-    got, failed, stamps = {}, {}, {}
-    t_spawn = time.time()
-    try:
-        for p in procs:
-            p.start()
-        for q in inboxes:
-            q.put((fn, args))          # pickled by the queue's own thread
-        deadline = time.monotonic() + timeout_s
-        while len(got) + len(failed) < n:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(
-                    f"run_ranks: {n - len(got) - len(failed)} of {n} ranks "
-                    f"did not report within {timeout_s:.0f} s "
-                    f"(reported: {sorted(got)}; failed: {sorted(failed)})")
-            try:
-                rank, ok, out, stamps[rank] = results.get(
-                    timeout=min(left, 1.0))
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if r not in got and r not in failed
-                        and p.exitcode is not None and p.exitcode != 0]
-                if dead:
-                    failed.update({r: f"rank {r} exited with code "
-                                      f"{procs[r].exitcode} without a "
-                                      "report" for r in dead})
-                continue
-            (got if ok else failed)[rank] = out
-            if failed:
-                break
-        if failed:
-            raise RuntimeError("run_ranks: rank(s) failed:\n" + "\n".join(
-                f"--- rank {r} ---\n{tb}" for r, tb in sorted(failed.items())))
-        for p in procs:
-            p.join(timeout=30)
-        if timings is not None:
-            timings["ranks"] = [{k: v - t_spawn for k, v in stamps[r].items()}
-                                for r in range(n)]
-            timings["all_exited_s"] = time.time() - t_spawn
-        return [got[r] for r in range(n)]
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-        for p in procs:
-            if p.pid is not None:
-                p.join(timeout=10)
-        for q in inboxes + [results]:
-            q.cancel_join_thread()        # a dead rank never drains its inbox
-            q.close()
-        shutil.rmtree(tmpdir, ignore_errors=True)
+    `torch.distributed` world and return the n results in rank order: a
+    `RankWorld` of one call, its errors and CUDA IPC views as there. A
+    `timings` dict receives each rank's seconds from the spawn to its
+    process's start, to this module's import (torch's), to receiving its
+    arguments, to joining the world and to its report, and the seconds
+    until every rank has exited."""
+    with RankWorld(n, backend=backend, device=device,
+                   timeout_s=timeout_s) as world:
+        out = world.run(fn, args, timings=timings)
+        world.close()
+    if timings is not None:
+        timings["all_exited_s"] = time.time() - world.t_spawn
+    return out

@@ -28,10 +28,20 @@ target's logit are all-reduced over the vocab's axes, never the (B, S, V)
 logits, and the masked nll sum and mask count over the batch's axes, so
 every rank's loss is the global masked mean. Without a mesh, the
 one-device model, bit for bit.
+
+Serving over a mesh (`prefill_step` / `decode_step(rules=, mesh=)`,
+SERVE_RULES, LONG_SERVE_RULES or the dry run's prefill override of
+FSDP-stored weights): the caller passes the whole batch, every rank runs
+its rows (those of ("batch", ...)) through its parameter blocks and
+its blocks of the caches (`init_caches(rules=, mesh=)`: `cache_pspecs`'
+blocks, a Mamba-2 conv tail by `nn.mamba2.conv_channels`), and every
+rank gets the last position's logits whole: each rank's vocabulary block
+gathered, then its rows.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -46,10 +56,11 @@ from repro_torch.nn import mamba2 as M
 from repro_torch.nn import moe as MOE
 from repro_torch.nn.params import (ParamSpec, init_params, specs_to_shardings,
                                    stack_specs, tree_map)
-from repro_torch.nn.sharding import (TRAIN_RULES, LogicalRules, batch_axes,
-                                     block_range, gather_weight,
-                                     replicate_weight, shard_activation,
-                                     tp_axes)
+from repro_torch.nn.sharding import (SERVE_RULES, TRAIN_RULES, LogicalRules,
+                                     batch_axes, block_range,
+                                     dim_axes, gather_weight,
+                                     replicate_weight, resolve_sized,
+                                     shard_activation, tp_axes, use_spec)
 
 MODES = ("train", "prefill", "decode")
 REMAT = ("none", "dots", "full")
@@ -230,18 +241,20 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  is_moe: bool, positions: torch.Tensor, mode: str,
                  cache: dict | None, cache_index,
-                 rules: LogicalRules = TRAIN_RULES, mesh=None
+                 rules: LogicalRules = TRAIN_RULES, mesh=None,
+                 max_len: int | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: norm, attention or Mamba-2 mixer, residual; then (if
     d_ff > 0) norm, MLP or MoE, residual. Returns (x, the MoE aux loss, or
-    None without a router)."""
+    None without a router). `max_len`: the caches' global positions (an
+    attention layer serving over a mesh needs them)."""
     dtype = _dtype(cfg)
     sh = {"rules": rules, "mesh": mesh}
     h = L.apply_norm(bp["ln1"], x, cfg.norm_type, dtype=dtype, **sh)
     if kind == "a":
         h, _ = L.attention(bp["attn"], h, cfg, positions, mode=mode,
                            cache=cache, cache_index=cache_index, dtype=dtype,
-                           **sh)
+                           max_len=max_len, **sh)
     else:
         h, _ = M.mamba_block(bp["mamba"], h, cfg, mode=mode, cache=cache,
                              dtype=dtype, **sh)
@@ -250,7 +263,8 @@ def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if cfg.d_ff > 0:
         h = L.apply_norm(bp["ln2"], x, cfg.norm_type, dtype=dtype, **sh)
         if is_moe:
-            h, aux = MOE.moe(bp["ffn"], h, cfg, dtype=dtype, **sh)
+            h, aux = MOE.moe(bp["ffn"], h, cfg, dtype=dtype,
+                             global_aux=mode == "train", **sh)
         else:
             h = L.mlp(bp["ffn"], h, cfg, dtype=dtype, **sh)
         x = x + h
@@ -260,7 +274,8 @@ def _apply_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 def _apply_unit(unit: dict, x: torch.Tensor, aux: torch.Tensor,
                 cfg: ModelConfig, positions: torch.Tensor, mode: str,
                 caches: dict | None, cache_index,
-                rules: LogicalRules = TRAIN_RULES, mesh=None
+                rules: LogicalRules = TRAIN_RULES, mesh=None,
+                max_len: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The blocks of one unit in pattern order, the MoE blocks' aux losses
     added to `aux`."""
@@ -269,7 +284,7 @@ def _apply_unit(unit: dict, x: torch.Tensor, aux: torch.Tensor,
         name = f"b{i}"
         x, a = _apply_block(unit[name], x, cfg, kind, flags[i], positions,
                             mode, None if caches is None else caches[name],
-                            cache_index, rules, mesh)
+                            cache_index, rules, mesh, max_len)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -343,12 +358,14 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 
 
 def _window(caches: dict, cfg: ModelConfig) -> int:
-    """The caches' positions: an attention block's KV length, else the
-    max_len `init_caches` was given (an attention-free model)."""
+    """The caches' global positions: the max_len `init_caches` was given,
+    else an attention block's KV length (caches made by hand)."""
+    max_len = getattr(caches, "max_len", None)
+    if max_len is not None:
+        return max_len
     for i, kind in enumerate(cfg.pattern):
         if kind == "a":
             return caches[f"b{i}"]["k"].shape[2]
-    max_len = getattr(caches, "max_len", None)
     if max_len is None:
         raise ValueError(f"{cfg.name} has no KV cache to bound a decode "
                          "position: pass the caches of init_caches, which "
@@ -370,23 +387,24 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
     into `caches`, in place. decode: one token per sequence at
     `cache_index` (int or (B,)), written in place. aux_loss: the MoE
     layers' load-balancing losses summed over blocks in order (fp32, 0
-    without experts). A `mesh` takes train mode only (the module
-    docstring)."""
+    without experts; serving over a mesh, the rank's own groups'). With a
+    `mesh`, `batch` and a (B,) `cache_index` are this rank's rows and
+    `caches` its blocks (the module docstring)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    if mesh is not None and mode != "train":
-        raise ValueError(f"a mesh takes train mode, not {mode!r}")
     if cfg.remat not in REMAT:
         raise ValueError(f"unknown remat {cfg.remat!r}; one of {REMAT}")
     if mode != "train" and caches is None:
         raise ValueError(f"{mode} needs caches (init_caches)")
     dev = _device(params)
     positions, index = None, None
+    window = _window(caches, cfg) if caches is not None and (
+        mode == "decode" or mesh is not None) else None
     if mode == "decode":
         if cache_index is None:
             raise ValueError("decode needs a cache_index")
         b = len(next(iter(batch.values())))
-        index = _decode_index(cache_index, b, dev, _window(caches, cfg))
+        index = _decode_index(cache_index, b, dev, window)
         positions = (torch.full((b, 1), index, device=dev)
                      if isinstance(index, int) else index[:, None])
     x, positions = embed_input(params, batch, cfg, positions, rules, mesh)
@@ -402,7 +420,7 @@ def lm_forward(params: dict, batch: dict, cfg: ModelConfig,
         x, aux = _run_unit(remat, _apply_unit,
                            {name: sub[u] for name, sub in units.items()},
                            x, aux, cfg, positions, mode, unit_caches, index,
-                           rules, mesh)
+                           rules, mesh, window)
     return lm_logits(params, x, cfg, rules, mesh), aux, caches
 
 
@@ -481,52 +499,169 @@ def _vocab_parallel_nll(lf: torch.Tensor, targets: torch.Tensor, v: int,
 
 class Caches(dict):
     """The stacked caches of `init_caches`, by block name, and the number
-    of positions they hold (`max_len`), which bounds a decode position
-    where no block has a KV cache."""
+    of positions they hold (`max_len`, global where they are a rank's
+    blocks), which bounds a decode position."""
 
     def __init__(self, blocks: dict, max_len: int):
         super().__init__(blocks)
         self.max_len = max_len
 
 
+def _unit_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                rules=None, mesh=None) -> dict:
+    """One unit's caches (no leading n_units axis), this rank's blocks
+    with a mesh."""
+    out = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "a":
+            out[f"b{i}"] = L.init_kv_cache(
+                batch, max_len, cfg.n_kv_heads, cfg.d_head, torch.bfloat16,
+                cfg.kv_cache_dtype == "int8", device, rules, mesh)
+        else:
+            out[f"b{i}"] = M.init_mamba_cache(batch, cfg, device, rules,
+                                              mesh)
+    return out
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device: str | torch.device | None = None) -> Caches:
+                device: str | torch.device | None = None,
+                rules: LogicalRules | None = None, mesh=None) -> Caches:
     """Zeroed caches, stacked along a leading n_units axis, one per pattern
     position on `device` (default cuda): an attention block's {"k", "v"
     (+ "k_scale", "v_scale" for int8)} of (n_units, batch, max_len, n_kv,
     d_head), bf16 whatever the compute dtype; a mixer's {"conv" (n_units,
     batch, k-1, conv_dim) bf16, "ssm" (n_units, batch, h, p, n) fp32}, as
-    the reference's."""
-    dev = resolve_device(device)
+    the reference's. With `mesh` (and `rules`), this rank's blocks of the
+    caches of `batch` sequences: `cache_pspecs`' blocks, but a mixer's
+    conv tail, which holds the channels the rank convolves
+    (`nn.mamba2.conv_channels`). `device` "meta" gives the shapes and
+    dtypes alone."""
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
+    unit = _unit_cache(cfg, batch, max_len, dev, rules, mesh)
+    return Caches({name: {k: t.new_zeros((cfg.n_units,) + t.shape)
+                          for k, t in blocks.items()}
+                   for name, blocks in unit.items()}, max_len)
+
+
+def cache_abstract(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """`init_caches`' tensors on the meta device (the reference's
+    ShapeDtypeStruct tree): shapes and dtypes, no memory."""
     out = {}
     for i, kind in enumerate(cfg.pattern):
-        if kind == "a":
-            unit = L.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.d_head,
-                                   torch.bfloat16,
-                                   cfg.kv_cache_dtype == "int8", dev)
-        else:
-            unit = M.init_mamba_cache(batch, cfg, dev)
-        out[f"b{i}"] = {k: t.new_zeros((cfg.n_units,) + t.shape)
+        unit = L.kv_cache_abstract(
+            batch, max_len, cfg.n_kv_heads, cfg.d_head, torch.bfloat16,
+            cfg.kv_cache_dtype == "int8") if kind == "a" \
+            else M.mamba_cache_abstract(batch, cfg)
+        out[f"b{i}"] = {k: t.new_empty((cfg.n_units,) + t.shape)
                         for k, t in unit.items()}
-    return Caches(out, max_len)
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, rules: LogicalRules, mesh, batch: int,
+                 max_len: int) -> dict:
+    """The reference's spec tree of the caches (`cache_abstract`'s leaves),
+    size-aware (`resolve_sized`: qwen's 40 kv heads do not split 16 ways,
+    so the positions or nothing take the axis, as the rules say). `mesh`
+    needs `axis_names` and a `shape` mapping."""
+    out = {}
+    kv_axes = ("layer",) + L.KV_CACHE_AXES
+    for name, blocks in cache_abstract(cfg, batch, max_len).items():
+        axes = {"conv": ("layer",) + M.MAMBA_CACHE_AXES["conv"],
+                "ssm": ("layer",) + M.MAMBA_CACHE_AXES["ssm"]}
+        out[name] = {k: resolve_sized(axes.get(k, kv_axes), rules, mesh,
+                                      tuple(t.shape))
+                     for k, t in blocks.items()}
+    return out
+
+
+def _rows(t, n: int, rules: LogicalRules, mesh):
+    """This rank's rows of a whole-batch leaf `t` (n rows): the block of
+    ("batch", ...) over the batch's mesh axes."""
+    ba = batch_axes(rules, mesh)
+    if not ba:
+        return t
+    lo, hi = block_range(n, ba, mesh)
+    if (hi - lo) * math.prod(mesh.shape[a] for a in ba) != n:
+        raise ValueError(f"a batch of {n} does not split over the batch's "
+                         f"axes {ba}")
+    return t[lo:hi]
+
+
+def _whole_logits(logits: torch.Tensor, cfg: ModelConfig,
+                  rules: LogicalRules, mesh) -> torch.Tensor:
+    """The last position's logits (rows, V block) of every rank put
+    together: each vocabulary block gathered over `_vocab_axes`, then
+    every rank's rows over the batch's axes."""
+    tv = _vocab_axes(cfg, rules, mesh)
+    if tv:
+        logits = MESH.all_gather(logits, mesh, tv, -1, partial_grad=False)
+    ba = batch_axes(rules, mesh)
+    if ba:
+        logits = MESH.all_gather(logits, mesh, ba, 0, partial_grad=False)
+    return logits
+
+
+def _codebook_input(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    rules: LogicalRules, mesh) -> torch.Tensor:
+    """The audio arch's decode input: the sum of the K codebook
+    embeddings of tokens (B, 1, K), fp32. With a mesh, over the codebook
+    table's vocabulary block: ids outside it read 0, the rank's sum is
+    all-reduced over the block's axes."""
+    k_, v, d = cfg.n_codebooks, cfg.vocab_size, cfg.d_model
+    axes = (None, "vocab", "embed")
+    emb = gather_weight(params["embed"]["codebooks"], axes, rules, mesh,
+                        (k_, v, d))                          # (K, V, D)
+    tokens = torch.as_tensor(tokens, device=emb.device).long()
+    tv = dim_axes(use_spec(axes, rules, mesh, (k_, v, d)), 1)
+    lo, hi = block_range(v, tv, mesh)
+    x = None
+    for k in range(k_):
+        t = tokens[..., k]
+        e = emb[k][(t - lo).clamp(0, hi - lo - 1)]
+        if tv:
+            e = torch.where(((t >= lo) & (t < hi))[..., None], e, 0.0)
+        x = e if x is None else x + e
+    if tv:
+        x = MESH.reduce_from(x, mesh, tv)
+    return x
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
-                cache_index, cfg: ModelConfig
+                cache_index, cfg: ModelConfig,
+                rules: LogicalRules = SERVE_RULES, mesh=None
                 ) -> tuple[torch.Tensor, dict]:
     """One token for every sequence: tokens (B, 1), or (B, 1, K) codebook
     tokens for the audio arch, whose input is the sum of their K
     codebook embeddings (fp32, cast to the compute dtype); the vision arch
     decodes text with an empty patch prefix. Returns (logits (B, V), or
     (B, K, V), of the new position, caches), the caches written in
-    place."""
+    place. With a `mesh`: `tokens` and a (B,) `cache_index` whole, the
+    caches this rank's blocks (`init_caches(rules=, mesh=)`), the logits
+    whole on every rank."""
+    n = len(tokens)
+    tokens = _rows(tokens, n, rules, mesh)
+    if np.ndim(cache_index):
+        cache_index = _rows(cache_index if isinstance(
+            cache_index, torch.Tensor) else np.asarray(cache_index), n,
+            rules, mesh)
+    logits, caches = decode_rows(params, tokens, caches, cache_index, cfg,
+                                 rules, mesh)
+    return _whole_logits(logits, cfg, rules, mesh), caches
+
+
+def decode_rows(params: dict, tokens: torch.Tensor, caches: dict,
+                cache_index, cfg: ModelConfig,
+                rules: LogicalRules = SERVE_RULES, mesh=None
+                ) -> tuple[torch.Tensor, dict]:
+    """`decode_step` on this rank's rows alone: `tokens` and a (b,)
+    `cache_index` its rows, `caches` its blocks; returns its rows' logits
+    (its vocabulary block) and the caches. A batch split over `data`
+    issues no collective over the batch's axes here, so one `data`
+    coordinate's ranks may run it alone (the engine's admission)."""
     if cfg.frontend == "audio":
-        emb = params["embed"]["codebooks"]                     # (K, V, D)
-        tokens = torch.as_tensor(tokens, device=emb.device).long()
-        x = emb[0][tokens[..., 0]]
-        for k in range(1, cfg.n_codebooks):
-            x = x + emb[k][tokens[..., k]]
-        batch = {"embeds": x.to(_dtype(cfg))}
+        batch = {"embeds": _codebook_input(params, tokens, cfg, rules,
+                                           mesh).to(_dtype(cfg))}
     elif cfg.frontend == "vision":
         batch = {"tokens": tokens,
                  "embeds": torch.zeros((len(tokens), 0, cfg.d_model),
@@ -534,13 +669,18 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
     else:
         batch = {"tokens": tokens}
     logits, _, caches = lm_forward(params, batch, cfg, "decode", caches,
-                                   cache_index)
+                                   cache_index, rules, mesh)
     return logits[:, -1], caches
 
 
-def prefill_step(params: dict, batch: dict, caches: dict, cfg: ModelConfig
+def prefill_step(params: dict, batch: dict, caches: dict, cfg: ModelConfig,
+                 rules: LogicalRules = SERVE_RULES, mesh=None
                  ) -> tuple[torch.Tensor, dict]:
     """Run the whole prompt once, filling the caches in place. Returns
-    (last-position logits (B, V), caches)."""
-    logits, _, caches = lm_forward(params, batch, cfg, "prefill", caches)
-    return logits[:, -1], caches
+    (last-position logits (B, V), caches). With a `mesh`, `batch` whole,
+    the caches this rank's blocks, the logits whole on every rank."""
+    n = len(next(iter(batch.values())))
+    local = {k: _rows(v, n, rules, mesh) for k, v in batch.items()}
+    logits, _, caches = lm_forward(params, local, cfg, "prefill", caches,
+                                   rules=rules, mesh=mesh)
+    return _whole_logits(logits[:, -1], cfg, rules, mesh), caches

@@ -11,7 +11,10 @@ rows: `gather_weight` puts FSDP's sharded weights together at each use,
 and attention and the MLP run Megatron's tensor parallelism over the
 axes their heads and ff dims shard on (wq, wk, wv, wi, wg column-parallel,
 wo row-parallel with one all_reduce; `launch.mesh.copy_to` at the
-input). Without a mesh they are the one-device layers, bit for bit."""
+input). In prefill and decode (serving) attention keeps tensor
+parallelism over the heads and reads and writes this rank's block of the
+KV cache, laid out as `kv_cache_spec` says (`_serve_attention`). Without
+a mesh they are the one-device layers, bit for bit."""
 from __future__ import annotations
 
 import math
@@ -21,9 +24,10 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as M
 from repro_torch.nn.params import ParamSpec
-from repro_torch.nn.sharding import (LogicalRules, batch_axes, block_range,
-                                     gather_weight, shard_activation,
-                                     tp_axes)
+from repro_torch.nn.sharding import (LogicalRules, NamedSharding,
+                                     batch_axes, block_range, dim_axes,
+                                     gather_weight, resolve_sized,
+                                     shard_activation, tp_axes, use_spec)
 
 #: the residual stream's logical axes
 ACT = ("act_batch", "act_seq", "act_embed")
@@ -253,7 +257,8 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
               cache: dict[str, torch.Tensor] | None = None,
               cache_index=None,
               dtype: torch.dtype = torch.bfloat16,
-              rules: LogicalRules | None = None, mesh=None
+              rules: LogicalRules | None = None, mesh=None,
+              max_len: int | None = None
               ) -> tuple[torch.Tensor, dict | None]:
     """GQA attention. mode: train | prefill | decode.
 
@@ -269,15 +274,18 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
     length is a multiple of `attn_block_k` are kept. Shorter or ragged
     prompts take `full_attention`.
 
-    With a `mesh` (train mode only): each rank runs the heads its wq block
+    With a `mesh` in train mode: each rank runs the heads its wq block
     holds (all of them where the heads do not split), on its rows; where
     the kv heads do not split but the heads do, k and v are computed whole
     and this rank's heads taken after the GQA repeat, their cotangent
     summed over the heads' axes (`copy_to`), so wk and wv get whole
     gradients. wo is row-parallel: one all_reduce of the (b, s, d) partial
-    sums over the heads' axes (`shard_activation`)."""
-    if mesh is not None and mode != "train":
-        raise ValueError(f"a mesh takes train mode, not {mode!r}")
+    sums over the heads' axes (`shard_activation`). Prefill and decode
+    run `_serve_attention`, with a mesh or without, where `max_len` is the
+    caches' global length (the cache's own without a mesh)."""
+    if mode != "train":
+        return _serve_attention(p, x, cfg, positions, mode, cache,
+                                cache_index, dtype, rules, mesh, max_len)
     q, k, v = _qkv(p, x.to(dtype), cfg, positions, dtype, rules, mesh)
     tq = tp_axes("heads", cfg.n_heads, rules, mesh)
     if tq and k.shape[-2] == cfg.n_kv_heads:
@@ -286,35 +294,8 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
         v = M.copy_to(_repeat_kv(v, cfg.n_heads), mesh, tq)
         lo, hi = block_range(cfg.n_heads, tq, mesh)
         k, v = k[..., lo:hi, :], v[..., lo:hi, :]
-    if mode == "decode":
-        if cache is None or cache_index is None:
-            raise ValueError("decode needs a cache and a cache_index")
-        update_kv_cache(cache, k, v, cache_index)
-        kf, vf = read_kv_cache(cache, dtype)
-        kf = _repeat_kv(kf, cfg.n_heads)
-        vf = _repeat_kv(vf, cfg.n_heads)
-        out = full_attention(q, kf, vf, causal=False,
-                             kv_valid_len=cache_index + 1)
-    elif mode in ("train", "prefill"):
-        if mode == "prefill":
-            if cache is None:
-                raise ValueError("prefill needs a cache")
-            write_kv_prefix(cache, k, v)
-        k = _repeat_kv(k, q.shape[-2])
-        v = _repeat_kv(v, q.shape[-2])
-        s = x.shape[1]
-        if s > cfg.attn_block_q and s % cfg.attn_block_q == 0:
-            if s % cfg.attn_block_k:
-                raise ValueError(
-                    f"a sequence of {s} takes the blockwise branch "
-                    f"(> attn_block_q={cfg.attn_block_q} and a multiple of "
-                    f"it) but is not a multiple of attn_block_k="
-                    f"{cfg.attn_block_k}")
-            out = ops.flash_attention(q, k, v, causal=True)
-        else:
-            out = full_attention(q, k, v)
-    else:
-        raise ValueError(f"unknown attention mode {mode!r}")
+    out = _causal_attention(q, _repeat_kv(k, q.shape[-2]),
+                            _repeat_kv(v, q.shape[-2]), cfg)
     wo = _attn_weights(p, cfg, dtype, rules, mesh, ("wo",))["wo"]
     h, dh, d = wo.shape
     y = out.reshape(*out.shape[:2], h * dh) @ wo.reshape(h * dh, d)
@@ -323,18 +304,221 @@ def attention(p, x, cfg, positions, *, mode: str = "train",
                              partial=tq)
     return y, cache
 
+
+def _causal_attention(q, k, v, cfg) -> torch.Tensor:
+    """Causal attention over a whole sequence (train, prefill): the
+    flash-attention kernel where the sequence is longer than
+    `attn_block_q` and a multiple of it (the reference's blockwise
+    branch, whose assertion that it is a multiple of `attn_block_k` is
+    kept), `full_attention` otherwise."""
+    s = q.shape[1]
+    if s > cfg.attn_block_q and s % cfg.attn_block_q == 0:
+        if s % cfg.attn_block_k:
+            raise ValueError(
+                f"a sequence of {s} takes the blockwise branch (> "
+                f"attn_block_q={cfg.attn_block_q} and a multiple of it) but "
+                f"is not a multiple of attn_block_k={cfg.attn_block_k}")
+        return ops.flash_attention(q, k, v, causal=True)
+    return full_attention(q, k, v)
+
+
+def _serve_attention(p, x, cfg, positions, mode, cache, cache_index, dtype,
+                     rules, mesh, max_len):
+    """Attention in prefill or decode, on this rank of `mesh` where one is
+    given: `x` is its rows, `cache` its block of the layer's KV cache
+    (`kv_cache_spec` of the global (batch, max_len)). Without a mesh every
+    split below is empty: the whole projections, the whole cache. Each
+    projection runs on the block of the weight's columns the rank holds:
+
+      * heads split (SERVE_RULES where `model` divides them): q, and k
+        and v where the kv heads split too, are the rank's heads; where
+        the kv heads do not split, k and v are whole and the rank's heads
+        taken after the GQA repeat;
+      * head_dim split (`_fallback`, heads that `model` does not divide):
+        each projection's head_dim block is gathered before RoPE, so q, k
+        and v are whole and the attention (the flash kernel in prefill)
+        runs on every head; the rank then takes its head_dim block of the
+        output for wo. (Scores summed over head_dim blocks instead would
+        all-reduce a (b, h, s, s) tensor a layer.)
+
+    The cache holds the rank's kv heads (`cache_kv` split), all of them
+    (`cache_kv` dropped: chatglm3's 2 kv heads on 4 ranks), or a block of
+    positions (`cache_seq` split, LONG_SERVE_RULES): prefill writes the
+    prompt's positions in the rank's block, k and v gathered whole over
+    the heads first; decode writes a token's K/V only on the rank that
+    owns its position and attends flash-decoding style: q gathered whole,
+    each rank's fp32 row max, sums of exponentials and weighted values
+    over its positions, one max and one sum all_reduce, then the rank's
+    heads (or head_dim block) for wo. wo is row-parallel: one all_reduce
+    of the partial sums over the axes its rows split on."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s = x.shape[:2]
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if cache is None:
+        raise ValueError(f"{mode} needs a cache")
+    if max_len is None:
+        if mesh is not None:
+            raise ValueError("attention over a mesh in prefill or decode "
+                             "needs the caches' global max_len")
+        max_len = cache["k"].shape[1]
+    w = _attn_weights(p, cfg, dtype, rules, mesh, ("wq", "wk", "wv", "wo"))
+    sq = use_spec(("embed", "heads", "head_dim"), rules, mesh, (d, h, dh))
+    sk = use_spec(("embed", "kv_heads", "head_dim"), rules, mesh,
+                  (d, kv, dh))
+    so = use_spec(("heads", "head_dim", "embed"), rules, mesh, (h, dh, d))
+    tq, dq = dim_axes(sq, 1), dim_axes(sq, 2)
+    tk, dk = dim_axes(sk, 1), dim_axes(sk, 2)
+    if tk and tk != tq:
+        raise ValueError(f"kv heads shard over {tk}, heads over {tq}")
+    xd = x.to(dtype)
+    q = _project(xd, w["wq"], dtype)
+    k = _project(xd, w["wk"], dtype)
+    v = _project(xd, w["wv"], dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    if dq:
+        q = M.all_gather(q, mesh, dq, -1, partial_grad=False)
+    if dk:
+        k = M.all_gather(k, mesh, dk, -1, partial_grad=False)
+        v = M.all_gather(v, mesh, dk, -1, partial_grad=False)
+    rope = (dh, cfg.rotary_pct, cfg.rope_theta, cfg.rope_style)
+    q, k = apply_rope(q, positions, *rope), apply_rope(k, positions, *rope)
+    n_b = 1
+    for a in batch_axes(rules, mesh):
+        n_b *= mesh.shape[a]
+    cs = kv_cache_spec(rules, mesh, b * n_b, max_len, kv, dh)
+    ts, tc = dim_axes(cs, 1), dim_axes(cs, 2)
+    if ts and tc:
+        raise ValueError(f"a KV cache split over positions and kv heads "
+                         f"{cs}")
+    hq = q.shape[-2]
+    lo_h, hi_h = block_range(h, tq, mesh)
+
+    def whole(t):
+        """(b, s, kv, dh) from the rank's kv heads."""
+        return M.all_gather(t, mesh, tk, -2, partial_grad=False) if tk \
+            else t
+
+    def cached(t):
+        """`t` in the cache's layout over the kv heads."""
+        if tc == tk:
+            return t
+        if tc and not tk:
+            return M.take_block(t, mesh, tc, -2)
+        if not tc:
+            return whole(t)
+        raise ValueError(f"kv heads split over {tk}, the cache over {tc}")
+
+    def rank_heads(t):
+        """K or V (b, s, kv heads whole or the rank's, dh) repeated to the
+        rank's query heads."""
+        if tq and t.shape[-2] == kv:
+            return _repeat_kv(t, h)[..., lo_h:hi_h, :]
+        return _repeat_kv(t, hq)
+
+    if mode == "prefill":
+        if ts:
+            lo, hi = block_range(max_len, ts, mesh)
+            _write_kv_block(cache, whole(k), whole(v), lo, hi)
+        else:
+            write_kv_prefix(cache, cached(k), cached(v))
+        out = _causal_attention(q, rank_heads(k), rank_heads(v), cfg)
+    else:
+        if cache_index is None:
+            raise ValueError("decode needs a cache_index")
+        if ts:
+            lo, hi = block_range(max_len, ts, mesh)
+            _update_kv_block(cache, whole(k), whole(v), cache_index, lo, hi)
+            if tq:
+                q = M.all_gather(q, mesh, tq, -2, partial_grad=False)
+            out = _merge_decode(q, cache, dtype, h, cache_index + 1, lo,
+                                mesh, ts)[..., lo_h:hi_h, :]
+        else:
+            update_kv_cache(cache, cached(k), cached(v), cache_index)
+            kf, vf = read_kv_cache(cache, dtype)
+            out = full_attention(q, rank_heads(kf), rank_heads(vf),
+                                 causal=False, kv_valid_len=cache_index + 1)
+    to, do = dim_axes(so, 0), dim_axes(so, 1)
+    if do:
+        lo_d, hi_d = block_range(dh, do, mesh)
+        out = out[..., lo_d:hi_d]
+    wo = w["wo"]
+    y = out.reshape(b, s, -1) @ wo.reshape(-1, d)
+    red = to or do
+    if red:
+        y = shard_activation(y, ACT, rules, mesh, act_spec(rules, mesh),
+                             partial=red)
+    return y, cache
+
+
+def _merge_decode(q, cache, dtype, n_heads, valid, lo, mesh, axes):
+    """Flash-decoding over a cache split by positions: q (b, 1, h, dh)
+    whole, `cache` this rank's positions [lo, lo + len). Scores in fp32
+    (-1e30 at positions >= valid, a scalar or (b,)), the row max
+    all-reduced (max) over `axes`, then this rank's sums of exponentials
+    and exp-weighted values (fp32) in one sum all_reduce. Returns (b, 1,
+    h, dh) in q's dtype."""
+    kf, vf = read_kv_cache(cache, dtype)
+    kf, vf = _repeat_kv(kf, n_heads), _repeat_kv(vf, n_heads)
+    b, dh = q.shape[0], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float().div_(math.sqrt(dh))
+    pos = lo + torch.arange(kf.shape[1], device=q.device)
+    valid = torch.as_tensor(valid, device=q.device).expand(b)
+    scores.masked_fill_(pos[None, None, None, :]
+                        >= valid[:, None, None, None], -1e30)
+    mx = scores.amax(-1, keepdim=True).contiguous()
+    for a in axes:
+        mesh.all_reduce(mx, a, op="max", staged=True)
+    e = torch.exp(scores - mx)
+    acc = torch.einsum("bhqk,bkhd->bqhd", e, vf.float())
+    parts = torch.cat([acc, e.sum(-1).transpose(1, 2)[..., None]], dim=-1)
+    for a in axes:
+        mesh.all_reduce(parts, a, staged=True)
+    return (parts[..., :dh] / parts[..., dh:]).to(q.dtype)
+
 # ---------------------------------------------------------------------------
 # KV cache (bf16, or int8 with per-token-head fp32 scales)
 # ---------------------------------------------------------------------------
 
+#: a layer's KV cache's logical axes (`cache_pspecs` adds "layer" first)
+KV_CACHE_AXES = ("act_batch", "cache_seq", "cache_kv", None)
+
+
+def kv_cache_spec(rules: LogicalRules, mesh, batch: int, max_len: int,
+                  n_kv: int, d_head: int) -> tuple:
+    """The spec of one layer's K or V cache (batch, max_len, n_kv, d_head)
+    on `mesh` under `rules` (the scales' (..., 1) take the same): the
+    batch over `act_batch`'s axes, the positions over `cache_seq`'s, the
+    kv heads over `cache_kv`'s, each where it divides."""
+    if mesh is None:
+        return ()
+    return resolve_sized(KV_CACHE_AXES, rules, mesh,
+                         (batch, max_len, n_kv, d_head))
+
+
+def kv_cache_abstract(batch: int, max_len: int, n_kv: int, d_head: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      quantized: bool = False) -> dict:
+    """`init_kv_cache`'s tensors on the meta device: shapes and dtypes."""
+    return init_kv_cache(batch, max_len, n_kv, d_head, dtype, quantized,
+                         "meta")
+
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, d_head: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  quantized: bool = False, device=None) -> dict:
-    """Zeroed K/V cache of one layer: (batch, max_len, n_kv, d_head)."""
+                  quantized: bool = False, device=None,
+                  rules: LogicalRules | None = None, mesh=None) -> dict:
+    """Zeroed K/V cache of one layer: (batch, max_len, n_kv, d_head), or
+    with a mesh this rank's block of it (`kv_cache_spec`)."""
     shape = (batch, max_len, n_kv, d_head)
+    scale = (batch, max_len, n_kv, 1)
+    if mesh is not None:
+        sh = NamedSharding(mesh, kv_cache_spec(rules, mesh, *shape))
+        shape, scale = sh.local_shape(shape), sh.local_shape(scale)
     if quantized:
-        scale = (batch, max_len, n_kv, 1)
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(scale, device=device),
@@ -384,6 +568,37 @@ def write_kv_prefix(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     s = k.shape[1]
     for buf, val in _cache_items(cache, k, v):
         buf[:, :s] = val.to(buf.dtype)
+    return cache
+
+
+def _write_kv_block(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                    lo: int, hi: int) -> dict:
+    """Write the prompt positions in [lo, hi) of K/V (b, s, kv, dh) into
+    a cache block holding positions [lo, hi), IN PLACE."""
+    n = max(0, min(hi, k.shape[1]) - lo)
+    if n:
+        for buf, val in _cache_items(cache, k[:, lo:lo + n],
+                                     v[:, lo:lo + n]):
+            buf[:, :n] = val.to(buf.dtype)
+    return cache
+
+
+def _update_kv_block(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                     index, lo: int, hi: int) -> dict:
+    """`update_kv_cache` on a cache block holding positions [lo, hi): a
+    sequence whose position lies outside it writes nothing here."""
+    if isinstance(index, int):
+        if lo <= index < hi:
+            update_kv_cache(cache, k_new, v_new, index - lo)
+        return cache
+    idx = index.to(k_new.device, torch.long)
+    inside = (idx >= lo) & (idx < hi)
+    local = (idx - lo).clamp(0, hi - lo - 1)
+    for buf, val in _cache_items(cache, k_new, v_new):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        val = val[:, 0].to(buf.dtype)
+        buf[rows, local] = torch.where(inside[:, None, None], val,
+                                       buf[rows, local])
     return cache
 
 

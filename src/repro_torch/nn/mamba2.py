@@ -13,6 +13,18 @@ conv_dim), the last k-1 conv inputs, bf16; "ssm" (b, h, p, n) fp32}.
 Prefill stores its final scan state into the fp32 "ssm" buffer; the
 reference returns the scan's own state, which is bf16 under bf16 compute
 and then stays bf16 through its decode steps.
+
+Over a mesh, training gathers the mixer's parameters whole (`_whole`).
+Serving splits the SSD heads, which are independent, over the axes
+`ssm_heads` shards on (`serve_heads`): a rank projects, convolves and
+scans its heads (and the B / C groups they read) and holds their "ssm"
+state, `cache_pspecs`' block exactly. Its "conv" tail holds the channels
+it convolves: its heads' x channels and its groups' B and C
+(`conv_channels`), where `cache_pspecs` cuts conv_dim into even blocks
+that do not fall on a head's edge (at mamba2-780m on 4 ranks 1,024 of
+3,328 channels a rank against 832: 6,144 bytes a sequence a layer
+against 4,992, beside the 393,216 of its state, and no exchange a
+step).
 """
 from __future__ import annotations
 
@@ -21,9 +33,13 @@ import math
 
 import torch
 
-from repro_torch.nn.layers import _silu
+from repro_torch.launch import mesh as MESH
+from repro_torch.nn.layers import ACT, _silu, act_spec
 from repro_torch.nn.params import ParamSpec
-from repro_torch.nn.sharding import replicate_weight
+from repro_torch.nn.sharding import (NamedSharding, block_range, dim_axes,
+                                     gather_weight, replicate_weight,
+                                     resolve_sized, shard_activation,
+                                     tp_axes, use_spec)
 
 
 def mamba_dims(cfg) -> dict[str, int]:
@@ -213,6 +229,108 @@ def _whole(p: dict, cfg, dtype, rules, mesh) -> dict:
             for k, t in p.items()}
 
 
+def serve_heads(cfg, rules, mesh) -> tuple[str, ...]:
+    """The mesh axes a serving rank splits the SSD heads over: those of
+    `ssm_heads`, where they divide the heads and `ssm_inner` (norm_scale,
+    out_proj's rows) splits over the same; none otherwise (the mixer then
+    runs whole on every rank, as in training)."""
+    if mesh is None or not rules:
+        return ()
+    m = mamba_dims(cfg)
+    th = tp_axes("ssm_heads", m["n_heads"], rules, mesh)
+    inner = dim_axes(resolve_sized(("ssm_inner",), rules, mesh,
+                                   (m["d_inner"],)), 0)
+    return th if th and inner == th else ()
+
+
+def _rank_dims(cfg, th, mesh) -> tuple[dict, dict]:
+    """(this rank's mixer widths, its ranges): heads [h0, h1) of the heads
+    split over `th`, and the B / C groups [g0, g1) they read."""
+    m = mamba_dims(cfg)
+    h, g, p, n = m["n_heads"], m["n_groups"], m["headdim"], m["d_state"]
+    h0, h1 = block_range(h, th, mesh)
+    rep, hl = h // g, h1 - h0
+    if hl % rep == 0:
+        g0, g1 = h0 // rep, h1 // rep
+    elif rep % hl == 0:
+        g0, g1 = h0 // rep, h0 // rep + 1
+    else:
+        raise ValueError(f"{hl} heads a rank do not fall on the {g} groups "
+                         f"of {rep} heads")
+    gl = g1 - g0
+    loc = dict(m, d_inner=hl * p, n_heads=hl, n_groups=gl,
+               d_in_proj=2 * hl * p + 2 * gl * n + hl,
+               conv_dim=hl * p + 2 * gl * n)
+    return loc, {"h": (h0, h1), "g": (g0, g1)}
+
+
+def conv_channels(cfg, rules=None, mesh=None) -> list[tuple[int, int]]:
+    """The conv_dim channels [lo, hi) whose conv tail a serving rank
+    holds, in order: its heads' x channels, its groups' B, its groups' C
+    (the whole conv_dim without a split)."""
+    m = mamba_dims(cfg)
+    th = serve_heads(cfg, rules, mesh)
+    if not th:
+        return [(0, m["conv_dim"])]
+    _, r = _rank_dims(cfg, th, mesh)
+    (h0, h1), (g0, g1) = r["h"], r["g"]
+    di, p, n = m["d_inner"], m["headdim"], m["d_state"]
+    gn = m["n_groups"] * n
+    return [(h0 * p, h1 * p), (di + g0 * n, di + g1 * n),
+            (di + gn + g0 * n, di + gn + g1 * n)]
+
+
+def _cols(t: torch.Tensor, ranges) -> torch.Tensor:
+    """The last dim's [lo, hi) ranges of `t`, concatenated in order."""
+    return torch.cat([t[..., lo:hi] for lo, hi in ranges], dim=-1)
+
+
+def _rank_mixer(p: dict, x: torch.Tensor, cfg, mode: str, dtype, rules,
+                mesh, th) -> tuple[dict, dict, torch.Tensor]:
+    """(the rank's parameters, its widths, its in_proj output) for serving
+    with the heads split over `th`: in_proj's columns of the rank's z, x,
+    B, C and dt, conv_w's and conv_b's of its channels (`conv_channels`,
+    both gathered in one call); dt_bias, A_log, D, norm_scale and
+    out_proj's rows are its stored blocks. in_proj's stored block is an
+    even split of the packed columns: in prefill the weight is gathered
+    whole (d x d_in_proj) and the rank's columns multiplied; in decode,
+    where one token's output is the smaller, the stored block is
+    multiplied and its output gathered."""
+    d, m = cfg.d_model, mamba_dims(cfg)
+    loc, r = _rank_dims(cfg, th, mesh)
+    (h0, h1), di = r["h"], m["d_inner"]
+    conv = conv_channels(cfg, rules, mesh)
+    dt0 = di + m["conv_dim"]
+    # z, then x, B and C (in_proj packs them after z as the conv's
+    # channels), then dt
+    cols = [(h0 * m["headdim"], h1 * m["headdim"])] + \
+        [(di + lo, di + hi) for lo, hi in conv] + [(dt0 + h0, dt0 + h1)]
+    axes, shape = ("embed", "ssm_inner"), (d, m["d_in_proj"])
+    ti = dim_axes(use_spec(axes, rules, mesh, shape), 1)
+    w = p["in_proj"].to(dtype)
+    xd = x.to(dtype)
+    if ti and mode == "decode":
+        y = xd @ gather_weight(w, axes, rules, mesh, shape)
+        zxbcdt = _cols(MESH.all_gather(y, mesh, ti, -1, partial_grad=False),
+                       cols)
+    else:
+        w = replicate_weight(w, axes, rules, mesh, shape) if ti else \
+            gather_weight(w, axes, rules, mesh, shape)
+        zxbcdt = xd @ _cols(w, cols)
+    # conv_w and conv_b split alike over conv_dim: one gather for both
+    k = m["d_conv"]
+    conv = _cols(replicate_weight(
+        torch.cat([p["conv_w"], p["conv_b"][None]]).to(dtype),
+        (None, "conv_dim"), rules, mesh, (k + 1, m["conv_dim"])), conv)
+    q = {"conv_w": conv[:k], "conv_b": conv[k],
+         "out_proj": gather_weight(p["out_proj"].to(dtype),
+                                   ("ssm_inner", "embed"), rules, mesh,
+                                   (di, d))}
+    for k in ("dt_bias", "A_log", "D", "norm_scale"):
+        q[k] = p[k]
+    return q, loc, zxbcdt
+
+
 def mamba_block(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
                 cache: dict | None = None,
                 dtype: torch.dtype = torch.bfloat16,
@@ -225,17 +343,23 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
     conv over the cached inputs and one recurrent step, `cache` updated.
     Both write in place and return the cache they were given.
 
-    With a mesh (train mode only), `x` is this rank's rows and the
-    parameters come whole (`_whole`)."""
+    With a mesh, `x` is this rank's rows. In train mode the parameters
+    come whole (`_whole`); in prefill and decode the rank runs the heads
+    `serve_heads` gives it (`_rank_mixer`; the cache is its block, the
+    gated norm's sum of squares is all-reduced over those axes and
+    out_proj is row-parallel), or the whole mixer where they do not
+    split."""
     if mode not in MODES:
         raise ValueError(f"unknown mamba mode {mode!r}; one of {MODES}")
-    if mesh is not None:
-        if mode != "train":
-            raise ValueError(f"a mesh takes train mode, not {mode!r}")
-        p = _whole(p, cfg, dtype, rules, mesh)
     m = mamba_dims(cfg)
     b, s, _ = x.shape
-    zxbcdt = x.to(dtype) @ p["in_proj"].to(dtype)
+    th = () if mode == "train" else serve_heads(cfg, rules, mesh)
+    if th:
+        p, m, zxbcdt = _rank_mixer(p, x, cfg, mode, dtype, rules, mesh, th)
+    else:
+        if mesh is not None:
+            p = _whole(p, cfg, dtype, rules, mesh)
+        zxbcdt = x.to(dtype) @ p["in_proj"].to(dtype)
     z, xBC, dt = _split_in_proj(zxbcdt, m)
     A = -torch.exp(p["A_log"].float())                        # (h,)
     dt = torch.logaddexp(dt.float() + p["dt_bias"].float(),
@@ -273,17 +397,47 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *, mode: str = "train",
     y = y.reshape(b, s, m["d_inner"])
     y = y * _silu(z.to(y.dtype))
     yf = y.float()
-    var = yf.square().mean(-1, keepdim=True)
+    if th:
+        ss = MESH.reduce_from(yf.square().sum(-1, keepdim=True), mesh, th)
+        var = ss / mamba_dims(cfg)["d_inner"]
+    else:
+        var = yf.square().mean(-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-5) * p["norm_scale"].float()).to(dtype)
-    return y @ p["out_proj"].to(dtype), cache
+    out = y @ p["out_proj"].to(dtype)
+    if th:
+        out = shard_activation(out, ACT, rules, mesh, act_spec(rules, mesh),
+                               partial=th)
+    return out, cache
 
 
-def init_mamba_cache(batch: int, cfg, device=None) -> dict:
+#: a mixer's caches' logical axes (`cache_pspecs` adds "layer" first)
+MAMBA_CACHE_AXES = {"conv": ("act_batch", None, "conv_dim"),
+                    "ssm": ("act_batch", "ssm_heads", None, None)}
+
+
+def init_mamba_cache(batch: int, cfg, device=None, rules=None,
+                     mesh=None) -> dict:
     """Zeroed cache of one mixer, as the reference's: the conv inputs in
     bf16, the state in fp32. The decode path rounds each conv input to
-    the cache's dtype, whatever that is."""
+    the cache's dtype, whatever that is. With a mesh, this rank's block:
+    its rows, the "ssm" state of its heads (`cache_pspecs`' block) and
+    the "conv" tail of its channels (`conv_channels`)."""
     m = mamba_dims(cfg)
-    return {"conv": torch.zeros(batch, m["d_conv"] - 1, m["conv_dim"],
-                                dtype=torch.bfloat16, device=device),
-            "ssm": torch.zeros(batch, m["n_heads"], m["headdim"],
-                               m["d_state"], device=device)}
+    conv = (batch, m["d_conv"] - 1, m["conv_dim"])
+    ssm = (batch, m["n_heads"], m["headdim"], m["d_state"])
+    if mesh is not None:
+        rows = NamedSharding(mesh, resolve_sized(
+            ("act_batch",), rules, mesh, (batch,))).local_shape((batch,))[0]
+        th = serve_heads(cfg, rules, mesh)
+        heads = _rank_dims(cfg, th, mesh)[0]["n_heads"] if th \
+            else m["n_heads"]
+        ssm = (rows, heads) + ssm[2:]
+        conv = (rows, m["d_conv"] - 1, sum(
+            hi - lo for lo, hi in conv_channels(cfg, rules, mesh)))
+    return {"conv": torch.zeros(conv, dtype=torch.bfloat16, device=device),
+            "ssm": torch.zeros(ssm, device=device)}
+
+
+def mamba_cache_abstract(batch: int, cfg) -> dict:
+    """`init_mamba_cache`'s tensors on the meta device."""
+    return init_mamba_cache(batch, cfg, "meta")

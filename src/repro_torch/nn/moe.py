@@ -8,10 +8,10 @@ group-local. Experts are embedding tables in the paper's terms: the router
 is a multi-hot lookup, and the per-group capacity is the truncation bound
 on lookups. Whatever passes capacity is dropped.
 
-With a mesh (training), the groups split over the batch's mesh axes (a
-rank's groups are the global reshape's: with its rows, group i is tokens
-[i tg, (i + 1) tg) of the flattened (b, s)), so moe_groups must split
-over them. Under tables that shard the experts at compute (TRAIN, FSDP:
+With a mesh (training and serving), the groups split over the batch's
+mesh axes (a rank's groups are the global reshape's: with its rows,
+group i is tokens [i tg, (i + 1) tg) of the flattened (b, s)), so
+moe_groups must split over them. Under tables that shard the experts at compute (TRAIN, FSDP:
 `expert` on `model`), every rank of a `model` line routes its groups the
 same way, dispatches to and runs only its own experts, and one all_reduce
 over `model` adds the partial combines; under ZERO_DP the experts are
@@ -164,8 +164,8 @@ def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
-        capacity_factor: float | None = None, rules=None, mesh=None
-        ) -> tuple[torch.Tensor, torch.Tensor]:
+        capacity_factor: float | None = None, rules=None, mesh=None,
+        global_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (y (b, s, d) in dtype, aux_loss fp32 scalar).
 
     Each group's tokens are gathered into (e_pad, cap, d) expert slots
@@ -185,7 +185,9 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
     the experts split over `model`, the gates enter the combine through
     `launch.mesh.copy_to` (each rank's combine covers its experts' pairs
     only, so their cotangents are summed there), as does the dispatch's
-    input; the router sees the input as it is."""
+    input; the router sees the input as it is. With global_aux=False (the
+    serving steps, which read no aux loss) the aux loss is this rank's
+    groups' own and no collective runs over the batch's axes."""
     b, s, d = x.shape
     k, f = cfg.top_k, cfg.d_ff
     e, e_pad = cfg.n_experts, cfg.n_experts + cfg.expert_pad
@@ -205,7 +207,7 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
     xg = x.reshape(g_loc, tg, d).to(dtype)
     router = gather_weight(p["router"].to(dtype), ("embed", None), rules,
                            mesh, (d, e))
-    r = route(router, xg, cfg, cap, dtype, mesh, ba)
+    r = route(router, xg, cfg, cap, dtype, mesh, ba if global_aux else ())
     n = tg * k
     w = {name: gather_weight(p[name].to(dtype), axes, rules, mesh, shape)
          for name, axes, shape in (

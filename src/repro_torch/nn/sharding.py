@@ -400,6 +400,25 @@ def gather_weight(w: torch.Tensor, axes: Sequence[str | None],
     return replicate_weight(w, axes, rules, mesh, shape, keep=g_axes)
 
 
+def use_spec(axes: Sequence[str | None], rules: LogicalRules, mesh,
+             shape: Sequence[int]) -> tuple:
+    """The spec of a weight of global `shape` as `gather_weight` hands it
+    out: its storage spec, or under rules["_gather_weights"] the spec
+    with the gathered axes dropped (`()` without a mesh)."""
+    if mesh is None or not rules:
+        return ()
+    if rules.get("_gather_weights"):
+        gathered = rules.get("_gather_axes", GATHERED_AXES)
+        axes = tuple(None if a in gathered else a for a in axes)
+    return resolve_sized(axes, rules, mesh, shape)
+
+
+def dim_axes(spec: Sequence, dim: int) -> tuple[str, ...]:
+    """The mesh axes a spec shards dimension `dim` over (none past its
+    end)."""
+    return _entry_axes(spec[dim]) if dim < len(spec) else ()
+
+
 def storage_spec(w: torch.Tensor, axes: Sequence[str | None],
                  rules: LogicalRules, mesh,
                  shape: Sequence[int] | None = None

@@ -12,6 +12,14 @@ is zeroed when a request takes the slot. The reference does not: a
 request admitted into a reused slot starts from the previous request's
 state, advanced by the padding tokens fed to the slot while it sat idle.
 A KV cache needs no reset: its rows are written before they are read.
+
+Over a mesh (`mesh=`, one engine a rank, the same requests submitted on
+every rank), a rank holds its blocks of the slots' caches (the slots
+split over the batch's axes, `data` under SERVE_RULES). Every rank runs
+the same admission and retirement; a slot's prompt goes through decode
+steps on the ranks that hold its rows only (`models.lm.decode_rows`),
+and each step decodes every slot on every rank and samples from the
+logits gathered whole, so all ranks pick the same tokens.
 """
 from __future__ import annotations
 
@@ -23,7 +31,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dlrm import dlrm_forward_dense
-from repro_torch.models.lm import Caches, decode_step, init_caches
+from repro_torch.models.lm import (Caches, decode_rows, decode_step,
+                                   init_caches)
+from repro_torch.nn.sharding import (SERVE_RULES, LogicalRules, batch_axes,
+                                     block_range)
 
 
 @dataclasses.dataclass
@@ -60,10 +71,13 @@ class ServeEngine:
     token-in, token-out archs: the vision arch decodes text (an empty
     patch prefix, as its `decode_step` does); the audio arch, whose steps
     take and give K codebook tokens, raises ValueError, where the
-    reference asserts."""
+    reference asserts. With a `mesh`, `params` are this rank's blocks
+    under `rules` (the module docstring); without one `rules` go
+    unused."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
-                 max_len: int, eos_id: int = -1):
+                 max_len: int, rules: LogicalRules = SERVE_RULES,
+                 eos_id: int = -1, mesh=None):
         if cfg.frontend not in (None, "vision"):
             raise ValueError(f"{cfg.name}: the engine drives token-in / "
                              f"token-out archs, not the {cfg.frontend} "
@@ -74,13 +88,21 @@ class ServeEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.device = params["embed"]["tok"].device
-        self.caches = init_caches(cfg, batch_slots, max_len, self.device)
+        self.rules, self.mesh = rules, mesh
+        self.caches = init_caches(cfg, batch_slots, max_len, self.device,
+                                  rules, mesh)
+        # the slots whose cache rows this rank holds
+        self.rows = (0, batch_slots) if mesh is None else block_range(
+            batch_slots, batch_axes(rules, mesh), mesh)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, np.int32)
         self.slot_budget = np.zeros(batch_slots, np.int32)
         self.queue: collections.deque[Request] = collections.deque()
         self.completed: dict[int, list[int]] = {}
-        self._decode = lambda p, t, c, i: decode_step(p, t, c, i, cfg)
+        self._decode = lambda p, t, c, i: decode_step(p, t, c, i, cfg,
+                                                      rules, mesh)
+        self._decode_rows = lambda p, t, c, i: decode_rows(p, t, c, i, cfg,
+                                                           rules, mesh)
         self.steps_run = 0
 
     # -- admission -----------------------------------------------------------
@@ -111,13 +133,16 @@ class ServeEngine:
             # written in place, so the other slots' caches are never
             # touched. The LAST prompt token is left to the first
             # `step()`, which feeds it at position len-1 and samples the
-            # first generated token from its logits.
-            caches = _slot_caches(self.caches, slot)
-            _reset_recurrent(caches)
-            for t, tok in enumerate(req.prompt[:-1]):
-                tok_arr = torch.full((1, 1), int(tok), dtype=torch.long,
-                                     device=self.device)
-                self._decode(self.params, tok_arr, caches, t)
+            # first generated token from its logits. Over a mesh only the
+            # ranks holding the slot's rows run it.
+            lo, hi = self.rows
+            if lo <= slot < hi:
+                caches = _slot_caches(self.caches, slot - lo)
+                _reset_recurrent(caches)
+                for t, tok in enumerate(req.prompt[:-1]):
+                    tok_arr = torch.full((1, 1), int(tok), dtype=torch.long,
+                                         device=self.device)
+                    self._decode_rows(self.params, tok_arr, caches, t)
             self.slot_req[slot] = req
             self.slot_pos[slot] = len(req.prompt) - 1
             # the budget clamped to the cache window: after g generated

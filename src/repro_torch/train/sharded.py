@@ -780,6 +780,214 @@ def lm_rank(device: torch.device, job: dict) -> dict:
     return out
 
 
+#: the job keys `lm_serve_rank` reads, with their defaults where optional
+LM_SERVE_DEFAULTS = {"mesh": ((1, 4), ("data", "model")), "params": None,
+                     "seed": None, "init_cfg": None, "prompt": None,
+                     "max_len": None, "decode": 0, "feed": None,
+                     "positions": None, "report_logits": True,
+                     "report_caches": False, "engine": None}
+
+
+def _rank_params(job: dict, cfg, shardings, device: torch.device) -> dict:
+    """This rank's blocks of job["params"] (numpy, or tensors on the
+    device: CUDA IPC views of the caller's), or of the tree job["seed"]
+    draws on the device for job["init_cfg"] (default cfg), cut to cfg's
+    units: the ranks draw one at a time, so the device holds one whole
+    tree at once."""
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.nn.params import tree_leaves, tree_map
+
+    def blocks(whole):
+        # mapped over the shardings: the blocks keep the specs' leaf order
+        return tree_map(lambda sh, t: sh.shard(t).to(device, copy=True),
+                        shardings, whole)
+    whole = job["params"]
+    if whole is not None:
+        if not isinstance(tree_leaves(whole)[0], torch.Tensor):
+            whole = tree_map(torch.from_numpy, whole)
+        return blocks(whole)
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            whole = init_lm_params(job["init_cfg"] or cfg, job["seed"],
+                                   device)
+            whole["blocks"] = tree_map(lambda t: t[:cfg.n_units],
+                                       whole["blocks"])
+            out = blocks(whole)
+            del whole
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def serve_steps(params: dict, cfg, prompt, n_decode: int,
+                max_len: int | None = None, feed=None, positions=None,
+                rules=None, mesh=None, run=None):
+    """`prefill_step` on `prompt` (tokens (B, S) or a dict of the
+    frontends' leaves, numpy) into fresh caches of `max_len` positions
+    (default S + n_decode; this rank's blocks with a mesh), then n_decode
+    `decode_step`s, step i at positions[i] (an int, or (B,) per row;
+    default S + i), fed feed[i] ((B,), or (B, K) codebook tokens) or the
+    argmax of the step before. `run(fn)` runs each step's call and
+    returns its logits (default: the logits as fp32). Returns (the
+    caches, the tokens fed)."""
+    from repro_torch.models.lm import decode_step, init_caches, prefill_step
+    from repro_torch.nn.sharding import SERVE_RULES
+    rules = SERVE_RULES if rules is None else rules
+    if run is None:
+        def run(fn):
+            with torch.no_grad():
+                return fn()[0].float()
+    dev = next(iter(params["embed"].values())).device
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in batch.items()}
+    n = len(next(iter(batch.values())))
+    s = sum(batch[k].shape[1] for k in ("embeds", "tokens") if k in batch)
+    caches = init_caches(cfg, n, max_len or s + n_decode, dev, rules, mesh)
+    last = run(lambda: prefill_step(params, batch, caches, cfg, rules,
+                                    mesh))
+    fed = []
+    for i in range(n_decode):
+        tok = last.argmax(-1) if feed is None else torch.as_tensor(
+            np.asarray(feed[i]), device=dev).long()
+        pos = s + i if positions is None else positions[i]
+        if np.ndim(pos):
+            pos = torch.as_tensor(np.asarray(pos), device=dev).long()
+        fed.append(tok.cpu().numpy().tolist())
+        last = run(lambda: decode_step(params, tok[:, None], caches, pos,
+                                       cfg, rules, mesh))
+    return caches, fed
+
+
+def lm_serve_rank(device: torch.device, job: dict) -> dict:
+    """One rank of LM serving over job["mesh"] ((shape, axis names),
+    default (data 1, model 4)): `prefill_step` and `decode_step(rules=,
+    mesh=)` on the rank's parameter and cache blocks. job:
+      cfg           the ModelConfig
+      rules         the name of an `nn.sharding` table, or a table
+      params, seed, init_cfg   as `lm_rank`'s
+      prompt        the whole batch's prompt: tokens (B, S) numpy, or a
+                    dict of numpy leaves (the frontends' embeddings)
+      max_len       the caches' positions (default S + decode)
+      decode        decode steps after the prefill, at positions S, S+1..
+                    or positions[i] (an int or (B,) a step)
+      feed          (decode, B) tokens fed at each step (teacher-forced);
+                    None feeds each step's argmax of the gathered logits
+      report_logits every step's gathered logits (numpy fp32; "first":
+                    rank 0's alone; else only their bit checksums),
+                    report_caches the rank's cache blocks at the end
+      engine        instead of the steps, {"slots", "max_len",
+                    "requests": [(uid, prompt, max_new_tokens)], "alone"}:
+                    `ServeEngine(rules=, mesh=)` drains them; with
+                    "alone", each again in a fresh engine by itself.
+    Returns plain values: coordinates, the rank's parameter and cache
+    bytes, each step's (prefill, then the decodes) logits or checksums,
+    the tokens fed, host ms, `Mesh.stats` and kernel launches, the peak,
+    the engine's completed requests, and the modules of jax or the
+    reference this process loaded."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import lm_param_shardings
+    from repro_torch.nn import sharding
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+    job = {**LM_SERVE_DEFAULTS, **job}
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    cfg = job["cfg"]
+    rules = job["rules"] if isinstance(job["rules"], dict) \
+        else getattr(sharding, job["rules"])
+    mesh = Mesh(*job["mesh"])
+    params = _rank_params(job, cfg, lm_param_shardings(cfg, rules, mesh),
+                          device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "foreign_modules": None}
+    logits, bits, fed, host_ms, coll, launches = [], [], None, [], [], []
+    report = job["report_logits"] is True or (
+        job["report_logits"] == "first" and mesh.rank == 0)
+
+    def run(fn):
+        mesh.reset_stats()
+        before = {k.name: k.launches for k in KERNELS}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, _ = fn()
+        lg = lg.float()
+        if cuda:
+            torch.cuda.synchronize(device)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS})
+        coll.append(dict(mesh.stats))
+        bits.append(bit_checksum(lg))
+        if report:
+            logits.append(lg.cpu().numpy())
+        return lg
+
+    if job["engine"] is not None:
+        e = job["engine"]
+
+        def drain(requests):
+            engine = ServeEngine(params, cfg, e["slots"], e["max_len"],
+                                 rules, mesh=mesh)
+            for uid, prompt, budget in requests:
+                engine.submit(Request(uid=uid, prompt=np.asarray(prompt),
+                                      max_new_tokens=budget))
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                done = engine.run_until_drained()
+            return engine, {"completed": {u: list(v)
+                                          for u, v in done.items()},
+                            "steps": engine.steps_run,
+                            "host_s": time.perf_counter() - t0}
+        mesh.reset_stats()
+        before = {k.name: k.launches for k in KERNELS}
+        engine, out["engine"] = drain(e["requests"])
+        if e.get("alone"):
+            out["engine"]["alone"] = {}
+            for r in e["requests"]:
+                engine = None            # one engine's caches at a time
+                engine, got = drain([r])
+                out["engine"]["alone"].update(got["completed"])
+        caches = engine.caches
+        launches.append({k.name: k.launches - before[k.name]
+                         for k in KERNELS})
+        coll.append(dict(mesh.stats))
+    else:
+        caches, fed = serve_steps(params, cfg, job["prompt"], job["decode"],
+                                  job["max_len"], job["feed"],
+                                  job["positions"], rules, mesh, run)
+    out.update(logits=logits if report else None,
+               logits_bits=bits, fed=fed, host_ms=host_ms,
+               collectives=coll, launches=launches,
+               cache_bytes=sum(t.numel() * t.element_size()
+                               for c in caches.values()
+                               for t in c.values()),
+               peak_bytes=(torch.cuda.max_memory_allocated(device)
+                           if cuda else None),
+               foreign_modules=_foreign_modules())
+    if job["report_caches"]:
+        out["caches"] = {name: {k: (t.float() if t.dtype == torch.bfloat16
+                                    else t).cpu().numpy()
+                                for k, t in c.items()}
+                         for name, c in caches.items()}
+    del params, caches
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def sharding_rank(device: torch.device, job: dict) -> dict:
     """`nn.sharding`'s moves on this rank of job["mesh"] ((shape, axis
     names)), forward and backward. Each of job["cases"]:

@@ -29,6 +29,19 @@ from repro_torch.models.lm import (decode_step, init_caches, init_lm_params,
 from repro_torch.serve import DrainTimeout, Request, ServeEngine
 from repro_torch.serve.engine import _reset_recurrent, _slot_caches
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this file's tests: the suite's workers share
+    the machine's cores, and at torch's default count a smoke model's
+    small ops spin on busy cores (one test ran 55 times slower in the
+    suite than alone). Every comparison here is made under this count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "stablelm-1.6b"
 #: the MoE, SSM and hybrid archs
 ZOO = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "mamba2-780m",

@@ -34,6 +34,19 @@ from repro_torch.nn.params import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.train.steps import build_lm_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this file's tests: the suite's workers share
+    the machine's cores, and at torch's default count a smoke model's
+    small ops spin on busy cores (one test ran 55 times slower in the
+    suite than alone). Every comparison here is made under this count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ZOO = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "mamba2-780m",
        "jamba-v0.1-52b"]
 

@@ -542,6 +542,26 @@ def test_run_ranks_times_out_and_kills_the_ranks():
     assert time.perf_counter() - t0 < 30
 
 
+def test_rank_world_runs_calls_on_one_spawn_and_ends_on_a_failure():
+    cfg = get_smoke_config("dlrm-m1")
+    bad = {"cfg": cfg, "mesh": (3, 3), "strategy": "table_wise",
+           "step": "tablewise", "dense": {}, "mega": np.zeros((8, 16)),
+           "n_steps": 1, "batches": []}
+    with tmesh.RankWorld(2, backend="gloo", device="cpu",
+                         timeout_s=SPAWN_TIMEOUT_S) as world:
+        first, second = {}, {}
+        assert world.run(run_calls, ([],), timings=first) == [[], []]
+        assert world.run(run_calls, ([],), timings=second) == [[], []]
+        # the second call's ranks are the first's: started before it
+        assert all(r["imported"] < 0 < f["imported"]
+                   for r, f in zip(second["ranks"], first["ranks"]))
+        with pytest.raises(RuntimeError,
+                           match="holds 9 ranks; the world has 2"):
+            world.run(train_rank, (bad,))
+        with pytest.raises(RuntimeError, match="has ended"):
+            world.run(run_calls, ([],))
+
+
 @pytest.mark.parametrize("shard", [0, 1, 2, 3])
 def test_shard_gradient_sums_equal_the_reference_csr_sums(shard):
     """The psum update's local buffer: the port's slot-order scatter

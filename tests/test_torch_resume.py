@@ -166,7 +166,18 @@ def _same_tree(a, b) -> bool:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def test_train_cli_lm_trains_with_falling_losses(tmp_path, capsys):
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: the suite's workers share the machine's cores,
+    where torch's default count spins on busy cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_train_cli_lm_trains_with_falling_losses(tmp_path, capsys,
+                                                 one_torch_thread):
     """The LM mode at the reference's defaults (adamw(3e-4), seq 64, batch
     32) on the smoke config: the loss falls over 30 steps."""
     run = train_cli.main(["--arch", "stablelm-1.6b", "--smoke", "--steps",
