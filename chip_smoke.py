@@ -303,7 +303,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    LM_SERVE_ENGINE_LAYERS layers, with 16d's requests over 2 slots, each
    request's tokens equal to the same request served alone on the mesh;
    the kernel timed at a rank's prefill shape beside SDPA;
-21. print one JSON line of per-kernel numbers, then the result line.
+21. the dry run (`launch.dryrun`) on the host, on the meta device, held to
+   what this run measured on the card: (21a) 20a's serving rank
+   (`DryMesh` (1, 4), SERVE_RULES, fp32 parameter blocks, the prompt
+   then LM_SERVE_MESH_DECODE decode steps), its parameter and cache
+   blocks exactly 20a's bytes; (21b) 19a's FSDP rank at its cut depth
+   and steps (the optimizer keeping step 0's gradients, as `lm_rank`
+   does), its collectives' calls and bytes a step exactly 19a's
+   `Mesh.stats`; (21c) 14b's one-device step; each rank's or step's
+   peak within DRY_PEAK_BAND of the card's `max_memory_allocated`, the
+   kernel calls it books equal to the launches counted on the card, and
+   printed beside the reckoning; (21d) `run_cell` of one production cell
+   each, stablelm-1.6b/train_4k and dlrm-m3/train_b64k on 16 x 16,
+   printed;
+22. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
@@ -758,6 +771,11 @@ LM_SERVE_ENGINE_LAYERS = 2
 #: TOL_LM_REL_L2); where the one-device top-2 margin exceeds twice the
 #: step's largest logit difference, the argmax must agree
 TOL_LM_SERVE_MESH_REL_L2 = TOL_LM_REL_L2
+#: phase 21: how far (relative) a dry run's peak may lie from the card's
+#: `max_memory_allocated` for the same run
+DRY_PEAK_BAND = 0.15
+#: 21d: the production cells `launch.dryrun.run_cell` runs on 16 x 16
+DRY_CELLS = (("stablelm-1.6b", "train_4k"), ("dlrm-m3", "train_b64k"))
 #: 20a: a rank's prefill attention shape, (b, h, s, dh) bf16
 FLASH_SERVE_RANK_SHAPE = (1, 8, LM_PROMPT, 64)
 #: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
@@ -4243,6 +4261,7 @@ def lm_train_phases(torch, dev, cfg) -> dict:
                             profiled=True)
     paths["lm_train"] = res["launches"]
     losses_14b = res["numbers"]["losses"]
+    peak_14b = res["numbers"]["peak_bytes"]
     # 14a's per-kernel trace, late in this process, can come back partial
     # (as 9a's does): the kernels line takes 14b's profiled step, whose 24
     # launches run at 14a's bf16 shape, and keeps 14a's beside it
@@ -4272,7 +4291,8 @@ def lm_train_phases(torch, dev, cfg) -> dict:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     free_device(torch)
-    return {"bwd": bwd, "paths": paths, "losses_14b": losses_14b}
+    return {"bwd": bwd, "paths": paths, "losses_14b": losses_14b,
+            "peak_14b": peak_14b}
 
 
 class Tee:
@@ -7004,6 +7024,181 @@ def lm_serve_engine_run(res: list) -> dict:
     return nums
 
 
+def dry_held(name: str, dry: int, card: int, reckoned: int) -> dict:
+    """Phase 21's peak gate: the dry run's peak within DRY_PEAK_BAND of
+    the card's (relative); both printed beside the reckoning."""
+    rel = (dry - card) / card
+    nums = {"dry_peak_bytes": dry, "card_peak_bytes": card,
+            "dry_over_card": dry / card, "reckoning_bytes": reckoned,
+            "band": DRY_PEAK_BAND}
+    log(f"  {name}: dry-run peak {dry / 1e9:.3f} GB, card "
+        f"{card / 1e9:.3f} GB ({rel:+.1%}, band {DRY_PEAK_BAND:.0%}); "
+        f"the reckoning {reckoned / 1e9:.3f} GB")
+    if abs(rel) > DRY_PEAK_BAND:
+        raise AssertionError(f"{name}: the dry run's peak {dry} is off the "
+                             f"card's {card}: {json.dumps(nums)}")
+    return nums
+
+
+def dry_kernels_held(name: str, an, want: dict) -> None:
+    """The kernel calls a dry run booked equal the launches the card
+    counted for the same run."""
+    got = {k: v["calls"] for k, v in an.kernels.items()}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{name}: the dry run booked {got} kernel "
+                             f"calls; the card launched {want}")
+
+
+def dry_collectives_held(name: str, stats: dict, want: dict) -> dict:
+    """A dry rank's collectives over its run, calls and bytes, equal to
+    the real rank's `Mesh.stats` over the same run (`want`: {op:
+    {"calls", "bytes"}})."""
+    from repro_torch.launch.mesh import COLLECTIVES
+    got = {op: {k: stats[f"{op}_{k}"] for k in ("calls", "bytes")}
+           for op in COLLECTIVES}
+    if got != {op: {k: want[op][k] for k in ("calls", "bytes")}
+               for op in COLLECTIVES}:
+        raise AssertionError(f"{name}: the dry rank's collectives {got}, "
+                             f"the real ranks' {want}")
+    return got
+
+
+def dry_serving_rank(cfg, run: dict) -> dict:
+    """21a: 20a's rank on the meta device (see the module docstring).
+    Every rank's blocks are the same size (`resolve_sized`), so rank 0's
+    dry run stands for each rank: its blocks, kernel calls and
+    collectives equal each rank's, and its peak is held to each rank's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DryMesh
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.nn.sharding import SERVE_RULES
+    shape, names = LM_SERVE_MESH
+    reckoned = lm_serve_reckoning(cfg, SERVE_RULES, LM_SERVE_MESH, 1,
+                                  LM_PROMPT, LM_SERVE_MESH_MAX_LEN)["total"]
+    mesh = DryMesh(shape, names, 0)
+    job = dryrun.lm_serve_job(cfg, SERVE_RULES, mesh, 1, LM_PROMPT,
+                              LM_SERVE_MESH_MAX_LEN,
+                              n_decode=LM_SERVE_MESH_DECODE)
+    an, _ = dryrun.measure(job, mesh)
+    params, _ = job.tracked["parameters"]
+    caches, _ = job.tracked["inputs"]
+    blocks = {"param_blocks": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(params)),
+              "cache_blocks": sum(t.numel() * t.element_size()
+                                  for c in caches.values()
+                                  for t in c.values())}
+    total = {op: {k: run["prefill_collectives"][op][k]
+                  + LM_SERVE_MESH_DECODE
+                  * run["decode_collectives_per_step"][op][k]
+                  for k in ("calls", "bytes")}
+             for op in run["prefill_collectives"]}
+    out = {**blocks, "collectives": dry_collectives_held(
+        "21a", mesh.stats, total),
+           "peak_by_kind": an.memory()["peak_by_kind"], "ranks": []}
+    for r, card in enumerate(run["peak_bytes_by_rank"]):
+        want = {"param_blocks": run["param_block_bytes_by_rank"][r],
+                "cache_blocks": run["cache_block_bytes_by_rank"][r]}
+        if blocks != want:
+            raise AssertionError(f"21a rank {r}: the dry run's blocks "
+                                 f"{blocks}, 20a's {want}")
+        dry_kernels_held(f"21a rank {r}", an, run["launches_per_rank"][r])
+        out["ranks"].append(dry_held(f"21a rank {r}", an.peak_bytes, card,
+                                     reckoned))
+    return out
+
+
+def dry_train_rank(cfg, run: dict) -> dict:
+    """21b: 19a's FSDP rank at its cut depth, LM_MESH_STEPS steps of
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ, the optimizer keeping step 0's
+    gradients past the step (`lm_rank` does); rank 0's dry run stands
+    for each rank, as in 21a."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DryMesh
+    from repro_torch.nn.sharding import FSDP_RULES
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer
+    shape, names = LM_MESH
+    reckoned = lm_mesh_reckoning(cfg, FSDP_RULES, LM_TRAIN_BATCH,
+                                 LM_TRAIN_SEQ)["total"]
+    opt, kept = adamw(3e-4), []
+
+    def apply(p, g, s, t, **kw):
+        if not kept:
+            kept.append(g)
+        return opt.apply(p, g, s, t, **kw)
+    mesh = DryMesh(shape, names, 0)
+    job = dryrun.lm_train_job(cfg, FSDP_RULES, mesh, LM_TRAIN_BATCH,
+                              LM_TRAIN_SEQ,
+                              opt=Optimizer(opt.init, apply, opt.name),
+                              steps=LM_MESH_STEPS)
+    an, _ = dryrun.measure(job, mesh)
+    total = {op: {k: LM_MESH_STEPS * v[k] for k in ("calls", "bytes")}
+             for op, v in run["collectives_per_step"].items()}
+    out = {"collectives": dry_collectives_held("21b", mesh.stats, total),
+           "peak_by_kind": an.memory()["peak_by_kind"], "ranks": []}
+    for r, card in enumerate(run["peak_bytes_by_rank"]):
+        dry_kernels_held(f"21b rank {r}", an, run["launches_per_rank"][r])
+        out["ranks"].append(dry_held(f"21b rank {r}", an.peak_bytes, card,
+                                     reckoned))
+    return out
+
+
+def dry_one_device(cfg, card: int, launches: dict) -> dict:
+    """21c: 14b's step on one device (the launcher's adamw and rules, its
+    batch), from its fp32 parameters and AdamW state."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn.sharding import TRAIN_RULES
+    from repro_torch.optim import adamw
+    args = train_cli.parse_args(LM_TRAIN_ARGV)
+    job = dryrun.lm_train_job(cfg, TRAIN_RULES, None, args.batch, args.seq,
+                              opt=adamw(args.lr))
+    an, _ = dryrun.measure(job)
+    dry_kernels_held("21c", an, {k: v // args.steps
+                                 for k, v in launches.items()})
+    nums = dry_held("21c", an.peak_bytes, card, lm_reckoning_bytes(
+        cfg, args.batch, args.seq)["total"])
+    nums["peak_by_kind"] = an.memory()["peak_by_kind"]
+    return nums
+
+
+def dry_run_phase(lm_cfg, mesh: dict, peak_14b: int,
+                  launches_14b: dict) -> dict:
+    """Phase 21 (the module docstring). Returns its numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg20 = dataclasses.replace(get_config(LM_ARCH),
+                                compute_dtype=LM_SERVE_RUNS[0][5])
+    log("phase 21: the dry run on the meta device against this run's card "
+        f"numbers (band {DRY_PEAK_BAND:.0%}): 20a's serving rank, 19a's "
+        "FSDP rank, 14b's step; then one production cell each")
+    out = {"21a": dry_serving_rank(cfg20, mesh["20a"]),
+           "21b": dry_train_rank(dataclasses.replace(
+               lm_cfg, n_layers=LM_MESH_LAYERS), mesh["19a"]),
+           "21c": dry_one_device(lm_cfg, peak_14b, launches_14b)}
+    for arch, shape in DRY_CELLS:
+        rec = dryrun.run_cell(arch, shapes_for(arch)[shape], False)
+        if not rec["ok"]:
+            raise AssertionError(f"21d {arch}/{shape}: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        keep = {k: rec.get(k) for k in (
+            "memory", "fits", "accum_steps", "hbm_estimate_gb", "flops",
+            "per_chip_dot_flops", "collective_bytes_per_chip",
+            "collective_calls_per_chip", "kernels", "compute_s",
+            "memory_s", "collective_s", "dominant", "bound_s",
+            "placement", "load_imbalance", "config_overrides", "total_s")
+            if k in rec}
+        log(f"  21d {arch}/{shape} on 16x16: {json.dumps(keep)}")
+        out[f"21d {arch}/{shape}"] = keep
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 21 took {out['phase_s']:.1f} s")
+    return out
+
+
 def search_main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7584,7 +7779,12 @@ def main() -> int:
             name] = {k: v for k, v in fl.items()
                      if not k.startswith("forward")}
 
-    # 21. the numbers, then the result
+    # 21. the dry run on the host, held to what this run measured: 20a's
+    #     serving rank, 19a's FSDP rank, 14b's step; two production cells
+    dry_run_phase(lm_cfg, mesh, lm_train["peak_14b"],
+                  lm_train["paths"]["lm_train"])
+
+    # 22. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",

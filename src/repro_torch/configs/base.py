@@ -95,6 +95,26 @@ class ModelConfig:
         from repro_torch.nn.params import param_count
         return param_count(lm_param_specs(self))
 
+    def active_param_count_estimate(self) -> int:
+        """FLOP-active params per token for MODEL_FLOPS = 6*N*D, as the
+        reference counts them: the input embedding's rows do no product
+        (left out; a tied head's product is counted back), and a MoE
+        layer counts only its top_k experts."""
+        total = self.param_count_estimate()
+        if self.frontend == "audio":
+            total -= self.n_codebooks * self.vocab_size * self.d_model
+        else:
+            total -= self.vocab_size * self.d_model
+        if self.tie_embeddings and self.frontend != "audio":
+            total += self.vocab_size * self.d_model
+        if self.n_experts > 0:
+            n_moe_layers = sum(self.is_moe_layer(i)
+                               for i in range(self.n_layers))
+            per_expert = 3 * self.d_model * self.d_ff
+            total -= n_moe_layers * (self.n_experts
+                                     - self.top_k) * per_expert
+        return total
+
 
 @dataclasses.dataclass(frozen=True)
 class DLRMConfig:

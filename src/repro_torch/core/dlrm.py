@@ -4,11 +4,12 @@ MLP -> logit, and the split dense / sparse gradients of the paper's
 training step (Fig. 4): autograd over the dense tower, with the pooled
 embeddings as a leaf whose gradient feeds the fused sparse backward.
 
-Under a (data, model) mesh (`launch.mesh`) the dense tower is data
-parallel, as pjit makes the reference's: each rank runs its `data` slice
-of the batch, its BCE is its examples' sum over the GLOBAL batch size, the
-dense gradients are summed over `data`, and the reported loss is the mean
-of every example's term gathered over `data` (so it is the single-device
+Under a (data, model) mesh (`launch.mesh`), or a (pod, data, model) one,
+the dense tower is data parallel, as pjit makes the reference's: each
+rank runs its slice of the batch over every axis but `model`, its BCE is
+its examples' sum over the GLOBAL batch size, the dense gradients are
+summed over those axes, and the reported loss is the mean of every
+example's term gathered over them (so it is the single-device
 loss whenever the per-example terms are). `cfg.lookup_impl == "psum"`
 then pools through `EmbeddingBagCollection.lookup_pooled_psum`.
 """
@@ -92,11 +93,13 @@ def _lookup(params: dict, batch: dict, cfg: DLRMConfig,
 
 
 def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig,
-                 ebc: EmbeddingBagCollection) -> torch.Tensor:
+                 ebc: EmbeddingBagCollection, mesh=None) -> torch.Tensor:
     """Full forward: embedding lookup + dense tower -> (B,) logits.
     batch: {"dense" (B, n_dense), "idx" (B, F, L) int32 offset rows}, and
-    optionally a plan's "plan_rows"/"plan_offsets"/"plan_bags"."""
-    pooled = _lookup(params, batch, cfg, ebc)
+    optionally a plan's "plan_rows"/"plan_offsets"/"plan_bags". With a
+    mesh and `lookup_impl="psum"`, batch is this rank's slice, params["emb"]
+    its `model` shard, and the logits its slice's."""
+    pooled = _lookup(params, batch, cfg, ebc, mesh)
     return dlrm_forward_dense(params, batch["dense"], pooled, cfg)
 
 
@@ -131,11 +134,16 @@ def dense_grads(params: dict, batch: dict, pooled: torch.Tensor,
     BCE of `dlrm_forward_dense`, differentiated with `pooled` (B, F, d) as
     a leaf. Returns (loss, dense_grads, pooled_grads (B, F, d) fp32).
 
-    With a mesh whose `data` axis has more than one rank, batch and pooled
-    are this rank's slice: the dense gradients come back summed over the
-    axis (the same bits on every rank), the pooled gradients stay this
+    With a mesh whose batch axes (every axis but `model`: `data`, and
+    `pod` on a pod mesh) hold more than one rank, batch and pooled are
+    this rank's slice: the dense gradients come back summed over those
+    axes (the same bits on every rank), the pooled gradients stay this
     slice's, and the loss is the global batch's mean."""
-    n_data = 1 if mesh is None else mesh.size("data")
+    axes = () if mesh is None else tuple(
+        a for a in mesh.axis_names if a != "model")
+    n_data = 1
+    for a in axes:
+        n_data *= mesh.size(a)
     pooled = pooled.detach().requires_grad_()
     dense = tree_map(lambda t: t.detach().requires_grad_(),
                      {"bottom": params["bottom"], "top": params["top"]})
@@ -154,10 +162,14 @@ def dense_grads(params: dict, batch: dict, pooled: torch.Tensor,
     if n_data > 1:
         # one all_reduce of every dense gradient, flattened
         flat = torch.cat([g.reshape(-1) for g in g_dense])
-        mesh.all_reduce(flat, "data")
+        for a in axes:
+            mesh.all_reduce(flat, a)
         g_dense = [x.view_as(g) for x, g in zip(
             torch.split(flat, [g.numel() for g in g_dense]), g_dense)]
-        loss = torch.mean(mesh.gather_rows(terms.detach(), "data"))
+        terms = terms.detach()
+        for a in reversed(axes):
+            terms = mesh.gather_rows(terms, a)
+        loss = torch.mean(terms)
     it = iter(g_dense)
     return loss.detach(), tree_map(lambda _: next(it), dense), \
         grads[-1].float()

@@ -171,6 +171,10 @@ class EmbeddingBagCollection:
         g = pooled_grad[:, :, None, :].expand(b, f, lk, pooled_grad.shape[-1])
         return idx.reshape(-1), g.reshape(b * f * lk, -1)
 
+    def lookups_per_example(self) -> float:
+        """Mean pooled lookups per example across features."""
+        return float(sum(self.cfg.mean_lookups))
+
     def table_bytes(self) -> int:
         """Total mega-table bytes at the param dtype."""
         item = 4 if self.cfg.param_dtype == "float32" else 2

@@ -11,6 +11,7 @@ same arguments.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import DLRMConfig, ModelConfig
 
@@ -122,3 +123,37 @@ def make_lm_batch(cfg: ModelConfig, batch: int, seq_len: int, step: int = 0,
         axis=1).astype(np.int32)
     return {"tokens": tokens, "targets": targets,
             "loss_mask": np.ones((batch, seq_len), np.float32)}
+
+
+def lm_batch_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """`make_lm_batch`'s leaves on the meta device (the reference's
+    ShapeDtypeStruct stand-ins for the dry run): shapes and dtypes, no
+    memory."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    i32, f32 = torch.int32, torch.float32
+    if cfg.frontend == "vision":
+        prefix = vlm_prefix(seq_len)
+        return {"embeds": meta((batch, prefix, cfg.d_model), f32),
+                "tokens": meta((batch, seq_len - prefix), i32),
+                "targets": meta((batch, seq_len), i32),
+                "loss_mask": meta((batch, seq_len), f32)}
+    if cfg.frontend == "audio":
+        return {"embeds": meta((batch, seq_len, cfg.d_model), f32),
+                "targets": meta((batch, seq_len, cfg.n_codebooks), i32),
+                "loss_mask": meta((batch, seq_len), f32)}
+    return {"tokens": meta((batch, seq_len), i32),
+            "targets": meta((batch, seq_len), i32),
+            "loss_mask": meta((batch, seq_len), f32)}
+
+
+def dlrm_batch_specs(cfg: DLRMConfig, batch: int) -> dict:
+    """`make_dlrm_batch`'s leaves, indices already offset, on the meta
+    device (the dry run's stand-ins)."""
+    return {"dense": torch.empty((batch, cfg.n_dense_features),
+                                 dtype=torch.float32, device="meta"),
+            "idx": torch.empty((batch, cfg.n_sparse_features,
+                                cfg.truncation), dtype=torch.int32,
+                               device="meta"),
+            "label": torch.empty((batch,), dtype=torch.float32,
+                                 device="meta")}

@@ -4,7 +4,8 @@ Port of the TPU kernel `repro/kernels/dot_interaction.py::
 dot_interaction_kernel`: per example, the strictly-lower triangle of
 Z Z^T over the stacked (F, D) features, fp32. Unlike the TPU kernel it
 packs the triangle itself, in np.tril_indices(F, -1) order, and needs no
-sublane/lane padding of F and D.
+sublane/lane padding of F and D. On a meta tensor it checks and allocates
+as on the card, launches nothing and books its cost (`kernels.meta`).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, stream_handle
 
@@ -41,7 +43,9 @@ def dot_interaction(z: torch.Tensor) -> torch.Tensor:
     """z: (B, F, D) fp32 -> (B, F*(F-1)//2) fp32 pairwise dots, packed.
 
     A CPU tensor takes the plain version (`ref.dot_interaction_ref`); a
-    CUDA tensor launches the kernel, or raises. The kernel's part is a few
+    CUDA tensor launches the kernel, or raises; a meta tensor is checked
+    and allocated as a CUDA one and books the kernel's cost. The kernel's
+    part is a few
     microseconds, so this path keeps its host work to direct checks, one
     allocation and the launch."""
     if z.dim() != 3:
@@ -51,6 +55,9 @@ def dot_interaction(z: torch.Tensor) -> torch.Tensor:
     check_dot(z)
     b, f, d = z.shape
     out = z.new_empty((b, f * (f - 1) // 2))
+    if z.is_meta:
+        kmeta.book("dot_interaction", *kmeta.dot_interaction_cost(b, f, d))
+        return out
     KERNEL.launch(z.data_ptr(), out.data_ptr(), b, f, d,
                   stream_handle(z.get_device()))
     return out
@@ -60,10 +67,10 @@ def check_dot(z: torch.Tensor) -> None:
     """`dot_interaction`'s guard: device, dtype, contiguity, and one
     example's staged rows within the shared memory a block gets."""
     _, f, d = z.shape
-    if (z.is_cuda and z.dtype == torch.float32 and z.is_contiguous()
-            and example_bytes(f, d) <= MAX_SHARED_BYTES):
+    if ((z.is_cuda or z.is_meta) and z.dtype == torch.float32
+            and z.is_contiguous() and example_bytes(f, d) <= MAX_SHARED_BYTES):
         return
-    if not z.is_cuda:
+    if not (z.is_cuda or z.is_meta):
         raise ValueError(f"dot_interaction: unsupported device {z.device}")
     if z.dtype != torch.float32:
         raise TypeError(f"dot_interaction kernel takes fp32, got {z.dtype}")

@@ -6,7 +6,9 @@ embedding_bag_kernel` and `dedup_embedding_bag_kernel`: pooled multi-hot
 gather of an (H, D) fp32 table by (B, L) int32 indices (-1 pads), sum or
 mean, into (B, D) fp32 — the second reading each unique row of a
 `SparsePlan` from the table once. The TPU's 128-lane padding of D is gone:
-both kernels take any D.
+both kernels take any D. On meta tensors `embedding_bag` checks and
+allocates as on the card, launches nothing and books its cost
+(`kernels.meta`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, stream_handle
 
@@ -32,9 +35,11 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     every other entry in [0, H). Returns (B, D) fp32.
 
     A CPU tensor takes the plain version (`ref.embedding_bag_ref`); a CUDA
-    tensor launches the kernel, or raises. The kernel's part is a few
-    microseconds at the serving shape, so this path keeps its host work to
-    direct checks, one allocation and the launch."""
+    tensor launches the kernel, or raises; a meta tensor is checked and
+    allocated as a CUDA one and books the kernel's cost, every slot taken
+    as valid. The kernel's part is a few microseconds at the serving
+    shape, so this path keeps its host work to direct checks, one
+    allocation and the launch."""
     if mode not in MODES:
         raise ValueError(f"unknown pooling mode {mode!r}; expected {MODES}")
     if table.dim() != 2 or indices.dim() != 2:
@@ -42,6 +47,12 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                          f"{tuple(table.shape)} and {tuple(indices.shape)}")
     if table.is_cpu and indices.is_cpu:
         return ref.embedding_bag_ref(table, indices, mode)
+    if table.is_meta or indices.is_meta:
+        _check_cuda(table, indices)
+        b, length = indices.shape
+        kmeta.book("embedding_bag",
+                   *kmeta.embedding_bag_cost(b, length, table.shape[1]))
+        return table.new_empty((b, table.shape[1]))
     check_bag(table, indices)
     b, length = indices.shape
     d = table.shape[1]
@@ -116,7 +127,8 @@ def dedup_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
 
 
 def _check_cuda(table: torch.Tensor, indices: torch.Tensor) -> None:
-    if table.device.type != "cuda" or indices.device != table.device:
+    if table.device.type not in ("cuda", "meta") \
+            or indices.device != table.device:
         raise ValueError(f"embedding_bag needs both tensors on one CUDA "
                          f"device, got {table.device} and {indices.device}")
     if table.dtype != torch.float32 or indices.dtype != torch.int32:

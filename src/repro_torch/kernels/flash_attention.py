@@ -21,7 +21,8 @@ atomics), bf16 or fp32 at the forward's head dims: bf16 inputs run two
 tensor-core passes (wgmma, TMA) that round P and dS to bf16 before the
 products that take them, fp32 inputs fp32 SIMT kernels. `FlashAttention`
 runs the forward with the log-sum-exp and the backward kernel; on the CPU
-both take their plain versions.
+both take their plain versions. On meta tensors both check and allocate
+as on the card, launch nothing and book their cost (`kernels.meta`).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, stream_handle
 
@@ -60,10 +62,13 @@ def block_k(dh: int) -> int:
 
 
 def _check_cuda(name: str, tensors, causal: bool) -> torch.device:
-    """The checks both kernels share; raises on what they do not take."""
+    """The checks both kernels share; raises on what they do not take.
+    The meta device passes as the card does (the dry run's third
+    device)."""
     q = tensors[0]
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if dev.type not in ("cuda", "meta") \
+            or any(t.device != dev for t in tensors):
         raise ValueError(f"{name} needs its tensors on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     if not causal:
@@ -110,7 +115,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CPU tensor takes the plain version of the kernel its dtype would run,
     causal or not: bf16 the tiled `ref.flash_attention_tiled_ref` at the
     bf16 kernel's key tile, anything else `ref.flash_attention_ref`. A CUDA
-    tensor launches the kernel, which is causal only, or raises."""
+    tensor launches the kernel, which is causal only, or raises. A meta
+    tensor is checked and allocated as a CUDA one and launches nothing."""
     tensors = (q, k, v)
     _check_shapes(tensors)
     if all(t.device.type == "cpu" for t in tensors):
@@ -122,13 +128,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dh = q.shape
     q, k, v = _pad_dh(tensors)
     dp = q.shape[-1]
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    meta = dev.type == "meta"
+    if not meta and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs 16-byte aligned "
                          "q, k, v")
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
            if with_lse else None)
-    if out.numel():
+    if meta:
+        kmeta.book("flash_attention",
+                   *kmeta.flash_fwd_cost(b, h, s, dh, q.element_size()))
+    elif out.numel():
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                       b * h, s, dp, int(q.dtype == torch.bfloat16),
@@ -146,7 +156,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CPU tensor takes the plain version `ref.flash_attention_bwd_ref`
     (causal or not); a CUDA tensor launches the backward kernel (causal
-    only) or raises."""
+    only) or raises; a meta tensor is checked and allocated as a CUDA one
+    and launches nothing."""
     tensors = (q, k, v, o, do)
     _check_shapes(tensors)
     if lse.shape != q.shape[:3]:
@@ -162,12 +173,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, dh = q.shape
     padded = _pad_dh(tensors)
     dp = padded[0].shape[-1]
-    if any(t.data_ptr() % 16 for t in padded):
+    meta = dev.type == "meta"
+    if not meta and any(t.data_ptr() % 16 for t in padded):
         raise ValueError("flash_attention_bwd kernel needs 16-byte aligned "
                          "tensors")
     grads = [torch.empty_like(padded[0]) for _ in range(3)]
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    if q.numel():
+    if meta:
+        kmeta.book("flash_attention_bwd",
+                   *kmeta.flash_bwd_cost(b, h, s, dh, q.element_size()))
+    elif q.numel():
         BWD_KERNEL.launch(*(t.data_ptr() for t in padded), lse.data_ptr(),
                           *(g.data_ptr() for g in grads), delta.data_ptr(),
                           b * h, s, dp, int(q.dtype == torch.bfloat16),

@@ -23,13 +23,27 @@ operands in the reference's order, so that its floats come out equal:
                               placement pick (and, with a DRAM budget, a
                               DRAM/bulk tiering of the capacity level).
 
-A run's `TierCacheStats` and `RouteStats` are read beside them. The
-reference's compiled-program analyzers (`StableHloAnalysis`,
-`CollectiveAnalysis`) parse XLA's program text and have no counterpart.
+A run's `TierCacheStats` and `RouteStats` are read beside them.
+
+The reference's compiled-program analyzers parse XLA's program text; the
+port has no such text, so their counterparts count a step while it runs
+on the meta device (`launch.dryrun`): `StepAnalysis`, a dispatch mode, for
+`StableHloAnalysis` (its `OpCost` fields op by op, the meta kernels'
+booked costs, and the peak of live bytes), and `CollectiveAnalysis`, over
+a `launch.mesh.DryMesh`'s log of the step, for the reference's analysis
+of the partitioned program's collectives.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.kernels import meta as kmeta
 
 def sparse_backward_traffic(batch: int, n_features: int, truncation: int,
                             embed_dim: int, itemsize: int = 4,
@@ -433,3 +447,342 @@ def recommend_placement(hash_sizes, mean_lookups, embed_dim: int,
     return {"pick": pick, "fits_one_host": fits, "tablewise": tw,
             "rowshard": rs, "per_table": per_table, "plan": plan,
             "tiering": tiering}
+
+# ---------------------------------------------------------------------------
+# a step's cost on the meta device (the counterpart of StableHloAnalysis)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class OpCost:
+    """The reference's cost fields: product FLOPs (`mxu_flops`, 2·m·n·k),
+    elementwise FLOPs (one an output element), the bytes of products,
+    gathers, scatters and index ops (`major_bytes`), the products' count,
+    and the gathers' and scatters' share of the bytes."""
+    mxu_flops: float = 0.0
+    vpu_flops: float = 0.0
+    major_bytes: float = 0.0
+    dot_count: int = 0
+    gather_bytes: float = 0.0
+    scatter_bytes: float = 0.0
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) \
+        else 0
+
+
+def _tensors(tree) -> list:
+    """The tensors of a tree of dicts (their subclasses too: `models.lm.
+    Caches`), lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [t for v in tree for t in _tensors(v)]
+
+
+_A = torch.ops.aten
+#: products whose first operand is an addend (bias), not a factor
+_ADD_PRODUCTS = (_A.addmm, _A.baddbmm)
+#: reads of rows by index: 2 x the result's bytes (read the slice, write it)
+_GATHERS = (_A.index, _A.gather, _A.index_select, _A.embedding, _A.take)
+#: writes of rows by index, and the position of their update operand:
+#: 3 x the update's bytes (read and write the rows, read the update)
+_SCATTERS = {_A.index_put: 2, _A.index_put_: 2, _A._index_put_impl_: 2,
+             _A.scatter: 3, _A.scatter_: 3, _A.scatter_add: 3,
+             _A.scatter_add_: 3, _A.scatter_reduce: 3, _A.scatter_reduce_: 3,
+             _A.index_add: 3, _A.index_add_: 3, _A.index_copy: 3,
+             _A.index_copy_: 3}
+#: writes of a window: 2 x the update's bytes
+_UPDATES = {_A.slice_scatter: 1, _A.select_scatter: 1, _A.copy_: 1}
+#: reads of everything, writes of the result: operands' + results' bytes
+_SORTS = (_A.sort, _A.cumsum, _A.topk, _A.argsort)
+#: the out-of-place scatters PyTorch's backward formulas take under a
+#: dispatch mode in place of their in-place variants (gather's,
+#: indexing's, index_select's and masked_select's gradients)
+_FOLDED = (_A.scatter_add, _A.index_put, _A.index_add, _A.masked_scatter)
+
+
+class StepAnalysis(TorchDispatchMode):
+    """A step's cost and memory, counted op by op while it runs on the
+    meta device (the counterpart of the reference's `StableHloAnalysis`
+    over a lowered program; use it as a context manager around the step):
+
+      products   FLOPs by `torch.utils.flop_counter`'s formulas (mm,
+                 bmm, addmm, ...: 2·m·n·k), the operands' and result's
+                 bytes;
+      pointwise  one FLOP an output element (`vpu_flops`);
+      index ops  bytes as the reference's `_MAJOR_BYTES_OPS` counts them:
+                 a gather 2x its result, a scatter 3x its update, a
+                 window write 2x its update, arange its result, a sort or
+                 reduction its operands and results;
+      kernels    each meta kernel call's booked cost (`kernels.meta`):
+                 flash attention and dot interaction as products,
+                 embedding_bag as pointwise FLOPs and gathered bytes, all
+                 in `kernels` by name.
+
+    Everything is scaled by the cut loops' weights (`kernels.meta.
+    weighted`). With `memory`, it also tracks the live bytes of every
+    storage the step allocates, beside the ones registered with `track`
+    (parameters, optimizer state, inputs): `peak_bytes`, and `memory()`
+    splits the peak by kind. Under any dispatch mode PyTorch's backward
+    formulas take the out-of-place branch meant for tensor subclasses
+    (`isTensorSubclassLike`): gather's gradient is zeros.scatter_add(...)
+    where a run without the mode scatters into the zeros in place. So a
+    backward scatter (`_FOLDED`) whose target the op just before made
+    counts as that target, not beside it: at 19a's rank the loss's
+    gather gradient would otherwise add a second 1.64 GB buffer."""
+
+    def __init__(self, memory: bool = True):
+        super().__init__()
+        self.cost = OpCost()
+        #: product FLOPs with every cut loop counted once (its trips run)
+        self.unscaled_mxu_flops = 0.0
+        self.kernels: dict[str, dict[str, float]] = {}
+        self.track_memory = memory
+        self.peak_bytes = 0
+        self._live = 0
+        self._event = 0
+        self._peak_event = -1
+        self._records: list[list] = []
+        self._alive: dict[int, list] = {}
+        self._task_end: dict[int, int] = {}
+        self._task = -1
+        self._booking = None
+
+    # -- the context --------------------------------------------------------
+
+    def __enter__(self):
+        self._booking = kmeta.booking(self._kernel)
+        self._booking.__enter__()
+        self._saving = torch.autograd.graph.saved_tensors_hooks(
+            self._saved, lambda t: t)
+        self._saving.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._saving.__exit__(*exc)
+            self._booking.__exit__(*exc)
+
+    def _saved(self, t):
+        """A tensor autograd saves for the backward: its storage is an
+        activation."""
+        rec = self._alive.get(t.untyped_storage()._cdata)
+        if rec is not None and rec[1] in ("forward", "other"):
+            rec[1] = "saved"
+        return t
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        fold = self._fold_target(func, args) if self.track_memory else None
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out, kmeta.weight())
+        if self.track_memory:
+            self._note(out, fold)
+        return out
+
+    # -- cost ----------------------------------------------------------------
+
+    def _count(self, func, args, kwargs, out, w: int) -> None:
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            mats = args[1:3] if packet in _ADD_PRODUCTS else args
+            self.cost.mxu_flops += flops * w
+            self.unscaled_mxu_flops += flops
+            self.cost.major_bytes += (sum(map(_nbytes, mats))
+                                      + _nbytes(out)) * w
+            self.cost.dot_count += w
+            return
+        if torch.Tag.pointwise in func.tags:
+            self.cost.vpu_flops += sum(t.numel() for t in _tensors(out)) * w
+            return
+        if packet in _GATHERS:
+            b = 2.0 * sum(map(_nbytes, _tensors(out)))
+            self.cost.gather_bytes += b * w
+        elif packet in _SCATTERS:
+            i = _SCATTERS[packet]
+            upd = args[i] if len(args) > i and isinstance(
+                args[i], torch.Tensor) else args[2]
+            b = 3.0 * _nbytes(upd)
+            self.cost.scatter_bytes += b * w
+        elif packet in _UPDATES:
+            b = 2.0 * _nbytes(args[_UPDATES[packet]])
+        elif packet is _A.arange:
+            b = float(sum(map(_nbytes, _tensors(out))))
+        elif packet in _SORTS or torch.Tag.reduction in func.tags:
+            b = float(sum(map(_nbytes, _tensors((args, kwargs))))
+                      + sum(map(_nbytes, _tensors(out))))
+        else:
+            return
+        self.cost.major_bytes += b * w
+
+    def _kernel(self, name: str, flops: float, nbytes: float) -> None:
+        k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
+                                           "bytes": 0.0})
+        k["calls"] += kmeta.weight()
+        k["flops"] += flops
+        k["bytes"] += nbytes
+        if name == "embedding_bag":
+            self.cost.vpu_flops += flops
+            self.cost.gather_bytes += nbytes
+            self.cost.major_bytes += nbytes
+        else:
+            self.cost.mxu_flops += flops
+            self.unscaled_mxu_flops += flops / kmeta.weight()
+            self.cost.major_bytes += nbytes
+            self.cost.dot_count += kmeta.weight()
+
+    # -- memory --------------------------------------------------------------
+
+    def track(self, tree, kind: str, nbytes=None) -> None:
+        """Register the storages of a tree's tensors, made before the
+        step, as live and of `kind` ("parameters", "optimizer_state",
+        "inputs"); `nbytes(t)` overrides a storage's bytes (a global
+        batch of which the rank holds a block)."""
+        for t in _tensors(tree):
+            self._register(t.untyped_storage(), kind,
+                           None if nbytes is None else nbytes(t))
+
+    def _register(self, st, kind: str, nbytes: int | None = None) -> None:
+        key = st._cdata
+        if key in self._alive:
+            return
+        n = st.nbytes() if nbytes is None else int(nbytes)
+        rec = [n, kind, self._event, None, self._task]
+        self._records.append(rec)
+        self._alive[key] = rec
+        weakref.finalize(st, self._free, key, rec)
+        self._live += n
+
+    def _free(self, key: int, rec: list) -> None:
+        if self._alive.get(key) is rec:
+            del self._alive[key]
+        rec[3] = self._event
+        self._live -= rec[0]
+
+    def _fold_target(self, func, args):
+        """The record of the zeros an out-of-place backward scatter
+        writes from, where a run without a dispatch mode writes into
+        them in place (see the class docstring), else None."""
+        if func._overloadpacket not in _FOLDED or not args \
+                or not isinstance(args[0], torch.Tensor) \
+                or torch._C._current_graph_task_id() == -1:
+            return None
+        rec = self._alive.get(args[0].untyped_storage()._cdata)
+        return rec if rec is not None and rec[2] == self._event else None
+
+    def _note(self, out, fold=None) -> None:
+        self._event += 1
+        task = torch._C._current_graph_task_id()
+        if task != self._task:
+            if self._task != -1:
+                self._task_end[self._task] = self._event
+            self._task = task
+        kind = ("backward" if task != -1 else
+                "forward" if torch.is_grad_enabled() else "other")
+        for t in _tensors(out):
+            self._register(t.untyped_storage(), kind)
+        if fold is not None:
+            # the result takes the zeros' place: they count no more
+            self._live -= fold[0]
+            fold[0] = 0
+        if self._live > self.peak_bytes:
+            self.peak_bytes, self._peak_event = self._live, self._event
+
+    def memory(self, outputs=None) -> dict:
+        """The peak split by kind, and the reference's memory fields.
+        At the peak: the registered parameters, optimizer state and
+        inputs; "activations", what autograd saved for the backward;
+        "gradients", what the backward made and kept past its end;
+        "temporaries", the rest (the forward's unsaved results, the
+        backward's transients, remat's recompute among them, gradient
+        accumulators, and what was made with grad mode off: the loss's
+        tail, the update, a serving step).
+        `outputs` (the step's result) splits its bytes into new ones and
+        ones aliasing the registered inputs."""
+        p = self._peak_event
+        split = {k: 0 for k in ("parameters", "optimizer_state", "inputs",
+                                "activations", "gradients", "temporaries")}
+        args = 0
+        for n, kind, born, died, task in self._records:
+            if kind in ("parameters", "optimizer_state", "inputs"):
+                args += n
+            if born > p or (died is not None and died < p):
+                continue
+            if kind == "saved":
+                kind = "activations"
+            elif kind == "backward":
+                end = self._task_end.get(task)
+                kind = ("gradients" if end is None or died is None
+                        or died > end else "temporaries")
+            elif kind in ("forward", "other"):
+                kind = "temporaries"
+            split[kind] += n
+        out_new = alias = 0
+        seen = set()
+        for t in _tensors(outputs):
+            key = t.untyped_storage()._cdata
+            if key in seen:
+                continue
+            seen.add(key)
+            rec = self._alive.get(key)
+            if rec is not None and rec[1] in ("parameters",
+                                              "optimizer_state", "inputs"):
+                alias += rec[0]
+            else:
+                out_new += _nbytes(t)
+        peak = self.peak_bytes
+        return {"argument_bytes": args, "output_bytes": out_new,
+                "temp_bytes": peak - args - out_new + alias,
+                "alias_bytes": alias, "peak_per_device": peak,
+                "peak_by_kind": split}
+
+# ---------------------------------------------------------------------------
+# a rank's collectives (the counterpart of CollectiveAnalysis)
+# ---------------------------------------------------------------------------
+
+#: the reference's collective names, by `launch.mesh`'s
+_COLLECTIVE_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                     "reduce_scatter": "reduce-scatter",
+                     "all_to_all": "all-to-all"}
+
+
+class CollectiveAnalysis:
+    """A rank's collective traffic by type, from a `launch.mesh.DryMesh`'s
+    log of one step (the counterpart of the reference's analysis of the
+    partitioned program): each call's wire bytes under the reference's
+    ring model over its axis of g ranks, from the bytes the rank handed
+    over (b): all-reduce 2·b·(g-1)/g, all-gather (result b·g) b·(g-1),
+    reduce-scatter (result b/g) b·(g-1)/g, all-to-all b·(g-1)/g.
+    `op_log` holds (op, bytes a call, calls), `by_type` and `total_bytes`
+    the sums; `dot_flops` is the rank's product FLOPs (its
+    `StepAnalysis`), replication included. `warnings` stays empty: the
+    log names every call, where the reference parses text."""
+
+    def __init__(self, mesh, dot_flops: float = 0.0):
+        self.by_type: dict[str, float] = {c: 0.0 for c in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "collective-permute")}
+        self.op_log: list[tuple[str, float, int]] = []
+        self.warnings: list[str] = []
+        self.dot_flops = float(dot_flops)
+        for op, axis, nbytes, n in mesh.log:
+            g = mesh.shape[axis]
+            traffic = {"all_reduce": 2.0 * nbytes * (g - 1) / g,
+                       "all_gather": float(nbytes * (g - 1)),
+                       "reduce_scatter": nbytes / g * (g - 1),
+                       "all_to_all": nbytes * (g - 1) / g}[op]
+            name = _COLLECTIVE_NAMES[op]
+            self.by_type[name] += traffic * n
+            self.op_log.append((name, traffic, n))
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.by_type.values())

@@ -30,9 +30,14 @@ on every rank (one device a rank, the same graph), so the ranks issue the
 backward's collectives in one order, inside a checkpoint's recompute
 too.
 
+A `DryMesh` has the same layout, `stats` and collectives seen from one
+rank of a mesh of any size, with no world behind it: each collective
+books its call and returns a tensor of the real one's shape, dtype and
+device, moving nothing (the dry run's meta-device steps).
+
 The constructors are functions, and touch no distributed state until they
-are called: they need an initialized default group (`run_ranks` makes
-one) whose world size is the product of the shape, and raise otherwise.
+are called: a `Mesh` needs an initialized default group (`run_ranks` makes
+one) whose world size is the product of the shape, and raises otherwise.
 `torch.distributed.device_mesh.init_device_mesh` is not used: on a CUDA
 device it picks each rank's card from its local rank, where the ranks
 here may share one card (gloo), and the executors need nothing from it
@@ -66,6 +71,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import meta as kmeta
+
 
 #: the collectives a Mesh counts in `stats`
 COLLECTIVES = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
@@ -86,52 +93,31 @@ class MeshAxis:
         return self._group
 
 
-class Mesh:
-    """The world's ranks laid out row-major over named axes, with one
-    process group per axis and a count of the sums it ran.
+class _MeshBase:
+    """What a mesh of real ranks (`Mesh`) and a dry one (`DryMesh`) share:
+    the row-major layout of ranks over named axes, and the bookkeeping of
+    `stats`, so that the two count every call alike.
 
     `shape` maps each axis to its size (as `jax.sharding.Mesh.shape`),
     `coords` this rank's coordinate on each. `stats` counts, per process
     and per collective (`all_reduce`, `all_gather`, `all_to_all`,
     `reduce_scatter`), the calls, the bytes this rank handed over, and
-    their host ms (the device synchronized first, so a call's ms is the
-    collective's own: staging, the transfer and the wait for the slowest
-    rank), and the same three again per axis as f"{op}@{axis}_calls" and
-    so on; and the calls over a one-rank axis, which move nothing and are
-    skipped."""
+    their host ms, and the same three again per axis as f"{op}@{axis}_calls"
+    and so on; and the calls over a one-rank axis, which move nothing and
+    are skipped."""
 
-    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...]):
+    def _layout(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                rank: int) -> None:
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {shape} for axes {axis_names}")
-        if not dist.is_available() or not dist.is_initialized():
-            raise RuntimeError(
-                "a Mesh needs an initialized torch.distributed default "
-                "group (run_ranks makes one); none is initialized")
-        world = dist.get_world_size()
-        if math.prod(shape) != world:
-            raise ValueError(
-                f"mesh shape {tuple(shape)} holds {math.prod(shape)} ranks; "
-                f"the world has {world}")
+        if not 0 <= rank < math.prod(shape):
+            raise ValueError(f"rank {rank} outside a mesh of "
+                             f"{math.prod(shape)} ranks")
         self.axis_names = tuple(axis_names)
-        # two page-locked staging regions, grown as needed and reused by
-        # every staged collective (its input, its output): a fresh
-        # page-locked allocation a call stalls the host
         self.shape = dict(zip(axis_names, (int(x) for x in shape)))
-        self.rank = dist.get_rank()
+        self.rank = int(rank)
         coords = np.unravel_index(self.rank, tuple(shape))
         self.coords = {a: int(c) for a, c in zip(axis_names, coords)}
-        grid = np.arange(world).reshape(tuple(shape))
-        self._axes = {}
-        for i, name in enumerate(axis_names):
-            mine = None
-            # every rank creates every group, in the same order
-            for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
-                g = dist.new_group([int(r) for r in line])
-                if self.rank in line:
-                    mine = g
-            self._axes[name] = MeshAxis(int(shape[i]), mine)
-        self._regions: list[torch.Tensor | None] = [None, None]
-        self.reset_stats()
 
     def __getitem__(self, axis: str) -> MeshAxis:
         return self._axes[axis]
@@ -146,20 +132,81 @@ class Mesh:
                 self.stats.update({f"{key}_calls": 0, f"{key}_bytes": 0,
                                    f"{key}_ms": 0.0})
 
+    def _times(self) -> int:
+        """How many calls one call stands for (a `DryMesh` in a cut loop
+        counts each for the trips it stands for)."""
+        return 1
+
     def _skip(self, axis: str, nbytes: int) -> bool:
         """Book a call over a one-rank axis as skipped; True if it was."""
         if self.shape[axis] > 1:
             return False
-        self.stats["skipped_calls"] += 1
-        self.stats["skipped_bytes"] += nbytes
+        n = self._times()
+        self.stats["skipped_calls"] += n
+        self.stats["skipped_bytes"] += nbytes * n
         return True
 
-    def _book(self, op: str, nbytes: int, t0: float, axis: str) -> None:
-        ms = (time.perf_counter() - t0) * 1e3
+    def _book(self, op: str, nbytes: int, axis: str, ms: float) -> None:
+        """Book one call of `op` over `axis`, `nbytes` of it."""
+        n = self._times()
         for key in (op, f"{op}@{axis}"):
             self.stats[f"{key}_ms"] += ms
-            self.stats[f"{key}_calls"] += 1
-            self.stats[f"{key}_bytes"] += nbytes
+            self.stats[f"{key}_calls"] += n
+            self.stats[f"{key}_bytes"] += nbytes * n
+
+    def gather_rows(self, local: torch.Tensor, axis: str) -> torch.Tensor:
+        """The rows of every rank along `axis` stacked in coordinate order:
+        a zero buffer of size(axis) * len(local) rows with this rank's rows
+        at its coordinate, summed over the axis. Adding zeros is exact but
+        for the sign of a zero (-0.0 + 0.0 is +0.0), so every rank gets the
+        same bits; `all_gather_rows` moves rows by copy."""
+        n = self.shape[axis]
+        if n == 1:
+            return local
+        out = local.new_zeros((n * local.shape[0],) + tuple(local.shape[1:]))
+        c = self.coords[axis]
+        out[c * local.shape[0]:(c + 1) * local.shape[0]] = local
+        return self.all_reduce(out, axis)
+
+
+class Mesh(_MeshBase):
+    """The world's ranks laid out row-major over named axes, with one
+    process group per axis and a count of the sums it ran (`stats`, see
+    `_MeshBase`; a call's ms is the collective's own, the device
+    synchronized first: staging, the transfer and the wait for the
+    slowest rank)."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} for axes {axis_names}")
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "a Mesh needs an initialized torch.distributed default "
+                "group (run_ranks makes one); none is initialized")
+        world = dist.get_world_size()
+        if math.prod(shape) != world:
+            raise ValueError(
+                f"mesh shape {tuple(shape)} holds {math.prod(shape)} ranks; "
+                f"the world has {world}")
+        self._layout(shape, axis_names, dist.get_rank())
+        grid = np.arange(world).reshape(tuple(shape))
+        self._axes = {}
+        for i, name in enumerate(axis_names):
+            mine = None
+            # every rank creates every group, in the same order
+            for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+                g = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    mine = g
+            self._axes[name] = MeshAxis(int(shape[i]), mine)
+        # two page-locked staging regions, grown as needed and reused by
+        # every staged collective (its input, its output): a fresh
+        # page-locked allocation a call stalls the host
+        self._regions: list[torch.Tensor | None] = [None, None]
+        self.reset_stats()
+
+    def _timed(self, op: str, nbytes: int, t0: float, axis: str) -> None:
+        self._book(op, nbytes, axis, (time.perf_counter() - t0) * 1e3)
 
     def _gloo_cuda(self, t: torch.Tensor, axis: str) -> bool:
         return t.is_cuda and dist.get_backend(
@@ -205,7 +252,7 @@ class Mesh:
                         group=self._axes[axis].get_group())
         if buf is not t:
             t.copy_(buf)
-        self._book("all_reduce", nbytes, t0, axis)
+        self._timed("all_reduce", nbytes, t0, axis)
         return t
 
     def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -239,7 +286,7 @@ class Mesh:
                                       + tuple(t.shape[1:]))
         out = parts.sum(0, dtype=torch.float32).to(t.dtype) \
             if t.dtype in (torch.bfloat16, torch.float16) else parts.sum(0)
-        self._book("reduce_scatter", nbytes, t0, axis)
+        self._timed("reduce_scatter", nbytes, t0, axis)
         return out
 
     def all_gather_rows(self, local: torch.Tensor, axis: str
@@ -270,7 +317,7 @@ class Mesh:
         dist.all_to_all_single(out, src,
                                group=self._axes[axis].get_group())
         out = out.to(local.device)
-        self._book("all_gather", nbytes, t0, axis)
+        self._timed("all_gather", nbytes, t0, axis)
         return out
 
     def all_to_all_rows(self, send: list[torch.Tensor], recv_rows: list[int],
@@ -298,22 +345,91 @@ class Mesh:
                                [int(t.shape[0]) for t in send],
                                group=self._axes[axis].get_group())
         out = out.to(dev)
-        self._book("all_to_all", nbytes, t0, axis)
+        self._timed("all_to_all", nbytes, t0, axis)
         return list(out.split([int(r) for r in recv_rows]))
 
-    def gather_rows(self, local: torch.Tensor, axis: str) -> torch.Tensor:
-        """The rows of every rank along `axis` stacked in coordinate order:
-        a zero buffer of size(axis) * len(local) rows with this rank's rows
-        at its coordinate, summed over the axis. Adding zeros is exact but
-        for the sign of a zero (-0.0 + 0.0 is +0.0), so every rank gets the
-        same bits; `all_gather_rows` moves rows by copy."""
+
+class DryMesh(_MeshBase):
+    """A mesh without a world: the layout of one rank (`rank`, row-major
+    as `Mesh` lays ranks out) of a mesh of any size, whose collectives move
+    no bytes and need no process group. Each returns a tensor of exactly
+    the shape, dtype and device the real one returns (on a meta tensor,
+    no memory; an all_reduce hands back its input, as the real one does
+    in place), allocating on that device what `Mesh`'s staged path does
+    there (a reduce_scatter's received blocks), and books its calls and bytes in `stats` through the same
+    `_skip` / `_book` as `Mesh` (ms 0), so the two count alike. Inside a
+    cut loop (`kernels.meta.weighted`) a call counts as many times as the
+    trips it stands for. `log` keeps each booked call as (op, axis, bytes
+    a call, times). The dry run
+    (`launch.dryrun`) runs a production rank's step through it on the
+    meta device."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
+                 rank: int = 0):
+        self._layout(tuple(shape), tuple(axis_names), rank)
+        self._axes = {a: MeshAxis(n, None) for a, n in self.shape.items()}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        super().reset_stats()
+        self.log: list[tuple[str, str, int, int]] = []
+
+    def _times(self) -> int:
+        return kmeta.weight()
+
+    def _book(self, op: str, nbytes: int, axis: str, ms: float) -> None:
+        super()._book(op, nbytes, axis, ms)
+        self.log.append((op, axis, nbytes, self._times()))
+
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
+                   staged: bool = False) -> torch.Tensor:
+        nbytes = t.numel() * t.element_size()
+        if not self._skip(axis, nbytes):
+            self._book("all_reduce", nbytes, axis, 0.0)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         n = self.shape[axis]
-        if n == 1:
-            return local
-        out = local.new_zeros((n * local.shape[0],) + tuple(local.shape[1:]))
-        c = self.coords[axis]
-        out[c * local.shape[0]:(c + 1) * local.shape[0]] = local
-        return self.all_reduce(out, axis)
+        nbytes = t.numel() * t.element_size()
+        if t.shape[0] % n:
+            raise ValueError(f"reduce_scatter over {axis!r} ({n} ranks): "
+                             f"{t.shape[0]} rows do not split evenly")
+        if self._skip(axis, nbytes):
+            return t.clone()
+        self._book("reduce_scatter", nbytes, axis, 0.0)
+        # the real one's buffers on t's device: the received blocks (t's
+        # size), and a half-precision sum's fp32 block before its cast
+        block = (t.shape[0] // n,) + tuple(t.shape[1:])
+        parts = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        wide = torch.empty(block, dtype=torch.float32, device=t.device) \
+            if t.dtype in (torch.bfloat16, torch.float16) else None
+        out = torch.empty(block, dtype=t.dtype, device=t.device)
+        del parts, wide
+        return out
+
+    def all_gather_rows(self, local: torch.Tensor, axis: str
+                        ) -> torch.Tensor:
+        n = self.shape[axis]
+        nbytes = local.numel() * local.element_size()
+        if self._skip(axis, nbytes):
+            return local.clone()
+        self._book("all_gather", nbytes, axis, 0.0)
+        return local.new_empty((n * local.shape[0],) + tuple(local.shape[1:]))
+
+    def all_to_all_rows(self, send: list[torch.Tensor], recv_rows: list[int],
+                        axis: str) -> list[torch.Tensor]:
+        n = self.shape[axis]
+        if len(send) != n or len(recv_rows) != n:
+            raise ValueError(f"all_to_all_rows over {axis!r} ({n} ranks) "
+                             f"takes {n} send blocks and {n} lengths")
+        flat = torch.cat(send)
+        nbytes = flat.numel() * flat.element_size()
+        if self._skip(axis, nbytes):
+            return [flat]
+        self._book("all_to_all", nbytes, axis, 0.0)
+        out = flat.new_empty((sum(int(r) for r in recv_rows),)
+                             + tuple(flat.shape[1:]))
+        return list(out.split([int(r) for r in recv_rows]))
 
 
 # ---------------------------------------------------------------------------
@@ -463,12 +579,14 @@ def make_test_mesh(shape=(2, 4), axes=("data", "model")) -> Mesh:
     return Mesh(tuple(shape), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False,
+                         rank: int = 0) -> Mesh | DryMesh:
     """The reference's production layout: (data 16, model 16), or (pod 2,
-    data 16, model 16)."""
+    data 16, model 16); with `dry`, a `DryMesh` of it seen from `rank`
+    (no world needed)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes)
+    return DryMesh(shape, axes, rank) if dry else Mesh(shape, axes)
 
 
 def make_host_mesh(n_hosts: int, axis: str = "data") -> Mesh:

@@ -302,12 +302,19 @@ def _decode_index(cache_index, b: int, device,
     would silently serve a token from the wrong cache row, and on the card
     an out-of-range vector entry would trip a device-side assert that ends
     the process's CUDA context. An attention-free model's caches hold no
-    positions, and the range is the max_len they were made for."""
+    positions, and the range is the max_len they were made for. A meta
+    (b,) vector has no values to check (the dry run's): it is checked by
+    shape alone; a meta scalar is refused (pass an int)."""
     idx = cache_index if isinstance(cache_index, torch.Tensor) \
         else torch.as_tensor(np.asarray(cache_index))
     if idx.dim() != 0 and idx.shape != (b,):
         raise ValueError(f"cache_index must be a scalar or ({b},), got "
                          f"{tuple(idx.shape)}")
+    if idx.is_meta:
+        if idx.dim() == 0:
+            raise ValueError("a scalar cache_index on the meta device has "
+                             "no value: pass an int")
+        return idx.to(device=device, dtype=torch.long)
     host = idx.cpu()
     if bool(((host < 0) | (host >= max_len)).any()):
         raise ValueError(f"cache_index {host.tolist()} outside the caches' "

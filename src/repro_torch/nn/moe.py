@@ -11,7 +11,9 @@ on lookups. Whatever passes capacity is dropped.
 With a mesh (training and serving), the groups split over the batch's
 mesh axes (a rank's groups are the global reshape's: with its rows,
 group i is tokens [i tg, (i + 1) tg) of the flattened (b, s)), so
-moe_groups must split over them. Under tables that shard the experts at compute (TRAIN, FSDP:
+moe_groups must split over them; a serving step with fewer groups than
+the batch's ranks gathers the batch and routes it whole on every rank,
+as GSPMD does with a group dimension it cannot split. Under tables that shard the experts at compute (TRAIN, FSDP:
 `expert` on `model`), every rank of a `model` line routes its groups the
 same way, dispatches to and runs only its own experts, and one all_reduce
 over `model` adds the partial combines; under ZERO_DP the experts are
@@ -100,7 +102,11 @@ def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,
     # the routed fraction as an integer count (no float atomics on the
     # card); it carries no gradient, as the reference's scatter of a
     # constant
-    counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
+    if gate_idx.is_meta:
+        # bincount has no meta kernel; its length is e (every index < e)
+        counts = torch.empty((e,), dtype=torch.long, device=dev)
+    else:
+        counts = torch.bincount(gate_idx.reshape(-1), minlength=e)
     if axes:
         n = 1
         for a in axes:
@@ -165,7 +171,8 @@ def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
         capacity_factor: float | None = None, rules=None, mesh=None,
-        global_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        global_aux: bool = True, replicated: bool = False
+        ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, d) -> (y (b, s, d) in dtype, aux_loss fp32 scalar).
 
     Each group's tokens are gathered into (e_pad, cap, d) expert slots
@@ -187,16 +194,27 @@ def moe(p: dict, x: torch.Tensor, cfg, dtype: torch.dtype = torch.bfloat16,
     only, so their cotangents are summed there), as does the dispatch's
     input; the router sees the input as it is. With global_aux=False (the
     serving steps, which read no aux loss) the aux loss is this rank's
-    groups' own and no collective runs over the batch's axes."""
+    groups' own and no collective runs over the batch's axes. There, with
+    fewer groups than the batch's ranks, every rank gathers the batch and
+    routes it whole (`replicated`: x is already the whole batch)."""
     b, s, d = x.shape
     k, f = cfg.top_k, cfg.d_ff
     e, e_pad = cfg.n_experts, cfg.n_experts + cfg.expert_pad
     cf = capacity_factor or cfg.capacity_factor
-    ba = batch_axes(rules, mesh)
+    ba = () if replicated else batch_axes(rules, mesh)
     nb = 1
     for a in ba:
         nb *= mesh.shape[a]
     g = max(1, cfg.moe_groups)
+    if g % nb and not global_aux and (b * s * nb) % g == 0:
+        # fewer groups than the batch's ranks (a decode step's one group of
+        # the global batch): every rank routes them whole, as GSPMD
+        # replicates a group dimension that does not split, and keeps its
+        # own rows of the result
+        xa = M.all_gather(x, mesh, ba, 0, partial_grad=False)
+        y, aux = moe(p, xa, cfg, dtype, capacity_factor, rules, mesh,
+                     global_aux, replicated=True)
+        return M.take_block(y, mesh, ba, 0), aux
     if g % nb or (b * s * nb) % g:
         raise ValueError(f"{g} MoE groups of {b * s * nb} tokens do not "
                          f"split over the batch's {nb} ranks {ba}")

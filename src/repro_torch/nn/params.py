@@ -77,7 +77,11 @@ def tree_leaves(tree) -> list:
 
 def init_params(specs, seed: int, device: torch.device):
     """Initialise a tree (dicts / lists) of ParamSpec into tensors on
-    `device`, drawing in tree order from one generator seeded `seed`."""
+    `device`, drawing in tree order from one generator seeded `seed`. On
+    the meta device there is nothing to draw: the tree's shapes and
+    dtypes (`abstract_params`)."""
+    if torch.device(device).type == "meta":
+        return abstract_params(specs)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
 

@@ -48,7 +48,9 @@ def lm_serve_collectives(cfg: ModelConfig, rules: LogicalRules, mesh,
         in decode in_proj's output gathered over its columns' axes; the
         gated norm's and out_proj's all_reduces; else every leaf whole;
       * the MLP's and a MoE layer's combine all_reduce over ff's / the
-        experts' axes (serving takes no aux sums across ranks);
+        experts' axes (serving takes no aux sums across ranks); with
+        fewer MoE groups than the batch's ranks, the batch gathered over
+        them first;
       * the last position's logits gathered over the vocabulary's axes,
         then over the batch's."""
     from repro_torch.models.lm import _pattern_moe_flags, _vocab_axes
@@ -80,6 +82,7 @@ def lm_serve_collectives(cfg: ModelConfig, rules: LogicalRules, mesh,
                                                         shape))))
 
     d, v = cfg.d_model, cfg.vocab_size
+    n_batch = math.prod(mesh.shape[a] for a in batch_axes(rules, mesh))
     norm = 2 if cfg.norm_type == "layernorm" else 1
 
     def attention():
@@ -133,6 +136,8 @@ def lm_serve_collectives(cfg: ModelConfig, rules: LogicalRules, mesh,
         f = cfg.d_ff
         if is_moe:
             e_pad = cfg.n_experts + cfg.expert_pad
+            if max(1, cfg.moe_groups) % n_batch:
+                add("all_gather", batch_axes(rules, mesh))
             use(("embed", None), (d, cfg.n_experts))
             for axes, shape in ((("expert", "embed", "ff"), (e_pad, d, f)),
                                 (("expert", "embed", "ff"), (e_pad, d, f)),

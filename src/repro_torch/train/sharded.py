@@ -38,7 +38,7 @@ import torch.distributed as dist
 JOB_DEFAULTS = {"accum": None, "staged": False, "dense_lr": 0.01,
                 "sparse_lr": 0.05, "sparse_eps": 1e-8, "report_arrays": False,
                 "report_dense": False, "profile_steps": 0,
-                "refusals": False}
+                "refusals": False, "axes": ("data", "model")}
 
 
 def bit_checksum(t: torch.Tensor) -> int:
@@ -150,6 +150,8 @@ def train_rank(device: torch.device, job: dict) -> dict:
     """One rank of a sharded DLRM run (see the module docstring). job:
       cfg           DLRMConfig
       mesh          (data, model) shape; the world must hold its product
+      axes          the mesh's axis names (default ("data", "model"); the
+                    psum step also takes ("pod", "data", "model"))
       strategy      "table_wise" | "row_wise" (model-size shards)
       step          "tablewise" (`build_tablewise_train_step`) or
                     "dense_psum" (`build_dlrm_train_step`, dense update,
@@ -173,12 +175,15 @@ def train_rank(device: torch.device, job: dict) -> dict:
     t_in = time.perf_counter()
     job = {**JOB_DEFAULTS, **job}
     cfg = job["cfg"]
-    mesh = make_test_mesh(job["mesh"])
+    mesh = make_test_mesh(job["mesh"], job["axes"])
     setup = {"mesh_s": time.perf_counter() - t_in}
     ebc = EmbeddingBagCollection.build(cfg, n_shards=mesh.size("model"),
                                        strategy=job["strategy"])
     lo, hi = ebc.shard_range(mesh)
-    replica = mesh.coords["data"]
+    replica = 0
+    for a in mesh.axis_names:
+        if a != "model":
+            replica = replica * mesh.size(a) + mesh.coords[a]
     mega = shard_of(job["mega"], lo, hi, replica, device)
     accum = (torch.zeros((hi - lo,), dtype=torch.float32, device=device)
              if job["accum"] is None

@@ -57,6 +57,7 @@ from repro_torch.core.cache import (CachedEmbeddingBagCollection,
 from repro_torch.core.dlrm import dense_grads, dlrm_grads
 from repro_torch.core.embedding import EmbeddingBagCollection
 from repro_torch.core.tiers import AsyncCachedTier, tier_conformance
+from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels import ops
 from repro_torch.kernels.sparse_plan import (build_sparse_plan_host,
                                              host_plan_from_batch,
@@ -88,6 +89,10 @@ def dense_gradient_sum(h: int, idx: torch.Tensor,
     they are left out (row h stays zero either way), since thousands of
     adds to one row would run one after another.
 
+    On the meta device every slot is taken as valid (a boolean mask has
+    no meta shape): the reference's scatter size, which sends pads to
+    row h.
+
     CUDA's `index_add_` adds with atomics, so its sum order (and so its
     bits) changes from run to run. `index_put_(accumulate=True)` under
     deterministic algorithms sorts the indices stably and adds each row's
@@ -98,10 +103,15 @@ def dense_gradient_sum(h: int, idx: torch.Tensor,
     gsum = torch.zeros((h + 1, d), dtype=torch.float32,
                        device=g_pooled.device)
     idx_f = idx.transpose(0, 1)                     # (F, B, L): scan order
-    valid = idx_f >= 0
-    rows = idx_f[valid].long()
-    vals = g_pooled.float().transpose(0, 1)[:, :, None, :].expand(
-        f, b, lk, d)[valid]
+    spread = g_pooled.float().transpose(0, 1)[:, :, None, :].expand(
+        f, b, lk, d)
+    if idx.is_meta:
+        rows = idx_f.reshape(-1).long()
+        vals = spread.reshape(-1, d)
+    else:
+        valid = idx_f >= 0
+        rows = idx_f[valid].long()
+        vals = spread[valid]
     prev = torch.are_deterministic_algorithms_enabled()
     warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True)
@@ -120,18 +130,25 @@ def dense_row_pass(mega: torch.Tensor, accum: torch.Tensor,
     where(touched, mean(gsum^2), 0); mega -= where(touched, lr * gsum *
     rsqrt(accum + eps), 0). Untouched rows keep their bits. The rows are
     walked in chunks of `chunk_rows`, so the peak stays near the table
-    plus `gsum`; a row's result does not depend on the chunking."""
+    plus `gsum`; a row's result does not depend on the chunking. On the
+    meta device one chunk of each size runs, standing for the others
+    (`kernels.meta.chunk_trips`)."""
     h = mega.shape[0]
-    for lo in range(0, h, chunk_rows):
-        hi = min(lo + chunk_rows, h)
-        g = gsum[lo:hi]
-        touched = torch.any(g != 0.0, dim=-1)
-        g2 = torch.mean(torch.square(g), dim=-1)
-        new_acc = accum[lo:hi] + torch.where(touched, g2, 0.0)
-        upd = lr * g * torch.rsqrt(new_acc[:, None] + eps)
-        mega[lo:hi] -= torch.where(touched[:, None], upd, 0.0).to(
-            mega.dtype)
-        accum[lo:hi] = new_acc
+    for lo, hi, w in kmeta.chunk_trips(h, chunk_rows, mega.is_meta):
+        with kmeta.weighted(w):
+            _row_pass_chunk(mega, accum, gsum, lr, eps, lo, hi)
+
+
+def _row_pass_chunk(mega, accum, gsum, lr, eps, lo: int, hi: int) -> None:
+    """`dense_row_pass` on rows [lo, hi)."""
+    g = gsum[lo:hi]
+    touched = torch.any(g != 0.0, dim=-1)
+    g2 = torch.mean(torch.square(g), dim=-1)
+    new_acc = accum[lo:hi] + torch.where(touched, g2, 0.0)
+    upd = lr * g * torch.rsqrt(new_acc[:, None] + eps)
+    mega[lo:hi] -= torch.where(touched[:, None], upd, 0.0).to(
+        mega.dtype)
+    accum[lo:hi] = new_acc
 
 
 def psum_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
@@ -147,7 +164,8 @@ def psum_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
     are summed into a zeroed (rows_local, d) fp32 buffer in slot order
     (`dense_gradient_sum`: the order of the reference's CSR sums over its
     shard-local plan, since a row's slots all belong to one feature); ONE
-    all_reduce over `data` merges the slices' partial sums (in bf16
+    all_reduce over `data` (and one over `pod` on a pod mesh,
+    `data_axes`) merges the slices' partial sums (in bf16
     when `reduce_dtype` is "bfloat16", as the reference's psum); then the
     row pass (`dense_row_pass`, the reference's operand order), IN PLACE.
     The buffer is the shard's size again."""
@@ -155,26 +173,42 @@ def psum_sparse_update(mega: torch.Tensor, accum: torch.Tensor,
     loc = torch.where((idx >= row_lo) & (idx < row_lo + h), idx - row_lo,
                       -1)
     gsum = dense_gradient_sum(h, loc, g_pooled)[:h]
+    axes = data_axes(mesh)
     if reduce_dtype == "bfloat16":
         half = gsum.to(torch.bfloat16)
-        mesh.all_reduce(half, "data")
+        for a in axes:
+            mesh.all_reduce(half, a)
         gsum.copy_(half)
         del half
     else:
-        mesh.all_reduce(gsum, "data")
+        for a in axes:
+            mesh.all_reduce(gsum, a)
     dense_row_pass(mega, accum, gsum, lr, eps, chunk_rows)
 
 
-def _check_mesh(mesh) -> None:
-    if set(mesh.axis_names) != {"data", "model"}:
-        raise ValueError(f"the sharded steps run on a (data, model) mesh, "
-                         f"got axes {mesh.axis_names}")
+def _check_mesh(mesh, pod: bool = False) -> None:
+    """A (data, model) mesh, or with `pod` also a (pod, data, model) one
+    (the psum step: the reference's shard_map carries the batch over
+    every axis but `model`)."""
+    ok = [("data", "model")] + ([("pod", "data", "model")] if pod else [])
+    if tuple(mesh.axis_names) not in ok:
+        raise ValueError(f"the sharded steps run on a "
+                         f"{' or '.join(map(str, ok))} mesh, got axes "
+                         f"{mesh.axis_names}")
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes a DLRM psum step splits its batch over: every axis
+    but `model`, major first ((data,), or (pod, data))."""
+    return tuple(a for a in mesh.axis_names if a != "model")
 
 
 def _data_slice(batch: dict, mesh, keys=("dense", "idx", "label")) -> dict:
-    """This rank's rows of the global batch's `keys`: the `data`
-    coordinate's contiguous block (the reference's P(batch_axes))."""
-    n, c = mesh.size("data"), mesh.coords["data"]
+    """This rank's rows of the global batch's `keys`: the contiguous block
+    of its coordinate over `data_axes` (the reference's P(batch_axes))."""
+    n, c = 1, 0
+    for a in data_axes(mesh):
+        n, c = n * mesh.size(a), c * mesh.size(a) + mesh.coords[a]
     b = batch["idx"].shape[0]
     if b % n:
         raise ValueError(f"a global batch of {b} does not split over "
@@ -220,11 +254,12 @@ def build_dlrm_train_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
     card twice; the cached, table-wise and chip-smoke callers rely on the
     default. The launcher defaults to "dense", as the reference's does.
 
-    `mesh` (a `launch.mesh.Mesh` over ("data", "model"), one process per
-    rank) runs the reference's sharded path, `sparse_apply="dense"` with
-    `cfg.lookup_impl == "psum"`: batch is the GLOBAL batch on every rank;
-    params["emb"]["mega"] and state["accum"] are this rank's `model` shard
-    (`ebc.shard_range(mesh)`); each rank pools its `data` slice with
+    `mesh` (a `launch.mesh.Mesh` over ("data", "model") or ("pod",
+    "data", "model"), one process per rank) runs the reference's sharded
+    path, `sparse_apply="dense"` with `cfg.lookup_impl == "psum"`: batch
+    is the GLOBAL batch on every rank; params["emb"]["mega"] and
+    state["accum"] are this rank's `model` shard (`ebc.shard_range(mesh)`);
+    each rank pools its slice over every other axis (`data_axes`) with
     `lookup_pooled_psum`, runs the data-parallel dense tower
     (`core.dlrm.dense_grads`) and `psum_sparse_update` with
     `cfg.grad_reduce_dtype`. Metrics: the global loss and lookups. The
@@ -277,7 +312,7 @@ def _build_psum_dlrm_step(cfg: DLRMConfig, ebc: EmbeddingBagCollection,
                           sparse_eps: float, sparse_apply: str,
                           mesh) -> Callable:
     """`build_dlrm_train_step` under a mesh (see there)."""
-    _check_mesh(mesh)
+    _check_mesh(mesh, pod=True)
     if cfg.lookup_impl != "psum":
         raise NotImplementedError(
             f"lookup_impl={cfg.lookup_impl!r} under a mesh is the "
@@ -932,13 +967,16 @@ def build_lm_train_step(cfg: ModelConfig, opt: Optimizer,
         parts_sum = {"ce": loss_sum.clone(), "aux": loss_sum.clone()}
         grads_sum = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
-        for i in range(accum_steps):
+        # on the meta device two microbatches run, the second standing
+        # for the other accum_steps - 1 (`kernels.meta.trips`)
+        for i, w in kmeta.trips(accum_steps, dev.type == "meta"):
             mb = {k: _chunk(v, i, accum_steps) for k, v in batch.items()}
-            loss, parts, grads = grads_of(params, mb)
-            tree_map(lambda a, g: a.add_(g.float()), grads_sum, grads)
-            del grads
-            loss_sum = loss_sum + loss
-            parts_sum = {k: parts_sum[k] + parts[k] for k in parts_sum}
+            with kmeta.weighted(w):
+                loss, parts, grads = grads_of(params, mb)
+                tree_map(lambda a, g: a.add_(g.float()), grads_sum, grads)
+                del grads
+                loss_sum = loss_sum + loss
+                parts_sum = {k: parts_sum[k] + parts[k] for k in parts_sum}
         inv = 1.0 / accum_steps
         tree_map(lambda g: g.mul_(inv), grads_sum)
         return (loss_sum * inv, {k: v * inv for k, v in parts_sum.items()},

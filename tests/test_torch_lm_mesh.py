@@ -287,6 +287,25 @@ def check_collectives(reps, run):
             assert st["all_to_all_calls"] == 0
 
 
+def check_dry_mesh(reps, run):
+    """Each rank's `Mesh.stats` a step, calls and bytes of every collective
+    on every axis and the skipped calls, equal a `launch.mesh.DryMesh`'s
+    at its rank for the same step on the meta device (`launch.dryrun.
+    lm_train_job`)."""
+    from repro_torch.launch import dryrun
+    arch, table, extra, over = run
+    cfg = _cfg(arch, **over)
+    for r in reps:
+        m = tmesh.DryMesh(*MESH, rank=r["rank"])
+        dryrun.measure(dryrun.lm_train_job(
+            cfg, getattr(sharding, table), m, BATCH, SEQ,
+            extra.get("accum", 1), extra.get("grad_dtype", "float32")),
+            m, memory=False)
+        want = {k: v for k, v in m.stats.items() if not k.endswith("_ms")}
+        for st in r["collectives"]:
+            assert {k: st[k] for k in want} == want
+
+
 def check_block_bytes(reps, run):
     """Each rank's parameter bytes are its blocks'; under ZERO_DP a
     quarter of stablelm's tree, where every leaf splits both ways."""
@@ -322,6 +341,11 @@ def test_sharded_parameters_match_one_device(world, oracles, i):
 @pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
 def test_collective_counts_are_the_reckoning(world, i):
     check_collectives(world["runs"][i], RUNS[i])
+
+
+@pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
+def test_dry_mesh_books_the_ranks_collectives(world, i):
+    check_dry_mesh(world["runs"][i], RUNS[i])
 
 
 def test_ranks_hold_their_final_blocks_to_a_flat_file(world, oracles):

@@ -23,6 +23,7 @@ from repro_torch.train.sharded import lm_rank
 from test_torch_lm_mesh import (ARCHS, LEAF_RTOL, LOSS_RTOL, MESH, _assemble,
                                 _batches, _cfg, _np_tree, _rel_l2,
                                 check_block_bytes, check_collectives,
+                                check_dry_mesh,
                                 check_gradients, check_losses,
                                 check_parameters, one_device_runs, run_ids,
                                 run_calls_on_ranks)
@@ -73,6 +74,11 @@ def test_sharded_parameters_match_one_device(world, oracles, i):
 @pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
 def test_collective_counts_are_the_reckoning(world, i):
     check_collectives(world["runs"][i], RUNS[i])
+
+
+@pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
+def test_dry_mesh_books_the_ranks_collectives(world, i):
+    check_dry_mesh(world["runs"][i], RUNS[i])
 
 
 def test_ranks_store_only_their_blocks(world):

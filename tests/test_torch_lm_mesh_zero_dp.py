@@ -5,6 +5,7 @@ helpers and tolerances are test_torch_lm_mesh.py's."""
 import pytest
 
 from test_torch_lm_mesh import (ARCHS, check_block_bytes, check_collectives,
+                                check_dry_mesh,
                                 check_gradients, check_losses,
                                 check_parameters, one_device_runs, run_ids,
                                 run_calls_on_ranks)
@@ -42,6 +43,11 @@ def test_sharded_parameters_match_one_device(world, oracles, i):
 @pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
 def test_collective_counts_are_the_reckoning(world, i):
     check_collectives(world["runs"][i], RUNS[i])
+
+
+@pytest.mark.parametrize("i", range(len(RUNS)), ids=run_ids(RUNS))
+def test_dry_mesh_books_the_ranks_collectives(world, i):
+    check_dry_mesh(world["runs"][i], RUNS[i])
 
 
 def test_ranks_store_only_their_blocks(world):

@@ -21,7 +21,9 @@ SEQ + DECODE (+ 4 where rows step at their own positions) positions:
     positions;
   * granite-moe-1b-a400m, mamba2-780m, jamba-v0.1-52b, musicgen-large
     (K codebooks in and out) and internvl2-26b (a patch prefix) under
-    SERVE_RULES on (1, 4);
+    SERVE_RULES on (1, 4); granite-moe-1b-a400m with one MoE group on
+    (2, 2), fewer groups than data ranks (every rank gathers the batch
+    and routes it whole, as the reference's decode cells do);
   * stablelm-1.6b in bf16 compute on (1, 4), teacher-forced on the
     one-device run's tokens;
   * the engine: mamba2-780m's `ServeEngine` on (2, 2), 4 requests over 2
@@ -109,6 +111,8 @@ CASES = [
      {"rows": True}),
     ("granite-moe-serve-1x4", "granite-moe-1b-a400m", "SERVE_RULES", M14,
      {}, {"jax": True}),
+    ("granite-moe-one-group-2x2", "granite-moe-1b-a400m", "SERVE_RULES",
+     M22, {"moe_groups": 1}, {}),
     ("mamba2-serve-1x4", "mamba2-780m", "SERVE_RULES", M14, {}, {}),
     ("jamba-serve-1x4", "jamba-v0.1-52b", "SERVE_RULES", M14, {}, {}),
     ("musicgen-serve-1x4", "musicgen-large", "SERVE_RULES", M14, {}, {}),
@@ -311,6 +315,26 @@ def test_rank_caches_are_their_blocks(world, oracles, i):
                     else CACHE_REL_L2)
                 assert np.linalg.norm(got - w) <= tol * np.linalg.norm(w), \
                     (block, k)
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_dry_mesh_books_the_ranks_collectives(world, i):
+    """Each rank's `Mesh.stats` over the prefill and the decode steps,
+    calls and bytes of every collective on every axis and the skipped
+    calls, equal a `launch.mesh.DryMesh`'s at its rank for the same steps
+    on the meta device (`launch.dryrun.lm_serve_job`; the positions do
+    not change what moves)."""
+    from repro_torch.launch import dryrun
+    name, arch, table, mesh, over, opts = CASES[i]
+    cfg, _, prompt, _, max_len, _ = _setup(CASES[i])
+    for r in world["cases"][i]:
+        m = tmesh.DryMesh(*mesh, rank=r["rank"])
+        dryrun.measure(dryrun.lm_serve_job(
+            cfg, _rules(table), m, BATCH, _length(cfg, prompt), max_len,
+            n_decode=DECODE), m, memory=False)
+        want = {k: v for k, v in m.stats.items() if not k.endswith("_ms")}
+        assert {k: sum(st[k] for st in r["collectives"])
+                for k in want} == want
 
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)

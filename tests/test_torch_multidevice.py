@@ -78,6 +78,7 @@ HYBRID_TOL = {"rtol": 1e-6, "atol": 1e-6}
 SPARSE_LR, DENSE_LR, D = 0.05, 0.01, 16
 BF16_ATOL = 4 * 2.0 ** -8 * SPARSE_LR * np.sqrt(D)
 BATCH, N_STEPS, PSUM_STEPS = 16, 4, 2
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
 SPAWN_TIMEOUT_S = 240
 
 
@@ -225,6 +226,21 @@ def table_wise():
                                 "strategy": "table_wise",
                                 "mega": runs[(1, 4)]["jparams"]["emb"]["mega"],
                                 "idx": idx}))
+    # the psum dense update on a (pod 2, data 1, model 2) mesh
+    pcfg = dataclasses.replace(cfg, placement="row_wise", lookup_impl="psum")
+    pebc = EmbeddingBagCollection.build(pcfg, n_shards=2,
+                                        strategy="row_wise")
+    pjebc = JEBC.build(dataclasses.replace(jcfg, placement="row_wise"),
+                       n_shards=2)
+    pj = _jparams(jcfg, pjebc)
+    pod = {"cfg": pcfg, "ebc": pebc, "jparams": pj,
+           "batches": _batches(pcfg, pebc, PSUM_STEPS)}
+    calls.append((train_rank, {
+        "cfg": pcfg, "mesh": POD_MESH[0], "axes": POD_MESH[1],
+        "strategy": "row_wise", "step": "dense_psum", "dense": _dense(pj),
+        "mega": pj["emb"]["mega"], "n_steps": PSUM_STEPS,
+        "batches": pod["batches"], "dense_lr": DENSE_LR,
+        "sparse_lr": SPARSE_LR, "report_arrays": True}))
     out = tmesh.run_ranks(run_calls, 4, (calls,), backend="gloo",
                           device="cpu", timeout_s=SPAWN_TIMEOUT_S)
     i = 0
@@ -232,8 +248,9 @@ def table_wise():
         for staged in (False, True):
             runs[shape][staged] = [r[i] for r in out]
             i += 1
+    pod["ranks"] = [r[i + 1] for r in out]
     return {"cfg": cfg, "jcfg": jcfg, "runs": runs, "idx": idx,
-            "lookup": [r[i] for r in out]}
+            "lookup": [r[i] for r in out], "pod": pod}
 
 # ---------------------------------------------------------------------------
 # lookup_local and the psum lookup
@@ -381,6 +398,48 @@ def test_psum_update_all_reduces_once_per_axis(row_wise):
             assert st["all_reduce_calls"] == 4 and st["skipped_calls"] == 0
             assert st["all_reduce_bytes"] == want
         assert r["foreign_modules"] == []
+
+
+def test_psum_update_on_a_pod_mesh_matches_the_port_dense_step(table_wise):
+    """(pod 2, data 1, model 2): the batch splits over pod and data, the
+    dense gradients, loss terms and row sums add over both (data's one
+    rank skipped); the same relation to the one-device dense step as on
+    (data, model)."""
+    pod = table_wise["pod"]
+    losses, p, s = _port_run(dataclasses.replace(pod["cfg"],
+                                                 lookup_impl="gather"),
+                             pod["ebc"], pod["jparams"], pod["batches"],
+                             "dense")
+    reps = pod["ranks"]
+    first = sorted((r for r in reps if r["coords"]["pod"] == 0),
+                   key=lambda r: r["rows"][0])
+    for r in reps:
+        np.testing.assert_allclose(r["losses"], losses, **PSUM_LOSS_TOL)
+        assert r["foreign_modules"] == []
+    for key, want in (("mega", p["emb"]["mega"]), ("accum", s["accum"])):
+        np.testing.assert_allclose(np.concatenate([r[key] for r in first]),
+                                   want.numpy(), **PSUM_TABLE_TOL)
+
+
+def test_dry_mesh_books_the_pod_ranks_collectives(table_wise):
+    """Each pod rank's `Mesh.stats` a step, calls and bytes of every
+    collective on every axis and the skipped calls, equal a `DryMesh`'s at
+    its rank for the same step on the meta device."""
+    from repro_torch.core.dlrm import dlrm_param_specs
+    from repro_torch.launch import dryrun
+    pod = table_wise["pod"]
+    cfg, ebc = pod["cfg"], pod["ebc"]
+    shape = dataclasses.replace(dryrun.shapes_for("dlrm-m1")["train_b64k"],
+                                global_batch=BATCH)
+    cell = dryrun.Cell("dlrm-m1", shape, cfg, {},
+                       dlrm_param_specs(cfg, ebc), {}, {}, ebc=ebc)
+    for r in pod["ranks"]:
+        m = tmesh.DryMesh(*POD_MESH, rank=r["rank"])
+        dryrun.measure(cell.make(m), m, memory=False)
+        want = {k: v for k, v in m.stats.items() if not k.endswith("_ms")}
+        for st in r["all_reduce"]:
+            assert {k: st[k] for k in want} == want
+        assert want["all_reduce@pod_calls"] == 3
 
 
 def test_psum_update_without_a_mesh_raises():
