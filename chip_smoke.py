@@ -316,10 +316,52 @@ Phases, each of which makes the script exit non-zero when it fails:
    printed beside the reckoning; (21d) `run_cell` of one production cell
    each, stablelm-1.6b/train_4k and dlrm-m3/train_b64k on 16 x 16,
    printed;
-22. print one JSON line of per-kernel numbers, then the result line.
+22. the reference's production shape cells (`configs.list_cells`) on one
+   card, each at the largest batch `launch.dryrun.fit_one_card` says the
+   card holds, through the very Run its dry record measured
+   (`dryrun.one_card_job(device=)`: the cell's step function, batch,
+   length and dtype, parameters drawn from a seeded torch.Generator), the
+   card's `max_memory_allocated` over the step within DRY_PEAK_BAND of
+   the record's peak: (22a) stablelm-1.6b prefill_32k at batch 4 (9b's
+   seed, bf16 weights), exactly one flash_attention launch a layer and no
+   other kernel, the kernel at (4, 32, 32768, 64) held to its tiled plain
+   version on CELL_PLAIN_SLICE at both ends of the (b, h) grid, then
+   decode_step of every row's last token at position 32,767 against the
+   prefill's last logits in bf16 (printed) and the same on one row in fp32
+   compute (held: TOL_CELL_GATE_REL_L2, TOL_LM_ABS, argmax equal); (22b)
+   decode_32k at batch 8 with 22a's weights: the caches of 32,768
+   positions filled by prefill_step in the largest groups that fit beside
+   them (`dryrun.fill_group`), the peak counter reset, one decode_step at
+   position 32,767 that launches nothing, each row against its prefill's
+   last logits as 22a (bf16 printed, fp32 held); (22c) dlrm-m1 train_b64k: 2
+   steps of the launcher's `build_dlrm_train_step(sparse_apply="sparse")`
+   on one batch of 65,536 (its making timed apart), exactly one
+   embedding_bag, dot_interaction and fused update a step, then
+   embedding_bag at (65,536, 30, 32), dot_interaction at (65,536, 31, 64)
+   and the fused update on the batch's plan (its CELL_FUSED_ENTRIES
+   coldest live entries) held to their plain versions and timed; infer_b8k
+   `dlrm_forward` at 8,192 on the same table held to the plain forward;
+   host and device-busy ms, tokens/s or examples/s printed;
+23. print one JSON line of per-kernel numbers, then the result line.
 
 Without CUDA, or without the rest of the checkout, it exits non-zero
 before printing any result.
+
+    python3 chip_smoke.py --cells
+
+builds the kernels, computes `fit_one_card` of every `configs.list_cells()`
+cell in parallel host processes, holds the attention backward at each
+train_4k attention cell's shape to its plain version, then runs every
+cell that fits one card with phase 22's gates (prefill, decode and
+long_500k cells as 22a / 22b; recurrent models prefill S - ssm_chunk
+positions and decode the rest; MoE archs take the decode-against-prefill
+gate without capacity drops, `nn.moe.dropless_config`; train_4k
+CELL_TRAIN_STEPS steps of its Run, step 0's loss at the cell's batch and its loss and
+gradients at the first row held to the plain-attention recompute within
+TOL_LM_TRAIN["bfloat16"]; the DLRM cells as 22c, the fused update on its
+whole plan) under expandable allocator segments, prints a cell that does
+not fit with its dry peak, one JSON line a cell, and last a line listing
+every cell with `ok`; it exits non-zero if any cell failed.
 
     python3 chip_smoke.py --evict-search
 
@@ -778,6 +820,37 @@ DRY_PEAK_BAND = 0.15
 DRY_CELLS = (("stablelm-1.6b", "train_4k"), ("dlrm-m3", "train_b64k"))
 #: 20a: a rank's prefill attention shape, (b, h, s, dh) bf16
 FLASH_SERVE_RANK_SHAPE = (1, 8, LM_PROMPT, 64)
+#: phase 22: production shape cells (`configs.list_cells`) run on the card
+#: at `launch.dryrun.fit_one_card`'s batch, through the Run the dry record
+#: measured (`dryrun.one_card_job(device=)`); `--cells` runs every cell
+CELLS_22 = (("stablelm-1.6b", "prefill_32k"), ("stablelm-1.6b", "decode_32k"),
+            ("dlrm-m1", "train_b64k"), ("dlrm-m1", "infer_b8k"))
+#: the seed of the cells' parameters (9b's: LM_PARAM_SEED; the DLRM
+#: launcher's PARAM_SEED is 0 too)
+CELL_SEED = 0
+#: training steps of a train_4k or train_b64k cell, on one batch
+CELL_TRAIN_STEPS = 2
+#: (batch rows, heads) of a prefill cell's attention held to the tiled
+#: plain version, taken at both ends of the (b, h) grid (where a fault of
+#: offsets or grid shows last): at 32,768 positions a plain pass over all
+#: heads would take minutes
+CELL_PLAIN_SLICE = (1, 2)
+#: bags a chunk of the plain embedding bag at a cell's batch (a gather of
+#: this many bags of 32 rows of 64 fp32 is 2.1 GB)
+CELL_BAG_CHUNK = 1 << 18
+#: the default run holds the fused update on the plan's coldest live
+#: entries alone: the plain version walks the hottest row's whole run
+#: (hundreds of thousands of bags) one bag a step; `--cells` takes it whole
+CELL_FUSED_ENTRIES = 1 << 16
+#: device events a cell's profiled step reports, longest first
+CELL_TOP_EVENTS = 8
+#: positions of the cells' fp32 decode-against-prefill gate at most
+#: (long_500k's cell takes it at prefill_32k's length)
+CELL_GATE_SEQ = 32768
+#: that gate's relative L2 limit, `tests/test_torch_cells.py`'s: its card
+#: readings lie between 1.8e-5 and 5.4e-3 (PERF.md section 6); the largest
+#: difference is held within TOL_LM_ABS
+TOL_CELL_GATE_REL_L2 = 1e-2
 #: the card's `nvidia-smi --query-gpu=name,power.limit` line, set in main
 CARD = ""
 
@@ -4068,7 +4141,11 @@ def lm_grads(torch, params, batch, cfg, plain: bool):
     try:
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, _ = lm_loss(leaves, batch, cfg)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        # a leaf the loss does not read (the audio arch's codebook table,
+        # a decode-only input) gets a zero gradient
+        grads = tuple(torch.zeros_like(p) if g is None else g
+                      for p, g in zip(tree_leaves(leaves), torch.autograd.grad(
+                          loss, tree_leaves(leaves), allow_unused=True)))
     finally:
         ops.flash_attention = real
     return float(loss.detach()), grads
@@ -7199,6 +7276,842 @@ def dry_run_phase(lm_cfg, mesh: dict, peak_14b: int,
     return out
 
 
+def cell_records(cells) -> dict:
+    """`launch.dryrun.fit_one_card` of every (arch, shape name) of `cells`
+    on the host, in parallel worker processes (one torch thread each: the
+    dry runs of the cells that do not fit halve their batch down to 1,
+    minutes of host time in one process), each logged. Returns them by
+    "arch/shape"."""
+    import concurrent.futures
+    import multiprocessing
+    n = max(1, min(len(cells), (os.cpu_count() or 2) - 1))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            n, mp_context=ctx, initializer=_record_worker) as pool:
+        recs = list(pool.map(_fit_record, cells))
+    for rec in recs:
+        if not rec["ok"]:
+            log(f"  fit_one_card {rec['arch']}/{rec['shape']} FAILED: "
+                f"{rec['error']}\n{rec['traceback']}")
+            continue
+        log(f"  fit_one_card {rec['arch']}/{rec['shape']}: batch "
+            f"{rec['batch']}, dry peak {rec['peak_per_device'] / 1e9:.2f} "
+            f"GB, fits {rec['fits']}"
+            + (f", {rec['sparse_apply']} update" if "sparse_apply" in rec
+               else "") + f" (tried {rec['tried']}, {rec['total_s']} s)")
+    return {f"{r['arch']}/{r['shape']}": r for r in recs}
+
+
+def _record_worker() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def _fit_record(cell) -> dict:
+    from repro_torch.configs.base import shapes_for
+    from repro_torch.launch import dryrun
+    arch, sname = cell
+    return dryrun.fit_one_card(arch, shapes_for(arch)[sname])
+
+
+def cell_peak_held(label: str, dry: int, card: int) -> dict:
+    """A cell's peak gate: the card's `max_memory_allocated` over the
+    cell's step within DRY_PEAK_BAND of the dry record's peak."""
+    rel = (card - dry) / dry
+    nums = {"card_peak_bytes": card, "dry_peak_bytes": dry,
+            "card_over_dry": card / dry, "band": DRY_PEAK_BAND}
+    log(f"  {label}: card peak {card / 1e9:.3f} GB, dry record "
+        f"{dry / 1e9:.3f} GB ({rel:+.1%}, band {DRY_PEAK_BAND:.0%})")
+    if abs(rel) > DRY_PEAK_BAND:
+        raise AssertionError(f"{label}: the card's peak is off the dry "
+                             f"record's: {json.dumps(nums)}")
+    return nums
+
+
+def cell_profiled(torch, fn, top: dict | None = None):
+    """Run fn once under torch.profiler (the device's activity alone):
+    (its result, host ms, device-busy ms or None for an empty trace);
+    `top` receives the trace's CELL_TOP_EVENTS longest device events
+    (ms, by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy = sum(t for _, t in events) / 1e3
+    if top is not None:
+        top.update({n[:80]: t / 1e3 for n, t in sorted(
+            events, key=lambda e: -e[1])[:CELL_TOP_EVENTS]})
+    return out, host, busy or None
+
+
+def cell_rows_held(label: str, got, want, tol: tuple | None = None) -> dict:
+    """Decode logits against the prefill's last logits for the same
+    position, row by row (fp32, host): with `tol` (relative L2, max abs)
+    each row's relative L2 and the max abs difference held within it and
+    the argmax equal; without it the numbers are printed only. Rows whose
+    argmax differ are counted as ties where the prefill's two logits lie
+    within the row's max abs difference (printed beside, not a pass)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    rels = [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+    err = float((got - want).abs().max())
+    ga, wa = got.argmax(-1), want.argmax(-1)
+    flips = (ga != wa).reshape(len(rels), -1).any(-1)
+    ties = 0
+    for r in flips.nonzero().flatten().tolist():
+        gap = (want[r].gather(-1, wa[r].unsqueeze(-1))
+               - want[r].gather(-1, ga[r].unsqueeze(-1))).max()
+        ties += int(float(gap) <= float((got[r] - want[r]).abs().max()))
+    agree = not bool(flips.any())
+    nums = {"rows": len(rels), "rel_l2_max": max(rels), "max_abs_err": err,
+            "argmax_agrees": agree, "argmax_flips": int(flips.sum()),
+            "flips_within_the_difference": ties, "held": tol is not None,
+            "tol": tol and list(tol)}
+    log(f"  {label} decode vs prefill: {json.dumps(nums)}")
+    if tol and not (max(rels) <= tol[0] and err <= tol[1]
+                    and agree and bool(got.isfinite().all())):
+        raise AssertionError(f"{label}: decode and prefill disagree at the "
+                             f"same position: {nums}")
+    return nums
+
+
+def cell_flash(torch, dev, label: str, shape: tuple) -> dict:
+    """The bf16 flash-attention kernel at a cell's (b, h, s, dh) on seeded
+    inputs, its output on CELL_PLAIN_SLICE's (rows, heads) at the first
+    and at the last rows and heads held against the tiled plain version
+    (`ref.flash_attention_tiled_ref`, the fp32 plain version's scores at
+    this length are 4.3 GB a head) within TOL_FLASH; timed beside the
+    plain version on the first slice, SDPA on the whole shape and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    b, h, s, dh = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(s + dh + b)
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    got = kf.flash_attention(q, k, v)
+    rb, rh = CELL_PLAIN_SLICE
+    ends = ((slice(0, rb), slice(0, rh)),
+            (slice(b - rb, b), slice(h - rh, h)))
+    rtol, atol = TOL_FLASH["bfloat16"]
+    err, ok = 0.0, bool(torch.isfinite(got).all())
+    for rows, heads in ends:
+        want = ref.flash_attention_tiled_ref(
+            *(t[rows, heads] for t in (q, k, v)), kf.block_k(dh))
+        diff = (got[rows, heads].float() - want.float()).abs()
+        err = max(err, float(diff.max()))
+        ok = ok and bool((diff <= atol + rtol * want.float().abs()).all())
+        del want, diff
+    part = tuple(t[ends[0]] for t in (q, k, v))
+
+    def plain():
+        return ref.flash_attention_tiled_ref(*part, kf.block_k(dh))
+    flops = 4 * b * h * dh * s * (s + 1) / 2
+    t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS
+    nums = {"shape": list(shape), "dtype": "bfloat16", "max_abs_err": err,
+            "plain_slices": [[r.start, r.stop, hh.start, hh.stop]
+                             for r, hh in ends],
+            "ms": time_ms(torch, lambda: kf.flash_attention(q, k, v), 3,
+                          warmup=1),
+            "device_ms": device_kernel_ms(
+                torch, lambda: kf.flash_attention(q, k, v), 2,
+                "flash_attention_kernel"),
+            "plain_ms_on_slice": time_ms(torch, plain, 1, warmup=0),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 3, warmup=1),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"  {label} flash_attention {shape}: {json.dumps(nums)}")
+    if not ok:
+        raise AssertionError(f"{label}: flash_attention disagrees with its "
+                             f"plain version at the grid's ends: {err}")
+    del q, k, v, got, part
+    return nums
+
+
+def n_attention(cfg) -> int:
+    return cfg.pattern.count("a") * cfg.n_units
+
+
+def recurrent(cfg) -> bool:
+    """True where the model carries a recurrent state (Mamba-2 mixers):
+    the state after a prefill already holds its last position, so the
+    gate prefills S - ssm_chunk positions and decodes the rest."""
+    return "m" in cfg.pattern
+
+
+def cell_last_tokens(torch, cfg, params, prompt: dict, dev):
+    """The tokens a decode step at the prompt's last position takes, so
+    its logits are for the position the prefill's last logits are: the
+    last text token; for the audio arch (whose prompt is frame
+    embeddings) seeded codebook tokens, whose summed embedding is written
+    into the prompt's last frame (in place, before the prefill)."""
+    from repro_torch.models.lm import _codebook_input
+    if cfg.frontend != "audio":
+        return prompt["tokens"][:, -1:].clone()
+    b = prompt["embeds"].shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(CELL_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (b, 1, cfg.n_codebooks),
+                         generator=g, device=dev, dtype=torch.int32)
+    prompt["embeds"][:, -1] = _codebook_input(params, toks, cfg, {},
+                                              None)[:, 0].float()
+    return toks
+
+
+def cell_ssm_tail(torch, cfg, params, prompt: dict, caches, lo: int,
+                  upto: int):
+    """Mamba-2's side of the decode-against-prefill gate: prefill the
+    first `lo` positions of `prompt` into `caches`, then decode positions
+    lo .. upto - 1 one token at a time; returns the last step's logits
+    (None when upto == lo)."""
+    from repro_torch.models.lm import decode_step, prefill_step
+    toks = prompt["tokens"]
+    prefill_step(params, {"tokens": toks[:, :lo]}, caches, cfg)
+    logits = None
+    for i in range(lo, upto):
+        logits = decode_step(params, toks[:, i:i + 1], caches, i, cfg)[0]
+    return logits
+
+
+def cell_gate_fp32(torch, dev, cfg, params, seq: int, label: str) -> dict:
+    """The cells' held decode-against-prefill gate: one row of
+    `make_lm_batch` in fp32 compute on the cell's bf16 weights (MoE
+    archs under `dropless_config`, recurrent ones with an fp32 conv cache,
+    as 16b): the prefill's last logits against decode_step's at position
+    seq - 1 (attention), or against seq - ssm_chunk positions prefilled
+    and the rest decoded (recurrent), within TOL_CELL_GATE_REL_L2 and
+    TOL_LM_ABS with the argmax equal. In fp32 the two paths differ by the
+    caches' bf16 K and V and the order of sums; in bf16 by the rounding of
+    each path, which 48 random layers amplify past TOL_LM_REL_L2 (16b,
+    17f), so the bf16 numbers are printed beside."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.lm import decode_step, init_caches, prefill_step
+    from repro_torch.nn.moe import dropless_config
+    gcfg = dataclasses.replace(dropless_config(cfg), compute_dtype="float32")
+    prompt = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+        cfg, 1, seq).items() if k not in ("targets", "loss_mask")}
+    toks = None if recurrent(cfg) else cell_last_tokens(torch, cfg, params,
+                                                         prompt, dev)
+
+    def caches():
+        c = init_caches(cfg, 1, seq, dev)
+        for blocks in c.values():
+            if "conv" in blocks:
+                blocks["conv"] = blocks["conv"].float()
+        return c
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        one = caches()
+        want = prefill_step(params, prompt, one, gcfg)[0]
+        if recurrent(cfg):
+            del one
+            got = cell_ssm_tail(torch, gcfg, params, prompt, caches(),
+                                seq - cfg.ssm_chunk, seq)
+        else:
+            got = decode_step(params, toks, one, seq - 1, gcfg)[0]
+    nums = cell_rows_held(f"{label} (fp32 compute, one row)", got, want,
+                          (TOL_CELL_GATE_REL_L2, TOL_LM_ABS))
+    nums["host_s"] = time.perf_counter() - t0
+    return nums
+
+
+def cell_prefill(torch, dev, cfg, shape, rec: dict, label: str,
+                 params=None) -> dict:
+    """A prefill cell at `rec`'s batch (`dryrun.one_card_job` on the card:
+    bf16 weights from CELL_SEED, or `params`, `make_lm_batch`'s prompt):
+    the kernel at the cell's attention shape held to its plain version;
+    exactly one flash_attention launch an attention layer and no other
+    kernel, last logits finite, the card's peak held to the record's;
+    then the decode-against-prefill gate in bf16, printed: decode_step of
+    every row's last token at position S - 1 on the cell's caches; where
+    the model is recurrent or MoE (under `dropless_config`), the first
+    row alone, S - ssm_chunk positions prefilled and the rest decoded
+    where recurrent; and `cell_gate_fp32`, held. Returns the numbers, the
+    launches and the parameters."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import decode_step, init_caches, prefill_step
+    from repro_torch.nn.moe import dropless_config
+    b, s = rec["batch"], shape.seq_len
+    out = {"cell": label, "batch": b, "seq": s}
+    if n_attention(cfg):
+        out["flash"] = cell_flash(torch, dev, label,
+                                  (b, cfg.n_heads, s, cfg.d_head))
+        free_device(torch)
+    t0 = time.perf_counter()
+    job = dryrun.one_card_job(cfg, shape, b, device=dev, seed=CELL_SEED,
+                              params=params)
+    params = job.tracked["parameters"][0]
+    caches = job.tracked["inputs"][0]
+    prompt = job.tracked["batch"][0]["prompt"]
+    toks = None if recurrent(cfg) else cell_last_tokens(torch, cfg, params,
+                                                         prompt, dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    res, out["host_ms"], out["device_busy_ms"] = cell_profiled(
+        torch, job.fn,
+        out.setdefault("top_device_events_ms", {}))
+    last = res[0]
+    del res
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches(KERNELS, label, ("flash_attention",)
+                           if n_attention(cfg) else ())
+    others = {n: c for n, c in counts.items()
+              if c and n != "flash_attention"}
+    if counts["flash_attention"] != n_attention(cfg) or others:
+        raise AssertionError(f"{label}: want {n_attention(cfg)} "
+                             f"flash_attention launches and no other "
+                             f"kernel: {counts}")
+    want_shape = (b, cfg.n_codebooks, cfg.vocab_size) \
+        if cfg.frontend == "audio" else (b, cfg.vocab_size)
+    if tuple(last.shape) != want_shape or not bool(last.isfinite().all()):
+        raise AssertionError(f"{label}: prefill logits {tuple(last.shape)} "
+                             f"not finite or not {want_shape}")
+    out["tokens_per_s"] = b * s / out["host_ms"] * 1e3
+    out["peak"] = cell_peak_held(label, rec["peak_per_device"], peak)
+    gcfg = dropless_config(cfg)
+    if gcfg is cfg and not recurrent(cfg):
+        with torch.no_grad():
+            logits = decode_step(params, toks, caches, s - 1, cfg)[0]
+        out["decode_vs_prefill"] = cell_rows_held(label, logits, last)
+        del job, caches
+    else:
+        del job, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows = 1
+        part = {k: v[:rows] for k, v in prompt.items()}
+        want = last[:rows]
+        tail = init_caches(cfg, rows, s, dev)
+        with torch.no_grad():
+            if gcfg is not cfg:
+                want = prefill_step(params, part, tail, gcfg)[0]
+            if recurrent(cfg):
+                lo = s - cfg.ssm_chunk
+                logits = cell_ssm_tail(torch, gcfg, params, part, tail, lo,
+                                       s)
+                how = f"{lo} prefilled, {s - lo} decoded"
+            else:
+                logits = decode_step(params, toks[:rows], tail, s - 1,
+                                        gcfg)[0]
+                how = "decoded at S - 1"
+        out["decode_vs_prefill"] = cell_rows_held(
+            f"{label} ({rows} of {b} rows, capacity factor "
+            f"{gcfg.capacity_factor}, {how})", logits, want)
+        del tail, want
+    del logits, last, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gate_fp32"] = cell_gate_fp32(torch, dev, cfg, params, s, label)
+    out["launches"] = counts
+    return {"numbers": out, "launches": counts, "params": params}
+
+
+def cell_decode(torch, dev, cfg, shape, rec: dict, group: int, label: str,
+                params=None) -> dict:
+    """A decode cell at `rec`'s batch: its Run's caches filled on the card
+    by `prefill_step` in groups of `group` rows (views of the caches;
+    recurrent models: S - ssm_chunk positions prefilled and all but the
+    last of the rest decoded, each group's reference its own whole
+    prefill; MoE archs one row at a time under `dropless_config`), the
+    peak counter reset, then the Run's one decode_step at position S - 1:
+    no kernel launched, the logits finite, the card's peak held to the
+    record's; each row's logits (an MoE arch's from the same step again
+    under `dropless_config`) against its prefill's last logits in bf16,
+    printed, and `cell_gate_fp32` held (at most CELL_GATE_SEQ positions:
+    at long_500k's an fp32 prefill's logits alone would take 105 GB).
+    Returns the numbers and the launches."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import (Caches, decode_step, init_caches,
+                                       prefill_step)
+    from repro_torch.nn.moe import dropless_config
+    b, s = rec["batch"], shape.seq_len
+    gcfg = dropless_config(cfg)
+    if gcfg is not cfg:
+        group = 1
+    out = {"cell": label, "batch": b, "seq": s, "fill_group": group,
+           "gate_capacity_factor": gcfg.capacity_factor}
+    t0 = time.perf_counter()
+    job = dryrun.one_card_job(cfg, shape, b, device=dev, seed=CELL_SEED,
+                              params=params)
+    params = job.tracked["parameters"][0]
+    caches = job.tracked["inputs"][0]
+    tokens = job.tracked["batch"][0]["tokens"]
+    lasts, tails = [], []
+    lo_tail = s - cfg.ssm_chunk
+    for i, lo in enumerate(range(0, b, group)):
+        hi = min(lo + group, b)
+        prompt = {k: torch.from_numpy(v).to(dev) for k, v in make_lm_batch(
+            cfg, hi - lo, s, step=i).items()
+            if k not in ("targets", "loss_mask")}
+        view = Caches({n: {k: t[:, lo:hi] for k, t in c.items()}
+                       for n, c in caches.items()}, caches.max_len)
+        with torch.no_grad():
+            if recurrent(cfg):
+                ref_caches = init_caches(cfg, hi - lo, s, dev)
+                last = prefill_step(params, prompt, ref_caches, gcfg)[0]
+                del ref_caches
+                cell_ssm_tail(torch, gcfg, params, prompt, view, lo_tail,
+                              lo_tail)
+                tails.append(prompt["tokens"][:, lo_tail:])
+            else:
+                tokens[lo:hi] = cell_last_tokens(torch, cfg, params, prompt,
+                                                 dev)
+                last = prefill_step(params, prompt, view, gcfg)[0]
+        lasts.append(last.float().cpu())
+        del prompt, view, last
+    if tails:
+        # the rest of the prompts decoded on the whole batch at once, all
+        # but the last position, which is the cell's decode step
+        tail = torch.cat(tails)
+        with torch.no_grad():
+            for i in range(lo_tail, s - 1):
+                decode_step(params, tail[:, i - lo_tail:i - lo_tail + 1],
+                            caches, i, gcfg)
+        tokens.copy_(tail[:, -1:])
+        del tail, tails
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    # a recurrent state is not written back idempotently: the gate's
+    # second decode starts from the state the fill left
+    states = {n: {k: t.clone() for k, t in c.items() if k in ("conv", "ssm")}
+              for n, c in caches.items()} if gcfg is not cfg else {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    res, out["host_ms"], out["device_busy_ms"] = cell_profiled(
+        torch, job.fn,
+        out.setdefault("top_device_events_ms", {}))
+    logits = res[0]
+    del res
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_launches(KERNELS, label, ())
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the decode step launched {counts}")
+    if not bool(logits.isfinite().all()):
+        raise AssertionError(f"{label}: decode logits not finite")
+    out["tokens_per_s"] = b / out["host_ms"] * 1e3
+    out["peak"] = cell_peak_held(label, rec["peak_per_device"], peak)
+    if gcfg is not cfg:
+        for n, c in states.items():
+            for k, t in c.items():
+                caches[n][k].copy_(t)
+        del states
+        with torch.no_grad():
+            logits = decode_step(params, tokens, caches, s - 1, gcfg)[0]
+    out["decode_vs_prefill"] = cell_rows_held(label, logits,
+                                              torch.cat(lasts))
+    out["launches"] = counts
+    del job, caches, tokens, logits, lasts
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gate_fp32"] = cell_gate_fp32(torch, dev, cfg, params,
+                                      min(s, CELL_GATE_SEQ), label)
+    return {"numbers": out, "launches": counts}
+
+
+def cell_train(torch, dev, cfg, shape, rec: dict, label: str) -> dict:
+    """A train_4k cell at `rec`'s batch: CELL_TRAIN_STEPS steps of the
+    Run's `build_lm_train_step` (fp32 parameters from CELL_SEED, AdamW,
+    `make_lm_batch`'s batch): finite losses, two forward launches an
+    attention layer a step under remat "full" (one otherwise) and one
+    backward, the card's peak held to the record's; then step 0 through
+    the kernels held to its plain-attention recompute: the loss at the
+    cell's batch (`plain_attention`, no gradients) within
+    TOL_LM_TRAIN["bfloat16"]'s loss term, and the loss and every gradient
+    at the batch's first row within both terms (`lm_grads`). Returns the
+    numbers and the launches."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import init_lm_params, lm_loss
+    b, s = rec["batch"], shape.seq_len
+    out = {"cell": label, "batch": b, "seq": s, "steps": CELL_TRAIN_STEPS}
+    t0 = time.perf_counter()
+    job = dryrun.one_card_job(cfg, shape, b, device=dev, seed=CELL_SEED,
+                              steps=CELL_TRAIN_STEPS)
+    data = job.tracked["inputs"][0]
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    res, out["host_ms"], out["device_busy_ms"] = cell_profiled(
+        torch, job.fn, out.setdefault("top_device_events_ms", {}))
+    del res
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in job.metrics]
+    out["losses"] = losses
+    n = n_attention(cfg)
+    again = 2 if cfg.remat == "full" else 1
+    want = {"flash_attention": again * n * CELL_TRAIN_STEPS,
+            "flash_attention_bwd": n * CELL_TRAIN_STEPS}
+    counts = read_launches(KERNELS, label, tuple(k for k, v in want.items()
+                                                 if v))
+    others = {k: c for k, c in counts.items() if c and k not in want}
+    if any(counts[k] != v for k, v in want.items()) or others:
+        raise AssertionError(f"{label}: want {want} launches, got {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    out["tokens_per_s"] = b * s * CELL_TRAIN_STEPS / out["host_ms"] * 1e3
+    out["peak"] = cell_peak_held(label, rec["peak_per_device"], peak)
+    del job
+    free_device(torch)
+    params = init_lm_params(cfg, CELL_SEED, dev)
+    with torch.no_grad(), plain_attention():
+        p_loss = float(lm_loss(params, data, cfg)[0])
+    tol_loss, tol_grad = TOL_LM_TRAIN["bfloat16"]
+    rel = abs(losses[0] - p_loss) / abs(p_loss)
+    out["step0_vs_plain"] = {"loss": losses[0], "plain_loss": p_loss,
+                             "loss_rel_err": rel}
+    row = {k: v[:1] for k, v in data.items()}
+    del data
+    reset_launches(KERNELS)
+    loss1, grads = lm_grads(torch, params, row, cfg, plain=False)
+    p1, p_grads = lm_grads(torch, params, row, cfg, plain=True)
+    names = ["/".join(p) for p in leaf_paths(params)]
+    rels = {nm: float((a.float() - c.float()).norm()
+                      / c.float().norm().clamp_min(1e-30))
+            for nm, a, c in zip(names, grads, p_grads)}
+    worst = max(rels, key=rels.get)
+    out["step0_vs_plain"].update(
+        row_loss=loss1, row_plain_loss=p1,
+        row_loss_rel_err=abs(loss1 - p1) / abs(p1), worst_leaf=worst,
+        worst_grad_rel_l2=rels[worst], tol=[tol_loss, tol_grad],
+        finite=all(bool(g.isfinite().all()) for g in grads))
+    log(f"  {label} step 0 vs plain attention: "
+        f"{json.dumps(out['step0_vs_plain'])}")
+    del grads, p_grads, params
+    if not (rel <= tol_loss and out["step0_vs_plain"]["row_loss_rel_err"]
+            <= tol_loss and rels[worst] <= tol_grad
+            and out["step0_vs_plain"]["finite"]):
+        raise AssertionError(f"{label}: step 0 through the kernels and its "
+                             f"plain-attention recompute disagree")
+    out["launches"] = counts
+    return {"numbers": out, "launches": counts}
+
+
+def cell_bag_held(torch, mega, idx, label: str) -> dict:
+    """embedding_bag at a cell's (B*F, L) against its plain version, the
+    plain version CELL_BAG_CHUNK bags at a time; timed beside it,
+    F.embedding_bag and the bound (the distinct rows read once)."""
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels import ref
+    flat = idx.reshape(-1, idx.shape[-1])
+    n_bags, length = flat.shape
+    d = mega.shape[1]
+    got = kb.embedding_bag(mega, flat)
+
+    def plain():
+        return torch.cat([ref.embedding_bag_ref(
+            mega, flat[i:i + CELL_BAG_CHUNK])
+            for i in range(0, n_bags, CELL_BAG_CHUNK)])
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got - want).abs().max())
+    del want
+    valid = flat >= 0
+    offsets = torch.cumsum(valid.sum(1), 0) - valid.sum(1)
+    rows = flat[valid].long()
+    # each input read once: the table's rows the batch names (a Zipf
+    # batch names each hot row many times), the indices, the pooled rows
+    # written
+    n_rows = int(torch.unique(rows).numel())
+    lib = torch.nn.functional.embedding_bag
+    nums = {"shape": list(idx.shape), "max_abs_err": err,
+            "ms": time_ms(torch, lambda: kb.embedding_bag(mega, flat), 10),
+            "device_ms": device_kernel_ms(
+                torch, lambda: kb.embedding_bag(mega, flat), 3,
+                "embedding_bag_kernel"),
+            "plain_ms": plain_ms,
+            "library_ms": time_ms(
+                torch, lambda: lib(rows, mega, offsets, mode="sum"), 10)}
+    nums["bound_ms"], nums["bound_by"] = bound_ms(
+        n_rows * d * 4 + n_bags * length * 4 + n_bags * d * 4,
+        rows.numel() * d)
+    nums["rows_named"] = n_rows
+    log(f"  {label} embedding_bag: {json.dumps(nums)}")
+    if not (err <= TOL_BAG and bool(got.isfinite().all())):
+        raise AssertionError(f"{label}: embedding_bag disagrees: {err}")
+    del got, rows, offsets
+    return nums
+
+
+def cell_dlrm(torch, dev, cfg, shape, rec: dict, label: str,
+              whole_plan: bool, params=None) -> dict:
+    """A DLRM cell at `rec`'s batch through `dryrun.one_card_job` on the
+    card (the table from CELL_SEED, or `params`; `make_dlrm_batch`'s
+    batch, its making timed apart): train_b64k CELL_TRAIN_STEPS steps of
+    `build_dlrm_train_step(sparse_apply=rec's)` on one batch, exactly one
+    embedding_bag and dot_interaction launch a step and one fused update
+    ("sparse") or none ("dense"), finite losses; then embedding_bag,
+    dot_interaction and (sparse) the fused update on the batch's plan
+    (`whole_plan`, else its CELL_FUSED_ENTRIES coldest live entries) held
+    to their plain versions and timed; infer_b8k `dlrm_forward`, one
+    launch of each lookup kernel, held to the plain forward within
+    TOL_PROBS. Each: the card's peak held to the record's. Returns the
+    numbers, the launches and the parameters."""
+    from repro_torch.kernels import KERNELS, ref
+    from repro_torch.kernels.sparse_plan import SparsePlan, build_sparse_plan
+    from repro_torch.launch import dryrun
+    b = rec["batch"]
+    train = shape.kind == "dlrm_train"
+    out = {"cell": label, "batch": b}
+    t0 = time.perf_counter()
+    job = dryrun.one_card_job(cfg, shape, b, device=dev, seed=CELL_SEED,
+                              params=params, steps=CELL_TRAIN_STEPS,
+                              sparse_apply=rec.get("sparse_apply"))
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    params = job.tracked["parameters"][0]
+    data = job.tracked["inputs"][0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(KERNELS)
+    res, out["host_ms"], out["device_busy_ms"] = cell_profiled(torch,
+                                                               job.fn,
+        out.setdefault("top_device_events_ms", {}))
+    peak = torch.cuda.max_memory_allocated()
+    steps = CELL_TRAIN_STEPS if train else 1
+    want = {"embedding_bag": steps, "dot_interaction": steps,
+            "fused_bag_backward_adagrad":
+                steps if rec.get("sparse_apply") == "sparse" else 0}
+    counts = read_launches(KERNELS, label, ("embedding_bag",
+                                            "dot_interaction"))
+    others = {k: c for k, c in counts.items() if c and k not in want}
+    if any(counts[k] != v for k, v in want.items()) or others:
+        raise AssertionError(f"{label}: want {want} launches, got {counts}")
+    out["examples_per_s"] = b * steps / out["host_ms"] * 1e3
+    out["peak"] = cell_peak_held(label, rec["peak_per_device"], peak)
+    out["launches"] = counts
+    mega = params["emb"]["mega"]
+    if train:
+        out["losses"] = [float(m["loss"]) for m in job.metrics]
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"{label}: losses {out['losses']}")
+        accum = job.tracked["optimizer_state"][0]["accum"]
+        del job, res
+        gc.collect()
+        idx = data["idx"]
+        out["embedding_bag"] = cell_bag_held(torch, mega, idx, label)
+        f = cfg.n_sparse_features
+        out["dot_interaction"] = check_dot_interaction(
+            torch, dev, b, f + 1, cfg.embed_dim)
+        if rec.get("sparse_apply") == "sparse":
+            plan = build_sparse_plan(idx)
+            n_live = int((plan.unique_rows >= 0).sum())
+            lo = 0 if whole_plan else max(n_live - CELL_FUSED_ENTRIES, 0)
+            plan = SparsePlan(plan.unique_rows[lo:n_live],
+                              plan.bag_offsets[lo:n_live + 1], plan.bag_ids)
+            g = torch.Generator(device=dev)
+            g.manual_seed(CELL_SEED + 3)
+            pooled = torch.randn((b * f, cfg.embed_dim), generator=g,
+                                 device=dev) * 1e-2
+            n_valid = int((idx >= 0).sum())
+            log(f"  {label} fused update on plan entries [{lo}, {n_live}) "
+                f"of {n_live} live ({n_valid} lookups)")
+            upd = check_fused_update(torch, mega, accum, plan, pooled,
+                                     n_valid)
+            out["fused_bag_backward_adagrad"] = {
+                "entries": [lo, n_live], **{
+                    k: upd[k] for k in ("max_abs_err", "ms", "device_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}}
+            del plan, pooled
+        del accum, idx, data
+        return {"numbers": out, "launches": counts, "params": params}
+    logits = res
+    idx = data["idx"]
+    pooled = ref.embedding_bag_ref(mega, idx.reshape(-1, idx.shape[-1])
+                                   ).reshape(b, cfg.n_sparse_features, -1)
+    want_logits = plain_logits(torch, params, data["dense"], pooled,
+                               cfg.interaction)
+    ok, err = close(logits.float(), want_logits.float(), TOL_PROBS)
+    out["forward_vs_plain"] = {"max_abs_err": err, "tol": TOL_PROBS}
+    log(f"  {label} dlrm_forward vs plain: "
+        f"{json.dumps(out['forward_vs_plain'])}")
+    if not (ok and bool(logits.isfinite().all())):
+        raise AssertionError(f"{label}: the forward disagrees with the "
+                             f"plain one: {err}")
+    del job, res, logits, pooled, want_logits, data, idx
+    return {"numbers": out, "launches": counts, "params": params}
+
+
+def run_cells(torch, dev, cells, records: dict, survey: bool) -> dict:
+    """Run each (arch, shape) of `cells` that fit_one_card says fits one
+    card, at its batch, through its gate (`cell_prefill`, `cell_decode`,
+    `cell_train`, `cell_dlrm`); a cell that does not fit is printed with
+    its dry peak and skipped. Parameters pass from a cell to the next of
+    the same arch and kind of weights (a prefill's to its decode, a DLRM
+    trainer's table to its forward). Phase 22 (`survey` false) holds the
+    fused update on its plan's CELL_FUSED_ENTRIES coldest entries and
+    raises at a failing cell; `--cells` (`survey`) holds it on the whole
+    plan and prints and records a failing cell with `ok` false. Returns
+    {cell: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for
+    from repro_torch.launch.dryrun import fill_group
+    results, live = {}, {}
+    # expandable segments: cells near the card's size (starcoder2-3b's
+    # train_4k, 76.3 GB dry) found 19.7 GiB reserved in unusable pieces
+    # under the default allocator
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    for arch, sname in cells:
+        label = f"{arch}/{sname}"
+        cfg = get_config(arch)
+        shape = shapes_for(arch)[sname]
+        rec = records[label]
+        if not rec["ok"]:
+            if not survey:
+                raise AssertionError(f"fit_one_card {label}: "
+                                     f"{rec['error']}")
+            results[label] = {"ok": False, "error": rec["error"]}
+            continue
+        if not rec["fits"]:
+            log(f"  {label}: does not fit one card (dry peak "
+                f"{rec['peak_per_device'] / 1e9:.2f} GB at batch "
+                f"{rec['batch']}); skipped")
+            results[label] = {"ok": True, "fits": False,
+                              "dry_peak_bytes": rec["peak_per_device"],
+                              "batch": rec["batch"]}
+            continue
+        keep = live.pop(arch, None)
+        live.clear()
+        if keep is not None and (keep[0], shape.kind) not in (
+                ("prefill", "decode"), ("dlrm", "dlrm_infer")):
+            keep = None
+        log(f"phase 22 cell {label}: batch {rec['batch']}")
+        t0 = time.perf_counter()
+        given = res = None
+        try:
+            if keep is None:
+                free_device(torch)
+            given = keep[1] if keep else None
+            if shape.kind == "prefill":
+                res = cell_prefill(torch, dev, cfg, shape, rec, label,
+                                   params=given)
+                live[arch] = ("prefill", res.pop("params"))
+            elif shape.kind == "decode":
+                pre = records[f"{arch}/prefill_32k"]
+                group = fill_group(cfg, rec["batch"], pre["batch"],
+                                   shape.seq_len)
+                res = cell_decode(torch, dev, cfg, shape, rec, group, label,
+                                  params=given)
+            elif shape.kind == "train":
+                res = cell_train(torch, dev, cfg, shape, rec, label)
+            else:
+                res = cell_dlrm(torch, dev, cfg, shape, rec, label,
+                                survey, params=given)
+                live[arch] = ("dlrm", res.pop("params"))
+            nums = res["numbers"]
+            nums["ok"], nums["cell_s"] = True, time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported, never exit 0
+            if not survey:
+                raise
+            import traceback
+            log(f"  {label} FAILED: {e!r}\n{traceback.format_exc()}")
+            nums = {"cell": label, "ok": False, "error": repr(e),
+                    "cell_s": time.perf_counter() - t0}
+            live.pop(arch, None)
+        results[label] = nums
+        print(json.dumps({"cell": label, **{
+            k: v for k, v in nums.items() if k not in ("cell",)}}),
+            flush=True)
+        # a cell's parameters live on only in `live`
+        keep = given = res = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    live.clear()
+    free_device(torch)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return results
+
+
+def cells_phase(torch, dev) -> dict:
+    """Phase 22 (the module docstring): CELLS_22 through `run_cells` at
+    their fit_one_card batches, the fused update held on its coldest
+    CELL_FUSED_ENTRIES plan entries. Returns the cells' numbers."""
+    t0 = time.perf_counter()
+    log(f"phase 22: the production shape cells on one card, each at "
+        f"fit_one_card's batch: {', '.join('/'.join(c) for c in CELLS_22)}")
+    records = cell_records(CELLS_22)
+    out = run_cells(torch, dev, CELLS_22, records, survey=False)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 22 took {out['phase_s']:.1f} s")
+    return out
+
+
+def cells_main() -> int:
+    """`--cells`: every `configs.list_cells()` cell that fit_one_card says
+    fits one card, at its batch, with phase 22's gates (the fused update
+    on its whole plan), and the attention backward at each train_4k
+    attention cell's shape against its plain version; one JSON line a
+    cell, then one line listing every cell with `ok`. Exits non-zero if
+    any cell failed."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; the cells "
+              "need an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, list_cells
+    from repro_torch.kernels import KERNELS, build_all
+    global CARD
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    log(f"gpu (nvidia-smi name, power.limit): {CARD}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    build_all(list(KERNELS))
+    dev = resolve_device("cuda")
+    cells = [(a, s.name) for a, s in list_cells()]
+    t0 = time.perf_counter()
+    records = cell_records(cells)
+    log(f"fit_one_card of {len(cells)} cells in "
+        f"{time.perf_counter() - t0:.1f} s")
+    bwd = {}
+    for arch, sname in cells:
+        cfg = get_config(arch)
+        if sname == "train_4k" and "a" in cfg.pattern:
+            rec = records[f"{arch}/{sname}"]
+            if rec.get("fits"):
+                shape = (rec["batch"], cfg.n_heads, 4096, cfg.d_head)
+                log(f"phase 22: the attention backward at {arch}'s "
+                    f"train_4k shape {shape}")
+                try:
+                    bwd[arch] = check_flash_attention_bwd(
+                        torch, dev, ((f"{arch} train_4k", shape,
+                                      "bfloat16"),))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    log(f"  {arch} attention backward FAILED: {e!r}")
+                    bwd[arch] = {"ok": False, "error": repr(e)}
+                free_device(torch)
+    print(json.dumps({"flash_attention_bwd_train_4k": bwd}), flush=True)
+    res = run_cells(torch, dev, cells, records, survey=True)
+    ok = all(r.get("ok") for r in res.values()) and all(
+        b.get("ok", True) for b in bwd.values())
+    log(f"the cells took {time.perf_counter() - T_START:.1f} s")
+    print(json.dumps({"cells": {c: {"ok": r.get("ok"),
+                                    "fits": r.get("fits", True)}
+                                for c, r in res.items()},
+                      "card": CARD, "ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
 def search_main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7784,7 +8697,21 @@ def main() -> int:
     dry_run_phase(lm_cfg, mesh, lm_train["peak_14b"],
                   lm_train["paths"]["lm_train"])
 
-    # 22. the numbers, then the result
+    # 22. the production shape cells on one card at fit_one_card's batch:
+    #     stablelm-1.6b's prefill_32k and decode_32k, dlrm-m1's train_b64k
+    #     and infer_b8k
+    cells = cells_phase(torch, dev)
+    for name, nums in cells.items():
+        if isinstance(nums, dict) and "launches" in nums:
+            paths[f"cell_{name}"] = nums["launches"]
+    numbers["flash_attention"]["prefill_32k"] = cells[
+        "stablelm-1.6b/prefill_32k"]["flash"]
+    b64k = cells["dlrm-m1/train_b64k"]
+    for name in ("embedding_bag", "dot_interaction",
+                 "fused_bag_backward_adagrad"):
+        numbers[name]["train_b64k"] = b64k[name]
+
+    # 23. the numbers, then the result
     replaces = {
         "embedding_bag": "src/repro/kernels/embedding_bag.py:88",
         "dedup_embedding_bag": "src/repro/kernels/embedding_bag.py:191",
@@ -7822,7 +8749,7 @@ def main() -> int:
                 "max_err_share_of_max_plain", "rel_l2_err",
                 "device_ms_14a_profiler", "granite_moe", "jamba_dh128",
                 "zoo_prefill_device_ms_per_launch", "zoo_train_shapes",
-                "mesh_rank_shapes")
+                "mesh_rank_shapes", "prefill_32k", "train_b64k")
                 if key in nums}})
         rows[-1]["launches_per_rank"] = {
             name: [c[k.name] for c in nums["launches_per_rank"]]
@@ -7924,4 +8851,4 @@ def serve_phase(torch, cfg, cc) -> dict:
 
 if __name__ == "__main__":
     sys.exit(search_main() if sys.argv[1:] == ["--evict-search"]
-             else main())
+             else cells_main() if sys.argv[1:] == ["--cells"] else main())

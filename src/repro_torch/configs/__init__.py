@@ -5,4 +5,5 @@ from repro_torch.configs.registry import (  # noqa: F401
     ARCHS,
     get_config,
     get_smoke_config,
+    list_cells,
 )

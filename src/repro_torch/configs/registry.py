@@ -10,7 +10,8 @@ from repro_torch.configs import (chatglm3_6b, granite_moe_1b_a400m,
                                  granite_moe_3b_a800m, internvl2_26b,
                                  jamba_v0_1_52b, mamba2_780m, musicgen_large,
                                  qwen1_5_32b, stablelm_1_6b, starcoder2_3b)
-from repro_torch.configs.base import DLRMConfig, ModelConfig
+from repro_torch.configs.base import (DLRMConfig, ModelConfig, Shape,
+                                      shapes_for)
 from repro_torch.configs.dlrm_prod import DLRMS
 
 _ARCH_MODULES = (starcoder2_3b, stablelm_1_6b, qwen1_5_32b, chatglm3_6b,
@@ -73,3 +74,11 @@ def get_smoke_config(name: str) -> ModelConfig | DLRMConfig:
     """Reduced CPU-test config of the same family."""
     cfg = get_config(name)
     return _smoke_dlrm(cfg) if isinstance(cfg, DLRMConfig) else _smoke(cfg)
+
+
+def list_cells(include_dlrm: bool = True) -> list[tuple[str, Shape]]:
+    """Every (arch x shape) cell, in the reference's order: each LM arch
+    with its shapes (`shapes_for`), then each DLRM with its."""
+    names = list(ARCHS) + (list(DLRMS) if include_dlrm else [])
+    return [(name, shape) for name in names
+            for shape in shapes_for(name).values()]

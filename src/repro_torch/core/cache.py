@@ -137,6 +137,11 @@ class CacheState:
         """Device-tier height C (slots)."""
         return int(self.cache.shape[0])
 
+    @property
+    def resident(self) -> int:
+        """Number of occupied cache slots."""
+        return int((self.slot_row >= 0).sum())
+
 
 @dataclasses.dataclass
 class PendingCommit:
@@ -204,6 +209,11 @@ class AsyncCacheState:
     def cache_rows(self) -> int:
         """Device-tier height C (slots)."""
         return int(self.cache.shape[0])
+
+    @property
+    def resident(self) -> int:
+        """Number of occupied cache slots."""
+        return int((self.slot_row >= 0).sum())
 
 
 def _host_capacity(state) -> bool:
@@ -423,6 +433,11 @@ class StaleRowSnapshot:
         out = self.values[rows].copy()
         out[~self.seen[rows]] = 0
         return out
+
+    @property
+    def coverage(self) -> float:
+        """Fraction of the row space with a recorded value."""
+        return float(self.seen.mean()) if len(self.seen) else 0.0
 
 
 def _restore_device(cap, cache, device) -> torch.device:

@@ -79,6 +79,16 @@ class EmbeddingBagCollection:
         return {"accum": ParamSpec((self.plan.total_rows,), ("hash",),
                                    dtype=torch.float32, init="zeros")}
 
+    def pspecs(self) -> dict:
+        """Partition specs of the params, from the plan (`nn.sharding`'s
+        form: a tuple of None or mesh axis names a dimension)."""
+        return {"mega": self.plan.pspec}
+
+    def optimizer_pspecs(self) -> dict:
+        """Partition specs of the optimizer state: the table's row
+        dimension only."""
+        return {"accum": tuple(self.plan.pspec[:1])}
+
     def lookup(self, params: dict, idx: torch.Tensor,
                plan: SparsePlan | None = None) -> torch.Tensor:
         """idx: (B, F, L) int32 rows of params["mega"], -1 pads. Returns

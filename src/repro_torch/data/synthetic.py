@@ -68,9 +68,12 @@ def make_dlrm_batch(cfg: DLRMConfig, batch: int, step: int = 0,
             mask = np.arange(trunc)[None, :] < lens[:, None]
             idx[:, t, :] = np.where(mask, vals, -1)
         else:
-            for b in range(batch):
-                vals = _zipf_indices(rng, cfg.hash_sizes[t], lens[b])
-                idx[b, t, :lens[b]] = vals
+            # one draw for the whole table: RandomState.zipf makes each
+            # value from the stream in turn, so it gives the per-bag
+            # draws' values in the same order, bag after bag
+            vals = _zipf_indices(rng, cfg.hash_sizes[t], int(lens.sum()))
+            rows = idx[:, t, :]
+            rows[np.arange(trunc)[None, :] < lens[:, None]] = vals
         planted = planted + (idx[:, t, 0] % 7 - 3)
 
     score = dense[:, :8].mean(axis=1) * 2.0 + planted * 0.3

@@ -130,3 +130,14 @@ def dot_interaction_cost(b: int, f: int, d: int) -> tuple[float, float]:
     "bytes": z read, the packed triangle written)."""
     p = f * (f - 1) // 2
     return float(b * p * 2 * d), 4.0 * (b * f * d + b * p)
+
+
+def fused_update_cost(n_live: int, n_valid: int, n_bags: int, d: int
+                      ) -> tuple[float, float]:
+    """(FLOPs, bytes) of the fused sparse backward over a plan of n_live
+    unique rows, n_valid slots and n_bags pooled bag gradients of d
+    columns (row 4a, "bytes": the plan's arrays and the bag gradients
+    read, each live row and its accumulator read and written)."""
+    nbytes = (n_live * 4 + (n_live + 1) * 4 + n_valid * 4 + n_bags * d * 4
+              + 2 * n_live * (d * 4 + 4))
+    return float(n_valid * d + n_live * 5 * d), float(nbytes)

@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import meta as kmeta
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, stream_handle
 
@@ -53,7 +54,9 @@ def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
     update is the optimizer, not a graph node. Returns (table, accum).
 
     CPU tensors take the plain version (`ref.fused_bag_backward_adagrad_ref`);
-    CUDA tensors launch the kernel, or raise."""
+    CUDA tensors launch the kernel, or raise; meta tensors are checked,
+    launch nothing and book the kernel's cost with every plan entry taken
+    as live (`kernels.meta`)."""
     if table.dim() != 2 or accum.shape != table.shape[:1]:
         raise ValueError(f"need table (H, D) and accum (H,), got "
                          f"{tuple(table.shape)} and {tuple(accum.shape)}")
@@ -72,6 +75,12 @@ def fused_bag_backward_adagrad(table: torch.Tensor, accum: torch.Tensor,
             return ref.fused_bag_backward_adagrad_ref(
                 table, accum, unique_rows, bag_offsets, bag_ids, pooled,
                 lr, eps)
+    if table.is_meta:
+        _check_cuda(tensors, "fused_bag_backward_adagrad", meta=True)
+        kmeta.book("fused_bag_backward_adagrad", *kmeta.fused_update_cost(
+            unique_rows.numel(), bag_ids.numel(), pooled.shape[0],
+            table.shape[1]))
+        return table, accum
     _check_direct("fused_bag_backward_adagrad", *tensors)
     KERNEL.launch(table.data_ptr(), accum.data_ptr(), unique_rows.data_ptr(),
                   bag_offsets.data_ptr(), bag_ids.data_ptr(),
@@ -162,11 +171,13 @@ def _check_direct(name: str, table, accum, rows, offsets, bag_ids, pooled,
         raise AssertionError(f"{name}'s guard and _check_cuda disagree")
 
 
-def _check_cuda(tensors, name: str) -> None:
-    """Every tensor on one CUDA device, contiguous; table, accum and pooled
-    (the first two and the sixth) fp32, every index array int32."""
+def _check_cuda(tensors, name: str, meta: bool = False) -> None:
+    """Every tensor on one CUDA device (or, with `meta`, all on the meta
+    device), contiguous; table, accum and pooled (the first two and the
+    sixth) fp32, every index array int32."""
     dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    ok = ("cuda", "meta") if meta else ("cuda",)
+    if dev.type not in ok or any(t.device != dev for t in tensors):
         raise ValueError(f"{name} needs every tensor on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     floats = (tensors[0], tensors[1], tensors[5])

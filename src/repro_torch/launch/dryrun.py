@@ -54,8 +54,12 @@ smoke run holds them to its own runs). The port's DLRM mesh path is the psum loo
 dense update, so the DLRM cells run under the reference's `pooled_psum`
 overrides (`POOLED_PSUM`), named in each record's `config_overrides`.
 A failure is recorded with `ok: False`, its error and traceback.
-`--mesh one` records each LM cell's largest batch one card holds
-(`fit_one_card`).
+`--mesh one` records each cell's largest batch one card holds
+(`fit_one_card`, the cell's `one_card_job` halved in batch until it fits).
+Every job also runs on a named device (`device=`, seeded parameters or
+given ones, the generators' batch), so a card runs the very step a record
+measured and its peak compares like for like (`chip_smoke.py` phase 22
+and `--cells`).
 """
 from __future__ import annotations
 
@@ -72,14 +76,16 @@ from typing import Any
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import DLRMConfig, Shape, shapes_for
-from repro_torch.configs.registry import ARCHS, DLRMS
+from repro_torch.configs.base import (DLRMConfig, Shape,  # noqa: F401
+                                      shapes_for)
+from repro_torch.configs.registry import ARCHS, DLRMS, list_cells
 from repro_torch.launch.analysis import CollectiveAnalysis, StepAnalysis
 from repro_torch.launch.mesh import DryMesh, make_production_mesh
 from repro_torch.launch.roofline import HW, roofline_terms
-from repro_torch.nn.params import (abstract_params, cast_specs, param_count,
-                                   specs_to_pspecs, specs_to_shardings,
-                                   tree_leaves, tree_map)
+from repro_torch import resolve_device
+from repro_torch.nn.params import (abstract_params, cast_specs, init_params,
+                                   param_count, specs_to_pspecs,
+                                   specs_to_shardings, tree_leaves, tree_map)
 from repro_torch.nn.sharding import (FSDP_RULES, LONG_SERVE_RULES,
                                      SERVE_RULES, TRAIN_RULES)
 
@@ -327,22 +333,56 @@ def _build_dlrm_cell(arch: str, cfg: DLRMConfig, shape: Shape, mesh,
 
 @dataclasses.dataclass
 class Run:
-    """A rank's step laid out on the meta device: `fn()` runs it once and
-    returns its outputs; `tracked` maps a kind ("parameters",
-    "optimizer_state", "inputs") to (tree, the bytes of a leaf's storage
-    or None) for `StepAnalysis.track`."""
+    """A rank's step laid out on the meta device (or a named one): `fn()`
+    runs it once and returns its outputs; `tracked` maps a kind
+    ("parameters", "optimizer_state", "inputs") to (tree, the bytes of a
+    leaf's storage or None) for `StepAnalysis.track`; a training job's
+    `fn` appends each step's metrics to `metrics`."""
     fn: Callable[[], Any]
     tracked: dict
+    metrics: list = dataclasses.field(default_factory=list)
 
 
-def rank_params(specs, rules, mesh) -> dict:
-    """A rank's blocks of a ParamSpec tree on the meta device (the whole
-    tree without a mesh)."""
+def rank_params(specs, rules, mesh, device=None, seed: int = 0,
+                params=None) -> dict:
+    """A rank's blocks of a ParamSpec tree (the whole tree without a mesh):
+    on the meta device by default; on `device`, drawn whole from a
+    `torch.Generator` seeded `seed` (`init_params`: each leaf drawn in
+    fp32 and cast to its spec's dtype, so a bf16 tree holds
+    `init_lm_params`' bits rounded), or `params` (a whole tree, cast to
+    the specs' dtypes) in its place, then cut to the rank's blocks."""
+    if _on(device).type == "meta" and params is None:
+        if mesh is None:
+            return abstract_params(specs)
+        return tree_map(lambda s, sh: torch.empty(
+            sh.local_shape(s.shape), dtype=s.dtype, device="meta"),
+            specs, specs_to_shardings(specs, rules, mesh))
+    if params is None:
+        whole = init_params(specs, seed, _on(device))
+    else:
+        whole = tree_map(lambda s, t: t.to(s.dtype), specs, params)
     if mesh is None:
-        return abstract_params(specs)
-    return tree_map(lambda s, sh: torch.empty(
-        sh.local_shape(s.shape), dtype=s.dtype, device="meta"),
-        specs, specs_to_shardings(specs, rules, mesh))
+        return whole
+    return tree_map(lambda sh, t: sh.shard(t).clone(),
+                    specs_to_shardings(specs, rules, mesh), whole)
+
+
+def _on(device) -> torch.device:
+    """The device a job lays its tensors on: meta unless another is named
+    (never the CPU by default: `resolve_device` raises for "cuda" without
+    a card)."""
+    if device is None or torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _lm_batch(cfg, batch: int, seq: int, device) -> dict:
+    """`make_lm_batch`'s leaves on `device`, or their meta stand-ins."""
+    from repro_torch.data.synthetic import lm_batch_specs, make_lm_batch
+    if _on(device).type == "meta":
+        return lm_batch_specs(cfg, batch, seq)
+    return {k: torch.from_numpy(v).to(_on(device))
+            for k, v in make_lm_batch(cfg, batch, seq).items()}
 
 
 def _block_bytes(view_of: Callable) -> Callable:
@@ -353,20 +393,24 @@ def _block_bytes(view_of: Callable) -> Callable:
 
 def lm_train_job(cfg, rules, mesh, batch: int, seq: int,
                  accum_steps: int = 1, grad_dtype: str = "float32",
-                 opt=None, steps: int = 1) -> Run:
+                 opt=None, steps: int = 1, device=None, seed: int = 0,
+                 params=None) -> Run:
     """`steps` steps of `build_lm_train_step(cfg, opt, rules,
     accum_steps, grad_dtype, mesh=)` (opt default adamw(3e-4, weight
     decay 0.1), the reference dry run's) on the rank's fp32 parameter
     blocks and AdamW state, a global batch of `batch` x `seq`, of which
-    the rank holds its block."""
-    from repro_torch.data.synthetic import lm_batch_specs
+    the rank holds its block. On the meta device unless `device` is named:
+    there the parameters are `rank_params`' (seeded `seed`, or `params`)
+    and the batch `make_lm_batch`'s, so the step the record measured runs
+    on real tensors."""
+    from repro_torch.models.lm import lm_param_specs
     from repro_torch.optim import adamw
     from repro_torch.train.steps import build_lm_train_step, lm_batch_block
-    from repro_torch.models.lm import lm_param_specs
-    params = rank_params(lm_param_specs(cfg), rules, mesh)
+    params = rank_params(lm_param_specs(cfg), rules, mesh, device, seed,
+                         params)
     opt = opt or adamw(3e-4, weight_decay=0.1)
     opt_state = opt.init(params)
-    data = lm_batch_specs(cfg, batch, seq)
+    data = _lm_batch(cfg, batch, seq, device)
     step = build_lm_train_step(cfg, opt, rules, accum_steps=accum_steps,
                                grad_dtype=grad_dtype, mesh=mesh)
     if mesh is None:
@@ -376,41 +420,49 @@ def lm_train_job(cfg, rules, mesh, batch: int, seq: int,
             data.values(), lm_batch_block(data, rules, mesh).values())}
         nbytes = _block_bytes(lambda t: blocks[id(t)])
 
+    metrics = []
+
     def fn():
         p, st, m = params, opt_state, None
         for t in range(steps):
             p, st, m = step(p, st, data, t)
+            metrics.append(m)
         return p, st, m
     return Run(fn, {"parameters": (params, None),
                     "optimizer_state": (opt_state, None),
-                    "inputs": (data, nbytes)})
+                    "inputs": (data, nbytes)}, metrics)
 
 
 def lm_serve_job(cfg, rules, mesh, batch: int, seq: int,
                  max_len: int | None = None, prefill: bool = True,
-                 n_decode: int = 0, dtype: torch.dtype | None = None
-                 ) -> Run:
+                 n_decode: int = 0, dtype: torch.dtype | None = None,
+                 device=None, seed: int = 0, params=None) -> Run:
     """A serving rank's steps, no gradients: with `prefill`, `prefill_step`
     on a prompt of `batch` x `seq` (the frontends' leaves as
     `make_lm_batch` makes them) into fresh caches of `max_len` (default
     seq + n_decode) positions, then n_decode `decode_step`s at positions
     seq, seq + 1, ...; without it, n_decode decode steps ending at the
     caches' last position. Parameter blocks in `dtype` (default the
-    specs', fp32), cache blocks by `init_caches(rules=, mesh=)`."""
-    from repro_torch.data.synthetic import lm_batch_specs
+    specs', fp32), cache blocks by `init_caches(rules=, mesh=)`. On the
+    meta device unless `device` is named: there the parameters are
+    `rank_params`' (seeded `seed`, or `params`), the prompt
+    `make_lm_batch`'s, the caches zeroed and the decode tokens zeros,
+    which a caller may fill in place (`tracked["inputs"]`,
+    `tracked["batch"]`) before `fn` runs."""
     from repro_torch.models.lm import (_rows, decode_step, init_caches,
                                        lm_param_specs, prefill_step)
     specs = lm_param_specs(cfg)
     if dtype is not None:
         specs = cast_specs(specs, dtype)
-    params = rank_params(specs, rules, mesh)
+    params = rank_params(specs, rules, mesh, device, seed, params)
     max_len = max_len or seq + n_decode
-    caches = init_caches(cfg, batch, max_len, "meta", rules, mesh)
-    prompt = lm_batch_specs(cfg, batch, seq)
+    dev = _on(device)
+    caches = init_caches(cfg, batch, max_len, dev, rules, mesh)
+    prompt = _lm_batch(cfg, batch, seq, device)
     for k in ("targets", "loss_mask"):
         prompt.pop(k)
     k = (cfg.n_codebooks,) if cfg.frontend == "audio" else ()
-    tokens = torch.empty((batch, 1) + k, dtype=torch.int32, device="meta")
+    tokens = torch.zeros((batch, 1) + k, dtype=torch.int32, device=dev)
     start = seq if prefill else max_len - n_decode
 
     def fn():
@@ -443,38 +495,89 @@ def _make_lm(cell: Cell, mesh) -> Run:
 
 
 def _make_dlrm(cell: Cell, mesh) -> Run:
-    from repro_torch.core.dlrm import dlrm_forward
-    from repro_torch.data.synthetic import dlrm_batch_specs
+    return dlrm_job(cell.cfg, cell.ebc, cell.shape.kind,
+                    cell.shape.global_batch, mesh,
+                    dtype=cell.specs["emb"]["mega"].dtype)
+
+
+def dlrm_job(cfg, ebc, kind: str, batch: int, mesh=None,
+             sparse_apply: str = "dense", steps: int = 1,
+             dtype: torch.dtype = torch.float32, device=None, seed: int = 0,
+             params=None) -> Run:
+    """A DLRM rank's work on a global batch of `batch`: `steps` steps of
+    `build_dlrm_train_step(cfg, ebc, adagrad(0.01), sparse_apply, mesh=)`
+    ("dlrm_train", AdaGrad's state and the row-wise accumulator), or
+    `dlrm_forward` without gradients ("dlrm_infer"); the rank's table
+    block is `ebc.shard_range(mesh)`'s rows. On the meta device unless
+    `device` is named: there the parameters are `init_dlrm_params`'
+    (seeded `seed`, or `params`) and the batch `make_dlrm_batch`'s,
+    offset, for one device (no mesh)."""
+    from repro_torch.core.dlrm import (dlrm_forward, dlrm_param_specs,
+                                       init_dlrm_params)
+    from repro_torch.data.synthetic import dlrm_batch_specs, make_dlrm_batch
     from repro_torch.optim import adagrad
     from repro_torch.train.steps import (_data_slice, build_dlrm_train_step,
                                          dlrm_init_state)
-    cfg, ebc = cell.cfg, cell.ebc
-    lo, hi = ebc.shard_range(mesh)
-    dense = abstract_params({"bottom": cell.specs["bottom"],
-                             "top": cell.specs["top"]})
-    mega = torch.empty((hi - lo, cfg.embed_dim),
-                       dtype=cell.specs["emb"]["mega"].dtype, device="meta")
-    params = {**dense, "emb": {"mega": mega}}
-    batch = dlrm_batch_specs(cfg, cell.shape.global_batch)
-    rows = _data_slice(batch, mesh)
-    blocks = {id(v): rows[k] for k, v in batch.items()}
-    inputs = (batch, _block_bytes(lambda t: blocks[id(t)]))
-    if cell.shape.kind == "dlrm_train":
+    if _on(device).type == "meta" and params is None:
+        lo, hi = (0, ebc.plan.total_rows) if mesh is None \
+            else ebc.shard_range(mesh)
+        specs = dlrm_param_specs(cfg, ebc)
+        dense = abstract_params({"bottom": specs["bottom"],
+                                 "top": specs["top"]})
+        mega = torch.empty((hi - lo, cfg.embed_dim), dtype=dtype,
+                           device="meta")
+        params = {**dense, "emb": {"mega": mega}}
+        data = dlrm_batch_specs(cfg, batch)
+    else:
+        if mesh is not None:
+            raise ValueError("a DLRM job on a device runs one device (no "
+                             "mesh); a rank's table block on the card is "
+                             "`train.sharded`'s")
+        dev = _on(device)
+        if params is None:
+            params = init_dlrm_params(cfg, ebc, seed, dev)
+        raw = make_dlrm_batch(cfg, batch)
+        raw["idx"] = ebc.offset_indices(raw["idx"])
+        data = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    if mesh is None:
+        def local(b, keys=("dense", "idx", "label")):
+            return {k: b[k] for k in keys}
+        nbytes = None
+    else:
+        def local(b, keys=("dense", "idx", "label")):
+            return _data_slice(b, mesh, keys)
+        rows = local(data)
+        blocks = {id(v): rows[k] for k, v in data.items()}
+        nbytes = _block_bytes(lambda t: blocks[id(t)])
+    inputs = (data, nbytes)
+    if kind == "dlrm_train":
         opt = adagrad(0.01)
         state = dlrm_init_state(ebc, opt, params)
-        state["accum"] = torch.empty((hi - lo,), dtype=torch.float32,
-                                     device="meta")
-        step = build_dlrm_train_step(cfg, ebc, opt, sparse_apply="dense",
-                                     mesh=mesh)
-        return Run(lambda: step(params, state, batch, 0),
-                   {"parameters": (params, None),
-                    "optimizer_state": (state, None), "inputs": inputs})
+        mega = params["emb"]["mega"]
+        if state["accum"].shape[0] != mega.shape[0]:
+            # a rank's accumulator covers its table block
+            state["accum"] = torch.zeros((mega.shape[0],),
+                                         dtype=torch.float32,
+                                         device=mega.device)
+        step = build_dlrm_train_step(cfg, ebc, opt,
+                                     sparse_apply=sparse_apply, mesh=mesh)
+
+        metrics = []
+
+        def train():
+            p, st, m = params, state, None
+            for t in range(steps):
+                p, st, m = step(p, st, data, t)
+                metrics.append(m)
+            return p, st, m
+        return Run(train, {"parameters": (params, None),
+                           "optimizer_state": (state, None),
+                           "inputs": inputs}, metrics)
 
     def fn():
         with torch.no_grad():
-            return dlrm_forward(params, _data_slice(batch, mesh,
-                                                    ("dense", "idx")),
-                                cfg, ebc, mesh)
+            return dlrm_forward(params, local(data, ("dense", "idx")), cfg,
+                                ebc, mesh)
     return Run(fn, {"parameters": (params, None), "inputs": inputs})
 
 
@@ -624,34 +727,110 @@ def run_cell(arch: str, shape: Shape, multi_pod: bool,
     rec["total_s"] = round(time.time() - t0, 1)
     return rec
 
+def dlrm_sparse_apply(cfg, ebc) -> str:
+    """The update a one-card DLRM trainer runs, as the launcher's rule
+    (`launch.train.check_dense_fits`) decides it on a card of
+    `HW.hbm_bytes`: "dense" where its (rows + 1, d) fp32 buffer and
+    headroom fit beside the table and its accumulator, else "sparse"."""
+    from repro_torch.launch.train import DENSE_HEADROOM_BYTES
+    rows, d = ebc.plan.total_rows, cfg.embed_dim
+    item = 4 if cfg.param_dtype == "float32" else 2
+    held = rows * d * item + rows * 4
+    need = (rows + 1) * d * 4 + DENSE_HEADROOM_BYTES
+    return "dense" if held + need <= HW.hbm_bytes else "sparse"
+
+
+def one_card_job(cfg, shape: Shape, batch: int, device=None, seed: int = 0,
+                 params=None, steps: int = 1,
+                 sparse_apply: str | None = None) -> Run:
+    """The one-device Run `fit_one_card` measures for a cell at `batch`:
+    train_4k `lm_train_job` (no mesh, no accumulation, TRAIN_RULES),
+    prefill `lm_serve_job`'s prefill and decode its one decode step at
+    the caches' last position, S - 1 (bf16 weights, as `_make_lm`),
+    train_b64k `dlrm_job`'s `steps` steps on the launcher's layout (one
+    replicated shard) and update (`dlrm_sparse_apply` unless given),
+    infer_b8k its forward. On the meta device unless `device` is named
+    (the card: the same step on seeded parameters, or `params`, and the
+    generators' batch)."""
+    kw = {"device": device, "seed": seed, "params": params}
+    if shape.kind == "train":
+        return lm_train_job(cfg, TRAIN_RULES, None, batch, shape.seq_len,
+                            steps=steps, **kw)
+    if shape.kind == "prefill":
+        return lm_serve_job(cfg, {}, None, batch, shape.seq_len,
+                            dtype=torch.bfloat16, **kw)
+    if shape.kind == "decode":
+        return lm_serve_job(cfg, {}, None, batch, shape.seq_len,
+                            shape.seq_len, prefill=False, n_decode=1,
+                            dtype=torch.bfloat16, **kw)
+    ebc = one_card_ebc(cfg)
+    if shape.kind == "dlrm_train":
+        sparse_apply = sparse_apply or dlrm_sparse_apply(cfg, ebc)
+    return dlrm_job(cfg, ebc, shape.kind, batch, None,
+                    sparse_apply=sparse_apply or "dense", steps=steps, **kw)
+
+
+def one_card_ebc(cfg):
+    """The launcher's one-card layout: every table replicated on one
+    shard."""
+    from repro_torch.core.embedding import EmbeddingBagCollection
+    return EmbeddingBagCollection.build(cfg, n_shards=1,
+                                        strategy="replicated")
+
+
+def fill_group(cfg, batch: int, group: int, seq: int) -> int:
+    """The prefill group that fills a decode cell's caches of `batch`
+    rows and `seq` positions on one card: `group` (at most `batch`),
+    halved while a bf16 prefill of that many rows into a view of the
+    caches would pass `HW.hbm_bytes` on the meta device (down to 1)."""
+    from repro_torch.models.lm import Caches, prefill_step
+    group = min(group, batch)
+    while group > 1:
+        job = lm_serve_job(cfg, {}, None, batch, seq, prefill=False,
+                           n_decode=1, dtype=torch.bfloat16)
+        caches = job.tracked["inputs"][0]
+        params = job.tracked["parameters"][0]
+        view = Caches({n: {k: t[:, :group] for k, t in c.items()}
+                       for n, c in caches.items()}, caches.max_len)
+        prompt = lm_serve_job(cfg, {}, None, group, seq,
+                              dtype=torch.bfloat16).tracked["batch"][0][
+                                  "prompt"]
+        run = Run(lambda: prefill_step(params, prompt, view, cfg),
+                  {"parameters": (params, None), "inputs": (caches, None),
+                   "batch": ({"prompt": prompt}, None)})
+        if measure(run)[0].peak_bytes <= HW.hbm_bytes:
+            break
+        group //= 2
+    return group
+
+
 def fit_one_card(arch: str, shape: Shape) -> dict[str, Any]:
-    """The largest batch of an LM cell that one card holds: the cell's
-    step on one device (no mesh, no accumulation; serving in bf16
-    weights), its global batch halved until the peak fits `HW.hbm_bytes`
-    (down to 1). The record: that batch, its peak, and each batch tried
-    with its peak."""
+    """The largest batch of a cell that one card holds: `one_card_job`
+    on the meta device at the arch's config (`get_config`), its global
+    batch halved until the peak fits `HW.hbm_bytes` (down to 1). The
+    record: that batch, its peak, whether it fits, each batch tried with
+    its peak, and for train_b64k the update it runs (`sparse_apply`)."""
     cfg = get_config(arch)
+    limit = HW.hbm_bytes
     rec: dict[str, Any] = {"arch": arch, "shape": shape.name,
                            "mesh": "one card", "ok": False, "device": "meta",
-                           "hbm_bytes": HW.hbm_bytes, "tried": []}
+                           "hbm_bytes": limit, "tried": []}
     t0 = time.time()
     try:
+        sparse_apply = None
+        if shape.kind == "dlrm_train":
+            sparse_apply = dlrm_sparse_apply(cfg, one_card_ebc(cfg))
+            rec["sparse_apply"] = sparse_apply
         b = shape.global_batch
         while True:
-            if shape.kind == "train":
-                job = lm_train_job(cfg, TRAIN_RULES, None, b, shape.seq_len)
-            else:
-                decode = shape.kind == "decode"
-                job = lm_serve_job(cfg, {}, None, b, shape.seq_len,
-                                   prefill=not decode, n_decode=int(decode),
-                                   dtype=torch.bfloat16)
+            job = one_card_job(cfg, shape, b, sparse_apply=sparse_apply)
             peak = measure(job)[0].peak_bytes
             rec["tried"].append([b, peak])
-            if peak <= HW.hbm_bytes or b == 1:
+            if peak <= limit or b == 1:
                 break
             b //= 2
-        rec.update(batch=b, peak_per_device=peak,
-                   fits=peak <= HW.hbm_bytes, ok=True)
+        rec.update(batch=b, peak_per_device=peak, fits=peak <= limit,
+                   ok=True)
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
@@ -670,8 +849,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both", "one"],
-                    help="16x16, 2x16x16, both, or one card (the LM "
-                    "cells' largest batch that fits, `fit_one_card`)")
+                    help="16x16, 2x16x16, both, or one card (each "
+                    "cell's largest batch that fits, `fit_one_card`)")
     ap.add_argument("--out", default="runs/dryrun")
     ap.add_argument("--skip-collectives", action="store_true",
                     help="leave the collectives' wire bytes out")
@@ -687,31 +866,32 @@ def main(argv: list[str] | None = None) -> int:
         archs = list(DLRMS)
     else:
         archs = args.arch.split(",")
+    unknown = [a for a in archs if a not in ARCHS and a not in DLRMS]
+    if unknown:
+        ap.error(f"unknown arch {unknown}; the port knows "
+                 f"{list(ARCHS) + list(DLRMS)}")
 
     os.makedirs(args.out, exist_ok=True)
     meshes = {"single": ["single"], "multi": ["multi"],
               "both": ["single", "multi"], "one": ["one"]}[args.mesh]
-    for arch in archs:
-        shapes = shapes_for(arch)
-        names = (list(shapes) if args.shape == "all"
-                 else [s for s in args.shape.split(",") if s in shapes])
-        for sname in names:
-            for mesh in meshes:
-                tag = f"{arch}__{sname}__{mesh}"
-                path = os.path.join(args.out, tag + ".json")
-                if (os.path.exists(path) and not args.force) or (
-                        mesh == "one" and arch in DLRMS):
-                    print(f"[skip] {tag}")
-                    continue
-                print(f"[run ] {tag}", flush=True)
-                rec = fit_one_card(arch, shapes[sname]) if mesh == "one" \
-                    else run_cell(arch, shapes[sname], mesh == "multi",
-                                  skip_collectives=args.skip_collectives)
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                status = "OK" if rec["ok"] else "FAIL " + rec.get("error", "")
-                print(f"[done] {tag}: {status} ({rec['total_s']}s)",
-                      flush=True)
+    names = None if args.shape == "all" else args.shape.split(",")
+    for arch, shape in list_cells():
+        if arch not in archs or (names and shape.name not in names):
+            continue
+        for mesh in meshes:
+            tag = f"{arch}__{shape.name}__{mesh}"
+            path = os.path.join(args.out, tag + ".json")
+            if os.path.exists(path) and not args.force:
+                print(f"[skip] {tag}")
+                continue
+            print(f"[run ] {tag}", flush=True)
+            rec = fit_one_card(arch, shape) if mesh == "one" \
+                else run_cell(arch, shape, mesh == "multi",
+                              skip_collectives=args.skip_collectives)
+            with open(path, "w") as f:
+                json.dump(rec, f, indent=1)
+            status = "OK" if rec["ok"] else "FAIL " + rec.get("error", "")
+            print(f"[done] {tag}: {status} ({rec['total_s']}s)", flush=True)
     return 0
 
 

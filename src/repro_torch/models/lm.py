@@ -690,4 +690,6 @@ def prefill_step(params: dict, batch: dict, caches: dict, cfg: ModelConfig,
     local = {k: _rows(v, n, rules, mesh) for k, v in batch.items()}
     logits, _, caches = lm_forward(params, local, cfg, "prefill", caches,
                                    rules=rules, mesh=mesh)
-    return _whole_logits(logits[:, -1], cfg, rules, mesh), caches
+    # a copy: a view of the last position would keep every position's
+    # logits alive with it (at 16 x 32,768 x 50,280 in bf16, 52.7 GB)
+    return _whole_logits(logits[:, -1].clone(), cfg, rules, mesh), caches

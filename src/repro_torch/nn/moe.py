@@ -29,6 +29,7 @@ a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -64,6 +65,18 @@ def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
     c = int(math.ceil(top_k * tokens_per_group / n_experts
                       * capacity_factor))
     return max(8, -(-c // 8) * 8)
+
+
+def dropless_config(cfg):
+    """`cfg`, but for an MoE arch a capacity factor of n_experts / top_k:
+    an expert's capacity then holds every (token, slot) pair of its group,
+    so none is dropped. A prefill drops pairs past capacity where a decode
+    step of the same tokens does not, so only without drops are the two
+    the same function at the prompt's last position."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, cfg, cap: int,

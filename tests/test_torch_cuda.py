@@ -3002,3 +3002,50 @@ def test_lm_mesh_step0_on_the_card_matches_one_device(dev):
         ref_sq = sum(r["grad_errors"][i]["ref_sq"] for r in res
                      if r["grad_errors"][i]["owner"])
         assert (err / max(ref_sq, 1e-60)) ** 0.5 <= 1e-3, i
+
+
+def test_prefill_at_32768_positions_through_the_kernel(dev):
+    """prefill_32k's length at stablelm-1.6b's full width cut to 2 layers,
+    one sequence, bf16 weights (the dry run's one-card job on the card):
+    one kernel launch a layer, last logits finite, the decode step of the
+    last token at position 32,767 within 5e-2 relative L2 of the prefill's
+    last logits with the same argmax (chip_smoke.py's TOL_LM_REL_L2); and
+    the kernel at the layer's (1, 32, 32768, 64) within one bf16 ulp plus
+    1e-3 of the tiled plain version on two heads."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Shape
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import decode_step
+    s = 32768
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    job = dryrun.one_card_job(cfg, Shape("prefill_32k", "prefill", s, 1), 1,
+                              device=dev)
+    params = job.tracked["parameters"][0]
+    caches = job.tracked["inputs"][0]
+    prompt = job.tracked["batch"][0]["prompt"]
+    before = flash_attention.KERNEL.launches
+    last, _ = job.fn()
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + cfg.n_layers
+    assert last.shape == (1, cfg.vocab_size) and bool(
+        torch.isfinite(last).all())
+    with torch.no_grad():
+        got, _ = decode_step(params, prompt["tokens"][:, -1:], caches, s - 1,
+                             cfg)
+    got, last = got.float(), last.float()
+    assert float((got - last).norm() / last.norm()) <= 5e-2
+    assert torch.equal(got.argmax(-1), last.argmax(-1))
+    del job, params, caches, prompt
+    g = torch.Generator(device=dev)
+    g.manual_seed(s)
+    q, k, v = (torch.randn((1, 32, s, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out = flash_attention.flash_attention(q, k, v)
+    want = ref.flash_attention_tiled_ref(q[:, :2], k[:, :2], v[:, :2],
+                                         flash_attention.block_k(64))
+    torch.cuda.synchronize()
+    diff = (out[:, :2].float() - want.float()).abs()
+    assert bool((diff <= 1e-3 + 2 ** -7 * want.float().abs()).all())
